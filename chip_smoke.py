@@ -8,21 +8,24 @@ Phases, each fatal on failure:
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA kernel of ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, all at once);
-3. kernels: each kernel at the full-width yi-9b shapes of the serving path,
-   against its plain PyTorch version on the same inputs (stated
-   tolerance), with its time, the plain version's, one PyTorch library
-   call's for the same function (a yardstick the port never calls) and the
-   least time the card could take (bytes at 3.35 TB/s or operations at the
-   peak of their type, whichever is larger);
+3. kernels: each kernel at the full-width shapes of the serving paths
+   (attention and top-k at yi-9b; dequant_matmul at yi-9b int8 and
+   qwen-72b int4, decode and prefill widths), against its plain PyTorch
+   version on the same inputs (stated tolerance), with its time, the plain
+   version's, one PyTorch library call's for the same function (a yardstick
+   the port never calls) and the least time the card could take (bytes at
+   3.35 TB/s or operations at the peak of their type, whichever is larger);
 4. reference: a small GQA model on the card (kernels) against the same
-   model on the CPU (plain versions): prefill and 8 decode-step logits;
-5. serve: full-width yi-9b (48 layers, random weights from a seed) through
-   the port's WaveScheduler: 8 requests in waves of 4, greedy, 32 new
-   tokens each; tokens in range, a second run identical, and every kernel's
-   launch count as the path predicts it.
+   model on the CPU (plain versions), in bf16, int8 and int4 weights:
+   prefill and 8 decode-step logits;
+5. serve: three full-width models with random weights from a seed, each
+   through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
+   layers), qwen-72b in int4 (80 layers).  Each serves 8 requests in waves
+   of 4, greedy, 32 new tokens each; tokens in range, a second run
+   identical, and every kernel's launch count as the path predicts it.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-hold the kernels' JSON and the serve JSON.
+hold the kernels' JSON and one serve JSON line per phase.
 """
 from __future__ import annotations
 
@@ -48,6 +51,14 @@ L2_FLUSH_BYTES = 128 * 2**20  # > the 50 MB L2: each timed launch starts cold
 B, HQ, HKV, HD, VOCAB = 4, 32, 4, 128, 64000
 PREFILL_S, DECODE_S, DECODE_VALID = 128, 512, 300
 SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW, SERVE_MAX_LEN = 8, 4, 32, 256
+# (arch, weight_quant) of the serve phases, in order
+SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"))
+# dequant_matmul cases: (what, mode, T, K, N, out dtype); the first is the
+# int4 qwen-72b decode hot path and heads the kernels line
+DQ_CASES = (("qwen-72b w_up int4, decode", "int4", B, 8192, 24576, torch.bfloat16),
+            ("yi-9b w_up int8, decode", "int8", B, 4096, 11008, torch.bfloat16),
+            ("qwen-72b lm_head int4, decode", "int4", B, 8192, 151936, torch.float32),
+            ("qwen-72b w_down int4, prefill", "int4", 512, 24576, 8192, torch.bfloat16))
 
 
 def fail(msg: str) -> None:
@@ -177,24 +188,85 @@ def check_kernels(dev, flush) -> list:
         else:
             entry[f"k{kk}"] = timed
     out.append(entry)
+    out.append(check_dequant(dev, flush))
     return out
 
 
-def reference_check(dev) -> dict:
+def check_dequant(dev, flush) -> dict:
+    """dequant_matmul at the cases of DQ_CASES.  Tolerance: 1e-4 of the
+    largest |output| for sums over K <= 24576 in another order (every
+    product is exact in fp32), plus, for a bf16 output, one bf16 ulp (the
+    spacing of bf16 values) at the plain version's fp32 value."""
+    from repro_torch.core import wquant
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for what, mode, T, K, N, out_dtype in DQ_CASES:
+        w_dense = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).bfloat16()
+        w = wquant.quantize(w_dense, mode, 128)
+        x = torch.randn((T, K), generator=gen, device=dev).bfloat16()
+        got = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=out_dtype)
+        want = ref.dequant_matmul_ref(x, w.q, w.scale, mode, w.group)
+        err = (got.float() - want).abs().max().item()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        if out_dtype == torch.float32:
+            ok = err <= tol
+        else:
+            ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+            ok = bool(((got.float() - want).abs() <= ulp + tol).all())
+            tol = f"one bf16 ulp + {tol}"
+        if not ok:
+            fail(f"dequant_matmul {what} differs from its plain version by {err} (tol {tol})")
+        w_dense = wquant.dequantize(w)    # the bf16 weight the quantized one replaces
+        n_bytes = (2 * x.numel() + w.q.numel() + 2 * w.scale.numel()
+                   + got.element_size() * got.numel())
+        cases.append({
+            "case": what, "shape": f"x ({T},{K}) bf16 @ {mode} ({K},{N}) g{w.group} -> {out_dtype}",
+            "max_abs_err": err, "tolerance": tol,
+            "ms": cold_ms(lambda: ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group,
+                                                     out_dtype=out_dtype), flush),
+            "plain_ms": cold_ms(lambda: ref.dequant_matmul_ref(x, w.q, w.scale, mode, w.group),
+                                flush),
+            "library_ms": cold_ms(lambda: torch.matmul(x, w_dense), flush),
+            **bound(n_bytes, 2 * T * K * N, BF16_FLOPS),
+        })
+        del w_dense, w, x, got, want
+    head = cases[0]
+    return {"name": "dequant_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "src/repro/kernels/wquant_matmul.py:84",
+            "counter": "dequant_matmul",
+            "library": "torch.matmul on the dense bf16 weight (cuBLAS; not a dequant)",
+            **{k: head[k] for k in ("shape", "max_abs_err", "tolerance", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")},
+            "cases": cases}
+
+
+def to_device(params: dict, dev) -> dict:
+    """The port's params (QuantWeight leaves included) copied to ``dev``."""
+    from repro_torch.core.wquant import map_tensors
+
+    def mv(t):
+        return map_tensors(t, lambda a: a.to(dev))
+    return {"embed": {"table": mv(params["embed"]["table"])},
+            "layers": [{k: mv(t) for k, t in layer.items()} for layer in params["layers"]],
+            "final_norm": mv(params["final_norm"]), "lm_head": mv(params["lm_head"])}
+
+
+def reference_check(dev, weight_quant: str = "none") -> dict:
     """A small GQA model (head_dim 128) on the card against the same weights
     on the CPU, where the plain versions run: prefill logits and 8
     teacher-forced decode steps.  Tolerance 5e-2 on fp32 logits of
     magnitude ~1, as the port's CPU tests hold it against the JAX package
     (bf16 activations rounded after differently ordered sums)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config("yi-9b").reduced(), n_heads=8, n_kv_heads=2,
                               head_dim=128)
-    cpu = M.init_params(cfg, seed=1, device="cpu")
-    gpu = {"embed": {"table": cpu["embed"]["table"].to(dev)},
-           "layers": [{k: t.to(dev) for k, t in layer.items()} for layer in cpu["layers"]],
-           "final_norm": cpu["final_norm"].to(dev), "lm_head": cpu["lm_head"].to(dev)}
+    cpu = M.init_params(cfg, ParallelConfig(weight_quant=weight_quant), seed=1, device="cpu")
+    gpu = to_device(cpu, dev)
     b, plen, max_len, tol = 3, 20, 128, 5e-2
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
     caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
@@ -211,21 +283,58 @@ def reference_check(dev) -> dict:
             worst = max(worst, (lc - lg).abs().max().item())
             tok = lc[:, -1].argmax(-1)
     if not (torch.isfinite(lg).all() and worst <= tol):
-        fail(f"card logits differ from the CPU's by {worst} > {tol}")
-    return {"config": cfg.name + "-gqa-hd128", "max_abs_logit_err": worst, "tolerance": tol}
+        fail(f"{weight_quant} card logits differ from the CPU's by {worst} > {tol}")
+    return {"config": cfg.name + "-gqa-hd128", "weight_quant": weight_quant,
+            "max_abs_logit_err": worst, "tolerance": tol}
 
 
-def serve_phase(dev) -> dict:
-    from repro_torch.configs import SamplingConfig, get_config
+def expected_dequant_launches(cfg, parallel, work) -> int:
+    """dequant_matmul launches of the serve workload: per wave one prefill
+    (T = batch x longest prompt through the six projections of every
+    layer, T = batch through the lm_head) and SERVE_MAX_NEW - 1 decode steps
+    (T = batch throughout), each call counted as the kernel splits it."""
+    from repro_torch.core import wquant
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    if parallel.weight_quant == "none":
+        return 0
+    launches = build.library("dequant_matmul").dequant_matmul_launches
+    bits = 8 if parallel.weight_quant == "int8" else 4
+
+    def calls(T, K, N):
+        g = wquant.effective_group(K, parallel.wq_group_size) if bits == 4 else 0
+        return launches(T, K, N, bits, g)
+
+    projections = [shape for name, (shape, _, _) in M.layer_param_defs(cfg).items()
+                   if M.WQ_SITES.get(name) == "matmul"]
+    head = (cfg.d_model, cfg.vocab_size)
+
+    def forward(T):
+        return cfg.n_layers * sum(calls(T, K, N) for K, N in projections) + calls(SERVE_BATCH, *head)
+
+    total = 0
+    for w in range(0, len(work), SERVE_BATCH):
+        wave = work[w:w + SERVE_BATCH]
+        total += forward(len(wave) * max(len(p) for p in wave))
+        total += (SERVE_MAX_NEW - 1) * forward(len(wave))
+    return total
+
+
+def serve_phase(dev, arch: str, weight_quant: str) -> dict:
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
     from repro_torch.kernels import build, ops
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import WaveScheduler
 
-    cfg = get_config("yi-9b")
+    t_phase = time.monotonic()
+    cfg = get_config(arch)
+    parallel = ParallelConfig(weight_quant=weight_quant)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
-                 device=dev)
+    eng = Engine(cfg, parallel=parallel, sampling=SamplingConfig(top_k=1),
+                 max_len=SERVE_MAX_LEN, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     rng = np.random.default_rng(0)
@@ -251,27 +360,33 @@ def serve_phase(dev) -> dict:
     expect = {"flash_prefill": cfg.n_layers * waves,
               "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
               "topk": SERVE_MAX_NEW * waves
-                      * build.library("topk").topk_launches(cfg.vocab_size, 1)}
+                      * build.library("topk").topk_launches(cfg.vocab_size, 1),
+              "dequant_matmul": expected_dequant_launches(cfg, parallel, work)}
     if launches != expect:
-        fail(f"kernel launches {launches} != expected {expect}")
+        fail(f"{arch} {weight_quant}: kernel launches {launches} != expected {expect}")
     for rid, toks in first.items():
         if len(toks) != SERVE_MAX_NEW or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            fail(f"request {rid}: tokens out of range or wrong count: {toks}")
+            fail(f"{arch} {weight_quant} request {rid}: tokens out of range or wrong count: {toks}")
         if not np.array_equal(toks, second[rid]):
-            fail(f"request {rid}: greedy tokens differ between two runs")
+            fail(f"{arch} {weight_quant} request {rid}: greedy tokens differ between two runs")
     with torch.inference_mode():   # one full-width logits row: finite, right shape
         logits = M.forward(eng.params, torch.as_tensor(work[0], device=dev)[None].long(), cfg,
                            last_only=True, head_f32=eng.head_f32)
     if logits.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
-        fail(f"full-width logits {tuple(logits.shape)} not finite / wrong shape")
+        fail(f"{arch} {weight_quant}: full-width logits {tuple(logits.shape)} not finite / "
+             f"wrong shape")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng, logits
+    torch.cuda.empty_cache()
     return {
-        "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
-        "requests": SERVE_REQUESTS, "batch": SERVE_BATCH, "max_new": SERVE_MAX_NEW,
-        "max_len": SERVE_MAX_LEN, "prompt_lens": [len(p) for p in work],
-        "tokens": n_tokens, "init_s": init_s,
+        "arch": cfg.name, "weight_quant": weight_quant, "layers": cfg.n_layers,
+        "params": cfg.param_count(), "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+        "max_new": SERVE_MAX_NEW, "max_len": SERVE_MAX_LEN,
+        "prompt_lens": [len(p) for p in work], "tokens": n_tokens, "init_s": init_s,
         "wall_s": [dt1, dt2], "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
-        "launches": launches, "repeatable": True,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "swept_bytes_per_token": M.decode_weight_bytes(cfg, parallel),
+        "launches": launches, "repeatable": True, "peak_mem_gib": peak,
+        "phase_s": time.monotonic() - t_phase,
         "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
     }
 
@@ -301,13 +416,20 @@ def main() -> None:
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
-    print(json.dumps({"reference": reference_check(dev)}), flush=True)
-    serve = serve_phase(dev)
+    del flush
+    for mode in ("none", "int8", "int4"):
+        print(json.dumps({"reference": reference_check(dev, mode)}), flush=True)
+    launches = {k["counter"]: 0 for k in kernels}
+    for arch, mode in SERVE_PHASES:
+        serve = serve_phase(dev, arch, mode)
+        print(json.dumps({"serve": serve}), flush=True)
+        for name, n in serve["launches"].items():
+            launches[name] += n
     for k in kernels:
-        k["launches"] = serve["launches"][k.pop("counter")]
+        k["launches"] = launches[k.pop("counter")]
         if k["launches"] == 0:
-            fail(f"{k['name']} was not launched on the serving path")
-    print(json.dumps({"serve": serve}))
+            fail(f"{k['name']} was not launched on the serving paths")
+    print(f"chip_smoke: {time.monotonic() - t0:.1f}s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -78,13 +78,16 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The layout fields the port reads.  Only the defaults are served:
-    tensor parallelism, the int8 KV cache and weight-only quantization come
-    in later slices, and ``check_supported`` refuses them."""
+    """The layout fields the port reads.  Weight-only quantization is
+    served (quantize at load: int8 per-output-column scales, int4 scales per
+    ``wq_group_size`` segment of the reduction dim); tensor parallelism and
+    the int8 KV cache come in later slices, and ``check_supported`` refuses
+    them."""
 
     tp: int = 1
     kv_quant: bool = False
     weight_quant: str = "none"  # none | int8 | int4
+    wq_group_size: int = 128    # int4 group length along the reduction dim
 
 
 @dataclass(frozen=True)

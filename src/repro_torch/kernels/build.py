@@ -27,13 +27,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # exported C functions: name -> (source, argtypes); every one returns an int:
 # a launching one 0 on success and otherwise a cudaError_t or -1 (bad
-# arguments), topk_workspace and topk_launches a count
+# arguments), the *_workspace and *_launches helpers a count
 SIGNATURES = {
     "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "topk": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "topk_workspace": ("topk", [_I, _I, _I]),
     "topk_launches": ("topk", [_I, _I]),
+    "dequant_matmul": ("dequant_matmul", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
+    "dequant_matmul_workspace": ("dequant_matmul", [_I, _I, _I, _I, _I]),
+    "dequant_matmul_launches": ("dequant_matmul", [_I, _I, _I, _I, _I]),
 }
 SOURCES = sorted({src for src, _ in SIGNATURES.values()})
 

@@ -1,10 +1,11 @@
-"""Wrappers of the three CUDA kernels.
+"""Wrappers of the CUDA kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
-  stage, two for a 64000-wide row) and raises if a launch is refused;
+  stage, two for a 64000-wide row; dequant_matmul two when it splits K)
+  and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
   plain version serves the port).
@@ -23,7 +24,7 @@ from repro_torch.kernels import build, ref
 # launches of each kernel since the last reset: the proof that a run went
 # through the kernels (chip_smoke.py zeroes it before the serving phase)
 LAUNCHES: Counter = Counter()
-KERNELS = ("flash_prefill", "decode_attention", "topk")
+KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,10 +44,10 @@ def _device_of(*tensors: torch.Tensor) -> str:
     return dev
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor, align: int = 16) -> None:
     for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel takes contiguous, 16-byte aligned tensors")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel takes contiguous, {align}-byte aligned tensors")
 
 
 def _stream() -> int:
@@ -133,6 +134,47 @@ def topk(x: torch.Tensor, k: int):
                idx.data_ptr(), work_v.data_ptr(), work_i.data_ptr(), _stream())
     LAUNCHES["topk"] += lib.topk_launches(n, k)   # one launch per stage
     return vals, idx
+
+
+def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, mode: str,
+                   group: int, out_dtype=None) -> torch.Tensor:
+    """x (T, K) bf16 @ dequant(q, scale) -> (T, N) in ``out_dtype`` (default
+    x.dtype), summed in fp32.  int8: q (K, N) int8, scale (N,) bf16; int4:
+    q (K//2, N) uint8, scale (K//group, N) bf16, K a multiple of group."""
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or q.dim() != 2:
+        raise ValueError(f"dequant_matmul: x{tuple(x.shape)} and q{tuple(q.shape)} must be 2-D")
+    T, K = x.shape
+    N = q.shape[1]
+    if mode == "int8":
+        want = ((K, N), torch.int8, (N,))
+    elif mode == "int4":
+        if group < 2 or group % 2 or K % group:
+            raise ValueError(f"dequant_matmul: K={K} is not a whole number of even groups {group}")
+        want = ((K // 2, N), torch.uint8, (K // group, N))
+    else:
+        raise ValueError(f"dequant_matmul: mode {mode!r} not in ('int8', 'int4')")
+    if tuple(q.shape) != want[0] or q.dtype != want[1] or tuple(scale.shape) != want[2]:
+        raise ValueError(f"dequant_matmul: {mode} x{tuple(x.shape)} takes q {want[0]} "
+                         f"{want[1]} and scale {want[2]}, got q{tuple(q.shape)} {q.dtype} "
+                         f"and scale{tuple(scale.shape)}")
+    if _device_of(x, q, scale) == "cpu":
+        return ref.dequant_matmul_ref(x, q, scale, mode, group).to(out_dtype)
+    if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16 or out_dtype not in _DTYPES:
+        raise ValueError(f"dequant_matmul: dtypes x {x.dtype}, scale {scale.dtype}, "
+                         f"out {out_dtype} not taken")
+    # any alignment: the kernel takes 16-byte loads of q where the row allows
+    # them (per-layer views of a stacked weight need not be 16-byte aligned)
+    _check_cuda("dequant_matmul", x, q, scale, align=1)
+    bits = 8 if mode == "int8" else 4
+    out = torch.empty((T, N), dtype=out_dtype, device=x.device)
+    lib = build.library("dequant_matmul")
+    work = torch.empty((lib.dequant_matmul_workspace(T, K, N, bits, group),),
+                       dtype=torch.float32, device=x.device)
+    build.call("dequant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+               _DTYPES[out_dtype], work.data_ptr(), T, K, N, bits, group, _stream())
+    LAUNCHES["dequant_matmul"] += lib.dequant_matmul_launches(T, K, N, bits, group)
+    return out
 
 
 reset_launches()

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels: the same math, no kernel.
+"""Plain PyTorch versions of the kernels: the same math, no kernel.
 
 The wrappers in ``ops`` run these on CPU tensors; the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds each
@@ -8,6 +8,8 @@ input type, as in the kernels.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import wquant
 
 
 def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -66,3 +68,17 @@ def topk_ref(x: torch.Tensor, k: int):
     ``torch.topk`` promises no order among ties)."""
     vals, idx = torch.sort(x.float(), dim=-1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def dequant_matmul_ref(x, q, scale, mode: str, group: int) -> torch.Tensor:
+    """x (T, K) @ dequant(q, scale) in fp32, as the JAX oracle computes it.
+    int8: ``(x @ q) * scale``, the per-column scale applied once to the
+    sum; int4: ``x @ w`` with ``w`` the unpacked nibbles times the scale of
+    their group.  Returns fp32 (T, N); callers cast."""
+    xf = x.float()
+    if mode == "int8":
+        return (xf @ q.float()) * scale.float()[None, :]
+    w = wquant.unpack4(q).float()
+    K, N = w.shape
+    wg = w.reshape(K // group, group, N) * scale.float()[:, None, :]
+    return xf @ wg.reshape(K, N)

@@ -2,8 +2,11 @@
 
 Serves a batch of synthetic requests through the wave scheduler on one
 device and reports per-token latency (the paper's section 3 metric).
-Weights are random, drawn on the device from ``--seed``.  Runs on the card
-unless ``--device cpu`` is given, where the kernels' plain versions run.
+Weights are random, drawn on the device from ``--seed``; with
+``--weight-quant int8|int4`` they are quantized as they are drawn and every
+projection and the lm_head go through the dequant_matmul kernel.  Runs on
+the card unless ``--device cpu`` is given, where the kernels' plain
+versions run.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import ALL_ARCHS, SamplingConfig, get_config
+from repro_torch.configs import ALL_ARCHS, ParallelConfig, SamplingConfig, get_config
+from repro_torch.models import model as M
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.scheduler import WaveScheduler
 
@@ -21,8 +25,31 @@ def build_engine(args) -> Engine:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    return Engine(cfg, sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
+    return Engine(cfg, parallel=parallel_config(args),
+                  sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
                   seed=args.seed, device=args.device)
+
+
+def parallel_config(args) -> ParallelConfig:
+    return ParallelConfig(weight_quant=args.weight_quant, wq_group_size=args.wq_group_size)
+
+
+def add_weight_quant_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--weight-quant", choices=("none", "int8", "int4"), default="none",
+                    help="weight-only quantization at load: int8 = per-output-column "
+                         "scales, int4 = group-wise scales")
+    ap.add_argument("--wq-group-size", type=int, default=128,
+                    help="int4 group length along the reduction dim")
+
+
+def weight_quant_line(cfg, args) -> str:
+    """The JAX serve CLI's line: weight bytes one decode token sweeps,
+    quantized against bf16."""
+    wb = M.decode_weight_bytes(cfg, parallel_config(args))["swept"]
+    bb = M.decode_weight_bytes(cfg)["swept"]
+    tag = f"-g{args.wq_group_size}" if args.weight_quant == "int4" else ""
+    return (f"weight quant {args.weight_quant}{tag}: {wb / 2**20:.1f} MiB swept/token vs "
+            f"{bb / 2**20:.1f} MiB bf16 ({bb / max(wb, 1):.2f}x less)")
 
 
 def submit_workload(sched: WaveScheduler, cfg, args) -> None:
@@ -51,12 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of the sampling noise")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    add_weight_quant_args(ap)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     eng = build_engine(args)
+    if args.weight_quant != "none":
+        print(weight_quant_line(eng.cfg, args))
     sched = WaveScheduler(eng, batch_size=args.batch)
     submit_workload(sched, eng.cfg, args)
     t0 = time.monotonic()

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import wquant
 from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope
@@ -46,9 +47,9 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Te
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     scale = 1.0 / math.sqrt(hd)
 
-    q = x @ p["w_q"]
-    k = x @ p["w_k"]
-    v = x @ p["w_v"]
+    q = wquant.matmul(x, p["w_q"])
+    k = wquant.matmul(x, p["w_k"])
+    v = wquant.matmul(x, p["w_v"])
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = apply_rope(q.view(b, s, hq, hd).transpose(1, 2), *rope)

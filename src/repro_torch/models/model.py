@@ -9,20 +9,32 @@ Parameters are a plain dict::
      "final_norm": (d,), "lm_head": (1, d, V)}
 
 Each per-layer tensor is a view into one tensor stacked over the layers,
-the layout of the JAX package's scanned layer group.
+the layout of the JAX package's scanned layer group.  Under weight-only
+quantization the projections and the lm_head are ``QuantWeight``s whose
+packed values and scales are such views too.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import wquant
+from repro_torch.core.wquant import QuantWeight
 from repro_torch.core.embedding import embed_lookup
 from repro_torch.models.common import init_leaf, resolve_device, rms_norm, rope_tables
 from repro_torch.models.transformer import layers_forward
 
 Params = Dict[str, Any]
+
+# The leaves weight-only quantization covers (``_map_wq_leaves``), with how
+# the forward consumes each: "matmul" through the dequant_matmul kernel,
+# "einsum" dequantized for a batched contraction (the out-projection w_o,
+# (n_heads, hd, d)).  Embed, norms and biases stay bf16.
+WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
+            "w_up": "matmul", "w_gate": "matmul", "w_down": "matmul", "lm_head": "matmul"}
 
 
 def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> None:
@@ -51,7 +63,7 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("tie_embeddings")
     if parallel.kv_quant:
         missing.append("kv_quant (int8 KV cache)")
-    if parallel.weight_quant != "none":
+    if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
     if parallel.tp != 1:
         missing.append("tp>1 (tensor parallelism)")
@@ -86,33 +98,132 @@ def layer_param_defs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str, 
     return defs
 
 
-def split_layers(stacked: Dict[str, torch.Tensor], n_layers: int) -> List[Dict[str, torch.Tensor]]:
-    """Stacked (L, ...) tensors -> one dict of views per layer."""
-    return [{k: t[i] for k, t in stacked.items()} for i in range(n_layers)]
+def split_layers(stacked: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
+    """Stacked (L, ...) tensors or QuantWeights -> one dict of views per layer."""
+    return [{k: wquant.map_tensors(t, lambda a: a[i]) for k, t in stacked.items()}
+            for i in range(n_layers)]
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+def _quantized_empty(shape, mode: str, group_size: int, device) -> QuantWeight:
+    """Uninitialised storage for the quantized form of a (*B, K, N) weight."""
+    *lead, k, n = shape
+    if mode == "int8":
+        return QuantWeight(torch.empty(shape, dtype=torch.int8, device=device),
+                           torch.empty((*lead, n), dtype=torch.bfloat16, device=device),
+                           "int8", 0, k)
+    g = wquant.effective_group(k, group_size)
+    return QuantWeight(torch.empty((*lead, k // 2, n), dtype=torch.uint8, device=device),
+                       torch.empty((*lead, k // g, n), dtype=torch.bfloat16, device=device),
+                       "int4", g, k)
+
+
+def _quantize_into(dst: QuantWeight, w: torch.Tensor, group_size: int, cols: int = 8192) -> None:
+    """Quantize ``w`` into ``dst``'s storage a block of columns at a time:
+    every scale belongs to one column, so the bytes are those of one
+    ``quantize`` call, and the fp32 temporaries stay at K x 8192."""
+    for c in range(0, w.shape[-1], cols):
+        qw = wquant.quantize(w[..., c:c + cols], dst.mode, group_size)
+        dst.q[..., c:c + cols] = qw.q
+        dst.scale[..., c:c + cols] = qw.scale
+
+
+def _quantizes(name: str, shape, parallel: ParallelConfig) -> bool:
+    return (parallel.weight_quant != "none" and name in WQ_SITES
+            and wquant.quantizable(shape, parallel.weight_quant, parallel.wq_group_size))
+
+
+def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *,
+                seed: int = 0, device="cuda") -> Params:
     """Random weights by the JAX package's init rules (normal std 0.02,
     scaled 1/sqrt(fan_in), zeros), drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  The draws differ from
     ``jax.random``'s, so parity with the JAX package goes through
-    ``repro_torch.bridge`` instead."""
-    check_supported(cfg)
+    ``repro_torch.bridge`` instead.
+
+    With ``parallel.weight_quant`` set, each layer's leaf is drawn in bf16,
+    quantized and written into the stacked packed storage before the next
+    is drawn, so the bf16 tree never exists (qwen-72b's does not fit one
+    card).  The draws are the same as without quantization: the result is
+    ``quantize_params`` of the bf16 weights of the same seed."""
+    check_supported(cfg, parallel)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    mode, gs = parallel.weight_quant, parallel.wq_group_size
     stacked = {}
     for name, (shape, rule, fan_in) in layer_param_defs(cfg).items():
-        t = torch.empty((L, *shape), dtype=torch.bfloat16, device=device)
+        quant = _quantizes(name, shape, parallel)
+        if quant:
+            t = _quantized_empty((L, *shape), mode, gs, device)
+        else:
+            t = torch.empty((L, *shape), dtype=torch.bfloat16, device=device)
         for i in range(L):   # per layer: an fp32 draw of one layer at a time
-            t[i] = init_leaf(shape, rule, gen, device=device, fan_in=fan_in)
+            leaf = init_leaf(shape, rule, gen, device=device, fan_in=fan_in)
+            if quant:
+                _quantize_into(wquant.index_batch(t, i), leaf, gs)
+            else:
+                t[i] = leaf
         stacked[name] = t
-    return {
-        "embed": {"table": init_leaf((1, V, d), "normal", gen, device=device)},
-        "layers": split_layers(stacked, L),
-        "final_norm": init_leaf((d,), "zeros", gen, device=device),
-        "lm_head": init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d),
-    }
+    table = init_leaf((1, V, d), "normal", gen, device=device)
+    final_norm = init_leaf((d,), "zeros", gen, device=device)
+    head = init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d)
+    if _quantizes("lm_head", head.shape, parallel):
+        qhead = _quantized_empty(head.shape, mode, gs, device)
+        _quantize_into(qhead, head, gs)
+        head = qhead
+    return {"embed": {"table": table}, "layers": split_layers(stacked, L),
+            "final_norm": final_norm, "lm_head": head}
+
+
+def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
+    """Quantize at load (``repro.models.model.quantize_params`` at tp=1):
+    the bf16 leaves of ``WQ_SITES`` and the lm_head become QuantWeights in
+    new stacked storage; leaves already quantized pass through, and shapes
+    that do not quantize stay bf16."""
+    if parallel.weight_quant == "none":
+        return params
+    mode, gs = parallel.weight_quant, parallel.wq_group_size
+    layers = params["layers"]
+    new_layers = [dict(p) for p in layers]
+    for name in WQ_SITES:
+        first = layers[0].get(name)   # None for the lm_head
+        if first is None or isinstance(first, QuantWeight) or not _quantizes(name, first.shape, parallel):
+            continue
+        dst = _quantized_empty((len(layers), *first.shape), mode, gs, first.device)
+        for i, p in enumerate(layers):
+            view = wquant.index_batch(dst, i)
+            _quantize_into(view, p[name], gs)
+            new_layers[i][name] = view
+    out = dict(params, layers=new_layers)
+    head = params["lm_head"]
+    if not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel):
+        out["lm_head"] = _quantized_empty(head.shape, mode, gs, head.device)
+        _quantize_into(out["lm_head"], head, gs)
+    return out
+
+
+def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Dict[str, int]:
+    """Weight bytes one decode token sweeps, from shapes alone
+    (``repro.models.model.decode_weight_bytes`` at tp=1).  ``quantized``:
+    the leaves the transform covers, at their packed size; ``dense``: the
+    rest (norms, biases, unquantized projections) in bf16;
+    ``quantized_ref_einsum``: the part of ``quantized`` served by
+    dequantizing (w_o), which also writes and reads a bf16 copy per step;
+    ``swept``: the sum.  The embed table is left out: a token reads one
+    row of it."""
+    L = cfg.n_layers
+    leaves = [(name, (L, *shape)) for name, (shape, _, _) in layer_param_defs(cfg).items()]
+    leaves += [("final_norm", (cfg.d_model,)), ("lm_head", (1, cfg.d_model, cfg.vocab_size))]
+    quantized = dense = ref_einsum = 0
+    for name, shape in leaves:
+        if _quantizes(name, shape, parallel):
+            b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size)
+            quantized += b
+            ref_einsum += b if WQ_SITES[name] == "einsum" else 0
+        else:
+            dense += 2 * math.prod(shape)
+    return {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
+            "swept": quantized + dense}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict[str, torch.Tensor]:
@@ -127,9 +238,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict[s
 
 def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (b, s, d) -> logits (b, s, V) in fp32, as ``_lm_head`` computes them.
-    ``head_f32`` is a resident fp32 copy of ``lm_head[0]``; without one the
-    head is cast for this call."""
-    head = head_f32 if head_f32 is not None else params["lm_head"][0].float()
+    A quantized head goes through the dequant_matmul kernel with fp32 out.
+    ``head_f32`` is a resident fp32 copy of a bf16 ``lm_head[0]``; without
+    one the head is cast for this call."""
+    head = params["lm_head"]
+    if isinstance(head, QuantWeight):
+        return wquant.matmul(x, wquant.index_batch(head, 0), out_dtype=torch.float32)
+    head = head_f32 if head_f32 is not None else head[0].float()
     return x.float() @ head
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, SamplingConfig
+from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import model as M
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.sampling import sample_tokens
@@ -26,9 +27,13 @@ class Engine:
 
     ``params`` defaults to random weights drawn on the device from ``seed``
     (``model.init_params``); pass the output of ``repro_torch.bridge`` to
-    serve the JAX package's weights.  The lm_head is kept resident as one
-    fp32 copy, because the logits are computed in fp32 and casting the head
-    on every step would allocate and write it anew each time."""
+    serve the JAX package's weights.  With ``parallel.weight_quant`` set the
+    weights are quantized at load: drawn quantized, or quantized here when
+    ``params`` holds bf16 leaves (quantized leaves pass through).  A bf16
+    lm_head is kept resident as one fp32 copy, because the logits are
+    computed in fp32 and casting the head on every step would allocate and
+    write it anew each time; a quantized head is not, since an fp32 copy
+    would undo its point."""
 
     def __init__(self, cfg: ModelConfig, *, parallel: ParallelConfig = ParallelConfig(),
                  sampling: SamplingConfig = SamplingConfig(), max_len: int = 128,
@@ -42,9 +47,11 @@ class Engine:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg, self.parallel, self.sampling = cfg, parallel, sampling
         self.max_len = max_len
-        self.params = params if params is not None else M.init_params(
-            cfg, seed=seed, device=self.device)
-        self.head_f32 = self.params["lm_head"][0].float()
+        if params is None:
+            params = M.init_params(cfg, parallel, seed=seed, device=self.device)
+        self.params = M.quantize_params(params, parallel)
+        head = self.params["lm_head"]
+        self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:

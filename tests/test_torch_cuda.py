@@ -7,16 +7,22 @@ conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Shapes cover what the main path does not: head_dim 64, ragged tails, pad
-rows, g from 1 to 16, per-row masks with a fully masked row, and tie-heavy
-top-k rows over vocabularies up to qwen's 152064.  Tolerances: bf16 3e-2 as
-in tests/test_kernels.py; fp32 1e-4, since the kernel and the plain version
-sum up to a thousand terms in different orders.
+rows, g from 1 to 16, per-row masks with a fully masked row, tie-heavy
+top-k rows over vocabularies up to qwen's 152064, and dequant matmuls at
+every GEMV width, the GEMM, ragged N and K, both groups and unaligned
+per-layer views.  Tolerances: bf16 3e-2 as in tests/test_kernels.py; fp32
+1e-4, since the kernel and the plain version sum up to a thousand terms in
+different orders.  The dequant matmul's products are exact in fp32, so its
+fp32 output is held to 1e-4 of the largest output (sums over K up to 8192
+in another order), and its bf16 output must be the kernel's own fp32
+output rounded, bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.core import wquant
+from repro_torch.kernels import build, ops, ref
 
 
 @pytest.fixture
@@ -112,3 +118,57 @@ def test_kernel_launch_is_checked(dev):
     with pytest.raises(RuntimeError, match="topk"):
         ops.topk(x, 257)                     # above the kernel's k limit
     assert np.isfinite(ops.topk(x, 3)[0].cpu().numpy()).all()
+
+
+# (mode, group, K, N): ragged N (97, 520: byte loads), K with a tail past the
+# 128-row x tile and the 32-row GEMM tile (200, 1408), a split K (8192)
+DQ_CASES = [(mode, group, K, N)
+            for mode, group in (("int8", 0), ("int4", 64), ("int4", 128))
+            for K, N in ((200, 97), (384, 97), (1408, 520), (8192, 4096))
+            if mode == "int8" or K % group == 0]
+
+
+def _dq_check(got, want):
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert got.dtype == torch.float32 and (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 4, 16, 17, 130])
+@pytest.mark.parametrize("mode,group,K,N", DQ_CASES)
+def test_dequant_matmul_kernel(dev, mode, group, K, N, T, out_dtype):
+    gen = torch.Generator(device=dev).manual_seed(T * K + N)
+    w = wquant.quantize(0.05 * _randn(gen, (K, N), torch.bfloat16, dev), mode, group or 128)
+    x = _randn(gen, (T, K), torch.bfloat16, dev)
+    bits = 8 if mode == "int8" else 4
+    before = ops.LAUNCHES["dequant_matmul"]
+    got = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=out_dtype)
+    launches = build.library("dequant_matmul").dequant_matmul_launches(T, K, N, bits, w.group)
+    assert ops.LAUNCHES["dequant_matmul"] == before + launches
+    again = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=out_dtype)
+    f32 = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=torch.float32)
+    want = ref.dequant_matmul_ref(x, w.q, w.scale, mode, w.group)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (T, N)
+    _dq_check(f32, want)
+    assert torch.equal(got, f32.to(out_dtype))   # the same sums, rounded once
+    assert torch.equal(got, again)           # no atomics: the same bits each call
+    if K == 8192:
+        assert launches == 2                 # K split across blocks, then summed
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_dequant_matmul_kernel_on_unaligned_layer_views(dev, mode):
+    """Per-layer views of a stacked weight whose rows are not 16-byte
+    aligned (N = 97): the kernel falls back to byte loads, not to an error."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = wquant.quantize(0.05 * _randn(gen, (3, 136, 97), torch.bfloat16, dev), mode, 64)
+    x = _randn(gen, (4, 136), torch.bfloat16, dev)
+    assert wquant.index_batch(w, 1).q.data_ptr() % 16
+    for i in range(3):
+        layer = wquant.index_batch(w, i)
+        got = ops.dequant_matmul(x, layer.q, layer.scale, mode=mode, group=layer.group,
+                                 out_dtype=torch.float32)
+        want = ref.dequant_matmul_ref(x, layer.q, layer.scale, mode, layer.group)
+        torch.cuda.synchronize()
+        _dq_check(got, want)

@@ -53,11 +53,12 @@ def make_configs(name):
             dataclasses.replace(get_config(arch).reduced(), **over))
 
 
-def jax_engine(cfg, max_len, use_pallas=False):
+def jax_engine(cfg, max_len, use_pallas=False, weight_quant="none"):
     """A JAX engine whose zero-initialised gammas and biases are replaced by
     seeded nonzero values.  Returns (engine, numpy param tree)."""
     eng = JEngine(cfg=cfg, parallel=JParallelConfig(tp=1, dp=1, remat=False,
-                                                   use_pallas=use_pallas),
+                                                   use_pallas=use_pallas,
+                                                   weight_quant=weight_quant),
                   sampling=JSamplingConfig(greedy=True, top_k=1),
                   mesh=make_local_mesh(1, 1), max_len=max_len)
     tree = jax.tree.map(np.asarray, eng.params)
@@ -100,6 +101,12 @@ def test_bridge_is_bit_exact(pair):
 
 def test_prefill_and_decode_logits_match_jax(pair):
     eng, _, cfg, params = pair
+    assert_logits_match(eng, cfg, params)
+
+
+def assert_logits_match(eng, cfg, params):
+    """Prefill logits and 8 teacher-forced decode steps of the JAX engine's
+    forward and the port's, on the same weights, within TOL."""
     ctx = eng.ctx
     b, plen, steps = 2, 12, 8
     pspecs = JM.param_specs(ctx)
@@ -143,8 +150,14 @@ def test_unsupported_features_raise_naming_them():
     with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*tp>1"):
         TM.check_supported(cfg, ParallelConfig(tp=2))
     with pytest.raises(NotImplementedError, match="kv_quant"):
-        Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(kv_quant=True),
+        Engine(get_config("yi-9b").reduced(),
+               parallel=ParallelConfig(kv_quant=True, weight_quant="int4"), device="cpu")
+    # int8 and int4 weights are served; any other mode is named and refused
+    with pytest.raises(NotImplementedError, match="weight_quant=int2"):
+        Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(weight_quant="int2"),
                device="cpu")
+    for mode in ("none", "int8", "int4"):
+        TM.check_supported(get_config("yi-9b"), ParallelConfig(weight_quant=mode))
 
 
 def test_cuda_default_raises_without_a_card():
