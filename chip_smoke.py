@@ -9,8 +9,8 @@ Phases, each fatal on failure:
 2. build: compiles every CUDA kernel of ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, all at once);
 3. kernels: each kernel at the full-width shapes of the serving paths
-   (attention and top-k at yi-9b; dequant_matmul at yi-9b int8 and
-   qwen-72b int4, decode and prefill widths), against its plain PyTorch
+   (attention, paged attention and top-k at yi-9b; dequant_matmul at yi-9b
+   int8 and qwen-72b int4, decode and prefill widths), against its plain PyTorch
    version on the same inputs (stated tolerance), with its time, the plain
    version's, one PyTorch library call's for the same function (a yardstick
    the port never calls) and the least time the card could take (bytes at
@@ -22,7 +22,17 @@ Phases, each fatal on failure:
    through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
    layers), qwen-72b in int4 (80 layers).  Each serves 8 requests in waves
    of 4, greedy, 32 new tokens each; tokens in range, a second run
-   identical, and every kernel's launch count as the path predicts it.
+   identical, and every kernel's launch count as the path predicts it;
+6. slots: full-width yi-9b bf16 (48 layers) through continuous batching,
+   once over the dense slot cache (ContinuousScheduler) and once over the
+   paged one (PagedContinuousScheduler): 12 requests behind a shared
+   64-token system prompt, 4 slots, arrivals every 4 decode steps, budgets
+   of 8..32 tokens, greedy.  Tokens in range and a second run identical;
+   every kernel's launch count as the schedulers' own counts predict it
+   (the paged phase runs both paged kernels and never the dense decode
+   kernel); prefix reuse really happened and the block allocator's audit
+   passes; and per request the paged tokens equal the dense ones, or part
+   first where the top-2 logits lie within 1e-2.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the kernels' JSON and one serve JSON line per phase.
@@ -53,6 +63,16 @@ PREFILL_S, DECODE_S, DECODE_VALID = 128, 512, 300
 SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW, SERVE_MAX_LEN = 8, 4, 32, 256
 # (arch, weight_quant) of the serve phases, in order
 SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"))
+# paged kernels: 16-token blocks; decode over a shuffled 32-entry table
+# (512-token view, 300 valid rows); prefill of a 64-token suffix after a
+# 64..128-token prefix in a 256-token view
+BLOCK, DECODE_NBPS, PREFILL_SQ, PREFILL_VIEW = 16, 32, 64, 256
+# the continuous-batching phases: serve.py --requests 12 --slots 4
+# --shared-prefix 64 --prompt-len 64 --max-new 32 --max-new-spread 4
+# --arrival-every 4 --kv-block-size 16, max_len 256
+SLOT_WORKLOAD = dict(requests=12, shared_prefix=64, prompt_len=64, max_new=32,
+                     max_new_spread=4, arrival_every=4)
+SLOTS, TIE_GAP = 4, 1e-2
 # dequant_matmul cases: (what, mode, T, K, N, out dtype); the first is the
 # int4 qwen-72b decode hot path and heads the kernels line
 DQ_CASES = (("qwen-72b w_up int4, decode", "int4", B, 8192, 24576, torch.bfloat16),
@@ -189,6 +209,110 @@ def check_kernels(dev, flush) -> list:
             entry[f"k{kk}"] = timed
     out.append(entry)
     out.append(check_dequant(dev, flush))
+    out.extend(check_paged(dev, flush))
+    return out
+
+
+def check_paged(dev, flush) -> list:
+    """The paged kernels at yi-9b shapes against their plain versions.  The
+    library yardstick is SDPA with a bool mask over the view gathered
+    through the table beforehand (the gather is not timed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).bfloat16()
+    scale = HD ** -0.5
+    out = []
+
+    # decode: each slot's 300 valid rows lie in its first 19 table entries;
+    # the rest of its 32 entries are null, as in a live slot
+    nb = B * DECODE_NBPS + 1
+    kp, vp = rnd(nb, HKV, BLOCK, HD), rnd(nb, HKV, BLOCK, HD)
+    q = rnd(B, HQ, 1, HD)
+    live = -(-DECODE_VALID // BLOCK)
+    bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:B * DECODE_NBPS] + 1)
+    bt = bt.reshape(B, DECODE_NBPS).to(torch.int32)
+    bt[:, live:] = 0
+    bt = bt.contiguous()
+    valid = (torch.arange(DECODE_NBPS * BLOCK, device=dev) < DECODE_VALID).expand(B, -1).contiguous()
+    m, l, acc = ops.paged_decode_attention_partial(q, kp, vp, bt, valid, scale)
+    m2, l2, acc2 = ref.paged_decode_attention_ref(q, kp, vp, bt, valid, scale)
+    o, o2 = acc / l[..., None], acc2 / l2[..., None]
+    err = max((o - o2).abs().max().item(), (m - m2).abs().max().item())
+    l_rel = ((l - l2).abs() / l2).max().item()
+    tol = 1e-3
+    if not (err <= tol and l_rel <= 1e-4):
+        fail(f"paged_decode_attention differs from its plain version: {err} (tol {tol}), "
+             f"l relative {l_rel} (tol 1e-4)")
+    kv, vv = ref.paged_view(kp, bt), ref.paged_view(vp, bt)
+    mask = valid[:, None, None, :]
+    out.append({
+        "name": "paged_decode_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:184",
+        "counter": "paged_decode_attention",
+        "shape": f"q ({B},{HQ},1,{HD}) bf16, pools ({nb},{HKV},{BLOCK},{HD}), shuffled table "
+                 f"({B},{DECODE_NBPS}) with {DECODE_NBPS - live} null entries per slot, "
+                 f"{DECODE_VALID} valid",
+        "library": "SDPA with a bool mask over the view gathered beforehand (gather untimed)",
+        "max_abs_err": err, "tolerance": tol,
+        "ms": cold_ms(lambda: ops.paged_decode_attention_partial(q, kp, vp, bt, valid, scale),
+                      flush),
+        "plain_ms": cold_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, valid, scale),
+                            flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, kv, vv, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+        # bytes: the K/V of the blocks that hold valid rows, each read once
+        **bound(2 * (q.numel() + 2 * B * live * HKV * BLOCK * HD) + 4 * bt.numel()
+                + valid.numel() + 4 * (m.numel() + l.numel() + acc.numel()),
+                4 * HD * B * HQ * DECODE_VALID, BF16_FLOPS),
+    })
+
+    # prefill of a suffix after a cached prefix, through shuffled tables
+    nbps = PREFILL_VIEW // BLOCK
+    nb = B * nbps + 1
+    kp, vp = rnd(nb, HKV, BLOCK, HD), rnd(nb, HKV, BLOCK, HD)
+    q = rnd(B, HQ, PREFILL_SQ, HD)
+    bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:B * nbps] + 1)
+    bt = bt.reshape(B, nbps).to(torch.int32).contiguous()
+    starts = torch.randint(64, 129, (B,), generator=gen, device=dev)
+    q_pos = (starts[:, None] + torch.arange(PREFILL_SQ, device=dev)[None, :]).to(torch.int32)
+    # bf16 output: 2e-3 plus 1e-2 of |want| per element (one bf16 ulp is at
+    # most 7.8e-3 of a value); fp32 inputs at the same shape: 1e-3
+    got = ops.paged_flash_prefill(q, kp, vp, bt, q_pos, scale).float()
+    want = ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, scale).float()
+    err = (got - want).abs().max().item()
+    tol = "2e-3 + 1e-2 |want| (bf16); 1e-3 (fp32 inputs)"
+    if not ((got - want).abs() <= 2e-3 + 1e-2 * want.abs()).all():
+        fail(f"paged_flash_prefill differs from its plain version by {err} ({tol})")
+    f32 = (q.float(), kp.float(), vp.float(), bt, q_pos, scale)
+    err32 = (ops.paged_flash_prefill(*f32) - ref.paged_flash_prefill_ref(*f32)).abs().max().item()
+    if not err32 <= 1e-3:
+        fail(f"paged_flash_prefill differs from its plain version in fp32 by {err32} > 1e-3")
+    kv, vv = ref.paged_view(kp, bt), ref.paged_view(vp, bt)
+    causal = torch.arange(PREFILL_VIEW, device=dev)[None, None, None, :] <= q_pos[:, None, :, None]
+    used = int((q_pos.max(dim=1).values.long() + 1).sum())      # view rows the queries reach
+    pairs = int((q_pos.long() + 1).sum()) * HQ
+    out.append({
+        "name": "paged_flash_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_flash_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:208",
+        "counter": "paged_flash_prefill",
+        "shape": f"q ({B},{HQ},{PREFILL_SQ},{HD}) bf16 after prefixes {starts.tolist()}, pools "
+                 f"({nb},{HKV},{BLOCK},{HD}), shuffled table ({B},{nbps})",
+        "library": "SDPA with a bool causal mask over the view gathered beforehand "
+                   "(gather untimed)",
+        "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
+        "ms": cold_ms(lambda: ops.paged_flash_prefill(q, kp, vp, bt, q_pos, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, scale),
+                            flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, kv, vv, attn_mask=causal, scale=scale, enable_gqa=True), flush),
+        **bound(2 * (2 * q.numel() + 2 * used * HKV * HD) + 4 * (bt.numel() + q_pos.numel()),
+                4 * HD * pairs, BF16_FLOPS),
+    })
     return out
 
 
@@ -361,7 +485,8 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
               "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
               "topk": SERVE_MAX_NEW * waves
                       * build.library("topk").topk_launches(cfg.vocab_size, 1),
-              "dequant_matmul": expected_dequant_launches(cfg, parallel, work)}
+              "dequant_matmul": expected_dequant_launches(cfg, parallel, work),
+              "paged_decode_attention": 0, "paged_flash_prefill": 0}
     if launches != expect:
         fail(f"{arch} {weight_quant}: kernel launches {launches} != expected {expect}")
     for rid, toks in first.items():
@@ -389,6 +514,110 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
         "phase_s": time.monotonic() - t_phase,
         "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
     }
+
+
+def slot_phases(dev) -> list:
+    """Full-width yi-9b bf16 through ContinuousScheduler, then
+    PagedContinuousScheduler, on one engine; see the module docstring."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
+
+    cfg = get_config("yi-9b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK), sampling=SamplingConfig(top_k=1),
+                 max_len=SERVE_MAX_LEN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    args = argparse.Namespace(**SLOT_WORKLOAD)
+    topk_per_call = build.library("topk").topk_launches(cfg.vocab_size, 1)
+    L = cfg.n_layers
+    results, tokens = [], {}
+    for kind, cls in (("continuous", ContinuousScheduler), ("paged", PagedContinuousScheduler)):
+        t_phase = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            sched = cls(eng, n_slots=SLOTS)
+            serve.submit_workload(sched, cfg, args)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            done = sched.run()
+            torch.cuda.synchronize()
+            return sched, {r.rid: r for r in done}, time.monotonic() - t
+
+        ops.reset_launches()
+        sched, first, dt1 = run()
+        launches = dict(ops.LAUNCHES)
+        _, second, dt2 = run()
+        st = sched.stats
+        prefix_calls = st.get("prefix_prefill_calls", 0)
+        expect = {name: 0 for name in ops.KERNELS}
+        expect["topk"] = topk_per_call * (st["prefill_calls"] + st["decode_steps"])
+        expect["flash_prefill"] = L * (st["prefill_calls"] - prefix_calls)
+        if kind == "paged":
+            expect["paged_decode_attention"] = L * st["decode_steps"]
+            expect["paged_flash_prefill"] = L * prefix_calls
+        else:
+            expect["decode_attention"] = L * st["decode_steps"]
+        if launches != expect:
+            fail(f"{kind}: kernel launches {launches} != expected {expect} (stats {st})")
+        if kind == "paged":
+            if not (st["prefill_tokens_saved"] > 0 and st["shared_block_hits"] > 0
+                    and launches["paged_flash_prefill"] > 0
+                    and launches["paged_decode_attention"] > 0):
+                fail(f"paged: no prefix reuse or a paged kernel never ran: {st}, {launches}")
+            try:
+                sched.alloc.audit()
+            except AssertionError as e:
+                fail(f"paged: block allocator audit: {e}")
+        if sorted(first) != list(range(SLOT_WORKLOAD["requests"])):
+            fail(f"{kind}: served requests {sorted(first)}")
+        for rid, r in first.items():
+            toks = r.output
+            if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                fail(f"{kind} request {rid}: tokens out of range or none: {toks}")
+            if not np.array_equal(toks, second[rid].output):
+                fail(f"{kind} request {rid}: greedy tokens differ between two runs")
+        tokens[kind] = first
+        n_tokens = sum(len(r.output) for r in first.values())
+        results.append({
+            "arch": cfg.name, "scheduler": kind, "layers": L, "params": cfg.param_count(),
+            "requests": SLOT_WORKLOAD["requests"], "slots": SLOTS, "block_size": BLOCK,
+            "max_len": SERVE_MAX_LEN, "workload": SLOT_WORKLOAD, "tokens": n_tokens,
+            "init_s": init_s, "wall_s": [dt1, dt2],
+            "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
+            "stats": dict(st), "summary": sched.request_summary(), "launches": launches,
+            "repeatable": True, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "phase_s": time.monotonic() - t_phase,
+        })
+
+    # (d) paged against dense, per request: equal, or parted at a near-tie
+    flips = []
+    for rid, r in tokens["continuous"].items():
+        dense, paged = r.output, tokens["paged"][rid].output
+        if np.array_equal(dense, paged):
+            continue
+        n = min(len(dense), len(paged))
+        t = int(np.argmax(dense[:n] != paged[:n])) if (dense[:n] != paged[:n]).any() else n
+        seq = torch.as_tensor(np.concatenate([r.prompt, dense[:t]]), device=dev).long()
+        with torch.inference_mode():
+            logits = M.forward(eng.params, seq[None], cfg, last_only=True,
+                               head_f32=eng.head_f32)[0, -1]
+        gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
+        if not gap < TIE_GAP:
+            fail(f"paged request {rid} parts from dense at step {t} with top-2 gap {gap}")
+        flips.append({"rid": rid, "step": t, "top2_gap": gap})
+    results[-1]["parted_from_dense_at_near_ties"] = flips
+    del eng
+    torch.cuda.empty_cache()
+    return results
 
 
 def main() -> None:
@@ -424,6 +653,10 @@ def main() -> None:
         serve = serve_phase(dev, arch, mode)
         print(json.dumps({"serve": serve}), flush=True)
         for name, n in serve["launches"].items():
+            launches[name] += n
+    for slot in slot_phases(dev):
+        print(json.dumps({"serve": slot}), flush=True)
+        for name, n in slot["launches"].items():
             launches[name] += n
     for k in kernels:
         k["launches"] = launches[k.pop("counter")]

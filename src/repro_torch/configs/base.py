@@ -80,14 +80,17 @@ class ModelConfig:
 class ParallelConfig:
     """The layout fields the port reads.  Weight-only quantization is
     served (quantize at load: int8 per-output-column scales, int4 scales per
-    ``wq_group_size`` segment of the reduction dim); tensor parallelism and
-    the int8 KV cache come in later slices, and ``check_supported`` refuses
-    them."""
+    ``wq_group_size`` segment of the reduction dim), and so is the paged KV
+    backend of the slot engine; tensor parallelism and the int8 KV cache
+    come in later slices, and ``check_supported`` refuses them."""
 
     tp: int = 1
     kv_quant: bool = False
     weight_quant: str = "none"  # none | int8 | int4
     wq_group_size: int = 128    # int4 group length along the reduction dim
+    # paged KV cache (PagedContinuousScheduler reads these as its defaults)
+    kv_block_size: int = 16     # tokens per KV block
+    kv_pool_blocks: int = 0     # total pool blocks; 0 = n_slots * blocks/slot + 1
 
 
 @dataclass(frozen=True)

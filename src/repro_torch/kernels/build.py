@@ -31,6 +31,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "paged_decode_attention": ("paged_decode_attention",
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "paged_flash_prefill": ("paged_flash_prefill",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "topk": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "topk_workspace": ("topk", [_I, _I, _I]),
     "topk_launches": ("topk", [_I, _I]),

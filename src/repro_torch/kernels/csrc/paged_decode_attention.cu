@@ -1,0 +1,35 @@
+// Single-token GQA attention over a paged KV cache, returning flash partials.
+//
+// Replaces the Pallas kernel
+// repro/kernels/decode_attention.py::paged_decode_attention_partial (body
+// _paged_decode_kernel).  Same contract: q (b, hq, 1, hd); K/V block pools
+// (nb, hkv, bs, hd); a block table bt (b, nbps) int32 mapping each slot's
+// view block to a pool block; a per-slot mask valid (b, nbps * bs) over the
+// view (view index == absolute position).  Returns the UNNORMALIZED fp32
+// partials m (b, hq, 1), l (b, hq, 1), acc (b, hq, 1, hd); a row with no
+// valid key gives m = -inf, l = 0, acc = 0.  Table entries outside [0, nb)
+// read the null block 0 (they are never valid).
+//
+// Bound on the H100: bytes.  The work is one read of the valid blocks' K
+// and V against ~4 * hd FLOPs per (query head, key), ~8 FLOPs a byte at
+// g = 8; tiles with no valid key are skipped before their loads, so a slot
+// costs the bytes of the blocks it holds, not of its whole view.
+//
+// The body (decode_attention.cuh, PAGED = true) is shared with the dense
+// kernel: the same tiles, staging and online softmax, with each row's
+// address read through the table.  As there, b * hkv blocks (16 at b = 4 on
+// yi-9b) leave most of the 132 SMs idle; a split over the table with a
+// merge pass is the next step.
+#include "decode_attention.cuh"
+
+extern "C" int paged_decode_attention(const void* q, const void* k_pool,
+                                      const void* v_pool, const void* bt,
+                                      const void* valid, void* m, void* l,
+                                      void* acc, int b, int hq, int hkv, int nb,
+                                      int bs, int nbps, int hd, int dtype,
+                                      float scale, void* stream) {
+  if (nb <= 0 || bs <= 0 || nbps <= 0) return ERR_BAD_ARGS;
+  const int S = nbps * bs;
+  return decode::dispatch<true>(q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps,
+                                valid, S, m, l, acc, b, hq, hkv, S, hd, dtype, scale, stream);
+}

@@ -24,7 +24,8 @@ from repro_torch.kernels import build, ref
 # launches of each kernel since the last reset: the proof that a run went
 # through the kernels (chip_smoke.py zeroes it before the serving phase)
 LAUNCHES: Counter = Counter()
-KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul")
+KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
+           "paged_decode_attention", "paged_flash_prefill")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -111,6 +112,76 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                _stream())
     LAUNCHES["decode_attention"] += 1
     return m, l, acc
+
+
+def _check_pool(name: str, q, k_pool, v_pool, bt) -> tuple:
+    """Shapes of a paged call: q (b, hq, s, hd), pools (nb, hkv, bs, hd),
+    bt (b, nbps) -> (nb, hkv, bs, nbps)."""
+    b, hq, _, hd = q.shape
+    nb, hkv, bs = k_pool.shape[:3]
+    if (k_pool.shape != (nb, hkv, bs, hd) or v_pool.shape != k_pool.shape
+            or bt.dim() != 2 or bt.shape[0] != b):
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} pools{tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} bt{tuple(bt.shape)} do not agree")
+    if hq % hkv:
+        raise ValueError(f"{name}: {hq} q heads over {hkv} kv heads")
+    return nb, hkv, bs, bt.shape[1]
+
+
+def _check_paged_cuda(name: str, q, k_pool, v_pool, bt, idx, idx_dtype) -> None:
+    hd = q.shape[-1]
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if hd not in (64, 128) or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
+        raise ValueError(f"{name}: head_dim {hd} / table {bt.dtype} / {idx.dtype} not taken")
+    _check_cuda(name, q, k_pool, v_pool, bt, idx)
+
+
+def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                   bt: torch.Tensor, valid: torch.Tensor, scale: float):
+    """``decode_attention_partial`` with K/V read from block pools through
+    each slot's block table.  q (b, hq, 1, hd), pools (nb, hkv, bs, hd),
+    bt (b, nbps) int32 (entries outside the pool read the null block 0),
+    valid (b, nbps*bs) bool -> fp32 m, l (b, hq, 1), acc (b, hq, 1, hd); a
+    row with no valid key gives m = -inf, l = 0, acc = 0."""
+    nb, hkv, bs, nbps = _check_pool("paged_decode_attention", q, k_pool, v_pool, bt)
+    b, hq, one, hd = q.shape
+    if one != 1 or valid.shape != (b, nbps * bs):
+        raise ValueError(f"paged_decode_attention: q{tuple(q.shape)} valid{tuple(valid.shape)} "
+                         f"for a view of {nbps * bs}")
+    if _device_of(q, k_pool, v_pool, bt, valid) == "cpu":
+        return ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, valid, scale)
+    _check_paged_cuda("paged_decode_attention", q, k_pool, v_pool, bt, valid, torch.bool)
+    m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, hq, 1, hd), dtype=torch.float32, device=q.device)
+    build.call("paged_decode_attention", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               bt.data_ptr(), valid.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+               b, hq, hkv, nb, bs, nbps, hd, _DTYPES[q.dtype], float(scale), _stream())
+    LAUNCHES["paged_decode_attention"] += 1
+    return m, l, acc
+
+
+def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        bt: torch.Tensor, q_pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """``flash_prefill`` with K/V read from block pools through each slot's
+    block table: row i of slot b attends view index j iff j <= q_pos[b, i]
+    (view index == position; pad rows carry -1 and come out as zeros).
+    q (b, hq, Sq, hd), pools (nb, hkv, bs, hd), bt (b, nbps) int32, q_pos
+    (b, Sq) int32 -> (b, hq, Sq, hd) in q.dtype."""
+    nb, hkv, bs, nbps = _check_pool("paged_flash_prefill", q, k_pool, v_pool, bt)
+    b, hq, sq, hd = q.shape
+    if q_pos.shape != (b, sq):
+        raise ValueError(f"paged_flash_prefill: q_pos{tuple(q_pos.shape)} for q{tuple(q.shape)}")
+    if _device_of(q, k_pool, v_pool, bt, q_pos) == "cpu":
+        return ref.paged_flash_prefill_ref(q, k_pool, v_pool, bt, q_pos, scale)
+    _check_paged_cuda("paged_flash_prefill", q, k_pool, v_pool, bt, q_pos, torch.int32)
+    out = torch.empty_like(q)
+    build.call("paged_flash_prefill", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               bt.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, hq, hkv, sq, nb, bs, nbps,
+               hd, _DTYPES[q.dtype], float(scale), _stream())
+    LAUNCHES["paged_flash_prefill"] += 1
+    return out
 
 
 def topk(x: torch.Tensor, k: int):

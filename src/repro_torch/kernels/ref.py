@@ -62,6 +62,31 @@ def decode_attention_ref(q, k, v, valid, scale: float):
     return m.reshape(b, hq, 1), l.reshape(b, hq, 1), acc.reshape(b, hq, 1, hd)
 
 
+def paged_view(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Block pool (nb, h, bs, hd) gathered through the table bt (b, nbps)
+    -> per-slot dense view (b, h, nbps*bs, hd), view index == position
+    (``_paged_view`` of the JAX package)."""
+    b, nbps = bt.shape
+    g = pool[bt.long()].transpose(1, 2)                       # (b, h, nbps, bs, hd)
+    return g.reshape(b, pool.shape[1], nbps * pool.shape[2], pool.shape[3])
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, bt, valid, scale: float):
+    """``decode_attention_ref`` over the view gathered through the block
+    table.  q (b, hq, 1, hd); pools (nb, hkv, bs, hd); bt (b, nbps) int;
+    valid (b, nbps*bs) bool -> fp32 partials m, l (b, hq, 1), acc
+    (b, hq, 1, hd)."""
+    return decode_attention_ref(q, paged_view(k_pool, bt), paged_view(v_pool, bt), valid, scale)
+
+
+def paged_flash_prefill_ref(q, k_pool, v_pool, bt, q_pos, scale: float) -> torch.Tensor:
+    """``flash_prefill_ref`` over the view gathered through the block table:
+    row i attends view index j iff j <= q_pos[b, i].  q (b, hq, Sq, hd);
+    pools (nb, hkv, bs, hd); bt (b, nbps) int; q_pos (b, Sq) int ->
+    (b, hq, Sq, hd) in q.dtype."""
+    return flash_prefill_ref(q, paged_view(k_pool, bt), paged_view(v_pool, bt), q_pos, scale)
+
+
 def topk_ref(x: torch.Tensor, k: int):
     """(b, v) -> (vals (b, k) fp32, idx (b, k) int32), largest first and,
     among equal values, the lowest index first (a stable descending sort;

@@ -2,11 +2,15 @@
 
     python -m repro_torch.launch.profile_decode --arch yi-9b --batch 4
     python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4
+    python -m repro_torch.launch.profile_decode --scheduler paged
 
-Builds the arch at full width from random weights, prefills one wave and
-then runs the same ``--steps`` decode steps (same first token, same cache
-positions) twice: plain, for the host wall time and CUDA-event time per
-step, and under ``torch.profiler``, for the device time by kernel.  The
+Builds the arch at full width from random weights, prefills one wave (or,
+with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
+slots of a dense or paged slot cache) and then runs the same ``--steps``
+decode steps (same first token, same cache positions) twice: plain, for
+the host wall time and CUDA-event time per step, and under
+``torch.profiler``, for the device time by kernel.  The slot engine runs
+the steps as one ``decode_slots`` block, which ends in its host copy.  The
 device's idle share divides the profiled pass's device time by the plain
 pass's wall time (the profiler slows the host, so its own window overstates
 idleness); the profiled window's share is printed beside it.  Prints one
@@ -38,6 +42,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave",
+                    help="decode through the wave cache, or the slot engine over the dense "
+                         "slot cache or the paged pool")
     add_weight_quant_args(ap)
     args = ap.parse_args(argv)
     if args.prompt_len + 3 + args.steps > args.max_len:
@@ -48,19 +55,23 @@ def main(argv=None) -> dict:
                  max_len=args.max_len, seed=args.seed, device="cuda")
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
-    caches = eng.init_caches(args.batch)
     with torch.inference_mode():
-        tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches)
-        cur = args.prompt_len
-        for _ in range(3):                        # warm-up
-            tok = eng.decode(tok, caches, cur)
-            cur += 1
-        torch.cuda.synchronize()
+        if args.scheduler == "wave":
+            caches = eng.init_caches(args.batch)
+            tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches)
+            cur = args.prompt_len
+            for _ in range(3):                        # warm-up
+                tok = eng.decode(tok, caches, cur)
+                cur += 1
 
-        def steps():       # the same steps each time: cache positions cur..
-            t = tok
-            for i in range(args.steps):
-                t = eng.decode(t, caches, cur + i)
+            def steps():       # the same steps each time: cache positions cur..
+                t = tok
+                for i in range(args.steps):
+                    t = eng.decode(t, caches, cur + i)
+        else:
+            steps = _slot_steps(eng, args, prompts)
+            steps()                                   # warm-up
+        torch.cuda.synchronize()
 
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -90,7 +101,7 @@ def main(argv=None) -> dict:
     w_o_us = sum(e.device_time_total for e in avgs
                  if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
     result = {
-        "arch": cfg.name, "weight_quant": args.weight_quant,
+        "arch": cfg.name, "scheduler": args.scheduler, "weight_quant": args.weight_quant,
         "wq_group_size": args.wq_group_size, "batch": args.batch, "prompt_len": args.prompt_len,
         "steps": args.steps, "device": torch.cuda.get_device_name(0),
         "step_ms_wall": 1e3 * wall_s / args.steps,
@@ -110,6 +121,29 @@ def main(argv=None) -> dict:
     print(json.dumps(result))
     print(avgs.table(sort_by="self_device_time_total", row_limit=25))
     return result
+
+
+def _slot_steps(eng: Engine, args, prompts: np.ndarray):
+    """Admit every prompt into its own slot (paged: slot b owns pool blocks
+    1 + b*nbps ..), and return a function that runs the same ``--steps``
+    masked decode steps from there as one ``decode_slots`` block."""
+    B, plen = prompts.shape
+    admit, plens = np.ones(B, bool), np.full(B, plen)
+    bt = None
+    if args.scheduler == "paged":
+        bs = eng.parallel.kv_block_size
+        nbps = -(-args.max_len // bs)
+        caches = eng.init_paged_caches(B, B * nbps + 1, bs)
+        bt = (1 + np.arange(B * nbps, dtype=np.int32)).reshape(B, nbps)
+        tok = eng.prefill_into_slots_paged(caches, prompts, admit, plens, np.zeros(B), plens, bt)
+    else:
+        caches = eng.init_slot_caches(B)
+        tok = eng.prefill_into_slots(caches, prompts, admit, plens)
+    state = (tok, plens, np.zeros(B, bool), np.full(B, args.max_len), np.full(B, -1))
+
+    def steps():
+        eng.decode_slots(caches, *state, n=args.steps, block_tables=bt)
+    return steps
 
 
 if __name__ == "__main__":

@@ -1,7 +1,12 @@
 """Serving entry point: ``python -m repro_torch.launch.serve --arch yi-9b``.
 
-Serves a batch of synthetic requests through the wave scheduler on one
-device and reports per-token latency (the paper's section 3 metric).
+Serves synthetic requests on one device through the wave scheduler or,
+with ``--scheduler continuous|paged``, through continuous batching over a
+dense or a paged KV cache, and reports per-token latency (the paper's
+section 3 metric).  The workload is the JAX serve CLI's, drawn from the
+same seed: ``--shared-prefix`` prepends one common system prompt (what the
+paged backend's prefix reuse serves), ``--arrival-every`` staggers arrivals
+on the virtual decode-step clock, ``--max-new-spread`` draws each budget.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
 projection and the lm_head go through the dequant_matmul kernel.  Runs on
@@ -11,6 +16,7 @@ versions run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -18,20 +24,33 @@ import numpy as np
 from repro_torch.configs import ALL_ARCHS, ParallelConfig, SamplingConfig, get_config
 from repro_torch.models import model as M
 from repro_torch.runtime.engine import Engine
-from repro_torch.runtime.scheduler import WaveScheduler
+from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
+                                           WaveScheduler)
 
 
 def build_engine(args) -> Engine:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    return Engine(cfg, parallel=parallel_config(args),
+    parallel = dataclasses.replace(parallel_config(args), kv_block_size=args.kv_block_size,
+                                   kv_pool_blocks=args.kv_pool_blocks)
+    return Engine(cfg, parallel=parallel,
                   sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
                   seed=args.seed, device=args.device)
 
 
 def parallel_config(args) -> ParallelConfig:
     return ParallelConfig(weight_quant=args.weight_quant, wq_group_size=args.wq_group_size)
+
+
+def make_scheduler(eng: Engine, args):
+    if args.scheduler == "paged":
+        # block and pool sizes ride on ParallelConfig; the scheduler reads them
+        return PagedContinuousScheduler(eng, n_slots=args.slots, block_steps=args.block_steps,
+                                        prefix_cache=not args.no_prefix_cache)
+    if args.scheduler == "continuous":
+        return ContinuousScheduler(eng, n_slots=args.slots, block_steps=args.block_steps)
+    return WaveScheduler(eng, batch_size=args.batch)
 
 
 def add_weight_quant_args(ap: argparse.ArgumentParser) -> None:
@@ -52,21 +71,48 @@ def weight_quant_line(cfg, args) -> str:
             f"{bb / 2**20:.1f} MiB bf16 ({bb / max(wb, 1):.2f}x less)")
 
 
-def submit_workload(sched: WaveScheduler, cfg, args) -> None:
-    """The JAX serve CLI's workload: prompt lengths drawn from [4, --prompt-len],
-    token ids uniform over the vocab, from a fixed generator."""
+def submit_workload(sched, cfg, args) -> None:
+    """The JAX serve CLI's workload, the same draws from the same seed: one
+    shared prefix of ``--shared-prefix`` tokens, then per request a prompt
+    length from [4, --prompt-len], a budget from [max_new // spread,
+    max_new] when ``--max-new-spread`` > 1, and uniform token ids; request
+    i arrives at decode step i * ``--arrival-every``."""
     rng = np.random.default_rng(0)
-    for _ in range(args.requests):
+    shared = rng.integers(0, cfg.vocab_size, args.shared_prefix).astype(np.int32)
+    for i in range(args.requests):
         plen = int(rng.integers(4, args.prompt_len + 1))
+        max_new = args.max_new
+        if args.max_new_spread > 1:
+            max_new = int(rng.integers(max(1, args.max_new // args.max_new_spread),
+                                       args.max_new + 1))
         prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
-        sched.submit(prompt, max_new=args.max_new)
+        if args.shared_prefix:
+            prompt = np.concatenate([shared, prompt])
+        sched.submit(prompt, max_new=max_new, arrival_step=i * args.arrival_every)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="yi-9b", choices=ALL_ARCHS)
+    ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--batch", type=int, default=4, help="requests per wave")
+    ap.add_argument("--batch", type=int, default=4, help="wave scheduler: requests per wave")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="continuous/paged scheduler: fixed slot count")
+    ap.add_argument("--block-steps", type=int, default=8,
+                    help="continuous/paged scheduler: fused decode steps per host round trip")
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="paged scheduler: tokens per KV block")
+    ap.add_argument("--kv-pool-blocks", type=int, default=0,
+                    help="paged scheduler: total pool blocks (0 = dense-equivalent footprint)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="paged scheduler: disable shared-prefix block reuse")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one common N-token system prompt to every request")
+    ap.add_argument("--arrival-every", type=int, default=0,
+                    help="request i arrives at decode step i*N (continuous/paged)")
+    ap.add_argument("--max-new-spread", type=int, default=1,
+                    help="draw each request's max_new from [max_new // N, max_new]")
     ap.add_argument("--prompt-len", type=int, default=16,
                     help="longest prompt; lengths are drawn from [4, N]")
     ap.add_argument("--max-new", type=int, default=16)
@@ -87,7 +133,7 @@ def main(argv=None):
     eng = build_engine(args)
     if args.weight_quant != "none":
         print(weight_quant_line(eng.cfg, args))
-    sched = WaveScheduler(eng, batch_size=args.batch)
+    sched = make_scheduler(eng, args)
     submit_workload(sched, eng.cfg, args)
     t0 = time.monotonic()
     sched.run()
@@ -100,7 +146,23 @@ def _report(sched, cfg, args, dt: float) -> None:
     total_tokens = sum(len(r.output) for r in done)
     print(f"served {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s -> {1000 * dt / max(total_tokens, 1):.1f} ms/token "
-          f"(wave; arch={cfg.name}, tp=1, device={args.device})")
+          f"({args.scheduler}; arch={cfg.name}, tp=1, device={args.device})")
+    if args.scheduler != "wave":
+        s = sched.stats
+        lat = sched.request_summary()
+        print(f"  decode steps {s['decode_steps']}, slot util "
+              f"{s['active_slot_steps'] / max(1, s['slot_steps']):.0%}, admission rounds "
+              f"{s['admission_rounds']} ({s['in_flight_admissions']} requests admitted in-flight)")
+        if "ttft_s" in lat:
+            print(f"  ttft mean {lat['ttft_s']['mean'] * 1e3:.0f} ms (p50 "
+                  f"{lat['ttft_s']['p50'] * 1e3:.0f}, max {lat['ttft_s']['max'] * 1e3:.0f}); "
+                  f"queue mean {lat['queue_s']['mean'] * 1e3:.0f} ms")
+    if args.scheduler == "paged":
+        s = sched.stats
+        print(f"  pool {sched.n_blocks} x {sched.bs}-token blocks, high-water "
+              f"{s['blocks_hwm']} blocks; prefill tokens {s['prefill_tokens']} "
+              f"(+{s['prefill_tokens_saved']} reused, {s['shared_block_hits']} shared block "
+              f"hits), preemptions {s['preemptions']}")
     for r in done[:4]:
         print(f"  req {r.rid}: {len(r.output)} tokens, first 8: {r.output[:8].tolist()}")
 

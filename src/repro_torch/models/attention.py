@@ -1,16 +1,25 @@
 """Dense GQA/MHA attention with RoPE and optional QKV bias: the subset of
 ``repro.models.attention.gqa_forward`` that serves a dense decoder at tp=1
-over a dense KV cache.
+over the port's three KV layouts (see ``model.init_caches``):
 
-The cache is one dict for the whole model (see ``model.init_caches``):
-``k``/``v`` of shape (L, b, hkv, S, hd) and one position row ``pos`` (S,)
-that every layer shares, since in wave serving all layers hold the same
-positions.  Writes are in place, which is what buffer donation gives the
-JAX package.
+* wave cache: ``k``/``v`` (L, b, hkv, S, hd) and one position row ``pos``
+  (S,), since in wave serving every row sits at the same position;
+* slot cache (continuous batching): the same K/V and ``pos`` (b, S), each
+  row an independent slot at its own position;
+* paged cache: ``k``/``v`` block pools (L, n_blocks, hkv, bs, hd) read and
+  written through a per-slot block table (b, nbps), ``pos`` (b, nbps*bs)
+  over each slot's view (view index == absolute position).
+
+``pos`` is shared by all layers, as every layer holds the same positions.
+What a forward does with the cache -- where it writes, which mask decode
+reads -- is worked out once per forward into a ``KVStep`` (as the RoPE
+tables are), and each layer only applies it.  Writes are in place, which
+is what buffer donation gives the JAX package.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,26 +31,98 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope
 
 
-def decode_attention(q, k, v, valid, scale: float) -> torch.Tensor:
-    """Single-token attention over the cache, normalized: the decode kernel's
-    partials divided out (``decode_attention_shardable`` without seq
-    sharding)."""
-    m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+@dataclass
+class KVStep:
+    """One forward's use of the KV cache, read by every layer.
+
+    ``cache`` None attends the fresh K/V only.  ``wave_pos`` (wave cache):
+    K/V land at view [wave_pos, wave_pos + s) of every row.  ``targets``
+    (slot and paged caches): one (dim-0, dim-2) index pair per written
+    token, in (row, position) order -- (slot, view index) for the slot
+    cache, (pool block, offset in block) for the paged one.  Decode reads
+    the cache entries ``valid`` marks ((S,) shared or (b, S) per slot);
+    prefill attends by view position ``q_pos`` (b, s), over the fresh K/V
+    or, with ``paged_read``, over the slot's view through ``bt``."""
+
+    cache: Optional[Dict[str, Any]]
+    decode: bool
+    q_pos: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+    wave_pos: Optional[int] = None
+    targets: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    bt: Optional[torch.Tensor] = None
+    paged_read: bool = False
 
 
-def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, rope: Tuple[torch.Tensor, torch.Tensor],
-                cache: Optional[Dict[str, Any]] = None, layer: int = 0,
-                cur_pos: Optional[int] = None,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Cache addressing of the slot engine (``_slot_index``, ``_write_pos_batched``,
+# ``_paged_decode_targets``, ``_paged_flat_targets`` of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def slot_index(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """(b,) positions -> per-slot write index, clamped into [0, S): empty or
+    overrun slots are masked (pos -1) or already retired, so their clamped
+    write is harmless."""
+    return pos.clamp(0, S - 1)
+
+
+def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor) -> None:
+    """pos_arr (b, S), in place: record each row's position at its own index."""
+    b, S = pos_arr.shape
+    pos_arr[torch.arange(b, device=pos.device), slot_index(pos, S)] = pos.to(pos_arr.dtype)
+
+
+def paged_decode_targets(bt: torch.Tensor, pos: torch.Tensor, bs: int):
+    """(b,) write positions -> (pool block, offset in block); positions past
+    the table (frozen or overrun slots) go to the null block 0."""
+    nbps = bt.shape[1]
+    p = pos.clamp_min(0).long()
+    vi, off = p // bs, p % bs
+    rows = torch.arange(bt.shape[0], device=bt.device)
+    phys = torch.where(vi < nbps, bt[rows, vi.clamp_max(nbps - 1)].long(), 0)
+    return phys, off
+
+
+def paged_flat_targets(bt: torch.Tensor, starts: torch.Tensor, s: int, bs: int):
+    """Flattened (b*s,) pool blocks and offsets of a prefill whose row b
+    covers view positions [starts[b], starts[b] + s); positions past the
+    table go to the null block 0.  Padding tokens land in the row's private
+    tail block or the null block, never in a shared prefix block (shared
+    blocks are full and lie before ``starts``)."""
+    nbps = bt.shape[1]
+    vpos = starts.long()[:, None] + torch.arange(s, device=bt.device)[None, :]
+    vi, off = vpos // bs, vpos % bs
+    phys = torch.where(vi < nbps, torch.gather(bt.long(), 1, vi.clamp_max(nbps - 1)), 0)
+    return phys.reshape(-1), off.reshape(-1)
+
+
+def write_targets(side: torch.Tensor, new: torch.Tensor,
+                  targets: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """In place: K or V ``new`` (b, h, s, hd) into ``side`` (n, h, m, hd) at
+    one (dim-0, dim-2) pair per token -- a slot's row and view index, or a
+    pool block and offset.  Only the null block can be a target twice; its
+    value is never read as valid, so whichever write lands is harmless."""
+    b, h, s, hd = new.shape
+    side[targets[0], :, targets[1]] = new.transpose(1, 2).reshape(b * s, h, hd).to(side.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+                rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
+                layer: int = 0) -> torch.Tensor:
     """x (b, s, d) -> attention output (b, s, d) after the out-projection.
-    ``rope`` holds the (cos, sin) tables of ``positions``.
+    ``rope`` holds the (cos, sin) tables of this forward's positions.
 
-    Prefill (``cur_pos`` None): writes K/V at view [0, s) of ``cache`` (if
-    given) and attends the fresh K/V causally through the flash-prefill
-    kernel.  Decode (``cur_pos`` an int, s == 1): writes K/V at ``cur_pos``
-    and attends the cache entries that ``valid`` (S,) marks."""
+    Prefill writes the fresh K/V where ``step`` says and attends by view
+    position through the flash-prefill kernel: over the fresh K/V, or over
+    the slot's paged view (cached-prefix admission) through the paged one.
+    Decode (s == 1) writes its token and attends the valid cache entries
+    through the decode kernel, or the paged decode kernel."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -56,16 +137,25 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Te
     k = apply_rope(k.view(b, s, hkv, hd).transpose(1, 2), *rope)
     v = v.view(b, s, hkv, hd).transpose(1, 2)
 
-    if cur_pos is not None:
-        ck, cv = cache["k"][layer], cache["v"][layer]
-        ck[:, :, cur_pos] = k[:, :, 0]
-        cv[:, :, cur_pos] = v[:, :, 0]
-        out = decode_attention(q.contiguous(), ck, cv, valid, scale)
+    c = step.cache
+    if c is not None:
+        ck, cv = c["k"][layer], c["v"][layer]
+        if step.targets is not None:
+            write_targets(ck, k, step.targets)
+            write_targets(cv, v, step.targets)
+        else:
+            ck[:, :, step.wave_pos:step.wave_pos + s] = k
+            cv[:, :, step.wave_pos:step.wave_pos + s] = v
+    q = q.contiguous()
+    if step.decode:
+        # the partials divided out (decode_attention_shardable, no seq sharding)
+        if step.bt is not None:
+            _, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale)
+        else:
+            _, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale)
+        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    elif step.paged_read:
+        out = ops.paged_flash_prefill(q, ck, cv, step.bt, step.q_pos, scale)
     else:
-        if cache is not None:
-            cache["k"][layer, :, :, :s] = k
-            cache["v"][layer, :, :, :s] = v
-        q_pos = positions.to(torch.int32).expand(b, s)
-        out = ops.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                                q_pos.contiguous(), scale)
+        out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale)
     return fused_out_projection(out, p["w_o"])

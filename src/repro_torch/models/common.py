@@ -57,9 +57,13 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
-    """(cos, sin) of the fp32 rotation angles, (..., seq, head_dim/2): one
-    pair per forward, shared by every layer's q and k."""
+    """(cos, sin) of the fp32 rotation angles: one pair per forward, shared
+    by every layer's q and k (b, heads, seq, head_dim).  Positions (seq,)
+    shared by all rows give (seq, head_dim/2); per-row positions (b, seq)
+    give (b, 1, seq, head_dim/2), broadcast over the heads."""
     angles = positions[..., None].float() * rope_freqs(head_dim, theta, positions.device)
+    if positions.dim() == 2:
+        angles = angles[:, None]
     return torch.cos(angles), torch.sin(angles)
 
 

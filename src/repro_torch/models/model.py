@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import wquant
 from repro_torch.core.wquant import QuantWeight
 from repro_torch.core.embedding import embed_lookup
+from repro_torch.models import attention as attn
 from repro_torch.models.common import init_leaf, resolve_device, rms_norm, rope_tables
 from repro_torch.models.transformer import layers_forward
 
@@ -226,13 +227,29 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
             "swept": quantized + dense}
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict[str, torch.Tensor]:
-    """Dense KV cache for all layers; ``pos`` -1 marks an empty entry."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                per_slot: bool = False, paged: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """KV cache for all layers; ``pos`` -1 marks an empty entry.
+
+    Wave (default): ``k``/``v`` (L, batch, hkv, max_len, hd), ``pos``
+    (max_len,).  ``per_slot``: the same K/V and ``pos`` (batch, max_len),
+    every row a slot at its own position.  ``paged=(n_blocks, block_size)``:
+    ``k``/``v`` are block pools (L, n_blocks, hkv, block_size, hd) and
+    ``pos`` is (batch, view) over each slot's view of
+    ceil(max_len / block_size) blocks."""
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if paged is not None:
+        n_blocks, bs = paged
+        shape = (cfg.n_layers, n_blocks, hkv, bs, hd)
+        pos_shape = (batch, -(-max_len // bs) * bs)
+    else:
+        shape = (cfg.n_layers, batch, hkv, max_len, hd)
+        pos_shape = (batch, max_len) if per_slot else (max_len,)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device),
     }
 
 
@@ -248,40 +265,93 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     return x.float() @ head
 
 
+def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
+             block_tables) -> attn.KVStep:
+    """Where this forward writes K/V and what it attends, worked out once
+    for all layers; writes the position rows that decode needs first."""
+    dev = positions.device
+    bt = block_tables
+    q_pos = None if cur_pos is not None else positions.to(torch.int32).expand(b, s).contiguous()
+    if caches is None:
+        return attn.KVStep(None, decode=False, q_pos=q_pos)
+    pos = caches["pos"]
+    if pos.dim() == 1:                                        # wave cache
+        S = pos.shape[0]
+        if cur_pos is not None:
+            if not 0 <= cur_pos < S:
+                raise ValueError(f"decode position {cur_pos} outside the cache of {S}")
+            pos[cur_pos] = cur_pos
+            return attn.KVStep(caches, decode=True, valid=(pos >= 0) & (pos <= cur_pos),
+                               wave_pos=cur_pos)
+        if s > S:
+            raise ValueError(f"prompt of {s} tokens is longer than the cache of {S}")
+        pos.fill_(-1)
+        pos[:s] = positions
+        return attn.KVStep(caches, decode=False, q_pos=q_pos, wave_pos=0)
+    if bt is not None:
+        bt = bt.to(device=dev, dtype=torch.int32).contiguous()
+    if cur_pos is not None:                                   # slot decode
+        attn.write_pos_batched(pos, cur_pos)
+        valid = (pos >= 0) & (pos <= cur_pos[:, None])
+        if bt is None:
+            targets = (torch.arange(len(cur_pos), device=dev), attn.slot_index(cur_pos, pos.shape[1]))
+        else:
+            targets = attn.paged_decode_targets(bt, cur_pos, caches["k"].shape[3])
+        return attn.KVStep(caches, decode=True, valid=valid, targets=targets, bt=bt)
+    if bt is None:                                            # slot admission
+        if slots is None:
+            raise ValueError("a prefill into a slot cache names the slots it fills")
+        if s > pos.shape[1]:
+            raise ValueError(f"prompt of {s} tokens is longer than the cache of {pos.shape[1]}")
+        pos[slots, :s] = positions.to(pos.dtype)              # view index == position
+        targets = (slots.repeat_interleave(s), torch.arange(s, device=dev).repeat(len(slots)))
+        return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets)
+    targets = attn.paged_flat_targets(bt, q_pos[:, 0], s, caches["k"].shape[3])
+    return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, bt=bt,
+                       paged_read=positions.dim() == 2)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            caches: Optional[Dict[str, torch.Tensor]] = None,
-            cur_pos: Optional[int] = None, last_only: bool = False,
-            head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+            caches: Optional[Dict[str, torch.Tensor]] = None, cur_pos=None,
+            last_only: bool = False, head_f32: Optional[torch.Tensor] = None,
+            length_mask: Optional[torch.Tensor] = None,
+            start_pos: Optional[torch.Tensor] = None,
+            block_tables: Optional[torch.Tensor] = None,
+            slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (b, s) -> fp32 logits (b, s or 1, V).
 
-    Without ``cur_pos`` this is a prefill from position 0 (writing the
-    cache when one is given); with ``cur_pos`` it is one decode step
-    (s == 1) at that position of ``caches``."""
+    Without ``cur_pos`` this is a prefill: from position 0, or per row from
+    ``start_pos`` (b,) (cached-prefix admission: positions start_pos[b] +
+    arange(s), attending the slot's paged view).  With ``cur_pos`` it is one
+    decode step (s == 1): an int for the wave cache's shared position, or a
+    (b,) tensor of per-slot positions.
+
+    The cache is ``init_caches``'s.  A prefill into a slot cache writes rows
+    ``slots`` (b,) of it; into a paged cache it writes through
+    ``block_tables`` (b, nbps), which decode reads and writes through too.
+    ``last_only`` keeps one position per row: the last, or with
+    ``length_mask`` (b, s) (true at real tokens of a right-padded batch)
+    each row's last real token."""
     b, s = tokens.shape
     dev = tokens.device
     x = embed_lookup(params["embed"], tokens)
-    valid = None
     if cur_pos is not None:
         if s != 1 or caches is None:
             raise ValueError("a decode step takes one token per row and a cache")
-        S = caches["pos"].shape[0]
-        if not 0 <= cur_pos < S:
-            raise ValueError(f"decode position {cur_pos} outside the cache of {S}")
-        caches["pos"][cur_pos] = cur_pos
-        valid = (caches["pos"] >= 0) & (caches["pos"] <= cur_pos)
-        positions = torch.arange(cur_pos, cur_pos + 1, device=dev)
+        positions = (torch.tensor([cur_pos], device=dev) if isinstance(cur_pos, int)
+                     else cur_pos[:, None])
+    elif start_pos is not None:
+        positions = start_pos[:, None] + torch.arange(s, device=dev, dtype=start_pos.dtype)
     else:
         positions = torch.arange(s, device=dev)
-        if caches is not None:
-            S = caches["pos"].shape[0]
-            if s > S:
-                raise ValueError(f"prompt of {s} tokens is longer than the cache of {S}")
-            caches["pos"].fill_(-1)
-            caches["pos"][:s] = positions
+    step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
+                    block_tables=block_tables)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    x = layers_forward(params["layers"], x, positions, cfg, rope=rope, cache=caches,
-                       cur_pos=cur_pos, valid=valid)
+    x = layers_forward(params["layers"], x, cfg, rope=rope, step=step)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if last_only:
+    if last_only and length_mask is not None:
+        last = (length_mask.sum(dim=1) - 1).clamp_min(0)
+        x = x[torch.arange(b, device=dev), last][:, None]
+    elif last_only:
         x = x[:, -1:]
     return lm_head(params, x, head_f32)

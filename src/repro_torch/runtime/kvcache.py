@@ -1,0 +1,195 @@
+"""Slot utilities of the continuous-batching caches, and the paged-KV block
+allocator (``repro.runtime.kvcache`` for one device, one data shard).
+
+Cache layouts (built by ``models.model.init_caches``) are one dict for the
+whole model; ``pos`` is shared by every layer, since all layers hold the
+same positions:
+
+* slot cache: ``k``/``v`` (L, b, hkv, S, hd), ``pos`` (b, S) -- row b is
+  slot b, and ``pos[b, j]`` is the absolute position held at index j
+  (-1 = empty);
+* paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
+  addressed through a per-slot block table (b, nbps) that the scheduler
+  keeps on the host; ``pos`` (b, nbps*bs) is per-slot over the slot's view,
+  where view index == absolute position.
+
+The JAX package updates caches functionally and picks the admitted rows
+with ``merge_slots``.  Here every update is **in place** and takes the
+admission mask itself, so rows outside it keep their bytes untouched --
+what ``merge_slots`` guarantees there; pool leaves need no merge at all,
+because the admission computes the admitted rows only and writes through
+their own table rows.
+
+``BlockAllocator`` is host logic, the JAX package's semantics for a single
+shard: refcounted blocks, block 0 reserved as the null block (a write sink
+that is never validly read), and hash-chained prefix keys verified against
+the stored tokens.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+NULL_BLOCK = 0      # reserved write sink; never allocated, never valid
+
+# pool-shaped leaves of the paged layout: indexed by block id, not by slot
+POOL_KEYS = ("k", "v")
+
+
+def _rows(mask, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(mask, dtype=bool), device=device)
+
+
+def device_ints(x, device, dtype=torch.long) -> torch.Tensor:
+    """A fresh device copy of host ints (never a view of the caller's
+    array, which the scheduler mutates while the device may still read)."""
+    return torch.from_numpy(np.array(x, dtype=np.int64)).to(device, dtype)
+
+
+def reset_slots(caches: Dict[str, torch.Tensor], mask) -> None:
+    """In place: the position rows of the slots in ``mask`` (b,) go to -1,
+    which masks every stale K/V entry without touching the K/V bytes (they
+    are dead by position and are overwritten as the new request runs)."""
+    pos = caches["pos"]
+    pos[_rows(mask, pos.device)] = -1
+
+
+def mask_prompt_padding(caches: Dict[str, torch.Tensor], plens, mask) -> None:
+    """In place, for the slots in ``mask``: invalidate the position entries
+    at and after each slot's true prompt length ``plens[b]``.  Admission
+    prefills a right-padded batch; the K/V written for padding tokens must
+    never be attended, and decode overwrites index plen, plen+1, ..."""
+    pos = caches["pos"]
+    idx = torch.arange(pos.shape[1], device=pos.device)
+    plens = device_ints(plens, pos.device)
+    drop = _rows(mask, pos.device)[:, None] & (idx[None, :] >= plens[:, None])
+    pos.masked_fill_(drop, -1)
+
+
+def set_slot_positions(caches: Dict[str, torch.Tensor], total_lens, mask) -> None:
+    """In place, for the slots in ``mask``: rewrite the position row so that
+    exactly positions [0, total_lens[b]) read as valid (view index ==
+    position), everything else -1.  The paged admission's position update:
+    a cached prefix and the freshly written suffix become one valid run."""
+    pos = caches["pos"]
+    idx = torch.arange(pos.shape[1], device=pos.device, dtype=pos.dtype)
+    total = device_ints(total_lens, pos.device)
+    row = torch.where(idx[None, :] < total[:, None], idx[None, :], -1)
+    m = _rows(mask, pos.device)
+    pos[m] = row[m]
+
+
+class BlockAllocator:
+    """Hands out, refcounts and frees KV blocks; tracks reusable prefixes.
+
+    Prefix reuse is vLLM-style hash chaining: full block ``i`` of a prompt
+    is keyed by ``h_i = hash((h_{i-1}, tokens[i*bs:(i+1)*bs]))``, so a hit
+    means the whole chain matches, and every hit is checked against the
+    block's stored tokens.  Registered blocks are full and never written
+    again (decode writes only a request's private tail block), so sharing
+    needs no copy.  An entry lives as long as its block has a reference.
+    """
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError("need >= 2 blocks (one is the null block)")
+        self.block_size = block_size
+        self.n_blocks = n_blocks
+        self._free = deque(range(1, n_blocks))
+        self._ref: Dict[int, int] = {}
+        # chain hash -> (block id, the block's exact tokens); block -> hash
+        self._prefix: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        self._prefix_of: Dict[int, int] = {}
+
+    # -- accounting -------------------------------------------------------
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def used_count(self) -> int:
+        return len(self._ref)
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def audit(self) -> None:
+        """Raise ``AssertionError`` naming the first broken invariant:
+        free and referenced blocks are exactly 1..n_blocks-1 with no
+        duplicates and the null block in neither; every refcount >= 1;
+        every prefix entry points at a live block, and the two prefix maps
+        agree."""
+        free = list(self._free)
+        fset, refd = set(free), set(self._ref)
+        assert len(free) == len(fset), "duplicate blocks on the free list"
+        assert not fset & refd, f"blocks both free and referenced: {fset & refd}"
+        assert 0 not in fset and 0 not in refd, "null block entered circulation"
+        full = set(range(1, self.n_blocks))
+        assert fset | refd == full, (f"conservation broken: leaked {full - fset - refd}, "
+                                     f"foreign {(fset | refd) - full}")
+        for b, c in self._ref.items():
+            assert c >= 1, f"block {b} refcount {c} < 1"
+        for h, (b, _) in self._prefix.items():
+            assert self._prefix_of.get(b) == h, f"prefix maps disagree for block {b}"
+            assert b in self._ref, f"prefix cache points at dead block {b}"
+        for b, h in self._prefix_of.items():
+            assert self._prefix.get(h, (None,))[0] == b, f"prefix entry of block {b} orphaned"
+
+    # -- alloc / free -----------------------------------------------------
+    def alloc(self, n: int):
+        """n fresh blocks (refcount 1), or None -- never a partial grant."""
+        if n > len(self._free):
+            return None
+        out = [self._free.popleft() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        return out
+
+    def incref(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            self._ref[b] += 1
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Drop one reference per block; at refcount 0 the block returns to
+        the free list and its prefix entry is evicted."""
+        for b in blocks:
+            c = self._ref[b] - 1
+            if c:
+                self._ref[b] = c
+                continue
+            del self._ref[b]
+            h = self._prefix_of.pop(b, None)
+            if h is not None:
+                self._prefix.pop(h, None)
+            self._free.append(b)
+
+    # -- prefix cache -----------------------------------------------------
+    @staticmethod
+    def _chain(tokens, block_size: int):
+        """-> (chain hash, this block's exact tokens) per full block."""
+        h = 0
+        for i in range(len(tokens) // block_size):
+            blk = tuple(int(t) for t in tokens[i * block_size:(i + 1) * block_size])
+            h = hash((h, blk))
+            yield h, blk
+
+    def match_prefix(self, tokens) -> Tuple[List[int], int]:
+        """Longest chain of resident full blocks covering a prefix of
+        ``tokens`` -> (block ids, tokens covered).  Does not incref."""
+        blocks: List[int] = []
+        for h, blk in self._chain(tokens, self.block_size):
+            hit = self._prefix.get(h)
+            if hit is None or hit[1] != blk:
+                break
+            blocks.append(hit[0])
+        return blocks, len(blocks) * self.block_size
+
+    def register_prefix(self, tokens, blocks: Sequence[int]) -> None:
+        """Publish ``blocks`` (the prompt's full blocks) under the token
+        chain; existing entries win (they hold the same K/V)."""
+        for (h, blk), b in zip(self._chain(tokens, self.block_size), blocks):
+            if h in self._prefix:
+                continue
+            self._prefix[h] = (b, blk)
+            self._prefix_of[b] = h

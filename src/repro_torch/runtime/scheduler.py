@@ -1,20 +1,33 @@
-"""Request scheduling over the engine: ``Request`` and the drain-and-restart
-``WaveScheduler`` of ``repro.runtime.scheduler``.
+"""Request scheduling over the engine (``repro.runtime.scheduler``):
+``Request``, the drain-and-restart ``WaveScheduler``, and continuous
+batching over slots with a dense (``ContinuousScheduler``) or a paged
+(``PagedContinuousScheduler``) KV cache.
 
 A wave takes up to ``batch_size`` queued requests, right-pads their prompts
 to the longest one, runs one prefill and decodes every row to the wave's
 largest ``max_new``; each request then keeps its own ``max_new`` tokens, cut
 after its EOS.
+
+The continuous schedulers run the JAX package's blocking loop: retire
+finished slots, admit arrived requests into free slots with one bucketed
+whole-prompt prefill, then decode a fused block of masked steps.  Not
+ported yet: the overlapped loop, fault plans, priority classes and
+reserves, speculative decoding and chunked admission (the JAX package's
+``prefill_chunk=0`` path is the one ported here).
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.runtime import kvcache
 from repro_torch.runtime.engine import Engine
+
+MIN_BUCKET = 8      # smallest admission width: prompts pad to a power of two >= this
 
 
 @dataclass
@@ -23,6 +36,7 @@ class Request:
     prompt: np.ndarray            # (prompt_len,)
     max_new: int
     eos_id: Optional[int] = None
+    arrival_step: int = 0         # virtual-clock arrival (decode steps)
     submitted_at: float = field(default_factory=time.monotonic)
     output: Optional[np.ndarray] = None
     stats: Dict = field(default_factory=dict)
@@ -38,10 +52,13 @@ class WaveScheduler:
         self.done: List[Request] = []
         self._next_id = 0
 
-    def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None) -> int:
+    def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
+               arrival_step: int = 0) -> int:
+        """Queue a request; waves ignore ``arrival_step`` (they drain the
+        queue in order), which the continuous schedulers read."""
         rid = self._next_id
         self._next_id += 1
-        self.queue.append(Request(rid, np.asarray(prompt), max_new, eos_id))
+        self.queue.append(Request(rid, np.asarray(prompt), max_new, eos_id, arrival_step))
         return rid
 
     def run(self) -> List[Request]:
@@ -84,3 +101,496 @@ class WaveScheduler:
                 "tok_per_s": emitted / dt if dt > 0 else float("inf"),
             }
             self.done.append(r)
+
+
+def percentile_summary(vals) -> Optional[Dict[str, float]]:
+    """mean / p50 / p95 / max of a sample (interpolated percentiles), or
+    None for an empty one."""
+    v = np.asarray(list(vals), np.float64)
+    if v.size == 0:
+        return None
+    return {"mean": float(v.mean()), "p50": float(np.percentile(v, 50)),
+            "p95": float(np.percentile(v, 95)), "max": float(v.max())}
+
+
+@dataclass
+class _Slot:
+    req: Optional[Request] = None
+    toks: List = field(default_factory=list)
+    admitted_step: int = 0
+
+
+class ContinuousScheduler:
+    """Slot-based continuous batching over ``Engine``'s slot engine.
+
+    The loop per round: retire finished slots, admit arrived requests into
+    free slots (one bucketed in-flight prefill), then run a block of up to
+    ``block_steps`` masked decode steps.
+    """
+
+    def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8):
+        self.engine = engine
+        self.B = n_slots
+        self.pad_id = pad_id
+        self.block_steps = block_steps
+        self.prompt_limit = engine.max_len
+        self.vocab = engine.cfg.vocab_size
+        self.queue: List[Request] = []
+        self.done: List[Request] = []
+        self._next_id = 0
+        self.caches = None
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self.step_count = 0               # virtual clock: decode steps so far
+        self.tok = np.zeros((n_slots,), np.int32)
+        self.pos = np.zeros((n_slots,), np.int32)
+        self.dones = np.ones((n_slots,), bool)
+        self.remaining = np.zeros((n_slots,), np.int32)
+        self.eos = np.full((n_slots,), -1, np.int32)
+        self.stats = {
+            "decode_steps": 0, "slot_steps": 0, "active_slot_steps": 0,
+            "emitted": 0, "admission_rounds": 0, "in_flight_admissions": 0,
+            "prefill_calls": 0, "prefill_tokens": 0, "quarantined": 0,
+        }
+        # decode inter-token latency samples (seconds/step, during
+        # admission), the most recent window
+        self._itl: "deque" = deque(maxlen=65536)
+        self._last_step_t: Optional[float] = None
+        self._admission_mark = False
+
+    # -- submission -------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
+               arrival_step: int = 0) -> int:
+        prompt = np.asarray(prompt)
+        if len(prompt) + max_new > self.engine.max_len:
+            raise ValueError(f"request needs {len(prompt)}+{max_new} positions > max_len "
+                             f"{self.engine.max_len}")
+        if len(prompt) < 2:
+            raise ValueError("prompts must have >= 2 tokens")
+        rid = self._next_id
+        self._next_id += 1
+        self.queue.append(Request(rid, prompt, max_new, eos_id, arrival_step))
+        return rid
+
+    # -- internals --------------------------------------------------------
+    def _finish(self, r: Request) -> None:
+        """Every retirement ends here; ``finished_step`` stamps it on the
+        virtual decode-step clock."""
+        r.stats["finished_step"] = self.step_count
+        self.done.append(r)
+
+    def _retire(self) -> None:
+        now = time.monotonic()
+        for i, s in enumerate(self.slots):
+            if s.req is not None and self.dones[i]:
+                r = s.req
+                r.output = np.asarray(s.toks, dtype=np.int32)
+                if r.finish_reason is None:
+                    r.finish_reason = ("stop" if (r.eos_id is not None and s.toks
+                                                  and s.toks[-1] == r.eos_id) else "length")
+                r.stats.update({"emitted": len(s.toks), "finished_at": now,
+                                "decode_steps_held": self.step_count - s.admitted_step})
+                self.slots[i] = _Slot()
+                self._finish(r)
+
+    def _bucket(self, plen: int) -> int:
+        """Pow-2 prompt bucket (at least ``MIN_BUCKET``, at most the cache)."""
+        b = MIN_BUCKET
+        while b < plen:
+            b *= 2
+        return min(b, self.prompt_limit)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s.req is None]
+
+    def _admissible(self) -> List[Request]:
+        """Arrived queue entries, first come first served."""
+        return [r for r in self.queue if r.arrival_step <= self.step_count]
+
+    def _in_flight(self) -> bool:
+        return any(s.req is not None and not self.dones[i] for i, s in enumerate(self.slots))
+
+    def _assign(self, pairs) -> None:
+        """Dequeue the chosen requests and seat them in their slots."""
+        now = time.monotonic()
+        for slot, r in pairs:
+            self.queue.remove(r)
+            self.slots[slot] = _Slot(req=r, admitted_step=self.step_count)
+            r.stats["queue_s"] = now - r.submitted_at
+            r.stats["admitted_step"] = self.step_count
+
+    def _admit(self) -> int:
+        free = self._free_slots()
+        arrived = self._admissible()
+        if not free or not arrived:
+            return 0
+        pairs = list(zip(free, arrived))
+        in_flight = self._in_flight()
+        self._assign(pairs)
+        self.stats["admission_rounds"] += 1
+        if in_flight:
+            self.stats["in_flight_admissions"] += len(pairs)
+        self._prefill_short(pairs)
+        return len(pairs)
+
+    def _prefill_short(self, pairs) -> None:
+        """Whole-prompt admission: one bucketed prefill of every admitted
+        prompt, right-padded."""
+        Lp = self._bucket(max(len(r.prompt) for _, r in pairs))
+        tokens = np.full((self.B, Lp), self.pad_id, np.int32)
+        admit = np.zeros((self.B,), bool)
+        plens = np.ones((self.B,), np.int32)
+        for slot, r in pairs:
+            tokens[slot, :len(r.prompt)] = r.prompt
+            admit[slot] = True
+            plens[slot] = len(r.prompt)
+        new_tok = self.engine.prefill_into_slots(self.caches, tokens, admit, plens)
+        self.stats["prefill_tokens"] += int(plens[admit].sum())
+        self.stats["prefill_calls"] += 1
+        self._admission_mark = True
+        self._finish_admission(pairs, admit, new_tok)
+
+    def _finish_admission(self, pairs, admit, new_tok) -> None:
+        """Record each admitted request's first token and arm its decode
+        state."""
+        self.tok = np.where(admit, new_tok, self.tok)
+        for slot, r in pairs:
+            t = int(new_tok[slot])
+            self.slots[slot].toks.append(t)
+            self.pos[slot] = len(r.prompt)
+            self.remaining[slot] = r.max_new - 1
+            self.eos[slot] = -1 if r.eos_id is None else r.eos_id
+            self.dones[slot] = r.max_new <= 1 or (r.eos_id is not None and t == r.eos_id)
+            r.stats["ttft_s"] = time.monotonic() - r.submitted_at
+            self.stats["emitted"] += 1
+
+    def _run_decode(self, n: int):
+        """Engine call for one block (the paged backend adds its tables)."""
+        return self.engine.decode_slots(self.caches, self.tok, self.pos, self.dones,
+                                        self.remaining, self.eos, n=n)
+
+    def _ensure_capacity(self, n: int) -> None:
+        """Pre-decode capacity hook (paged backend: block allocation)."""
+
+    def _decode_block(self, n: int) -> None:
+        self._ensure_capacity(n)
+        self._apply_decode(*self._run_decode(n), n)
+
+    def _apply_decode(self, toks, pos, done, remaining, n: int) -> None:
+        """Host bookkeeping for ``n`` decode steps (toks (n, B)): replay the
+        device's masking rule to tell real emissions from frozen-slot
+        repeats; the final state is the device's."""
+        cur_done = self.dones.copy()
+        cur_rem = self.remaining.copy()
+        emitted = 0
+        for s in range(n):
+            for i, slot in enumerate(self.slots):
+                if slot.req is None or cur_done[i] or cur_rem[i] <= 0:
+                    continue
+                t = int(toks[s, i])
+                slot.toks.append(t)
+                cur_rem[i] -= 1
+                if cur_rem[i] == 0 or (self.eos[i] >= 0 and t == self.eos[i]):
+                    cur_done[i] = True
+                self.stats["emitted"] += 1
+                self.stats["active_slot_steps"] += 1
+                emitted += 1
+        self.tok = toks[-1].copy()
+        self.pos = np.array(pos)
+        self.dones = np.array(done)
+        self.remaining = np.array(remaining)
+        self.step_count += n
+        self.stats["decode_steps"] += n
+        self.stats["slot_steps"] += n * self.B
+        self._note_itl(n, emitted)
+
+    def _note_itl(self, n: int, emissions: int) -> None:
+        """One inter-token latency sample per emitted token: the block's
+        per-step share of the time since the last stamp, tagged when the
+        interval absorbed an admission prefill."""
+        now = time.monotonic()
+        if self._last_step_t is not None:
+            dt = (now - self._last_step_t) / n
+            self._itl.extend([(dt, self._admission_mark)] * emissions)
+        self._last_step_t = now
+        self._admission_mark = False
+
+    def _abort_slot(self, i: int, error: str) -> None:
+        """Retire slot ``i``'s request now with finish_reason "error",
+        releasing what it holds; no other slot's stream is touched."""
+        s = self.slots[i]
+        r = s.req
+        self._release_slot(i)
+        r.output = np.asarray(s.toks, dtype=np.int32)
+        r.finish_reason = "error"
+        r.stats.update({"error": error, "emitted": len(s.toks), "finished_at": time.monotonic(),
+                        "decode_steps_held": self.step_count - s.admitted_step})
+        self.slots[i] = _Slot()
+        self.tok[i] = 0
+        self.dones[i] = True
+        self.remaining[i] = 0
+        self.stats["quarantined"] += 1
+        self._finish(r)
+
+    def _release_slot(self, i: int) -> None:
+        """Storage release for slot ``i`` (paged: blocks and refcounts); the
+        dense cache owns nothing per slot."""
+
+    def _block_size(self) -> int:
+        """Fused block size in {1, 2, 4, ..., block_steps}, stretched to the
+        longest active budget: the fewest host round trips; admission waits
+        at most one block."""
+        active = self.remaining[(~self.dones) & (self.remaining > 0)]
+        if active.size == 0:
+            return 0
+        n = 1
+        while n * 2 <= min(self.block_steps, int(active.max())):
+            n *= 2
+        return n
+
+    def request_summary(self) -> Dict:
+        """Latency over the completed requests (TTFT, queue wait), the
+        decode inter-token latency overall and in admission windows, and
+        the finish reasons."""
+        out: Dict = {"requests": len(self.done)}
+        for key in ("ttft_s", "queue_s"):
+            s = percentile_summary(r.stats[key] for r in self.done if key in r.stats)
+            if s is not None:
+                out[key] = s
+        if self._itl:
+            out["decode_itl_s"] = percentile_summary(d for d, _ in self._itl)
+            adm = percentile_summary(d for d, a in self._itl if a)
+            if adm is not None:
+                out["decode_itl_admission_s"] = adm
+        reasons: Dict[str, int] = {}
+        for r in self.done:
+            reasons[r.finish_reason or "length"] = reasons.get(r.finish_reason or "length", 0) + 1
+        out["finish_reasons"] = reasons
+        return out
+
+    # -- main loop --------------------------------------------------------
+    def _init_caches(self) -> None:
+        self.caches = self.engine.init_slot_caches(self.B)
+
+    def _serve_round(self) -> bool:
+        """One round (retire -> admit -> decode block); False when idle with
+        nothing queued."""
+        self._retire()
+        self._admit()
+        n = self._block_size()
+        if n == 0:
+            pending = [r.arrival_step for r in self.queue]
+            if not pending:
+                return False
+            # idle: jump the virtual clock to the next arrival
+            self.step_count = max(self.step_count, min(pending))
+            return True
+        self._decode_block(n)
+        return True
+
+    def run(self) -> List[Request]:
+        """Serve until queue and slots drain; requests in completion order."""
+        if self.caches is None:
+            self._init_caches()
+        while self._serve_round():
+            pass
+        self._retire()
+        return self.done
+
+
+class PagedContinuousScheduler(ContinuousScheduler):
+    """Continuous batching over the paged KV backend: the dense loop plus
+    host-side block management (``kvcache.BlockAllocator``).
+
+    * block-aware admission: a request is admitted only when free blocks
+      cover its whole prompt; full blocks of a prefix already resident are
+      referenced instead of recomputed, and only the suffix is prefilled;
+    * incremental allocation: decode claims a slot's next block only when
+      its position crosses a block boundary;
+    * preempt-to-requeue: when the pool runs out mid-decode, the most
+      recently admitted request is evicted (blocks freed, requeued at the
+      head, recomputed on readmission);
+    * prefix reuse: a prompt's full blocks are published after its prefill
+      and evicted with their last reference.
+
+    ``n_blocks`` defaults to the dense footprint (n_slots x blocks per slot
+    + the null block); smaller overcommits the pool against short requests.
+    """
+
+    def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
+                 *, block_size: Optional[int] = None, n_blocks: Optional[int] = None,
+                 prefix_cache: bool = True):
+        super().__init__(engine, n_slots, pad_id, block_steps)
+        self.bs = block_size or engine.parallel.kv_block_size
+        self.view_blocks = -(-engine.max_len // self.bs)
+        self.n_blocks = (n_blocks or engine.parallel.kv_pool_blocks
+                         or n_slots * self.view_blocks + 1)
+        self.alloc = kvcache.BlockAllocator(self.n_blocks, self.bs)
+        self.prefix_cache = prefix_cache
+        # per-slot block table; unallocated entries point at the null block
+        self.bt = np.zeros((n_slots, self.view_blocks), np.int32)
+        self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
+        self.stats.update({"prefill_tokens_saved": 0, "preemptions": 0,
+                           "shared_block_hits": 0, "blocks_hwm": 0, "blocks_in_use": 0,
+                           "deferred_admissions": 0, "prefix_prefill_calls": 0})
+
+    def _note_usage(self) -> None:
+        used = self.alloc.used_count()
+        self.stats["blocks_in_use"] = used
+        self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"], used)
+
+    def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
+               arrival_step: int = 0) -> int:
+        need = -(-(len(prompt) + max_new) // self.bs)
+        if need > self.n_blocks - 1:
+            raise ValueError(f"request needs {need} blocks > pool {self.n_blocks - 1}")
+        return super().submit(prompt, max_new, eos_id, arrival_step)
+
+    def _init_caches(self) -> None:
+        self.caches = self.engine.init_paged_caches(self.B, self.n_blocks, self.bs)
+
+    # -- block management -------------------------------------------------
+    def _release_slot(self, i: int) -> None:
+        if self.slot_blocks[i]:
+            self.alloc.free(self.slot_blocks[i])
+            self.slot_blocks[i] = []
+        self.bt[i, :] = kvcache.NULL_BLOCK
+        self._note_usage()
+
+    def _retire(self) -> None:
+        for i, s in enumerate(self.slots):
+            if s.req is not None and self.dones[i]:
+                self._release_slot(i)
+        super()._retire()
+
+    def _preempt_youngest(self) -> bool:
+        """Evict the most recently admitted running request: free its
+        blocks and requeue it at the head (recomputed on readmission).  Its
+        tokens so far are discarded and the emitted counter rolls back."""
+        cand = [i for i, s in enumerate(self.slots)
+                if s.req is not None and not self.dones[i] and self.remaining[i] > 0]
+        if not cand:
+            return False
+        i = max(cand, key=lambda j: (self.slots[j].admitted_step, self.slots[j].req.rid))
+        req = self.slots[i].req
+        self.stats["emitted"] -= len(self.slots[i].toks)
+        self._release_slot(i)
+        self.slots[i] = _Slot()
+        self.dones[i] = True
+        self.remaining[i] = 0
+        req.stats["preempted"] = req.stats.get("preempted", 0) + 1
+        self.queue.insert(0, req)
+        self.stats["preemptions"] += 1
+        return True
+
+    def _grow_slot(self, i: int, n_needed: int) -> bool:
+        """Extend slot i's table to ``n_needed`` blocks; False if the pool
+        cannot supply them."""
+        have = len(self.slot_blocks[i])
+        if n_needed <= have:
+            return True
+        fresh = self.alloc.alloc(n_needed - have)
+        if fresh is None:
+            return False
+        self.bt[i, have:have + len(fresh)] = fresh
+        self.slot_blocks[i].extend(fresh)
+        self._note_usage()
+        return True
+
+    def _ensure_capacity(self, n: int) -> None:
+        """Before a block of ``n`` decode steps every active slot must own
+        the blocks of its writes at pos .. pos + min(n, remaining) - 1 (a
+        slot that finishes mid-block freezes; its frozen rewrites stay in
+        its blocks or go to the null block).  When the pool is short, the
+        youngest request is preempted and the slot checked again."""
+        i = 0
+        while i < len(self.slots):
+            s = self.slots[i]
+            if s.req is None or self.dones[i] or self.remaining[i] <= 0:
+                i += 1
+                continue
+            steps = min(n, int(self.remaining[i]))
+            if self._grow_slot(i, -(-(int(self.pos[i]) + steps) // self.bs)):
+                i += 1
+                continue
+            if not self._preempt_youngest():
+                # no block and nothing to evict: abort this request only
+                self._abort_slot(i, "paged pool exhausted with nothing to preempt")
+                i += 1
+            # else re-check slot i (it may itself have been evicted)
+
+    def _run_decode(self, n: int):
+        return self.engine.decode_slots(self.caches, self.tok, self.pos, self.dones,
+                                        self.remaining, self.eos, n=n, block_tables=self.bt)
+
+    # -- admission --------------------------------------------------------
+    def _admit(self) -> int:
+        free = self._free_slots()
+        arrived = self._admissible()
+        if not free or not arrived:
+            return 0
+        in_flight = self._in_flight()
+        # FIFO until the first request whose blocks do not fit
+        pairs, starts_of = [], {}
+        for r, slot in zip(arrived, free):
+            plen = len(r.prompt)
+            shared, n_cached = [], 0
+            if self.prefix_cache:
+                shared, n_cached = self.alloc.match_prefix(r.prompt)
+                while n_cached > plen - 1:   # keep >= 1 suffix token to run
+                    shared = shared[:-1]
+                    n_cached -= self.bs
+            fresh = self.alloc.alloc(-(-plen // self.bs) - len(shared))
+            if fresh is None:
+                self.stats["deferred_admissions"] += 1
+                break
+            if shared:
+                self.alloc.incref(shared)
+                self.stats["shared_block_hits"] += len(shared)
+            blocks = shared + fresh
+            self.slot_blocks[slot] = blocks
+            self.bt[slot, :] = kvcache.NULL_BLOCK
+            self.bt[slot, :len(blocks)] = blocks
+            starts_of[r.rid] = n_cached
+            pairs.append((slot, r))
+        if not pairs:
+            return 0
+        self._note_usage()
+        self._assign(pairs)
+        for _, r in pairs:
+            r.stats["prefill_tokens_saved"] = starts_of[r.rid]
+            self.stats["prefill_tokens_saved"] += starts_of[r.rid]
+        self.stats["admission_rounds"] += 1
+        if in_flight:
+            self.stats["in_flight_admissions"] += len(pairs)
+        self._prefill_suffix(pairs, starts_of)
+        return len(pairs)
+
+    def _prefill_suffix(self, pairs, starts_of) -> None:
+        """Whole-suffix paged admission: one bucketed prefill of the
+        admitted slots through their block tables."""
+        Lp = self._bucket(max(len(r.prompt) - starts_of[r.rid] for _, r in pairs))
+        tokens = np.full((self.B, Lp), self.pad_id, np.int32)
+        admit = np.zeros((self.B,), bool)
+        plens = np.ones((self.B,), np.int32)
+        starts = np.zeros((self.B,), np.int32)
+        totals = np.ones((self.B,), np.int32)
+        for slot, r in pairs:
+            suffix = r.prompt[starts_of[r.rid]:]
+            tokens[slot, :len(suffix)] = suffix
+            admit[slot] = True
+            plens[slot] = len(suffix)
+            starts[slot] = starts_of[r.rid]
+            totals[slot] = len(r.prompt)
+            self.stats["prefill_tokens"] += len(suffix)
+        # the engine computes and writes the admitted rows only, through
+        # their own table rows: a live slot's blocks are never written
+        new_tok = self.engine.prefill_into_slots_paged(self.caches, tokens, admit, plens,
+                                                       starts, totals, self.bt)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefix_prefill_calls"] += int(starts.any())
+        self._admission_mark = True
+        if self.prefix_cache:   # publish the fresh full prompt blocks for reuse
+            for slot, r in pairs:
+                self.alloc.register_prefix(r.prompt,
+                                           self.slot_blocks[slot][:len(r.prompt) // self.bs])
+        self._finish_admission(pairs, admit, new_tok)

@@ -7,7 +7,9 @@ conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Shapes cover what the main path does not: head_dim 64, ragged tails, pad
-rows, g from 1 to 16, per-row masks with a fully masked row, tie-heavy
+rows, g from 1 to 16, per-row masks with a fully masked row, paged pools
+read through shuffled block tables with null entries and dead blocks,
+suffixes of 1, 2 and 9 tokens after a cached prefix, tie-heavy
 top-k rows over vocabularies up to qwen's 152064, and dequant matmuls at
 every GEMV width, the GEMM, ragged N and K, both groups and unaligned
 per-layer views.  Tolerances: bf16 3e-2 as in tests/test_kernels.py; fp32
@@ -110,6 +112,80 @@ def test_topk_kernel(dev, rows, n, ties, k, dtype):
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
     if ties:
         assert torch.equal(idx[0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+def _paged(gen, dev, dtype, b, hq, hkv, hd, nb, bs, nbps, sq):
+    """q, pools and block tables: shuffled pool blocks, every third entry
+    of the later slots the null block 0."""
+    q = _randn(gen, (b, hq, sq, hd), dtype, dev)
+    kp, vp = _randn(gen, (nb, hkv, bs, hd), dtype, dev), _randn(gen, (nb, hkv, bs, hd), dtype, dev)
+    bt = torch.stack([torch.randperm(nb - 1, generator=gen, device=dev)[:nbps] + 1
+                      for _ in range(b)]).to(torch.int32)
+    bt[1:, ::3] = 0
+    return q, kp, vp, bt.contiguous()
+
+
+# (b, hq, hkv, hd, nb, bs, nbps): yi-9b's heads at b = 4 over a 256-token
+# view, g = 1 at head_dim 64, and small blocks
+PAGED_CASES = [(4, 32, 4, 128, 80, 16, 16), (3, 4, 4, 64, 40, 8, 9), (2, 16, 2, 128, 64, 4, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,hd,nb,bs,nbps", PAGED_CASES)
+def test_paged_decode_attention_kernel(dev, b, hq, hkv, hd, nb, bs, nbps, dtype):
+    gen = torch.Generator(device=dev).manual_seed(nb + bs)
+    q, kp, vp, bt = _paged(gen, dev, dtype, b, hq, hkv, hd, nb, bs, nbps, 1)
+    S = nbps * bs
+    lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    valid[0, bs:3 * bs] = False                # dead blocks inside the valid run
+    valid[-1] = False                          # a slot with no valid key
+    before = ops.LAUNCHES["paged_decode_attention"]
+    m, l, acc = ops.paged_decode_attention_partial(q, kp, vp, bt, valid, hd ** -0.5)
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
+    m2, l2, acc2 = ref.paged_decode_attention_ref(q, kp, vp, bt, valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    tol = 1e-4
+    torch.testing.assert_close(m, m2, atol=tol, rtol=tol)      # -inf rows included
+    torch.testing.assert_close(l, l2, atol=tol, rtol=tol)
+    torch.testing.assert_close(acc, acc2, atol=1e-3, rtol=tol)
+    assert torch.isneginf(m[-1]).all() and not l[-1].any() and not acc[-1].any()
+
+
+@pytest.mark.parametrize("sq", [1, 2, 9, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,hd,nb,bs,nbps", PAGED_CASES)
+def test_paged_flash_prefill_kernel(dev, b, hq, hkv, hd, nb, bs, nbps, dtype, sq):
+    gen = torch.Generator(device=dev).manual_seed(nb * sq + bs)
+    q, kp, vp, bt = _paged(gen, dev, dtype, b, hq, hkv, hd, nb, bs, nbps, sq)
+    starts = torch.randint(0, nbps * bs - sq + 1, (b,), generator=gen, device=dev)
+    q_pos = (starts[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+    q_pos[-1, -1] = -1                         # a pad row
+    before = ops.LAUNCHES["paged_flash_prefill"]
+    got = ops.paged_flash_prefill(q, kp, vp, bt, q_pos, hd ** -0.5)
+    assert ops.LAUNCHES["paged_flash_prefill"] == before + 1
+    want = ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[-1, :, -1].any()
+
+
+def test_paged_launches_are_checked(dev):
+    """Launches the paged kernels refuse raise: an empty pool, and a grid
+    past the 65535 blocks of its second dimension."""
+    q = torch.zeros(2, 4, 1, 64, device=dev)
+    empty = torch.zeros(0, 4, 8, 64, device=dev)
+    bt = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="paged_decode_attention"):
+        ops.paged_decode_attention_partial(q, empty, empty, bt,
+                                           torch.ones(2, 8, dtype=torch.bool, device=dev), 0.1)
+    b = 65536 // 4 + 1                         # b * hkv > 65535
+    pool = torch.zeros(2, 4, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="paged_flash_prefill"):
+        ops.paged_flash_prefill(torch.zeros(b, 4, 1, 64, device=dev, dtype=torch.bfloat16),
+                                pool, pool, torch.ones(b, 1, dtype=torch.int32, device=dev),
+                                torch.zeros(b, 1, dtype=torch.int32, device=dev), 0.1)
 
 
 def test_kernel_launch_is_checked(dev):

@@ -113,6 +113,79 @@ def test_decode_attention_plain_fully_masked_and_per_row_mask():
     assert np.isneginf(_np(m1)).all() and not _np(l1).any()
 
 
+def _paged_inputs(b, hq, hkv, hd, nb, bs, nbps, sq, seed):
+    """q, pools and a shuffled block table with null entries (0): slot 0's
+    table is a random permutation of pool blocks, the other slots take
+    random blocks, some of them the null block."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, hd))
+    kp, vp = rng.standard_normal((2, nb, hkv, bs, hd))
+    bt = rng.integers(1, nb, (b, nbps)).astype(np.int32)
+    bt[0] = rng.permutation(np.arange(1, nb))[:nbps]
+    bt[1:, ::3] = 0                                   # null entries
+    return rng, q, kp, vp, bt
+
+
+def _jt(a):
+    """The same fp32 values as a jax array and a torch CPU tensor."""
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+# Paged kernels: tolerance 2e-5 on fp32 inputs (both sides sum the same
+# products in fp32, in another order; outputs are O(1)).
+PAGED_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,hq,hkv,hd,nb,bs,nbps", [
+    (3, 4, 4, 64, 20, 8, 6),      # g = 1, hd 64
+    (2, 16, 2, 128, 12, 16, 5),   # g = 8, hd 128
+    (3, 8, 1, 64, 40, 4, 9),      # g = 8, small blocks
+])
+def test_paged_decode_attention_plain_matches_jax(b, hq, hkv, hd, nb, bs, nbps):
+    """Per-slot masks over shuffled tables: a ragged valid prefix, a fully
+    dead block in the middle of slot 0, and a slot with no valid key."""
+    rng, q, kp, vp, bt = _paged_inputs(b, hq, hkv, hd, nb, bs, nbps, 1, nb + bs)
+    S = nbps * bs
+    lens = rng.integers(1, S + 1, b)
+    valid = np.arange(S)[None, :] < lens[:, None]
+    valid[0] = np.arange(S) < S - 1
+    valid[0, bs:2 * bs] = False                       # a dead block
+    valid[-1] = False                                 # no valid key at all
+    scale = 1.0 / np.sqrt(hd)
+    (jq, tq), (jk, tk), (jv, tv) = _jt(q), _jt(kp), _jt(vp)
+    m, l, acc = ops.paged_decode_attention_partial(tq, tk, tv, torch.from_numpy(bt),
+                                                   torch.from_numpy(valid), scale)
+    assert m.dtype == l.dtype == acc.dtype == torch.float32 and acc.shape == (b, hq, 1, hd)
+    jm, jl, jacc = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(bt), jnp.asarray(valid),
+                                               scale)
+    for got, want in ((m, jm), (l, jl), (acc, jacc)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=PAGED_TOL, rtol=PAGED_TOL)
+    assert np.isneginf(_np(m)[-1]).all() and not _np(l)[-1].any() and not _np(acc)[-1].any()
+
+
+@pytest.mark.parametrize("sq", [1, 2, 9])
+@pytest.mark.parametrize("b,hq,hkv,hd,nb,bs,nbps", [
+    (2, 4, 4, 64, 16, 8, 5),      # g = 1, hd 64
+    (3, 16, 2, 128, 24, 16, 4),   # g = 8, hd 128
+])
+def test_paged_flash_prefill_plain_matches_jax(b, hq, hkv, hd, nb, bs, nbps, sq):
+    """A suffix of sq tokens after a per-slot cached prefix (view index ==
+    position), through shuffled tables with null entries past the prefix;
+    one pad row (q_pos -1) comes out as exact zeros."""
+    rng, q, kp, vp, bt = _paged_inputs(b, hq, hkv, hd, nb, bs, nbps, sq, nb * sq + hd)
+    starts = rng.integers(0, nbps * bs - sq + 1, b)
+    q_pos = (starts[:, None] + np.arange(sq)[None, :]).astype(np.int32)
+    q_pos[-1, -1] = -1
+    scale = 1.0 / np.sqrt(hd)
+    (jq, tq), (jk, tk), (jv, tv) = _jt(q), _jt(kp), _jt(vp)
+    out = ops.paged_flash_prefill(tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(q_pos), scale)
+    assert out.dtype == torch.float32 and out.shape == (b, hq, sq, hd)
+    want = jops.paged_flash_prefill(jq, jk, jv, jnp.asarray(bt), jnp.asarray(q_pos), scale)
+    np.testing.assert_allclose(_np(out), _np(want), atol=PAGED_TOL, rtol=PAGED_TOL)
+    assert not _np(out)[-1, :, -1].any()
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("k", [1, 8, 40])
 @pytest.mark.parametrize("b,v", [(3, 500), (2, 9504)])
@@ -148,6 +221,16 @@ def test_wrappers_check_their_arguments():
                                      torch.zeros(1, 2, 7, 64), torch.ones(8, dtype=torch.bool), 0.1)
     with pytest.raises(ValueError):
         ops.topk(torch.zeros(2, 5), 6)
+    pool = torch.zeros(6, 2, 8, 64)
+    with pytest.raises(ValueError):                   # table rows != batch
+        ops.paged_decode_attention_partial(q[:, :, :1], pool, pool, torch.zeros(2, 3, dtype=torch.int32),
+                                           torch.ones(1, 24, dtype=torch.bool), 0.1)
+    with pytest.raises(ValueError):                   # mask longer than the view
+        ops.paged_decode_attention_partial(q[:, :, :1], pool, pool, torch.zeros(1, 3, dtype=torch.int32),
+                                           torch.ones(1, 25, dtype=torch.bool), 0.1)
+    with pytest.raises(ValueError):                   # q heads not a multiple of kv heads
+        ops.paged_flash_prefill(torch.zeros(1, 3, 5, 64), pool, pool,
+                                torch.zeros(1, 3, dtype=torch.int32), torch.zeros(1, 5, dtype=torch.int32), 0.1)
 
 
 def test_build_signatures_match_the_c_sources():

@@ -53,12 +53,12 @@ def make_configs(name):
             dataclasses.replace(get_config(arch).reduced(), **over))
 
 
-def jax_engine(cfg, max_len, use_pallas=False, weight_quant="none"):
+def jax_engine(cfg, max_len, use_pallas=False, weight_quant="none", **parallel_kw):
     """A JAX engine whose zero-initialised gammas and biases are replaced by
     seeded nonzero values.  Returns (engine, numpy param tree)."""
     eng = JEngine(cfg=cfg, parallel=JParallelConfig(tp=1, dp=1, remat=False,
                                                    use_pallas=use_pallas,
-                                                   weight_quant=weight_quant),
+                                                   weight_quant=weight_quant, **parallel_kw),
                   sampling=JSamplingConfig(greedy=True, top_k=1),
                   mesh=make_local_mesh(1, 1), max_len=max_len)
     tree = jax.tree.map(np.asarray, eng.params)

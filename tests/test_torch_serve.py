@@ -115,6 +115,21 @@ def test_serve_main_on_cpu(capsys):
         np.testing.assert_array_equal(r1.output, r2.output)     # greedy repeats
 
 
+def test_serve_main_paged_on_cpu(capsys):
+    done = serve.main(["--device", "cpu", "--scheduler", "paged", "--shared-prefix", "16",
+                        "--top-k", "1", "--requests", "6", "--arrival-every", "2",
+                        "--max-new-spread", "4", "--max-len", "64"])
+    out = capsys.readouterr().out
+    assert "ms/token (paged; arch=yi-9b-smoke" in out and "reused" in out
+    assert len(done) == 6 and all(len(r.output) > 0 for r in done)
+    dense = serve.main(["--device", "cpu", "--scheduler", "continuous", "--shared-prefix", "16",
+                         "--top-k", "1", "--requests", "6", "--arrival-every", "2",
+                         "--max-new-spread", "4", "--max-len", "64"])
+    by_rid = {r.rid: r.output for r in dense}
+    for r in done:       # random weights: greedy streams of both backends agree
+        np.testing.assert_array_equal(r.output, by_rid[r.rid])
+
+
 def test_sampling_is_seeded():
     cfg = get_config("yi-9b").reduced()
     prompts = np.arange(12, dtype=np.int32).reshape(2, 6)
