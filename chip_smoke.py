@@ -9,36 +9,52 @@ Phases, each fatal on failure:
 2. build: compiles every CUDA kernel of ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, all at once);
 3. kernels: each kernel at the full-width shapes of the serving paths
-   (attention, paged attention and top-k at yi-9b; dequant_matmul at yi-9b
-   int8 and qwen-72b int4, decode and prefill widths), against its plain PyTorch
-   version on the same inputs (stated tolerance), with its time, the plain
-   version's, one PyTorch library call's for the same function (a yardstick
-   the port never calls) and the least time the card could take (bytes at
-   3.35 TB/s or operations at the peak of their type, whichever is larger);
+   (attention, paged attention, the verify chunk's flash_verify and top-k
+   at yi-9b; dequant_matmul at yi-9b int8 and qwen-72b int4, decode and
+   prefill widths; flash_prefill and flash_verify also over slot stripes
+   read through the row index), against its plain PyTorch version on the
+   same inputs (stated tolerance), with its time, the plain version's, one
+   PyTorch library call's for the same function (a yardstick the port
+   never calls) and the least time the card could take (bytes at 3.35 TB/s
+   or operations at the peak of their type, whichever is larger);
 4. reference: a small GQA model on the card (kernels) against the same
    model on the CPU (plain versions), in bf16, int8 and int4 weights:
-   prefill and 8 decode-step logits;
+   prefill and 8 decode-step logits; and in bf16 the slot engine's
+   chunked-admission steps (Engine.mixed_step, a chunk beside a decode
+   half) and verify steps (Engine.verify_slots, with drafts partly wrong so
+   that some are rejected and the slots rewound): every sampled logits row
+   and the position rows;
 5. serve: three full-width models with random weights from a seed, each
    through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
    layers), qwen-72b in int4 (80 layers).  Each serves 8 requests in waves
    of 4, greedy, 32 new tokens each; tokens in range, a second run
    identical, and every kernel's launch count as the path predicts it;
 6. slots: full-width yi-9b bf16 (48 layers) through continuous batching,
-   once over the dense slot cache (ContinuousScheduler) and once over the
-   paged one (PagedContinuousScheduler): 12 requests behind a shared
+   over the dense slot cache (ContinuousScheduler) and the paged one
+   (PagedContinuousScheduler), each once admitting whole prompts
+   (``prefill_chunk=0``) and once admitting in chunks of 64 tokens with
+   speculative decoding (``spec_k=4``): 12 requests behind a shared
    64-token system prompt, 4 slots, arrivals every 4 decode steps, budgets
    of 8..32 tokens, greedy.  Tokens in range and a second run identical;
-   every kernel's launch count as the schedulers' own counts predict it
-   (the paged phase runs both paged kernels and never the dense decode
-   kernel); prefix reuse really happened and the block allocator's audit
-   passes; and per request the paged tokens equal the dense ones, or part
-   first where the top-2 logits lie within 1e-2.
+   every kernel's launch count as the schedulers' own counts predict it;
+   chunked admission, decode during admission and verify steps really
+   happened; prefix reuse really happened and the block allocator's audit
+   passes (paged); and per request the tokens equal the whole-prompt dense
+   phase's, or part first where the top-2 logits lie within 1e-2.  The
+   dense spec phase runs once more with a drafter that proposes the
+   whole-prompt phase's own next tokens, every other time with a wrong
+   last draft: it must accept drafts and reject some, emit more than one
+   token per verify step and give the same tokens.  Random full-width
+   weights make greedy streams that repeat one token whatever their
+   context, so these token checks show that the path runs and rewinds,
+   not that its attention reads the right rows: phase 4 shows that.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the kernels' JSON and one serve JSON line per phase.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -67,6 +83,10 @@ SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"))
 # (512-token view, 300 valid rows); prefill of a 64-token suffix after a
 # 64..128-token prefix in a 256-token view
 BLOCK, DECODE_NBPS, PREFILL_SQ, PREFILL_VIEW = 16, 32, 64, 256
+# slot stripes of a (4, 4, 256, 128) slot cache read through the row index:
+# a verify chunk of SPEC_K + 1 queries at frontiers 93..246, and a 64-token
+# chunk at offsets 64..128
+SPEC_K, STRIPE = 4, 256
 # the continuous-batching phases: serve.py --requests 12 --slots 4
 # --shared-prefix 64 --prompt-len 64 --max-new 32 --max-new-spread 4
 # --arrival-every 4 --kv-block-size 16, max_len 256
@@ -210,7 +230,96 @@ def check_kernels(dev, flush) -> list:
     out.append(entry)
     out.append(check_dequant(dev, flush))
     out.extend(check_paged(dev, flush))
+    out[0]["stripe"] = check_stripe_prefill(dev, flush)
+    out.append(check_verify(dev, flush))
     return out
+
+
+def stripe_inputs(dev, gen, sq: int, lo: int, hi: int):
+    """q (B, HQ, sq, HD) bf16, a (B, HKV, STRIPE, HD) slot cache, a shuffled
+    row index and q_pos: row b's chunk starts at a draw from [lo, hi]."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).bfloat16()
+    q, k, v = rnd(B, HQ, sq, HD), rnd(B, HKV, STRIPE, HD), rnd(B, HKV, STRIPE, HD)
+    rows = torch.randperm(B, generator=gen, device=dev).to(torch.int32)
+    starts = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
+    q_pos = (starts[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+    return q, k, v, rows, q_pos.contiguous()
+
+
+def stripe_stats(q, k, v, rows, q_pos, fn, plain, flush) -> dict:
+    """Hold ``fn`` (a kernel wrapper taking rows=) against ``plain`` on the
+    gathered stripes: bf16 per element to 2e-3 + 1e-2 |want| (one bf16 ulp
+    is at most 7.8e-3 of a value), fp32 inputs to 1e-3; time both, SDPA
+    with a bool causal mask over the stripes gathered beforehand (gather
+    untimed), and bound the work (bytes: q, the output and the K/V rows the
+    queries reach, each once; operations: ~4 hd per (query, head, key)
+    pair at the bf16 peak)."""
+    import torch.nn.functional as F
+
+    scale = HD ** -0.5
+    kg, vg = k[rows.long()], v[rows.long()]
+    got = fn(q, k, v, q_pos, scale, rows=rows).float()
+    want = plain(q, kg, vg, q_pos, scale).float()
+    err = (got - want).abs().max().item()
+    tol = "2e-3 + 1e-2 |want| (bf16); 1e-3 (fp32 inputs)"
+    if not ((got - want).abs() <= 2e-3 + 1e-2 * want.abs()).all():
+        fail(f"{fn.__name__} over stripes differs from its plain version by {err} ({tol})")
+    f32 = (q.float(), k.float(), v.float(), q_pos, scale)
+    err32 = (fn(*f32, rows=rows) - plain(q.float(), kg.float(), vg.float(), q_pos, scale)
+             ).abs().max().item()
+    if not err32 <= 1e-3:
+        fail(f"{fn.__name__} over stripes differs from its plain version in fp32 by {err32}")
+    causal = torch.arange(STRIPE, device=q.device)[None, None, None, :] <= q_pos[:, None, :, None]
+    used = int((q_pos.max(dim=1).values.long() + 1).sum())
+    pairs = int((q_pos.long() + 1).sum()) * HQ
+    return {
+        "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
+        "ms": cold_ms(lambda: fn(q, k, v, q_pos, scale, rows=rows), flush),
+        "plain_ms": cold_ms(lambda: plain(q, k[rows.long()], v[rows.long()], q_pos, scale),
+                            flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=causal, scale=scale, enable_gqa=True), flush),
+        **bound(2 * (2 * q.numel() + 2 * used * HKV * HD) + 4 * (rows.numel() + q_pos.numel()),
+                4 * HD * pairs, BF16_FLOPS),
+    }
+
+
+def check_stripe_prefill(dev, flush) -> dict:
+    """flash_prefill reading a 64-token chunk's slot stripes through the row
+    index, as a chunk of chunked admission does."""
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, rows, q_pos = stripe_inputs(dev, torch.Generator(device=dev).manual_seed(5),
+                                         PREFILL_SQ, 64, 128)
+    return {"shape": f"q ({B},{HQ},{PREFILL_SQ},{HD}) bf16 at offsets "
+                     f"{q_pos[:, 0].tolist()}, slot cache ({B},{HKV},{STRIPE},{HD}) through "
+                     f"rows {rows.tolist()}",
+            "library": "SDPA with a bool causal mask over the stripes gathered beforehand "
+                       "(gather untimed)",
+            **stripe_stats(q, k, v, rows, q_pos, ops.flash_prefill, ref.flash_prefill_ref,
+                           flush)}
+
+
+def check_verify(dev, flush) -> dict:
+    """flash_verify at the dense verify chunk of the spec phase, beside
+    flash_prefill on the same inputs (the kernel it takes over from)."""
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, rows, q_pos = stripe_inputs(dev, torch.Generator(device=dev).manual_seed(6),
+                                         SPEC_K + 1, 93, STRIPE - 10)
+    stats = stripe_stats(q, k, v, rows, q_pos, ops.flash_verify, ref.flash_verify_ref, flush)
+    return {"name": "flash_verify", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_verify.cu",
+            "replaces": "src/repro/kernels/prefill_attention.py:179",
+            "counter": "flash_verify",
+            "shape": f"q ({B},{HQ},{SPEC_K + 1},{HD}) bf16 at frontiers "
+                     f"{q_pos[:, 0].tolist()}, slot cache ({B},{HKV},{STRIPE},{HD}) through "
+                     f"rows {rows.tolist()}",
+            "library": "SDPA with a bool causal mask over the stripes gathered beforehand "
+                       "(gather untimed)",
+            **stats,
+            "flash_prefill_ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, HD ** -0.5,
+                                                                  rows=rows), flush)}
 
 
 def check_paged(dev, flush) -> list:
@@ -378,20 +487,33 @@ def to_device(params: dict, dev) -> dict:
             "final_norm": mv(params["final_norm"]), "lm_head": mv(params["lm_head"])}
 
 
-def reference_check(dev, weight_quant: str = "none") -> dict:
-    """A small GQA model (head_dim 128) on the card against the same weights
-    on the CPU, where the plain versions run: prefill logits and 8
-    teacher-forced decode steps.  Tolerance 5e-2 on fp32 logits of
-    magnitude ~1, as the port's CPU tests hold it against the JAX package
-    (bf16 activations rounded after differently ordered sums)."""
+# logits of the small GQA model, card against CPU: fp32 logits of magnitude
+# ~1, as the port's CPU tests hold it against the JAX package (bf16
+# activations rounded after differently ordered sums)
+REF_TOL = 5e-2
+
+
+def small_gqa(dev, weight_quant: str = "none"):
+    """The reference checks' model: reduced yi-9b with 8 q heads over 2 KV
+    heads of head_dim 128, random weights from seed 1 -> (cfg, CPU params,
+    the same params on ``dev``)."""
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config("yi-9b").reduced(), n_heads=8, n_kv_heads=2,
                               head_dim=128)
     cpu = M.init_params(cfg, ParallelConfig(weight_quant=weight_quant), seed=1, device="cpu")
-    gpu = to_device(cpu, dev)
-    b, plen, max_len, tol = 3, 20, 128, 5e-2
+    return cfg, cpu, to_device(cpu, dev)
+
+
+def reference_check(dev, weight_quant: str = "none") -> dict:
+    """The small GQA model on the card against the same weights on the CPU,
+    where the plain versions run: prefill logits and 8 teacher-forced
+    decode steps, within REF_TOL."""
+    from repro_torch.models import model as M
+
+    cfg, cpu, gpu = small_gqa(dev, weight_quant)
+    b, plen, max_len, tol = 3, 20, 128, REF_TOL
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
     caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
     worst = 0.0
@@ -410,6 +532,163 @@ def reference_check(dev, weight_quant: str = "none") -> dict:
         fail(f"{weight_quant} card logits differ from the CPU's by {worst} > {tol}")
     return {"config": cfg.name + "-gqa-hd128", "weight_quant": weight_quant,
             "max_abs_logit_err": worst, "tolerance": tol}
+
+
+@contextlib.contextmanager
+def sampled_logits(log: list):
+    """Record, on the host, every logits batch the slot engine samples from."""
+    from repro_torch.runtime import engine as E
+
+    sample = E.sample_tokens
+
+    def record(logits, *args):
+        log.append(logits.float().cpu())
+        return sample(logits, *args)
+    E.sample_tokens = record
+    try:
+        yield
+    finally:
+        E.sample_tokens = sample
+
+
+def slot_reference_check(dev) -> dict:
+    """The slot engine's chunked-admission and verify steps on the card
+    against the same calls on the CPU, on the small GQA model.
+
+    Slots 0 and 1 hold prompts of 20 and 33 tokens; ``Engine.mixed_step``
+    admits a 40-token prompt into slot 2 in chunks of 16 (the stripe
+    flash_prefill through the row index) while slots 0 and 1 decode beside
+    it (decode_attention).  Then ``Engine.verify_slots`` runs SPEC_K-draft
+    verify steps (flash_verify), the first over all three slots, the
+    others over slots 0 and 2 once slot 1's budget is spent; their drafts
+    are the CPU's own plain continuation with one wrong token
+    planted at a place that moves with the step and the slot: drafts are
+    accepted up to it, the rest rejected and the slot rewound, or all are
+    accepted.  Both engines get the same inputs and keep their own state.
+    Every logits row sampled for a slot whose history is still the same on
+    both is compared within REF_TOL (a verify step's rows past the first
+    rejection too), and so is its position row after each verify step; a
+    slot whose greedy tokens part (possible only where the CPU's top-2
+    logits lie within 2 x REF_TOL) is compared no further.  Fails unless
+    it compared mixed steps with a decode half, verify rows that accepted
+    some but not all of their drafts, and verify rows computed at another
+    batch row than their slot's."""
+    import copy
+
+    from repro_torch.configs import SamplingConfig
+    from repro_torch.runtime.engine import Engine
+
+    cfg, cpu, gpu = small_gqa(dev)
+    S, C, nslot = 128, 16, 3
+    eng = {d: Engine(cfg, params=p, sampling=SamplingConfig(top_k=1), max_len=S, device=where)
+           for d, p, where in (("cpu", cpu, "cpu"), ("card", gpu, dev))}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (20, 33, 40)]
+    toks = np.zeros((nslot, 33), np.int32)
+    for i in (0, 1):
+        toks[i, :len(prompts[i])] = prompts[i]
+    admit, plens = np.array([True, True, False]), np.array([20, 33, 1])
+    caches, state = {}, {}
+    for d, e in eng.items():
+        caches[d] = e.init_slot_caches(nslot)
+        first = e.prefill_into_slots(caches[d], toks, admit, plens)
+        # slot 2 rides the decode half frozen, at a stale index inside its
+        # chunk; slot 1's budget ends in the first verify step, so that the
+        # later ones compute slots 0 and 2 only (rows that are not 0..b-1)
+        state[d] = dict(tok=first, pos=np.array([20, 33, 5], np.int32),
+                        done=np.array([False, False, True]),
+                        remaining=np.array([40, 5, 0], np.int32),
+                        eos=np.full(nslot, -1, np.int32))
+    live = np.ones(nslot, bool)
+    worst, parted = 0.0, []
+    seen = {"mixed_decode_halves": 0, "verify_rows": 0, "row_mapped": 0, "partly_accepted": 0,
+            "all_rejected": 0, "all_accepted": 0}
+
+    def call(fn):
+        """fn(device) on both engines -> ({device: result}, {device: logits})."""
+        out, logs = {}, {}
+        for d in eng:
+            logs[d] = []
+            with sampled_logits(logs[d]):
+                out[d] = fn(d)
+        return out, logs
+
+    def compare(a, b):
+        nonlocal worst
+        worst = max(worst, (a - b).abs().max().item())
+
+    def part(i, a, b, where):
+        """Slot i, whose tokens were ``a`` on the CPU and ``b`` on the card,
+        is compared no further if they differ."""
+        if live[i] and not np.array_equal(a, b):
+            live[i] = False
+            parted.append({"slot": int(i), "at": where})
+
+    with torch.inference_mode():
+        n2 = len(prompts[2])
+        for off in range(0, n2, C):
+            nc = min(C, n2 - off)
+            ctok = np.zeros((nslot, C), np.int32)
+            ctok[2, :nc] = prompts[2][off:off + nc]
+            active = np.flatnonzero(~state["cpu"]["done"] & live)
+            out, logs = call(lambda d: eng[d].mixed_step(
+                caches[d], ctok, np.array([False, False, True]), np.array([1, 1, nc]),
+                np.array([0, 0, off]), np.array([1, 1, off + nc]), **state[d]))
+            compare(logs["cpu"][0], logs["card"][0])            # the chunk's last row
+            if out["cpu"][5] and out["card"][5]:                 # both ran the decode half
+                compare(logs["cpu"][1][active], logs["card"][1][active])
+                seen["mixed_decode_halves"] += 1
+            for i in active:
+                part(i, out["cpu"][1][i], out["card"][1][i], f"mixed step at chunk {off}")
+            if off + nc == n2:
+                part(2, out["cpu"][0][2], out["card"][0][2], "first token")
+            for d in eng:
+                ptok, nxt, pos, done, rem, _ = out[d]
+                state[d].update(tok=nxt, pos=pos, done=done, remaining=rem)
+                if off + nc == n2:                           # slot 2 starts decoding
+                    state[d]["tok"][2], state[d]["pos"][2] = ptok[2], n2
+                    state[d]["done"][2], state[d]["remaining"][2] = False, 40
+        k1 = SPEC_K + 1
+        for step in range(4):
+            act = {d: np.flatnonzero(~state[d]["done"] & (state[d]["remaining"] > 0))
+                   for d in eng}
+            if not act["cpu"].size:
+                break
+            plain, *_ = eng["cpu"].decode_slots(copy.deepcopy(caches["cpu"]), **state["cpu"],
+                                                n=SPEC_K)
+            drafts = plain.T.copy()                          # (slot, SPEC_K)
+            for i in range(nslot):
+                w = (step + 2 * i) % k1                      # w == SPEC_K: all right
+                if w < SPEC_K:
+                    drafts[i, w] = (drafts[i, w] + 1) % cfg.vocab_size
+            out, logs = call(lambda d: eng[d].verify_slots(
+                caches[d], np.concatenate([state[d]["tok"][:, None], drafts], axis=1),
+                state[d]["pos"], state[d]["done"], state[d]["remaining"], state[d]["eos"]))
+            for i in act["cpu"][live[act["cpu"]]]:   # live: active on both, same inputs
+                r = {d: int(np.searchsorted(act[d], i)) for d in eng}
+                compare(logs["cpu"][0][r["cpu"] * k1:(r["cpu"] + 1) * k1],
+                        logs["card"][0][r["card"] * k1:(r["card"] + 1) * k1])
+                tg, ne = out["cpu"][0][i], out["cpu"][1][i]
+                acc = int(np.cumprod(drafts[i] == tg[:-1]).sum())
+                seen["verify_rows"] += 1
+                seen["row_mapped"] += int(r["cpu"] != i)
+                seen["all_rejected" if acc == 0 else "all_accepted" if acc == SPEC_K
+                     else "partly_accepted"] += 1
+                part(i, tg[:ne], out["card"][0][i][:out["card"][1][i]], f"verify {step}")
+                if live[i] and not torch.equal(caches["cpu"]["pos"][i],
+                                               caches["card"]["pos"][i].cpu()):
+                    fail(f"slot reference: slot {i}'s position row differs after verify {step}")
+            for d in eng:
+                _, _, nxt, pos, done, rem = out[d]
+                state[d].update(tok=nxt, pos=pos, done=done, remaining=rem)
+    if not worst <= REF_TOL:
+        fail(f"slot reference: card logits differ from the CPU's by {worst} > {REF_TOL}")
+    if not (seen["mixed_decode_halves"] and seen["partly_accepted"] and seen["row_mapped"]):
+        fail(f"slot reference: no mixed decode half, partly accepted verify row or "
+             f"verify over a row map compared: {seen}, parted {parted}")
+    return {"config": cfg.name + "-gqa-hd128", "calls": "mixed_step, verify_slots",
+            "max_abs_logit_err": worst, "tolerance": REF_TOL, "compared": seen,
+            "parted": parted}
 
 
 def expected_dequant_launches(cfg, parallel, work) -> int:
@@ -481,12 +760,12 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
     second, dt2 = run()
     n_tokens = sum(len(t) for t in first.values())
     waves = -(-SERVE_REQUESTS // SERVE_BATCH)
-    expect = {"flash_prefill": cfg.n_layers * waves,
-              "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
-              "topk": SERVE_MAX_NEW * waves
-                      * build.library("topk").topk_launches(cfg.vocab_size, 1),
-              "dequant_matmul": expected_dequant_launches(cfg, parallel, work),
-              "paged_decode_attention": 0, "paged_flash_prefill": 0}
+    expect = {name: 0 for name in ops.KERNELS}
+    expect.update({"flash_prefill": cfg.n_layers * waves,
+                   "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
+                   "topk": SERVE_MAX_NEW * waves
+                           * build.library("topk").topk_launches(cfg.vocab_size, 1),
+                   "dequant_matmul": expected_dequant_launches(cfg, parallel, work)})
     if launches != expect:
         fail(f"{arch} {weight_quant}: kernel launches {launches} != expected {expect}")
     for rid, toks in first.items():
@@ -516,9 +795,71 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
     }
 
 
+# the slot phases: (name, scheduler, its admission and decode options)
+SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
+               ("paged", "paged", dict(prefill_chunk=0)),
+               ("continuous-chunked-spec", "dense", dict(prefill_chunk=64, spec_k=SPEC_K)),
+               ("paged-chunked-spec", "paged", dict(prefill_chunk=64, spec_k=SPEC_K)))
+
+
+def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int) -> dict:
+    """Kernel launches of one slot phase from its scheduler's stats.  Per
+    whole-prompt admission (``prefill_calls`` not made of chunks): L of
+    flash_prefill, or of paged_flash_prefill where a prefix was cached.
+    Per mixed step (``prefill_chunks`` > 0 means every prefill call is one):
+    L of flash_prefill over the stripes (chunks of 64 > VERIFY_WIDTH), or
+    of paged_flash_prefill through the tables, and, where some slot was
+    decode-active (``mixed_decode_steps``), one decode step.  Per verify
+    step: L of flash_verify (two launches each) or paged_flash_prefill.
+    Decode blocks make up the rest of ``decode_steps``.  Every prefill,
+    decode and verify call samples once through top-k."""
+    from repro_torch.kernels import ops
+
+    mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
+    whole = st["prefill_calls"] - mixed
+    prefix = st.get("prefix_prefill_calls", 0)
+    spec = st.get("spec_steps", 0)
+    decodes = st["decode_steps"] - mixed - spec + st["mixed_decode_steps"]
+    expect = {name: 0 for name in ops.KERNELS}
+    expect["topk"] = topk_per_call * (st["prefill_calls"] + decodes + spec)
+    if backend == "paged":
+        expect["flash_prefill"] = L * (whole - prefix)
+        expect["paged_flash_prefill"] = L * (prefix + mixed + spec)
+        expect["paged_decode_attention"] = L * decodes
+    else:
+        expect["flash_prefill"] = L * st["prefill_calls"]
+        expect["flash_verify"] = 2 * L * spec
+        expect["decode_attention"] = L * decodes
+    return expect
+
+
+class PlainContinuation:
+    """A drafter that proposes what the whole-prompt dense phase emitted next
+    after each history, except that every other proposal has a wrong last
+    draft: drafts are right until the streams part, and the verify step
+    both accepts and rejects (and rewinds past) drafts."""
+
+    def __init__(self, done: dict):
+        self.seqs = [np.concatenate([r.prompt, r.output]) for r in done.values()]
+        self.proposals = 0
+
+    def propose_many(self, histories):
+        out = []
+        for h in histories:
+            seq = next((q for q in self.seqs
+                        if len(q) >= len(h) and np.array_equal(q[:len(h)], h)), h[-1:])
+            cont = seq[len(h):len(h) + SPEC_K]
+            draft = np.concatenate([cont, np.full(SPEC_K - len(cont), h[-1])])
+            self.proposals += 1
+            if self.proposals % 2:
+                draft[-1] = (draft[-1] + 1) % VOCAB
+            out.append(draft)
+        return np.stack(out).astype(np.int32)
+
+
 def slot_phases(dev) -> list:
-    """Full-width yi-9b bf16 through ContinuousScheduler, then
-    PagedContinuousScheduler, on one engine; see the module docstring."""
+    """Full-width yi-9b bf16 through the phases of SLOT_PHASES on one
+    engine; see the module docstring."""
     import argparse
 
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
@@ -538,83 +879,102 @@ def slot_phases(dev) -> list:
     args = argparse.Namespace(**SLOT_WORKLOAD)
     topk_per_call = build.library("topk").topk_launches(cfg.vocab_size, 1)
     L = cfg.n_layers
+    classes = {"dense": ContinuousScheduler, "paged": PagedContinuousScheduler}
+
+    def run(backend, opts, drafter=None):
+        sched = classes[backend](eng, n_slots=SLOTS, **opts)
+        if drafter is not None:
+            sched.drafter = drafter
+        serve.submit_workload(sched, cfg, args)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done = sched.run()
+        torch.cuda.synchronize()
+        return sched, {r.rid: r for r in done}, time.monotonic() - t
+
+    def parted(name, done):
+        """Per request: the whole-prompt dense phase's tokens, or a first
+        difference where its top-2 logits lie within TIE_GAP."""
+        flips = []
+        for rid, r in tokens["continuous"].items():
+            dense, other = r.output, done[rid].output
+            if np.array_equal(dense, other):
+                continue
+            n = min(len(dense), len(other))
+            t = int(np.argmax(dense[:n] != other[:n])) if (dense[:n] != other[:n]).any() else n
+            seq = torch.as_tensor(np.concatenate([r.prompt, dense[:t]]), device=dev).long()
+            with torch.inference_mode():
+                logits = M.forward(eng.params, seq[None], cfg, last_only=True,
+                                   head_f32=eng.head_f32)[0, -1]
+            gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
+            if not gap < TIE_GAP:
+                fail(f"{name} request {rid} parts from dense at step {t} with top-2 gap {gap}")
+            flips.append({"rid": rid, "step": t, "top2_gap": gap})
+        return flips
+
     results, tokens = [], {}
-    for kind, cls in (("continuous", ContinuousScheduler), ("paged", PagedContinuousScheduler)):
+    for name, backend, opts in SLOT_PHASES:
         t_phase = time.monotonic()
         torch.cuda.reset_peak_memory_stats()
-
-        def run():
-            sched = cls(eng, n_slots=SLOTS)
-            serve.submit_workload(sched, cfg, args)
-            torch.cuda.synchronize()
-            t = time.monotonic()
-            done = sched.run()
-            torch.cuda.synchronize()
-            return sched, {r.rid: r for r in done}, time.monotonic() - t
-
         ops.reset_launches()
-        sched, first, dt1 = run()
+        sched, first, dt1 = run(backend, opts)
         launches = dict(ops.LAUNCHES)
-        _, second, dt2 = run()
+        _, second, dt2 = run(backend, opts)
         st = sched.stats
-        prefix_calls = st.get("prefix_prefill_calls", 0)
-        expect = {name: 0 for name in ops.KERNELS}
-        expect["topk"] = topk_per_call * (st["prefill_calls"] + st["decode_steps"])
-        expect["flash_prefill"] = L * (st["prefill_calls"] - prefix_calls)
-        if kind == "paged":
-            expect["paged_decode_attention"] = L * st["decode_steps"]
-            expect["paged_flash_prefill"] = L * prefix_calls
-        else:
-            expect["decode_attention"] = L * st["decode_steps"]
+        expect = expected_slot_launches(backend, st, L, topk_per_call)
         if launches != expect:
-            fail(f"{kind}: kernel launches {launches} != expected {expect} (stats {st})")
-        if kind == "paged":
+            fail(f"{name}: kernel launches {launches} != expected {expect} (stats {st})")
+        if backend == "paged":
             if not (st["prefill_tokens_saved"] > 0 and st["shared_block_hits"] > 0
                     and launches["paged_flash_prefill"] > 0
                     and launches["paged_decode_attention"] > 0):
-                fail(f"paged: no prefix reuse or a paged kernel never ran: {st}, {launches}")
+                fail(f"{name}: no prefix reuse or a paged kernel never ran: {st}, {launches}")
             try:
                 sched.alloc.audit()
             except AssertionError as e:
-                fail(f"paged: block allocator audit: {e}")
+                fail(f"{name}: block allocator audit: {e}")
+        if opts["prefill_chunk"] and not (st["chunked_admissions"] > 0
+                                          and st["mixed_decode_steps"] > 0
+                                          and st["spec_steps"] > 0):
+            fail(f"{name}: no chunked admission, no decode during admission or no "
+                 f"verify step: {st}")
         if sorted(first) != list(range(SLOT_WORKLOAD["requests"])):
-            fail(f"{kind}: served requests {sorted(first)}")
+            fail(f"{name}: served requests {sorted(first)}")
         for rid, r in first.items():
             toks = r.output
             if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-                fail(f"{kind} request {rid}: tokens out of range or none: {toks}")
+                fail(f"{name} request {rid}: tokens out of range or none: {toks}")
             if not np.array_equal(toks, second[rid].output):
-                fail(f"{kind} request {rid}: greedy tokens differ between two runs")
-        tokens[kind] = first
+                fail(f"{name} request {rid}: greedy tokens differ between two runs")
+        tokens[name] = first
         n_tokens = sum(len(r.output) for r in first.values())
-        results.append({
-            "arch": cfg.name, "scheduler": kind, "layers": L, "params": cfg.param_count(),
+        summary = sched.request_summary()
+        result = {
+            "arch": cfg.name, "scheduler": name, "layers": L, "params": cfg.param_count(),
             "requests": SLOT_WORKLOAD["requests"], "slots": SLOTS, "block_size": BLOCK,
-            "max_len": SERVE_MAX_LEN, "workload": SLOT_WORKLOAD, "tokens": n_tokens,
-            "init_s": init_s, "wall_s": [dt1, dt2],
+            "max_len": SERVE_MAX_LEN, "options": opts, "workload": SLOT_WORKLOAD,
+            "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1, dt2],
             "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
-            "stats": dict(st), "summary": sched.request_summary(), "launches": launches,
+            "stats": dict(st), "summary": summary, "launches": launches,
             "repeatable": True, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "phase_s": time.monotonic() - t_phase,
-        })
-
-    # (d) paged against dense, per request: equal, or parted at a near-tie
-    flips = []
-    for rid, r in tokens["continuous"].items():
-        dense, paged = r.output, tokens["paged"][rid].output
-        if np.array_equal(dense, paged):
-            continue
-        n = min(len(dense), len(paged))
-        t = int(np.argmax(dense[:n] != paged[:n])) if (dense[:n] != paged[:n]).any() else n
-        seq = torch.as_tensor(np.concatenate([r.prompt, dense[:t]]), device=dev).long()
-        with torch.inference_mode():
-            logits = M.forward(eng.params, seq[None], cfg, last_only=True,
-                               head_f32=eng.head_f32)[0, -1]
-        gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
-        if not gap < TIE_GAP:
-            fail(f"paged request {rid} parts from dense at step {t} with top-2 gap {gap}")
-        flips.append({"rid": rid, "step": t, "top2_gap": gap})
-    results[-1]["parted_from_dense_at_near_ties"] = flips
+        }
+        if name != "continuous":
+            result["parted_from_dense_at_near_ties"] = parted(name, first)
+        if name == "continuous-chunked-spec":
+            # drafts that are right: the verify step's causal rows 1..K at work
+            sched, oracle, dt = run(backend, opts, PlainContinuation(tokens["continuous"]))
+            st = sched.stats
+            per_step = st["spec_emitted"] / max(1, st["spec_slot_steps"])
+            if not (0 < st["spec_accepted"] < st["spec_proposed"] and per_step > 1.0):
+                fail(f"{name}: right drafts were not accepted or wrong ones not "
+                     f"rejected: {st}")
+            result["right_drafts"] = {
+                "wall_s": dt, "ms_per_token": 1e3 * dt / sum(len(r.output)
+                                                           for r in oracle.values()),
+                "stats": dict(st), "summary": sched.request_summary(),
+                "parted_from_dense_at_near_ties": parted(name + " right drafts", oracle)}
+        result["phase_s"] = time.monotonic() - t_phase
+        results.append(result)
     del eng
     torch.cuda.empty_cache()
     return results
@@ -648,6 +1008,7 @@ def main() -> None:
     del flush
     for mode in ("none", "int8", "int4"):
         print(json.dumps({"reference": reference_check(dev, mode)}), flush=True)
+    print(json.dumps({"reference": slot_reference_check(dev)}), flush=True)
     launches = {k["counter"]: 0 for k in kernels}
     for arch, mode in SERVE_PHASES:
         serve = serve_phase(dev, arch, mode)

@@ -80,14 +80,23 @@ class ModelConfig:
 class ParallelConfig:
     """The layout fields the port reads.  Weight-only quantization is
     served (quantize at load: int8 per-output-column scales, int4 scales per
-    ``wq_group_size`` segment of the reduction dim), and so is the paged KV
-    backend of the slot engine; tensor parallelism and the int8 KV cache
-    come in later slices, and ``check_supported`` refuses them."""
+    ``wq_group_size`` segment of the reduction dim), and so are the paged KV
+    backend of the slot engine, chunked admission and speculative decoding;
+    tensor parallelism and the int8 KV cache come in later slices, and
+    ``check_supported`` refuses them."""
 
     tp: int = 1
     kv_quant: bool = False
     weight_quant: str = "none"  # none | int8 | int4
     wq_group_size: int = 128    # int4 group length along the reduction dim
+    # chunked admission (the continuous schedulers' default): every prompt
+    # streams through the fused mixed prefill/decode step in chunks of at
+    # most this many tokens; 0 = whole-prompt bucketed admission
+    prefill_chunk: int = 256
+    # speculative decoding: spec_k n-gram drafts per active slot, verified in
+    # one width-(spec_k + 1) step; 0 = plain one-token decode
+    spec_k: int = 0
+    spec_ngram: int = 3         # longest n-gram the prompt-lookup drafter matches
     # paged KV cache (PagedContinuousScheduler reads these as its defaults)
     kv_block_size: int = 16     # tokens per KV block
     kv_pool_blocks: int = 0     # total pool blocks; 0 = n_slots * blocks/slot + 1

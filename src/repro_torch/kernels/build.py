@@ -29,7 +29,10 @@ _F = ctypes.c_float
 # a launching one 0 on success and otherwise a cudaError_t or -1 (bad
 # arguments), the *_workspace and *_launches helpers a count
 SIGNATURES = {
-    "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_verify": ("flash_verify",
+                     [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_verify_workspace": ("flash_verify", [_I, _I, _I, _I, _I, _I]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_decode_attention": ("paged_decode_attention",
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),

@@ -14,14 +14,20 @@
 // cores (no mma/wgmma yet) and aims only at being right and simple; its time
 // beside the bound is in PERF.md.
 //
-// The body (flash_prefill.cuh) is shared with the paged kernel; its design
-// is described there.
+// K/V are a stripe of n_cache rows: batch row b reads row rows[b] (or row b
+// when rows is null), so a chunk of admitted slots attends their stripes in
+// the shared slot cache; Sk is the stripe's length.
+//
+// The body (flash_prefill.cuh) is shared with the paged and the verify
+// kernels; its design is described there.
 #include "flash_prefill.cuh"
 
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
-                             const void* q_pos, void* out, int b, int hq,
-                             int hkv, int sq, int sk, int hd, int dtype,
-                             float scale, void* stream) {
-  return prefill::dispatch<false>(q, k, v, nullptr, 0, 0, 0, q_pos, out, b, hq, hkv, sq, sk,
-                                  hd, dtype, scale, stream);
+                             const void* rows, int n_cache, const void* q_pos,
+                             void* out, int b, int hq, int hkv, int sq, int sk,
+                             int hd, int dtype, float scale, void* stream) {
+  prefill::Args a{q, k, v, nullptr, 0, 0, 0, static_cast<const int*>(rows), n_cache,
+                  q_pos, out, nullptr, 0, b, hq, hkv, sq, sk, scale,
+                  static_cast<cudaStream_t>(stream)};
+  return prefill::dispatch<false, false>(a, hd, dtype);
 }

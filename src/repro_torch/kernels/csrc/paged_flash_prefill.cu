@@ -31,7 +31,8 @@ extern "C" int paged_flash_prefill(const void* q, const void* k_pool,
                                    int hd, int dtype, float scale,
                                    void* stream) {
   if (nb <= 0 || bs <= 0 || nbps <= 0) return ERR_BAD_ARGS;
-  return prefill::dispatch<true>(q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs,
-                                 nbps, q_pos, out, b, hq, hkv, sq, nbps * bs, hd, dtype,
-                                 scale, stream);
+  prefill::Args a{q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps, nullptr, 0,
+                  q_pos, out, nullptr, 0, b, hq, hkv, sq, nbps * bs, scale,
+                  static_cast<cudaStream_t>(stream)};
+  return prefill::dispatch<true, false>(a, hd, dtype);
 }

@@ -4,7 +4,8 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
-  stage, two for a 64000-wide row; dequant_matmul two when it splits K)
+  stage, two for a 64000-wide row; dequant_matmul two when it splits K;
+  flash_verify two, the split pass and the merge)
   and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
@@ -15,6 +16,7 @@ nothing and do not synchronise.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import torch
@@ -25,7 +27,7 @@ from repro_torch.kernels import build, ref
 # through the kernels (chip_smoke.py zeroes it before the serving phase)
 LAUNCHES: Counter = Counter()
 KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
-           "paged_decode_attention", "paged_flash_prefill")
+           "paged_decode_attention", "paged_flash_prefill", "flash_verify")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,31 +57,84 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _check_stripe(name: str, q, k, v, q_pos, rows):
+    """Shapes of a dense call: q (b, hq, Sq, hd), k/v (n, hkv, Sk, hd) with
+    n == b, or ``rows`` (b,) naming each batch row's stripe -> (hkv, Sk)."""
+    b, hq, sq, hd = q.shape
+    n, hkv, sk = k.shape[:3]
+    if (k.shape != (n, hkv, sk, hd) or v.shape != k.shape or q_pos.shape != (b, sq)
+            or (rows is None and n != b) or (rows is not None and tuple(rows.shape) != (b,))):
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} q_pos{tuple(q_pos.shape)} rows "
+                         f"{None if rows is None else tuple(rows.shape)} do not agree")
+    if hq % hkv:
+        raise ValueError(f"{name}: {hq} q heads over {hkv} kv heads")
+    return hkv, sk
+
+
+def _check_stripe_cuda(name: str, q, k, v, q_pos, rows) -> None:
+    hd = q.shape[-1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    if (hd not in (64, 128) or q_pos.dtype != torch.int32
+            or (rows is not None and rows.dtype != torch.int32)):
+        raise ValueError(f"{name}: head_dim {hd} / q_pos {q_pos.dtype} / rows not taken")
+    _check_cuda(name, q, k, v, q_pos, *(() if rows is None else (rows,)))
+
+
+def _stripes(k, v, rows):
+    """The plain versions' view of a row-indexed stripe: a gathered copy."""
+    return (k, v) if rows is None else (k[rows.long()], v[rows.long()])
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_pos: torch.Tensor, scale: float) -> torch.Tensor:
+                  q_pos: torch.Tensor, scale: float, rows: torch.Tensor = None) -> torch.Tensor:
     """Causal GQA flash prefill.  q (b, hq, Sq, hd), k/v (b, hkv, Sk, hd),
     q_pos (b, Sq) int32 view positions (-1 = pad row) -> (b, hq, Sq, hd) in
-    q.dtype; row i attends key j iff j <= q_pos[b, i]."""
+    q.dtype; row i attends key j iff j <= q_pos[b, i].  With ``rows`` (b,)
+    int32, k/v are a slot cache (n, hkv, Sk, hd) and batch row b attends
+    cache row rows[b] (a chunk reading its slots' stripes in place)."""
     b, hq, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if k.shape != (b, hkv, sk, hd) or v.shape != k.shape or q_pos.shape != (b, sq):
-        raise ValueError(f"flash_prefill: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)} q_pos{tuple(q_pos.shape)} do not agree")
-    if hq % hkv:
-        raise ValueError(f"flash_prefill: {hq} q heads over {hkv} kv heads")
-    if _device_of(q, k, v, q_pos) == "cpu":
-        return ref.flash_prefill_ref(q, k, v, q_pos, scale)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_prefill: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in (64, 128) or q_pos.dtype != torch.int32:
-        raise ValueError(f"flash_prefill: head_dim {hd} / q_pos {q_pos.dtype} not taken")
-    _check_cuda("flash_prefill", q, k, v, q_pos)
+    hkv, sk = _check_stripe("flash_prefill", q, k, v, q_pos, rows)
+    if _device_of(q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
+        return ref.flash_prefill_ref(q, *_stripes(k, v, rows), q_pos, scale)
+    _check_stripe_cuda("flash_prefill", q, k, v, q_pos, rows)
     out = torch.empty_like(q)
     build.call("flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               q_pos.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, hd,
-               _DTYPES[q.dtype], float(scale), _stream())
+               None if rows is None else rows.data_ptr(), k.shape[0], q_pos.data_ptr(),
+               out.data_ptr(), b, hq, hkv, sq, sk, hd, _DTYPES[q.dtype], float(scale),
+               _stream())
     LAUNCHES["flash_prefill"] += 1
     return out
+
+
+def flash_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, scale: float, rows: torch.Tensor = None) -> torch.Tensor:
+    """``flash_prefill`` for a narrow query chunk (the spec-decode verify
+    step, Sq = spec_k + 1 <= 8) over dense slot stripes, with the stripe's
+    KV axis split across blocks and a merge pass.  Same arguments and
+    result as ``flash_prefill``."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = _check_stripe("flash_verify", q, k, v, q_pos, rows)
+    if _device_of(q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
+        return ref.flash_verify_ref(q, *_stripes(k, v, rows), q_pos, scale)
+    _check_stripe_cuda("flash_verify", q, k, v, q_pos, rows)
+    out = torch.empty_like(q)
+    n_work = _verify_workspace(b, hq, hkv, sq, sk, hd)
+    work = torch.empty((max(n_work, 0),), dtype=torch.float32, device=q.device)
+    build.call("flash_verify", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               None if rows is None else rows.data_ptr(), k.shape[0], q_pos.data_ptr(),
+               out.data_ptr(), work.data_ptr(), n_work, b, hq, hkv, sq, sk, hd,
+               _DTYPES[q.dtype], float(scale), _stream())
+    LAUNCHES["flash_verify"] += 2    # the split pass and the merge
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_workspace(b: int, hq: int, hkv: int, sq: int, sk: int, hd: int) -> int:
+    """fp32 floats of flash_verify's partials workspace at these shapes: the
+    same for every layer of a step, so asked of the library once."""
+    return build.library("flash_verify").flash_verify_workspace(b, hq, hkv, sq, sk, hd)
 
 
 def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

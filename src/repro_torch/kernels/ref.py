@@ -42,6 +42,13 @@ def flash_prefill_ref(q, k, v, q_pos, scale: float) -> torch.Tensor:
     return out.reshape(b, hq, sq, hd).to(q.dtype)
 
 
+def flash_verify_ref(q, k, v, q_pos, scale: float) -> torch.Tensor:
+    """The verify step's attention: ``flash_prefill_ref`` at a narrow query
+    chunk (Sq = spec_k + 1).  The function is the same; only the kernel's
+    blocking differs (its KV axis split across blocks, then merged)."""
+    return flash_prefill_ref(q, k, v, q_pos, scale)
+
+
 def decode_attention_ref(q, k, v, valid, scale: float):
     """Unnormalized flash partials for one query token per row.
 

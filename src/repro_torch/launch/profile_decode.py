@@ -3,6 +3,8 @@
     python -m repro_torch.launch.profile_decode --arch yi-9b --batch 4
     python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4
     python -m repro_torch.launch.profile_decode --scheduler paged
+    python -m repro_torch.launch.profile_decode --scheduler continuous --step verify
+    python -m repro_torch.launch.profile_decode --scheduler paged --step mixed
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -10,7 +12,13 @@ slots of a dense or paged slot cache) and then runs the same ``--steps``
 decode steps (same first token, same cache positions) twice: plain, for
 the host wall time and CUDA-event time per step, and under
 ``torch.profiler``, for the device time by kernel.  The slot engine runs
-the steps as one ``decode_slots`` block, which ends in its host copy.  The
+the steps as one ``decode_slots`` block, which ends in its host copy.
+``--step verify`` runs spec-decode verify steps instead (every slot
+verifies SPEC_K drafts that repeat its last token), ``--step mixed`` fused
+mixed steps (slot 0 prefills a CHUNK-token chunk while the others decode
+one token); each is one engine call with its own host copy, from the same
+state every time.  SPEC_K and CHUNK are those of chip_smoke.py's chunked
+spec phases.  The
 device's idle share divides the profiled pass's device time by the plain
 pass's wall time (the profiler slows the host, so its own window overstates
 idleness); the profiled window's share is printed beside it.  Prints one
@@ -33,6 +41,7 @@ from repro_torch.core.zero_copy import W_O_DENSE_RANGE
 from repro_torch.launch.serve import add_weight_quant_args, parallel_config
 from repro_torch.runtime.engine import Engine
 
+SPEC_K, CHUNK = 4, 64     # --step verify: drafts per slot; --step mixed: slot 0's chunk
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -45,10 +54,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave",
                     help="decode through the wave cache, or the slot engine over the dense "
                          "slot cache or the paged pool")
+    ap.add_argument("--step", choices=("decode", "verify", "mixed"), default="decode",
+                    help="slot engine: profile masked decode steps, spec-decode verify "
+                         "steps or fused mixed chunk/decode steps")
     add_weight_quant_args(ap)
     args = ap.parse_args(argv)
     if args.prompt_len + 3 + args.steps > args.max_len:
         ap.error("--max-len must hold the prompt, 3 warm-up steps and --steps")
+    if args.step != "decode" and args.scheduler == "wave":
+        ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
 
     cfg = get_config(args.arch)
     eng = Engine(cfg, parallel=parallel_config(args), sampling=SamplingConfig(top_k=1),
@@ -101,7 +115,10 @@ def main(argv=None) -> dict:
     w_o_us = sum(e.device_time_total for e in avgs
                  if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
     result = {
-        "arch": cfg.name, "scheduler": args.scheduler, "weight_quant": args.weight_quant,
+        "arch": cfg.name, "scheduler": args.scheduler, "step": args.step,
+        "spec_k": SPEC_K if args.step == "verify" else 0,
+        "prefill_chunk": CHUNK if args.step == "mixed" else 0,
+        "weight_quant": args.weight_quant,
         "wq_group_size": args.wq_group_size, "batch": args.batch, "prompt_len": args.prompt_len,
         "steps": args.steps, "device": torch.cuda.get_device_name(0),
         "step_ms_wall": 1e3 * wall_s / args.steps,
@@ -126,7 +143,8 @@ def main(argv=None) -> dict:
 def _slot_steps(eng: Engine, args, prompts: np.ndarray):
     """Admit every prompt into its own slot (paged: slot b owns pool blocks
     1 + b*nbps ..), and return a function that runs the same ``--steps``
-    masked decode steps from there as one ``decode_slots`` block."""
+    masked decode steps from there as one ``decode_slots`` block, or
+    ``--steps`` verify or mixed steps from there (``--step``)."""
     B, plen = prompts.shape
     admit, plens = np.ones(B, bool), np.full(B, plen)
     bt = None
@@ -140,9 +158,27 @@ def _slot_steps(eng: Engine, args, prompts: np.ndarray):
         caches = eng.init_slot_caches(B)
         tok = eng.prefill_into_slots(caches, prompts, admit, plens)
     state = (tok, plens, np.zeros(B, bool), np.full(B, args.max_len), np.full(B, -1))
+    if args.step == "verify":
+        vtok = np.repeat(tok[:, None], SPEC_K + 1, axis=1)
 
-    def steps():
-        eng.decode_slots(caches, *state, n=args.steps, block_tables=bt)
+        def steps():
+            for _ in range(args.steps):
+                eng.verify_slots(caches, vtok, *state[1:], block_tables=bt)
+    elif args.step == "mixed":
+        C = CHUNK
+        admit = np.arange(B) == 0
+        ctok = np.zeros((B, C), np.int32)
+        ctok[0] = np.resize(prompts[0], C)
+        clens, starts = np.where(admit, C, 1), np.zeros(B, np.int32)
+        mixed_state = (tok, plens, admit, np.where(admit, 0, args.max_len), np.full(B, -1))
+
+        def steps():
+            for _ in range(args.steps):
+                eng.mixed_step(caches, ctok, admit, clens, starts, clens, *mixed_state,
+                               block_tables=bt)
+    else:
+        def steps():
+            eng.decode_slots(caches, *state, n=args.steps, block_tables=bt)
     return steps
 
 

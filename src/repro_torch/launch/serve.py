@@ -7,6 +7,9 @@ section 3 metric).  The workload is the JAX serve CLI's, drawn from the
 same seed: ``--shared-prefix`` prepends one common system prompt (what the
 paged backend's prefix reuse serves), ``--arrival-every`` staggers arrivals
 on the virtual decode-step clock, ``--max-new-spread`` draws each budget.
+The continuous schedulers admit in chunks of ``--prefill-chunk`` tokens
+(0: whole prompts) and, with ``--spec-k N``, verify N n-gram drafts per
+active slot in each step.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
 projection and the lm_head go through the dequant_matmul kernel.  Runs on
@@ -44,12 +47,14 @@ def parallel_config(args) -> ParallelConfig:
 
 
 def make_scheduler(eng: Engine, args):
+    slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps,
+                   prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+                   spec_ngram=args.spec_ngram)
     if args.scheduler == "paged":
         # block and pool sizes ride on ParallelConfig; the scheduler reads them
-        return PagedContinuousScheduler(eng, n_slots=args.slots, block_steps=args.block_steps,
-                                        prefix_cache=not args.no_prefix_cache)
+        return PagedContinuousScheduler(eng, prefix_cache=not args.no_prefix_cache, **slot_kw)
     if args.scheduler == "continuous":
-        return ContinuousScheduler(eng, n_slots=args.slots, block_steps=args.block_steps)
+        return ContinuousScheduler(eng, **slot_kw)
     return WaveScheduler(eng, batch_size=args.batch)
 
 
@@ -107,6 +112,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged scheduler: total pool blocks (0 = dense-equivalent footprint)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="paged scheduler: disable shared-prefix block reuse")
+    ap.add_argument("--prefill-chunk", type=int, default=256,
+                    help="continuous/paged: admit every prompt through the fused mixed "
+                         "prefill/decode step in chunks of at most N tokens (decode "
+                         "advances every step during admission); 0 = whole-prompt "
+                         "admission")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="continuous/paged: speculative decoding, N n-gram drafts per "
+                         "active slot verified in one step (1..N+1 tokens per step); "
+                         "0 = plain one-token decode")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="longest n-gram the prompt-lookup drafter matches against "
+                         "each request's history")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend one common N-token system prompt to every request")
     ap.add_argument("--arrival-every", type=int, default=0,
@@ -157,6 +174,18 @@ def _report(sched, cfg, args, dt: float) -> None:
             print(f"  ttft mean {lat['ttft_s']['mean'] * 1e3:.0f} ms (p50 "
                   f"{lat['ttft_s']['p50'] * 1e3:.0f}, max {lat['ttft_s']['max'] * 1e3:.0f}); "
                   f"queue mean {lat['queue_s']['mean'] * 1e3:.0f} ms")
+        if s["prefill_chunks"]:
+            print(f"  chunked prefill: {s['chunked_admissions']} requests in more than one "
+                  f"chunk, {s['prefill_chunks']} chunks of <= {sched.chunk} tokens, "
+                  f"{s['mixed_decode_steps']} decode steps during admission")
+        if "spec" in lat:
+            sp = lat["spec"]
+            print(f"  spec decode (k={sched.spec_k}, ngram<={sched.spec_ngram}): acceptance "
+                  f"{sp['acceptance_rate']:.0%}, {sp['mean_tokens_per_step']:.2f} tokens "
+                  f"per verify step and slot")
+        if "decode_itl_s" in lat:
+            itl = lat["decode_itl_s"]
+            print(f"  decode inter-token p50/p95 {itl['p50'] * 1e3:.1f}/{itl['p95'] * 1e3:.1f} ms")
     if args.scheduler == "paged":
         s = sched.stats
         print(f"  pool {sched.n_blocks} x {sched.bs}-token blocks, high-water "

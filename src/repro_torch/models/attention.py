@@ -5,7 +5,9 @@ over the port's three KV layouts (see ``model.init_caches``):
 * wave cache: ``k``/``v`` (L, b, hkv, S, hd) and one position row ``pos``
   (S,), since in wave serving every row sits at the same position;
 * slot cache (continuous batching): the same K/V and ``pos`` (b, S), each
-  row an independent slot at its own position;
+  row an independent slot at its own position; a chunk (chunked admission,
+  the spec-decode verify step) writes at each row's own offset and attends
+  the row's stripe of the cache;
 * paged cache: ``k``/``v`` block pools (L, n_blocks, hkv, bs, hd) read and
   written through a per-slot block table (b, nbps), ``pos`` (b, nbps*bs)
   over each slot's view (view index == absolute position).
@@ -22,6 +24,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -29,6 +32,8 @@ from repro_torch.core import wquant
 from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope
+
+VERIFY_WIDTH = 8    # chunks of at most this many queries attend through flash_verify
 
 
 @dataclass
@@ -39,10 +44,13 @@ class KVStep:
     K/V land at view [wave_pos, wave_pos + s) of every row.  ``targets``
     (slot and paged caches): one (dim-0, dim-2) index pair per written
     token, in (row, position) order -- (slot, view index) for the slot
-    cache, (pool block, offset in block) for the paged one.  Decode reads
-    the cache entries ``valid`` marks ((S,) shared or (b, S) per slot);
-    prefill attends by view position ``q_pos`` (b, s), over the fresh K/V
-    or, with ``paged_read``, over the slot's view through ``bt``."""
+    cache, (pool block, offset in block) for the paged one -- taken by the
+    flat (row, position) tokens ``src`` (None: every token, in order).
+    Decode reads the cache entries ``valid`` marks ((S,) shared or (b, S)
+    per slot); prefill attends by view position ``q_pos`` (b, s), over the
+    fresh K/V, or with ``paged_read`` over the slot's view through ``bt``,
+    or with ``rows`` (b,) int32 over those slots' stripes of the slot
+    cache."""
 
     cache: Optional[Dict[str, Any]]
     decode: bool
@@ -50,8 +58,10 @@ class KVStep:
     valid: Optional[torch.Tensor] = None
     wave_pos: Optional[int] = None
     targets: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    src: Optional[torch.Tensor] = None
     bt: Optional[torch.Tensor] = None
     paged_read: bool = False
+    rows: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -67,10 +77,27 @@ def slot_index(pos: torch.Tensor, S: int) -> torch.Tensor:
     return pos.clamp(0, S - 1)
 
 
-def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor) -> None:
-    """pos_arr (b, S), in place: record each row's position at its own index."""
-    b, S = pos_arr.shape
-    pos_arr[torch.arange(b, device=pos.device), slot_index(pos, S)] = pos.to(pos_arr.dtype)
+def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor) -> None:
+    """pos_arr (b, S), in place: record the position ``pos[i]`` of row
+    ``rows[i]`` at its own index."""
+    pos_arr[rows, slot_index(pos, pos_arr.shape[1])] = pos.to(pos_arr.dtype)
+
+
+def chunk_writes(slots: np.ndarray, starts: np.ndarray, s: int, S: int, device):
+    """Host side of a chunk into the dense slot cache: row r of the chunk
+    covers view positions [starts[r], starts[r] + s) of slot slots[r] ->
+    ((slot, view index) targets, src) for ``KVStep``.  Positions at or past
+    the cache end S are dropped, not clamped (``_write_prefill_chunk``'s
+    ``mode="drop"``): padding or rejected drafts of a row at the cache's
+    end would otherwise race the real write at S - 1.  Built from host
+    arrays, so dropping needs no device sync; ``src`` is None when nothing
+    is dropped."""
+    vpos = (np.asarray(starts, np.int64)[:, None] + np.arange(s)[None, :]).ravel()
+    rows = np.repeat(np.asarray(slots, np.int64), s)
+    keep = vpos < S
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    src = None if keep.all() else dev(np.flatnonzero(keep))
+    return (dev(rows[keep]), dev(vpos[keep])), src
 
 
 def paged_decode_targets(bt: torch.Tensor, pos: torch.Tensor, bs: int):
@@ -98,13 +125,18 @@ def paged_flat_targets(bt: torch.Tensor, starts: torch.Tensor, s: int, bs: int):
 
 
 def write_targets(side: torch.Tensor, new: torch.Tensor,
-                  targets: Tuple[torch.Tensor, torch.Tensor]) -> None:
+                  targets: Tuple[torch.Tensor, torch.Tensor],
+                  src: Optional[torch.Tensor] = None) -> None:
     """In place: K or V ``new`` (b, h, s, hd) into ``side`` (n, h, m, hd) at
     one (dim-0, dim-2) pair per token -- a slot's row and view index, or a
-    pool block and offset.  Only the null block can be a target twice; its
-    value is never read as valid, so whichever write lands is harmless."""
+    pool block and offset -- for the flat (row, position) tokens ``src``
+    (default all).  Only the null block can be a target twice; its value is
+    never read as valid, so whichever write lands is harmless."""
     b, h, s, hd = new.shape
-    side[targets[0], :, targets[1]] = new.transpose(1, 2).reshape(b * s, h, hd).to(side.dtype)
+    flat = new.transpose(1, 2).reshape(b * s, h, hd)
+    if src is not None:
+        flat = flat[src]
+    side[targets[0], :, targets[1]] = flat.to(side.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +152,9 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
 
     Prefill writes the fresh K/V where ``step`` says and attends by view
     position through the flash-prefill kernel: over the fresh K/V, or over
-    the slot's paged view (cached-prefix admission) through the paged one.
+    the slot's paged view (cached-prefix admission, every chunk) through the
+    paged one, or over the slots' stripes of the dense slot cache (a chunk),
+    through flash_verify when the chunk is at most ``VERIFY_WIDTH`` wide.
     Decode (s == 1) writes its token and attends the valid cache entries
     through the decode kernel, or the paged decode kernel."""
     b, s, _ = x.shape
@@ -141,8 +175,8 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
     if c is not None:
         ck, cv = c["k"][layer], c["v"][layer]
         if step.targets is not None:
-            write_targets(ck, k, step.targets)
-            write_targets(cv, v, step.targets)
+            write_targets(ck, k, step.targets, step.src)
+            write_targets(cv, v, step.targets, step.src)
         else:
             ck[:, :, step.wave_pos:step.wave_pos + s] = k
             cv[:, :, step.wave_pos:step.wave_pos + s] = v
@@ -156,6 +190,9 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
         out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     elif step.paged_read:
         out = ops.paged_flash_prefill(q, ck, cv, step.bt, step.q_pos, scale)
+    elif step.rows is not None:
+        attend = ops.flash_verify if s <= VERIFY_WIDTH else ops.flash_prefill
+        out = attend(q, ck, cv, step.q_pos, scale, rows=step.rows)
     else:
         out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale)
     return fused_out_projection(out, p["w_o"])

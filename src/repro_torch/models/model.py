@@ -266,7 +266,7 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
 
 
 def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
-             block_tables) -> attn.KVStep:
+             block_tables, write_rows=None, chunk_writes=None) -> attn.KVStep:
     """Where this forward writes K/V and what it attends, worked out once
     for all layers; writes the position rows that decode needs first."""
     dev = positions.device
@@ -291,13 +291,23 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
     if bt is not None:
         bt = bt.to(device=dev, dtype=torch.int32).contiguous()
     if cur_pos is not None:                                   # slot decode
-        attn.write_pos_batched(pos, cur_pos)
+        rows = torch.arange(b, device=dev) if write_rows is None else write_rows
+        wpos = cur_pos if write_rows is None else cur_pos[write_rows]
+        attn.write_pos_batched(pos, wpos, rows)
         valid = (pos >= 0) & (pos <= cur_pos[:, None])
         if bt is None:
-            targets = (torch.arange(len(cur_pos), device=dev), attn.slot_index(cur_pos, pos.shape[1]))
+            targets = (rows, attn.slot_index(wpos, pos.shape[1]))
         else:
-            targets = attn.paged_decode_targets(bt, cur_pos, caches["k"].shape[3])
-        return attn.KVStep(caches, decode=True, valid=valid, targets=targets, bt=bt)
+            targets = attn.paged_decode_targets(bt if write_rows is None else bt[rows], wpos,
+                                                caches["k"].shape[3])
+        return attn.KVStep(caches, decode=True, valid=valid, targets=targets, src=write_rows,
+                           bt=bt)
+    if bt is None and positions.dim() == 2:                   # slot chunk
+        if slots is None or chunk_writes is None:
+            raise ValueError("a chunk into a slot cache names its slots and its writes")
+        targets, src = chunk_writes
+        return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, src=src,
+                           rows=slots.to(torch.int32).contiguous())
     if bt is None:                                            # slot admission
         if slots is None:
             raise ValueError("a prefill into a slot cache names the slots it fills")
@@ -317,18 +327,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             length_mask: Optional[torch.Tensor] = None,
             start_pos: Optional[torch.Tensor] = None,
             block_tables: Optional[torch.Tensor] = None,
-            slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+            slots: Optional[torch.Tensor] = None,
+            write_rows: Optional[torch.Tensor] = None,
+            chunk_writes=None) -> torch.Tensor:
     """tokens (b, s) -> fp32 logits (b, s or 1, V).
 
     Without ``cur_pos`` this is a prefill: from position 0, or per row from
-    ``start_pos`` (b,) (cached-prefix admission: positions start_pos[b] +
-    arange(s), attending the slot's paged view).  With ``cur_pos`` it is one
-    decode step (s == 1): an int for the wave cache's shared position, or a
-    (b,) tensor of per-slot positions.
+    ``start_pos`` (b,) (positions start_pos[b] + arange(s): a cached-prefix
+    admission, a chunk of chunked admission, or a verify step).  With
+    ``cur_pos`` it is one decode step (s == 1): an int for the wave cache's
+    shared position, or a (b,) tensor of per-slot positions.
 
     The cache is ``init_caches``'s.  A prefill into a slot cache writes rows
-    ``slots`` (b,) of it; into a paged cache it writes through
-    ``block_tables`` (b, nbps), which decode reads and writes through too.
+    ``slots`` (b,) of it; a chunk (``start_pos`` given) writes there at each
+    row's own offset where ``chunk_writes`` says (``attention.chunk_writes``)
+    and attends those slots' stripes.  Into a paged cache a prefill writes
+    through ``block_tables`` (b, nbps), which decode reads and writes
+    through too.  A slot decode writes the token of the rows ``write_rows``
+    (default all: a row being admitted must not write its stale position).
     ``last_only`` keeps one position per row: the last, or with
     ``length_mask`` (b, s) (true at real tokens of a right-padded batch)
     each row's last real token."""
@@ -345,7 +361,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.arange(s, device=dev)
     step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
-                    block_tables=block_tables)
+                    block_tables=block_tables, write_rows=write_rows,
+                    chunk_writes=chunk_writes)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     x = layers_forward(params["layers"], x, cfg, rope=rope, step=step)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, SamplingConfig
 from repro_torch.core.wquant import QuantWeight
+from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime import kvcache
@@ -148,6 +149,30 @@ class Engine:
         out = [t.cpu().numpy() for t in tensors]
         return out[0] if len(out) == 1 else out
 
+    def _decode_step(self, caches, tok, pos, done, rem, eos, bt, write_rows=None):
+        """One masked decode step over all slots, on device tensors: a
+        finished row (``done`` or no budget left) keeps its token and
+        position.  Every row writes its token at its position unless
+        ``write_rows`` names the rows that do.  -> (tok, pos, done, rem)."""
+        logits = M.forward(self.params, tok[:, None], self.cfg, caches=caches, cur_pos=pos,
+                           block_tables=bt, write_rows=write_rows, head_f32=self.head_f32)
+        nxt = sample_tokens(logits[:, -1], self.sampling, self.generator)
+        active = ~done & (rem > 0)
+        tok = torch.where(active, nxt, tok)
+        pos = torch.where(active, pos + 1, pos)
+        hit_eos = active & (eos >= 0) & (tok == eos)
+        rem = torch.where(active, rem - 1, rem)
+        return tok, pos, done | hit_eos | (rem <= 0), rem
+
+    def _slot_state(self, tok, pos, done, remaining, eos, block_tables):
+        """Host slot state -> device (tok, pos, done, rem, eos) and the block
+        table (None for the dense cache), in one copy each."""
+        tok_d, pos_d, done_d, rem_d, eos_d = kvcache.device_ints(
+            np.stack([tok, pos, done, remaining, eos]), self.device)
+        bt = None if block_tables is None else kvcache.device_ints(
+            block_tables, self.device, torch.int32)
+        return (tok_d, pos_d, done_d.bool(), rem_d, eos_d), bt
+
     @torch.inference_mode()
     def decode_slots(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
                      block_tables=None):
@@ -158,26 +183,137 @@ class Engine:
         ``block_tables`` (B, nbps) the cache is paged: the table is copied
         to the device once per call, from a fresh host array.  Returns
         host (toks (n, B), pos, done, remaining)."""
-        state = kvcache.device_ints(np.stack([tok, pos, done, remaining, eos]), self.device)
-        tok_d, pos_d, done_d, rem_d, eos_d = state
-        done_d = done_d.bool()
-        bt = None if block_tables is None else kvcache.device_ints(
-            block_tables, self.device, torch.int32)
+        (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
+            tok, pos, done, remaining, eos, block_tables)
         toks = []
         for _ in range(n):
-            logits = M.forward(self.params, tok_d[:, None], self.cfg, caches=caches,
-                               cur_pos=pos_d, block_tables=bt, head_f32=self.head_f32)
-            nxt = sample_tokens(logits[:, -1], self.sampling, self.generator)
-            active = ~done_d & (rem_d > 0)
-            tok_d = torch.where(active, nxt, tok_d)
-            pos_d = torch.where(active, pos_d + 1, pos_d)
-            hit_eos = active & (eos_d >= 0) & (tok_d == eos_d)
-            rem_d = torch.where(active, rem_d - 1, rem_d)
-            done_d = done_d | hit_eos | (rem_d <= 0)
+            tok_d, pos_d, done_d, rem_d = self._decode_step(caches, tok_d, pos_d, done_d,
+                                                            rem_d, eos_d, bt)
             toks.append(tok_d)
         out = self.land(torch.stack([*toks, pos_d, done_d.long(), rem_d]))
         return (out[:n].astype(np.int32), out[n].astype(np.int32), out[n + 1].astype(bool),
                 out[n + 2].astype(np.int32))
+
+    # -- chunked admission and speculative decoding --------------------------
+    #
+    # A chunk (``start_pos`` per row) writes at each row's own offset and
+    # attends the row's cache from position 0: over a dense slot cache the
+    # rows' stripes (flash_verify up to VERIFY_WIDTH wide, flash_prefill
+    # above), over the paged pool the rows' views through their tables
+    # (paged_flash_prefill).  Only the rows that take part are computed, and
+    # only their cache entries are written: what the JAX package's
+    # merge_slots keeps.
+
+    def _chunk_kw(self, caches, rows: np.ndarray, starts: np.ndarray, width: int,
+                  block_tables) -> dict:
+        """forward() arguments of a chunk over slots ``rows`` starting at
+        ``starts`` (host arrays, one entry per row)."""
+        kw = {"start_pos": kvcache.device_ints(starts, self.device)}
+        if block_tables is None:
+            kw["slots"] = kvcache.device_ints(rows, self.device)
+            kw["chunk_writes"] = attn.chunk_writes(rows, starts, width, caches["pos"].shape[1],
+                                                   self.device)
+        else:
+            kw["block_tables"] = kvcache.device_ints(np.asarray(block_tables)[rows],
+                                                     self.device, torch.int32)
+        return kw
+
+    @torch.inference_mode()
+    def mixed_step(self, caches, ctokens, admit, clens, starts, totals, tok, pos, done,
+                   remaining, eos, *, block_tables=None):
+        """One fused chunked-admission step (``Engine.mixed_step`` and
+        ``mixed_step_paged`` of the JAX package).
+
+        The chunk half prefills one chunk of ``ctokens`` (B, C) for every
+        slot in ``admit``: row b's ``clens[b]`` real tokens at positions
+        ``starts[b]`` onward, after which its position row reads valid over
+        [0, ``totals[b]``); each admitted row samples its next token from
+        its last real chunk position (the host keeps it only where the
+        chunk completed the prompt).  The decode half is one masked decode
+        step of every slot, and runs only when some slot is decode-active
+        (not done, budget left); admitting slots ride it frozen, and their
+        stale decode write is kept out of the cache.  With
+        ``block_tables`` (B, nbps) the cache is paged: the chunk writes
+        through the admitted rows' tables only, the decode half through
+        all of them.  One host copy at the end.  Returns host (ptok (B,),
+        nxt (B,), pos, done, remaining) and whether the decode half ran."""
+        admit = np.asarray(admit, bool)
+        rows = np.flatnonzero(admit)
+        C = np.asarray(ctokens).shape[1]
+        dev = self.device
+        tok_c = torch.as_tensor(np.asarray(ctokens)[rows], dtype=torch.long, device=dev)
+        clens_d = kvcache.device_ints(np.asarray(clens)[rows], dev)
+        lmask = torch.arange(C, device=dev)[None, :] < clens_d[:, None]
+        logits = M.forward(self.params, tok_c, self.cfg, caches=caches, last_only=True,
+                           length_mask=lmask, head_f32=self.head_f32,
+                           **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
+                                            block_tables))
+        ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)
+        ptok[kvcache.device_ints(rows, dev)] = sample_tokens(logits[:, -1], self.sampling,
+                                                            self.generator)
+        kvcache.set_slot_positions(caches, totals, admit)
+        (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
+            tok, pos, done, remaining, eos, block_tables)
+        decoded = bool(((~np.asarray(done, bool)) & (np.asarray(remaining) > 0)).any())
+        if decoded:
+            tok_d, pos_d, done_d, rem_d = self._decode_step(
+                caches, tok_d, pos_d, done_d, rem_d, eos_d, bt,
+                write_rows=kvcache.device_ints(np.flatnonzero(~admit), dev))
+        out = self.land(torch.stack([ptok, tok_d, pos_d, done_d.long(), rem_d]))
+        return (out[0].astype(np.int32), out[1].astype(np.int32), out[2].astype(np.int32),
+                out[3].astype(bool), out[4].astype(np.int32), decoded)
+
+    @torch.inference_mode()
+    def verify_slots(self, caches, vtokens, pos, done, remaining, eos, *, block_tables=None):
+        """One fused speculative verify step (``Engine.verify_slots`` and
+        ``verify_slots_paged`` of the JAX package).
+
+        ``vtokens`` (B, K+1) holds each slot's pending token and K drafts.
+        Every active slot (not done, budget left) runs them as a width-(K+1)
+        chunk at its frontier ``pos``: all K+1 positions sample a target in
+        one forward; draft j+1 is accepted iff it equals target j, and the
+        slot emits the accepted run plus the target after it, cut at its
+        first EOS and its budget.  Its position row is then rewound to
+        exactly the emitted extent.  Frozen slots are neither computed nor
+        written.  With ``block_tables`` the cache is paged (the tables of
+        the active rows route both the chunk's writes and its reads).  One
+        host copy at the end.  Returns host (targets (B, K+1), n_emit (B,),
+        nxt (B,), pos, done, remaining)."""
+        vtokens = np.asarray(vtokens)
+        pos, done = np.asarray(pos, np.int32), np.asarray(done, bool)
+        remaining, eos = np.asarray(remaining, np.int32), np.asarray(eos, np.int32)
+        B, K1 = vtokens.shape
+        rows = np.flatnonzero(~done & (remaining > 0))
+        targets = np.zeros((B, K1), np.int32)
+        n_emit = np.zeros((B,), np.int32)
+        nxt = vtokens[:, 0].astype(np.int32)
+        if rows.size:
+            dev = self.device
+            vt = torch.as_tensor(vtokens[rows], dtype=torch.long, device=dev)
+            logits = M.forward(self.params, vt, self.cfg, caches=caches, head_f32=self.head_f32,
+                               **self._chunk_kw(caches, rows, pos[rows], K1, block_tables))
+            tg = sample_tokens(logits.reshape(len(rows) * K1, -1), self.sampling,
+                               self.generator).reshape(len(rows), K1)
+            pos_r, rem_r, eos_r = kvcache.device_ints(
+                np.stack([pos[rows], remaining[rows], eos[rows]]), dev)
+            acc = (vt[:, 1:] == tg[:, :-1]).long().cumprod(dim=1).sum(dim=1)
+            idx = torch.arange(K1, device=dev)
+            is_eos = (eos_r[:, None] >= 0) & (tg == eos_r[:, None])
+            j_eos = torch.where(is_eos, idx[None, :], K1).min(dim=1).values
+            e = torch.minimum(torch.minimum(acc + 1, j_eos + 1), rem_r)
+            kvcache.rewind_slots(caches, kvcache.device_ints(rows, dev), pos_r + e)
+            last = tg.gather(1, (e - 1).clamp(0, K1 - 1)[:, None])[:, 0]
+            out = self.land(torch.cat([tg.reshape(-1), e, j_eos, last]))
+            c = len(rows)
+            targets[rows] = out[:c * K1].reshape(c, K1)
+            e_h, j_h = out[c * K1:c * K1 + c], out[c * K1 + c:c * K1 + 2 * c]
+            n_emit[rows] = e_h
+            nxt[rows] = out[c * K1 + 2 * c:]
+            done = done.copy()
+            done[rows] |= (j_h < e_h) | (remaining[rows] - e_h <= 0)
+            pos = pos + n_emit
+            remaining = remaining - n_emit
+        return targets, n_emit, nxt, pos, done, remaining
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:

@@ -82,6 +82,17 @@ def set_slot_positions(caches: Dict[str, torch.Tensor], total_lens, mask) -> Non
     pos[m] = row[m]
 
 
+def rewind_slots(caches: Dict[str, torch.Tensor], rows: torch.Tensor,
+                 totals: torch.Tensor) -> None:
+    """In place, from device tensors: the position rows of slots ``rows``
+    (c,) read valid over exactly [0, totals[r]) -- the verify step's rewind.
+    Accepted drafts stay valid; the K/V of rejected ones stay behind, dead
+    by position, until the next chunk at the frontier overwrites them."""
+    pos = caches["pos"]
+    idx = torch.arange(pos.shape[1], device=pos.device, dtype=pos.dtype)
+    pos[rows] = torch.where(idx[None, :] < totals[:, None].to(pos.dtype), idx[None, :], -1)
+
+
 class BlockAllocator:
     """Hands out, refcounts and frees KV blocks; tracks reusable prefixes.
 

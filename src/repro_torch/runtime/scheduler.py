@@ -9,11 +9,14 @@ largest ``max_new``; each request then keeps its own ``max_new`` tokens, cut
 after its EOS.
 
 The continuous schedulers run the JAX package's blocking loop: retire
-finished slots, admit arrived requests into free slots with one bucketed
-whole-prompt prefill, then decode a fused block of masked steps.  Not
-ported yet: the overlapped loop, fault plans, priority classes and
-reserves, speculative decoding and chunked admission (the JAX package's
-``prefill_chunk=0`` path is the one ported here).
+finished slots, admit arrived requests into free slots, then step.  With
+``prefill_chunk`` set (the default, 256) every admitted prompt streams
+through fused mixed steps, one chunk per step while the other slots
+decode one token; with 0 it is admitted whole by one bucketed prefill.
+With ``spec_k`` set, a step verifies ``spec_k`` n-gram drafts per active
+slot and emits 1..spec_k+1 tokens; otherwise decode runs in fused blocks
+of masked steps.  Not ported yet: the overlapped loop, fault plans,
+priority classes and reserves, and disaggregated serving.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.runtime import kvcache
+from repro_torch.runtime.drafter import NgramDrafter
 from repro_torch.runtime.engine import Engine
 
 MIN_BUCKET = 8      # smallest admission width: prompts pad to a power of two >= this
@@ -118,22 +122,41 @@ class _Slot:
     req: Optional[Request] = None
     toks: List = field(default_factory=list)
     admitted_step: int = 0
+    # chunked admission in progress: absolute offset of the next prefill
+    # chunk (None = not chunking)
+    chunk_next: Optional[int] = None
+    # spec-decode drafting history: prompt + generated tokens, preallocated
+    # so that each step appends only what it emitted
+    hist: Optional[np.ndarray] = None
+    hist_len: int = 0
 
 
 class ContinuousScheduler:
     """Slot-based continuous batching over ``Engine``'s slot engine.
 
     The loop per round: retire finished slots, admit arrived requests into
-    free slots (one bucketed in-flight prefill), then run a block of up to
-    ``block_steps`` masked decode steps.
+    free slots, then step: a fused mixed step while any slot is mid-prefill
+    (chunked admission), else a verify step (``spec_k`` > 0) or a block of
+    up to ``block_steps`` masked decode steps.  ``prefill_chunk``,
+    ``spec_k`` and ``spec_ngram`` default to the engine's
+    ``ParallelConfig``; a chunk of 0 admits whole prompts by one bucketed
+    prefill.
     """
 
-    def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8):
+    def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
+                 *, prefill_chunk: Optional[int] = None, spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None):
         self.engine = engine
         self.B = n_slots
         self.pad_id = pad_id
         self.block_steps = block_steps
         self.prompt_limit = engine.max_len
+        par = engine.parallel
+        chunk = par.prefill_chunk if prefill_chunk is None else prefill_chunk
+        self.chunk = min(int(chunk), self.prompt_limit) if chunk else 0
+        self.spec_k = max(0, int(par.spec_k if spec_k is None else spec_k))
+        self.spec_ngram = int(par.spec_ngram if spec_ngram is None else spec_ngram)
+        self.drafter = NgramDrafter(self.spec_k, ngram_max=self.spec_ngram) if self.spec_k else None
         self.vocab = engine.cfg.vocab_size
         self.queue: List[Request] = []
         self.done: List[Request] = []
@@ -150,7 +173,13 @@ class ContinuousScheduler:
             "decode_steps": 0, "slot_steps": 0, "active_slot_steps": 0,
             "emitted": 0, "admission_rounds": 0, "in_flight_admissions": 0,
             "prefill_calls": 0, "prefill_tokens": 0, "quarantined": 0,
+            "prefill_chunks": 0, "chunked_admissions": 0,
+            # mixed steps whose decode half ran (some slot was decode-active)
+            "mixed_decode_steps": 0,
         }
+        if self.spec_k:
+            self.stats.update({"spec_steps": 0, "spec_slot_steps": 0, "spec_proposed": 0,
+                               "spec_accepted": 0, "spec_emitted": 0})
         # decode inter-token latency samples (seconds/step, during
         # admission), the most recent window
         self._itl: "deque" = deque(maxlen=65536)
@@ -181,7 +210,8 @@ class ContinuousScheduler:
     def _retire(self) -> None:
         now = time.monotonic()
         for i, s in enumerate(self.slots):
-            if s.req is not None and self.dones[i]:
+            # mid-prefill slots ride with done=True but are not finished
+            if s.req is not None and self.dones[i] and s.chunk_next is None:
                 r = s.req
                 r.output = np.asarray(s.toks, dtype=np.int32)
                 if r.finish_reason is None:
@@ -207,7 +237,8 @@ class ContinuousScheduler:
         return [r for r in self.queue if r.arrival_step <= self.step_count]
 
     def _in_flight(self) -> bool:
-        return any(s.req is not None and not self.dones[i] for i, s in enumerate(self.slots))
+        return any(s.req is not None and (not self.dones[i] or s.chunk_next is not None)
+                   for i, s in enumerate(self.slots))
 
     def _assign(self, pairs) -> None:
         """Dequeue the chosen requests and seat them in their slots."""
@@ -229,8 +260,22 @@ class ContinuousScheduler:
         self.stats["admission_rounds"] += 1
         if in_flight:
             self.stats["in_flight_admissions"] += len(pairs)
-        self._prefill_short(pairs)
+        if self.chunk:
+            self._start_chunks(pairs, {r.rid: 0 for _, r in pairs})
+        else:
+            self._prefill_short(pairs)
         return len(pairs)
+
+    def _start_chunks(self, pairs, starts_of) -> None:
+        """Chunked admission: every prompt streams through the mixed step
+        from ``starts_of[rid]`` (past a cached prefix), long ones chunk by
+        chunk; the slot rides the decode half frozen until its last chunk."""
+        for slot, r in pairs:
+            self.slots[slot].chunk_next = starts_of[r.rid]
+            self.dones[slot] = True
+            self.remaining[slot] = 0
+            if len(r.prompt) - starts_of[r.rid] > self.chunk:
+                self.stats["chunked_admissions"] += 1
 
     def _prefill_short(self, pairs) -> None:
         """Whole-prompt admission: one bucketed prefill of every admitted
@@ -303,14 +348,20 @@ class ContinuousScheduler:
         self.stats["slot_steps"] += n * self.B
         self._note_itl(n, emitted)
 
-    def _note_itl(self, n: int, emissions: int) -> None:
+    def _note_itl(self, n: int, emissions: int = 0, tokens_per_slot=None) -> None:
         """One inter-token latency sample per emitted token: the block's
         per-step share of the time since the last stamp, tagged when the
-        interval absorbed an admission prefill."""
+        interval absorbed admission work (a prefill or a chunk).  A verify
+        step's slot that emitted e tokens in a T-second step gives e samples
+        of T / e (``tokens_per_slot``)."""
         now = time.monotonic()
         if self._last_step_t is not None:
             dt = (now - self._last_step_t) / n
-            self._itl.extend([(dt, self._admission_mark)] * emissions)
+            if tokens_per_slot is None:
+                self._itl.extend([(dt, self._admission_mark)] * emissions)
+            else:
+                for e in tokens_per_slot:
+                    self._itl.extend([(dt / e, self._admission_mark)] * e)
         self._last_step_t = now
         self._admission_mark = False
 
@@ -335,6 +386,134 @@ class ContinuousScheduler:
         """Storage release for slot ``i`` (paged: blocks and refcounts); the
         dense cache owns nothing per slot."""
 
+    # -- speculative decoding (fused multi-token verify steps) ---------------
+    def _active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s.req is not None and not self.dones[i] and self.remaining[i] > 0]
+
+    def _slot_history(self, i: int) -> np.ndarray:
+        """Slot i's prompt + generated tokens for the drafter, kept up to
+        date incrementally."""
+        s = self.slots[i]
+        plen = len(s.req.prompt)
+        if s.hist is None:
+            s.hist = np.empty(plen + s.req.max_new + 1, np.int32)
+            s.hist[:plen] = np.asarray(s.req.prompt, np.int32).ravel()
+            s.hist_len = plen
+        total = plen + len(s.toks)
+        if s.hist_len < total:
+            s.hist[s.hist_len:total] = s.toks[s.hist_len - plen:]
+            s.hist_len = total
+        return s.hist[:s.hist_len]
+
+    def _ensure_spec_capacity(self) -> None:
+        """Pre-verify capacity hook (paged: blocks for spec_k + 1 writes)."""
+
+    def _run_verify(self, vtok):
+        return self.engine.verify_slots(self.caches, vtok, self.pos, self.dones,
+                                        self.remaining, self.eos)
+
+    def _post_verify(self, active: List[int]) -> None:
+        """Post-verify hook (paged: free the blocks past the rewound
+        frontier)."""
+
+    def _spec_step(self) -> None:
+        """Draft spec_k tokens per active slot from its own history, verify
+        them all plus one more position in one step, emit each slot's
+        accepted run (1..spec_k+1 tokens).  Verify steps are not fused into
+        blocks: each step's drafts need the previous step's tokens."""
+        K = self.spec_k
+        self._ensure_spec_capacity()       # may preempt: collect slots after
+        active = self._active_slots()
+        if not active:
+            return
+        vtok = np.zeros((self.B, K + 1), np.int32)
+        vtok[:, 0] = self.tok
+        vtok[active, 1:] = self.drafter.propose_many([self._slot_history(i) for i in active])
+        targets, n_emit, nxt, pos, done, remaining = self._run_verify(vtok)
+        counts = []
+        for i in active:
+            e = int(n_emit[i])
+            self.slots[i].toks.extend(int(t) for t in targets[i, :e])
+            counts.append(e)
+            # accepted drafts: the leading run the model verified, whatever
+            # an EOS or the budget cut from the emitted run
+            acc = int(np.cumprod(vtok[i, 1:] == targets[i, :-1]).sum())
+            self.stats["emitted"] += e
+            self.stats["active_slot_steps"] += 1
+            self.stats["spec_slot_steps"] += 1
+            self.stats["spec_emitted"] += e
+            self.stats["spec_accepted"] += acc
+        self.tok = np.array(nxt)
+        self.pos = np.array(pos)
+        self.dones = np.array(done)
+        self.remaining = np.array(remaining)
+        self.step_count += 1
+        self.stats["decode_steps"] += 1
+        self.stats["slot_steps"] += self.B
+        self.stats["spec_steps"] += 1
+        self.stats["spec_proposed"] += K * len(active)
+        self._note_itl(1, tokens_per_slot=counts)
+        self._post_verify(active)
+
+    # -- chunked admission (fused mixed prefill/decode steps) -----------------
+    def _prefilling(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s.req is not None and s.chunk_next is not None]
+
+    def _pre_mixed(self) -> None:
+        """Pre-step capacity hook (paged: the decode half's blocks)."""
+
+    def _run_mixed(self, tokens, admit, clens, starts, totals):
+        return self.engine.mixed_step(self.caches, tokens, admit, clens, starts, totals,
+                                      self.tok, self.pos, self.dones, self.remaining, self.eos)
+
+    def _post_chunks(self, slots_p: List[int]) -> None:
+        """Hook after each chunk lands (paged: publish completed prefix
+        blocks)."""
+
+    def _mixed_step(self) -> None:
+        """One fused step: every mid-prefill slot advances one chunk while
+        every decode-active slot decodes one token, so a long prompt stalls
+        decode by at most one chunk's compute per token."""
+        C = self.chunk
+        self._pre_mixed()                  # may preempt: assemble after
+        slots_p = self._prefilling()
+        if not slots_p:
+            return
+        tokens = np.full((self.B, C), self.pad_id, np.int32)
+        admit = np.zeros((self.B,), bool)
+        clens = np.ones((self.B,), np.int32)
+        starts = np.zeros((self.B,), np.int32)
+        totals = np.ones((self.B,), np.int32)
+        emits = []
+        for i in slots_p:
+            s = self.slots[i]
+            off, plen = s.chunk_next, len(s.req.prompt)
+            nc = min(C, plen - off)
+            tokens[i, :nc] = s.req.prompt[off:off + nc]
+            admit[i] = True
+            clens[i], starts[i], totals[i] = nc, off, off + nc
+            if off + nc == plen:
+                emits.append(i)
+        ptok, toks, pos, done, remaining, decoded = self._run_mixed(tokens, admit, clens,
+                                                                   starts, totals)
+        self.stats["mixed_decode_steps"] += decoded
+        self._admission_mark = True        # this step carried prefill work
+        self._apply_decode(toks[None], pos, done, remaining, 1)
+        for i in slots_p:
+            self.slots[i].chunk_next += int(clens[i])
+            self.stats["prefill_tokens"] += int(clens[i])
+            self.stats["prefill_chunks"] += 1
+        self.stats["prefill_calls"] += 1
+        self._post_chunks(slots_p)
+        if emits:
+            adm = np.zeros((self.B,), bool)
+            adm[emits] = True
+            self._finish_admission([(i, self.slots[i].req) for i in emits], adm, ptok)
+            for i in emits:
+                self.slots[i].chunk_next = None
+
     def _block_size(self) -> int:
         """Fused block size in {1, 2, 4, ..., block_steps}, stretched to the
         longest active budget: the fewest host round trips; admission waits
@@ -349,8 +528,9 @@ class ContinuousScheduler:
 
     def request_summary(self) -> Dict:
         """Latency over the completed requests (TTFT, queue wait), the
-        decode inter-token latency overall and in admission windows, and
-        the finish reasons."""
+        decode inter-token latency overall and in admission windows, the
+        finish reasons and, under spec decode, acceptance and tokens per
+        verify step."""
         out: Dict = {"requests": len(self.done)}
         for key in ("ttft_s", "queue_s"):
             s = percentile_summary(r.stats[key] for r in self.done if key in r.stats)
@@ -361,6 +541,13 @@ class ContinuousScheduler:
             adm = percentile_summary(d for d, a in self._itl if a)
             if adm is not None:
                 out["decode_itl_admission_s"] = adm
+        if self.stats.get("spec_steps"):
+            prop = self.stats["spec_proposed"]
+            slot_steps = max(1, self.stats["spec_slot_steps"])
+            out["spec"] = {"steps": self.stats["spec_steps"],
+                           "acceptance_rate": self.stats["spec_accepted"] / prop if prop else 0.0,
+                           "mean_tokens_per_step": self.stats["spec_emitted"] / slot_steps,
+                           "mean_accepted_per_step": self.stats["spec_accepted"] / slot_steps}
         reasons: Dict[str, int] = {}
         for r in self.done:
             reasons[r.finish_reason or "length"] = reasons.get(r.finish_reason or "length", 0) + 1
@@ -372,10 +559,14 @@ class ContinuousScheduler:
         self.caches = self.engine.init_slot_caches(self.B)
 
     def _serve_round(self) -> bool:
-        """One round (retire -> admit -> decode block); False when idle with
-        nothing queued."""
+        """One round (retire -> admit -> a mixed step while any slot is
+        mid-prefill, else a verify step or a decode block); False when idle
+        with nothing queued."""
         self._retire()
         self._admit()
+        if self._prefilling():
+            self._mixed_step()
+            return True
         n = self._block_size()
         if n == 0:
             pending = [r.arrival_step for r in self.queue]
@@ -384,7 +575,10 @@ class ContinuousScheduler:
             # idle: jump the virtual clock to the next arrival
             self.step_count = max(self.step_count, min(pending))
             return True
-        self._decode_block(n)
+        if self.spec_k:
+            self._spec_step()
+        else:
+            self._decode_block(n)
         return True
 
     def run(self) -> List[Request]:
@@ -410,16 +604,21 @@ class PagedContinuousScheduler(ContinuousScheduler):
       recently admitted request is evicted (blocks freed, requeued at the
       head, recomputed on readmission);
     * prefix reuse: a prompt's full blocks are published after its prefill
-      and evicted with their last reference.
+      (under chunked admission, as each chunk completes them) and evicted
+      with their last reference;
+    * spec decode: a verify step claims blocks for its spec_k + 1 writes
+      first and frees those past the rewound frontier after.
 
     ``n_blocks`` defaults to the dense footprint (n_slots x blocks per slot
     + the null block); smaller overcommits the pool against short requests.
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
-                 *, block_size: Optional[int] = None, n_blocks: Optional[int] = None,
-                 prefix_cache: bool = True):
-        super().__init__(engine, n_slots, pad_id, block_steps)
+                 *, prefill_chunk: Optional[int] = None, spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None, block_size: Optional[int] = None,
+                 n_blocks: Optional[int] = None, prefix_cache: bool = True):
+        super().__init__(engine, n_slots, pad_id, block_steps, prefill_chunk=prefill_chunk,
+                         spec_k=spec_k, spec_ngram=spec_ngram)
         self.bs = block_size or engine.parallel.kv_block_size
         self.view_blocks = -(-engine.max_len // self.bs)
         self.n_blocks = (n_blocks or engine.parallel.kv_pool_blocks
@@ -458,16 +657,18 @@ class PagedContinuousScheduler(ContinuousScheduler):
 
     def _retire(self) -> None:
         for i, s in enumerate(self.slots):
-            if s.req is not None and self.dones[i]:
+            if s.req is not None and self.dones[i] and s.chunk_next is None:
                 self._release_slot(i)
         super()._retire()
 
     def _preempt_youngest(self) -> bool:
         """Evict the most recently admitted running request: free its
         blocks and requeue it at the head (recomputed on readmission).  Its
-        tokens so far are discarded and the emitted counter rolls back."""
+        tokens so far are discarded and the emitted counter rolls back.  A
+        slot mid-prefill is a candidate too; its chunk progress is dropped."""
         cand = [i for i, s in enumerate(self.slots)
-                if s.req is not None and not self.dones[i] and self.remaining[i] > 0]
+                if s.req is not None and ((not self.dones[i] and self.remaining[i] > 0)
+                                          or s.chunk_next is not None)]
         if not cand:
             return False
         i = max(cand, key=lambda j: (self.slots[j].admitted_step, self.slots[j].req.rid))
@@ -562,7 +763,10 @@ class PagedContinuousScheduler(ContinuousScheduler):
         self.stats["admission_rounds"] += 1
         if in_flight:
             self.stats["in_flight_admissions"] += len(pairs)
-        self._prefill_suffix(pairs, starts_of)
+        if self.chunk:
+            self._start_chunks(pairs, starts_of)
+        else:
+            self._prefill_suffix(pairs, starts_of)
         return len(pairs)
 
     def _prefill_suffix(self, pairs, starts_of) -> None:
@@ -594,3 +798,50 @@ class PagedContinuousScheduler(ContinuousScheduler):
                 self.alloc.register_prefix(r.prompt,
                                            self.slot_blocks[slot][:len(r.prompt) // self.bs])
         self._finish_admission(pairs, admit, new_tok)
+
+    # -- speculative decoding and chunked admission hooks --------------------
+    def _ensure_spec_capacity(self) -> None:
+        # a verify step writes spec_k + 1 tokens per active slot, accepted or
+        # not: every slot needs the blocks of the worst case first
+        self._ensure_capacity(self.spec_k + 1)
+
+    def _run_verify(self, vtok):
+        # the engine computes, writes and reads the active rows only, each
+        # through its own table row: a frozen slot's blocks are never touched
+        return self.engine.verify_slots(self.caches, vtok, self.pos, self.dones,
+                                        self.remaining, self.eos, block_tables=self.bt)
+
+    def _post_verify(self, active: List[int]) -> None:
+        # the paged half of the rewind: blocks claimed for draft positions
+        # past the accepted frontier hold only rejected drafts; [0, pos) is
+        # valid and the entry at pos is the next step's to write
+        for i in active:
+            keep = -(-int(self.pos[i]) // self.bs)
+            blocks = self.slot_blocks[i]
+            if len(blocks) > keep:
+                self.alloc.free(blocks[keep:])
+                self.bt[i, keep:len(blocks)] = kvcache.NULL_BLOCK
+                self.slot_blocks[i] = blocks[:keep]
+        self._note_usage()
+
+    def _pre_mixed(self) -> None:
+        # the decode half writes one token per active slot (may preempt)
+        self._ensure_capacity(1)
+
+    def _run_mixed(self, tokens, admit, clens, starts, totals):
+        # the chunk writes through the admitting rows' tables only, the
+        # decode half through every slot's
+        return self.engine.mixed_step(self.caches, tokens, admit, clens, starts, totals,
+                                      self.tok, self.pos, self.dones, self.remaining, self.eos,
+                                      block_tables=self.bt)
+
+    def _post_chunks(self, slots_p: List[int]) -> None:
+        # each chunk completes chunk_next // block_size full blocks, which
+        # admissions arriving while the rest streams in can share at once
+        if not self.prefix_cache:
+            return
+        for i in slots_p:
+            s = self.slots[i]
+            n_full = s.chunk_next // self.bs
+            if n_full:
+                self.alloc.register_prefix(s.req.prompt, self.slot_blocks[i][:n_full])

@@ -2,9 +2,10 @@
 of the port's ``ContinuousScheduler`` against the JAX package's, on the
 same weights.
 
-The JAX side runs ``use_pallas=True`` (Pallas in interpret mode) with
-``prefill_chunk=0``, its whole-prompt bucketed admission, which is the path
-the port has; head_dim 128 and max_len 64.  Two workloads: the stragglers
+The JAX side runs ``use_pallas=True`` (Pallas in interpret mode); both
+sides run ``prefill_chunk=0``, the whole-prompt bucketed admission (chunked
+admission and spec decode are held in tests/test_torch_chunked.py and
+tests/test_torch_spec.py); head_dim 128 and max_len 64.  Two workloads: the stragglers
 of tests/test_paged.py (staggered arrivals, mixed budgets, an EOS id on
 every third request) and a shared system prompt in front of every request.
 
@@ -106,7 +107,7 @@ def test_continuous_tokens_match_jax(engines, workload):
     jeng, teng = engines
     reqs = WORKLOADS[workload](teng.cfg)
     jsched = JContinuousScheduler(jeng, n_slots=3, block_steps=4)
-    tsched = ContinuousScheduler(teng, n_slots=3, block_steps=4)
+    tsched = ContinuousScheduler(teng, n_slots=3, block_steps=4, prefill_chunk=0)
     ref, port = serve(jsched, reqs), serve(tsched, reqs)
     assert_streams_match(teng, reqs, port, ref)
     for key in ("decode_steps", "prefill_calls", "prefill_tokens", "admission_rounds",

@@ -7,7 +7,9 @@ conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Shapes cover what the main path does not: head_dim 64, ragged tails, pad
-rows, g from 1 to 16, per-row masks with a fully masked row, paged pools
+rows, g from 1 to 16, per-row masks with a fully masked row, verify
+chunks of 1 to 8 queries over slot stripes read through a row index with
+frontiers at 0, mid-stripe and the stripe's end, paged pools
 read through shuffled block tables with null entries and dead blocks,
 suffixes of 1, 2 and 9 tokens after a cached prefix, tie-heavy
 top-k rows over vocabularies up to qwen's 152064, and dequant matmuls at
@@ -64,6 +66,84 @@ def test_flash_prefill_kernel(dev, b, hq, hkv, sq, sk, hd, dtype):
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
     assert not got[-1, :, -3:].any()
+
+
+def _stripe_case(gen, dev, dtype, b, hq, hkv, sq, S, hd, n_cache):
+    """q, a slot cache of n_cache stripes, a row index naming b distinct
+    stripes (reversed order) and chunk positions: row 0 at the stripe's
+    start (its first query sees one key), row 1 ending at S - 1, the others
+    at random frontiers; the last row's last query is a pad row."""
+    q = _randn(gen, (b, hq, sq, hd), dtype, dev)
+    k = _randn(gen, (n_cache, hkv, S, hd), dtype, dev)
+    v = _randn(gen, (n_cache, hkv, S, hd), dtype, dev)
+    rows = torch.randperm(n_cache, generator=gen, device=dev)[:b].flip(0).to(torch.int32)
+    starts = torch.randint(0, S - sq + 1, (b,), generator=gen, device=dev)
+    starts[0] = 0
+    if b > 1:
+        starts[1] = S - sq
+    q_pos = (starts[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+    q_pos[-1, -1] = -1
+    return q, k, v, rows.contiguous(), q_pos.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq", [1, 2, 5, 8])
+@pytest.mark.parametrize("b,hq,hkv,S", [(4, 32, 4, 256), (3, 4, 4, 100), (2, 16, 8, 1000),
+                                         (5, 8, 1, 70)])
+def test_flash_verify_kernel(dev, b, hq, hkv, S, sq, hd, dtype):
+    """g = 8, 1, 2 and 8; stripes of 70..1000 keys (one split or many);
+    a 6-slot cache read through a row index."""
+    gen = torch.Generator(device=dev).manual_seed(S * sq + hd)
+    q, k, v, rows, q_pos = _stripe_case(gen, dev, dtype, b, hq, hkv, sq, S, hd, 6)
+    before = ops.LAUNCHES["flash_verify"]
+    got = ops.flash_verify(q, k, v, q_pos, hd ** -0.5, rows=rows)
+    assert ops.LAUNCHES["flash_verify"] == before + 2          # split pass and merge
+    want = ref.flash_verify_ref(q, k[rows.long()], v[rows.long()], q_pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[-1, :, -1].any()
+
+
+def test_flash_verify_fully_masked_rows_and_refused_launch(dev):
+    """A row whose queries are all padding comes out as exact zeros, and so
+    does a row whose index lies outside the cache; a launch past the
+    65535 blocks of the grid's second dimension raises."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = _randn(gen, (3, 8, 4, 128), torch.bfloat16, dev)
+    k = _randn(gen, (2, 2, 64, 128), torch.bfloat16, dev)
+    q_pos = torch.tensor([[-1] * 4, [3, 4, 5, 6], [60, 61, 62, 63]], dtype=torch.int32,
+                         device=dev)
+    rows = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)    # row 2 is no stripe
+    got = ops.flash_verify(q, k, k, q_pos, 0.1, rows=rows)
+    want = ref.flash_verify_ref(q[:2], k, k, q_pos[:2], 0.1)
+    torch.cuda.synchronize()
+    assert not got[0].any() and not got[2].any()
+    torch.testing.assert_close(got[:2].float(), want.float(), atol=3e-2, rtol=3e-2)
+    b = 65536 // 4 + 1
+    pool = torch.zeros(1, 4, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash_verify"):
+        ops.flash_verify(torch.zeros(b, 4, 1, 64, device=dev, dtype=torch.bfloat16), pool, pool,
+                         torch.zeros(b, 1, dtype=torch.int32, device=dev), 0.1,
+                         rows=torch.zeros(b, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,S,hd", [(4, 32, 4, 64, 256, 128), (3, 8, 2, 9, 100, 64),
+                                              (2, 4, 4, 130, 300, 64)])
+def test_flash_prefill_kernel_through_rows(dev, b, hq, hkv, sq, S, hd, dtype):
+    """A chunk of admitted slots attending their stripes of a slot cache
+    through the row index, as chunked admission does."""
+    gen = torch.Generator(device=dev).manual_seed(sq + S)
+    q, k, v, rows, q_pos = _stripe_case(gen, dev, dtype, b, hq, hkv, sq, S, hd, 5)
+    before = ops.LAUNCHES["flash_prefill"]
+    got = ops.flash_prefill(q, k, v, q_pos, hd ** -0.5, rows=rows)
+    assert ops.LAUNCHES["flash_prefill"] == before + 1
+    want = ref.flash_prefill_ref(q, k[rows.long()], v[rows.long()], q_pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[-1, :, -1].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

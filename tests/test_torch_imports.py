@@ -23,7 +23,7 @@ for n in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or k == "repro" or k.startswith("repro."))
-print(len(names), bad)
+print(len(names), "repro_torch.runtime.drafter" in names, bad)
 """
 
 
@@ -31,8 +31,9 @@ def test_import_loads_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True, text=True,
                          env=env, cwd=str(SRC.parent), timeout=120, check=True).stdout
-    n, bad = out.split(" ", 1)
-    assert int(n) >= 20 and bad.strip() == "[]", out
+    n, drafter, bad = out.split(" ", 2)
+    # the drafter is the port's own copy of repro.runtime.drafter
+    assert int(n) >= 20 and drafter == "True" and bad.strip() == "[]", out
 
 
 def test_sources_import_no_jax_and_no_repro():

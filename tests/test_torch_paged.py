@@ -1,8 +1,9 @@
 """Continuous batching over the paged KV cache: the port's
 ``PagedContinuousScheduler`` against the JAX package's on the same weights
 (``use_pallas=True``, so the JAX side runs its paged decode and paged
-flash-prefill Pallas kernels in interpret mode; ``prefill_chunk=0``), and
-the port's ``BlockAllocator`` on its own.
+flash-prefill Pallas kernels in interpret mode; ``prefill_chunk=0`` on
+both sides: whole-prompt admission), and the port's ``BlockAllocator`` on
+its own.
 
 Per request the greedy tokens agree up to certified near-ties (see
 tests/test_torch_continuous.py), and the host bookkeeping agrees exactly:
@@ -31,7 +32,7 @@ def run_pair(engines, reqs, **kw):
     may follow either."""
     jeng, teng = engines
     jsched = JPagedScheduler(jeng, **kw)
-    tsched = PagedContinuousScheduler(teng, **kw)
+    tsched = PagedContinuousScheduler(teng, prefill_chunk=0, **kw)
     ref, port = serve(jsched, reqs), serve(tsched, reqs)
     dense = serve(JContinuousScheduler(jeng, n_slots=kw["n_slots"],
                                        block_steps=kw["block_steps"]), reqs)
@@ -81,8 +82,9 @@ def test_paged_matches_dense_port(engines):
     through the dense one)."""
     _, teng = engines
     reqs = shared_prompt_requests(teng.cfg.vocab_size, seed=5)
-    dense = serve(ContinuousScheduler(teng, n_slots=3, block_steps=4), reqs)
-    paged = serve(PagedContinuousScheduler(teng, n_slots=3, block_steps=4, block_size=8), reqs)
+    dense = serve(ContinuousScheduler(teng, n_slots=3, block_steps=4, prefill_chunk=0), reqs)
+    paged = serve(PagedContinuousScheduler(teng, n_slots=3, block_steps=4, block_size=8,
+                                           prefill_chunk=0), reqs)
     assert_streams_match(teng, reqs, paged, dense)
 
 
@@ -91,7 +93,8 @@ def test_shared_blocks_are_never_written(engines):
     request that shares them is admitted and decodes."""
     _, teng = engines
     reqs = shared_prompt_requests(teng.cfg.vocab_size, n=2, seed=6)
-    sched = PagedContinuousScheduler(teng, n_slots=2, block_steps=2, block_size=8)
+    sched = PagedContinuousScheduler(teng, n_slots=2, block_steps=2, block_size=8,
+                                     prefill_chunk=0)
     sched.submit(reqs[0][0], 12)
     sched.submit(reqs[1][0], 6, arrival_step=3)
     sched._init_caches()
