@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    (attention, paged attention, the verify chunk's flash_verify and top-k
    at yi-9b; dequant_matmul at yi-9b int8 and qwen-72b int4, decode and
    prefill widths; flash_prefill and flash_verify also over slot stripes
-   read through the row index), against its plain PyTorch version on the
+   read through the row index; lru_scan, top-k over its vocab and the
+   head_dim-256 windowed prefill and ring decode at recurrentgemma-9b),
+   against its plain PyTorch version on the
    same inputs (stated tolerance), with its time, the plain version's, one
    PyTorch library call's for the same function (a yardstick the port
    never calls) and the least time the card could take (bytes at 3.35 TB/s
@@ -23,7 +25,9 @@ Phases, each fatal on failure:
    chunked-admission steps (Engine.mixed_step, a chunk beside a decode
    half) and verify steps (Engine.verify_slots, with drafts partly wrong so
    that some are rejected and the slots rewound): every sampled logits row
-   and the position rows;
+   and the position rows; and a small RG-LRU hybrid (head_dim 256, window
+   64) through a wave and the slot engine past its ring's wrap, the slots
+   admitted a second time: every logits row and the recurrent state;
 5. serve: three full-width models with random weights from a seed, each
    through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
    layers), qwen-72b in int4 (80 layers).  Each serves 8 requests in waves
@@ -47,7 +51,14 @@ Phases, each fatal on failure:
    token per verify step and give the same tokens.  Random full-width
    weights make greedy streams that repeat one token whatever their
    context, so these token checks show that the path runs and rewinds,
-   not that its attention reads the right rows: phase 4 shows that.
+   not that its attention reads the right rows: phase 4 shows that;
+7. hybrid: full-width recurrentgemma-9b bf16 (38 layers) through the
+   WaveScheduler (prompts of 2100-2300 tokens, longer than the 2048-token
+   window) and the ContinuousScheduler (its default chunk falls back to
+   whole prompts; slots decode past position 2048): tokens in range, a
+   second run identical, the ring wrapped, and launch counts exactly 26
+   lru_scan and 12 flash_prefill per prefill forward, 12 decode_attention
+   per decode step.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the kernels' JSON and one serve JSON line per phase.
@@ -93,6 +104,14 @@ SPEC_K, STRIPE = 4, 256
 SLOT_WORKLOAD = dict(requests=12, shared_prefix=64, prompt_len=64, max_new=32,
                      max_new_spread=4, arrival_every=4)
 SLOTS, TIE_GAP = 4, 1e-2
+# recurrentgemma-9b: 16 q heads over 1 KV head of head_dim 256, a 2048-token
+# window, lru width 4096, vocab 256000; the wave phase's prefill is 4 rows of
+# up to 2304 tokens
+RG_ARCH, RG_HQ, RG_HD, RG_WINDOW, RG_W, RG_SQ = "recurrentgemma-9b", 16, 256, 2048, 4096, 2304
+RG_VOCAB = 256000
+RG_WAVE = dict(requests=8, batch=4, prompt=(2100, 2300), max_new=32, max_len=2400)
+RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arrival_every=4,
+                max_len=2304)
 # dequant_matmul cases: (what, mode, T, K, N, out dtype); the first is the
 # int4 qwen-72b decode hot path and heads the kernels line
 DQ_CASES = (("qwen-72b w_up int4, decode", "int4", B, 8192, 24576, torch.bfloat16),
@@ -201,19 +220,20 @@ def check_kernels(dev, flush) -> list:
                 4 * HD * B * HQ * DECODE_VALID, BF16_FLOPS),
     })
 
-    # top-k over the fp32 logits: k = 1 is the greedy path the serve phase
-    # runs; k = 40 (the serve CLI's default) is checked and timed beside it
-    x = rnd(B, VOCAB)
+    # top-k over the fp32 logits: k = 1 is the greedy path the serve phases
+    # run, at yi-9b's vocab and at recurrentgemma-9b's; k = 40 (the serve
+    # CLI's default) is checked and timed beside it
     entry = None
-    for kk in (1, 40):
+    for V, kk, key in ((VOCAB, 1, None), (VOCAB, 40, "k40"), (RG_VOCAB, 1, f"v{RG_VOCAB}")):
+        x = rnd(B, V)
         vals, idx = ops.topk(x, kk)
         rv, ri = ref.topk_ref(x, kk)
         err = (vals - rv).abs().max().item()
         if not (err == 0 and torch.equal(idx, ri)):
-            fail(f"topk k={kk} differs from its plain version (value error {err}, "
+            fail(f"topk ({B}, {V}) k={kk} differs from its plain version (value error {err}, "
                  f"indices equal {torch.equal(idx, ri)})")
         timed = {
-            "max_abs_err": err, "tolerance": 0.0,
+            "shape": f"x ({B},{V}) fp32, k={kk}", "max_abs_err": err, "tolerance": 0.0,
             "ms": cold_ms(lambda: ops.topk(x, kk), flush),
             "plain_ms": cold_ms(lambda: ref.topk_ref(x, kk), flush),
             "library_ms": cold_ms(lambda: torch.topk(x, kk), flush),
@@ -223,15 +243,144 @@ def check_kernels(dev, flush) -> list:
             entry = {"name": "topk", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/topk.cu",
                      "replaces": "src/repro/kernels/topk_shard.py:66",
-                     "counter": "topk",
-                     "shape": f"x ({B},{VOCAB}) fp32, k=1", **timed}
+                     "counter": "topk", **timed}
         else:
-            entry[f"k{kk}"] = timed
+            entry[key] = timed
     out.append(entry)
     out.append(check_dequant(dev, flush))
     out.extend(check_paged(dev, flush))
     out[0]["stripe"] = check_stripe_prefill(dev, flush)
     out.append(check_verify(dev, flush))
+    out.extend(check_hybrid_kernels(dev, flush))
+    return out
+
+
+def check_hybrid_kernels(dev, flush) -> list:
+    """The RG-LRU hybrid's kernels at recurrentgemma-9b's shapes: lru_scan
+    at the wave prefill's (4, 2304, 4096) and at an odd width; the decode
+    and prefill attention at head_dim 256, g 16, over the 2048-token window.
+    Their launches are counted on the recurrentgemma phases only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = []
+
+    # lru_scan: the kernel rounds product and sum as the plain version does
+    cases = []
+    for w in (RG_W, 4000):
+        a, x, h0 = torch.sigmoid(rnd(B, RG_SQ, w)), rnd(B, RG_SQ, w), rnd(B, w)
+        hs, hT = ops.lru_scan(a, x, h0)
+        want_hs, want_hT = ref.lru_scan_ref(a, x, h0)
+        err = max((hs - want_hs).abs().max().item(), (hT - want_hT).abs().max().item())
+        if not err <= 1e-6:
+            fail(f"lru_scan at width {w} differs from its plain version by {err} > 1e-6")
+        cases.append({
+            "shape": f"a, b ({B},{RG_SQ},{w}) fp32, h0 ({B},{w})", "max_abs_err": err,
+            "tolerance": 1e-6,
+            "ms": cold_ms(lambda: ops.lru_scan(a, x, h0), flush),
+            "plain_ms": cold_ms(lambda: ref.lru_scan_ref(a, x, h0), flush, iters=3, warmup=1),
+            "library_ms": None,
+            **bound(4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel(), FP32_FLOPS),
+        })
+        del a, x, h0, hs, want_hs
+    out.append({"name": "lru_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+                "replaces": "src/repro/kernels/lru_scan.py:39", "counter": "lru_scan",
+                "arches": [RG_ARCH],
+                "library": "none: no single PyTorch call computes a linear recurrence",
+                **{k: cases[0][k] for k in ("shape", "max_abs_err", "tolerance", "ms",
+                                            "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "odd_width": cases[1]})
+
+    # decode over a 2048-entry ring: per row, the window of a query at
+    # position f over entries written at p % 2048 (rows 0 and 3 wrapped,
+    # row 2 not yet full)
+    S, scale = RG_WINDOW, RG_HD ** -0.5
+    q = rnd(B, RG_HQ, 1, RG_HD).bfloat16()
+    k, v = rnd(B, 1, S, RG_HD).bfloat16(), rnd(B, 1, S, RG_HD).bfloat16()
+    idx = torch.arange(S, device=dev)
+    frontiers = [2300, 2047, 1500, 3000]
+    valid = torch.stack([(f - (f - idx) % S >= 0) for f in frontiers]).contiguous()
+    m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+    m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+    o, o2 = acc / l[..., None], acc2 / l2[..., None]
+    err = max((o - o2).abs().max().item(), (m - m2).abs().max().item())
+    l_rel = ((l - l2).abs() / l2).max().item()
+    if not (err <= 1e-3 and l_rel <= 1e-4):
+        fail(f"decode_attention at head_dim 256 differs from its plain version: {err} "
+             f"(tol 1e-3), l relative {l_rel} (tol 1e-4)")
+    n_valid = int(valid.sum())
+    out.append({
+        "name": "decode_attention_partial (head_dim 256)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:66", "counter": "decode_attention",
+        "arches": [RG_ARCH],
+        "shape": f"q ({B},{RG_HQ},1,{RG_HD}) bf16, k/v ({B},1,{S},{RG_HD}) ring, per-row "
+                 f"window masks at positions {frontiers} ({n_valid} valid)",
+        "library": "SDPA with a per-row bool mask",
+        "max_abs_err": err, "tolerance": 1e-3,
+        "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[:, None, None, :], scale=scale, enable_gqa=True), flush),
+        **bound(2 * (q.numel() + 2 * n_valid * RG_HD) + valid.numel()
+                + 4 * (m.numel() + l.numel() + acc.numel()),
+                4 * RG_HD * RG_HQ * n_valid, BF16_FLOPS),
+    })
+
+    # windowed prefill of the wave's longest prompts over their fresh K/V:
+    # per element as the stripe rows (outputs here are ~0.04, so an absolute
+    # limit would not see the band's edge), and the plain version one key
+    # narrower or wider must fail the same limit
+    q = rnd(B, RG_HQ, RG_SQ, RG_HD).bfloat16()
+    k, v = rnd(B, 1, RG_SQ, RG_HD).bfloat16(), rnd(B, 1, RG_SQ, RG_HD).bfloat16()
+    q_pos = torch.arange(RG_SQ, device=dev, dtype=torch.int32).expand(B, -1).contiguous()
+    tol = "2e-3 + 1e-2 |want| (bf16); 1e-3 (fp32 inputs)"
+    got = ops.flash_prefill(q, k, v, q_pos, scale, window=RG_WINDOW).float()
+    far = lambda want: ((got - want).abs() > 2e-3 + 1e-2 * want.abs()).any().item()
+    want = ref.flash_prefill_ref(q, k, v, q_pos, scale, RG_WINDOW).float()
+    err = (got - want).abs().max().item()
+    if far(want):
+        fail(f"flash_prefill at head_dim 256 with a window differs from its plain version by "
+             f"{err} ({tol})")
+    edge = {}
+    for w in (RG_WINDOW - 1, RG_WINDOW + 1):
+        want = ref.flash_prefill_ref(q, k, v, q_pos, scale, w).float()
+        edge[w] = (got - want).abs().max().item()
+        if not far(want):
+            fail(f"flash_prefill's limit ({tol}) cannot tell window {RG_WINDOW} from {w}")
+    f32 = (q.float(), k.float(), v.float(), q_pos, scale, RG_WINDOW)
+    err32 = (ops.flash_prefill(*f32[:5], window=RG_WINDOW) - ref.flash_prefill_ref(*f32)
+             ).abs().max().item()
+    if not err32 <= 1e-3:
+        fail(f"flash_prefill at head_dim 256 with a window differs from its plain version in "
+             f"fp32 by {err32} > 1e-3")
+    j = torch.arange(RG_SQ, device=dev)
+    band = (j[None, :] <= j[:, None]) & (j[None, :] > j[:, None] - RG_WINDOW)
+    pairs = int(band.sum()) * B * RG_HQ
+    del want, got, f32
+    out.append({
+        "name": "flash_prefill (head_dim 256, window 2048)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:114", "counter": "flash_prefill",
+        "arches": [RG_ARCH],
+        "shape": f"q ({B},{RG_HQ},{RG_SQ},{RG_HD}) bf16, k/v ({B},1,{RG_SQ},{RG_HD}), "
+                 f"window {RG_WINDOW}",
+        "library": "SDPA with a bool band mask",
+        "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
+        "max_abs_err_against_window": edge,
+        "ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, scale, window=RG_WINDOW),
+                      flush, iters=10),
+        "plain_ms": cold_ms(lambda: ref.flash_prefill_ref(q, k, v, q_pos, scale, RG_WINDOW),
+                            flush, iters=3, warmup=1),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, scale=scale, enable_gqa=True), flush, iters=10),
+        **bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * q_pos.numel(),
+                4 * RG_HD * pairs, BF16_FLOPS),
+    })
     return out
 
 
@@ -477,14 +626,17 @@ def check_dequant(dev, flush) -> dict:
 
 
 def to_device(params: dict, dev) -> dict:
-    """The port's params (QuantWeight leaves included) copied to ``dev``."""
+    """The port's params (QuantWeight leaves and an RG-LRU layer's ``mixer``
+    dict included) copied to ``dev``."""
     from repro_torch.core.wquant import map_tensors
 
     def mv(t):
+        if isinstance(t, dict):
+            return {k: mv(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [mv(v) for v in t]
         return map_tensors(t, lambda a: a.to(dev))
-    return {"embed": {"table": mv(params["embed"]["table"])},
-            "layers": [{k: mv(t) for k, t in layer.items()} for layer in params["layers"]],
-            "final_norm": mv(params["final_norm"]), "lm_head": mv(params["lm_head"])}
+    return mv(params)
 
 
 # logits of the small GQA model, card against CPU: fp32 logits of magnitude
@@ -691,6 +843,231 @@ def slot_reference_check(dev) -> dict:
             "parted": parted}
 
 
+# the small hybrid, card against CPU: five bf16 layers over 80 tokens carry
+# more rounding to the logits than the two-layer checks above.  On an H100
+# the sound check reads 6.6e-2; with one fault planted on the card's side
+# (K/V ring writes clamped instead of wrapped, the prefill window dropped or
+# one key narrower or wider, admission leaving h/conv unreset) it reads
+# 0.29-1.55.  The limit lies between, with half the sound reading to spare.
+HYBRID_TOL = 0.1
+
+
+def small_hybrid(dev):
+    """The hybrid reference checks' model: recurrentgemma-9b's pattern over
+    5 layers (R, R, A, R, R: a period group and two singles), d 512, 2 q
+    heads over 1 KV head of head_dim 256, window 64, d_ff 1024, vocab 512;
+    random weights from seed 1 -> (cfg, CPU params, the same on ``dev``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(RG_ARCH).reduced(), n_layers=5, d_model=512, n_heads=2,
+                              n_kv_heads=1, head_dim=256, d_ff=1024)
+    cpu = M.init_params(cfg, seed=1, device="cpu")
+    return cfg, cpu, to_device(cpu, dev)
+
+
+def hybrid_reference_check(dev) -> dict:
+    """The small hybrid on the card (kernels) against the same model on the
+    CPU (plain versions), in bf16: every logits row and the recurrent state
+    (h, conv), within HYBRID_TOL.
+
+    Wave: 3 prompts of 80 tokens into a 64-entry ring (the prefill keeps the
+    last 64), then 24 teacher-forced decode steps, positions 80-103 at
+    p % 64.  Slot engine: 3 slots first hold prompts of 50, 12 and 33
+    tokens for 4 decode steps; then prompts of 23, 41 and 60 tokens are
+    admitted into the same slots (right-padded to 64, so the length mask
+    keeps the pads out of the state, and the admission must zero what the
+    slots held) and decoded for 24 teacher-forced steps at per-slot
+    positions, past 64 for two of them.  This is what shows that the
+    card's path reads the right ring rows and resets its state: random
+    full-width weights repeat one token, so the serve phases' token checks
+    cannot.  A fault shared by both devices (the model's code runs on
+    both) is the CPU tests' to find, against the JAX package."""
+    from repro_torch.configs import SamplingConfig
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    cfg, cpu, gpu = small_hybrid(dev)
+    steps = 24
+    worst = {"wave_logits": 0.0, "slot_logits": 0.0, "h": 0.0, "conv": 0.0}
+
+    def cmp(key, a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        if not torch.isfinite(b).all():
+            fail(f"hybrid reference: non-finite {key} on the card")
+        worst[key] = max(worst[key], (a - b).abs().max().item())
+
+    def state(c_cpu, c_card):
+        cmp("h", c_cpu["h"], c_card["h"])
+        cmp("conv", c_cpu["conv"], c_card["conv"])
+
+    rng = np.random.default_rng(4)
+    with torch.inference_mode():
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 80)))
+        caches = {d: M.init_caches(cfg, 3, 128, device=d) for d in ("cpu", dev)}
+        lc = M.forward(cpu, tokens, cfg, caches=caches["cpu"])
+        cmp("wave_logits", lc, M.forward(gpu, tokens.to(dev), cfg, caches=caches[dev]))
+        for cur in range(80, 80 + steps):
+            tok = lc[:, -1].argmax(-1)[:, None]
+            lc = M.forward(cpu, tok, cfg, caches=caches["cpu"], cur_pos=cur)
+            cmp("wave_logits", lc, M.forward(gpu, tok.to(dev), cfg, caches=caches[dev],
+                                             cur_pos=cur))
+        state(caches["cpu"], caches[dev])
+        ring = caches["cpu"]["pos"]
+        if not torch.equal(ring, caches[dev]["pos"].cpu()):
+            fail("hybrid reference: wave ring positions differ")
+        if not (ring.numel() == cfg.window and int(ring.min()) == 80 + steps - cfg.window):
+            fail(f"hybrid reference: the wave ring did not wrap as expected: {ring.tolist()}")
+
+        eng = {d: Engine(cfg, params=p, sampling=SamplingConfig(top_k=1), max_len=128,
+                         device=where)
+               for d, p, where in (("cpu", cpu, "cpu"), ("card", gpu, dev))}
+        caches = {d: e.init_slot_caches(3) for d, e in eng.items()}
+        for plens, n in ((np.array([50, 12, 33]), 4), (np.array([23, 41, 60]), steps)):
+            prompts = np.zeros((3, 64), np.int32)
+            for i, plen in enumerate(plens):
+                prompts[i, :plen] = rng.integers(0, cfg.vocab_size, plen)
+            logs = {}
+            for d, e in eng.items():
+                logs[d] = []
+                with sampled_logits(logs[d]):
+                    e.prefill_into_slots(caches[d], prompts, np.ones(3, bool), plens)
+            cmp("slot_logits", logs["cpu"][0], logs["card"][0])
+            state(caches["cpu"], caches["card"])
+            tok, pos = logs["cpu"][0].argmax(-1), torch.from_numpy(plens)
+            for _ in range(n):
+                lc = M.forward(cpu, tok[:, None], cfg, caches=caches["cpu"], cur_pos=pos)
+                cmp("slot_logits", lc, M.forward(gpu, tok[:, None].to(dev), cfg,
+                                                 caches=caches["card"], cur_pos=pos.to(dev)))
+                tok, pos = lc[:, -1].argmax(-1), pos + 1
+            state(caches["cpu"], caches["card"])
+            if not torch.equal(caches["cpu"]["pos"], caches["card"]["pos"].cpu()):
+                fail("hybrid reference: slot ring positions differ")
+    if not max(worst.values()) <= HYBRID_TOL:
+        fail(f"hybrid reference: card differs from the CPU by {worst} > {HYBRID_TOL}")
+    return {"config": cfg.name + "-5layer-d512-hd256", "layers": "R,R,A,R,R",
+            "window": cfg.window, "max_abs_err": worst, "tolerance": HYBRID_TOL,
+            "slot_positions_past_window": int((plens + steps - 1 >= cfg.window).sum())}
+
+
+def hybrid_phases(dev) -> list:
+    """Full-width recurrentgemma-9b bf16, random weights from seed 0, greedy:
+    (a) WaveScheduler over RG_WAVE; (b) ContinuousScheduler over RG_SLOTS
+    with ``prefill_chunk`` left at its default, from which it falls back to
+    whole-prompt admission.  Each runs twice: tokens in range, the second
+    run identical, and every launch count as predicted -- per prefill
+    forward 26 lru_scan and 12 flash_prefill, per decode step 12
+    decode_attention, per sampling call topk's stages."""
+    from repro_torch.configs import SamplingConfig, get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import ContinuousScheduler, WaveScheduler
+
+    cfg = get_config(RG_ARCH)
+    fams = M.layer_families(cfg)
+    n_rec, n_attn = len(fams["rglru"]), len(fams["attn"])
+    topk_per_call = build.library("topk").topk_launches(cfg.vocab_size, 1)
+
+    def expect(prefills: int, decodes: int) -> dict:
+        out = {name: 0 for name in ops.KERNELS}
+        out.update(lru_scan=n_rec * prefills, flash_prefill=n_attn * prefills,
+                   decode_attention=n_attn * decodes,
+                   topk=topk_per_call * (prefills + decodes))
+        return out
+
+    rng = np.random.default_rng(0)
+    results, params = [], None
+    for phase in ("wave", "continuous"):
+        t_phase = time.monotonic()
+        opts = RG_WAVE if phase == "wave" else RG_SLOTS
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=opts["max_len"],
+                     params=params, seed=0, device=dev)
+        params = eng.params
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        lo, hi = opts["prompt"]
+        work = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32)
+                for _ in range(opts["requests"])]
+        if phase == "wave":
+            budgets = [opts["max_new"]] * len(work)
+        else:
+            budgets = [int(rng.integers(opts["max_new"][0], opts["max_new"][1] + 1))
+                       for _ in work]
+
+        def run():
+            if phase == "wave":
+                sched = WaveScheduler(eng, batch_size=opts["batch"])
+            else:
+                sched = ContinuousScheduler(eng, n_slots=opts["slots"])
+                if sched.chunk != 0 or sched.spec_k != 0:
+                    fail(f"{RG_ARCH} continuous: no fallback to whole-prompt admission "
+                         f"(chunk {sched.chunk}, spec_k {sched.spec_k})")
+            for i, (p, m) in enumerate(zip(work, budgets)):
+                sched.submit(p, max_new=m, arrival_step=i * opts.get("arrival_every", 0))
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            done = sched.run()
+            torch.cuda.synchronize()
+            return sched, {r.rid: r.output for r in done}, time.monotonic() - t
+
+        ops.reset_launches()
+        sched, first, dt1 = run()
+        launches = dict(ops.LAUNCHES)
+        _, second, dt2 = run()
+        if phase == "wave":
+            waves = -(-len(work) // opts["batch"])
+            want = expect(waves, waves * (opts["max_new"] - 1))
+            wrapped = min(len(p) for p in work) > cfg.window
+        else:
+            st = sched.stats
+            want = expect(st["prefill_calls"], st["decode_steps"])
+            # the last position a slot writes is prompt + emitted - 2
+            wrapped = max(len(p) + len(first[i]) - 2 for i, p in enumerate(work)) >= cfg.window
+        if launches != want:
+            fail(f"{RG_ARCH} {phase}: kernel launches {launches} != expected {want}")
+        if not wrapped:
+            fail(f"{RG_ARCH} {phase}: no slot's ring wrapped")
+        for rid, toks in first.items():
+            if (len(toks) != budgets[rid]
+                    or not ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                fail(f"{RG_ARCH} {phase} request {rid}: tokens out of range or wrong count")
+            if not np.array_equal(toks, second[rid]):
+                fail(f"{RG_ARCH} {phase} request {rid}: greedy tokens differ between two runs")
+        n_tokens = sum(len(t) for t in first.values())
+        result = {
+            "arch": cfg.name, "scheduler": phase, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "requests": len(work), "max_len": opts["max_len"],
+            "prompt_lens": [len(p) for p in work], "max_new": budgets, "tokens": n_tokens,
+            "init_s": init_s, "wall_s": [dt1, dt2],
+            "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
+            "swept_bytes_per_token": M.decode_weight_bytes(cfg),
+            "launches": launches, "repeatable": True, "ring_wrapped": True,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
+        }
+        if phase == "continuous":
+            result.update(slots=opts["slots"], stats=dict(sched.stats),
+                          summary=sched.request_summary())
+        else:
+            with torch.inference_mode():   # one full-width logits row: finite, right shape
+                logits = M.forward(eng.params, torch.as_tensor(work[0], device=dev)[None].long(),
+                                   cfg, last_only=True, head_f32=eng.head_f32)
+            if logits.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+                fail(f"{RG_ARCH}: full-width logits {tuple(logits.shape)} not finite / "
+                     f"wrong shape")
+            del logits
+        result["phase_s"] = time.monotonic() - t_phase
+        results.append(result)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
 def expected_dequant_launches(cfg, parallel, work) -> int:
     """dequant_matmul launches of the serve workload: per wave one prefill
     (T = batch x longest prompt through the six projections of every
@@ -709,7 +1086,7 @@ def expected_dequant_launches(cfg, parallel, work) -> int:
         g = wquant.effective_group(K, parallel.wq_group_size) if bits == 4 else 0
         return launches(T, K, N, bits, g)
 
-    projections = [shape for name, (shape, _, _) in M.layer_param_defs(cfg).items()
+    projections = [d.shape for name, d in M.layer_param_defs(cfg).items()
                    if M.WQ_SITES.get(name) == "matmul"]
     head = (cfg.d_model, cfg.vocab_size)
 
@@ -999,9 +1376,12 @@ def main() -> None:
     reports = build.build_all()
     print(f"build: {len(reports)} libraries in {time.monotonic() - t0:.1f}s")
     for src, text in reports.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+            if "Compiling entry function" in line:   # the mangled name names the instance
+                entry = line.split("'")[1][:64] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  {src} {entry}: {line.strip()}")
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
@@ -1009,20 +1389,26 @@ def main() -> None:
     for mode in ("none", "int8", "int4"):
         print(json.dumps({"reference": reference_check(dev, mode)}), flush=True)
     print(json.dumps({"reference": slot_reference_check(dev)}), flush=True)
-    launches = {k["counter"]: 0 for k in kernels}
-    for arch, mode in SERVE_PHASES:
-        serve = serve_phase(dev, arch, mode)
-        print(json.dumps({"serve": serve}), flush=True)
-        for name, n in serve["launches"].items():
-            launches[name] += n
-    for slot in slot_phases(dev):
-        print(json.dumps({"serve": slot}), flush=True)
-        for name, n in slot["launches"].items():
-            launches[name] += n
+    print(json.dumps({"reference": hybrid_reference_check(dev)}), flush=True)
+    phases = []
+    for run in ([lambda arch=arch, mode=mode: [serve_phase(dev, arch, mode)]
+                 for arch, mode in SERVE_PHASES] + [lambda: slot_phases(dev),
+                                                    lambda: hybrid_phases(dev)]):
+        for phase in run():
+            print(json.dumps({"serve": phase}), flush=True)
+            phases.append(phase)
     for k in kernels:
-        k["launches"] = launches[k.pop("counter")]
+        # a row counts the phases of its arches, or every phase of another arch
+        arches = k.pop("arches", None)
+        k["launches"] = sum(p["launches"][k["counter"]] for p in phases
+                            if (p["arch"] in arches if arches else p["arch"] != RG_ARCH))
+        k["launches_counted_on"] = arches or "the yi-9b and qwen-72b phases"
+        del k["counter"]
         if k["launches"] == 0:
             fail(f"{k['name']} was not launched on the serving paths")
+        if k["name"] == "topk":
+            k[f"v{RG_VOCAB}"]["launches"] = sum(p["launches"]["topk"] for p in phases
+                                                if p["arch"] == RG_ARCH)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,16 @@ the reference's own weights.  ``params_from_jax`` takes ``Engine.params``
 with every leaf converted to numpy (``jax.tree.map(np.asarray, params)``)
 and returns the layout of ``repro_torch.models.model``:
 
-* the layer group's leaves are stacked on a leading layer axis
-  (``stack_defs``); the group's one sub-layer ``sub0`` holds ``norm1``,
-  ``norm2``, ``mixer`` (attention) and ``ffn`` (MLP), which flatten into one
-  dict per layer;
+* the tree holds layer groups in layer order (``build_groups``): a group
+  of sub-layers ``sub0``, ``sub1``, ... (one period of the layer pattern)
+  whose leaves are stacked on a leading repeat axis when the group is
+  scanned (``stack_defs``, n > 1) and are not when it is unrolled (n = 1).
+  Repeat r of sub-layer j is layer ``first + r * len(subs) + j``.  A
+  sub-layer holds ``norm1``, ``norm2``, ``mixer`` and ``ffn``; an attention
+  mixer's leaves flatten into the layer's dict, an RG-LRU mixer's stay
+  under ``mixer`` (its ``w_gate`` is not the FFN's);
+* each family's layers (attention, RG-LRU) are stacked in layer order,
+  as ``model.init_params`` lays them out;
 * the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``.
 
 bf16 leaves cross bit-exact: numpy holds them as 2-byte values, viewed as
@@ -30,7 +36,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.wquant import QuantWeight, map_tensors
 from repro_torch.models.common import resolve_device
-from repro_torch.models.model import check_supported, layer_param_defs, split_layers
+from repro_torch.models.model import (check_supported, layer_families, layer_param_defs,
+                                      split_layers)
 
 
 def _is_quant(a) -> bool:
@@ -49,7 +56,7 @@ def to_torch(a):
 
 
 def _cat_layers(parts: list):
-    """Per-group (n, ...) leaves -> one (L, ...) leaf."""
+    """Per-layer (1, ...) leaves -> one (n, ...) leaf."""
     if isinstance(parts[0], QuantWeight):
         first = parts[0]
         return QuantWeight(torch.cat([p.q for p in parts]), torch.cat([p.scale for p in parts]),
@@ -64,11 +71,37 @@ def _shape(t) -> tuple:
     return tuple(t.shape)
 
 
-def _layer_leaves(group: Dict[str, Any]) -> Dict[str, Any]:
-    if set(group) != {"sub0"}:
-        raise ValueError(f"a dense layer group holds one sub-layer, got {sorted(group)}")
-    sub = group["sub0"]
-    return {"norm1": sub["norm1"], "norm2": sub["norm2"], **sub["mixer"], **sub["ffn"]}
+def _layer_leaves(sub: Dict[str, Any], family: str) -> Dict[str, Any]:
+    mixer = sub["mixer"]
+    if family == "rglru":
+        mixer = {f"mixer.{name}": a for name, a in mixer.items()}
+    return {"norm1": sub["norm1"], "norm2": sub["norm2"], **mixer, **sub["ffn"]}
+
+
+def _tree_layers(tree: Dict[str, Any], cfg: ModelConfig) -> list:
+    """The JAX tree's layers in order: one dict of (1, ...) leaves each."""
+    family_of = {i: f for f, idx in layer_families(cfg).items() for i in idx}
+    layers = []
+    for group in tree["groups"]:
+        subs = [f"sub{j}" for j in range(len(group))]
+        if not subs or set(subs) != set(group):
+            raise ValueError(f"a layer group holds sub-layers sub0, sub1, ..., got {sorted(group)}")
+        norm1 = np.asarray(group[subs[0]]["norm1"])
+        n = norm1.shape[0] if norm1.ndim == 2 else 0     # 0: an unrolled group
+        first = len(layers)
+        layers.extend({} for _ in range(max(n, 1) * len(subs)))
+        if len(layers) > cfg.n_layers:
+            raise ValueError(f"the tree holds more than {cfg.n_layers} layers")
+        for j, key in enumerate(subs):
+            for name, a in _layer_leaves(group[key], family_of[first + j]).items():
+                t = to_torch(a)
+                for r in range(max(n, 1)):
+                    i = first + r * len(subs) + j
+                    layers[i][name] = (map_tensors(t, lambda x: x[r:r + 1]) if n
+                                       else map_tensors(t, lambda x: x[None]))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"the tree holds {len(layers)} layers, the config {cfg.n_layers}")
+    return layers
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
@@ -76,30 +109,30 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Di
     (the card unless ``device="cpu"`` is asked for)."""
     check_supported(cfg)
     device = resolve_device(device)
-    defs = layer_param_defs(cfg)
-    parts: Dict[str, list] = {name: [] for name in defs}
-    for group in tree["groups"]:
-        leaves = _layer_leaves(group)
-        if set(leaves) != set(defs):
-            raise ValueError(f"layer leaves {sorted(leaves)} != expected {sorted(defs)}")
-        stacked = np.asarray(leaves["norm1"]).ndim == 2   # (n, d) when scanned
-        for name, a in leaves.items():
-            t = to_torch(a)
-            parts[name].append(t if stacked else map_tensors(t, lambda a: a[None]))
-    stacked = {name: _cat_layers(ts) for name, ts in parts.items()}
-    for name, (shape, _, _) in defs.items():
-        want = (cfg.n_layers, *shape)
-        if _shape(stacked[name]) != want:
-            raise ValueError(f"{name}: shape {_shape(stacked[name])} != {want}")
+    per_layer = _tree_layers(tree, cfg)
+    layers: list = [None] * cfg.n_layers
+    for family, idx in layer_families(cfg).items():
+        defs = layer_param_defs(cfg, family)
+        for i in idx:
+            if set(per_layer[i]) != set(defs):
+                raise ValueError(f"layer {i} leaves {sorted(per_layer[i])} != expected "
+                                 f"{sorted(defs)}")
+        stacked = {name: _cat_layers([per_layer[i][name] for i in idx]) for name in defs}
+        for name, d in defs.items():
+            want = (len(idx), *d.shape)
+            if _shape(stacked[name]) != want:
+                raise ValueError(f"{name}: shape {_shape(stacked[name])} != {want}")
+        stacked = {name: map_tensors(t, lambda a: a.to(device)) for name, t in stacked.items()}
+        for i, layer in zip(idx, split_layers(stacked, len(idx))):
+            layers[i] = layer
     d, V = cfg.d_model, cfg.vocab_size
     table, head = to_torch(tree["embed"]["table"]), to_torch(tree["lm_head"])
     if tuple(table.shape) != (1, V, d) or _shape(head) != (1, d, V):
         raise ValueError(f"embed {tuple(table.shape)} / lm_head {_shape(head)} "
                          f"!= (1, {V}, {d}) / (1, {d}, {V})")
-    stacked = {name: map_tensors(t, lambda a: a.to(device)) for name, t in stacked.items()}
     return {
         "embed": {"table": table.to(device)},
-        "layers": split_layers(stacked, cfg.n_layers),
+        "layers": layers,
         "final_norm": to_torch(tree["final_norm"]).to(device),
         "lm_head": map_tensors(head, lambda a: a.to(device)),
     }

@@ -1,10 +1,10 @@
-"""Config registry: ``get_config("<arch-id>")`` for the dense archs the port
-serves (the same arch ids as ``repro.configs``)."""
+"""Config registry: ``get_config("<arch-id>")`` for the archs the port
+serves, dense and RG-LRU hybrid (the same arch ids as ``repro.configs``)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig, SamplingConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, RGLRUConfig, SamplingConfig
 
 # arch-id -> module name
 _REGISTRY = {
@@ -12,6 +12,7 @@ _REGISTRY = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen2.5-32b": "qwen2_5_32b",
     "qwen-72b": "qwen_72b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)
@@ -27,4 +28,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_REGISTRY[key]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "ModelConfig", "ParallelConfig", "SamplingConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "ModelConfig", "ParallelConfig", "RGLRUConfig", "SamplingConfig",
+           "get_config"]

@@ -1,18 +1,28 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the dense-decoder part of ``repro.configs.base``: the field names,
-defaults and ``reduced()`` rule are the same, so a config built here
+A copy of the dense-decoder and RG-LRU-hybrid part of
+``repro.configs.base``: the field names, defaults, ``block_kind``,
+``param_count`` and ``reduced()`` rule are the same, so a config built here
 describes the same model as its JAX namesake.  The family features the port
-does not serve yet (MoE, MLA, SSM, RG-LRU, sliding windows, frontends,
-multi-codebook heads, parallel residual, tied embeddings) keep their fields,
-so that ``repro_torch.models.model.check_supported`` can name what a config
-needs and refuse it.
+does not serve yet (MoE, MLA, SSM, frontends, multi-codebook heads, parallel
+residual, tied embeddings) keep their fields, so that
+``repro_torch.models.model.check_supported`` can name what a config needs
+and refuse it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrence config (Griffin / RecurrentGemma)."""
+
+    lru_width: int = 0          # 0 -> d_model
+    conv_width: int = 4
+    c_constant: float = 8.0     # the fixed `c` in a = exp(-c * softplus(Lambda) * sigma(r))
 
 
 @dataclass(frozen=True)
@@ -26,20 +36,21 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // n_heads
+    # block pattern, cycled over layers, e.g. ("rglru", "rglru", "local_attn")
     layer_pattern: Tuple[str, ...] = ("attn",)
     qkv_bias: bool = False
     parallel_residual: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
-    window: int = 0             # sliding-window size (0 = full causal)
+    window: int = 0             # sliding-window size of local_attn layers (0 = full)
     act: str = "silu"           # silu (gated) | gelu
     gated_mlp: bool = True      # SwiGLU vs plain 2-matmul MLP
     n_codebooks: int = 1
     moe: Optional[Any] = None
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
-    rglru: Optional[Any] = None
+    rglru: Optional[RGLRUConfig] = None
     frontend: Optional[Any] = None
     citation: str = ""
 
@@ -47,25 +58,37 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def block_kind(self, layer: int) -> str:
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
     def param_count(self) -> int:
-        """Parameters of the dense decoder: embed, attention, FFN, lm_head."""
+        """Parameters of the dense decoder or the RG-LRU hybrid: embed,
+        attention or RG-LRU mixer per layer, FFN, lm_head."""
         d, hd = self.d_model, self.resolved_head_dim
-        attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
         ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
         heads = 1 if self.tie_embeddings else 2
-        return heads * self.vocab_size * d * self.n_codebooks + self.n_layers * (attn + ffn)
+        total = heads * self.vocab_size * d * self.n_codebooks
+        for layer in range(self.n_layers):
+            if self.block_kind(layer) == "rglru":
+                w = self.rglru.lru_width or d
+                total += d * 2 * w + 3 * w + w * d  # in-proj (x2), gates, out-proj
+            else:
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
+            total += ffn
+        return total
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model<=256, head_dim 64 (the
-        dense part of ``repro.configs.base.ModelConfig.reduced``)."""
+        """Smoke-test variant: 2 layers (or one period of a longer layer
+        pattern), d_model<=256, head_dim 64, window<=64 (the dense and RG-LRU
+        part of ``repro.configs.base.ModelConfig.reduced``)."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
             n_kv -= 1
-        return dataclasses.replace(
-            self,
+        pat = self.layer_pattern
+        kw = dict(
             name=self.name + "-smoke",
-            n_layers=2,
+            n_layers=max(2, len(pat)) if len(pat) > 1 else 2,
             d_model=min(self.d_model, 256),
             n_heads=n_heads,
             n_kv_heads=n_kv,
@@ -74,6 +97,9 @@ class ModelConfig:
             vocab_size=min(self.vocab_size, 512),
             window=min(self.window, 64) if self.window else 0,
         )
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

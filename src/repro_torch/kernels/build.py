@@ -29,7 +29,7 @@ _F = ctypes.c_float
 # a launching one 0 on success and otherwise a cudaError_t or -1 (bad
 # arguments), the *_workspace and *_launches helpers a count
 SIGNATURES = {
-    "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_verify": ("flash_verify",
                      [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_verify_workspace": ("flash_verify", [_I, _I, _I, _I, _I, _I]),
@@ -41,6 +41,7 @@ SIGNATURES = {
     "topk": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "topk_workspace": ("topk", [_I, _I, _I]),
     "topk_launches": ("topk", [_I, _I]),
+    "lru_scan": ("lru_scan", [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P]),
     "dequant_matmul": ("dequant_matmul", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_matmul_workspace": ("dequant_matmul", [_I, _I, _I, _I, _I]),
     "dequant_matmul_launches": ("dequant_matmul", [_I, _I, _I, _I, _I]),

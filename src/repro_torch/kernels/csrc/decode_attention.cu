@@ -6,7 +6,9 @@
 // a validity mask over the cache of shape (S,) or (b, S); returns the
 // UNNORMALIZED fp32 partials m (b, hq, 1), l (b, hq, 1), acc (b, hq, 1, hd)
 // so callers can merge them across a sequence-sharded cache.  A row with no
-// valid key returns m = -inf, l = 0, acc = 0.
+// valid key returns m = -inf, l = 0, acc = 0.  head_dim 64, 128 or 256; a
+// sliding-window ring (local_attn) is read through the same mask, which the
+// caller builds with the window term, so the contract is unchanged.
 //
 // Bound on the H100: one read of K and V (2 * b * hkv * S * hd elements)
 // against ~4 * hd FLOPs per (query head, key): at g = 8 that is ~8 FLOPs a

@@ -7,8 +7,10 @@
 //
 // Design.  The TPU kernel walks cache blocks along a sequential grid axis.
 // Here one block owns one (batch, kv head) and up to 8 of its g query heads;
-// its warps (8 for bf16, 4 for fp32) split the cache between them, 32 keys
-// at a time (warp w of W takes tiles w, w + W, ...), each with its own running
+// its warps (8 for bf16, 4 for fp32; at head_dim 256, 4 and 2, so that the
+// staged tiles fit the 232,448 bytes a block may use: 206,848 and 140,288)
+// split the cache between them, 32 keys at a time (warp w of W takes tiles
+// w, w + W, ...), each with its own running
 // (m, l, acc).  A warp stages its tile in its own slice of shared memory
 // -- K widened to fp32, V as stored -- with 16-byte loads that are all in
 // flight together, so a tile costs one round trip to device memory; each
@@ -34,24 +36,27 @@ namespace decode {
 constexpr int ROWS = 8;  // query heads per block
 constexpr int BK = 32;   // keys per tile: one per lane
 
-// 8 warps for bf16; 4 for fp32, whose tiles take twice the shared memory
-template <typename T>
-__host__ __device__ constexpr int warps() { return sizeof(T) == 2 ? 8 : 4; }
+// 8 warps for bf16; 4 for fp32, whose tiles take twice the shared memory;
+// half as many at head_dim 256
+template <typename T, int HD>
+__host__ __device__ constexpr int warps() {
+  return (sizeof(T) == 2 ? 8 : 4) / (HD > 128 ? 2 : 1);
+}
 
 template <typename T, int HD>
 constexpr size_t smem_bytes() {
-  return (size_t)(ROWS * HD + warps<T>() * BK * (HD + 4)) * sizeof(float) +
-         (size_t)warps<T>() * BK * HD * sizeof(T);
+  return (size_t)(ROWS * HD + warps<T, HD>() * BK * (HD + 4)) * sizeof(float) +
+         (size_t)warps<T, HD>() * BK * HD * sizeof(T);
 }
 
 template <typename T, int HD, bool PAGED>
-__global__ void __launch_bounds__(warps<T>() * 32)
+__global__ void __launch_bounds__(warps<T, HD>() * 32)
 kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
        const int* __restrict__ bt, int nb, int bs, int nbps,
        const uint8_t* __restrict__ valid, int valid_stride,
        float* __restrict__ m_out, float* __restrict__ l_out,
        float* __restrict__ acc_out, int hq, int hkv, int S, float scale) {
-  constexpr int WARPS = warps<T>();
+  constexpr int WARPS = warps<T, HD>();
   constexpr int DPL = HD / 32;
   constexpr int KS = HD + 4;
   constexpr int VN = Vec16<T>::N;  // elements per 16-byte load
@@ -222,13 +227,14 @@ int launch(const void* q, const void* k, const void* v, const int* bt, int nb,
            void* l, void* acc, int b, int hq, int hkv, int S, float scale,
            cudaStream_t stream) {
   auto kern = kernel<T, HD, PAGED>;
-  const size_t smem = smem_bytes<T, HD>();
+  constexpr size_t smem = smem_bytes<T, HD>();
+  static_assert(smem <= 232448, "staged tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int g = hq / hkv;
   const dim3 grid(b * hkv, (g + ROWS - 1) / ROWS);
-  kern<<<grid, warps<T>() * 32, smem, stream>>>(
+  kern<<<grid, warps<T, HD>() * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bt, nb, bs, nbps,
       static_cast<const uint8_t*>(valid), valid_stride,
@@ -237,7 +243,8 @@ int launch(const void* q, const void* k, const void* v, const int* bt, int nb,
   return cudaGetLastError();
 }
 
-// The four (dtype, head_dim) instances of one layout.
+// The (dtype, head_dim) instances of one layout: head_dim 64 and 128 in
+// both, 256 (recurrentgemma's MQA) in the dense one only.
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const int* bt, int nb,
              int bs, int nbps, const void* valid, int valid_stride, void* m,
@@ -246,6 +253,14 @@ int dispatch(const void* q, const void* k, const void* v, const int* bt, int nb,
   if (b <= 0 || hkv <= 0 || hq % hkv || S <= 0 || (hq / hkv + ROWS - 1) / ROWS > 65535)
     return ERR_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (!PAGED) {
+    if (dtype == DTYPE_BF16 && hd == 256)
+      return launch<__nv_bfloat16, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
+                                               m, l, acc, b, hq, hkv, S, scale, st);
+    if (dtype == DTYPE_F32 && hd == 256)
+      return launch<float, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
+                                       m, l, acc, b, hq, hkv, S, scale, st);
+  }
   if (dtype == DTYPE_BF16 && hd == 128)
     return launch<__nv_bfloat16, 128, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
                                              m, l, acc, b, hq, hkv, S, scale, st);

@@ -3,9 +3,16 @@
 // Replaces the Pallas kernel repro/kernels/prefill_attention.py::flash_prefill
 // (body _prefill_kernel / _flash_update).  Same contract: q (b, hq, Sq, hd),
 // k/v (b, hkv, Sk, hd), q_pos (b, Sq) int32; query row i attends key j iff
-// j <= q_pos[b, i] (and j < Sk); rows with q_pos = -1 emit exact zeros;
+// j <= q_pos[b, i] (and j < Sk) and, with window > 0, j > q_pos[b, i] -
+// window (the sliding window of local_attn layers, which the JAX package
+// computes in jnp: repro/models/attention.py::_prefill_attention); rows
+// with q_pos = -1 emit exact zeros;
 // fp32 running (m, l, acc) on bf16 or fp32 inputs; normalized output in the
 // input type.
+//
+// head_dim 64, 128 or 256.  At 256 a block stages
+// (64 * 256 + 32 * 260 + 32 * 256) * 4 = 131,584 bytes of shared memory and
+// each thread holds 8 x 8 accumulators.
 //
 // Bound on the H100: at prompt lengths of a few hundred tokens the work is
 // ~4*hd FLOPs per (query, key) pair against one read of q/k/v, so the card
@@ -25,9 +32,9 @@
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* rows, int n_cache, const void* q_pos,
                              void* out, int b, int hq, int hkv, int sq, int sk,
-                             int hd, int dtype, float scale, void* stream) {
+                             int hd, int dtype, float scale, int window, void* stream) {
   prefill::Args a{q, k, v, nullptr, 0, 0, 0, static_cast<const int*>(rows), n_cache,
-                  q_pos, out, nullptr, 0, b, hq, hkv, sq, sk, scale,
+                  q_pos, out, nullptr, 0, b, hq, hkv, sq, sk, scale, window,
                   static_cast<cudaStream_t>(stream)};
   return prefill::dispatch<false, false>(a, hd, dtype);
 }

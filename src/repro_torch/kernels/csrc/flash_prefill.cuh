@@ -19,6 +19,11 @@
 // output dimensions of P V.  KV tiles past the tile's largest q_pos are
 // skipped (the kv0 <= max(q_pos) rule of _flash_update).
 //
+// Sliding window (window > 0, dense fresh K/V): row i attends key j iff
+// q_pos[i] - window < j <= q_pos[i]; KV tiles wholly below the band of the
+// tile's lowest live row are skipped as well, so a tile walks at most
+// window + its own span of keys.  Every other caller passes 0.
+//
 // Dense rows: batch row b reads the cache row rows[b] of a stripe with
 // n_cache rows (rows == nullptr: row b), so a chunk of a few slots attends
 // those slots' stripes in the shared slot cache without a gathered copy; a
@@ -63,7 +68,7 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
        const int* __restrict__ bt, int nb, int bs, int nbps,
        const int* __restrict__ rows, int n_cache,
        const int* __restrict__ q_pos, T* __restrict__ out, float* __restrict__ part,
-       int hq, int hkv, int sq, int sk, int chunk, float scale) {
+       int hq, int hkv, int sq, int sk, int chunk, float scale, int window) {
   constexpr int DPL = HD / 32;     // output dimensions per lane
   constexpr int KS = HD + 4;       // padded K row stride, in floats
   constexpr int VN = Vec16<T>::N;  // elements per 16-byte load
@@ -86,16 +91,22 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
     const int rg = row0 + warp * ROWS + r;
     pos[r] = rg < n_rows ? q_pos[(size_t)b * sq + rg / g] : -1;
   }
-  int max_pos = -1;
+  int max_pos = -1, min_pos = 0x7fffffff;  // over the tile's live rows
   const int last_row = min(row0 + ROWS_BLOCK, n_rows) - 1;
-  for (int i = row0 / g; i <= last_row / g; ++i) max_pos = max(max_pos, q_pos[(size_t)b * sq + i]);
+  for (int i = row0 / g; i <= last_row / g; ++i) {
+    const int p = q_pos[(size_t)b * sq + i];
+    max_pos = max(max_pos, p);
+    if (p >= 0) min_pos = min(min_pos, p);
+  }
   int kv_row = b;
   if constexpr (!PAGED) {
     if (rows != nullptr) kv_row = rows[b];
     if ((unsigned)kv_row >= (unsigned)n_cache) max_pos = -1;  // attends nothing
   }
   const int kv_end = min(sk, max_pos + 1);
-  const int kv_lo = SPLIT ? blockIdx.z * chunk : 0;
+  // the first 32-key tile that holds a key of the lowest live row's band
+  const int band_lo = window > 0 && max_pos >= 0 ? max(0, min_pos - window + 1) / BK * BK : 0;
+  const int kv_lo = SPLIT ? blockIdx.z * chunk : band_lo;
   const int kv_hi = SPLIT ? min(kv_end, kv_lo + chunk) : kv_end;
   const bool warp_live = row0 + warp * ROWS < n_rows;
   const size_t bhr = SPLIT ? ((size_t)blockIdx.z * gridDim.y + bh) * n_rows : 0;
@@ -170,7 +181,7 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
     float p[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const bool ok = key <= pos[r] && key < sk;
+      const bool ok = key <= pos[r] && key < sk && (window <= 0 || key > pos[r] - window);
       const float sv = ok ? s[r] * scale : NEG_BIG;
       const float m_new = fmaxf(m[r], warp_max(sv));
       p[r] = ok ? expf(sv - m_new) : 0.f;
@@ -257,6 +268,7 @@ struct Args {
   int part_floats;
   int b, hq, hkv, sq, sk;
   float scale;
+  int window;  // dense, unsplit: sliding-window size (0 = none); others 0
   cudaStream_t stream;
 };
 
@@ -310,7 +322,7 @@ int launch(const Args& a) {
   kern<<<grid, WARPS * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.bt, a.nb, a.bs, a.nbps, a.rows, a.n_cache, static_cast<const int*>(a.q_pos),
-      static_cast<T*>(a.out), a.part, a.hq, a.hkv, a.sq, a.sk, chunk, a.scale);
+      static_cast<T*>(a.out), a.part, a.hq, a.hkv, a.sq, a.sk, chunk, a.scale, a.window);
   err = cudaGetLastError();
   if (!SPLIT || err != cudaSuccess) return err;
   merge_partials<T, HD><<<dim3(a.sq * g, a.b * a.hkv), HD, 0, a.stream>>>(
@@ -318,12 +330,19 @@ int launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// The four (dtype, head_dim) instances of one layout.
+// The (dtype, head_dim) instances of one layout: head_dim 64 and 128 in
+// every layout, 256 (recurrentgemma) in the dense unsplit one only, which
+// is also the only one that takes a window.
 template <bool PAGED, bool SPLIT>
 int dispatch(const Args& a, int hd, int dtype) {
   if (a.b <= 0 || a.hkv <= 0 || a.hq % a.hkv || a.sq <= 0 || a.sk <= 0 ||
-      a.b * a.hkv > 65535 || (!PAGED && a.n_cache <= 0))
+      a.b * a.hkv > 65535 || (!PAGED && a.n_cache <= 0) || a.window < 0 ||
+      ((PAGED || SPLIT) && a.window != 0))
     return ERR_BAD_ARGS;
+  if constexpr (!PAGED && !SPLIT) {
+    if (dtype == DTYPE_BF16 && hd == 256) return launch<__nv_bfloat16, 256, PAGED, SPLIT>(a);
+    if (dtype == DTYPE_F32 && hd == 256) return launch<float, 256, PAGED, SPLIT>(a);
+  }
   if (dtype == DTYPE_BF16 && hd == 128) return launch<__nv_bfloat16, 128, PAGED, SPLIT>(a);
   if (dtype == DTYPE_BF16 && hd == 64) return launch<__nv_bfloat16, 64, PAGED, SPLIT>(a);
   if (dtype == DTYPE_F32 && hd == 128) return launch<float, 128, PAGED, SPLIT>(a);

@@ -44,6 +44,6 @@ extern "C" int flash_verify(const void* q, const void* k, const void* v,
                             float scale, void* stream) {
   prefill::Args a{q, k, v, nullptr, 0, 0, 0, static_cast<const int*>(rows), n_cache,
                   q_pos, out, static_cast<float*>(work), work_floats, b, hq, hkv, sq, sk,
-                  scale, static_cast<cudaStream_t>(stream)};
+                  scale, 0, static_cast<cudaStream_t>(stream)};
   return prefill::dispatch<false, true>(a, hd, dtype);
 }

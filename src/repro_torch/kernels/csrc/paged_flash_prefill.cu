@@ -32,7 +32,7 @@ extern "C" int paged_flash_prefill(const void* q, const void* k_pool,
                                    void* stream) {
   if (nb <= 0 || bs <= 0 || nbps <= 0) return ERR_BAD_ARGS;
   prefill::Args a{q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps, nullptr, 0,
-                  q_pos, out, nullptr, 0, b, hq, hkv, sq, nbps * bs, scale,
+                  q_pos, out, nullptr, 0, b, hq, hkv, sq, nbps * bs, scale, 0,
                   static_cast<cudaStream_t>(stream)};
   return prefill::dispatch<true, false>(a, hd, dtype);
 }

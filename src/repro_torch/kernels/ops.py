@@ -4,8 +4,8 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
-  stage, two for a 64000-wide row; dequant_matmul two when it splits K;
-  flash_verify two, the split pass and the merge)
+  stage, two for a 64000- or 256000-wide row; dequant_matmul two when it
+  splits K; flash_verify two, the split pass and the merge)
   and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
@@ -27,9 +27,13 @@ from repro_torch.kernels import build, ref
 # through the kernels (chip_smoke.py zeroes it before the serving phase)
 LAUNCHES: Counter = Counter()
 KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
-           "paged_decode_attention", "paged_flash_prefill", "flash_verify")
+           "paged_decode_attention", "paged_flash_prefill", "flash_verify", "lru_scan")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head_dims each attention kernel has an instance for
+HEAD_DIMS = {"flash_prefill": (64, 128, 256), "decode_attention": (64, 128, 256),
+             "flash_verify": (64, 128), "paged_flash_prefill": (64, 128),
+             "paged_decode_attention": (64, 128)}
 
 
 def reset_launches() -> None:
@@ -76,7 +80,7 @@ def _check_stripe_cuda(name: str, q, k, v, q_pos, rows) -> None:
     hd = q.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if (hd not in (64, 128) or q_pos.dtype != torch.int32
+    if (hd not in HEAD_DIMS[name] or q_pos.dtype != torch.int32
             or (rows is not None and rows.dtype != torch.int32)):
         raise ValueError(f"{name}: head_dim {hd} / q_pos {q_pos.dtype} / rows not taken")
     _check_cuda(name, q, k, v, q_pos, *(() if rows is None else (rows,)))
@@ -88,22 +92,25 @@ def _stripes(k, v, rows):
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_pos: torch.Tensor, scale: float, rows: torch.Tensor = None) -> torch.Tensor:
+                  q_pos: torch.Tensor, scale: float, rows: torch.Tensor = None,
+                  window: int = 0) -> torch.Tensor:
     """Causal GQA flash prefill.  q (b, hq, Sq, hd), k/v (b, hkv, Sk, hd),
     q_pos (b, Sq) int32 view positions (-1 = pad row) -> (b, hq, Sq, hd) in
-    q.dtype; row i attends key j iff j <= q_pos[b, i].  With ``rows`` (b,)
-    int32, k/v are a slot cache (n, hkv, Sk, hd) and batch row b attends
-    cache row rows[b] (a chunk reading its slots' stripes in place)."""
+    q.dtype; row i attends key j iff j <= q_pos[b, i] and, with ``window``
+    > 0, j > q_pos[b, i] - window.  With ``rows`` (b,) int32, k/v are a slot
+    cache (n, hkv, Sk, hd) and batch row b attends cache row rows[b] (a
+    chunk reading its slots' stripes in place).  head_dim 64, 128 or
+    256."""
     b, hq, sq, hd = q.shape
     hkv, sk = _check_stripe("flash_prefill", q, k, v, q_pos, rows)
     if _device_of(q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
-        return ref.flash_prefill_ref(q, *_stripes(k, v, rows), q_pos, scale)
+        return ref.flash_prefill_ref(q, *_stripes(k, v, rows), q_pos, scale, window)
     _check_stripe_cuda("flash_prefill", q, k, v, q_pos, rows)
     out = torch.empty_like(q)
     build.call("flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                None if rows is None else rows.data_ptr(), k.shape[0], q_pos.data_ptr(),
                out.data_ptr(), b, hq, hkv, sq, sk, hd, _DTYPES[q.dtype], float(scale),
-               _stream())
+               int(window), _stream())
     LAUNCHES["flash_prefill"] += 1
     return out
 
@@ -155,7 +162,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, valid, scale)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in (64, 128) or valid.dtype != torch.bool:
+    if hd not in HEAD_DIMS["decode_attention"] or valid.dtype != torch.bool:
         raise ValueError(f"decode_attention: head_dim {hd} / mask {valid.dtype} not taken")
     _check_cuda("decode_attention", q, k, v, valid)
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
@@ -187,7 +194,7 @@ def _check_paged_cuda(name: str, q, k_pool, v_pool, bt, idx, idx_dtype) -> None:
     hd = q.shape[-1]
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
-    if hd not in (64, 128) or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
+    if hd not in HEAD_DIMS[name] or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
         raise ValueError(f"{name}: head_dim {hd} / table {bt.dtype} / {idx.dtype} not taken")
     _check_cuda(name, q, k_pool, v_pool, bt, idx)
 
@@ -237,6 +244,27 @@ def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
                hd, _DTYPES[q.dtype], float(scale), _stream())
     LAUNCHES["paged_flash_prefill"] += 1
     return out
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """The RG-LRU linear recurrence ``h_t = a_t h_{t-1} + b_t`` over the
+    sequence.  a, b (batch, seq, w) fp32 or bf16, read as fp32; h0 (batch,
+    w) fp32 -> (h (batch, seq, w), h_final (batch, w)), both fp32; any w."""
+    if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"lru_scan: shapes a{tuple(a.shape)} b{tuple(b.shape)} "
+                         f"h0{tuple(h0.shape)} do not agree")
+    if _device_of(a, b, h0) == "cpu":
+        return ref.lru_scan_ref(a, b, h0)
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or h0.dtype != torch.float32:
+        raise ValueError(f"lru_scan: dtypes {a.dtype}/{b.dtype}/{h0.dtype} not taken")
+    _check_cuda("lru_scan", a, b, h0, align=4)
+    batch, s, w = a.shape
+    hs = torch.empty((batch, s, w), dtype=torch.float32, device=a.device)
+    h_final = torch.empty((batch, w), dtype=torch.float32, device=a.device)
+    build.call("lru_scan", a.data_ptr(), b.data_ptr(), _DTYPES[a.dtype], h0.data_ptr(),
+               hs.data_ptr(), h_final.data_ptr(), batch, s, w, _stream())
+    LAUNCHES["lru_scan"] += 1
+    return hs, h_final
 
 
 def topk(x: torch.Tensor, k: int):

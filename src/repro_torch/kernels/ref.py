@@ -19,10 +19,12 @@ def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
     return q.float().reshape(b, hkv, hq // hkv, s, hd)
 
 
-def flash_prefill_ref(q, k, v, q_pos, scale: float) -> torch.Tensor:
+def flash_prefill_ref(q, k, v, q_pos, scale: float, window: int = 0) -> torch.Tensor:
     """Causal GQA attention by view index: row i attends key j iff
-    ``j <= q_pos[b, i]``.  Rows with ``q_pos = -1`` attend nothing and come
-    out as exact zeros.
+    ``j <= q_pos[b, i]`` and, with ``window`` > 0, ``j > q_pos[b, i] -
+    window`` (a sliding window over fresh K/V, where view index ==
+    position).  Rows with ``q_pos = -1`` attend nothing and come out as
+    exact zeros.
 
     q (b, hq, Sq, hd); k, v (b, hkv, Sk, hd); q_pos (b, Sq) int
     -> (b, hq, Sq, hd) in q.dtype."""
@@ -31,7 +33,10 @@ def flash_prefill_ref(q, k, v, q_pos, scale: float) -> torch.Tensor:
     qg = _grouped(q, hkv)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     j = torch.arange(sk, device=q.device)
-    ok = j[None, None, None, None, :] <= q_pos[:, None, None, :, None]
+    qp = q_pos[:, None, None, :, None]
+    ok = j[None, None, None, None, :] <= qp
+    if window > 0:
+        ok = ok & (j[None, None, None, None, :] > qp - window)
     s = s.masked_fill(~ok, float("-inf"))
     m = s.amax(dim=-1)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -100,6 +105,19 @@ def topk_ref(x: torch.Tensor, k: int):
     ``torch.topk`` promises no order among ties)."""
     vals, idx = torch.sort(x.float(), dim=-1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def lru_scan_ref(a, b, h0):
+    """The linear recurrence ``h_t = a_t h_{t-1} + b_t`` over the sequence,
+    step by step in fp32 whatever the input type.  a, b (batch, seq, w);
+    h0 (batch, w) -> (h (batch, seq, w) fp32, h_final (batch, w) fp32)."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs, h
 
 
 def dequant_matmul_ref(x, q, scale, mode: str, group: int) -> torch.Tensor:

@@ -5,6 +5,7 @@
     python -m repro_torch.launch.profile_decode --scheduler paged
     python -m repro_torch.launch.profile_decode --scheduler continuous --step verify
     python -m repro_torch.launch.profile_decode --scheduler paged --step mixed
+    python -m repro_torch.launch.profile_decode --arch recurrentgemma-9b
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -18,7 +19,12 @@ verifies SPEC_K drafts that repeat its last token), ``--step mixed`` fused
 mixed steps (slot 0 prefills a CHUNK-token chunk while the others decode
 one token); each is one engine call with its own host copy, from the same
 state every time.  SPEC_K and CHUNK are those of chip_smoke.py's chunked
-spec phases.  The
+spec phases.  A sliding-window arch (recurrentgemma-9b) prefills
+window + 64 tokens by default in a wave, so its decode steps run over a
+ring that has wrapped, and window - 8 into a slot (admission caps prompts
+at the window), so its steps cross the window.  The wave path also profiles one more
+prefill on a fresh cache and reports its wall time and the device time
+of its lru_scan and flash_prefill launches.  The
 device's idle share divides the profiled pass's device time by the plain
 pass's wall time (the profiler slows the host, so its own window overstates
 idleness); the profiled window's share is printed beside it.  Prints one
@@ -47,9 +53,12 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="yi-9b", choices=ALL_ARCHS)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="default 128; for a sliding-window arch window + 64 (wave) "
+                         "or window - 8 (slots)")
     ap.add_argument("--steps", type=int, default=16)
-    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="default the larger of 256 and what the prompt and the steps need")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave",
                     help="decode through the wave cache, or the slot engine over the dense "
@@ -59,20 +68,27 @@ def main(argv=None) -> dict:
                          "steps or fused mixed chunk/decode steps")
     add_weight_quant_args(ap)
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.prompt_len is None:
+        args.prompt_len = (128 if not cfg.window else
+                           cfg.window + 64 if args.scheduler == "wave" else cfg.window - 8)
+    if args.max_len is None:
+        args.max_len = max(256, args.prompt_len + 3 + args.steps)
     if args.prompt_len + 3 + args.steps > args.max_len:
         ap.error("--max-len must hold the prompt, 3 warm-up steps and --steps")
     if args.step != "decode" and args.scheduler == "wave":
         ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
 
-    cfg = get_config(args.arch)
     eng = Engine(cfg, parallel=parallel_config(args), sampling=SamplingConfig(top_k=1),
                  max_len=args.max_len, seed=args.seed, device="cuda")
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
+    prefill = None
     with torch.inference_mode():
         if args.scheduler == "wave":
             caches = eng.init_caches(args.batch)
             tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches)
+            prefill = _profile_prefill(eng, prompts)
             cur = args.prompt_len
             for _ in range(3):                        # warm-up
                 tok = eng.decode(tok, caches, cur)
@@ -134,10 +150,39 @@ def main(argv=None) -> dict:
         "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / args.steps
                                     for e in top},
         "top_kernels_calls_per_step": {e.key[:80]: e.count / args.steps for e in top},
+        "wave_prefill": prefill,
     }
     print(json.dumps(result))
     print(avgs.table(sort_by="self_device_time_total", row_limit=25))
     return result
+
+
+def _profile_prefill(eng: Engine, prompts: np.ndarray) -> dict:
+    """One more wave prefill of ``prompts`` on a fresh cache, under the
+    profiler: its wall time and the device time and launches of its
+    kernels by family (``lru::`` the lru_scan kernel, ``prefill::`` the
+    flash_prefill body)."""
+    caches = eng.init_caches(prompts.shape[0])
+    tokens = torch.as_tensor(prompts, device=eng.device)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.prefill(tokens, caches)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.key_averages() if e.device_type == cuda
+              and e.key != W_O_DENSE_RANGE]
+    fam = lambda tag: [e for e in device if tag in e.key]
+    top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {"wall_ms": 1e3 * wall_s,
+            "device_busy_ms": sum(e.self_device_time_total for e in device) / 1e3,
+            "lru_scan_ms": sum(e.self_device_time_total for e in fam("lru::")) / 1e3,
+            "lru_scan_launches": sum(e.count for e in fam("lru::")),
+            "flash_prefill_ms": sum(e.self_device_time_total for e in fam("prefill::")) / 1e3,
+            "flash_prefill_launches": sum(e.count for e in fam("prefill::")),
+            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3 for e in top}}
 
 
 def _slot_steps(eng: Engine, args, prompts: np.ndarray):

@@ -8,8 +8,13 @@ same seed: ``--shared-prefix`` prepends one common system prompt (what the
 paged backend's prefix reuse serves), ``--arrival-every`` staggers arrivals
 on the virtual decode-step clock, ``--max-new-spread`` draws each budget.
 The continuous schedulers admit in chunks of ``--prefill-chunk`` tokens
-(0: whole prompts) and, with ``--spec-k N``, verify N n-gram drafts per
-active slot in each step.
+(default 256; 0: whole prompts) and, with ``--spec-k N``, verify N n-gram
+drafts per active slot in each step.  An arch whose capability record
+blocks a path (``core/capabilities.py``: recurrentgemma-9b's recurrent
+state blocks chunks and spec decode, its sliding-window ring the paged
+cache) falls back from the default chunk silently, and raises the record's
+error for ``--scheduler paged`` and for an explicit ``--prefill-chunk`` or
+``--spec-k``.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
 projection and the lm_head go through the dequant_matmul kernel.  Runs on
@@ -112,15 +117,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged scheduler: total pool blocks (0 = dense-equivalent footprint)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="paged scheduler: disable shared-prefix block reuse")
-    ap.add_argument("--prefill-chunk", type=int, default=256,
+    ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="continuous/paged: admit every prompt through the fused mixed "
                          "prefill/decode step in chunks of at most N tokens (decode "
                          "advances every step during admission); 0 = whole-prompt "
-                         "admission")
-    ap.add_argument("--spec-k", type=int, default=0,
+                         "admission; default 256, or whole prompts where the arch "
+                         "cannot chunk")
+    ap.add_argument("--spec-k", type=int, default=None,
                     help="continuous/paged: speculative decoding, N n-gram drafts per "
                          "active slot verified in one step (1..N+1 tokens per step); "
-                         "0 = plain one-token decode")
+                         "0 = plain one-token decode (the default)")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest n-gram the prompt-lookup drafter matches against "
                          "each request's history")

@@ -1,6 +1,7 @@
-"""Dense GQA/MHA attention with RoPE and optional QKV bias: the subset of
-``repro.models.attention.gqa_forward`` that serves a dense decoder at tp=1
-over the port's three KV layouts (see ``model.init_caches``):
+"""Dense GQA/MHA attention with RoPE and optional QKV bias, full causal
+(``attn``) or over a sliding window (``local_attn``): the subset of
+``repro.models.attention.gqa_forward`` that serves at tp=1 over the port's
+three KV layouts (see ``model.init_caches``):
 
 * wave cache: ``k``/``v`` (L, b, hkv, S, hd) and one position row ``pos``
   (S,), since in wave serving every row sits at the same position;
@@ -11,6 +12,10 @@ over the port's three KV layouts (see ``model.init_caches``):
 * paged cache: ``k``/``v`` block pools (L, n_blocks, hkv, bs, hd) read and
   written through a per-slot block table (b, nbps), ``pos`` (b, nbps*bs)
   over each slot's view (view index == absolute position).
+
+With a sliding window the wave and slot caches are rings of
+``cache_len_for`` entries: position p lives at index p % S, and decode masks
+the entries more than ``window`` behind the query.
 
 ``pos`` is shared by all layers, as every layer holds the same positions.
 What a forward does with the cache -- where it writes, which mask decode
@@ -46,6 +51,10 @@ class KVStep:
     token, in (row, position) order -- (slot, view index) for the slot
     cache, (pool block, offset in block) for the paged one -- taken by the
     flat (row, position) tokens ``src`` (None: every token, in order).
+    ``ring_idx`` (wave ring, a prompt longer than the ring): the last
+    ``len(ring_idx)`` tokens land at these indices (position % S) instead.
+    ``state_rows``: the cache rows of recurrent state this forward
+    continues from and writes (None: every row, in order).
     Decode reads the cache entries ``valid`` marks ((S,) shared or (b, S)
     per slot); prefill attends by view position ``q_pos`` (b, s), over the
     fresh K/V, or with ``paged_read`` over the slot's view through ``bt``,
@@ -57,6 +66,8 @@ class KVStep:
     q_pos: Optional[torch.Tensor] = None
     valid: Optional[torch.Tensor] = None
     wave_pos: Optional[int] = None
+    ring_idx: Optional[torch.Tensor] = None
+    state_rows: Optional[torch.Tensor] = None
     targets: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     src: Optional[torch.Tensor] = None
     bt: Optional[torch.Tensor] = None
@@ -70,17 +81,28 @@ class KVStep:
 # ---------------------------------------------------------------------------
 
 
-def slot_index(pos: torch.Tensor, S: int) -> torch.Tensor:
-    """(b,) positions -> per-slot write index, clamped into [0, S): empty or
-    overrun slots are masked (pos -1) or already retired, so their clamped
-    write is harmless."""
-    return pos.clamp(0, S - 1)
+def cache_len_for(cfg: ModelConfig, kind: str, seq_len: int, ring_slack: int = 0) -> int:
+    """Cache length of a layer: a windowed ``local_attn`` layer keeps a ring
+    of ``window + ring_slack`` entries (at most ``seq_len``); every other
+    layer all ``seq_len``."""
+    if cfg.window and kind == "local_attn":
+        return min(seq_len, cfg.window + ring_slack)
+    return seq_len
 
 
-def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor) -> None:
+def slot_index(pos: torch.Tensor, S: int, ring: bool = False) -> torch.Tensor:
+    """(b,) positions -> per-slot write index: position % S on a ring,
+    else clamped into [0, S).  Empty or overrun slots are masked (pos -1)
+    or already retired, so their clamped write is harmless."""
+    p = pos.clamp_min(0)
+    return p % S if ring else p.clamp_max(S - 1)
+
+
+def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
+                      ring: bool = False) -> None:
     """pos_arr (b, S), in place: record the position ``pos[i]`` of row
     ``rows[i]`` at its own index."""
-    pos_arr[rows, slot_index(pos, pos_arr.shape[1])] = pos.to(pos_arr.dtype)
+    pos_arr[rows, slot_index(pos, pos_arr.shape[1], ring)] = pos.to(pos_arr.dtype)
 
 
 def chunk_writes(slots: np.ndarray, starts: np.ndarray, s: int, S: int, device):
@@ -146,9 +168,12 @@ def write_targets(side: torch.Tensor, new: torch.Tensor,
 
 def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
                 rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
-                layer: int = 0) -> torch.Tensor:
+                layer: int = 0, window: int = 0) -> torch.Tensor:
     """x (b, s, d) -> attention output (b, s, d) after the out-projection.
-    ``rope`` holds the (cos, sin) tables of this forward's positions.
+    ``rope`` holds the (cos, sin) tables of this forward's positions;
+    ``layer`` is the layer's index among the attention layers, which own
+    the cache's K/V; ``window`` > 0 is a ``local_attn`` layer's window
+    (decode reads it from ``step.valid``).
 
     Prefill writes the fresh K/V where ``step`` says and attends by view
     position through the flash-prefill kernel: over the fresh K/V, or over
@@ -177,6 +202,10 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
         if step.targets is not None:
             write_targets(ck, k, step.targets, step.src)
             write_targets(cv, v, step.targets, step.src)
+        elif step.ring_idx is not None:       # keep the last S tokens, at p % S
+            n = step.ring_idx.numel()
+            ck[:, :, step.ring_idx] = k[:, :, s - n:]
+            cv[:, :, step.ring_idx] = v[:, :, s - n:]
         else:
             ck[:, :, step.wave_pos:step.wave_pos + s] = k
             cv[:, :, step.wave_pos:step.wave_pos + s] = v
@@ -194,5 +223,6 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
         attend = ops.flash_verify if s <= VERIFY_WIDTH else ops.flash_prefill
         out = attend(q, ck, cv, step.q_pos, scale, rows=step.rows)
     else:
-        out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale)
+        out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale,
+                                window=window)
     return fused_out_projection(out, p["w_o"])

@@ -1,10 +1,11 @@
 """Shared model building blocks: device choice, init rules, norms, RoPE,
-activations.  The math follows ``repro.models.common`` line for line, so
-the same weights give the same numbers up to float rounding."""
+activations, the carried conv history of recurrent blocks.  The math
+follows ``repro.models.common`` line for line, so the same weights give the
+same numbers up to float rounding."""
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,11 +44,24 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * (1.0 + gamma.float())).to(x.dtype)
 
 
+def gelu_tanh(x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
+    """The tanh GELU as ``jax.nn.gelu(approximate=True)`` computes it, op by
+    op in x's dtype: in bf16 each step rounds where the JAX package's does
+    (``F.gelu`` rounds once, and then differs by an ulp in ~40 % of the
+    values).  ``f32_out``: the last product in fp32, unrounded, which is
+    what XLA computes when the caller widens the result to fp32 at once
+    (excess precision, its default, drops that round trip)."""
+    c, k = (torch.tensor(v, dtype=torch.float32).to(x.dtype)   # constants in x's dtype
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3)))
+    return x.float() * cdf.float() if f32_out else x * cdf
+
+
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "silu":
         return F.silu
     if name == "gelu":
-        return lambda x: F.gelu(x, approximate="tanh")
+        return gelu_tanh
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -73,3 +87,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def conv_tail(ext: torch.Tensor, W: int, valid_len: Optional[torch.Tensor],
+              tail: torch.Tensor) -> torch.Tensor:
+    """Carried depthwise-conv history from the extended input ``ext``
+    (b, s+W-1, ch) = [old tail ; new inputs].  ``valid_len`` (b,) ends each
+    row's tail at its own last real input (a right-padded admission);
+    without it the tail is the last W-1 inputs."""
+    if W == 1:
+        return tail
+    if valid_len is not None:
+        idx = valid_len.long()[:, None] + torch.arange(W - 1, device=ext.device)[None, :]
+        return torch.gather(ext, 1, idx[..., None].expand(-1, -1, ext.shape[2]))
+    return ext[:, -(W - 1):]

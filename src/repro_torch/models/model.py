@@ -1,22 +1,28 @@
-"""Top-level dense decoder: parameters, caches and forward
-(``repro.models.model`` for the dense family at tp=1).
+"""Top-level decoder: parameters, caches and forward (``repro.models.model``
+for the dense family and the RG-LRU hybrid at tp=1).
 
 Parameters are a plain dict::
 
     {"embed": {"table": (1, V, d)},
-     "layers": [ {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v], norm2,
-                  w_up, [w_gate], w_down}, ... one per layer ],
+     "layers": [ one dict per layer, by its kind (``cfg.block_kind``):
+                 attn / local_attn: {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v],
+                                     norm2, w_up, [w_gate], w_down}
+                 rglru: {norm1, mixer: {w_gate, w_x, conv_w, gate_a_w, gate_a_b,
+                                        gate_x_w, gate_x_b, Lambda, w_out},
+                         norm2, w_up, [w_gate], w_down} ],
      "final_norm": (d,), "lm_head": (1, d, V)}
 
-Each per-layer tensor is a view into one tensor stacked over the layers,
-the layout of the JAX package's scanned layer group.  Under weight-only
+An RG-LRU layer keeps its mixer's leaves under ``mixer``: its ``w_gate``
+and the GeGLU FFN's are different weights.  Each per-layer tensor is a view
+into one tensor stacked over the layers of its family (attention or
+RG-LRU), as the JAX package stacks a scanned layer group.  Under weight-only
 quantization the projections and the lm_head are ``QuantWeight``s whose
 packed values and scales are such views too.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,8 +31,9 @@ from repro_torch.core import wquant
 from repro_torch.core.wquant import QuantWeight
 from repro_torch.core.embedding import embed_lookup
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models.common import init_leaf, resolve_device, rms_norm, rope_tables
-from repro_torch.models.transformer import layers_forward
+from repro_torch.models.transformer import ATTN_KINDS, layers_forward
 
 Params = Dict[str, Any]
 
@@ -38,22 +45,35 @@ WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
             "w_up": "matmul", "w_gate": "matmul", "w_down": "matmul", "lm_head": "matmul"}
 
 
+class LeafDef(NamedTuple):
+    """One parameter of a layer: the shape of one layer's leaf, the JAX
+    ``ParamDef`` init rule, the fan-in of a "scaled" rule, the dtype."""
+    shape: Tuple[int, ...]
+    rule: str
+    fan_in: int
+    dtype: torch.dtype = torch.bfloat16
+
+
 def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> None:
     """Raise NotImplementedError naming every feature of ``cfg`` and
     ``parallel`` that the port does not serve yet."""
     missing = []
+    kinds = set(cfg.layer_pattern)
     if cfg.moe is not None:
         missing.append("moe (mixture-of-experts FFN)")
     if cfg.mla is not None:
         missing.append("mla (multi-head latent attention)")
     if cfg.ssm is not None:
         missing.append("ssm (Mamba-2 blocks)")
-    if cfg.rglru is not None:
-        missing.append("rglru (RG-LRU blocks)")
-    if set(cfg.layer_pattern) != {"attn"}:
-        missing.append(f"layer_pattern {cfg.layer_pattern} (only full-attention layers)")
-    if cfg.window:
-        missing.append("window (sliding-window attention)")
+    if kinds - {*ATTN_KINDS, "rglru"}:
+        missing.append(f"layer_pattern {cfg.layer_pattern} "
+                       "(only attn, local_attn and rglru layers)")
+    if "rglru" in kinds and cfg.rglru is None:
+        missing.append("rglru layers without an RGLRUConfig")
+    if cfg.window and "local_attn" not in kinds:
+        missing.append("window (on full-attention layers, which ignore it)")
+    if cfg.window and kinds >= set(ATTN_KINDS):
+        missing.append("attn and local_attn layers together (one cache length for all)")
     if cfg.frontend is not None:
         missing.append("frontend (modality prefix)")
     if cfg.n_codebooks != 1:
@@ -66,6 +86,8 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("kv_quant (int8 KV cache)")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
+    elif parallel.weight_quant != "none" and "rglru" in kinds:
+        missing.append(f"weight_quant={parallel.weight_quant} with rglru layers")
     if parallel.tp != 1:
         missing.append("tp>1 (tensor parallelism)")
     if missing:
@@ -73,36 +95,63 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
                                   f"{', '.join(missing)} yet")
 
 
-def layer_param_defs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str, int]]:
-    """name -> (shape of one layer, init rule, fan_in): the JAX ParamDefs
-    of one dense sub-layer (``attn_defs``, ``mlp_defs``, the two norms)."""
+def attention_window(cfg: ModelConfig) -> int:
+    """The sliding window every attention layer of ``cfg`` reads (0: full
+    causal); ``check_supported`` admits no mix of windowed and full layers."""
+    return cfg.window if "local_attn" in cfg.layer_pattern else 0
+
+
+def layer_families(cfg: ModelConfig) -> Dict[str, List[int]]:
+    """family -> its layer indices in order: "attn" (attn and local_attn
+    layers, which share one parameter layout) and "rglru"."""
+    fams: Dict[str, List[int]] = {}
+    for i in range(cfg.n_layers):
+        fams.setdefault("rglru" if cfg.block_kind(i) == "rglru" else "attn", []).append(i)
+    return fams
+
+
+def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDef]:
+    """name -> LeafDef of one layer of ``family``: the JAX ParamDefs of a
+    sub-layer (``attn_defs``, or ``rglru_defs`` as ``mixer.<name>``;
+    ``mlp_defs``; the two norms)."""
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"{cfg.name}: n_heads {cfg.n_heads} not a multiple of "
                          f"n_kv_heads {cfg.n_kv_heads}")
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     q_cols, kv_cols = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    defs = {
-        "norm1": ((d,), "zeros", 0),
-        "w_q": ((d, q_cols), "scaled", d),
-        "w_k": ((d, kv_cols), "scaled", d),
-        "w_v": ((d, kv_cols), "scaled", d),
-        "w_o": ((cfg.n_heads, hd, d), "scaled", hd),
-        "norm2": ((d,), "zeros", 0),
-        "w_up": ((d, f), "scaled", d),
-        "w_down": ((f, d), "scaled", f),
-    }
-    if cfg.qkv_bias:
-        defs.update(b_q=((q_cols,), "zeros", 0), b_k=((kv_cols,), "zeros", 0),
-                    b_v=((kv_cols,), "zeros", 0))
+    if family == "rglru":
+        defs = {"norm1": LeafDef((d,), "zeros", 0),
+                **{f"mixer.{n}": LeafDef(*spec) for n, spec in rglru.rglru_defs(cfg).items()}}
+    else:
+        defs = {
+            "norm1": LeafDef((d,), "zeros", 0),
+            "w_q": LeafDef((d, q_cols), "scaled", d),
+            "w_k": LeafDef((d, kv_cols), "scaled", d),
+            "w_v": LeafDef((d, kv_cols), "scaled", d),
+            "w_o": LeafDef((cfg.n_heads, hd, d), "scaled", hd),
+        }
+    defs.update({"norm2": LeafDef((d,), "zeros", 0), "w_up": LeafDef((d, f), "scaled", d),
+                 "w_down": LeafDef((f, d), "scaled", f)})
+    if cfg.qkv_bias and family == "attn":
+        defs.update(b_q=LeafDef((q_cols,), "zeros", 0), b_k=LeafDef((kv_cols,), "zeros", 0),
+                    b_v=LeafDef((kv_cols,), "zeros", 0))
     if cfg.gated_mlp:
-        defs["w_gate"] = ((d, f), "scaled", d)
+        defs["w_gate"] = LeafDef((d, f), "scaled", d)
     return defs
 
 
 def split_layers(stacked: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
-    """Stacked (L, ...) tensors or QuantWeights -> one dict of views per layer."""
-    return [{k: wquant.map_tensors(t, lambda a: a[i]) for k, t in stacked.items()}
-            for i in range(n_layers)]
+    """Stacked (n, ...) tensors or QuantWeights -> one dict of views per
+    layer; a ``mixer.<name>`` leaf goes to ``layer["mixer"][name]``."""
+    out = []
+    for i in range(n_layers):
+        layer: Dict[str, Any] = {}
+        for key, t in stacked.items():
+            head, _, leaf = key.rpartition(".")
+            (layer.setdefault(head, {}) if head else layer)[leaf] = wquant.map_tensors(
+                t, lambda a: a[i])
+        out.append(layer)
+    return out
 
 
 def _quantized_empty(shape, mode: str, group_size: int, device) -> QuantWeight:
@@ -151,20 +200,24 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
     gen = torch.Generator(device=device).manual_seed(seed)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     mode, gs = parallel.weight_quant, parallel.wq_group_size
-    stacked = {}
-    for name, (shape, rule, fan_in) in layer_param_defs(cfg).items():
-        quant = _quantizes(name, shape, parallel)
-        if quant:
-            t = _quantized_empty((L, *shape), mode, gs, device)
-        else:
-            t = torch.empty((L, *shape), dtype=torch.bfloat16, device=device)
-        for i in range(L):   # per layer: an fp32 draw of one layer at a time
-            leaf = init_leaf(shape, rule, gen, device=device, fan_in=fan_in)
+    layers: List[Dict[str, Any]] = [{} for _ in range(L)]
+    for family, idx in layer_families(cfg).items():
+        n, stacked = len(idx), {}
+        for name, (shape, rule, fan_in, dtype) in layer_param_defs(cfg, family).items():
+            quant = _quantizes(name, shape, parallel)
             if quant:
-                _quantize_into(wquant.index_batch(t, i), leaf, gs)
+                t = _quantized_empty((n, *shape), mode, gs, device)
             else:
-                t[i] = leaf
-        stacked[name] = t
+                t = torch.empty((n, *shape), dtype=dtype, device=device)
+            for i in range(n):   # per layer: an fp32 draw of one layer at a time
+                leaf = init_leaf(shape, rule, gen, device=device, fan_in=fan_in, dtype=dtype)
+                if quant:
+                    _quantize_into(wquant.index_batch(t, i), leaf, gs)
+                else:
+                    t[i] = leaf
+            stacked[name] = t
+        for i, layer in zip(idx, split_layers(stacked, n)):
+            layers[i] = layer
     table = init_leaf((1, V, d), "normal", gen, device=device)
     final_norm = init_leaf((d,), "zeros", gen, device=device)
     head = init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d)
@@ -172,7 +225,7 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
         qhead = _quantized_empty(head.shape, mode, gs, device)
         _quantize_into(qhead, head, gs)
         head = qhead
-    return {"embed": {"table": table}, "layers": split_layers(stacked, L),
+    return {"embed": {"table": table}, "layers": layers,
             "final_norm": final_norm, "lm_head": head}
 
 
@@ -212,45 +265,57 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
     dequantizing (w_o), which also writes and reads a bf16 copy per step;
     ``swept``: the sum.  The embed table is left out: a token reads one
     row of it."""
-    L = cfg.n_layers
-    leaves = [(name, (L, *shape)) for name, (shape, _, _) in layer_param_defs(cfg).items()]
-    leaves += [("final_norm", (cfg.d_model,)), ("lm_head", (1, cfg.d_model, cfg.vocab_size))]
+    leaves = [(name, (len(idx), *d.shape), d.dtype)
+              for family, idx in layer_families(cfg).items()
+              for name, d in layer_param_defs(cfg, family).items()]
+    leaves += [("final_norm", (cfg.d_model,), torch.bfloat16),
+               ("lm_head", (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
     quantized = dense = ref_einsum = 0
-    for name, shape in leaves:
+    for name, shape, dtype in leaves:
         if _quantizes(name, shape, parallel):
             b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size)
             quantized += b
             ref_einsum += b if WQ_SITES[name] == "einsum" else 0
         else:
-            dense += 2 * math.prod(shape)
+            dense += dtype.itemsize * math.prod(shape)
     return {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
             "swept": quantized + dense}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                per_slot: bool = False, paged: Optional[Tuple[int, int]] = None
-                ) -> Dict[str, torch.Tensor]:
-    """KV cache for all layers; ``pos`` -1 marks an empty entry.
+                per_slot: bool = False, paged: Optional[Tuple[int, int]] = None,
+                ring_slack: int = 0) -> Dict[str, torch.Tensor]:
+    """The cache of all layers; ``pos`` -1 marks an empty entry.
 
-    Wave (default): ``k``/``v`` (L, batch, hkv, max_len, hd), ``pos``
-    (max_len,).  ``per_slot``: the same K/V and ``pos`` (batch, max_len),
-    every row a slot at its own position.  ``paged=(n_blocks, block_size)``:
-    ``k``/``v`` are block pools (L, n_blocks, hkv, block_size, hd) and
-    ``pos`` is (batch, view) over each slot's view of
-    ceil(max_len / block_size) blocks."""
+    Wave (default): ``k``/``v`` (A, batch, hkv, S, hd) for the A attention
+    layers, ``pos`` (S,).  ``per_slot``: the same K/V and ``pos`` (batch,
+    S), every row a slot at its own position.  S is ``max_len``, or for
+    ``local_attn`` layers with a window a ring of ``window + ring_slack``
+    entries (``attention.cache_len_for``).  ``paged=(n_blocks,
+    block_size)``: ``k``/``v`` are block pools (A, n_blocks, hkv,
+    block_size, hd) and ``pos`` is (batch, view) over each slot's view of
+    ceil(max_len / block_size) blocks.  RG-LRU layers add their recurrent
+    state, ``h`` and ``conv`` (``rglru.init_rglru_state``)."""
+    fams = layer_families(cfg)
+    n_attn, n_rec = len(fams.get("attn", ())), len(fams.get("rglru", ()))
+    window = attention_window(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     if paged is not None:
         n_blocks, bs = paged
-        shape = (cfg.n_layers, n_blocks, hkv, bs, hd)
+        shape = (n_attn, n_blocks, hkv, bs, hd)
         pos_shape = (batch, -(-max_len // bs) * bs)
     else:
-        shape = (cfg.n_layers, batch, hkv, max_len, hd)
-        pos_shape = (batch, max_len) if per_slot else (max_len,)
-    return {
+        S = attn.cache_len_for(cfg, "local_attn" if window else "attn", max_len, ring_slack)
+        shape = (n_attn, batch, hkv, S, hd)
+        pos_shape = (batch, S) if per_slot else (S,)
+    caches = {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device),
     }
+    if n_rec:
+        caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device))
+    return caches
 
 
 def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -266,11 +331,15 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
 
 
 def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
-             block_tables, write_rows=None, chunk_writes=None) -> attn.KVStep:
-    """Where this forward writes K/V and what it attends, worked out once
-    for all layers; writes the position rows that decode needs first."""
+             block_tables, write_rows=None, chunk_writes=None, window: int = 0) -> attn.KVStep:
+    """Where this forward writes K/V and recurrent state and what it
+    attends, worked out once for all layers; writes the position rows that
+    decode needs first.  ``window`` > 0: the attention layers are a
+    sliding-window ring, written at position % S and read with the
+    window's mask."""
     dev = positions.device
     bt = block_tables
+    ring = window > 0
     q_pos = None if cur_pos is not None else positions.to(torch.int32).expand(b, s).contiguous()
     if caches is None:
         return attn.KVStep(None, decode=False, q_pos=q_pos)
@@ -278,31 +347,45 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
     if pos.dim() == 1:                                        # wave cache
         S = pos.shape[0]
         if cur_pos is not None:
-            if not 0 <= cur_pos < S:
+            if cur_pos < 0 or (not ring and cur_pos >= S):
                 raise ValueError(f"decode position {cur_pos} outside the cache of {S}")
-            pos[cur_pos] = cur_pos
-            return attn.KVStep(caches, decode=True, valid=(pos >= 0) & (pos <= cur_pos),
-                               wave_pos=cur_pos)
-        if s > S:
-            raise ValueError(f"prompt of {s} tokens is longer than the cache of {S}")
+            idx = cur_pos % S
+            pos[idx] = cur_pos
+            valid = (pos >= 0) & (pos <= cur_pos)
+            if ring:
+                valid &= pos > cur_pos - window
+            return attn.KVStep(caches, decode=True, valid=valid, wave_pos=idx)
         pos.fill_(-1)
+        if s > S:
+            if not ring:
+                raise ValueError(f"prompt of {s} tokens is longer than the cache of {S}")
+            tail = positions[s - S:]                          # the ring keeps the last S
+            idx = tail % S
+            pos[idx] = tail.to(pos.dtype)
+            return attn.KVStep(caches, decode=False, q_pos=q_pos, ring_idx=idx)
         pos[:s] = positions
         return attn.KVStep(caches, decode=False, q_pos=q_pos, wave_pos=0)
+    chunk = cur_pos is None and positions.dim() == 2
+    if (ring or "h" in caches) and (bt is not None or chunk):
+        raise NotImplementedError("chunks and paged caches are not ported for sliding-window "
+                                  "rings or recurrent state")
     if bt is not None:
         bt = bt.to(device=dev, dtype=torch.int32).contiguous()
     if cur_pos is not None:                                   # slot decode
         rows = torch.arange(b, device=dev) if write_rows is None else write_rows
         wpos = cur_pos if write_rows is None else cur_pos[write_rows]
-        attn.write_pos_batched(pos, wpos, rows)
+        attn.write_pos_batched(pos, wpos, rows, ring)
         valid = (pos >= 0) & (pos <= cur_pos[:, None])
+        if ring:
+            valid &= pos > cur_pos[:, None] - window
         if bt is None:
-            targets = (rows, attn.slot_index(wpos, pos.shape[1]))
+            targets = (rows, attn.slot_index(wpos, pos.shape[1], ring))
         else:
             targets = attn.paged_decode_targets(bt if write_rows is None else bt[rows], wpos,
                                                 caches["k"].shape[3])
         return attn.KVStep(caches, decode=True, valid=valid, targets=targets, src=write_rows,
                            bt=bt)
-    if bt is None and positions.dim() == 2:                   # slot chunk
+    if bt is None and chunk:                                  # slot chunk
         if slots is None or chunk_writes is None:
             raise ValueError("a chunk into a slot cache names its slots and its writes")
         targets, src = chunk_writes
@@ -313,9 +396,10 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
             raise ValueError("a prefill into a slot cache names the slots it fills")
         if s > pos.shape[1]:
             raise ValueError(f"prompt of {s} tokens is longer than the cache of {pos.shape[1]}")
-        pos[slots, :s] = positions.to(pos.dtype)              # view index == position
+        pos[slots, :s] = positions.to(pos.dtype)              # index == position (s <= S)
         targets = (slots.repeat_interleave(s), torch.arange(s, device=dev).repeat(len(slots)))
-        return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets)
+        return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets,
+                           state_rows=slots)
     targets = attn.paged_flat_targets(bt, q_pos[:, 0], s, caches["k"].shape[3])
     return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, bt=bt,
                        paged_read=positions.dim() == 2)
@@ -345,6 +429,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     through ``block_tables`` (b, nbps), which decode reads and writes
     through too.  A slot decode writes the token of the rows ``write_rows``
     (default all: a row being admitted must not write its stale position).
+    RG-LRU layers continue from the cache's recurrent state of the rows
+    computed (the admitted ``slots``, else every row) and write it back;
+    ``length_mask`` keeps their pad steps out of it.
     ``last_only`` keeps one position per row: the last, or with
     ``length_mask`` (b, s) (true at real tokens of a right-padded batch)
     each row's last real token."""
@@ -362,9 +449,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=dev)
     step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
                     block_tables=block_tables, write_rows=write_rows,
-                    chunk_writes=chunk_writes)
+                    chunk_writes=chunk_writes, window=attention_window(cfg))
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    x = layers_forward(params["layers"], x, cfg, rope=rope, step=step)
+    x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if last_only and length_mask is not None:
         last = (length_mask.sum(dim=1) - 1).clamp_min(0)

@@ -1,31 +1,58 @@
 """Decoder layers: the sequential-residual sub-layer of
-``repro.models.transformer.sublayer_forward`` and the layer loop that the
-JAX package runs as a ``lax.scan`` over stacked parameters (here a Python
-loop over per-layer views of the same stacked tensors)."""
+``repro.models.transformer.sublayer_forward`` with its mixer dispatch
+(``_mixer_forward``: ``attn``, ``local_attn`` or ``rglru``), and the layer
+loop that the JAX package runs as scans over groups of stacked parameters
+(here a Python loop over per-layer views of the same stacked tensors).
+
+Layer i's kind is ``cfg.block_kind(i)``, the layer pattern cycled over the
+layers.  Each kind owns its part of the cache: the attention layers the
+K/V, in their own order, the RG-LRU layers the recurrent state.
+"""
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import mlp_forward
 
+ATTN_KINDS = ("attn", "local_attn")
 
-def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+
+def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
+                   step: attn.KVStep, length_mask) -> torch.Tensor:
+    if kind in ATTN_KINDS:
+        return attn.gqa_forward(p, xa, cfg, rope=rope, step=step, layer=index,
+                                window=cfg.window if kind == "local_attn" else 0)
+    if kind == "rglru":
+        return rglru.rglru_layer(p["mixer"], xa, cfg, cache=step.cache, index=index,
+                                 rows=step.state_rows, length_mask=length_mask)
+    raise ValueError(kind)
+
+
+def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+                     kind: str = "attn", index: int = 0, *,
                      rope: Tuple[torch.Tensor, torch.Tensor], step: attn.KVStep,
-                     layer: int = 0) -> torch.Tensor:
-    """x + attn(norm1(x)), then + mlp(norm2(.)): one decoder layer."""
+                     length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + mixer(norm1(x)), then + mlp(norm2(.)): one decoder layer of kind
+    ``kind``, the ``index``-th of its kind's cache."""
     xa = rms_norm(x, p["norm1"], cfg.rms_eps)
-    x = x + attn.gqa_forward(p, xa, cfg, rope=rope, step=step, layer=layer)
+    x = x + _mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
+                           length_mask=length_mask)
     xf = rms_norm(x, p["norm2"], cfg.rms_eps)
     return x + mlp_forward(p, xf, cfg)
 
 
 def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
                    cfg: ModelConfig, **kw) -> torch.Tensor:
+    seen = {"attn": 0, "rglru": 0}
     for i, p in enumerate(layers):
-        x = sublayer_forward(p, x, cfg, layer=i, **kw)
+        kind = cfg.block_kind(i)
+        family = "rglru" if kind == "rglru" else "attn"
+        x = sublayer_forward(p, x, cfg, kind, seen[family], **kw)
+        seen[family] += 1
     return x

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, SamplingConfig
+from repro_torch.core.capabilities import ArchCapabilities
 from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
@@ -37,7 +38,8 @@ class Engine:
     lm_head is kept resident as one fp32 copy, because the logits are
     computed in fp32 and casting the head on every step would allocate and
     write it anew each time; a quantized head is not, since an fp32 copy
-    would undo its point."""
+    would undo its point.  ``caps`` is the arch's serving-capability record,
+    which the schedulers consult."""
 
     def __init__(self, cfg: ModelConfig, *, parallel: ParallelConfig = ParallelConfig(),
                  sampling: SamplingConfig = SamplingConfig(), max_len: int = 128,
@@ -50,6 +52,7 @@ class Engine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg, self.parallel, self.sampling = cfg, parallel, sampling
+        self.caps = ArchCapabilities.from_config(cfg)
         self.max_len = max_len
         if params is None:
             params = M.init_params(cfg, parallel, seed=seed, device=self.device)
@@ -85,8 +88,11 @@ class Engine:
     # runs all slots; finished and empty slots are masked inside the step.
 
     def init_slot_caches(self, n_slots: int) -> Dict[str, torch.Tensor]:
+        """A sliding-window ring holds ``window + spec_k`` entries, so that a
+        verify chunk of spec_k drafts never wraps onto live window entries
+        (the JAX package's ``ring_slack``)."""
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             per_slot=True)
+                             per_slot=True, ring_slack=self.parallel.spec_k)
 
     def init_paged_caches(self, n_slots: int, n_blocks: int,
                           block_size: int) -> Dict[str, torch.Tensor]:
@@ -111,8 +117,9 @@ class Engine:
     def prefill_into_slots(self, caches, tokens, admit, plens) -> np.ndarray:
         """Admit requests in flight: prefill ``tokens`` (B, Lp) into the
         slots flagged by ``admit`` (B,) of a live slot cache, right-padded to
-        ``plens``; other slots keep their bytes.  Returns each admitted
-        slot's first sampled token (B,) on the host."""
+        ``plens``; other slots keep their bytes.  The length mask keeps the
+        padding out of the RG-LRU state and conv tails.  Returns each
+        admitted slot's first sampled token (B,) on the host."""
         kvcache.reset_slots(caches, admit)
         slots = kvcache.device_ints(np.flatnonzero(np.asarray(admit)), self.device)
         tok = self._admit_rows(tokens, admit, plens, caches=caches, slots=slots)

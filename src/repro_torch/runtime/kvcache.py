@@ -8,6 +8,8 @@ same positions:
 * slot cache: ``k``/``v`` (L, b, hkv, S, hd), ``pos`` (b, S) -- row b is
   slot b, and ``pos[b, j]`` is the absolute position held at index j
   (-1 = empty);
+* the recurrent state of the n RG-LRU layers (slot cache): ``h`` (n, b, w)
+  and ``conv`` (n, b, W-1, w), slot b's in row b;
 * paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
   addressed through a per-slot block table (b, nbps) that the scheduler
   keeps on the host; ``pos`` (b, nbps*bs) is per-slot over the slot's view,
@@ -52,16 +54,22 @@ def device_ints(x, device, dtype=torch.long) -> torch.Tensor:
 def reset_slots(caches: Dict[str, torch.Tensor], mask) -> None:
     """In place: the position rows of the slots in ``mask`` (b,) go to -1,
     which masks every stale K/V entry without touching the K/V bytes (they
-    are dead by position and are overwritten as the new request runs)."""
+    are dead by position and are overwritten as the new request runs), and
+    their recurrent state zeroes, since a prefill integrates it from t=0."""
     pos = caches["pos"]
-    pos[_rows(mask, pos.device)] = -1
+    rows = _rows(mask, pos.device)
+    pos[rows] = -1
+    for key in ("h", "conv"):
+        if key in caches:
+            caches[key][:, rows] = 0
 
 
 def mask_prompt_padding(caches: Dict[str, torch.Tensor], plens, mask) -> None:
     """In place, for the slots in ``mask``: invalidate the position entries
     at and after each slot's true prompt length ``plens[b]``.  Admission
     prefills a right-padded batch; the K/V written for padding tokens must
-    never be attended, and decode overwrites index plen, plen+1, ..."""
+    never be attended, and decode overwrites index plen, plen+1, ...  (On a
+    ring the admitted prompt fits the ring, so index == position here too.)"""
     pos = caches["pos"]
     idx = torch.arange(pos.shape[1], device=pos.device)
     plens = device_ints(plens, pos.device)

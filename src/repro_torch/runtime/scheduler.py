@@ -140,7 +140,11 @@ class ContinuousScheduler:
     up to ``block_steps`` masked decode steps.  ``prefill_chunk``,
     ``spec_k`` and ``spec_ngram`` default to the engine's
     ``ParallelConfig``; a chunk of 0 admits whole prompts by one bucketed
-    prefill.
+    prefill.  An arch whose capability record blocks chunked prefill or
+    spec decode (recurrent state) falls back to whole-prompt admission and
+    plain decode when the value is the config's default, and raises the
+    record's error when it was asked for here.  A sliding-window arch caps
+    prompts (and buckets) at its window.
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
@@ -150,11 +154,25 @@ class ContinuousScheduler:
         self.B = n_slots
         self.pad_id = pad_id
         self.block_steps = block_steps
+        caps = engine.caps
+        # a ring keeps only the last window tokens: a bucket padded past the
+        # window would push real prompt history out of it
         self.prompt_limit = engine.max_len
+        if caps.max_prompt is not None:
+            self.prompt_limit = min(self.prompt_limit, caps.max_prompt)
         par = engine.parallel
         chunk = par.prefill_chunk if prefill_chunk is None else prefill_chunk
+        if chunk and not caps.supports("chunked"):
+            if prefill_chunk is not None:
+                caps.require("chunked")
+            chunk = 0
         self.chunk = min(int(chunk), self.prompt_limit) if chunk else 0
-        self.spec_k = max(0, int(par.spec_k if spec_k is None else spec_k))
+        sk = par.spec_k if spec_k is None else spec_k
+        if sk and not caps.supports("spec"):
+            if spec_k is not None:
+                caps.require("spec")
+            sk = 0
+        self.spec_k = max(0, int(sk))
         self.spec_ngram = int(par.spec_ngram if spec_ngram is None else spec_ngram)
         self.drafter = NgramDrafter(self.spec_k, ngram_max=self.spec_ngram) if self.spec_k else None
         self.vocab = engine.cfg.vocab_size
@@ -193,6 +211,11 @@ class ContinuousScheduler:
         if len(prompt) + max_new > self.engine.max_len:
             raise ValueError(f"request needs {len(prompt)}+{max_new} positions > max_len "
                              f"{self.engine.max_len}")
+        if len(prompt) > self.prompt_limit:
+            raise ValueError(
+                f"prompt len {len(prompt)} exceeds the sliding-window cache "
+                f"({self.prompt_limit}); longer-than-window prompts are not "
+                f"admissible in-flight yet — use WaveScheduler")
         if len(prompt) < 2:
             raise ValueError("prompts must have >= 2 tokens")
         rid = self._next_id
@@ -617,6 +640,9 @@ class PagedContinuousScheduler(ContinuousScheduler):
                  *, prefill_chunk: Optional[int] = None, spec_k: Optional[int] = None,
                  spec_ngram: Optional[int] = None, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None, prefix_cache: bool = True):
+        # paged is a hard backend choice, no silent fallback: the registry
+        # raises its error for ring archs
+        engine.caps.require("paged")
         super().__init__(engine, n_slots, pad_id, block_steps, prefill_chunk=prefill_chunk,
                          spec_k=spec_k, spec_ngram=spec_ngram)
         self.bs = block_size or engine.parallel.kv_block_size

@@ -6,7 +6,7 @@ conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Shapes cover what the main path does not: head_dim 64, ragged tails, pad
+Shapes cover what the main path does not: head_dim 64 and 256, ragged tails, pad
 rows, g from 1 to 16, per-row masks with a fully masked row, verify
 chunks of 1 to 8 queries over slot stripes read through a row index with
 frontiers at 0, mid-stripe and the stripe's end, paged pools
@@ -328,3 +328,96 @@ def test_dequant_matmul_kernel_on_unaligned_layer_views(dev, mode):
         want = ref.dequant_matmul_ref(x, layer.q, layer.scale, mode, layer.group)
         torch.cuda.synchronize()
         _dq_check(got, want)
+
+
+# -- the RG-LRU hybrid's kernels: lru_scan, and head_dim 256 with a window ----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w", [(1, 1, 64), (2, 1, 4000), (3, 37, 200), (4, 17, 4096),
+                                   (1, 300, 129), (4, 40, 4000)])
+def test_lru_scan_kernel(dev, b, s, w, dtype):
+    """One step and many, odd widths (a ragged last block), b 1-4; the
+    sequence not a multiple of the 16 steps whose loads go together."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + w)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev)).to(dtype)
+    x = torch.randn((b, s, w), generator=gen, device=dev).to(dtype)
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+    before = ops.LAUNCHES["lru_scan"]
+    hs, hT = ops.lru_scan(a, x, h0)
+    assert ops.LAUNCHES["lru_scan"] == before + 1
+    want_hs, want_hT = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    assert hs.dtype == hT.dtype == torch.float32
+    torch.testing.assert_close(hs, want_hs, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hT, want_hT, atol=1e-5, rtol=1e-5)
+    assert torch.equal(hT, hs[:, -1])
+
+
+def _ring_mask(S, window, frontiers):
+    """Per row: a ring of S entries after positions 0..f were written at
+    p % S; entry i holds the last p <= f with p % S == i (none if that is
+    negative), valid where it lies inside the window of the query at f."""
+    idx = torch.arange(S)
+    rows = []
+    for f in frontiers:
+        pos = f - (f - idx) % S
+        rows.append((pos >= 0) & (pos > f - window))
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_decode_attention_kernel_hd256_ring(dev, g, dtype):
+    """head_dim 256 (4 warps in bf16, 2 in fp32) over a 2048-entry ring
+    whose valid rows wrap, per row: g query heads over one KV head (MQA at
+    g = 16, recurrentgemma's) and g = 1, 8 over more KV heads."""
+    hkv = 1 if g == 16 else 2
+    b, S, hd, window = 3, 2048, 256, 2048
+    gen = torch.Generator(device=dev).manual_seed(g)
+    q = _randn(gen, (b, g * hkv, 1, hd), dtype, dev)
+    k, v = _randn(gen, (b, hkv, S, hd), dtype, dev), _randn(gen, (b, hkv, S, hd), dtype, dev)
+    valid = _ring_mask(S, window - 100, [2100, 3000, 500]).to(dev)
+    m, l, acc = ops.decode_attention_partial(q, k, v, valid, hd ** -0.5)
+    m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m, m2, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(acc, acc2, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64, 2048])
+@pytest.mark.parametrize("b,hq,hkv,sq", [(2, 16, 1, 300), (1, 4, 2, 2304)])
+def test_flash_prefill_kernel_hd256_window(dev, b, hq, hkv, sq, window, dtype):
+    """head_dim 256 over fresh K/V with a sliding window: bands that start
+    mid-tile and on a 32-key tile edge (window 64 at rows 95 and 96), rows
+    of the first window (no lower bound yet), a pad row."""
+    hd = 256
+    gen = torch.Generator(device=dev).manual_seed(sq + window)
+    q = _randn(gen, (b, hq, sq, hd), dtype, dev)
+    k, v = _randn(gen, (b, hkv, sq, hd), dtype, dev), _randn(gen, (b, hkv, sq, hd), dtype, dev)
+    q_pos = torch.arange(sq, device=dev, dtype=torch.int32).repeat(b, 1)
+    q_pos[-1, -1] = -1
+    got = ops.flash_prefill(q, k, v, q_pos, hd ** -0.5, window=window)
+    want = ref.flash_prefill_ref(q, k, v, q_pos, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[-1, :, -1].any()
+
+
+def test_hybrid_kernels_refuse_what_they_do_not_take(dev):
+    """A launch the kernel refuses raises: lru_scan over more than 65535
+    rows, flash_prefill with a window in the paged layout's place (head_dim
+    256 through the paged wrapper), a negative window."""
+    a = torch.zeros(65536, 1, 8, device=dev)
+    with pytest.raises(RuntimeError, match="lru_scan"):
+        ops.lru_scan(a, a, torch.zeros(65536, 8, device=dev))
+    q = torch.zeros(1, 2, 4, 256, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 4, 256, device=dev, dtype=torch.bfloat16)
+    q_pos = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="flash_prefill"):
+        ops.flash_prefill(q, kv, kv, q_pos, 0.1, window=-1)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        ops.paged_flash_prefill(q, kv, kv, torch.zeros(1, 1, dtype=torch.int32, device=dev),
+                                q_pos, 0.1)
