@@ -13,8 +13,11 @@ Phases, each fatal on failure:
    at yi-9b; dequant_matmul at yi-9b int8 and qwen-72b int4, decode and
    prefill widths; flash_prefill and flash_verify also over slot stripes
    read through the row index; lru_scan, top-k over its vocab and the
-   head_dim-256 windowed prefill and ring decode at recurrentgemma-9b),
-   against its plain PyTorch version on the
+   head_dim-256 windowed prefill and ring decode at recurrentgemma-9b;
+   fused_dual_matmul at gptj-parallel's decode and prefill shapes, the
+   heads read in place, and at the JAX sweep's odd shape in bf16 and fp32;
+   the head_dim-256 flash_verify, paged decode and paged prefill at
+   gptj-parallel's 16 MHA heads), against its plain PyTorch version on the
    same inputs (stated tolerance), with its time, the plain version's, one
    PyTorch library call's for the same function (a yardstick the port
    never calls) and the least time the card could take (bytes at 3.35 TB/s
@@ -27,12 +30,19 @@ Phases, each fatal on failure:
    that some are rejected and the slots rewound): every sampled logits row
    and the position rows; and a small RG-LRU hybrid (head_dim 256, window
    64) through a wave and the slot engine past its ring's wrap, the slots
-   admitted a second time: every logits row and the recurrent state;
-5. serve: three full-width models with random weights from a seed, each
+   admitted a second time: every logits row and the recurrent state; and a
+   small parallel-residual model (head_dim 256) through a teacher-forced
+   forward, a wave, the dense slot engine in chunks with spec decode, and
+   the paged pool whole-prompt and in chunks with spec decode, the card
+   handed the CPU's tokens: every live logits row; a sequential residual
+   planted on the card must fail the same limit;
+5. serve: four full-width models with random weights from a seed, each
    through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
-   layers), qwen-72b in int4 (80 layers).  Each serves 8 requests in waves
-   of 4, greedy, 32 new tokens each; tokens in range, a second run
-   identical, and every kernel's launch count as the path predicts it;
+   layers), qwen-72b in int4 (80 layers), gptj-parallel in bf16 (28
+   layers).  Each serves 8 requests in waves of 4, greedy, 32 new tokens
+   each; tokens in range, a second run identical, and every kernel's
+   launch count as the path predicts it (gptj-parallel: 28
+   fused_dual_matmul per forward);
 6. slots: full-width yi-9b bf16 (48 layers) through continuous batching,
    over the dense slot cache (ContinuousScheduler) and the paged one
    (PagedContinuousScheduler), each once admitting whole prompts
@@ -44,21 +54,32 @@ Phases, each fatal on failure:
    chunked admission, decode during admission and verify steps really
    happened; prefix reuse really happened and the block allocator's audit
    passes (paged); and per request the tokens equal the whole-prompt dense
-   phase's, or part first where the top-2 logits lie within 1e-2.  The
-   dense spec phase runs once more with a drafter that proposes the
-   whole-prompt phase's own next tokens, every other time with a wrong
-   last draft: it must accept drafts and reject some, emit more than one
-   token per verify step and give the same tokens.  Random full-width
-   weights make greedy streams that repeat one token whatever their
-   context, so these token checks show that the path runs and rewinds,
-   not that its attention reads the right rows: phase 4 shows that;
+   phase's, or part first where the top-2 logits lie within 1e-2, with at
+   most half the requests parted.  The dense spec phase runs once more
+   with a drafter that proposes the whole-prompt phase's own next tokens,
+   every other time with a wrong last draft: it must accept drafts and
+   reject some, emit more than one token per verify step and give the
+   same tokens.  Random full-width weights make greedy streams that
+   repeat one token whatever their context, so these token checks show
+   that the path runs and rewinds, not that its attention reads the
+   right rows: phase 4 shows that;
 7. hybrid: full-width recurrentgemma-9b bf16 (38 layers) through the
    WaveScheduler (prompts of 2100-2300 tokens, longer than the 2048-token
    window) and the ContinuousScheduler (its default chunk falls back to
    whole prompts; slots decode past position 2048): tokens in range, a
    second run identical, the ring wrapped, and launch counts exactly 26
    lru_scan and 12 flash_prefill per prefill forward, 12 decode_attention
-   per decode step.
+   per decode step;
+8. parallel slots: full-width gptj-parallel bf16 (28 layers) through the
+   four phases of 6, on the same workload and checks, its launches
+   counted as there, with 28 fused_dual_matmul per forward (56 per mixed
+   step with a decode half); but where a stream parts from the dense
+   phase's, the plain versions (run on the card) certify the near-tie:
+   on the same inputs the port's logits lie within 5e-2 of theirs, and
+   both tokens within 5e-2 of their top.
+
+Each kernel row of the last lines counts its launches on the phases of the
+arches whose shapes it was timed at (``launches_counted_on``).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the kernels' JSON and one serve JSON line per phase.
@@ -88,8 +109,12 @@ L2_FLUSH_BYTES = 128 * 2**20  # > the 50 MB L2: each timed launch starts cold
 B, HQ, HKV, HD, VOCAB = 4, 32, 4, 128, 64000
 PREFILL_S, DECODE_S, DECODE_VALID = 128, 512, 300
 SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW, SERVE_MAX_LEN = 8, 4, 32, 256
+# gptj-parallel: 28 layers of 16 MHA heads of head_dim 256, d 4096, a plain
+# GELU FFN of 16384, vocab 50400; every layer's attention out-projection and
+# FFN down-projection go through one fused_dual_matmul
+GJ_ARCH, GJ_H, GJ_HD, GJ_D, GJ_F = "gptj-parallel", 16, 256, 4096, 16384
 # (arch, weight_quant) of the serve phases, in order
-SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"))
+SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"), (GJ_ARCH, "none"))
 # paged kernels: 16-token blocks; decode over a shuffled 32-entry table
 # (512-token view, 300 valid rows); prefill of a 64-token suffix after a
 # 64..128-token prefix in a 256-token view
@@ -103,7 +128,8 @@ SPEC_K, STRIPE = 4, 256
 # --arrival-every 4 --kv-block-size 16, max_len 256
 SLOT_WORKLOAD = dict(requests=12, shared_prefix=64, prompt_len=64, max_new=32,
                      max_new_spread=4, arrival_every=4)
-SLOTS, TIE_GAP = 4, 1e-2
+# at most MAX_PARTED of a phase's streams may part from the dense phase's
+SLOTS, TIE_GAP, MAX_PARTED = 4, 1e-2, SLOT_WORKLOAD["requests"] // 2
 # recurrentgemma-9b: 16 q heads over 1 KV head of head_dim 256, a 2048-token
 # window, lru width 4096, vocab 256000; the wave phase's prefill is 4 rows of
 # up to 2304 tokens
@@ -251,7 +277,83 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_paged(dev, flush))
     out[0]["stripe"] = check_stripe_prefill(dev, flush)
     out.append(check_verify(dev, flush))
+    for row in out:     # the rows above are counted on the yi-9b and qwen-72b phases
+        row["arches"] = ["yi-9b", "qwen-72b"]
     out.extend(check_hybrid_kernels(dev, flush))
+    out.extend(check_parallel_kernels(dev, flush))
+    return out
+
+
+def check_parallel_kernels(dev, flush) -> list:
+    """gptj-parallel's kernels: fused_dual_matmul at its widths, the heads
+    read in place, at each T the serving paths give it and each kernel
+    instance runs -- decode at 4 and 8 rows (the GEMV's two widths), a
+    verify step of 4 slots x (SPEC_K + 1) (T 20) and one slot's 64-token
+    chunk (the 64-wide tensor-core tiles), a prefill (T 512, the 128-wide
+    tiles) -- and at the JAX sweep's odd shape in bf16 and fp32 (the fp32
+    CUDA-core GEMM); the head_dim-256 instances of the
+    verify and paged kernels at its 16 MHA heads (g 1).  Their launches are
+    counted on the gptj-parallel phases only.  Tolerance of
+    fused_dual_matmul: fp32 1e-4 abs + 1e-4 rel (sums over K up to 20480 in
+    another order), bf16 1e-2 abs + 1e-2 rel (one output rounding apart)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = []
+    for what, a_shape, kb, d, dtype in (
+            ("gptj decode", (B, GJ_H, 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
+            ("gptj decode at 8 rows", (2 * B, GJ_H, 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
+            ("gptj verify step", (B, GJ_H, SPEC_K + 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
+            ("gptj 64-token chunk", (1, GJ_H, PREFILL_SQ, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
+            ("gptj prefill, heads read in place", (B, GJ_H, PREFILL_S, GJ_HD), GJ_F, GJ_D,
+             torch.bfloat16),
+            ("JAX sweep's odd shape, bf16", (257, 129), 65, 33, torch.bfloat16),
+            ("JAX sweep's odd shape, fp32", (257, 129), 65, 33, torch.float32)):
+        heads = len(a_shape) == 4
+        T = a_shape[0] * a_shape[2] if heads else a_shape[0]
+        ka = a_shape[1] * a_shape[3] if heads else a_shape[1]
+        a = torch.randn(a_shape, generator=gen, device=dev).to(dtype)
+        wa = (torch.randn((ka, d), generator=gen, device=dev) * ka ** -0.5).to(dtype)
+        b = torch.randn((T, kb), generator=gen, device=dev).to(dtype)
+        wb = (torch.randn((kb, d), generator=gen, device=dev) * kb ** -0.5).to(dtype)
+        # the kernel takes w_o as (h, hd, d) and the heads as they lie; the
+        # plain version and the library call the (T, Ka) matrix, made beforehand
+        a_in, wa_in = (a, wa.view(a_shape[1], a_shape[3], d)) if heads else (a, wa)
+        a2 = a.transpose(1, 2).reshape(T, ka) if heads else a
+        got = ops.fused_dual_matmul(a_in, wa_in, b, wb).float()
+        want = ref.fused_dual_matmul_ref(a2, wa, b, wb).float()
+        err = (got - want).abs().max().item()
+        lim = 1e-4 if dtype == torch.float32 else 1e-2
+        if not ((got - want).abs() <= lim + lim * want.abs()).all():
+            fail(f"fused_dual_matmul {what} differs from its plain version by {err} "
+                 f"(tol {lim} abs + {lim} rel)")
+        w_cat = torch.cat((wa, wb), 0)
+        esz = a.element_size()
+        cases.append({
+            "case": what,
+            "shape": (f"a {'heads ' if heads else ''}{tuple(a_shape)} @ ({ka},{d}) + b ({T},{kb}) "
+                      f"@ ({kb},{d}) {str(dtype)[6:]}"),
+            "max_abs_err": err, "tolerance": f"{lim} abs + {lim} rel",
+            "ms": cold_ms(lambda: ops.fused_dual_matmul(a_in, wa_in, b, wb), flush),
+            "plain_ms": cold_ms(lambda: ref.fused_dual_matmul_ref(a2, wa, b, wb), flush),
+            "library_ms": cold_ms(lambda: torch.matmul(torch.cat((a2, b), 1), w_cat), flush),
+            **bound(esz * (a.numel() + wa.numel() + b.numel() + wb.numel() + T * d),
+                    2 * T * (ka + kb) * d, FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS),
+        })
+        del a, wa, b, wb, w_cat, got, want, a_in, wa_in, a2
+    out = [{"name": "fused_dual_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_dual_matmul.cu",
+            "replaces": "src/repro/kernels/fused_residual.py:47",
+            "counter": "fused_dual_matmul", "arches": [GJ_ARCH],
+            "library": "torch.matmul(torch.cat((a, b), 1), w_cat): cuBLAS over the activations "
+                       "concatenated in the timed call and the weights concatenated beforehand",
+            **{k: cases[0][k] for k in ("shape", "max_abs_err", "tolerance", "ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by")},
+            "cases": cases}]
+    heads = (GJ_H, GJ_H, GJ_HD)
+    for row in [check_verify(dev, flush, heads), *check_paged(dev, flush, heads)]:
+        row.update(name=row["name"] + " (head_dim 256)", arches=[GJ_ARCH])
+        out.append(row)
     return out
 
 
@@ -384,11 +486,13 @@ def check_hybrid_kernels(dev, flush) -> list:
     return out
 
 
-def stripe_inputs(dev, gen, sq: int, lo: int, hi: int):
-    """q (B, HQ, sq, HD) bf16, a (B, HKV, STRIPE, HD) slot cache, a shuffled
-    row index and q_pos: row b's chunk starts at a draw from [lo, hi]."""
+def stripe_inputs(dev, gen, sq: int, lo: int, hi: int, heads=(HQ, HKV, HD)):
+    """q (B, hq, sq, hd) bf16, a (B, hkv, STRIPE, hd) slot cache, a shuffled
+    row index and q_pos: row b's chunk starts at a draw from [lo, hi]
+    (``heads`` = (hq, hkv, hd), yi-9b's by default)."""
+    hq, hkv, hd = heads
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).bfloat16()
-    q, k, v = rnd(B, HQ, sq, HD), rnd(B, HKV, STRIPE, HD), rnd(B, HKV, STRIPE, HD)
+    q, k, v = rnd(B, hq, sq, hd), rnd(B, hkv, STRIPE, hd), rnd(B, hkv, STRIPE, hd)
     rows = torch.randperm(B, generator=gen, device=dev).to(torch.int32)
     starts = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
     q_pos = (starts[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
@@ -405,7 +509,8 @@ def stripe_stats(q, k, v, rows, q_pos, fn, plain, flush) -> dict:
     pair at the bf16 peak)."""
     import torch.nn.functional as F
 
-    scale = HD ** -0.5
+    hq, hkv, hd = q.shape[1], k.shape[1], k.shape[3]
+    scale = hd ** -0.5
     kg, vg = k[rows.long()], v[rows.long()]
     got = fn(q, k, v, q_pos, scale, rows=rows).float()
     want = plain(q, kg, vg, q_pos, scale).float()
@@ -420,7 +525,7 @@ def stripe_stats(q, k, v, rows, q_pos, fn, plain, flush) -> dict:
         fail(f"{fn.__name__} over stripes differs from its plain version in fp32 by {err32}")
     causal = torch.arange(STRIPE, device=q.device)[None, None, None, :] <= q_pos[:, None, :, None]
     used = int((q_pos.max(dim=1).values.long() + 1).sum())
-    pairs = int((q_pos.long() + 1).sum()) * HQ
+    pairs = int((q_pos.long() + 1).sum()) * hq
     return {
         "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
         "ms": cold_ms(lambda: fn(q, k, v, q_pos, scale, rows=rows), flush),
@@ -428,8 +533,8 @@ def stripe_stats(q, k, v, rows, q_pos, fn, plain, flush) -> dict:
                             flush),
         "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
             q, kg, vg, attn_mask=causal, scale=scale, enable_gqa=True), flush),
-        **bound(2 * (2 * q.numel() + 2 * used * HKV * HD) + 4 * (rows.numel() + q_pos.numel()),
-                4 * HD * pairs, BF16_FLOPS),
+        **bound(2 * (2 * q.numel() + 2 * used * hkv * hd) + 4 * (rows.numel() + q_pos.numel()),
+                4 * hd * pairs, BF16_FLOPS),
     }
 
 
@@ -449,46 +554,50 @@ def check_stripe_prefill(dev, flush) -> dict:
                            flush)}
 
 
-def check_verify(dev, flush) -> dict:
+def check_verify(dev, flush, heads=(HQ, HKV, HD)) -> dict:
     """flash_verify at the dense verify chunk of the spec phase, beside
-    flash_prefill on the same inputs (the kernel it takes over from)."""
+    flash_prefill on the same inputs (the kernel it takes over from);
+    ``heads`` = (hq, hkv, hd), yi-9b's by default."""
     from repro_torch.kernels import ops, ref
 
+    hq, hkv, hd = heads
     q, k, v, rows, q_pos = stripe_inputs(dev, torch.Generator(device=dev).manual_seed(6),
-                                         SPEC_K + 1, 93, STRIPE - 10)
+                                         SPEC_K + 1, 93, STRIPE - 10, heads)
     stats = stripe_stats(q, k, v, rows, q_pos, ops.flash_verify, ref.flash_verify_ref, flush)
     return {"name": "flash_verify", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_verify.cu",
             "replaces": "src/repro/kernels/prefill_attention.py:179",
             "counter": "flash_verify",
-            "shape": f"q ({B},{HQ},{SPEC_K + 1},{HD}) bf16 at frontiers "
-                     f"{q_pos[:, 0].tolist()}, slot cache ({B},{HKV},{STRIPE},{HD}) through "
+            "shape": f"q ({B},{hq},{SPEC_K + 1},{hd}) bf16 at frontiers "
+                     f"{q_pos[:, 0].tolist()}, slot cache ({B},{hkv},{STRIPE},{hd}) through "
                      f"rows {rows.tolist()}",
             "library": "SDPA with a bool causal mask over the stripes gathered beforehand "
                        "(gather untimed)",
             **stats,
-            "flash_prefill_ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, HD ** -0.5,
+            "flash_prefill_ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, hd ** -0.5,
                                                                   rows=rows), flush)}
 
 
-def check_paged(dev, flush) -> list:
-    """The paged kernels at yi-9b shapes against their plain versions.  The
-    library yardstick is SDPA with a bool mask over the view gathered
-    through the table beforehand (the gather is not timed)."""
+def check_paged(dev, flush, heads=(HQ, HKV, HD)) -> list:
+    """The paged kernels at yi-9b shapes (or ``heads`` = (hq, hkv, hd))
+    against their plain versions.  The library yardstick is SDPA with a
+    bool mask over the view gathered through the table beforehand (the
+    gather is not timed)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
+    hq, hkv, hd = heads
     gen = torch.Generator(device=dev).manual_seed(4)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).bfloat16()
-    scale = HD ** -0.5
+    scale = hd ** -0.5
     out = []
 
     # decode: each slot's 300 valid rows lie in its first 19 table entries;
     # the rest of its 32 entries are null, as in a live slot
     nb = B * DECODE_NBPS + 1
-    kp, vp = rnd(nb, HKV, BLOCK, HD), rnd(nb, HKV, BLOCK, HD)
-    q = rnd(B, HQ, 1, HD)
+    kp, vp = rnd(nb, hkv, BLOCK, hd), rnd(nb, hkv, BLOCK, hd)
+    q = rnd(B, hq, 1, hd)
     live = -(-DECODE_VALID // BLOCK)
     bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:B * DECODE_NBPS] + 1)
     bt = bt.reshape(B, DECODE_NBPS).to(torch.int32)
@@ -511,7 +620,7 @@ def check_paged(dev, flush) -> list:
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:184",
         "counter": "paged_decode_attention",
-        "shape": f"q ({B},{HQ},1,{HD}) bf16, pools ({nb},{HKV},{BLOCK},{HD}), shuffled table "
+        "shape": f"q ({B},{hq},1,{hd}) bf16, pools ({nb},{hkv},{BLOCK},{hd}), shuffled table "
                  f"({B},{DECODE_NBPS}) with {DECODE_NBPS - live} null entries per slot, "
                  f"{DECODE_VALID} valid",
         "library": "SDPA with a bool mask over the view gathered beforehand (gather untimed)",
@@ -523,16 +632,16 @@ def check_paged(dev, flush) -> list:
         "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
             q, kv, vv, attn_mask=mask, scale=scale, enable_gqa=True), flush),
         # bytes: the K/V of the blocks that hold valid rows, each read once
-        **bound(2 * (q.numel() + 2 * B * live * HKV * BLOCK * HD) + 4 * bt.numel()
+        **bound(2 * (q.numel() + 2 * B * live * hkv * BLOCK * hd) + 4 * bt.numel()
                 + valid.numel() + 4 * (m.numel() + l.numel() + acc.numel()),
-                4 * HD * B * HQ * DECODE_VALID, BF16_FLOPS),
+                4 * hd * B * hq * DECODE_VALID, BF16_FLOPS),
     })
 
     # prefill of a suffix after a cached prefix, through shuffled tables
     nbps = PREFILL_VIEW // BLOCK
     nb = B * nbps + 1
-    kp, vp = rnd(nb, HKV, BLOCK, HD), rnd(nb, HKV, BLOCK, HD)
-    q = rnd(B, HQ, PREFILL_SQ, HD)
+    kp, vp = rnd(nb, hkv, BLOCK, hd), rnd(nb, hkv, BLOCK, hd)
+    q = rnd(B, hq, PREFILL_SQ, hd)
     bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:B * nbps] + 1)
     bt = bt.reshape(B, nbps).to(torch.int32).contiguous()
     starts = torch.randint(64, 129, (B,), generator=gen, device=dev)
@@ -552,14 +661,14 @@ def check_paged(dev, flush) -> list:
     kv, vv = ref.paged_view(kp, bt), ref.paged_view(vp, bt)
     causal = torch.arange(PREFILL_VIEW, device=dev)[None, None, None, :] <= q_pos[:, None, :, None]
     used = int((q_pos.max(dim=1).values.long() + 1).sum())      # view rows the queries reach
-    pairs = int((q_pos.long() + 1).sum()) * HQ
+    pairs = int((q_pos.long() + 1).sum()) * hq
     out.append({
         "name": "paged_flash_prefill", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_flash_prefill.cu",
         "replaces": "src/repro/kernels/prefill_attention.py:208",
         "counter": "paged_flash_prefill",
-        "shape": f"q ({B},{HQ},{PREFILL_SQ},{HD}) bf16 after prefixes {starts.tolist()}, pools "
-                 f"({nb},{HKV},{BLOCK},{HD}), shuffled table ({B},{nbps})",
+        "shape": f"q ({B},{hq},{PREFILL_SQ},{hd}) bf16 after prefixes {starts.tolist()}, pools "
+                 f"({nb},{hkv},{BLOCK},{hd}), shuffled table ({B},{nbps})",
         "library": "SDPA with a bool causal mask over the view gathered beforehand "
                    "(gather untimed)",
         "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
@@ -568,8 +677,8 @@ def check_paged(dev, flush) -> list:
                             flush),
         "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
             q, kv, vv, attn_mask=causal, scale=scale, enable_gqa=True), flush),
-        **bound(2 * (2 * q.numel() + 2 * used * HKV * HD) + 4 * (bt.numel() + q_pos.numel()),
-                4 * HD * pairs, BF16_FLOPS),
+        **bound(2 * (2 * q.numel() + 2 * used * hkv * hd) + 4 * (bt.numel() + q_pos.numel()),
+                4 * hd * pairs, BF16_FLOPS),
     })
     return out
 
@@ -662,10 +771,21 @@ def reference_check(dev, weight_quant: str = "none") -> dict:
     """The small GQA model on the card against the same weights on the CPU,
     where the plain versions run: prefill logits and 8 teacher-forced
     decode steps, within REF_TOL."""
+    cfg, cpu, gpu = small_gqa(dev, weight_quant)
+    worst = teacher_forced_worst(cfg, cpu, gpu, dev)
+    if not worst <= REF_TOL:
+        fail(f"{weight_quant} card logits differ from the CPU's by {worst} > {REF_TOL}")
+    return {"config": cfg.name + "-gqa-hd128", "weight_quant": weight_quant,
+            "max_abs_logit_err": worst, "tolerance": REF_TOL}
+
+
+def teacher_forced_worst(cfg, cpu, gpu, dev) -> float:
+    """The largest |card - CPU| over the logits of a 3 x 20-token prefill
+    and 8 decode steps fed the CPU's greedy tokens; fails on non-finite
+    card logits."""
     from repro_torch.models import model as M
 
-    cfg, cpu, gpu = small_gqa(dev, weight_quant)
-    b, plen, max_len, tol = 3, 20, 128, REF_TOL
+    b, plen, max_len = 3, 20, 128
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
     caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
     worst = 0.0
@@ -680,10 +800,9 @@ def reference_check(dev, weight_quant: str = "none") -> dict:
                            cur_pos=cur).cpu()
             worst = max(worst, (lc - lg).abs().max().item())
             tok = lc[:, -1].argmax(-1)
-    if not (torch.isfinite(lg).all() and worst <= tol):
-        fail(f"{weight_quant} card logits differ from the CPU's by {worst} > {tol}")
-    return {"config": cfg.name + "-gqa-hd128", "weight_quant": weight_quant,
-            "max_abs_logit_err": worst, "tolerance": tol}
+    if not torch.isfinite(lg).all():
+        fail(f"{cfg.name}: non-finite card logits")
+    return worst
 
 
 @contextlib.contextmanager
@@ -950,6 +1069,173 @@ def hybrid_reference_check(dev) -> dict:
             "slot_positions_past_window": int((plens + steps - 1 >= cfg.window).sum())}
 
 
+def small_parallel(dev):
+    """The parallel-residual reference checks' model: gptj-parallel's layer
+    over 3 layers at d 512, 2 MHA heads of head_dim 256, d_ff 1024, vocab
+    512; random weights from seed 1 -> (cfg, CPU params, the same on
+    ``dev``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(GJ_ARCH).reduced(), n_layers=3, d_model=512, n_heads=2,
+                              n_kv_heads=2, head_dim=256, d_ff=1024)
+    cpu = M.init_params(cfg, seed=1, device="cpu")
+    return cfg, cpu, to_device(cpu, dev)
+
+
+def sequential_on_card(real):
+    """A sub-layer that is ``real`` on the CPU and, on the card, the planted
+    fault: a sequential residual whose FFN reads the norm of x + attention
+    (with norm1's gamma: a parallel-residual layer has no norm2)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mlp import mlp_forward
+
+    def sublayer(p, x, cfg, kind="attn", index=0, *, rope, step, length_mask=None):
+        if x.device.type != "cuda":
+            return real(p, x, cfg, kind, index, rope=rope, step=step, length_mask=length_mask)
+        x = x + attn.gqa_forward(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, rope=rope,
+                                 step=step, layer=index)
+        return x + mlp_forward(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg)
+    return sublayer
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every kernel wrapper runs its plain version, as it does on CPU
+    tensors, on the card's tensors too (and counts no launch)."""
+    from repro_torch.kernels import ops
+
+    device_of = ops._device_of
+    ops._device_of = lambda *tensors: "cpu"
+    try:
+        yield
+    finally:
+        ops._device_of = device_of
+
+
+def forced_scheduler_check(cfg, cpu, gpu, dev, make, reqs) -> dict:
+    """One scheduler over the CPU engine and then over the card's, on the
+    same requests; the card's sampling is handed the CPU's tokens, so both
+    take the same decisions (admissions, chunks, accepted drafts) and every
+    logits batch the card samples from is computed on the inputs of the
+    CPU's.  -> the largest |card - CPU| over every live row, and the CPU
+    run's stats.  A row is live unless a masked decode step freezes it
+    (done, or no budget left): a frozen row's logits are discarded, and a
+    paged slot frozen mid-admission may read the null block, whose
+    contents depend on the order of duplicate writes."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.runtime import engine as E
+    from repro_torch.runtime.engine import Engine
+
+    sample, decode_step = E.sample_tokens, Engine._decode_step
+    logs, toks, stats = {"cpu": [], "card": []}, [], {}
+    live, pending = [], []
+
+    def step(self, caches, tok, pos, done, rem, *args, **kw):
+        pending.append((~done & (rem > 0)).cpu())
+        return decode_step(self, caches, tok, pos, done, rem, *args, **kw)
+
+    def on_cpu(logits, *args):
+        t = sample(logits, *args)
+        logs["cpu"].append(logits.float().cpu())
+        toks.append(t.cpu())
+        live.append(pending.pop() if pending else torch.ones(len(t), dtype=torch.bool))
+        return t
+
+    def on_card(logits, *args):
+        i = len(logs["card"])
+        logs["card"].append(logits.float().cpu())
+        pending.clear()
+        if i >= len(toks) or toks[i].shape[0] != logits.shape[0]:
+            fail(f"{cfg.name}: the card's schedule parts from the CPU's at sampling call {i}")
+        return toks[i].to(logits.device)
+
+    for d, p, where, fn in (("cpu", cpu, "cpu", on_cpu), ("card", gpu, dev, on_card)):
+        eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=8), params=p,
+                     sampling=SamplingConfig(top_k=1), max_len=128, device=where)
+        sched = make(eng)
+        for i, (prompt, m) in enumerate(reqs):
+            sched.submit(prompt, max_new=m, arrival_step=2 * i)
+        E.sample_tokens, Engine._decode_step = fn, step
+        try:
+            sched.run()
+        finally:
+            E.sample_tokens, Engine._decode_step = sample, decode_step
+        stats[d] = dict(getattr(sched, "stats", {}))
+    if len(logs["card"]) != len(logs["cpu"]):
+        fail(f"{cfg.name}: {len(logs['card'])} sampling calls on the card, "
+             f"{len(logs['cpu'])} on the CPU")
+    worst = 0.0
+    for a, b, m in zip(logs["cpu"], logs["card"], live):
+        if not m.any():        # a step of a block after every row finished
+            continue
+        if not torch.isfinite(b[m]).all():
+            fail(f"{cfg.name}: non-finite card logits")
+        worst = max(worst, (a[m] - b[m]).abs().max().item())
+    return {"sampling_calls": len(logs["cpu"]), "rows": int(sum(m.sum() for m in live)),
+            "max_abs_logit_err": worst, "stats": stats["cpu"]}
+
+
+def parallel_reference_check(dev) -> dict:
+    """The small parallel-residual model (head_dim 256) on the card against
+    the same weights on the CPU, every logits row within REF_TOL: a
+    teacher-forced prefill and 8 decode steps, then the schedulers -- a
+    wave, the dense slot engine admitting in chunks of 16 with spec decode
+    (SPEC_K n-gram drafts), and the paged pool behind a shared 16-token
+    prompt, admitting whole prompts and in chunks with spec decode -- with
+    the card handed the CPU's tokens (``forced_scheduler_check``).  The
+    planted fault (a sequential residual on the card) must exceed the
+    limit."""
+    from repro_torch.models import transformer
+    from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
+                                               WaveScheduler)
+
+    cfg, cpu, gpu = small_parallel(dev)
+    worst = {"forward": teacher_forced_worst(cfg, cpu, gpu, dev)}
+    real = transformer.sublayer_forward
+    transformer.sublayer_forward = sequential_on_card(real)
+    try:
+        fault = teacher_forced_worst(cfg, cpu, gpu, dev)
+    finally:
+        transformer.sublayer_forward = real
+    if not fault > REF_TOL:
+        fail(f"parallel reference: a sequential residual on the card reads {fault}, "
+             f"within {REF_TOL}: the check cannot see the layer's structure")
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    reqs = []
+    for i in range(6):   # every other prompt repeats a phrase, so n-gram drafts find some
+        own = (np.tile(rng.integers(0, cfg.vocab_size, 4), 5) if i % 2 else
+               rng.integers(0, cfg.vocab_size, int(rng.integers(4, 31))))
+        reqs.append((np.concatenate([shared, own]).astype(np.int32), int(rng.integers(6, 17))))
+    slot = dict(n_slots=3, block_steps=4)
+    paths = {
+        "wave": lambda e: WaveScheduler(e, batch_size=3),
+        "continuous-chunked-spec": lambda e: ContinuousScheduler(
+            e, prefill_chunk=16, spec_k=SPEC_K, **slot),
+        "paged": lambda e: PagedContinuousScheduler(e, prefill_chunk=0, **slot),
+        "paged-chunked-spec": lambda e: PagedContinuousScheduler(
+            e, prefill_chunk=16, spec_k=SPEC_K, **slot),
+    }
+    runs = {}
+    for name, make in paths.items():
+        runs[name] = forced_scheduler_check(cfg, cpu, gpu, dev, make, reqs)
+        worst[name] = runs[name]["max_abs_logit_err"]
+        st = runs[name]["stats"]
+        if "chunked" in name and not (st["chunked_admissions"] and st["mixed_decode_steps"]
+                                      and st["spec_steps"]):
+            fail(f"parallel reference {name}: no chunks, decode beside them or verify: {st}")
+        if name.startswith("paged") and not st["prefill_tokens_saved"]:
+            fail(f"parallel reference {name}: no prefix reuse: {st}")
+    if not max(worst.values()) <= REF_TOL:
+        fail(f"parallel reference: card logits differ from the CPU's by {worst} > {REF_TOL}")
+    return {"config": cfg.name + "-3layer-d512-hd256", "max_abs_logit_err": worst,
+            "tolerance": REF_TOL, "planted_sequential_residual": fault,
+            "schedulers": {k: {"sampling_calls": r["sampling_calls"], "rows": r["rows"]}
+                           for k, r in runs.items()}}
+
+
 def hybrid_phases(dev) -> list:
     """Full-width recurrentgemma-9b bf16, random weights from seed 0, greedy:
     (a) WaveScheduler over RG_WAVE; (b) ContinuousScheduler over RG_SLOTS
@@ -1142,7 +1428,10 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
                    "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
                    "topk": SERVE_MAX_NEW * waves
                            * build.library("topk").topk_launches(cfg.vocab_size, 1),
-                   "dequant_matmul": expected_dequant_launches(cfg, parallel, work)})
+                   "dequant_matmul": expected_dequant_launches(cfg, parallel, work),
+                   # a parallel-residual layer: one per layer and forward
+                   "fused_dual_matmul": cfg.n_layers * SERVE_MAX_NEW * waves
+                                        if cfg.parallel_residual else 0})
     if launches != expect:
         fail(f"{arch} {weight_quant}: kernel launches {launches} != expected {expect}")
     for rid, toks in first.items():
@@ -1179,7 +1468,8 @@ SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
                ("paged-chunked-spec", "paged", dict(prefill_chunk=64, spec_k=SPEC_K)))
 
 
-def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int) -> dict:
+def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int,
+                           parallel: bool = False) -> dict:
     """Kernel launches of one slot phase from its scheduler's stats.  Per
     whole-prompt admission (``prefill_calls`` not made of chunks): L of
     flash_prefill, or of paged_flash_prefill where a prefix was cached.
@@ -1189,7 +1479,9 @@ def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int) -
     decode-active (``mixed_decode_steps``), one decode step.  Per verify
     step: L of flash_verify (two launches each) or paged_flash_prefill.
     Decode blocks make up the rest of ``decode_steps``.  Every prefill,
-    decode and verify call samples once through top-k."""
+    decode and verify call samples once through top-k, and each of those
+    forwards of a parallel-residual model (``parallel``) makes L of
+    fused_dual_matmul: a mixed step with a decode half 2L."""
     from repro_torch.kernels import ops
 
     mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
@@ -1198,7 +1490,9 @@ def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int) -
     spec = st.get("spec_steps", 0)
     decodes = st["decode_steps"] - mixed - spec + st["mixed_decode_steps"]
     expect = {name: 0 for name in ops.KERNELS}
-    expect["topk"] = topk_per_call * (st["prefill_calls"] + decodes + spec)
+    forwards = st["prefill_calls"] + decodes + spec
+    expect["topk"] = topk_per_call * forwards
+    expect["fused_dual_matmul"] = L * forwards if parallel else 0
     if backend == "paged":
         expect["flash_prefill"] = L * (whole - prefix)
         expect["paged_flash_prefill"] = L * (prefix + mixed + spec)
@@ -1213,11 +1507,13 @@ def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int) -
 class PlainContinuation:
     """A drafter that proposes what the whole-prompt dense phase emitted next
     after each history, except that every other proposal has a wrong last
-    draft: drafts are right until the streams part, and the verify step
-    both accepts and rejects (and rewinds past) drafts."""
+    draft (a token id of a ``vocab``-wide vocabulary): drafts are right
+    until the streams part, and the verify step both accepts and rejects
+    (and rewinds past) drafts."""
 
-    def __init__(self, done: dict):
+    def __init__(self, done: dict, vocab: int):
         self.seqs = [np.concatenate([r.prompt, r.output]) for r in done.values()]
+        self.vocab = vocab
         self.proposals = 0
 
     def propose_many(self, histories):
@@ -1229,14 +1525,16 @@ class PlainContinuation:
             draft = np.concatenate([cont, np.full(SPEC_K - len(cont), h[-1])])
             self.proposals += 1
             if self.proposals % 2:
-                draft[-1] = (draft[-1] + 1) % VOCAB
+                draft[-1] = (draft[-1] + 1) % self.vocab
             out.append(draft)
         return np.stack(out).astype(np.int32)
 
 
-def slot_phases(dev) -> list:
-    """Full-width yi-9b bf16 through the phases of SLOT_PHASES on one
-    engine; see the module docstring."""
+def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
+    """Full-width ``arch`` bf16 (yi-9b or gptj-parallel) through the phases
+    of SLOT_PHASES on one engine, a stream that parts from the dense
+    phase's certified by ``tie_check`` ("gap" or "plain", see
+    ``parted``); see the module docstring."""
     import argparse
 
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
@@ -1246,7 +1544,7 @@ def slot_phases(dev) -> list:
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
 
-    cfg = get_config("yi-9b")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK), sampling=SamplingConfig(top_k=1),
@@ -1269,9 +1567,21 @@ def slot_phases(dev) -> list:
         torch.cuda.synchronize()
         return sched, {r.rid: r for r in done}, time.monotonic() - t
 
+    def forward(seq):
+        with torch.inference_mode():
+            return M.forward(eng.params, seq[None], cfg, last_only=True,
+                             head_f32=eng.head_f32)[0, -1]
+
     def parted(name, done):
         """Per request: the whole-prompt dense phase's tokens, or a first
-        difference where its top-2 logits lie within TIE_GAP."""
+        difference at a near-tie of the logits after the prompt and the
+        dense tokens before it; at most MAX_PARTED requests parted.  A
+        near-tie, with ``tie_check`` "gap": the top-2 logits lie within
+        TIE_GAP.  With "plain": every kernel's plain version on the same
+        inputs (``plain_on_card``) gives logits within REF_TOL of the
+        port's, and puts both tokens -- the dense phase's and this
+        phase's -- within REF_TOL of its top (a port held to REF_TOL may
+        choose any token within twice that)."""
         flips = []
         for rid, r in tokens["continuous"].items():
             dense, other = r.output, done[rid].output
@@ -1280,13 +1590,27 @@ def slot_phases(dev) -> list:
             n = min(len(dense), len(other))
             t = int(np.argmax(dense[:n] != other[:n])) if (dense[:n] != other[:n]).any() else n
             seq = torch.as_tensor(np.concatenate([r.prompt, dense[:t]]), device=dev).long()
-            with torch.inference_mode():
-                logits = M.forward(eng.params, seq[None], cfg, last_only=True,
-                                   head_f32=eng.head_f32)[0, -1]
+            logits = forward(seq)
             gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
-            if not gap < TIE_GAP:
-                fail(f"{name} request {rid} parts from dense at step {t} with top-2 gap {gap}")
-            flips.append({"rid": rid, "step": t, "top2_gap": gap})
+            flip = {"rid": rid, "step": t, "top2_gap": gap}
+            if tie_check == "gap":
+                if not gap < TIE_GAP:
+                    fail(f"{name} request {rid} parts from dense at step {t} with top-2 gap {gap}")
+            else:
+                with plain_on_card():
+                    plain = forward(seq)
+                err = (logits - plain).abs().max().item()
+                slack = [(plain.max() - plain[int(x[t])]).item() for x in (dense, other)
+                         if t < len(x)]
+                if not (err <= REF_TOL and max(slack) < REF_TOL):
+                    fail(f"{name} request {rid} parts from dense at step {t}: the plain "
+                         f"versions there differ from the port by {err} and put the two "
+                         f"tokens {slack} below their top (limit {REF_TOL} each)")
+                flip.update(plain_max_abs_err=err, plain_slack=slack)
+            flips.append(flip)
+        if len(flips) > MAX_PARTED:
+            fail(f"{name}: {len(flips)} of {len(done)} streams part from dense, more than "
+                 f"{MAX_PARTED}: {flips}")
         return flips
 
     results, tokens = [], {}
@@ -1298,7 +1622,7 @@ def slot_phases(dev) -> list:
         launches = dict(ops.LAUNCHES)
         _, second, dt2 = run(backend, opts)
         st = sched.stats
-        expect = expected_slot_launches(backend, st, L, topk_per_call)
+        expect = expected_slot_launches(backend, st, L, topk_per_call, cfg.parallel_residual)
         if launches != expect:
             fail(f"{name}: kernel launches {launches} != expected {expect} (stats {st})")
         if backend == "paged":
@@ -1339,7 +1663,8 @@ def slot_phases(dev) -> list:
             result["parted_from_dense_at_near_ties"] = parted(name, first)
         if name == "continuous-chunked-spec":
             # drafts that are right: the verify step's causal rows 1..K at work
-            sched, oracle, dt = run(backend, opts, PlainContinuation(tokens["continuous"]))
+            sched, oracle, dt = run(backend, opts,
+                                    PlainContinuation(tokens["continuous"], cfg.vocab_size))
             st = sched.stats
             per_step = st["spec_emitted"] / max(1, st["spec_slot_steps"])
             if not (0 < st["spec_accepted"] < st["spec_proposed"] and per_step > 1.0):
@@ -1390,20 +1715,20 @@ def main() -> None:
         print(json.dumps({"reference": reference_check(dev, mode)}), flush=True)
     print(json.dumps({"reference": slot_reference_check(dev)}), flush=True)
     print(json.dumps({"reference": hybrid_reference_check(dev)}), flush=True)
+    print(json.dumps({"reference": parallel_reference_check(dev)}), flush=True)
     phases = []
     for run in ([lambda arch=arch, mode=mode: [serve_phase(dev, arch, mode)]
                  for arch, mode in SERVE_PHASES] + [lambda: slot_phases(dev),
-                                                    lambda: hybrid_phases(dev)]):
+                                                    lambda: hybrid_phases(dev),
+                                                    lambda: slot_phases(dev, GJ_ARCH, "plain")]):
         for phase in run():
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)
     for k in kernels:
-        # a row counts the phases of its arches, or every phase of another arch
-        arches = k.pop("arches", None)
-        k["launches"] = sum(p["launches"][k["counter"]] for p in phases
-                            if (p["arch"] in arches if arches else p["arch"] != RG_ARCH))
-        k["launches_counted_on"] = arches or "the yi-9b and qwen-72b phases"
-        del k["counter"]
+        # a row counts the phases of the arches whose shapes it was timed at
+        arches, counter = k.pop("arches"), k.pop("counter")
+        k["launches"] = sum(p["launches"][counter] for p in phases if p["arch"] in arches)
+        k["launches_counted_on"] = arches
         if k["launches"] == 0:
             fail(f"{k['name']} was not launched on the serving paths")
         if k["name"] == "topk":

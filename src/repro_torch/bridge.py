@@ -11,7 +11,8 @@ and returns the layout of ``repro_torch.models.model``:
   whose leaves are stacked on a leading repeat axis when the group is
   scanned (``stack_defs``, n > 1) and are not when it is unrolled (n = 1).
   Repeat r of sub-layer j is layer ``first + r * len(subs) + j``.  A
-  sub-layer holds ``norm1``, ``norm2``, ``mixer`` and ``ffn``; an attention
+  sub-layer holds ``norm1``, ``norm2`` (none in a parallel-residual layer),
+  ``mixer`` and ``ffn``; an attention
   mixer's leaves flatten into the layer's dict, an RG-LRU mixer's stay
   under ``mixer`` (its ``w_gate`` is not the FFN's);
 * each family's layers (attention, RG-LRU) are stacked in layer order,
@@ -75,7 +76,8 @@ def _layer_leaves(sub: Dict[str, Any], family: str) -> Dict[str, Any]:
     mixer = sub["mixer"]
     if family == "rglru":
         mixer = {f"mixer.{name}": a for name, a in mixer.items()}
-    return {"norm1": sub["norm1"], "norm2": sub["norm2"], **mixer, **sub["ffn"]}
+    norms = {k: sub[k] for k in ("norm1", "norm2") if k in sub}
+    return {**norms, **mixer, **sub["ffn"]}
 
 
 def _tree_layers(tree: Dict[str, Any], cfg: ModelConfig) -> list:

@@ -1,5 +1,6 @@
 """Config registry: ``get_config("<arch-id>")`` for the archs the port
-serves, dense and RG-LRU hybrid (the same arch ids as ``repro.configs``)."""
+serves, dense (sequential or parallel residual) and RG-LRU hybrid (the same
+arch ids as ``repro.configs``)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,7 @@ _REGISTRY = {
     "qwen2.5-32b": "qwen2_5_32b",
     "qwen-72b": "qwen_72b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "gptj-parallel": "gptj_parallel",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

@@ -4,8 +4,8 @@ A copy of the dense-decoder and RG-LRU-hybrid part of
 ``repro.configs.base``: the field names, defaults, ``block_kind``,
 ``param_count`` and ``reduced()`` rule are the same, so a config built here
 describes the same model as its JAX namesake.  The family features the port
-does not serve yet (MoE, MLA, SSM, frontends, multi-codebook heads, parallel
-residual, tied embeddings) keep their fields, so that
+does not serve yet (MoE, MLA, SSM, frontends, multi-codebook heads, tied
+embeddings) keep their fields, so that
 ``repro_torch.models.model.check_supported`` can name what a config needs
 and refuse it.
 """

@@ -45,6 +45,7 @@ SIGNATURES = {
     "dequant_matmul": ("dequant_matmul", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_matmul_workspace": ("dequant_matmul", [_I, _I, _I, _I, _I]),
     "dequant_matmul_launches": ("dequant_matmul", [_I, _I, _I, _I, _I]),
+    "fused_dual_matmul": ("fused_dual_matmul", [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 SOURCES = sorted({src for src, _ in SIGNATURES.values()})
 

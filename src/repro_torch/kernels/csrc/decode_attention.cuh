@@ -243,8 +243,8 @@ int launch(const void* q, const void* k, const void* v, const int* bt, int nb,
   return cudaGetLastError();
 }
 
-// The (dtype, head_dim) instances of one layout: head_dim 64 and 128 in
-// both, 256 (recurrentgemma's MQA) in the dense one only.
+// The (dtype, head_dim) instances of one layout: head_dim 64, 128 and 256
+// (recurrentgemma's MQA, gptj-parallel's MHA) in both.
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const int* bt, int nb,
              int bs, int nbps, const void* valid, int valid_stride, void* m,
@@ -253,14 +253,12 @@ int dispatch(const void* q, const void* k, const void* v, const int* bt, int nb,
   if (b <= 0 || hkv <= 0 || hq % hkv || S <= 0 || (hq / hkv + ROWS - 1) / ROWS > 65535)
     return ERR_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (!PAGED) {
-    if (dtype == DTYPE_BF16 && hd == 256)
-      return launch<__nv_bfloat16, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
-                                               m, l, acc, b, hq, hkv, S, scale, st);
-    if (dtype == DTYPE_F32 && hd == 256)
-      return launch<float, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
-                                       m, l, acc, b, hq, hkv, S, scale, st);
-  }
+  if (dtype == DTYPE_BF16 && hd == 256)
+    return launch<__nv_bfloat16, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
+                                             m, l, acc, b, hq, hkv, S, scale, st);
+  if (dtype == DTYPE_F32 && hd == 256)
+    return launch<float, 256, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
+                                     m, l, acc, b, hq, hkv, S, scale, st);
   if (dtype == DTYPE_BF16 && hd == 128)
     return launch<__nv_bfloat16, 128, PAGED>(q, k, v, bt, nb, bs, nbps, valid, valid_stride,
                                              m, l, acc, b, hq, hkv, S, scale, st);

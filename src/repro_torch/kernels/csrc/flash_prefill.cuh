@@ -330,19 +330,17 @@ int launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// The (dtype, head_dim) instances of one layout: head_dim 64 and 128 in
-// every layout, 256 (recurrentgemma) in the dense unsplit one only, which
-// is also the only one that takes a window.
+// The (dtype, head_dim) instances of one layout: head_dim 64, 128 and 256
+// (recurrentgemma, gptj-parallel) in every layout; the dense unsplit one is
+// the only one that takes a window.
 template <bool PAGED, bool SPLIT>
 int dispatch(const Args& a, int hd, int dtype) {
   if (a.b <= 0 || a.hkv <= 0 || a.hq % a.hkv || a.sq <= 0 || a.sk <= 0 ||
       a.b * a.hkv > 65535 || (!PAGED && a.n_cache <= 0) || a.window < 0 ||
       ((PAGED || SPLIT) && a.window != 0))
     return ERR_BAD_ARGS;
-  if constexpr (!PAGED && !SPLIT) {
-    if (dtype == DTYPE_BF16 && hd == 256) return launch<__nv_bfloat16, 256, PAGED, SPLIT>(a);
-    if (dtype == DTYPE_F32 && hd == 256) return launch<float, 256, PAGED, SPLIT>(a);
-  }
+  if (dtype == DTYPE_BF16 && hd == 256) return launch<__nv_bfloat16, 256, PAGED, SPLIT>(a);
+  if (dtype == DTYPE_F32 && hd == 256) return launch<float, 256, PAGED, SPLIT>(a);
   if (dtype == DTYPE_BF16 && hd == 128) return launch<__nv_bfloat16, 128, PAGED, SPLIT>(a);
   if (dtype == DTYPE_BF16 && hd == 64) return launch<__nv_bfloat16, 64, PAGED, SPLIT>(a);
   if (dtype == DTYPE_F32 && hd == 128) return launch<float, 128, PAGED, SPLIT>(a);

@@ -8,7 +8,8 @@
 // rows[b] (rows null: row b); q_pos (b, Sq) int32; query row i attends
 // view index j iff j <= q_pos[b, i] (and j < Sk); rows with q_pos = -1
 // emit exact zeros; fp32 running (m, l, acc) on bf16 or fp32 inputs;
-// normalized output in q's type.
+// normalized output in q's type.  head_dim 64, 128 or 256 (gptj-parallel:
+// 16 MHA heads of 256, g 1).
 //
 // Bound on the H100: bytes.  A verify step reads each row's K/V stripe up
 // to its frontier once (2 * hkv * frontier * hd elements per row) for

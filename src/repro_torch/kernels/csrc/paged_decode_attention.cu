@@ -8,7 +8,8 @@
 // view (view index == absolute position).  Returns the UNNORMALIZED fp32
 // partials m (b, hq, 1), l (b, hq, 1), acc (b, hq, 1, hd); a row with no
 // valid key gives m = -inf, l = 0, acc = 0.  Table entries outside [0, nb)
-// read the null block 0 (they are never valid).
+// read the null block 0 (they are never valid).  head_dim 64, 128 or 256
+// (at 256 the body halves its warps, as the dense kernel does).
 //
 // Bound on the H100: bytes.  The work is one read of the valid blocks' K
 // and V against ~4 * hd FLOPs per (query head, key), ~8 FLOPs a byte at

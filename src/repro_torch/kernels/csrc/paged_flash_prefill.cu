@@ -10,6 +10,7 @@
 // index j iff j <= q_pos[b, i] (and j < nbps * bs, the KV limit); rows
 // with q_pos = -1 emit exact zeros; fp32 running (m, l, acc); normalized
 // output in q's type.  Table entries outside [0, nb) read the null block 0.
+// head_dim 64, 128 or 256 (131,584 bytes of shared memory at 256).
 //
 // Bound on the H100: a suffix of Sq tokens after a prefix of P attends
 // ~Sq * (P + Sq / 2) (query, key) pairs at ~4 * hd FLOPs each, against one

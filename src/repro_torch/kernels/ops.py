@@ -27,13 +27,12 @@ from repro_torch.kernels import build, ref
 # through the kernels (chip_smoke.py zeroes it before the serving phase)
 LAUNCHES: Counter = Counter()
 KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
-           "paged_decode_attention", "paged_flash_prefill", "flash_verify", "lru_scan")
+           "paged_decode_attention", "paged_flash_prefill", "flash_verify", "lru_scan",
+           "fused_dual_matmul")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head_dims each attention kernel has an instance for
-HEAD_DIMS = {"flash_prefill": (64, 128, 256), "decode_attention": (64, 128, 256),
-             "flash_verify": (64, 128), "paged_flash_prefill": (64, 128),
-             "paged_decode_attention": (64, 128)}
+# head_dims every attention kernel has an instance for
+HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -80,7 +79,7 @@ def _check_stripe_cuda(name: str, q, k, v, q_pos, rows) -> None:
     hd = q.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if (hd not in HEAD_DIMS[name] or q_pos.dtype != torch.int32
+    if (hd not in HEAD_DIMS or q_pos.dtype != torch.int32
             or (rows is not None and rows.dtype != torch.int32)):
         raise ValueError(f"{name}: head_dim {hd} / q_pos {q_pos.dtype} / rows not taken")
     _check_cuda(name, q, k, v, q_pos, *(() if rows is None else (rows,)))
@@ -162,7 +161,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, valid, scale)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in HEAD_DIMS["decode_attention"] or valid.dtype != torch.bool:
+    if hd not in HEAD_DIMS or valid.dtype != torch.bool:
         raise ValueError(f"decode_attention: head_dim {hd} / mask {valid.dtype} not taken")
     _check_cuda("decode_attention", q, k, v, valid)
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
@@ -194,7 +193,7 @@ def _check_paged_cuda(name: str, q, k_pool, v_pool, bt, idx, idx_dtype) -> None:
     hd = q.shape[-1]
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
-    if hd not in HEAD_DIMS[name] or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
+    if hd not in HEAD_DIMS or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
         raise ValueError(f"{name}: head_dim {hd} / table {bt.dtype} / {idx.dtype} not taken")
     _check_cuda(name, q, k_pool, v_pool, bt, idx)
 
@@ -328,6 +327,42 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, mod
     build.call("dequant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
                _DTYPES[out_dtype], work.data_ptr(), T, K, N, bits, group, _stream())
     LAUNCHES["dequant_matmul"] += lib.dequant_matmul_launches(T, K, N, bits, group)
+    return out
+
+
+def fused_dual_matmul(a: torch.Tensor, wa: torch.Tensor, b: torch.Tensor,
+                      wb: torch.Tensor) -> torch.Tensor:
+    """``a @ wa + b @ wb`` summed in fp32 and written once in a's type: a
+    parallel-residual layer's attention out-projection and FFN
+    down-projection partials in one output.  a (T, Ka), or attention heads
+    (n, h, s, hd) read in place as the (n * s, h * hd) matrix of their
+    transpose (the kernel addresses them by strides: no copy); wa (Ka, D) or
+    (h, hd, D); b (T, Kb); wb (Kb, D) -> (T, D).  fp32 or bf16, all alike;
+    any sizes and alignments."""
+    if a.dim() == 4:
+        n, h, s, hd = a.shape
+    elif a.dim() == 2:
+        n, h, s, hd = a.shape[0], 1, 1, a.shape[1]
+    else:
+        raise ValueError(f"fused_dual_matmul: a{tuple(a.shape)} is neither (T, Ka) nor heads")
+    T, Ka = n * s, h * hd
+    wa2 = wa.reshape(Ka, -1) if wa.dim() == 3 else wa
+    D = wa2.shape[-1]
+    if (wa2.shape != (Ka, D) or (wa.dim() == 3 and wa.shape[:2] != (h, hd)) or b.dim() != 2
+            or b.shape[0] != T or wb.shape != (b.shape[1], D)):
+        raise ValueError(f"fused_dual_matmul: shapes a{tuple(a.shape)} wa{tuple(wa.shape)} "
+                         f"b{tuple(b.shape)} wb{tuple(wb.shape)} do not agree")
+    if _device_of(a, wa, b, wb) == "cpu":
+        a2 = a.transpose(1, 2).reshape(T, Ka) if a.dim() == 4 else a
+        return ref.fused_dual_matmul_ref(a2, wa2, b, wb)
+    if a.dtype not in _DTYPES or {wa.dtype, b.dtype, wb.dtype} != {a.dtype}:
+        raise ValueError(f"fused_dual_matmul: dtypes {a.dtype}/{wa.dtype}/{b.dtype}/{wb.dtype}")
+    # any alignment: the kernel takes 16-byte loads where a row allows them
+    _check_cuda("fused_dual_matmul", a, wa2, b, wb, align=1)
+    out = torch.empty((T, D), dtype=a.dtype, device=a.device)
+    build.call("fused_dual_matmul", a.data_ptr(), s, h, hd, wa2.data_ptr(), b.data_ptr(),
+               wb.data_ptr(), out.data_ptr(), T, b.shape[1], D, _DTYPES[a.dtype], _stream())
+    LAUNCHES["fused_dual_matmul"] += 1
     return out
 
 

@@ -132,3 +132,10 @@ def dequant_matmul_ref(x, q, scale, mode: str, group: int) -> torch.Tensor:
     K, N = w.shape
     wg = w.reshape(K // group, group, N) * scale.float()[:, None, :]
     return xf @ wg.reshape(K, N)
+
+
+def fused_dual_matmul_ref(a, wa, b, wb) -> torch.Tensor:
+    """``a @ wa + b @ wb`` with both products in fp32, cast once to a's type
+    (``repro.kernels.ref.fused_residual_ref``).  a (T, Ka), wa (Ka, D),
+    b (T, Kb), wb (Kb, D) -> (T, D)."""
+    return (a.float() @ wa.float() + b.float() @ wb.float()).to(a.dtype)

@@ -6,6 +6,7 @@
     python -m repro_torch.launch.profile_decode --scheduler continuous --step verify
     python -m repro_torch.launch.profile_decode --scheduler paged --step mixed
     python -m repro_torch.launch.profile_decode --arch recurrentgemma-9b
+    python -m repro_torch.launch.profile_decode --arch gptj-parallel
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -24,14 +25,15 @@ window + 64 tokens by default in a wave, so its decode steps run over a
 ring that has wrapped, and window - 8 into a slot (admission caps prompts
 at the window), so its steps cross the window.  The wave path also profiles one more
 prefill on a fresh cache and reports its wall time and the device time
-of its lru_scan and flash_prefill launches.  The
+of its lru_scan, flash_prefill and fused_dual_matmul launches.  The
 device's idle share divides the profiled pass's device time by the plain
 pass's wall time (the profiler slows the host, so its own window overstates
 idleness); the profiled window's share is printed beside it.  Prints one
 JSON line (step times, device busy time per step, idle shares, kernel
 launches per step, the top kernels, and the device time of the
 dequant_matmul kernels and of the w_o dense copies under weight
-quantization) and the profiler's table.
+quantization, and of the fused_dual_matmul kernels of a parallel-residual
+arch) and the profiler's table.
 """
 from __future__ import annotations
 
@@ -128,6 +130,7 @@ def main(argv=None) -> dict:
     kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     dq_us = sum(e.self_device_time_total for e in kernels if "::dq_" in e.key)
+    fdm = [e for e in kernels if "fdm::" in e.key]
     w_o_us = sum(e.device_time_total for e in avgs
                  if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
     result = {
@@ -147,6 +150,9 @@ def main(argv=None) -> dict:
         "device_idle_share_profiled_window": 1 - device_us / 1e6 / prof_wall_s,
         "dequant_matmul_ms_per_step": dq_us / 1e3 / args.steps,
         "w_o_dense_copy_ms_per_step": w_o_us / 1e3 / args.steps,
+        "fused_dual_matmul_ms_per_step": sum(e.self_device_time_total for e in fdm) / 1e3
+                                         / args.steps,
+        "fused_dual_matmul_launches_per_step": sum(e.count for e in fdm) / args.steps,
         "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / args.steps
                                     for e in top},
         "top_kernels_calls_per_step": {e.key[:80]: e.count / args.steps for e in top},
@@ -182,6 +188,8 @@ def _profile_prefill(eng: Engine, prompts: np.ndarray) -> dict:
             "lru_scan_launches": sum(e.count for e in fam("lru::")),
             "flash_prefill_ms": sum(e.self_device_time_total for e in fam("prefill::")) / 1e3,
             "flash_prefill_launches": sum(e.count for e in fam("prefill::")),
+            "fused_dual_matmul_ms": sum(e.self_device_time_total for e in fam("fdm::")) / 1e3,
+            "fused_dual_matmul_launches": sum(e.count for e in fam("fdm::")),
             "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3 for e in top}}
 
 

@@ -9,12 +9,12 @@ paged backend's prefix reuse serves), ``--arrival-every`` staggers arrivals
 on the virtual decode-step clock, ``--max-new-spread`` draws each budget.
 The continuous schedulers admit in chunks of ``--prefill-chunk`` tokens
 (default 256; 0: whole prompts) and, with ``--spec-k N``, verify N n-gram
-drafts per active slot in each step.  An arch whose capability record
-blocks a path (``core/capabilities.py``: recurrentgemma-9b's recurrent
-state blocks chunks and spec decode, its sliding-window ring the paged
-cache) falls back from the default chunk silently, and raises the record's
-error for ``--scheduler paged`` and for an explicit ``--prefill-chunk`` or
-``--spec-k``.
+drafts per active slot in each step.  Both ride on ``ParallelConfig``, as
+in the JAX serve CLI, so an arch whose capability record blocks chunks or
+spec decode (``core/capabilities.py``: recurrentgemma-9b's recurrent state)
+falls back to whole-prompt admission and plain decode whatever their
+values; its sliding-window ring blocks the paged cache, and ``--scheduler
+paged`` raises the record's error.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
 projection and the lm_head go through the dequant_matmul kernel.  Runs on
@@ -40,8 +40,12 @@ def build_engine(args) -> Engine:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    # admission and decode options ride on ParallelConfig, where the
+    # schedulers read them as defaults that an arch may fall back from
     parallel = dataclasses.replace(parallel_config(args), kv_block_size=args.kv_block_size,
-                                   kv_pool_blocks=args.kv_pool_blocks)
+                                   kv_pool_blocks=args.kv_pool_blocks,
+                                   prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+                                   spec_ngram=args.spec_ngram)
     return Engine(cfg, parallel=parallel,
                   sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
                   seed=args.seed, device=args.device)
@@ -52,9 +56,7 @@ def parallel_config(args) -> ParallelConfig:
 
 
 def make_scheduler(eng: Engine, args):
-    slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps,
-                   prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-                   spec_ngram=args.spec_ngram)
+    slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps)
     if args.scheduler == "paged":
         # block and pool sizes ride on ParallelConfig; the scheduler reads them
         return PagedContinuousScheduler(eng, prefix_cache=not args.no_prefix_cache, **slot_kw)
@@ -117,16 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged scheduler: total pool blocks (0 = dense-equivalent footprint)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="paged scheduler: disable shared-prefix block reuse")
-    ap.add_argument("--prefill-chunk", type=int, default=None,
+    ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="continuous/paged: admit every prompt through the fused mixed "
                          "prefill/decode step in chunks of at most N tokens (decode "
                          "advances every step during admission); 0 = whole-prompt "
-                         "admission; default 256, or whole prompts where the arch "
-                         "cannot chunk")
-    ap.add_argument("--spec-k", type=int, default=None,
+                         "admission; an arch that cannot chunk admits whole prompts")
+    ap.add_argument("--spec-k", type=int, default=0,
                     help="continuous/paged: speculative decoding, N n-gram drafts per "
                          "active slot verified in one step (1..N+1 tokens per step); "
-                         "0 = plain one-token decode (the default)")
+                         "0 = plain one-token decode; an arch that cannot verify "
+                         "chunks decodes plainly")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest n-gram the prompt-lookup drafter matches against "
                          "each request's history")

@@ -169,8 +169,18 @@ def write_targets(side: torch.Tensor, new: torch.Tensor,
 def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
                 rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
                 layer: int = 0, window: int = 0) -> torch.Tensor:
-    """x (b, s, d) -> attention output (b, s, d) after the out-projection.
-    ``rope`` holds the (cos, sin) tables of this forward's positions;
+    """x (b, s, d) -> attention output (b, s, d) after the out-projection
+    (``gqa_heads``, then ``fused_out_projection``)."""
+    return fused_out_projection(
+        gqa_heads(p, x, cfg, rope=rope, step=step, layer=layer, window=window), p["w_o"])
+
+
+def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+              rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
+              layer: int = 0, window: int = 0) -> torch.Tensor:
+    """x (b, s, d) -> the attention heads (b, hq, s, hd) that the
+    out-projection ``w_o`` (hq, hd, d) contracts.  ``rope`` holds the (cos,
+    sin) tables of this forward's positions;
     ``layer`` is the layer's index among the attention layers, which own
     the cache's K/V; ``window`` > 0 is a ``local_attn`` layer's window
     (decode reads it from ``step.valid``).
@@ -225,4 +235,4 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
     else:
         out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale,
                                 window=window)
-    return fused_out_projection(out, p["w_o"])
+    return out

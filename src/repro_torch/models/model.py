@@ -1,19 +1,22 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
-for the dense family and the RG-LRU hybrid at tp=1).
+for the dense family, sequential or parallel residual, and the RG-LRU
+hybrid at tp=1).
 
 Parameters are a plain dict::
 
     {"embed": {"table": (1, V, d)},
      "layers": [ one dict per layer, by its kind (``cfg.block_kind``):
                  attn / local_attn: {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v],
-                                     norm2, w_up, [w_gate], w_down}
+                                     [norm2], w_up, [w_gate], w_down}
                  rglru: {norm1, mixer: {w_gate, w_x, conv_w, gate_a_w, gate_a_b,
                                         gate_x_w, gate_x_b, Lambda, w_out},
                          norm2, w_up, [w_gate], w_down} ],
      "final_norm": (d,), "lm_head": (1, d, V)}
 
-An RG-LRU layer keeps its mixer's leaves under ``mixer``: its ``w_gate``
-and the GeGLU FFN's are different weights.  Each per-layer tensor is a view
+A parallel-residual layer (``cfg.parallel_residual``) has no ``norm2``: its
+attention and FFN both read norm1's output.  An RG-LRU layer keeps its
+mixer's leaves under ``mixer``: its ``w_gate`` and the GeGLU FFN's are
+different weights.  Each per-layer tensor is a view
 into one tensor stacked over the layers of its family (attention or
 RG-LRU), as the JAX package stacks a scanned layer group.  Under weight-only
 quantization the projections and the lm_head are ``QuantWeight``s whose
@@ -74,12 +77,12 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("window (on full-attention layers, which ignore it)")
     if cfg.window and kinds >= set(ATTN_KINDS):
         missing.append("attn and local_attn layers together (one cache length for all)")
+    if cfg.parallel_residual and "rglru" in kinds:
+        missing.append("parallel_residual with rglru layers")
     if cfg.frontend is not None:
         missing.append("frontend (modality prefix)")
     if cfg.n_codebooks != 1:
         missing.append("n_codebooks>1 (multi-codebook heads)")
-    if cfg.parallel_residual:
-        missing.append("parallel_residual")
     if cfg.tie_embeddings:
         missing.append("tie_embeddings")
     if parallel.kv_quant:
@@ -113,7 +116,8 @@ def layer_families(cfg: ModelConfig) -> Dict[str, List[int]]:
 def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDef]:
     """name -> LeafDef of one layer of ``family``: the JAX ParamDefs of a
     sub-layer (``attn_defs``, or ``rglru_defs`` as ``mixer.<name>``;
-    ``mlp_defs``; the two norms)."""
+    ``mlp_defs``; ``norm1``, and ``norm2`` unless the residual is
+    parallel)."""
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"{cfg.name}: n_heads {cfg.n_heads} not a multiple of "
                          f"n_kv_heads {cfg.n_kv_heads}")
@@ -130,8 +134,9 @@ def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDe
             "w_v": LeafDef((d, kv_cols), "scaled", d),
             "w_o": LeafDef((cfg.n_heads, hd, d), "scaled", hd),
         }
-    defs.update({"norm2": LeafDef((d,), "zeros", 0), "w_up": LeafDef((d, f), "scaled", d),
-                 "w_down": LeafDef((f, d), "scaled", f)})
+    if not cfg.parallel_residual:
+        defs["norm2"] = LeafDef((d,), "zeros", 0)
+    defs.update({"w_up": LeafDef((d, f), "scaled", d), "w_down": LeafDef((f, d), "scaled", f)})
     if cfg.qkv_bias and family == "attn":
         defs.update(b_q=LeafDef((q_cols,), "zeros", 0), b_k=LeafDef((kv_cols,), "zeros", 0),
                     b_v=LeafDef((kv_cols,), "zeros", 0))

@@ -1,5 +1,5 @@
-"""Decoder layers: the sequential-residual sub-layer of
-``repro.models.transformer.sublayer_forward`` with its mixer dispatch
+"""Decoder layers: the sub-layer of ``repro.models.transformer.sublayer_forward``,
+sequential or parallel residual, with its mixer dispatch
 (``_mixer_forward``: ``attn``, ``local_attn`` or ``rglru``), and the layer
 loop that the JAX package runs as scans over groups of stacked parameters
 (here a Python loop over per-layer views of the same stacked tensors).
@@ -15,10 +15,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.zero_copy import parallel_partials
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru
 from repro_torch.models.common import rms_norm
-from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.mlp import mlp_forward, mlp_hidden
 
 ATTN_KINDS = ("attn", "local_attn")
 
@@ -39,8 +40,15 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                      rope: Tuple[torch.Tensor, torch.Tensor], step: attn.KVStep,
                      length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x + mixer(norm1(x)), then + mlp(norm2(.)): one decoder layer of kind
-    ``kind``, the ``index``-th of its kind's cache."""
+    ``kind``, the ``index``-th of its kind's cache.  With
+    ``cfg.parallel_residual`` (attention layers): x + (attn + mlp)(norm1(x)),
+    the one summed partial of JAX's one-shot sync order, both partials in
+    one fused_dual_matmul (``zero_copy.parallel_partials``)."""
     xa = rms_norm(x, p["norm1"], cfg.rms_eps)
+    if cfg.parallel_residual and kind in ATTN_KINDS:
+        heads = attn.gqa_heads(p, xa, cfg, rope=rope, step=step, layer=index,
+                               window=cfg.window if kind == "local_attn" else 0)
+        return x + parallel_partials(heads, p["w_o"], mlp_hidden(p, xa, cfg), p["w_down"])
     x = x + _mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
                            length_mask=length_mask)
     xf = rms_norm(x, p["norm2"], cfg.rms_eps)

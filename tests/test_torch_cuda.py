@@ -6,7 +6,8 @@ conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Shapes cover what the main path does not: head_dim 64 and 256, ragged tails, pad
+Shapes cover what the main path does not: head_dim 64 and 256 (256 in every
+layout: gptj-parallel's 16 MHA heads), ragged tails, pad
 rows, g from 1 to 16, per-row masks with a fully masked row, verify
 chunks of 1 to 8 queries over slot stripes read through a row index with
 frontiers at 0, mid-stripe and the stripe's end, paged pools
@@ -19,7 +20,9 @@ per-layer views.  Tolerances: bf16 3e-2 as in tests/test_kernels.py; fp32
 different orders.  The dequant matmul's products are exact in fp32, so its
 fp32 output is held to 1e-4 of the largest output (sums over K up to 8192
 in another order), and its bf16 output must be the kernel's own fp32
-output rounded, bit for bit.
+output rounded, bit for bit.  fused_dual_matmul: fp32 1e-4 (sums over K
+up to 20480 in another order); bf16 1e-2 abs + 1e-2 rel, one output
+rounding apart (one bf16 ulp is at most 7.8e-3 of a value).
 """
 import numpy as np
 import pytest
@@ -87,7 +90,7 @@ def _stripe_case(gen, dev, dtype, b, hq, hkv, sq, S, hd, n_cache):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("sq", [1, 2, 5, 8])
 @pytest.mark.parametrize("b,hq,hkv,S", [(4, 32, 4, 256), (3, 4, 4, 100), (2, 16, 8, 1000),
                                          (5, 8, 1, 70)])
@@ -206,8 +209,10 @@ def _paged(gen, dev, dtype, b, hq, hkv, hd, nb, bs, nbps, sq):
 
 
 # (b, hq, hkv, hd, nb, bs, nbps): yi-9b's heads at b = 4 over a 256-token
-# view, g = 1 at head_dim 64, and small blocks
-PAGED_CASES = [(4, 32, 4, 128, 80, 16, 16), (3, 4, 4, 64, 40, 8, 9), (2, 16, 2, 128, 64, 4, 33)]
+# view, g = 1 at head_dim 64, small blocks, gptj-parallel's 16 MHA heads of
+# 256, and g = 2 at head_dim 256
+PAGED_CASES = [(4, 32, 4, 128, 80, 16, 16), (3, 4, 4, 64, 40, 8, 9), (2, 16, 2, 128, 64, 4, 33),
+               (4, 16, 16, 256, 80, 16, 16), (2, 4, 2, 256, 40, 8, 9)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -408,8 +413,8 @@ def test_flash_prefill_kernel_hd256_window(dev, b, hq, hkv, sq, window, dtype):
 
 def test_hybrid_kernels_refuse_what_they_do_not_take(dev):
     """A launch the kernel refuses raises: lru_scan over more than 65535
-    rows, flash_prefill with a window in the paged layout's place (head_dim
-    256 through the paged wrapper), a negative window."""
+    rows, a negative window; and a head_dim no layout has an instance for
+    (96) is refused by the paged wrapper."""
     a = torch.zeros(65536, 1, 8, device=dev)
     with pytest.raises(RuntimeError, match="lru_scan"):
         ops.lru_scan(a, a, torch.zeros(65536, 8, device=dev))
@@ -418,6 +423,73 @@ def test_hybrid_kernels_refuse_what_they_do_not_take(dev):
     q_pos = torch.zeros(1, 4, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="flash_prefill"):
         ops.flash_prefill(q, kv, kv, q_pos, 0.1, window=-1)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        ops.paged_flash_prefill(q, kv, kv, torch.zeros(1, 1, dtype=torch.int32, device=dev),
+    q96, kv96 = q[..., :96].contiguous(), kv[..., :96].contiguous()
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.paged_flash_prefill(q96, kv96, kv96, torch.zeros(1, 1, dtype=torch.int32, device=dev),
                                 q_pos, 0.1)
+
+
+# -- the parallel residual: fused_dual_matmul --------------------------------
+
+
+def _fdm_tol(dtype):
+    return dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,ka,kb,d", [
+    (1, 64, 64, 64), (100, 300, 700, 200), (128, 512, 1728, 512), (257, 129, 65, 33),
+    (6, 300, 700, 200), (9, 64, 72, 136), (20, 1024, 4096, 1024),
+    (4, 4096, 16384, 4096), (512, 4096, 16384, 4096),
+])
+def test_fused_dual_matmul_kernel(dev, t, ka, kb, d, dtype):
+    """The JAX package's sweep (odd shapes: unaligned rows, ragged tiles),
+    both GEMV widths (T <= 4, <= 8), the GEMM's edge (T 9) and a verify
+    step's T 20, and gptj-parallel's decode (T 4) and prefill (T 512)."""
+    gen = torch.Generator(device=dev).manual_seed(t + ka + d)
+    a, b = _randn(gen, (t, ka), dtype, dev), _randn(gen, (t, kb), dtype, dev)
+    wa = (torch.randn((ka, d), generator=gen, device=dev) * ka ** -0.5).to(dtype)
+    wb = (torch.randn((kb, d), generator=gen, device=dev) * kb ** -0.5).to(dtype)
+    before = ops.LAUNCHES["fused_dual_matmul"]
+    got = ops.fused_dual_matmul(a, wa, b, wb)
+    assert ops.LAUNCHES["fused_dual_matmul"] == before + 1
+    want = ref.fused_dual_matmul_ref(a, wa, b, wb)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (t, d)
+    torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(dtype))
+    assert torch.equal(got, ops.fused_dual_matmul(a, wa, b, wb))     # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,s,hd,kb,d", [
+    (4, 16, 1, 256, 1024, 512),     # decode: the heads' own (b, h * hd) layout
+    (2, 16, 37, 256, 1024, 512),    # prefill: read by strides, no transposed copy
+    (3, 5, 11, 20, 40, 24),         # a head_dim that is no whole 16-byte chunk
+    (2, 3, 2, 16, 33, 57),          # the GEMV over strided heads
+])
+def test_fused_dual_matmul_kernel_reads_heads(dev, n, h, s, hd, kb, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(n * s + hd)
+    heads = _randn(gen, (n, h, s, hd), dtype, dev)
+    wo = (torch.randn((h, hd, d), generator=gen, device=dev) * (h * hd) ** -0.5).to(dtype)
+    b = _randn(gen, (n * s, kb), dtype, dev)
+    wb = (torch.randn((kb, d), generator=gen, device=dev) * kb ** -0.5).to(dtype)
+    got = ops.fused_dual_matmul(heads, wo, b, wb)
+    want = ref.fused_dual_matmul_ref(heads.transpose(1, 2).reshape(n * s, h * hd),
+                                     wo.reshape(h * hd, d), b, wb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(dtype))
+
+
+def test_fused_dual_matmul_takes_unaligned_views(dev):
+    """Per-layer views whose rows start off a 16-byte boundary, and mixed
+    dtypes refused."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wa = _randn(gen, (2 * 100 * 40 + 1,), torch.bfloat16, dev)[1:].view(2, 100, 40)[1]
+    wb = _randn(gen, (70 * 40 + 3,), torch.bfloat16, dev)[3:].view(70, 40)
+    for t in (3, 30):
+        a, b = _randn(gen, (t, 100), torch.bfloat16, dev), _randn(gen, (t, 70), torch.bfloat16, dev)
+        got = ops.fused_dual_matmul(a, wa, b, wb)
+        torch.testing.assert_close(got.float(), ref.fused_dual_matmul_ref(a, wa, b, wb).float(),
+                                   atol=1e-2, rtol=1e-2)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.fused_dual_matmul(a, wa.float(), b, wb)

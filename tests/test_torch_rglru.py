@@ -170,16 +170,24 @@ def test_windowed_flash_prefill_plain_matches_jax(window):
 
 
 def test_kernel_checks_take_head_dim_256():
-    """The wrappers' device checks take head_dim 256 where a kernel has the
-    instance (flash_prefill, decode_attention) and refuse it elsewhere."""
-    assert {n for n, dims in ops.HEAD_DIMS.items() if 256 in dims} == {"flash_prefill",
-                                                                      "decode_attention"}
+    """The wrappers' device checks take head_dim 256 in every attention
+    kernel (every layout has the instance) and refuse a head_dim none has."""
+    assert ops.HEAD_DIMS == (64, 128, 256)
     q = torch.zeros(1, 2, 4, 256)
     kv = torch.zeros(1, 1, 4, 256)
     q_pos = torch.zeros(1, 4, dtype=torch.int32)
     ops._check_stripe_cuda("flash_prefill", q, kv, kv, q_pos, None)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        ops._check_stripe_cuda("flash_verify", q, kv, kv, q_pos, None)
+    ops._check_stripe_cuda("flash_verify", q, kv, kv, q_pos, None)
+    q96, kv96 = q[..., :96].contiguous(), kv[..., :96].contiguous()
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops._check_stripe_cuda("flash_verify", q96, kv96, kv96, q_pos, None)
+    # only flash_prefill takes a window: the split and paged layouts have none
+    ops.flash_prefill(q, kv, kv, q_pos, 0.1, window=2)
+    bt = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="window"):
+        ops.flash_verify(q, kv, kv, q_pos, 0.1, window=2)
+    with pytest.raises(TypeError, match="window"):
+        ops.paged_flash_prefill(q, kv, kv, bt, q_pos, 0.1, window=2)
 
 
 # ---------------------------------------------------------------------------

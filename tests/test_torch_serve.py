@@ -130,6 +130,49 @@ def test_serve_main_paged_on_cpu(capsys):
         np.testing.assert_array_equal(r.output, by_rid[r.rid])
 
 
+def test_chunk_and_spec_flags_fall_back_like_the_jax_cli():
+    """``--prefill-chunk 64 --spec-k 4`` on reduced recurrentgemma-9b, whose
+    recurrent state blocks chunks and spec decode: both CLIs' argument paths
+    (``repro.launch.serve`` and the port's) carry the values on
+    ParallelConfig, serve, fall back to whole-prompt admission and plain
+    decode, and give the same greedy streams on the same weights (near-ties
+    certified as tests/test_torch_rglru.py does).  Asking the scheduler
+    itself for a chunk still raises, as the JAX scheduler does."""
+    import jax
+
+    from repro.launch import serve as jserve
+    from repro_torch.runtime.scheduler import ContinuousScheduler
+    from test_torch_rglru import _certify
+
+    argv = ["--arch", "recurrentgemma-9b", "--scheduler", "continuous", "--prefill-chunk", "64",
+            "--spec-k", "4", "--top-k", "1", "--requests", "3", "--prompt-len", "12",
+            "--max-new", "6", "--arrival-every", "2", "--slots", "2", "--max-len", "64"]
+    jargs = jserve.build_parser().parse_args(argv)
+    jeng = jserve.build_engine(jargs)
+    targs = serve.build_parser().parse_args(argv + ["--device", "cpu"])
+    tree = jax.tree.map(np.asarray, jeng.params)
+    params = bridge.params_from_jax(tree, get_config("recurrentgemma-9b").reduced(), device="cpu")
+    built = serve.build_engine(targs)       # the CLI's engine; its weights are random
+    assert (built.parallel.prefill_chunk, built.parallel.spec_k) == (64, 4)
+    teng = Engine(built.cfg, parallel=built.parallel, sampling=built.sampling,
+                  max_len=built.max_len, params=params, device="cpu")
+    jsched, tsched = jserve.make_scheduler(jeng, jargs), serve.make_scheduler(teng, targs)
+    assert jsched.chunk == tsched.chunk == 0 and jsched.spec_k == tsched.spec_k == 0
+    jserve.submit_workload(jsched, jeng.cfg, jargs)
+    serve.submit_workload(tsched, teng.cfg, targs)
+    ref = {r.rid: r for r in jsched.run()}
+    port = {r.rid: r for r in tsched.run()}
+    work = [(ref[rid].prompt, ref[rid].max_new) for rid in sorted(ref)]
+    for rid, (prompt, _) in enumerate(work):
+        np.testing.assert_array_equal(port[rid].prompt, prompt)     # the same draws
+    _certify(jeng, teng, work, port, ref)
+    assert tsched.stats["prefill_chunks"] == 0 and "spec_steps" not in tsched.stats
+    with pytest.raises(ValueError, match="does not support chunked prefill"):
+        ContinuousScheduler(teng, n_slots=2, prefill_chunk=64)
+    with pytest.raises(ValueError, match="does not support speculative decoding"):
+        ContinuousScheduler(teng, n_slots=2, spec_k=4)
+
+
 def test_sampling_is_seeded():
     cfg = get_config("yi-9b").reduced()
     prompts = np.arange(12, dtype=np.int32).reshape(2, 6)
