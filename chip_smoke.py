@@ -21,7 +21,9 @@ Phases, each fatal on failure:
    same inputs (stated tolerance), with its time, the plain version's, one
    PyTorch library call's for the same function (a yardstick the port
    never calls) and the least time the card could take (bytes at 3.35 TB/s
-   or operations at the peak of their type, whichever is larger);
+   or operations at the peak of their type, whichever is larger); the
+   attention rows also carry the registers and spills nvcc's -Xptxas -v
+   printed for the kernel instance they time;
 4. reference: a small GQA model on the card (kernels) against the same
    model on the CPU (plain versions), in bf16, int8 and int4 weights:
    prefill and 8 decode-step logits; and in bf16 the slot engine's
@@ -69,7 +71,9 @@ Phases, each fatal on failure:
    whole prompts; slots decode past position 2048): tokens in range, a
    second run identical, the ring wrapped, and launch counts exactly 26
    lru_scan and 12 flash_prefill per prefill forward, 12 decode_attention
-   per decode step;
+   per decode step; then 4 decode steps past the window under
+   torch.profiler, whose decode_attention device time over its launches
+   stands beside the head_dim-256 decode row's cold time (``in_step``);
 8. parallel slots: full-width gptj-parallel bf16 (28 layers) through the
    four phases of 6, on the same workload and checks, its launches
    counted as there, with 28 fused_dual_matmul per forward (56 per mixed
@@ -178,6 +182,30 @@ def bound(n_bytes: float, ops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def ptxas_row(source: str, instance: str) -> dict:
+    """What nvcc's ``-Xptxas -v`` printed when it built the kernel instance
+    of ``csrc/<source>.cu`` whose mangled name holds ``instance``: its
+    registers and spill store / load bytes."""
+    from repro_torch.kernels import build
+
+    hits = [(e, i) for e, i in build.ptxas_info(source).items() if instance in e]
+    if len(hits) != 1:
+        fail(f"{source}: {len(hits)} kernel instances match {instance!r} in nvcc's report")
+    entry, info = hits[0]
+    return {"entry": entry, **info}
+
+
+# the mangled-name part of each attention instance a row times (bf16): the
+# prefill body's tensor-core kernel <HD, PAGED, SPLIT>, the decode body's
+# kernel <bf16, HD, PAGED>
+def _mma(hd: int, paged: bool, split: bool) -> str:
+    return f"mma_body6kernelILi{hd}ELb{int(paged)}ELb{int(split)}E"
+
+
+def _dec(hd: int, paged: bool) -> str:
+    return f"decode6kernelI13__nv_bfloat16Li{hd}ELb{int(paged)}E"
+
+
 def check_kernels(dev, flush) -> list:
     import torch.nn.functional as F
 
@@ -205,6 +233,7 @@ def check_kernels(dev, flush) -> list:
         "replaces": "src/repro/kernels/prefill_attention.py:114",
         "counter": "flash_prefill",
         "shape": f"q ({B},{HQ},{PREFILL_S},{HD}) bf16, k/v ({B},{HKV},{PREFILL_S},{HD}), causal",
+        "ptxas": ptxas_row("flash_prefill", _mma(HD, False, False)),
         "max_abs_err": err, "tolerance": tol,
         "ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, scale), flush),
         "plain_ms": cold_ms(lambda: ref.flash_prefill_ref(q, k, v, q_pos, scale), flush),
@@ -235,6 +264,7 @@ def check_kernels(dev, flush) -> list:
         "counter": "decode_attention",
         "shape": f"q ({B},{HQ},1,{HD}) bf16, k/v ({B},{HKV},{DECODE_S},{HD}), "
                  f"{DECODE_VALID} valid",
+        "ptxas": ptxas_row("decode_attention", _dec(HD, False)),
         "max_abs_err": err, "tolerance": tol,
         "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
         "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
@@ -423,6 +453,7 @@ def check_hybrid_kernels(dev, flush) -> list:
         "shape": f"q ({B},{RG_HQ},1,{RG_HD}) bf16, k/v ({B},1,{S},{RG_HD}) ring, per-row "
                  f"window masks at positions {frontiers} ({n_valid} valid)",
         "library": "SDPA with a per-row bool mask",
+        "ptxas": ptxas_row("decode_attention", _dec(RG_HD, False)),
         "max_abs_err": err, "tolerance": 1e-3,
         "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
         "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
@@ -472,6 +503,7 @@ def check_hybrid_kernels(dev, flush) -> list:
         "shape": f"q ({B},{RG_HQ},{RG_SQ},{RG_HD}) bf16, k/v ({B},1,{RG_SQ},{RG_HD}), "
                  f"window {RG_WINDOW}",
         "library": "SDPA with a bool band mask",
+        "ptxas": ptxas_row("flash_prefill", _mma(RG_HD, False, False)),
         "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
         "max_abs_err_against_window": edge,
         "ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, scale, window=RG_WINDOW),
@@ -573,6 +605,7 @@ def check_verify(dev, flush, heads=(HQ, HKV, HD)) -> dict:
                      f"rows {rows.tolist()}",
             "library": "SDPA with a bool causal mask over the stripes gathered beforehand "
                        "(gather untimed)",
+            "ptxas": ptxas_row("flash_verify", _mma(hd, False, True)),
             **stats,
             "flash_prefill_ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, hd ** -0.5,
                                                                   rows=rows), flush)}
@@ -624,6 +657,7 @@ def check_paged(dev, flush, heads=(HQ, HKV, HD)) -> list:
                  f"({B},{DECODE_NBPS}) with {DECODE_NBPS - live} null entries per slot, "
                  f"{DECODE_VALID} valid",
         "library": "SDPA with a bool mask over the view gathered beforehand (gather untimed)",
+        "ptxas": ptxas_row("paged_decode_attention", _dec(hd, True)),
         "max_abs_err": err, "tolerance": tol,
         "ms": cold_ms(lambda: ops.paged_decode_attention_partial(q, kp, vp, bt, valid, scale),
                       flush),
@@ -671,6 +705,7 @@ def check_paged(dev, flush, heads=(HQ, HKV, HD)) -> list:
                  f"({nb},{hkv},{BLOCK},{hd}), shuffled table ({B},{nbps})",
         "library": "SDPA with a bool causal mask over the view gathered beforehand "
                    "(gather untimed)",
+        "ptxas": ptxas_row("paged_flash_prefill", _mma(hd, True, False)),
         "max_abs_err": err, "max_abs_err_fp32": err32, "tolerance": tol,
         "ms": cold_ms(lambda: ops.paged_flash_prefill(q, kp, vp, bt, q_pos, scale), flush),
         "plain_ms": cold_ms(lambda: ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, scale),
@@ -1345,6 +1380,7 @@ def hybrid_phases(dev) -> list:
                 fail(f"{RG_ARCH}: full-width logits {tuple(logits.shape)} not finite / "
                      f"wrong shape")
             del logits
+            result["decode_attention_in_step"] = decode_kernel_in_step(eng, cfg, dev)
         result["phase_s"] = time.monotonic() - t_phase
         results.append(result)
         del eng
@@ -1352,6 +1388,41 @@ def hybrid_phases(dev) -> list:
     del params
     torch.cuda.empty_cache()
     return results
+
+
+def decode_kernel_in_step(eng, cfg, dev, steps: int = 4) -> dict:
+    """The decode_attention kernel as a recurrentgemma decode step runs it:
+    a wave of B prompts of window + 64 tokens (so the ring has wrapped, as
+    ``profile_decode.py`` prefills), two warm-up steps, then ``steps`` steps
+    under torch.profiler; the kernel's device time over its launches.  The
+    step leaves L2 as the layers before it left it, where ``cold_ms``
+    flushes 128 MiB before each launch."""
+    from repro_torch.models import model as M
+
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, cfg.window + 64))
+    caches = eng.init_caches(B)
+    with torch.inference_mode():
+        tok = eng.prefill(torch.as_tensor(prompts, device=dev), caches)
+        cur = prompts.shape[1]
+        for _ in range(2):
+            tok = eng.decode(tok, caches, cur)
+            cur += 1
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                tok = eng.decode(tok, caches, cur)
+                cur += 1
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages() if e.device_type == cuda and "decode::kernel" in e.key]
+    n = sum(e.count for e in ev)
+    if n != steps * len(M.layer_families(cfg)["attn"]):
+        fail(f"{RG_ARCH}: the profiled decode steps ran {n} decode_attention kernels")
+    us = sum(e.self_device_time_total for e in ev)
+    del caches
+    return {"steps": steps, "launches": n, "device_ms": us / 1e3, "ms_per_launch": us / 1e3 / n,
+            "prompt_len": prompts.shape[1]}
 
 
 def expected_dequant_launches(cfg, parallel, work) -> int:
@@ -1734,6 +1805,9 @@ def main() -> None:
         if k["name"] == "topk":
             k[f"v{RG_VOCAB}"]["launches"] = sum(p["launches"]["topk"] for p in phases
                                                 if p["arch"] == RG_ARCH)
+        if k["name"] == "decode_attention_partial (head_dim 256)":
+            k["in_step"] = next(p["decode_attention_in_step"] for p in phases
+                                if "decode_attention_in_step" in p)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,13 +5,16 @@ Each ``csrc/<name>.cu`` compiles on its own into ``_build/<name>-<hash>.so``
 first use, from the sources in this package only.  The file name carries a
 hash of the source and the shared headers, so an edited kernel is rebuilt
 and a stale library is never loaded.  ``build_all`` starts one nvcc per
-source at once and waits for all of them.
+source at once and waits for all of them; nvcc's report (``-Xptxas -v``:
+registers, spills per kernel instance) is kept beside each library and
+read back by ``ptxas_info``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,9 +36,12 @@ SIGNATURES = {
     "flash_verify": ("flash_verify",
                      [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_verify_workspace": ("flash_verify", [_I, _I, _I, _I, _I, _I]),
-    "decode_attention": ("decode_attention", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention": ("decode_attention",
+                         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_decode_attention": ("paged_decode_attention",
-                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_flash_prefill": ("paged_flash_prefill",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "topk": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
@@ -92,10 +98,36 @@ def build_all(sources: List[str] = SOURCES) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{s}.cu (exit {proc.returncode}):\n{out}")
         else:
+            library_path(s).with_suffix(".ptxas.txt").write_text(out)
             os.replace(tmp, library_path(s))   # atomic: no half-written library
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def ptxas_info(source: str) -> Dict[str, dict]:
+    """What ``-Xptxas -v`` printed for each kernel instance of the built
+    ``csrc/<source>.cu``: mangled entry name -> registers, spill store and
+    load bytes, stack frame bytes.  Empty when the report is missing."""
+    path = library_path(source).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return {}
+    info, entry = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            info[entry] = {}
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                info[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                info[entry]["registers"] = int(m.group(1))
+    return info
 
 
 def library(source: str) -> ctypes.CDLL:

@@ -22,12 +22,12 @@
 // blocks (16 at yi-9b's 4 slots) would each walk a whole stripe and leave
 // most of the 132 SMs idle, the fault of a first decode kernel.  So the
 // KV axis is split: the shared body (flash_prefill.cuh, SPLIT = true) runs
-// as b * hkv * splits blocks, each over one chunk of whole 32-key tiles for
+// as b * hkv * splits blocks, each over one chunk of whole 64-key tiles for
 // all Sq * g rows of its (slot, KV head) -- at yi-9b 40 rows in one 64-row
 // tile -- and writes unnormalized fp32 partials; a chunk past the tile's
 // largest q_pos exits before any load.  A second launch (merge_partials)
-// combines the splits by log-sum-exp and normalizes.  Products in fp32 FMA
-// on the CUDA cores, as the other attention kernels.
+// combines the splits by log-sum-exp and normalizes.  bf16 products on the
+// tensor cores, fp32 on the CUDA cores, as the prefill body.
 #include "flash_prefill.cuh"
 
 // fp32 floats of the partials workspace a launch at these shapes needs.

@@ -18,19 +18,26 @@
 //
 // The body (decode_attention.cuh, PAGED = true) is shared with the dense
 // kernel: the same tiles, staging and online softmax, with each row's
-// address read through the table.  As there, b * hkv blocks (16 at b = 4 on
-// yi-9b) leave most of the 132 SMs idle; a split over the table with a
-// merge pass is the next step.
+// address read through the table, and the same split of the view across
+// blocks with the merge in the launch (b * hkv blocks alone, 16 at b = 4
+// on yi-9b, would leave most of the 132 SMs idle).  A split whose tiles
+// are all dead writes an empty partial without loading K or V.
 #include "decode_attention.cuh"
 
+// chunk, splits, work, counters: as decode_attention (decode_attention.cu),
+// over the view of nbps * bs keys.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* bt,
                                       const void* valid, void* m, void* l,
-                                      void* acc, int b, int hq, int hkv, int nb,
-                                      int bs, int nbps, int hd, int dtype,
+                                      void* acc, void* work, int work_floats, void* counters,
+                                      int n_counters, int chunk, int splits, int b, int hq,
+                                      int hkv, int nb, int bs, int nbps, int hd, int dtype,
                                       float scale, void* stream) {
   if (nb <= 0 || bs <= 0 || nbps <= 0) return ERR_BAD_ARGS;
   const int S = nbps * bs;
-  return decode::dispatch<true>(q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps,
-                                valid, S, m, l, acc, b, hq, hkv, S, hd, dtype, scale, stream);
+  decode::Args a{q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps, valid, S, m, l,
+                 acc, static_cast<float*>(work), work_floats, static_cast<int*>(counters),
+                 n_counters, chunk, splits, b, hq, hkv, S, scale,
+                 static_cast<cudaStream_t>(stream)};
+  return decode::dispatch<true>(a, hd, dtype);
 }

@@ -10,18 +10,18 @@
 // index j iff j <= q_pos[b, i] (and j < nbps * bs, the KV limit); rows
 // with q_pos = -1 emit exact zeros; fp32 running (m, l, acc); normalized
 // output in q's type.  Table entries outside [0, nb) read the null block 0.
-// head_dim 64, 128 or 256 (131,584 bytes of shared memory at 256).
+// head_dim 64, 128 or 256.
 //
 // Bound on the H100: a suffix of Sq tokens after a prefix of P attends
 // ~Sq * (P + Sq / 2) (query, key) pairs at ~4 * hd FLOPs each, against one
 // read of the view's K/V per q tile; at Sq = 64 after P = 64..128 the card
-// is bound by operations at the bf16 tensor-core peak, which this first
-// version (fp32 FMA on the CUDA cores, as flash_prefill.cu) does not reach.
-// Narrow suffixes (Sq = 1 when a prefix covers all but one token) fill one
-// 64-row tile with Sq * g rows.
+// is bound by operations at the bf16 tensor-core peak.  Narrow suffixes
+// (Sq = 1 when a prefix covers all but one token) fill one 64-row tile
+// with Sq * g rows.
 //
 // The body (flash_prefill.cuh, PAGED = true) is shared with the dense
-// kernel: KV tiles of 32 keys are gathered through the table, and tiles past
+// kernel: bf16 on the tensor cores, fp32 on the CUDA cores; KV tiles (64
+// keys in bf16, 32 in fp32) are gathered through the table, and tiles past
 // a q tile's largest q_pos are skipped.
 #include "flash_prefill.cuh"
 

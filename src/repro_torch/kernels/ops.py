@@ -5,14 +5,16 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
   stage, two for a 64000- or 256000-wide row; dequant_matmul two when it
-  splits K; flash_verify two, the split pass and the merge)
+  splits K; flash_verify two, the split pass and the merge; the decode
+  kernels one, their splits merged in the same launch)
   and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
   plain version serves the port).
 
 Outputs are allocated here with ``torch.empty``; the kernels allocate
-nothing and do not synchronise.
+nothing and do not synchronise.  The decode kernels' arrival counters are
+the one buffer kept between calls (``_arrival_counters``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,12 @@ KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head_dims every attention kernel has an instance for
 HEAD_DIMS = (64, 128, 256)
+# the decode kernels (csrc/decode_attention.cuh): keys per tile, one per
+# lane (a split chunk is a whole number of tiles), and query heads per block
+DECODE_TILE, DECODE_ROWS = 32, 8
+
+_SMS: dict = {}        # device index -> SM count, read once
+_ARRIVALS: dict = {}   # device index -> int32 arrival counters of split decode launches
 
 
 def reset_launches() -> None:
@@ -143,12 +151,68 @@ def _verify_workspace(b: int, hq: int, hkv: int, sq: int, sk: int, hd: int) -> i
     return build.library("flash_verify").flash_verify_workspace(b, hq, hkv, sq, sk, hd)
 
 
+def decode_split_plan(b: int, hq: int, hkv: int, S: int, sms: int):
+    """The decode kernels' split of the KV axis: (chunk, splits) such that
+    the grid of b * hkv * ceil(g / DECODE_ROWS) blocks times ``splits``
+    gives each of ``sms`` SMs about one block (one wave: a block takes most
+    of an SM's shared memory, and every split adds a partial to the last
+    block's merge), ``chunk`` is a whole number of DECODE_TILE-key tiles,
+    the splits cover the S keys, and none lies wholly past S.  splits == 1
+    (chunk >= S) when the unsplit grid already fills the card."""
+    blocks = b * hkv * -(-(hq // hkv) // DECODE_ROWS)
+    tiles = -(-S // DECODE_TILE)
+    want = max(1, min(tiles, -(-sms // blocks)))
+    chunk = -(-tiles // want) * DECODE_TILE
+    return chunk, -(-S // chunk)
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for split decode launches on
+    ``device``: zeroed once with ``torch.zeros``, grown (zeroed again) when
+    a launch needs more, and left zero by every launch.  They assume that
+    the kernels launch on one stream at a time, as every wrapper here does
+    (the current stream): launches overlapping on two streams would need a
+    buffer each."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 2 * (0 if buf is None else buf.numel())),), dtype=torch.int32,
+                          device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
+def _decode_split(q: torch.Tensor, hkv: int, S: int):
+    """The partials workspace of a decode launch (fp32 acc, m and l per
+    split and query head; None when the plan does not split) and the
+    launch's split arguments: (work, work floats, counters, counter count,
+    chunk, splits).  The caller holds the workspace until it has
+    launched."""
+    b, hq, _, hd = q.shape
+    chunk, splits = decode_split_plan(b, hq, hkv, S, _sm_count(q.device))
+    if splits == 1:
+        return None, (None, 0, None, 0, chunk, splits)
+    n_work = splits * b * hq * (hd + 2)
+    work = torch.empty((n_work,), dtype=torch.float32, device=q.device)
+    counters = _arrival_counters(q.device, b * hkv * -(-(hq // hkv) // DECODE_ROWS))
+    return work, (work.data_ptr(), n_work, counters.data_ptr(), counters.numel(), chunk,
+                  splits)
+
+
 def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              valid: torch.Tensor, scale: float):
     """Unnormalized flash partials for one query token per row.
     q (b, hq, 1, hd), k/v (b, hkv, S, hd), valid (S,) or (b, S) bool ->
     m (b, hq, 1), l (b, hq, 1), acc (b, hq, 1, hd) fp32; a row with no
-    valid key gives m = -inf, l = 0, acc = 0."""
+    valid key gives m = -inf, l = 0, acc = 0.  On the card the KV axis is
+    split across blocks by ``decode_split_plan`` and merged in the launch."""
     b, hq, one, hd = q.shape
     hkv, S = k.shape[1], k.shape[2]
     if (one != 1 or k.shape != (b, hkv, S, hd) or v.shape != k.shape
@@ -167,10 +231,12 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, hq, 1, hd), dtype=torch.float32, device=q.device)
+    work, split = _decode_split(q, hkv, S)
     build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                valid.data_ptr(), int(valid.dim() == 2), m.data_ptr(), l.data_ptr(),
-               acc.data_ptr(), b, hq, hkv, S, hd, _DTYPES[q.dtype], float(scale),
-               _stream())
+               acc.data_ptr(), *split, b, hq, hkv, S, hd,
+               _DTYPES[q.dtype], float(scale), _stream())
+    del work    # held until the launch was queued
     LAUNCHES["decode_attention"] += 1
     return m, l, acc
 
@@ -204,7 +270,8 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool
     each slot's block table.  q (b, hq, 1, hd), pools (nb, hkv, bs, hd),
     bt (b, nbps) int32 (entries outside the pool read the null block 0),
     valid (b, nbps*bs) bool -> fp32 m, l (b, hq, 1), acc (b, hq, 1, hd); a
-    row with no valid key gives m = -inf, l = 0, acc = 0."""
+    row with no valid key gives m = -inf, l = 0, acc = 0.  The view is split
+    across blocks as ``decode_attention_partial``'s cache is."""
     nb, hkv, bs, nbps = _check_pool("paged_decode_attention", q, k_pool, v_pool, bt)
     b, hq, one, hd = q.shape
     if one != 1 or valid.shape != (b, nbps * bs):
@@ -216,9 +283,12 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, hq, 1, hd), dtype=torch.float32, device=q.device)
+    work, split = _decode_split(q, hkv, nbps * bs)
     build.call("paged_decode_attention", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                bt.data_ptr(), valid.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-               b, hq, hkv, nb, bs, nbps, hd, _DTYPES[q.dtype], float(scale), _stream())
+               *split, b, hq, hkv, nb, bs, nbps, hd,
+               _DTYPES[q.dtype], float(scale), _stream())
+    del work    # held until the launch was queued
     LAUNCHES["paged_decode_attention"] += 1
     return m, l, acc
 

@@ -32,8 +32,9 @@ idleness); the profiled window's share is printed beside it.  Prints one
 JSON line (step times, device busy time per step, idle shares, kernel
 launches per step, the top kernels, and the device time of the
 dequant_matmul kernels and of the w_o dense copies under weight
-quantization, and of the fused_dual_matmul kernels of a parallel-residual
-arch) and the profiler's table.
+quantization, of the fused_dual_matmul kernels of a parallel-residual
+arch, and of the dense and paged decode_attention kernels) and the
+profiler's table.
 """
 from __future__ import annotations
 
@@ -131,6 +132,7 @@ def main(argv=None) -> dict:
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     dq_us = sum(e.self_device_time_total for e in kernels if "::dq_" in e.key)
     fdm = [e for e in kernels if "fdm::" in e.key]
+    dec = [e for e in kernels if "decode::kernel" in e.key]
     w_o_us = sum(e.device_time_total for e in avgs
                  if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
     result = {
@@ -153,6 +155,9 @@ def main(argv=None) -> dict:
         "fused_dual_matmul_ms_per_step": sum(e.self_device_time_total for e in fdm) / 1e3
                                          / args.steps,
         "fused_dual_matmul_launches_per_step": sum(e.count for e in fdm) / args.steps,
+        "decode_attention_ms_per_step": sum(e.self_device_time_total for e in dec) / 1e3
+                                        / args.steps,
+        "decode_attention_launches_per_step": sum(e.count for e in dec) / args.steps,
         "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / args.steps
                                     for e in top},
         "top_kernels_calls_per_step": {e.key[:80]: e.count / args.steps for e in top},

@@ -15,7 +15,14 @@ read through shuffled block tables with null entries and dead blocks,
 suffixes of 1, 2 and 9 tokens after a cached prefix, tie-heavy
 top-k rows over vocabularies up to qwen's 152064, and dequant matmuls at
 every GEMV width, the GEMM, ragged N and K, both groups and unaligned
-per-layer views.  Tolerances: bf16 3e-2 as in tests/test_kernels.py; fp32
+per-layer views.  The tensor-core prefill body at its tiles' edges (query
+and key counts of 1, 15-17, 63-65 and 2304, windows whose band starts on
+a 64-key tile, tables whose 64-key tile gathers 4 pool blocks, dead
+splits) is held per element to 2e-3 + 1e-2 |want|, chip_smoke.py's rule;
+the split decode at S not a multiple of its chunk, wholly masked splits,
+rows with no valid key, an unsplit grid, counters back at 0 after
+back-to-back launches, and refused plans.  Tolerances: bf16 3e-2 as in
+tests/test_kernels.py; fp32
 1e-4, since the kernel and the plain version sum up to a thousand terms in
 different orders.  The dequant matmul's products are exact in fp32, so its
 fp32 output is held to 1e-4 of the largest output (sums over K up to 8192
@@ -493,3 +500,219 @@ def test_fused_dual_matmul_takes_unaligned_views(dev):
                                    atol=1e-2, rtol=1e-2)
     with pytest.raises(ValueError, match="dtypes"):
         ops.fused_dual_matmul(a, wa.float(), b, wb)
+
+
+# -- the tensor-core prefill body and the split decode: their tiles' edges ----
+
+
+def _close_per_element(got, want):
+    """bf16 output: 2e-3 + 1e-2 |want| per element (one bf16 ulp is at most
+    7.8e-3 of a value), the stripe and window rule of chip_smoke.py."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert (err <= 2e-3 + 1e-2 * want.abs()).all(), err.max().item()
+
+
+@pytest.mark.parametrize("g", [1, 8, 16])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (15, 15), (16, 16), (17, 17), (63, 63), (64, 64),
+                                   (65, 65), (2304, 2304), (1, 64), (17, 65), (64, 65),
+                                   (65, 2304)])
+def test_flash_prefill_mma_tile_edges(dev, sq, sk, g):
+    """bf16 on the tensor cores: query and key counts around the 16-row
+    fragment and the 64-row / 64-key tiles; g 8 and 16 fold several
+    positions into a tile (and a position across two tiles at g 16, sq 65);
+    the last sq queries of sk keys; pad rows exact zeros."""
+    hd = 256 if g == 16 else 128 if g == 8 else 64
+    b, hkv = 2, 1 if g == 16 else 2
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk + g)
+    q = _randn(gen, (b, g * hkv, sq, hd), torch.bfloat16, dev)
+    k, v = (_randn(gen, (b, hkv, sk, hd), torch.bfloat16, dev) for _ in range(2))
+    q_pos = torch.arange(sk - sq, sk, device=dev, dtype=torch.int32).repeat(b, 1)
+    q_pos[-1, -1] = -1                       # a pad row
+    before = ops.LAUNCHES["flash_prefill"]
+    got = ops.flash_prefill(q, k, v, q_pos, hd ** -0.5)
+    assert ops.LAUNCHES["flash_prefill"] == before + 1
+    want = ref.flash_prefill_ref(q, k, v, q_pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    _close_per_element(got, want)
+    assert not got[-1, :, -1].any()
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window", [63, 64, 65, 128, 192])
+def test_flash_prefill_mma_window_on_tile_edges(dev, window, hd):
+    """Windows whose band edge falls on a 64-key tile boundary (rows
+    window + 63, window + 127, ... start their band at a tile's first key)
+    and just beside it; the plain version one key narrower must differ."""
+    b, hq, hkv, sq = 2, 8, 2, 300
+    gen = torch.Generator(device=dev).manual_seed(window + hd)
+    q = _randn(gen, (b, hq, sq, hd), torch.bfloat16, dev)
+    k, v = (_randn(gen, (b, hkv, sq, hd), torch.bfloat16, dev) for _ in range(2))
+    q_pos = torch.arange(sq, device=dev, dtype=torch.int32).repeat(b, 1)
+    got = ops.flash_prefill(q, k, v, q_pos, hd ** -0.5, window=window)
+    want = ref.flash_prefill_ref(q, k, v, q_pos, hd ** -0.5, window)
+    narrower = ref.flash_prefill_ref(q, k, v, q_pos, hd ** -0.5, window - 1)
+    torch.cuda.synchronize()
+    _close_per_element(got, want)
+    assert (got.float() - narrower.float()).abs().max().item() > 5e-2
+
+
+def test_flash_prefill_mma_rows_out_of_range_and_pad_rows(dev):
+    """bf16 through the row index: a batch row whose index lies outside the
+    cache and a batch row of pad rows both come out as exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = _randn(gen, (3, 16, 70, 256), torch.bfloat16, dev)
+    k, v = (_randn(gen, (2, 1, 200, 256), torch.bfloat16, dev) for _ in range(2))
+    q_pos = (torch.arange(70, device=dev, dtype=torch.int32) + 100).repeat(3, 1)
+    q_pos[1] = -1
+    rows = torch.tensor([1, 0, 5], dtype=torch.int32, device=dev)
+    got = ops.flash_prefill(q, k, v, q_pos, 0.0625, rows=rows)
+    want = ref.flash_prefill_ref(q[:1], k[1:], v[1:], q_pos[:1], 0.0625)
+    torch.cuda.synchronize()
+    assert not got[1:].any()
+    _close_per_element(got[:1], want)
+
+
+@pytest.mark.parametrize("sq", [1, 5, 64, 100])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 4, 128), (16, 16, 256), (8, 1, 64)])
+def test_paged_flash_prefill_mma_table_with_null_entries(dev, hq, hkv, hd, sq):
+    """bf16 through a shuffled table of 16-row blocks, so that a 64-key
+    tile gathers 4 pool blocks, with null entries past each slot's live
+    blocks and inside one slot's prefix."""
+    b, bs, nbps = 3, 16, 20
+    nb = b * nbps + 1
+    gen = torch.Generator(device=dev).manual_seed(sq + hd)
+    q = _randn(gen, (b, hq, sq, hd), torch.bfloat16, dev)
+    kp, vp = (_randn(gen, (nb, hkv, bs, hd), torch.bfloat16, dev) for _ in range(2))
+    bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:b * nbps] + 1).reshape(b, nbps)
+    bt = bt.to(torch.int32)
+    starts = torch.tensor([0, 150, 320 - sq], device=dev)
+    q_pos = (starts[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+    last = (q_pos.max(dim=1).values // bs).tolist()
+    for i, blk in enumerate(last):
+        bt[i, blk + 1:] = 0                     # unallocated: the null block
+    bt[1, 2] = 0                                # a null entry inside a prefix
+    q_pos[-1, -1] = -1
+    got = ops.paged_flash_prefill(q, kp, vp, bt.contiguous(), q_pos, hd ** -0.5)
+    want = ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    _close_per_element(got, want)
+    assert not got[-1, :, -1].any()
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_verify_mma_dead_splits(dev, hd):
+    """bf16 split launch over a 1000-key stripe whose frontiers lie in its
+    first chunk or two: the later splits are dead and write empty partials
+    before any load; a row outside the cache and a pad row are zeros."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    b, hq, hkv, sq, S = 4, 8, 2, 5, 1000
+    q = _randn(gen, (b, hq, sq, hd), torch.bfloat16, dev)
+    k, v = (_randn(gen, (4, hkv, S, hd), torch.bfloat16, dev) for _ in range(2))
+    q_pos = (torch.tensor([0, 60, 120, 3], device=dev)[:, None]
+             + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+    q_pos[2, -1] = -1
+    rows = torch.tensor([3, 1, 0, 7], dtype=torch.int32, device=dev)    # row 3 is no stripe
+    got = ops.flash_verify(q, k, v, q_pos, hd ** -0.5, rows=rows)
+    want = ref.flash_verify_ref(q[:3], k[rows[:3].long()], v[rows[:3].long()], q_pos[:3],
+                                hd ** -0.5)
+    torch.cuda.synchronize()
+    _close_per_element(got[:3], want)
+    assert not got[3].any() and not got[2, :, -1].any()
+
+
+def _decode_case(gen, dev, dtype, b, hq, hkv, S, hd):
+    q = _randn(gen, (b, hq, 1, hd), dtype, dev)
+    k, v = _randn(gen, (b, hkv, S, hd), dtype, dev), _randn(gen, (b, hkv, S, hd), dtype, dev)
+    return q, k, v
+
+
+def _decode_check(got, want):
+    (m, l, acc), (m2, l2, acc2) = got, want
+    torch.testing.assert_close(m, m2, atol=1e-4, rtol=1e-4)      # -inf rows included
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(acc, acc2, atol=1e-3, rtol=1e-4)
+    dead = torch.isneginf(m2)
+    assert torch.equal(torch.isneginf(m), dead) and not acc[dead].any() and not l[dead].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,S,hd", [(4, 16, 1, 2000, 256), (2, 32, 4, 515, 128),
+                                           (1, 8, 1, 4090, 64), (3, 12, 4, 33, 128)])
+def test_decode_attention_split_edges(dev, b, hq, hkv, S, hd, dtype):
+    """Splits of the KV axis: S not a multiple of the chunk; the first
+    splits of row 0 wholly masked; row 1 with no valid key at all; a
+    per-row mask; the arrival counters zero after the launch."""
+    chunk, splits = ops.decode_split_plan(b, hq, hkv, S, ops._sm_count(dev))
+    assert splits > 1 and S % chunk
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v = _decode_case(gen, dev, dtype, b, hq, hkv, S, hd)
+    valid = torch.rand((b, S), generator=gen, device=dev) < 0.8
+    valid[0, :2 * chunk + 5] = False
+    if b > 1:
+        valid[1] = False
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention_partial(q, k, v, valid, hd ** -0.5)
+    assert ops.LAUNCHES["decode_attention"] == before + 1        # the merge is in the launch
+    want = ref.decode_attention_ref(q, k, v, valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    _decode_check(got, want)
+    assert not ops._ARRIVALS[torch.cuda.current_device()].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_unsplit_when_the_grid_fills_the_card(dev, dtype):
+    """b * hkv large enough that the plan keeps one split: the blocks write
+    the outputs themselves."""
+    b, hq, hkv, S, hd = 64, 8, 8, 300, 128
+    assert ops.decode_split_plan(b, hq, hkv, S, ops._sm_count(dev))[1] == 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _decode_case(gen, dev, dtype, b, hq, hkv, S, hd)
+    valid = torch.arange(S, device=dev) < 250
+    got = ops.decode_attention_partial(q, k, v, valid, hd ** -0.5)
+    want = ref.decode_attention_ref(q, k, v, valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    _decode_check(got, want)
+
+
+def test_decode_attention_counters_come_back_to_zero(dev):
+    """Two split launches back to back on the same counters, then a third
+    at other shapes (more groups, the paged layout): each is right, which
+    it could not be if an earlier launch had left a counter above 0."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = _decode_case(gen, dev, torch.bfloat16, 4, 16, 1, 2048, 256)
+    valid = torch.rand((4, 2048), generator=gen, device=dev) < 0.9
+    first = ops.decode_attention_partial(q, k, v, valid, 0.0625)
+    second = ops.decode_attention_partial(q, k, v, valid, 0.0625)
+    want = ref.decode_attention_ref(q, k, v, valid, 0.0625)
+    q2, kp, vp, bt = _paged(gen, dev, torch.bfloat16, 2, 32, 2, 128, 70, 16, 33, 1)
+    valid2 = torch.arange(33 * 16, device=dev)[None, :] < torch.tensor([[400], [20]], device=dev)
+    third = ops.paged_decode_attention_partial(q2, kp, vp, bt, valid2, 128 ** -0.5)
+    want3 = ref.paged_decode_attention_ref(q2, kp, vp, bt, valid2, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for got in (first, second):
+        _decode_check(got, want)
+    _decode_check(third, want3)
+    assert not ops._ARRIVALS[torch.cuda.current_device()].any()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))   # the same merge order
+
+
+def test_decode_attention_refuses_a_bad_plan(dev):
+    """The C entry point checks the plan and the workspace: a chunk that is
+    no whole number of tiles, splits that leave keys out or an empty split,
+    and a workspace too small for the splits are refused, and the wrapper
+    raises."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = _decode_case(gen, dev, torch.bfloat16, 2, 8, 1, 256, 64)
+    valid = torch.ones(256, dtype=torch.bool, device=dev)
+    m, l = torch.empty(2, 8, 1, device=dev), torch.empty(2, 8, 1, device=dev)
+    acc = torch.empty(2, 8, 1, 64, device=dev)
+    counters = ops._arrival_counters(dev, 2)
+    for chunk, splits, n_work in ((48, 6, 6 * 16 * 66), (64, 3, 3 * 16 * 66),
+                                  (64, 5, 5 * 16 * 66), (64, 4, 4 * 16 * 66 - 1)):
+        work = torch.empty(4 * 16 * 66 + 2 * 16 * 66, device=dev)
+        with pytest.raises(RuntimeError, match="decode_attention"):
+            build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       valid.data_ptr(), 0, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+                       work.data_ptr(), n_work, counters.data_ptr(), counters.numel(), chunk,
+                       splits, 2, 8, 1, 256, 64, 1, 0.125, ops._stream())
