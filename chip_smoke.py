@@ -147,7 +147,8 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 DQ_CASES = (("qwen-72b w_up int4, decode", "int4", B, 8192, 24576, torch.bfloat16),
             ("yi-9b w_up int8, decode", "int8", B, 4096, 11008, torch.bfloat16),
             ("qwen-72b lm_head int4, decode", "int4", B, 8192, 151936, torch.float32),
-            ("qwen-72b w_down int4, prefill", "int4", 512, 24576, 8192, torch.bfloat16))
+            ("qwen-72b w_down int4, prefill", "int4", 512, 24576, 8192, torch.bfloat16),
+            ("yi-9b w_down int8, prefill", "int8", 512, 11008, 4096, torch.bfloat16))
 
 
 def fail(msg: str) -> None:
@@ -204,6 +205,23 @@ def _mma(hd: int, paged: bool, split: bool) -> str:
 
 def _dec(hd: int, paged: bool) -> str:
     return f"decode6kernelI13__nv_bfloat16Li{hd}ELb{int(paged)}E"
+
+
+# the mangled-name part of a matmul kernel instance (csrc/gemm_sm90.cuh's
+# Cfg<MODE, WM, MT, WN, NT, BK, ...>) that serves a `kind` weight at T rows
+def _gemm(kind: str, T: int) -> str:
+    from repro_torch.kernels import ops
+
+    bk, bn, bm = ops.gemm_tile(kind, T, 128)
+    wn = 1
+    if T > ops.GEMM_NARROW_T and kind != "bf16":
+        wm, mt, nt = 8, 1, 16          # wgmma: two warpgroups of 64 columns
+    elif T > ops.GEMM_NARROW_T:
+        wm, mt, wn, nt = 4, 2, 2, 8    # mma.sync: 4 x 2 warps
+    else:
+        (wm, mt), nt = {512: (8, 4), 256: (8, 2), 128: (4, 2)}[bm], bn // 8
+    mode = ("bf16", "int8", "int4").index(kind)
+    return f"CfgILi{mode}ELi{wm}ELi{mt}ELi{wn}ELi{nt}ELi{bk}E"
 
 
 def check_kernels(dev, flush) -> list:
@@ -316,12 +334,13 @@ def check_kernels(dev, flush) -> list:
 
 def check_parallel_kernels(dev, flush) -> list:
     """gptj-parallel's kernels: fused_dual_matmul at its widths, the heads
-    read in place, at each T the serving paths give it and each kernel
-    instance runs -- decode at 4 and 8 rows (the GEMV's two widths), a
-    verify step of 4 slots x (SPEC_K + 1) (T 20) and one slot's 64-token
-    chunk (the 64-wide tensor-core tiles), a prefill (T 512, the 128-wide
-    tiles) -- and at the JAX sweep's odd shape in bf16 and fp32 (the fp32
-    CUDA-core GEMM); the head_dim-256 instances of the
+    read in place, at each T the serving paths give it -- decode at 4 and 8
+    rows (one n8 tile), a verify step of 4 slots x (SPEC_K + 1) (T 20, 32
+    padded rows) and one slot's 64-token chunk (the widest byte-bound
+    instance), a prefill (T 512, the 128 x 128 tiles) -- and at the JAX
+    sweep's odd shape in bf16 (the narrow-load path) and fp32 (the fp32
+    CUDA-core GEMM), each with the registers and spills nvcc reported for
+    the instance it runs; the head_dim-256 instances of the
     verify and paged kernels at its 16 MHA heads (g 1).  Their launches are
     counted on the gptj-parallel phases only.  Tolerance of
     fused_dual_matmul: fp32 1e-4 abs + 1e-4 rel (sums over K up to 20480 in
@@ -364,6 +383,8 @@ def check_parallel_kernels(dev, flush) -> list:
             "shape": (f"a {'heads ' if heads else ''}{tuple(a_shape)} @ ({ka},{d}) + b ({T},{kb}) "
                       f"@ ({kb},{d}) {str(dtype)[6:]}"),
             "max_abs_err": err, "tolerance": f"{lim} abs + {lim} rel",
+            "ptxas": ptxas_row("fused_dual_matmul", _gemm("bf16", T) if dtype == torch.bfloat16
+                               else "gemm_f32_kernel"),
             "ms": cold_ms(lambda: ops.fused_dual_matmul(a_in, wa_in, b, wb), flush),
             "plain_ms": cold_ms(lambda: ref.fused_dual_matmul_ref(a2, wa, b, wb), flush),
             "library_ms": cold_ms(lambda: torch.matmul(torch.cat((a2, b), 1), w_cat), flush),
@@ -750,6 +771,7 @@ def check_dequant(dev, flush) -> dict:
         cases.append({
             "case": what, "shape": f"x ({T},{K}) bf16 @ {mode} ({K},{N}) g{w.group} -> {out_dtype}",
             "max_abs_err": err, "tolerance": tol,
+            "ptxas": ptxas_row("dequant_matmul", _gemm(mode, T)),
             "ms": cold_ms(lambda: ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group,
                                                      out_dtype=out_dtype), flush),
             "plain_ms": cold_ms(lambda: ref.dequant_matmul_ref(x, w.q, w.scale, mode, w.group),
@@ -1427,35 +1449,16 @@ def decode_kernel_in_step(eng, cfg, dev, steps: int = 4) -> dict:
 
 def expected_dequant_launches(cfg, parallel, work) -> int:
     """dequant_matmul launches of the serve workload: per wave one prefill
-    (T = batch x longest prompt through the six projections of every
-    layer, T = batch through the lm_head) and SERVE_MAX_NEW - 1 decode steps
-    (T = batch throughout), each call counted as the kernel splits it."""
-    from repro_torch.core import wquant
-    from repro_torch.kernels import build
+    and SERVE_MAX_NEW - 1 decode steps, each forward one launch for each
+    quantized projection of every layer and one for the lm_head (the
+    kernel merges its K splits in the launch)."""
     from repro_torch.models import model as M
 
     if parallel.weight_quant == "none":
         return 0
-    launches = build.library("dequant_matmul").dequant_matmul_launches
-    bits = 8 if parallel.weight_quant == "int8" else 4
-
-    def calls(T, K, N):
-        g = wquant.effective_group(K, parallel.wq_group_size) if bits == 4 else 0
-        return launches(T, K, N, bits, g)
-
-    projections = [d.shape for name, d in M.layer_param_defs(cfg).items()
-                   if M.WQ_SITES.get(name) == "matmul"]
-    head = (cfg.d_model, cfg.vocab_size)
-
-    def forward(T):
-        return cfg.n_layers * sum(calls(T, K, N) for K, N in projections) + calls(SERVE_BATCH, *head)
-
-    total = 0
-    for w in range(0, len(work), SERVE_BATCH):
-        wave = work[w:w + SERVE_BATCH]
-        total += forward(len(wave) * max(len(p) for p in wave))
-        total += (SERVE_MAX_NEW - 1) * forward(len(wave))
-    return total
+    projections = [name for name in M.layer_param_defs(cfg) if M.WQ_SITES.get(name) == "matmul"]
+    waves = -(-len(work) // SERVE_BATCH)
+    return waves * SERVE_MAX_NEW * (cfg.n_layers * len(projections) + 1)
 
 
 def serve_phase(dev, arch: str, weight_quant: str) -> dict:

@@ -48,10 +48,10 @@ SIGNATURES = {
     "topk_workspace": ("topk", [_I, _I, _I]),
     "topk_launches": ("topk", [_I, _I]),
     "lru_scan": ("lru_scan", [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P]),
-    "dequant_matmul": ("dequant_matmul", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
-    "dequant_matmul_workspace": ("dequant_matmul", [_I, _I, _I, _I, _I]),
-    "dequant_matmul_launches": ("dequant_matmul", [_I, _I, _I, _I, _I]),
-    "fused_dual_matmul": ("fused_dual_matmul", [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "dequant_matmul": ("dequant_matmul",
+                       [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_dual_matmul": ("fused_dual_matmul",
+                          [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P]),
 }
 SOURCES = sorted({src for src, _ in SIGNATURES.values()})
 

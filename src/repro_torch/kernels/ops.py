@@ -4,21 +4,23 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
-  stage, two for a 64000- or 256000-wide row; dequant_matmul two when it
-  splits K; flash_verify two, the split pass and the merge; the decode
-  kernels one, their splits merged in the same launch)
+  stage, two for a 64000- or 256000-wide row; flash_verify two, the split
+  pass and the merge; the decode kernels, dequant_matmul and
+  fused_dual_matmul one, their splits merged in the same launch)
   and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
   plain version serves the port).
 
 Outputs are allocated here with ``torch.empty``; the kernels allocate
-nothing and do not synchronise.  The decode kernels' arrival counters are
-the one buffer kept between calls (``_arrival_counters``).
+nothing and do not synchronise.  The arrival counters of split launches
+(``_arrival_counters``) and the matmul kernels' fp32 partials
+(``_matmul_workspace``) are the buffers kept between calls.
 """
 from __future__ import annotations
 
 import functools
+import math
 from collections import Counter
 
 import torch
@@ -39,8 +41,18 @@ HEAD_DIMS = (64, 128, 256)
 # lane (a split chunk is a whole number of tiles), and query heads per block
 DECODE_TILE, DECODE_ROWS = 32, 8
 
+# the matmul kernels (csrc/gemm_sm90.cuh): the widest T of the byte-bound
+# (narrow) instances, blocks a launch puts on an SM, and the fewest K stages
+# a block takes where the work allows
+GEMM_NARROW_T, GEMM_BLOCKS_PER_SM, GEMM_MIN_STAGES = 64, 2, 4
+# fused_dual_matmul: the chunks each tile's K is cut into, at every T: the
+# fewest (each adds a part to every tile's merge) that still give a decode
+# step at gptj-parallel's D = 4096 (32 tiles) a block on every SM, 160
+FDM_CHUNKS = 5
+
 _SMS: dict = {}        # device index -> SM count, read once
-_ARRIVALS: dict = {}   # device index -> int32 arrival counters of split decode launches
+_ARRIVALS: dict = {}   # device index -> int32 arrival counters of split launches
+_WORK: dict = {}       # device index -> fp32 partials of split matmul launches
 
 
 def reset_launches() -> None:
@@ -174,7 +186,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 arrival counters for split decode launches on
+    """At least ``n`` int32 arrival counters for split launches on
     ``device``: zeroed once with ``torch.zeros``, grown (zeroed again) when
     a launch needs more, and left zero by every launch.  They assume that
     the kernels launch on one stream at a time, as every wrapper here does
@@ -187,6 +199,122 @@ def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
                           device=device)
         _ARRIVALS[key] = buf
     return buf
+
+
+def gemm_tile(kind: str, T: int, group: int = 0):
+    """(K rows a stage, tokens a block, weight columns a block) of the
+    matmul kernels' instance for a ``kind`` ('bf16', 'int8' or 'int4')
+    weight at T rows (csrc/dequant_matmul.cu, csrc/fused_dual_matmul.cu).
+    Up to GEMM_NARROW_T, T pads to 8, 16, 32 or 64 tokens; int8 / int4 up to
+    16 rows take 512 columns (rows of 512 bytes of weight), else 128.  Past
+    GEMM_NARROW_T 128 tokens by 128 columns: int8 and int4 on wgmma (int4
+    ``group``s that are no whole number of stages take the 64-token
+    instance), bf16 on mma.sync.  bf16 takes 64 K rows a stage at every
+    T."""
+    if T > GEMM_NARROW_T and not (kind == "int4" and group % 64):
+        return 64, 128, 128
+    nt = 1
+    while 8 * nt < min(T, GEMM_NARROW_T):
+        nt *= 2
+    if kind == "bf16":
+        return 64, 8 * nt, 128
+    if nt > 2:
+        return 128, 8 * nt, 128
+    return (64 if kind == "int4" else 32), 8 * nt, 512
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_split_plan(T: int, N: int, stages: int, unit: int, bn: int, bm: int, sms: int,
+                    whole: bool = False) -> int:
+    """Blocks of a matmul launch.  The work is ceil(T / bn) * ceil(N / bm)
+    tiles of ``stages`` K stages, cut into units of ``unit`` stages (int4:
+    whole groups); its W units, tile after tile, are shared evenly by the
+    blocks (``gemm_segments``): GEMM_BLOCKS_PER_SM a SM, so that one wave
+    keeps every SM streaming to the end.  ``whole`` (the wgmma instances,
+    one block an SM): one block a tile where the tiles fill half the SMs or
+    more, so that the blocks sharing a weight slab or an x tile run in step
+    and read it once from device memory.  No fewer than GEMM_MIN_STAGES stages a block (a part
+    merged costs its tile a round trip through the workspace)."""
+    tiles = -(-T // bn) * -(-N // bm)
+    if whole and 2 * tiles >= sms:
+        return tiles
+    units = -(-stages // unit)
+    return max(1, min(sms * GEMM_BLOCKS_PER_SM, tiles * units // -(-GEMM_MIN_STAGES // unit)))
+
+
+def gemm_segments(T: int, N: int, stages: int, unit: int, bn: int, bm: int, blocks: int,
+                  chunk: int = 0) -> list:
+    """What each block of a matmul launch multiplies, as the kernel cuts it
+    (csrc/gemm_sm90.cuh, ``body``): per block its segments (tile, first
+    stage, end stage).  chunk > 0: block b takes chunk b % n of tile b / n;
+    else block b owns units [b W / blocks, (b + 1) W / blocks) of the W
+    units of all tiles."""
+    if chunk:
+        n = -(-stages // chunk)
+        return [[(b // n, b % n * chunk, min(stages, (b % n + 1) * chunk))] for b in range(blocks)]
+    units = -(-stages // unit)
+    W = -(-T // bn) * -(-N // bm) * units
+    out = []
+    for b in range(blocks):
+        u, u1, segs = b * W // blocks, (b + 1) * W // blocks, []
+        while u < u1:
+            tau = u // units
+            ue = min(u1, (tau + 1) * units)
+            segs.append((tau, (u - tau * units) * unit, min(stages, (ue - tau * units) * unit)))
+            u = ue
+        out.append(segs)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def dequant_split_plan(T: int, K: int, N: int, bits: int, group: int, sms: int):
+    """``gemm_split_plan`` for dequant_matmul -> (blocks, stages, unit, bn,
+    bm, chunk 0): K in stages of ``gemm_tile`` rows; an int4 unit is
+    lcm(group, stage rows) rows, whole groups."""
+    bk, bn, bm = gemm_tile("int8" if bits == 8 else "int4", T, group)
+    unit = 1 if bits == 8 else math.lcm(group, bk) // bk
+    stages = -(-K // bk)
+    whole = bn == 128   # the wgmma instance
+    return gemm_split_plan(T, N, stages, unit, bn, bm, sms, whole), stages, unit, bn, bm, 0
+
+
+@functools.lru_cache(maxsize=None)
+def fused_split_plan(T: int, Ka: int, Kb: int, D: int, sms: int):
+    """The split of fused_dual_matmul (bf16) -> (blocks, stages, unit, bn,
+    bm, chunk): a's ceil(Ka / bk) stages, then b's, each tile in
+    FDM_CHUNKS chunks of the same stages whatever T is (64 K rows a stage
+    in every instance), one block a chunk: a row's sums are the same bits
+    in a decode step, a verify step, a mixed step or a prefill of any
+    width, with or without its cached prefix.  ``sms`` is not read: the
+    split may not depend on the card either."""
+    bk, bn, bm = gemm_tile("bf16", T)
+    stages = -(-Ka // bk) + -(-Kb // bk)
+    chunk = -(-stages // FDM_CHUNKS)
+    return -(-T // bn) * -(-D // bm) * -(-stages // chunk), stages, 1, bn, bm, chunk
+
+
+def _matmul_workspace(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 floats for the partial sums of split matmul
+    launches on ``device``, grown when a launch needs more.  Every launch
+    writes its partials before it reads them, and the next launch on the
+    stream starts after it: one buffer serves every call, on one stream at
+    a time (as ``_arrival_counters``)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    buf = _WORK.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty((max(n, 2 * (0 if buf is None else buf.numel())),),
+                          dtype=torch.float32, device=device)
+        _WORK[key] = buf
+    return buf
+
+
+def _matmul_split(device: torch.device, T: int, N: int, blocks: int, bn: int, bm: int):
+    """(workspace, counters) pointers of a matmul launch of ``blocks``
+    blocks: two fp32 tiles of parts a block, one counter a tile."""
+    if blocks == 1:
+        return None, None
+    return (_matmul_workspace(device, blocks * 2 * bn * bm).data_ptr(),
+            _arrival_counters(device, -(-T // bn) * -(-N // bm)).data_ptr())
 
 
 def _decode_split(q: torch.Tensor, hkv: int, S: int):
@@ -390,13 +518,13 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, mod
     # them (per-layer views of a stacked weight need not be 16-byte aligned)
     _check_cuda("dequant_matmul", x, q, scale, align=1)
     bits = 8 if mode == "int8" else 4
+    group = group if bits == 4 else 0
     out = torch.empty((T, N), dtype=out_dtype, device=x.device)
-    lib = build.library("dequant_matmul")
-    work = torch.empty((lib.dequant_matmul_workspace(T, K, N, bits, group),),
-                       dtype=torch.float32, device=x.device)
+    blocks, _, _, bn, bm, _ = dequant_split_plan(T, K, N, bits, group, _sm_count(x.device))
+    work, counters = _matmul_split(x.device, T, N, blocks, bn, bm)
     build.call("dequant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-               _DTYPES[out_dtype], work.data_ptr(), T, K, N, bits, group, _stream())
-    LAUNCHES["dequant_matmul"] += lib.dequant_matmul_launches(T, K, N, bits, group)
+               _DTYPES[out_dtype], work, counters, blocks, T, K, N, bits, group, _stream())
+    LAUNCHES["dequant_matmul"] += 1
     return out
 
 
@@ -430,8 +558,13 @@ def fused_dual_matmul(a: torch.Tensor, wa: torch.Tensor, b: torch.Tensor,
     # any alignment: the kernel takes 16-byte loads where a row allows them
     _check_cuda("fused_dual_matmul", a, wa2, b, wb, align=1)
     out = torch.empty((T, D), dtype=a.dtype, device=a.device)
+    blocks, bn, bm, chunk = 1, 0, 0, 0   # fp32: the CUDA-core GEMM, one block a tile
+    if a.dtype == torch.bfloat16:
+        blocks, _, _, bn, bm, chunk = fused_split_plan(T, Ka, b.shape[1], D, _sm_count(a.device))
+    work, counters = _matmul_split(a.device, T, D, blocks, bn, bm)
     build.call("fused_dual_matmul", a.data_ptr(), s, h, hd, wa2.data_ptr(), b.data_ptr(),
-               wb.data_ptr(), out.data_ptr(), T, b.shape[1], D, _DTYPES[a.dtype], _stream())
+               wb.data_ptr(), out.data_ptr(), T, b.shape[1], D, _DTYPES[a.dtype], work,
+               counters, blocks, chunk, _stream())
     LAUNCHES["fused_dual_matmul"] += 1
     return out
 

@@ -14,7 +14,9 @@ frontiers at 0, mid-stripe and the stripe's end, paged pools
 read through shuffled block tables with null entries and dead blocks,
 suffixes of 1, 2 and 9 tokens after a cached prefix, tie-heavy
 top-k rows over vocabularies up to qwen's 152064, and dequant matmuls at
-every GEMV width, the GEMM, ragged N and K, both groups and unaligned
+every instance width (T up to 64 padded to 8, 16, 32 or 64 rows; 65 to
+512 on the wide tiles), split and unsplit K, ragged N and K, groups 64
+and 128 and groups that are no whole 16-row step, and unaligned
 per-layer views.  The tensor-core prefill body at its tiles' edges (query
 and key counts of 1, 15-17, 63-65 and 2304, windows whose band starts on
 a 64-key tile, tables whose 64-key tile gathers 4 pool blocks, dead
@@ -289,7 +291,7 @@ def test_kernel_launch_is_checked(dev):
 
 
 # (mode, group, K, N): ragged N (97, 520: byte loads), K with a tail past the
-# 128-row x tile and the 32-row GEMM tile (200, 1408), a split K (8192)
+# 128-row and the 32-row stage (200, 1408), a split K (8192)
 DQ_CASES = [(mode, group, K, N)
             for mode, group in (("int8", 0), ("int4", 64), ("int4", 128))
             for K, N in ((200, 97), (384, 97), (1408, 520), (8192, 4096))
@@ -302,7 +304,7 @@ def _dq_check(got, want):
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [1, 4, 16, 17, 130])
+@pytest.mark.parametrize("T", [1, 4, 16, 17, 20, 64, 65, 130, 512])
 @pytest.mark.parametrize("mode,group,K,N", DQ_CASES)
 def test_dequant_matmul_kernel(dev, mode, group, K, N, T, out_dtype):
     gen = torch.Generator(device=dev).manual_seed(T * K + N)
@@ -311,8 +313,7 @@ def test_dequant_matmul_kernel(dev, mode, group, K, N, T, out_dtype):
     bits = 8 if mode == "int8" else 4
     before = ops.LAUNCHES["dequant_matmul"]
     got = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=out_dtype)
-    launches = build.library("dequant_matmul").dequant_matmul_launches(T, K, N, bits, w.group)
-    assert ops.LAUNCHES["dequant_matmul"] == before + launches
+    assert ops.LAUNCHES["dequant_matmul"] == before + 1   # its splits merged in the launch
     again = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=out_dtype)
     f32 = ops.dequant_matmul(x, w.q, w.scale, mode=mode, group=w.group, out_dtype=torch.float32)
     want = ref.dequant_matmul_ref(x, w.q, w.scale, mode, w.group)
@@ -320,9 +321,28 @@ def test_dequant_matmul_kernel(dev, mode, group, K, N, T, out_dtype):
     assert got.dtype == out_dtype and got.shape == (T, N)
     _dq_check(f32, want)
     assert torch.equal(got, f32.to(out_dtype))   # the same sums, rounded once
-    assert torch.equal(got, again)           # no atomics: the same bits each call
-    if K == 8192:
-        assert launches == 2                 # K split across blocks, then summed
+    assert torch.equal(got, again)           # a fixed merge order: the same bits each call
+    if K == 8192 and T <= ops.GEMM_NARROW_T:  # K split across blocks
+        blocks, _, _, bn, bm, _ = ops.dequant_split_plan(T, K, N, bits, w.group, ops._sm_count(dev))
+        assert blocks > -(-T // bn) * -(-N // bm)
+
+
+@pytest.mark.parametrize("T", [4, 20, 130])
+@pytest.mark.parametrize("group", [2, 6, 24, 32, 96])
+def test_dequant_matmul_kernel_odd_groups(dev, group, T):
+    """int4 groups that are no whole number of 16-row steps (2, 6, 24: one
+    product per group a step meets), smaller than a stage (32) and with a
+    split unit of lcm(group, stage) rows (96)."""
+    gen = torch.Generator(device=dev).manual_seed(group * T)
+    w = wquant.quantize(0.05 * _randn(gen, (384, 200), torch.bfloat16, dev), "int4", group)
+    assert w.group == group
+    x = _randn(gen, (T, 384), torch.bfloat16, dev)
+    got = ops.dequant_matmul(x, w.q, w.scale, mode="int4", group=group, out_dtype=torch.float32)
+    want = ref.dequant_matmul_ref(x, w.q, w.scale, "int4", group)
+    torch.cuda.synchronize()
+    _dq_check(got, want)
+    assert torch.equal(got, ops.dequant_matmul(x, w.q, w.scale, mode="int4", group=group,
+                                               out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
@@ -448,11 +468,14 @@ def _fdm_tol(dtype):
     (1, 64, 64, 64), (100, 300, 700, 200), (128, 512, 1728, 512), (257, 129, 65, 33),
     (6, 300, 700, 200), (9, 64, 72, 136), (20, 1024, 4096, 1024),
     (4, 4096, 16384, 4096), (512, 4096, 16384, 4096),
+    (16, 1024, 4096, 1024), (20, 4096, 16384, 4096), (64, 4096, 16384, 4096),
+    (65, 1024, 4096, 1024), (64, 136, 200, 520),
 ])
 def test_fused_dual_matmul_kernel(dev, t, ka, kb, d, dtype):
     """The JAX package's sweep (odd shapes: unaligned rows, ragged tiles),
-    both GEMV widths (T <= 4, <= 8), the GEMM's edge (T 9) and a verify
-    step's T 20, and gptj-parallel's decode (T 4) and prefill (T 512)."""
+    each byte-bound width (T padded to 8, 16, 32, 64) and the wide tiles'
+    edge (T 65), gptj-parallel's decode (T 4), verify step (T 20), chunk
+    (T 64) and prefill (T 512), K split across blocks or not."""
     gen = torch.Generator(device=dev).manual_seed(t + ka + d)
     a, b = _randn(gen, (t, ka), dtype, dev), _randn(gen, (t, kb), dtype, dev)
     wa = (torch.randn((ka, d), generator=gen, device=dev) * ka ** -0.5).to(dtype)
@@ -464,7 +487,7 @@ def test_fused_dual_matmul_kernel(dev, t, ka, kb, d, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (t, d)
     torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(dtype))
-    assert torch.equal(got, ops.fused_dual_matmul(a, wa, b, wb))     # no atomics
+    assert torch.equal(got, ops.fused_dual_matmul(a, wa, b, wb))     # a fixed merge order
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -485,6 +508,27 @@ def test_fused_dual_matmul_kernel_reads_heads(dev, n, h, s, hd, kb, d, dtype):
                                      wo.reshape(h * hd, d), b, wb)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(dtype))
+
+
+def test_fused_dual_matmul_rows_alike_at_every_width(dev):
+    """A row's output does not depend on T: the rows of a 4 x 128-token
+    prefill, of one 128-token prompt, of its 64-token suffix, of a verify
+    step and of a decode step come out the same bits (the schedulers
+    agree)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a, b = _randn(gen, (512, 4096), torch.bfloat16, dev), _randn(gen, (512, 16384), torch.bfloat16, dev)
+    wa = (torch.randn((4096, 4096), generator=gen, device=dev) * 4096 ** -0.5).bfloat16()
+    wb = (torch.randn((16384, 4096), generator=gen, device=dev) * 16384 ** -0.5).bfloat16()
+    whole = ops.fused_dual_matmul(a, wa, b, wb)
+    one = ops.fused_dual_matmul(a[128:256], wa, b[128:256], wb)
+    suffix = ops.fused_dual_matmul(a[192:256], wa, b[192:256], wb)
+    verify = ops.fused_dual_matmul(a[236:256], wa, b[236:256], wb)
+    decode = ops.fused_dual_matmul(a[252:256], wa, b[252:256], wb)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[128:256], one)
+    assert torch.equal(one[64:], suffix)
+    assert torch.equal(one[108:], verify)
+    assert torch.equal(verify[16:], decode)
 
 
 def test_fused_dual_matmul_takes_unaligned_views(dev):
