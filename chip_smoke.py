@@ -18,12 +18,16 @@ Phases, each fatal on failure:
    heads read in place, and at the JAX sweep's odd shape in bf16 and fp32;
    the head_dim-256 flash_verify, paged decode and paged prefill at
    gptj-parallel's 16 MHA heads), against its plain PyTorch version on the
-   same inputs (stated tolerance), with its time, the plain version's, one
-   PyTorch library call's for the same function (a yardstick the port
-   never calls) and the least time the card could take (bytes at 3.35 TB/s
-   or operations at the peak of their type, whichever is larger); the
-   attention rows also carry the registers and spills nvcc's -Xptxas -v
-   printed for the kernel instance they time;
+   same inputs (stated tolerance; lru_scan, whose tiles combine carries in
+   their own order, against an fp64 scan: at most 4x the plain version's
+   error or 1e-5 of max |h|, at the wave prefill, a one-request admission
+   and slow decays; top-k bit for bit, NaN rows included; both one launch
+   a call), with its time, the plain version's, one PyTorch library
+   call's for the same function (a yardstick the port never calls) and
+   the least time the card could take (bytes at 3.35 TB/s or operations
+   at the peak of their type, whichever is larger); the attention, matmul,
+   lru_scan and top-k rows also carry the registers and spills nvcc's
+   -Xptxas -v printed for the kernel instance they time;
 4. reference: a small GQA model on the card (kernels) against the same
    model on the CPU (plain versions), in bf16, int8 and int4 weights:
    prefill and 8 decode-step logits; and in bf16 the slot engine's
@@ -296,16 +300,31 @@ def check_kernels(dev, flush) -> list:
 
     # top-k over the fp32 logits: k = 1 is the greedy path the serve phases
     # run, at yi-9b's vocab and at recurrentgemma-9b's; k = 40 (the serve
-    # CLI's default) is checked and timed beside it
+    # CLI's default) is checked and timed beside it; bit for bit against
+    # the plain version, one launch a call.  The NaN case (NaN on either
+    # side of a chunk edge, a row of NaN, -inf) is held to the plain
+    # version on the CPU, whose sort ranks NaN first by index as the JAX
+    # package does; whether the card's sort agrees is recorded
     entry = None
-    for V, kk, key in ((VOCAB, 1, None), (VOCAB, 40, "k40"), (RG_VOCAB, 1, f"v{RG_VOCAB}")):
+    for V, kk, key in ((VOCAB, 1, None), (VOCAB, 40, "k40"), (RG_VOCAB, 1, f"v{RG_VOCAB}"),
+                       (VOCAB, 40, "nan")):
         x = rnd(B, V)
+        if key == "nan":
+            chunk, _ = ops.topk_chunk_plan(B, V, kk, ops._sm_count(x.device))
+            x[0, [chunk - 1, chunk, V - 1]] = float("nan")
+            x[1] = float("nan")
+            x[2, :100] = float("-inf")
+        before = ops.LAUNCHES["topk"]
         vals, idx = ops.topk(x, kk)
-        rv, ri = ref.topk_ref(x, kk)
-        err = (vals - rv).abs().max().item()
-        if not (err == 0 and torch.equal(idx, ri)):
-            fail(f"topk ({B}, {V}) k={kk} differs from its plain version (value error {err}, "
-                 f"indices equal {torch.equal(idx, ri)})")
+        if ops.LAUNCHES["topk"] != before + 1:
+            fail(f"topk made {ops.LAUNCHES['topk'] - before} launches in one call")
+        rv, ri = ref.topk_ref(x.cpu() if key == "nan" else x, kk)
+        same = (torch.equal(vals.cpu().view(torch.int32), rv.cpu().view(torch.int32))
+                and torch.equal(idx.cpu(), ri.cpu()))
+        err = (vals.cpu() - rv.cpu()).nan_to_num().abs().max().item()
+        if not same:
+            fail(f"topk ({B}, {V}) k={kk} {key or ''} differs from its plain version (value "
+                 f"error {err}, indices equal {torch.equal(idx.cpu(), ri.cpu())})")
         timed = {
             "shape": f"x ({B},{V}) fp32, k={kk}", "max_abs_err": err, "tolerance": 0.0,
             "ms": cold_ms(lambda: ops.topk(x, kk), flush),
@@ -313,11 +332,19 @@ def check_kernels(dev, flush) -> list:
             "library_ms": cold_ms(lambda: torch.topk(x, kk), flush),
             **bound(4 * x.numel() + 8 * B * kk, x.numel(), FP32_FLOPS),
         }
+        if key == "nan":
+            _, ci = ref.topk_ref(x, kk)
+            timed.update(shape=timed["shape"] + ", NaN at a chunk edge, a row of NaN, -inf",
+                         card_sort_agrees=bool(torch.equal(ci, ri.to(dev))))
         if entry is None:
+            # the floor of this timing: one launch that does nothing worth
+            # counting (a one-element fill), CUDA events around it as above
+            one = torch.zeros(1, device=dev)
             entry = {"name": "topk", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/topk.cu",
                      "replaces": "src/repro/kernels/topk_shard.py:66",
-                     "counter": "topk", **timed}
+                     "counter": "topk", "ptxas": ptxas_row("topk", "topk_kernelIfE"), **timed,
+                     "launch_floor_ms": cold_ms(one.zero_, flush)}
         else:
             entry[key] = timed
     out.append(entry)
@@ -410,7 +437,8 @@ def check_parallel_kernels(dev, flush) -> list:
 
 def check_hybrid_kernels(dev, flush) -> list:
     """The RG-LRU hybrid's kernels at recurrentgemma-9b's shapes: lru_scan
-    at the wave prefill's (4, 2304, 4096) and at an odd width; the decode
+    at the wave prefill's (4, 2304, 4096), at an odd width, at a one-request
+    admission (1, 2048, 4096) and with slow decays; the decode
     and prefill attention at head_dim 256, g 16, over the 2048-token window.
     Their launches are counted on the recurrentgemma phases only."""
     import torch.nn.functional as F
@@ -421,32 +449,62 @@ def check_hybrid_kernels(dev, flush) -> list:
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     out = []
 
-    # lru_scan: the kernel rounds product and sum as the plain version does
+    # lru_scan: the tiled scan combines its segments' carries in its own
+    # order, so it is held to an fp64 scan of the same inputs
+    # (ref.lru_scan_limit: its worst error at most 4x the plain fp32
+    # version's, or 1e-5 of the largest |h|); two calls give the same bits,
+    # one launch each.  Cases: the wave prefill, an odd width, a one-request
+    # admission, and slow decays (a in [0.9, 0.999], a trained RG-LRU's
+    # range, b = sqrt(1 - a^2) x), where the carries matter most
+    lru_tile = "kernelIfLb1E"
     cases = []
-    for w in (RG_W, 4000):
-        a, x, h0 = torch.sigmoid(rnd(B, RG_SQ, w)), rnd(B, RG_SQ, w), rnd(B, w)
+    for bsz, sq, w, decay in ((B, RG_SQ, RG_W, "random"), (B, RG_SQ, 4000, "random"),
+                              (1, RG_WINDOW, RG_W, "random"), (B, RG_SQ, RG_W, "slow")):
+        if decay == "random":
+            a, x = torch.sigmoid(rnd(bsz, sq, w)), rnd(bsz, sq, w)
+        else:
+            a = 0.9 + 0.099 * torch.rand((bsz, sq, w), generator=gen, device=dev)
+            x = torch.sqrt(1 - a * a) * rnd(bsz, sq, w)
+        h0 = rnd(bsz, w)
+        before = ops.LAUNCHES["lru_scan"]
         hs, hT = ops.lru_scan(a, x, h0)
-        want_hs, want_hT = ref.lru_scan_ref(a, x, h0)
-        err = max((hs - want_hs).abs().max().item(), (hT - want_hT).abs().max().item())
-        if not err <= 1e-6:
-            fail(f"lru_scan at width {w} differs from its plain version by {err} > 1e-6")
+        hs2, hT2 = ops.lru_scan(a, x, h0)
+        if ops.LAUNCHES["lru_scan"] != before + 2:
+            fail(f"lru_scan made {ops.LAUNCHES['lru_scan'] - before} launches in two calls")
+        if not (torch.equal(hs, hs2) and torch.equal(hT, hT2) and torch.equal(hT, hs[:, -1])):
+            fail(f"lru_scan ({bsz}, {sq}, {w}): two calls differ or h_final is not the last h")
+        want, want_T = ref.lru_scan_ref(a, x, h0)
+        err = max((hs - want).abs().max().item(), (hT - want_T).abs().max().item())
+        del hs2, hT2, want
+        lim = ref.lru_scan_limit(a, x, h0)
+        kern64 = max((hs.double() - lim["want"]).abs().max().item(),
+                     (hT.double() - lim["want_T"]).abs().max().item())
+        if not kern64 <= lim["limit"]:
+            fail(f"lru_scan ({bsz}, {sq}, {w}), {decay} decay: error {kern64} against fp64 > "
+                 f"{lim['limit']} (the plain version's {lim['plain']})")
+        del lim["want"]
         cases.append({
-            "shape": f"a, b ({B},{RG_SQ},{w}) fp32, h0 ({B},{w})", "max_abs_err": err,
-            "tolerance": 1e-6,
+            "shape": f"a, b ({bsz},{sq},{w}) fp32, h0 ({bsz},{w}), {decay} decay",
+            "max_abs_err": err, "err_fp64": kern64, "plain_err_fp64": lim["plain"],
+            "tolerance": f"fp64 error <= max({ref.LRU_ERR_FACTOR} x plain's, "
+                         f"{ref.LRU_ERR_FLOOR} max|h|) = {lim['limit']}",
             "ms": cold_ms(lambda: ops.lru_scan(a, x, h0), flush),
-            "plain_ms": cold_ms(lambda: ref.lru_scan_ref(a, x, h0), flush, iters=3, warmup=1),
+            "plain_ms": (cold_ms(lambda: ref.lru_scan_ref(a, x, h0), flush, iters=3, warmup=1)
+                         if decay == "random" else None),
             "library_ms": None,
             **bound(4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel(), FP32_FLOPS),
         })
-        del a, x, h0, hs, want_hs
+        del a, x, h0, hs
     out.append({"name": "lru_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
                 "replaces": "src/repro/kernels/lru_scan.py:39", "counter": "lru_scan",
                 "arches": [RG_ARCH],
                 "library": "none: no single PyTorch call computes a linear recurrence",
-                **{k: cases[0][k] for k in ("shape", "max_abs_err", "tolerance", "ms",
-                                            "plain_ms", "library_ms", "bound_ms", "bound_by")},
-                "odd_width": cases[1]})
+                "tile": ops.lru_tile_plan(), "ptxas": ptxas_row("lru_scan", lru_tile),
+                **{k: cases[0][k] for k in ("shape", "max_abs_err", "err_fp64", "plain_err_fp64",
+                                            "tolerance", "ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")},
+                "odd_width": cases[1], "admission_b1": cases[2], "slow_decay": cases[3]})
 
     # decode over a 2048-entry ring: per row, the window of a query at
     # position f over entries written at p % 2048 (rows 0 and 3 wrapped,
@@ -1300,9 +1358,9 @@ def hybrid_phases(dev) -> list:
     whole-prompt admission.  Each runs twice: tokens in range, the second
     run identical, and every launch count as predicted -- per prefill
     forward 26 lru_scan and 12 flash_prefill, per decode step 12
-    decode_attention, per sampling call topk's stages."""
+    decode_attention, per sampling call one topk."""
     from repro_torch.configs import SamplingConfig, get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler, WaveScheduler
@@ -1310,13 +1368,12 @@ def hybrid_phases(dev) -> list:
     cfg = get_config(RG_ARCH)
     fams = M.layer_families(cfg)
     n_rec, n_attn = len(fams["rglru"]), len(fams["attn"])
-    topk_per_call = build.library("topk").topk_launches(cfg.vocab_size, 1)
 
     def expect(prefills: int, decodes: int) -> dict:
         out = {name: 0 for name in ops.KERNELS}
         out.update(lru_scan=n_rec * prefills, flash_prefill=n_attn * prefills,
                    decode_attention=n_attn * decodes,
-                   topk=topk_per_call * (prefills + decodes))
+                   topk=prefills + decodes)
         return out
 
     rng = np.random.default_rng(0)
@@ -1463,7 +1520,7 @@ def expected_dequant_launches(cfg, parallel, work) -> int:
 
 def serve_phase(dev, arch: str, weight_quant: str) -> dict:
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import WaveScheduler
@@ -1500,8 +1557,7 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
     expect = {name: 0 for name in ops.KERNELS}
     expect.update({"flash_prefill": cfg.n_layers * waves,
                    "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
-                   "topk": SERVE_MAX_NEW * waves
-                           * build.library("topk").topk_launches(cfg.vocab_size, 1),
+                   "topk": SERVE_MAX_NEW * waves,
                    "dequant_matmul": expected_dequant_launches(cfg, parallel, work),
                    # a parallel-residual layer: one per layer and forward
                    "fused_dual_matmul": cfg.n_layers * SERVE_MAX_NEW * waves
@@ -1542,8 +1598,7 @@ SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
                ("paged-chunked-spec", "paged", dict(prefill_chunk=64, spec_k=SPEC_K)))
 
 
-def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int,
-                           parallel: bool = False) -> dict:
+def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = False) -> dict:
     """Kernel launches of one slot phase from its scheduler's stats.  Per
     whole-prompt admission (``prefill_calls`` not made of chunks): L of
     flash_prefill, or of paged_flash_prefill where a prefix was cached.
@@ -1553,9 +1608,9 @@ def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int,
     decode-active (``mixed_decode_steps``), one decode step.  Per verify
     step: L of flash_verify (two launches each) or paged_flash_prefill.
     Decode blocks make up the rest of ``decode_steps``.  Every prefill,
-    decode and verify call samples once through top-k, and each of those
-    forwards of a parallel-residual model (``parallel``) makes L of
-    fused_dual_matmul: a mixed step with a decode half 2L."""
+    decode and verify call samples once through top-k (one launch), and
+    each of those forwards of a parallel-residual model (``parallel``)
+    makes L of fused_dual_matmul: a mixed step with a decode half 2L."""
     from repro_torch.kernels import ops
 
     mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
@@ -1565,7 +1620,7 @@ def expected_slot_launches(backend: str, st: dict, L: int, topk_per_call: int,
     decodes = st["decode_steps"] - mixed - spec + st["mixed_decode_steps"]
     expect = {name: 0 for name in ops.KERNELS}
     forwards = st["prefill_calls"] + decodes + spec
-    expect["topk"] = topk_per_call * forwards
+    expect["topk"] = forwards
     expect["fused_dual_matmul"] = L * forwards if parallel else 0
     if backend == "paged":
         expect["flash_prefill"] = L * (whole - prefix)
@@ -1612,7 +1667,7 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
     import argparse
 
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
@@ -1626,7 +1681,6 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     args = argparse.Namespace(**SLOT_WORKLOAD)
-    topk_per_call = build.library("topk").topk_launches(cfg.vocab_size, 1)
     L = cfg.n_layers
     classes = {"dense": ContinuousScheduler, "paged": PagedContinuousScheduler}
 
@@ -1696,7 +1750,7 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
         launches = dict(ops.LAUNCHES)
         _, second, dt2 = run(backend, opts)
         st = sched.stats
-        expect = expected_slot_launches(backend, st, L, topk_per_call, cfg.parallel_residual)
+        expect = expected_slot_launches(backend, st, L, cfg.parallel_residual)
         if launches != expect:
             fail(f"{name}: kernel launches {launches} != expected {expect} (stats {st})")
         if backend == "paged":

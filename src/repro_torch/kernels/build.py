@@ -30,7 +30,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # exported C functions: name -> (source, argtypes); every one returns an int:
 # a launching one 0 on success and otherwise a cudaError_t or -1 (bad
-# arguments), the *_workspace and *_launches helpers a count
+# arguments), the *_workspace helper a count
 SIGNATURES = {
     "flash_prefill": ("flash_prefill", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_verify": ("flash_verify",
@@ -44,9 +44,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_flash_prefill": ("paged_flash_prefill",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "topk": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
-    "topk_workspace": ("topk", [_I, _I, _I]),
-    "topk_launches": ("topk", [_I, _I]),
+    "topk": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "lru_scan": ("lru_scan", [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P]),
     "dequant_matmul": ("dequant_matmul",
                        [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

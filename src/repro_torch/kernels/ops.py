@@ -3,9 +3,8 @@
 Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it launches its kernel on the current stream, adds the
-  number of launches to ``LAUNCHES[name]`` (one; top-k launches one per
-  stage, two for a 64000- or 256000-wide row; flash_verify two, the split
-  pass and the merge; the decode kernels, dequant_matmul and
+  number of launches to ``LAUNCHES[name]`` (one; flash_verify two, the
+  split pass and the merge; the decode kernels, top-k, dequant_matmul and
   fused_dual_matmul one, their splits merged in the same launch)
   and raises if a launch is refused;
   there is no fallback to the plain version;
@@ -14,8 +13,9 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 Outputs are allocated here with ``torch.empty``; the kernels allocate
 nothing and do not synchronise.  The arrival counters of split launches
-(``_arrival_counters``) and the matmul kernels' fp32 partials
-(``_matmul_workspace``) are the buffers kept between calls.
+(``_arrival_counters``) and their partials (``_split_workspace``: the
+matmul kernels' fp32 parts, top-k's candidates) are the buffers kept
+between calls.
 """
 from __future__ import annotations
 
@@ -49,10 +49,16 @@ GEMM_NARROW_T, GEMM_BLOCKS_PER_SM, GEMM_MIN_STAGES = 64, 2, 4
 # fewest (each adds a part to every tile's merge) that still give a decode
 # step at gptj-parallel's D = 4096 (32 tiles) a block on every SM, 160
 FDM_CHUNKS = 5
+# lru_scan (csrc/lru_scan.cu, its constants C, G, D): steps a tile,
+# segments (warps) a tile, cp.async stages
+LRU_TILE = (128, 8, 3)
+# top-k (csrc/topk.cu): the most elements a block takes, the fewest, and
+# the most candidates (chunks x k) its merge holds in registers
+TOPK_MAX_CHUNK, TOPK_MIN_CHUNK, TOPK_MAX_MERGE = 4096, 256, 4096
 
 _SMS: dict = {}        # device index -> SM count, read once
 _ARRIVALS: dict = {}   # device index -> int32 arrival counters of split launches
-_WORK: dict = {}       # device index -> fp32 partials of split matmul launches
+_WORK: dict = {}       # device index -> partials of split launches
 
 
 def reset_launches() -> None:
@@ -293,12 +299,13 @@ def fused_split_plan(T: int, Ka: int, Kb: int, D: int, sms: int):
     return -(-T // bn) * -(-D // bm) * -(-stages // chunk), stages, 1, bn, bm, chunk
 
 
-def _matmul_workspace(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` fp32 floats for the partial sums of split matmul
-    launches on ``device``, grown when a launch needs more.  Every launch
-    writes its partials before it reads them, and the next launch on the
-    stream starts after it: one buffer serves every call, on one stream at
-    a time (as ``_arrival_counters``)."""
+def _split_workspace(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 floats for the partials of split launches on
+    ``device`` (the matmul kernels' partial sums, top-k's candidate keys),
+    grown when a launch needs more.  Every launch writes its partials before
+    it reads them, and the next launch on the stream starts after it: one
+    buffer serves every call, on one stream at a time (as
+    ``_arrival_counters``)."""
     key = device.index if device.index is not None else torch.cuda.current_device()
     buf = _WORK.get(key)
     if buf is None or buf.numel() < n:
@@ -313,7 +320,7 @@ def _matmul_split(device: torch.device, T: int, N: int, blocks: int, bn: int, bm
     blocks: two fp32 tiles of parts a block, one counter a tile."""
     if blocks == 1:
         return None, None
-    return (_matmul_workspace(device, blocks * 2 * bn * bm).data_ptr(),
+    return (_split_workspace(device, blocks * 2 * bn * bm).data_ptr(),
             _arrival_counters(device, -(-T // bn) * -(-N // bm)).data_ptr())
 
 
@@ -443,10 +450,19 @@ def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     return out
 
 
+def lru_tile_plan():
+    """(C, G, stages) of the lru_scan kernel: tiles of C steps, scanned by G
+    warps of C / G steps each, staged ``stages`` deep.  The same at every
+    shape: (C, G) fixes where the carries combine, so a row's states are
+    the same bits at any batch (a wave of 4 or a one-request admission)."""
+    return LRU_TILE
+
+
 def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """The RG-LRU linear recurrence ``h_t = a_t h_{t-1} + b_t`` over the
     sequence.  a, b (batch, seq, w) fp32 or bf16, read as fp32; h0 (batch,
-    w) fp32 -> (h (batch, seq, w), h_final (batch, w)), both fp32; any w."""
+    w) fp32 -> (h (batch, seq, w), h_final (batch, w)), both fp32; any w.
+    On the card the sequence is scanned in tiles of ``lru_tile_plan``."""
     if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"lru_scan: shapes a{tuple(a.shape)} b{tuple(b.shape)} "
                          f"h0{tuple(h0.shape)} do not agree")
@@ -464,9 +480,26 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     return hs, h_final
 
 
+def topk_chunk_plan(rows: int, n: int, k: int, sms: int):
+    """(chunk, n_chunks) of the top-k kernel: each row cut into chunks of
+    ``chunk`` elements (a multiple of 32), one block a chunk, enough that
+    rows * n_chunks fills the ``sms`` SMs, but few enough that the row's
+    n_chunks * k candidates fit the merge's registers (TOPK_MAX_MERGE),
+    within [TOPK_MIN_CHUNK, TOPK_MAX_CHUNK].  Past that (large k over a
+    wide row) the merge reads its candidates through L2.  The result does
+    not depend on the plan (the kernel's keys are unique), so the plan may
+    follow the card."""
+    chunk = n // max(1, -(-sms // rows)) // 32 * 32
+    chunk = max(chunk, -(-n // max(1, TOPK_MAX_MERGE // k) // 32) * 32)
+    chunk = min(TOPK_MAX_CHUNK, max(TOPK_MIN_CHUNK, chunk))
+    return chunk, -(-n // chunk)
+
+
 def topk(x: torch.Tensor, k: int):
     """(rows, n) -> (vals (rows, k) fp32, idx (rows, k) int32), largest
-    first, ties to the lowest index."""
+    first, ties to the lowest index, NaN above +inf (NaNs by index).  On the
+    card one launch: the row's chunks (``topk_chunk_plan``) select their k
+    best and the row's last block merges them."""
     if x.dim() != 2 or not 0 < k <= x.shape[1]:
         raise ValueError(f"topk: k={k} over x{tuple(x.shape)}")
     if _device_of(x) == "cpu":
@@ -477,13 +510,14 @@ def topk(x: torch.Tensor, k: int):
     rows, n = x.shape
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
-    lib = build.library("topk")
-    n_work = lib.topk_workspace(rows, n, k)
-    work_v = torch.empty((n_work,), dtype=torch.float32, device=x.device)
-    work_i = torch.empty((n_work,), dtype=torch.int32, device=x.device)
-    build.call("topk", x.data_ptr(), _DTYPES[x.dtype], rows, n, k, vals.data_ptr(),
-               idx.data_ptr(), work_v.data_ptr(), work_i.data_ptr(), _stream())
-    LAUNCHES["topk"] += lib.topk_launches(n, k)   # one launch per stage
+    chunk, n_chunks = topk_chunk_plan(rows, n, k, _sm_count(x.device))
+    work = counters = None
+    if n_chunks > 1:    # 64-bit candidate keys: two floats each
+        work = _split_workspace(x.device, 2 * rows * n_chunks * k).data_ptr()
+        counters = _arrival_counters(x.device, rows).data_ptr()
+    build.call("topk", x.data_ptr(), _DTYPES[x.dtype], rows, n, k, chunk, vals.data_ptr(),
+               idx.data_ptr(), work, counters, _stream())
+    LAUNCHES["topk"] += 1
     return vals, idx
 
 

@@ -120,6 +120,35 @@ def lru_scan_ref(a, b, h0):
     return hs, h
 
 
+# The kernel's tiles combine carries in another order than the plain
+# version's loop, so both are held to an fp64 scan of the same inputs: the
+# kernel's worst error may be at most LRU_ERR_FACTOR times the plain
+# version's, or LRU_ERR_FLOOR times the largest |h|, whichever is larger.
+LRU_ERR_FACTOR, LRU_ERR_FLOOR = 4, 1e-5
+
+
+def lru_scan_fp64(a, b, h0):
+    """``lru_scan_ref`` in fp64: -> (h (batch, seq, w), h_final (batch, w))."""
+    af, bf, h = a.double(), b.double(), h0.double()
+    hs = torch.empty(af.shape, dtype=torch.float64, device=a.device)
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs, h
+
+
+def lru_scan_limit(a, b, h0) -> dict:
+    """The fp64 scan of the inputs (``want``, ``want_T``), the plain
+    version's worst error against it (``plain``) and the limit of a
+    kernel's worst error (``limit``)."""
+    want, want_T = lru_scan_fp64(a, b, h0)
+    hs, hT = lru_scan_ref(a, b, h0)
+    plain = max((hs.double() - want).abs().max().item(),
+                (hT.double() - want_T).abs().max().item())
+    return {"want": want, "want_T": want_T, "plain": plain,
+            "limit": max(LRU_ERR_FACTOR * plain, LRU_ERR_FLOOR * want.abs().max().item())}
+
+
 def dequant_matmul_ref(x, q, scale, mode: str, group: int) -> torch.Tensor:
     """x (T, K) @ dequant(q, scale) in fp32, as the JAX oracle computes it.
     int8: ``(x @ q) * scale``, the per-column scale applied once to the

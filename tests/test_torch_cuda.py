@@ -206,6 +206,36 @@ def test_topk_kernel(dev, rows, n, ties, k, dtype):
         assert torch.equal(idx[0].cpu(), torch.arange(k, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 40, 256])
+@pytest.mark.parametrize("rows,n", [(1, 500), (3, 9000), (2, 64000), (4, 64000), (4, 256000),
+                                    (300, 600)])
+def test_topk_kernel_nan_rows_in_one_launch(dev, rows, n, k, dtype):
+    """NaN ranks above +inf, NaNs by index (a row of NaN gives 0..k-1), as
+    the plain version on the CPU orders them; the values are the input's
+    own bits.  rows x chunks from 2 to 600 blocks (the SMs: 132), each
+    call one launch."""
+    gen = torch.Generator(device=dev).manual_seed(rows * n + k)
+    x = _randn(gen, (rows, n), dtype, dev)
+    x[0, [n // 3, n // 3 + 1, n - 1]] = float("nan")
+    x[0, :5] = float("-inf")
+    if rows > 1:
+        x[1] = float("nan")
+    chunk, n_chunks = ops.topk_chunk_plan(rows, n, k, ops._sm_count(x.device))
+    before = ops.LAUNCHES["topk"]
+    vals, idx = ops.topk(x, k)
+    assert ops.LAUNCHES["topk"] == before + 1
+    rv, ri = ref.topk_ref(x.cpu(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.cpu().view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(idx.cpu(), ri)
+    assert idx[0, 0].item() == n // 3
+    if rows > 1:
+        assert torch.equal(idx[1].cpu(), torch.arange(k, dtype=torch.int32))
+    below = (rows, n) in ((1, 500), (3, 9000)) or (k == 256 and n == 64000)
+    assert (rows * n_chunks < 132) == below
+
+
 def _paged(gen, dev, dtype, b, hq, hkv, hd, nb, bs, nbps, sq):
     """q, pools and block tables: shuffled pool blocks, every third entry
     of the later slots the null block 0."""
@@ -369,8 +399,9 @@ def test_dequant_matmul_kernel_on_unaligned_layer_views(dev, mode):
 @pytest.mark.parametrize("b,s,w", [(1, 1, 64), (2, 1, 4000), (3, 37, 200), (4, 17, 4096),
                                    (1, 300, 129), (4, 40, 4000)])
 def test_lru_scan_kernel(dev, b, s, w, dtype):
-    """One step and many, odd widths (a ragged last block), b 1-4; the
-    sequence not a multiple of the 16 steps whose loads go together."""
+    """One step and many, odd widths (a ragged last block and, at 129,
+    rows that are no whole 16-byte copies: plain loads), b 1-4; sequences
+    not a multiple of a tile's steps."""
     gen = torch.Generator(device=dev).manual_seed(b * s + w)
     a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev)).to(dtype)
     x = torch.randn((b, s, w), generator=gen, device=dev).to(dtype)
@@ -384,6 +415,45 @@ def test_lru_scan_kernel(dev, b, s, w, dtype):
     torch.testing.assert_close(hs, want_hs, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(hT, want_hT, atol=1e-5, rtol=1e-5)
     assert torch.equal(hT, hs[:, -1])
+
+
+@pytest.mark.parametrize("decay", ["random", "slow"])
+@pytest.mark.parametrize("b,s,w", [(1, 2304, 4096), (4, 2304, 512), (2, 700, 4000)])
+def test_lru_scan_kernel_within_the_fp64_limit(dev, b, s, w, decay):
+    """The tiled scan combines its segments' carries in its own order: held
+    against an fp64 scan, its worst error is at most 4x the plain fp32
+    version's, or 1e-5 of the largest |h|, with random decays and slow ones
+    (a in [0.9, 0.999], a trained RG-LRU's range; b = sqrt(1 - a^2) x).
+    Two calls give the same bits, one launch each; h_final is the last
+    state."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + w)
+    if decay == "random":
+        a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev))
+    else:
+        a = 0.9 + 0.099 * torch.rand((b, s, w), generator=gen, device=dev)
+    x = torch.sqrt(1 - a * a) * torch.randn((b, s, w), generator=gen, device=dev)
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+    before = ops.LAUNCHES["lru_scan"]
+    hs, hT = ops.lru_scan(a, x, h0)
+    hs2, hT2 = ops.lru_scan(a, x, h0)
+    assert ops.LAUNCHES["lru_scan"] == before + 2
+    lim = ref.lru_scan_limit(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs2) and torch.equal(hT, hT2) and torch.equal(hT, hs[:, -1])
+    err = max((hs.double() - lim["want"]).abs().max().item(),
+              (hT.double() - lim["want_T"]).abs().max().item())
+    assert err <= lim["limit"]
+
+
+def test_lru_scan_rows_are_the_same_bits_at_any_batch(dev):
+    """A one-request admission and a wave of 4 scan a row alike."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.sigmoid(torch.randn((4, 1000, 256), generator=gen, device=dev))
+    x = torch.randn((4, 1000, 256), generator=gen, device=dev)
+    h0 = torch.randn((4, 256), generator=gen, device=dev)
+    hs, hT = ops.lru_scan(a, x, h0)
+    hs1, hT1 = ops.lru_scan(a[2:3].contiguous(), x[2:3].contiguous(), h0[2:3].contiguous())
+    assert torch.equal(hs[2:3], hs1) and torch.equal(hT[2:3], hT1)
 
 
 def _ring_mask(S, window, frontiers):

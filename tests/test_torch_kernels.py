@@ -211,6 +211,29 @@ def test_topk_plain_ties_go_to_lowest_index():
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jv_))
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [1, 8, 40])
+@pytest.mark.parametrize("b,v", [(4, 1100), (3, 9504)])
+def test_topk_plain_nan_rows_match_jax(b, v, k, dtype):
+    """NaN ranks above +inf, NaNs by index, in the Pallas kernel, the JAX
+    oracle and the plain version alike: NaN on either side of a Pallas
+    tile edge (512), a row of NaN (indices 0..k-1), NaN beside -inf and
+    +inf, -0 beside +0."""
+    rng = np.random.default_rng(b * v + k)
+    x = rng.standard_normal((b, v)).astype(np.float32)
+    x[0, [511, 512, v - 1]] = np.nan
+    x[1] = np.nan
+    x[2, [3, 4, 5]] = [np.inf, np.nan, -np.inf]
+    x[2, 6], x[2, 7] = -0.0, 0.0
+    jx, tx = _both(x, dtype)
+    vals, idx = ops.topk(tx, k)
+    np.testing.assert_array_equal(idx[1].numpy(), np.arange(k))
+    assert idx[0, 0] == 511 and idx[2, 0] == 4
+    for jv_, ji in (jops.topk(jx, k), jref.topk_ref(jx, k)):
+        np.testing.assert_array_equal(_np(vals), np.asarray(jv_))   # NaN == NaN here
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+
+
 def test_wrappers_check_their_arguments():
     q = torch.zeros(1, 4, 5, 64)
     with pytest.raises(ValueError):
