@@ -17,9 +17,13 @@ Phases, each fatal on failure:
    fused_dual_matmul at gptj-parallel's decode and prefill shapes, the
    heads read in place, and at the JAX sweep's odd shape in bf16 and fp32;
    the head_dim-256 flash_verify, paged decode and paged prefill at
-   gptj-parallel's 16 MHA heads), against its plain PyTorch version on the
-   same inputs (stated tolerance; lru_scan, whose tiles combine carries in
-   their own order, against an fp64 scan: at most 4x the plain version's
+   gptj-parallel's 16 MHA heads; the decode kernels' int8 load path at
+   yi-9b's, qwen-72b's (4, 64, 1, 128) over 2950 of 4096 rows and the
+   head_dim-256 shapes, dense and paged, bit for bit against the bf16
+   kernel on the dequantized cache; kv_quant_write in the wave's, a ring's
+   and the slots' and pools' layouts, bit for bit against its plain
+   version), against its plain PyTorch version on the same inputs (stated
+   tolerance; lru_scan, whose tiles combine carries in their own order, against an fp64 scan: at most 4x the plain version's
    error or 1e-5 of max |h|, at the wave prefill, a one-request admission
    and slow decays; top-k bit for bit, NaN rows included; both one launch
    a call), with its time, the plain version's, one PyTorch library
@@ -29,26 +33,33 @@ Phases, each fatal on failure:
    lru_scan and top-k rows also carry the registers and spills nvcc's
    -Xptxas -v printed for the kernel instance they time;
 4. reference: a small GQA model on the card (kernels) against the same
-   model on the CPU (plain versions), in bf16, int8 and int4 weights:
-   prefill and 8 decode-step logits; and in bf16 the slot engine's
+   model on the CPU (plain versions), in bf16, int8 and int4 weights, and
+   over the int8 KV cache in bf16 and int4 weights:
+   prefill and 8 decode-step logits; and in bf16, with and without the
+   int8 KV cache, the slot engine's
    chunked-admission steps (Engine.mixed_step, a chunk beside a decode
    half) and verify steps (Engine.verify_slots, with drafts partly wrong so
    that some are rejected and the slots rewound): every sampled logits row
    and the position rows; and a small RG-LRU hybrid (head_dim 256, window
    64) through a wave and the slot engine past its ring's wrap, the slots
-   admitted a second time: every logits row and the recurrent state; and a
+   admitted a second time, in bf16 and with int8 weights and the int8 KV
+   cache: every logits row and the recurrent state; and a
    small parallel-residual model (head_dim 256) through a teacher-forced
    forward, a wave, the dense slot engine in chunks with spec decode, and
    the paged pool whole-prompt and in chunks with spec decode, the card
    handed the CPU's tokens: every live logits row; a sequential residual
    planted on the card must fail the same limit;
 5. serve: four full-width models with random weights from a seed, each
-   through the port's WaveScheduler: yi-9b in bf16 and in int8 (48
-   layers), qwen-72b in int4 (80 layers), gptj-parallel in bf16 (28
-   layers).  Each serves 8 requests in waves of 4, greedy, 32 new tokens
-   each; tokens in range, a second run identical, and every kernel's
-   launch count as the path predicts it (gptj-parallel: 28
-   fused_dual_matmul per forward);
+   through the port's WaveScheduler: yi-9b in bf16, over the int8 KV cache
+   and in int8 (48 layers), qwen-72b in int4 (80 layers), gptj-parallel in
+   bf16 (28 layers).  Each serves 8 requests in waves of 4, greedy, 32 new
+   tokens each; and qwen-72b in int4 over the int8 KV cache serves 4
+   prompts of 2800-3000 tokens into a 4096-token cache in one wave, 32 new
+   tokens each, with its peak memory below the card's (a bf16 cache of
+   that size would not fit beside the weights); tokens in range, a second
+   run identical, and every kernel's launch count as the path predicts it
+   (gptj-parallel: one fused_dual_matmul a layer per forward; int8 KV: L
+   kv_quant_write per forward and the decode kernels' int8 instance);
 6. slots: full-width yi-9b bf16 (48 layers) through continuous batching,
    over the dense slot cache (ContinuousScheduler) and the paged one
    (PagedContinuousScheduler), each once admitting whole prompts
@@ -68,20 +79,27 @@ Phases, each fatal on failure:
    same tokens.  Random full-width weights make greedy streams that
    repeat one token whatever their context, so these token checks show
    that the path runs and rewinds, not that its attention reads the
-   right rows: phase 4 shows that;
-7. hybrid: full-width recurrentgemma-9b bf16 (38 layers) through the
+   right rows: phase 4 shows that.  The four phases run again over the
+   int8 KV cache, each parting certified against the plain versions (as
+   gptj-parallel's are, in 8): its paged cached prefix is a second
+   approximation of the cache in the reference too;
+7. hybrid: full-width recurrentgemma-9b (38 layers), in bf16 and then
+   with int8 weights and the int8 KV cache, through the
    WaveScheduler (prompts of 2100-2300 tokens, longer than the 2048-token
    window) and the ContinuousScheduler (its default chunk falls back to
    whole prompts; slots decode past position 2048): tokens in range, a
-   second run identical, the ring wrapped, and launch counts exactly 26
-   lru_scan and 12 flash_prefill per prefill forward, 12 decode_attention
-   per decode step; then 4 decode steps past the window under
+   second run identical, the ring wrapped, and launch counts exactly one
+   lru_scan a recurrent layer and one flash_prefill an attention layer per
+   prefill forward, one decode_attention an attention layer per decode
+   step (int8: its int8 instance, one kv_quant_write an attention layer a
+   forward, and a dequant_matmul per quantized projection); then 4 decode steps
+   past the window under
    torch.profiler, whose decode_attention device time over its launches
    stands beside the head_dim-256 decode row's cold time (``in_step``);
-8. parallel slots: full-width gptj-parallel bf16 (28 layers) through the
-   four phases of 6, on the same workload and checks, its launches
-   counted as there, with 28 fused_dual_matmul per forward (56 per mixed
-   step with a decode half); but where a stream parts from the dense
+8. parallel slots: full-width gptj-parallel bf16 (28 layers)
+   through the four phases of 6, on the same workload and checks, its
+   launches counted as there, with one fused_dual_matmul a layer per
+   forward (two per mixed step with a decode half); but where a stream parts from the dense
    phase's, the plain versions (run on the card) certify the near-tie:
    on the same inputs the port's logits lie within 5e-2 of theirs, and
    both tokens within 5e-2 of their top.
@@ -121,8 +139,14 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW, SERVE_MAX_LEN = 8, 4, 32, 256
 # GELU FFN of 16384, vocab 50400; every layer's attention out-projection and
 # FFN down-projection go through one fused_dual_matmul
 GJ_ARCH, GJ_H, GJ_HD, GJ_D, GJ_F = "gptj-parallel", 16, 256, 4096, 16384
-# (arch, weight_quant) of the serve phases, in order
-SERVE_PHASES = (("yi-9b", "none"), ("yi-9b", "int8"), ("qwen-72b", "int4"), (GJ_ARCH, "none"))
+# (arch, weight_quant, kv_quant) of the serve phases, in order; consecutive
+# phases of one (arch, weight_quant) share their weights
+SERVE_PHASES = (("yi-9b", "none", False), ("yi-9b", "none", True), ("yi-9b", "int8", False),
+                ("qwen-72b", "int4", False), ("qwen-72b", "int4", True), (GJ_ARCH, "none", False))
+# qwen-72b int4 with the int8 KV cache: 4 prompts of 2800-3000 tokens in one
+# wave, 32 new tokens, a 4096-token cache (a bf16 cache would not fit beside
+# the weights)
+QWEN_LONG = dict(requests=4, batch=4, prompt=(2800, 3000), max_new=32, max_len=4096)
 # paged kernels: 16-token blocks; decode over a shuffled 32-entry table
 # (512-token view, 300 valid rows); prefill of a 64-token suffix after a
 # 64..128-token prefix in a 256-token view
@@ -207,8 +231,8 @@ def _mma(hd: int, paged: bool, split: bool) -> str:
     return f"mma_body6kernelILi{hd}ELb{int(paged)}ELb{int(split)}E"
 
 
-def _dec(hd: int, paged: bool) -> str:
-    return f"decode6kernelI13__nv_bfloat16Li{hd}ELb{int(paged)}E"
+def _dec(hd: int, paged: bool, q8: bool = False) -> str:
+    return f"decode6kernelI13__nv_bfloat16Li{hd}ELb{int(paged)}ELb{int(q8)}E"
 
 
 # the mangled-name part of a matmul kernel instance (csrc/gemm_sm90.cuh's
@@ -356,6 +380,7 @@ def check_kernels(dev, flush) -> list:
         row["arches"] = ["yi-9b", "qwen-72b"]
     out.extend(check_hybrid_kernels(dev, flush))
     out.extend(check_parallel_kernels(dev, flush))
+    out.extend(check_int8_kernels(dev, flush))
     return out
 
 
@@ -797,6 +822,244 @@ def check_paged(dev, flush, heads=(HQ, HKV, HD)) -> list:
     return out
 
 
+# the int8 KV cache: qwen-72b's wave at 4 x ~2950 tokens of a 4096-token
+# cache (64 MHA heads of 128)
+QW_HQ, QW_S, QW_VALID = 64, 4096, 2950
+
+
+def int8_decode_case(q, kq, ks, vq, vs, valid, scale, flush, bt=None) -> dict:
+    """One int8 decode case, dense or (``bt``) paged: the int8 kernel bit for
+    bit against the bf16 kernel on ``dequantize_kv`` of the same cache (m, l
+    and acc), and against the plain version (dequantize, then the plain
+    decode) to 1e-3 on the output and m and 1e-4 relative on l, as rows 4
+    and 5 are held; the times of the int8 kernel, the bf16 kernel on the copy, the
+    plain version and SDPA over the dequantized copy (the dequantization
+    and, paged, the gather untimed; no PyTorch call reads int8), and the
+    bound: q, the int8 values and bf16 scales of the valid rows, the mask,
+    the table and the fp32 outputs, each once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    kd, vd = ref.dequantize_kv(kq, ks), ref.dequantize_kv(vq, vs)
+    if bt is None:
+        call = lambda: ops.decode_attention_partial(q, kq, vq, valid, scale, k_scale=ks,
+                                                    v_scale=vs)
+        on_copy = lambda: ops.decode_attention_partial(q, kd, vd, valid, scale)
+        plain = lambda: ref.decode_attention_ref(q, ref.dequantize_kv(kq, ks),
+                                                 ref.dequantize_kv(vq, vs), valid, scale)
+        kv, vv = kd, vd
+    else:
+        call = lambda: ops.paged_decode_attention_partial(q, kq, vq, bt, valid, scale,
+                                                          k_scale=ks, v_scale=vs)
+        on_copy = lambda: ops.paged_decode_attention_partial(q, kd, vd, bt, valid, scale)
+        plain = lambda: ref.paged_decode_attention_ref(q, ref.dequantize_kv(kq, ks),
+                                                       ref.dequantize_kv(vq, vs), bt, valid,
+                                                       scale)
+        kv, vv = ref.paged_view(kd, bt), ref.paged_view(vd, bt)
+    got, want = call(), on_copy()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want)):
+        diff = max((a - b).nan_to_num().abs().max().item() for a, b in zip(got, want))
+        fail(f"int8 decode ({'paged' if bt is not None else 'dense'}, q {tuple(q.shape)}) "
+             f"differs from the bf16 kernel on the dequantized cache by {diff}")
+    m, l, acc = got
+    m2, l2, acc2 = plain()
+    live = l2 > 0                                   # rows with a valid key
+    err = max((acc / l[..., None] - acc2 / l2[..., None])[live].abs().max().item(),
+              (m - m2)[live].abs().max().item())
+    l_rel = ((l - l2)[live].abs() / l2[live]).max().item()
+    tol = 1e-3
+    if not (err <= tol and l_rel <= 1e-4 and torch.equal(live, l > 0)):
+        fail(f"int8 decode ({'paged' if bt is not None else 'dense'}, q {tuple(q.shape)}) "
+             f"differs from its plain version: {err} (tol {tol}), l relative {l_rel} "
+             f"(tol 1e-4)")
+    b, hq, _, hd = q.shape
+    hkv = kq.shape[1]
+    mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
+    n_valid = int(valid.sum()) * (b if valid.dim() == 1 else 1)     # (row, key) pairs
+    return {
+        "max_abs_err": err, "l_rel_err": l_rel,
+        "tolerance": "bit for bit against the bf16 kernel on the dequantized cache; "
+                     f"against the plain version {tol} on the output and m, 1e-4 relative "
+                     "on l",
+        "ms": cold_ms(call, flush), "bf16_kernel_on_copy_ms": cold_ms(on_copy, flush),
+        "plain_ms": cold_ms(plain, flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, kv, vv, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+        **bound(2 * q.numel() + n_valid * hkv * (2 * hd + 4) + valid.numel()
+                + (0 if bt is None else 4 * bt.numel())
+                + 4 * (m.numel() + l.numel() + acc.numel()),
+                4 * hd * hq * n_valid, BF16_FLOPS),
+    }
+
+
+def kvq_write_case(what, k, v, n, m, dst, flush, dequantized, null_block=False) -> dict:
+    """kv_quant_write of fresh k, v into int8 caches (n, h, m, hd) at the
+    targets ``dst``: values, scales and (``dequantized``) the dequantized
+    fresh K/V bit for bit against the plain version (``null_block``: the
+    null block 0, written by several tokens in no set order and never read
+    as valid, is left out); the kernel's and the plain version's times; the
+    bound: k and v read, the written tokens' values and scales (and the
+    dequantized K/V) written, the targets read, once each."""
+    from repro_torch.kernels import ops, ref
+
+    b, h, s, hd = k.shape
+    new = lambda: ([torch.zeros((n, h, m, hd), dtype=torch.int8, device=k.device)
+                    for _ in range(2)]
+                   + [torch.zeros((n, h, m), dtype=torch.bfloat16, device=k.device)
+                      for _ in range(2)])
+    got_c, want_c = new(), new()
+    before = ops.LAUNCHES["kv_quant_write"]
+    got = ops.kv_quant_write(k, v, *got_c, *dst, dequantized=dequantized)
+    if ops.LAUNCHES["kv_quant_write"] != before + 1:
+        fail("kv_quant_write made more than one launch in a call")
+    want = ref.kv_quant_write_ref(k, v, *want_c, *dst)
+    keep = slice(1, None) if null_block else slice(None)
+    same = all(torch.equal(a[keep].view(torch.uint8), w[keep].view(torch.uint8))
+               for a, w in zip(got_c[:2], want_c[:2]))
+    same &= all(torch.equal(a[keep].view(torch.int16), w[keep].view(torch.int16))
+                for a, w in zip(got_c[2:], want_c[2:]))
+    if dequantized:
+        same &= all(torch.equal(a.view(torch.int16), w.view(torch.int16))
+                    for a, w in zip(got, want))
+    if not same:
+        fail(f"kv_quant_write ({what}) differs from its plain version")
+    written = int((dst[0] >= 0).sum()) * h
+    n_bytes = (2 * 2 * k.numel() + 2 * written * (hd + 2) + 8 * b * s
+               + (2 * 2 * k.numel() if dequantized else 0))
+    return {"case": what, "shape": f"k/v ({b},{h},{s},{hd}) bf16 -> ({n},{h},{m},{hd}) int8, "
+                                   f"{written // h} tokens written",
+            "max_abs_err": 0.0, "tolerance": "bit for bit against the plain version",
+            "ms": cold_ms(lambda: ops.kv_quant_write(k, v, *got_c, *dst,
+                                                     dequantized=dequantized), flush),
+            "plain_ms": cold_ms(lambda: ref.kv_quant_write_ref(k, v, *want_c, *dst), flush),
+            "library_ms": None, **bound(n_bytes, 5 * 2 * k.numel(), FP32_FLOPS)}
+
+
+def check_int8_kernels(dev, flush) -> list:
+    """The int8 KV cache's kernels: the decode kernels' int8 load path at
+    yi-9b's rows 4 and 5 shapes, at head_dim 256 (row 4b's recurrentgemma
+    ring; row 5b's gptj-parallel pools) and at qwen-72b's (4, 64, 1, 128)
+    over a 4096-entry cache with 2950 valid rows, dense and paged; and
+    kv_quant_write in the wave's, a ring's and the slots' and pools'
+    layouts at the serving paths' shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    kv8 = lambda *shape: ref.quantize_kv(rnd(*shape).bfloat16())
+    out = []
+
+    def dense(hq, hkv, S, hd, valid):
+        q = rnd(B, hq, 1, hd).bfloat16()
+        (kq, ks), (vq, vs) = kv8(B, hkv, S, hd), kv8(B, hkv, S, hd)
+        return q, kq, ks, vq, vs, valid
+
+    idx = torch.arange(RG_WINDOW, device=dev)
+    frontiers = [2300, 2047, 1500, 3000]
+    cases = {
+        "yi-9b": dense(HQ, HKV, DECODE_S, HD, torch.arange(DECODE_S, device=dev) < DECODE_VALID),
+        "qwen-72b": dense(QW_HQ, QW_HQ, QW_S, HD, torch.arange(QW_S, device=dev) < QW_VALID),
+        RG_ARCH: dense(RG_HQ, 1, RG_WINDOW, RG_HD,
+                       torch.stack([(f - (f - idx) % RG_WINDOW >= 0) for f in frontiers])),
+    }
+    shapes = {"yi-9b": f"q ({B},{HQ},1,{HD}) bf16, k/v ({B},{HKV},{DECODE_S},{HD}) int8, "
+                       f"{DECODE_VALID} valid",
+              "qwen-72b": f"q ({B},{QW_HQ},1,{HD}) bf16, k/v ({B},{QW_HQ},{QW_S},{HD}) int8, "
+                          f"{QW_VALID} valid",
+              RG_ARCH: f"q ({B},{RG_HQ},1,{RG_HD}) bf16, k/v ({B},1,{RG_WINDOW},{RG_HD}) int8 "
+                       f"ring, per-row window masks at positions {frontiers}"}
+    for arch, case in cases.items():
+        hd = case[0].shape[-1]
+        out.append({
+            "name": "decode_attention_partial (int8)" + ("" if arch == "yi-9b" else f", {arch}"),
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:66",
+            "counter": "decode_attention_int8", "arches": [arch], "shape": shapes[arch],
+            "library": "SDPA with a bool mask over the dequantized cache (dequantization "
+                       "untimed)",
+            "ptxas": ptxas_row("decode_attention", _dec(hd, False, True)),
+            **int8_decode_case(*case, hd ** -0.5, flush)})
+        del case
+    del cases
+
+    # paged: each slot's valid rows in its first table entries, the rest null
+    paged = []
+    for what, hq, hkv, hd, nbps, n_valid in (("yi-9b", HQ, HKV, HD, DECODE_NBPS, DECODE_VALID),
+                                             (GJ_ARCH, GJ_H, GJ_H, GJ_HD, DECODE_NBPS,
+                                              DECODE_VALID),
+                                             ("qwen-72b", QW_HQ, QW_HQ, HD, QW_S // BLOCK,
+                                              QW_VALID)):
+        nb = B * nbps + 1
+        (kq, ks), (vq, vs) = kv8(nb, hkv, BLOCK, hd), kv8(nb, hkv, BLOCK, hd)
+        q = rnd(B, hq, 1, hd).bfloat16()
+        live = -(-n_valid // BLOCK)
+        bt = (torch.randperm(nb - 1, generator=gen, device=dev)[:B * nbps] + 1)
+        bt = bt.reshape(B, nbps).to(torch.int32)
+        bt[:, live:] = 0
+        bt = bt.contiguous()
+        valid = (torch.arange(nbps * BLOCK, device=dev) < n_valid).expand(B, -1).contiguous()
+        paged.append({"case": what, "shape": f"q ({B},{hq},1,{hd}) bf16, pools ({nb},{hkv},"
+                                             f"{BLOCK},{hd}) int8, shuffled table ({B},{nbps}),"
+                                             f" {n_valid} valid",
+                      "ptxas": ptxas_row("paged_decode_attention", _dec(hd, True, True)),
+                      **int8_decode_case(q, kq, ks, vq, vs, valid, hd ** -0.5, flush, bt=bt)})
+        del kq, ks, vq, vs
+    out.append({"name": "paged_decode_attention_partial (int8)", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:184",
+                "counter": "paged_decode_attention_int8", "arches": ["yi-9b"],
+                "library": "SDPA with a bool mask over the dequantized view gathered "
+                           "beforehand (dequantization and gather untimed)",
+                **{k: v for k, v in paged[0].items() if k != "case"},
+                "head_dim_256": paged[1], "qwen_72b": paged[2]})
+
+    # kv_quant_write: K/V as a layer makes them (transposed views of (b, s, h, hd))
+    fresh = lambda b, s, h, hd: tuple(rnd(b, s, h, hd).bfloat16().transpose(1, 2)
+                                      for _ in range(2))
+    writes = []
+    k, v = fresh(B, 1, QW_HQ, HD)
+    writes.append(kvq_write_case("qwen-72b decode step, wave cache", k, v, B, QW_S,
+                                 attn.quant_targets(B, 1, dev, wave_pos=QW_VALID), flush, False))
+    k, v = fresh(B, QW_VALID, QW_HQ, HD)
+    writes.append(kvq_write_case("qwen-72b wave prefill", k, v, B, QW_S,
+                                 attn.quant_targets(B, QW_VALID, dev, wave_pos=0), flush, True))
+    k, v = fresh(B, RG_SQ, 1, RG_HD)
+    ring = torch.arange(RG_SQ - RG_WINDOW, RG_SQ, device=dev) % RG_WINDOW
+    writes.append(kvq_write_case("recurrentgemma-9b wave prefill into its ring", k, v, B,
+                                 RG_WINDOW, attn.quant_targets(B, RG_SQ, dev, ring_idx=ring),
+                                 flush, True))
+    k, v = fresh(B, 1, HKV, HD)
+    rows = torch.tensor([0, 2, 3], device=dev)
+    writes.append(kvq_write_case(
+        "yi-9b slot decode, three of four rows", k, v, SLOTS, SERVE_MAX_LEN,
+        attn.quant_targets(B, 1, dev, targets=(rows, torch.tensor([70, 5, 130], device=dev)),
+                           src=rows), flush, False))
+    nbps = SERVE_MAX_LEN // BLOCK
+    k, v = fresh(B, PREFILL_SQ, HKV, HD)
+    bt = (torch.randperm(B * nbps, generator=gen, device=dev) + 1).reshape(B, nbps)
+    bt[-1, -2:] = 0                                       # past the table: the null block
+    starts = torch.tensor([64, 80, 100, 200], device=dev)
+    phys, off = attn.paged_flat_targets(bt, starts, PREFILL_SQ, BLOCK)
+    writes.append(kvq_write_case("yi-9b paged chunk of 64", k, v, B * nbps + 1, BLOCK,
+                                 attn.quant_targets(B, PREFILL_SQ, dev, targets=(phys, off)),
+                                 flush, False, null_block=True))
+    del k, v
+    head = writes[0]
+    out.append({"name": "kv_quant_write", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/kv_quant_write.cu",
+                "replaces": "src/repro/models/attention.py:156",
+                "replaces_what": "no Pallas kernel: _quantize_kv and the cache writes in jnp",
+                "counter": "kv_quant_write", "arches": ["yi-9b", "qwen-72b", RG_ARCH],
+                "library": "none: no single PyTorch call quantizes and scatters",
+                "ptxas": ptxas_row("kv_quant_write", "kvq6kernelILi128E"),
+                **{k: head[k] for k in ("shape", "max_abs_err", "tolerance", "ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by")},
+                "cases": writes})
+    return out
+
+
 def check_dequant(dev, flush) -> dict:
     """dequant_matmul at the cases of DQ_CASES.  Tolerance: 1e-4 of the
     largest |output| for sums over K <= 24576 in another order (every
@@ -882,19 +1145,20 @@ def small_gqa(dev, weight_quant: str = "none"):
     return cfg, cpu, to_device(cpu, dev)
 
 
-def reference_check(dev, weight_quant: str = "none") -> dict:
+def reference_check(dev, weight_quant: str = "none", kv_quant: bool = False) -> dict:
     """The small GQA model on the card against the same weights on the CPU,
     where the plain versions run: prefill logits and 8 teacher-forced
-    decode steps, within REF_TOL."""
+    decode steps, within REF_TOL; ``kv_quant``: over the int8 KV cache."""
     cfg, cpu, gpu = small_gqa(dev, weight_quant)
-    worst = teacher_forced_worst(cfg, cpu, gpu, dev)
+    worst = teacher_forced_worst(cfg, cpu, gpu, dev, kv_quant)
     if not worst <= REF_TOL:
-        fail(f"{weight_quant} card logits differ from the CPU's by {worst} > {REF_TOL}")
+        fail(f"{weight_quant} kv_quant={kv_quant}: card logits differ from the CPU's by "
+             f"{worst} > {REF_TOL}")
     return {"config": cfg.name + "-gqa-hd128", "weight_quant": weight_quant,
-            "max_abs_logit_err": worst, "tolerance": REF_TOL}
+            "kv_quant": kv_quant, "max_abs_logit_err": worst, "tolerance": REF_TOL}
 
 
-def teacher_forced_worst(cfg, cpu, gpu, dev) -> float:
+def teacher_forced_worst(cfg, cpu, gpu, dev, kv_quant: bool = False) -> float:
     """The largest |card - CPU| over the logits of a 3 x 20-token prefill
     and 8 decode steps fed the CPU's greedy tokens; fails on non-finite
     card logits."""
@@ -902,7 +1166,8 @@ def teacher_forced_worst(cfg, cpu, gpu, dev) -> float:
 
     b, plen, max_len = 3, 20, 128
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
-    caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
+    caches = {d: M.init_caches(cfg, b, max_len, device=d, kv_quant=kv_quant)
+              for d in ("cpu", dev)}
     worst = 0.0
     with torch.inference_mode():
         lc = M.forward(cpu, tokens, cfg, caches=caches["cpu"])
@@ -937,7 +1202,7 @@ def sampled_logits(log: list):
         E.sample_tokens = sample
 
 
-def slot_reference_check(dev) -> dict:
+def slot_reference_check(dev, kv_quant: bool = False) -> dict:
     """The slot engine's chunked-admission and verify steps on the card
     against the same calls on the CPU, on the small GQA model.
 
@@ -958,15 +1223,16 @@ def slot_reference_check(dev) -> dict:
     logits lie within 2 x REF_TOL) is compared no further.  Fails unless
     it compared mixed steps with a decode half, verify rows that accepted
     some but not all of their drafts, and verify rows computed at another
-    batch row than their slot's."""
+    batch row than their slot's.  ``kv_quant``: over the int8 KV cache."""
     import copy
 
-    from repro_torch.configs import SamplingConfig
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.runtime.engine import Engine
 
     cfg, cpu, gpu = small_gqa(dev)
     S, C, nslot = 128, 16, 3
-    eng = {d: Engine(cfg, params=p, sampling=SamplingConfig(top_k=1), max_len=S, device=where)
+    eng = {d: Engine(cfg, parallel=ParallelConfig(kv_quant=kv_quant), params=p,
+                     sampling=SamplingConfig(top_k=1), max_len=S, device=where)
            for d, p, where in (("cpu", cpu, "cpu"), ("card", gpu, dev))}
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (20, 33, 40)]
@@ -1073,8 +1339,8 @@ def slot_reference_check(dev) -> dict:
         fail(f"slot reference: no mixed decode half, partly accepted verify row or "
              f"verify over a row map compared: {seen}, parted {parted}")
     return {"config": cfg.name + "-gqa-hd128", "calls": "mixed_step, verify_slots",
-            "max_abs_logit_err": worst, "tolerance": REF_TOL, "compared": seen,
-            "parted": parted}
+            "kv_quant": kv_quant, "max_abs_logit_err": worst, "tolerance": REF_TOL,
+            "compared": seen, "parted": parted}
 
 
 # the small hybrid, card against CPU: five bf16 layers over 80 tokens carry
@@ -1086,24 +1352,25 @@ def slot_reference_check(dev) -> dict:
 HYBRID_TOL = 0.1
 
 
-def small_hybrid(dev):
+def small_hybrid(dev, weight_quant: str = "none"):
     """The hybrid reference checks' model: recurrentgemma-9b's pattern over
     5 layers (R, R, A, R, R: a period group and two singles), d 512, 2 q
     heads over 1 KV head of head_dim 256, window 64, d_ff 1024, vocab 512;
     random weights from seed 1 -> (cfg, CPU params, the same on ``dev``)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config(RG_ARCH).reduced(), n_layers=5, d_model=512, n_heads=2,
                               n_kv_heads=1, head_dim=256, d_ff=1024)
-    cpu = M.init_params(cfg, seed=1, device="cpu")
+    cpu = M.init_params(cfg, ParallelConfig(weight_quant=weight_quant), seed=1, device="cpu")
     return cfg, cpu, to_device(cpu, dev)
 
 
-def hybrid_reference_check(dev) -> dict:
+def hybrid_reference_check(dev, weight_quant: str = "none", kv_quant: bool = False) -> dict:
     """The small hybrid on the card (kernels) against the same model on the
-    CPU (plain versions), in bf16: every logits row and the recurrent state
-    (h, conv), within HYBRID_TOL.
+    CPU (plain versions), in bf16 or with int8 weights and the int8 KV
+    cache: every logits row and the recurrent state (h, conv), within
+    HYBRID_TOL.
 
     Wave: 3 prompts of 80 tokens into a 64-entry ring (the prefill keeps the
     last 64), then 24 teacher-forced decode steps, positions 80-103 at
@@ -1117,11 +1384,12 @@ def hybrid_reference_check(dev) -> dict:
     full-width weights repeat one token, so the serve phases' token checks
     cannot.  A fault shared by both devices (the model's code runs on
     both) is the CPU tests' to find, against the JAX package."""
-    from repro_torch.configs import SamplingConfig
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
 
-    cfg, cpu, gpu = small_hybrid(dev)
+    cfg, cpu, gpu = small_hybrid(dev, weight_quant)
+    parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=kv_quant)
     steps = 24
     worst = {"wave_logits": 0.0, "slot_logits": 0.0, "h": 0.0, "conv": 0.0}
 
@@ -1138,7 +1406,8 @@ def hybrid_reference_check(dev) -> dict:
     rng = np.random.default_rng(4)
     with torch.inference_mode():
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 80)))
-        caches = {d: M.init_caches(cfg, 3, 128, device=d) for d in ("cpu", dev)}
+        caches = {d: M.init_caches(cfg, 3, 128, device=d, kv_quant=kv_quant)
+                  for d in ("cpu", dev)}
         lc = M.forward(cpu, tokens, cfg, caches=caches["cpu"])
         cmp("wave_logits", lc, M.forward(gpu, tokens.to(dev), cfg, caches=caches[dev]))
         for cur in range(80, 80 + steps):
@@ -1153,8 +1422,8 @@ def hybrid_reference_check(dev) -> dict:
         if not (ring.numel() == cfg.window and int(ring.min()) == 80 + steps - cfg.window):
             fail(f"hybrid reference: the wave ring did not wrap as expected: {ring.tolist()}")
 
-        eng = {d: Engine(cfg, params=p, sampling=SamplingConfig(top_k=1), max_len=128,
-                         device=where)
+        eng = {d: Engine(cfg, parallel=parallel, params=p, sampling=SamplingConfig(top_k=1),
+                         max_len=128, device=where)
                for d, p, where in (("cpu", cpu, "cpu"), ("card", gpu, dev))}
         caches = {d: e.init_slot_caches(3) for d, e in eng.items()}
         for plens, n in ((np.array([50, 12, 33]), 4), (np.array([23, 41, 60]), steps)):
@@ -1180,6 +1449,7 @@ def hybrid_reference_check(dev) -> dict:
     if not max(worst.values()) <= HYBRID_TOL:
         fail(f"hybrid reference: card differs from the CPU by {worst} > {HYBRID_TOL}")
     return {"config": cfg.name + "-5layer-d512-hd256", "layers": "R,R,A,R,R",
+            "weight_quant": weight_quant, "kv_quant": kv_quant,
             "window": cfg.window, "max_abs_err": worst, "tolerance": HYBRID_TOL,
             "slot_positions_past_window": int((plens + steps - 1 >= cfg.window).sum())}
 
@@ -1352,39 +1622,55 @@ def parallel_reference_check(dev) -> dict:
 
 
 def hybrid_phases(dev) -> list:
-    """Full-width recurrentgemma-9b bf16, random weights from seed 0, greedy:
-    (a) WaveScheduler over RG_WAVE; (b) ContinuousScheduler over RG_SLOTS
-    with ``prefill_chunk`` left at its default, from which it falls back to
+    """Full-width recurrentgemma-9b, random weights from seed 0, greedy, in
+    bf16 and then with int8 weights and the int8 KV cache, all 38 layers:
+    (a)
+    WaveScheduler over RG_WAVE; (b) ContinuousScheduler over RG_SLOTS with
+    ``prefill_chunk`` left at its default, from which it falls back to
     whole-prompt admission.  Each runs twice: tokens in range, the second
     run identical, and every launch count as predicted -- per prefill
-    forward 26 lru_scan and 12 flash_prefill, per decode step 12
-    decode_attention, per sampling call one topk."""
-    from repro_torch.configs import SamplingConfig, get_config
+    forward one lru_scan a recurrent layer and one flash_prefill an
+    attention layer (26 and 12 at 38 layers), per decode step one
+    decode_attention an attention layer (int8: its int8 instance), per
+    sampling call one topk; int8: per forward one kv_quant_write an
+    attention layer and one dequant_matmul for each quantized projection
+    and the lm_head."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler, WaveScheduler
 
-    cfg = get_config(RG_ARCH)
-    fams = M.layer_families(cfg)
-    n_rec, n_attn = len(fams["rglru"]), len(fams["attn"])
-
-    def expect(prefills: int, decodes: int) -> dict:
+    def expect(cfg, prefills: int, decodes: int, parallel) -> dict:
+        fams = M.layer_families(cfg)
+        n_rec, n_attn = len(fams["rglru"]), len(fams["attn"])
         out = {name: 0 for name in ops.KERNELS}
         out.update(lru_scan=n_rec * prefills, flash_prefill=n_attn * prefills,
-                   decode_attention=n_attn * decodes,
-                   topk=prefills + decodes)
+                   topk=prefills + decodes,
+                   dequant_matmul=dequant_launches_per_forward(cfg, parallel)
+                   * (prefills + decodes))
+        if parallel.kv_quant:
+            out.update(decode_attention_int8=n_attn * decodes,
+                       kv_quant_write=n_attn * (prefills + decodes))
+        else:
+            out.update(decode_attention=n_attn * decodes)
         return out
 
     rng = np.random.default_rng(0)
     results, params = [], None
-    for phase in ("wave", "continuous"):
+    for weight_quant, phase in (("none", "wave"), ("none", "continuous"), ("int8", "wave"),
+                                ("int8", "continuous")):
+        parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=weight_quant != "none")
+        cfg = get_config(RG_ARCH)
         t_phase = time.monotonic()
         opts = RG_WAVE if phase == "wave" else RG_SLOTS
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=opts["max_len"],
-                     params=params, seed=0, device=dev)
+        if phase == "wave":             # each weight set drawn once, for its two phases
+            params = None
+            torch.cuda.empty_cache()
+        eng = Engine(cfg, parallel=parallel, sampling=SamplingConfig(top_k=1),
+                     max_len=opts["max_len"], params=params, seed=0, device=dev)
         params = eng.params
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
@@ -1419,15 +1705,16 @@ def hybrid_phases(dev) -> list:
         _, second, dt2 = run()
         if phase == "wave":
             waves = -(-len(work) // opts["batch"])
-            want = expect(waves, waves * (opts["max_new"] - 1))
+            want = expect(cfg, waves, waves * (opts["max_new"] - 1), parallel)
             wrapped = min(len(p) for p in work) > cfg.window
         else:
             st = sched.stats
-            want = expect(st["prefill_calls"], st["decode_steps"])
+            want = expect(cfg, st["prefill_calls"], st["decode_steps"], parallel)
             # the last position a slot writes is prompt + emitted - 2
             wrapped = max(len(p) + len(first[i]) - 2 for i, p in enumerate(work)) >= cfg.window
         if launches != want:
-            fail(f"{RG_ARCH} {phase}: kernel launches {launches} != expected {want}")
+            fail(f"{RG_ARCH} {weight_quant} {phase}: kernel launches {launches} != expected "
+                 f"{want}")
         if not wrapped:
             fail(f"{RG_ARCH} {phase}: no slot's ring wrapped")
         for rid, toks in first.items():
@@ -1438,12 +1725,13 @@ def hybrid_phases(dev) -> list:
                 fail(f"{RG_ARCH} {phase} request {rid}: greedy tokens differ between two runs")
         n_tokens = sum(len(t) for t in first.values())
         result = {
-            "arch": cfg.name, "scheduler": phase, "layers": cfg.n_layers,
+            "arch": cfg.name, "scheduler": phase, "weight_quant": weight_quant,
+            "kv_quant": parallel.kv_quant, "layers": cfg.n_layers,
             "params": cfg.param_count(), "requests": len(work), "max_len": opts["max_len"],
             "prompt_lens": [len(p) for p in work], "max_new": budgets, "tokens": n_tokens,
             "init_s": init_s, "wall_s": [dt1, dt2],
             "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
-            "swept_bytes_per_token": M.decode_weight_bytes(cfg),
+            "swept_bytes_per_token": M.decode_weight_bytes(cfg, parallel),
             "launches": launches, "repeatable": True, "ring_wrapped": True,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
@@ -1504,21 +1792,25 @@ def decode_kernel_in_step(eng, cfg, dev, steps: int = 4) -> dict:
             "prompt_len": prompts.shape[1]}
 
 
-def expected_dequant_launches(cfg, parallel, work) -> int:
-    """dequant_matmul launches of the serve workload: per wave one prefill
-    and SERVE_MAX_NEW - 1 decode steps, each forward one launch for each
-    quantized projection of every layer and one for the lm_head (the
-    kernel merges its K splits in the launch)."""
+def dequant_launches_per_forward(cfg, parallel) -> int:
+    """dequant_matmul launches of one forward: one for each quantized
+    projection of every layer (an RG-LRU layer's FFN; its mixer is not
+    quantized) and one for the lm_head (the kernel merges its K splits in
+    the launch)."""
     from repro_torch.models import model as M
 
     if parallel.weight_quant == "none":
         return 0
-    projections = [name for name in M.layer_param_defs(cfg) if M.WQ_SITES.get(name) == "matmul"]
-    waves = -(-len(work) // SERVE_BATCH)
-    return waves * SERVE_MAX_NEW * (cfg.n_layers * len(projections) + 1)
+    return 1 + sum(len(idx) * sum(M.WQ_SITES.get(name) == "matmul"
+                                  for name in M.layer_param_defs(cfg, family))
+                   for family, idx in M.layer_families(cfg).items())
 
 
-def serve_phase(dev, arch: str, weight_quant: str) -> dict:
+def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, params=None):
+    """One wave phase (see the module docstring) -> (its result, the
+    engine's params for the next phase of the same weights).  qwen-72b
+    with the int8 KV cache serves QWEN_LONG, every other phase 8 requests of
+    16-128 tokens in waves of 4 into a 256-token cache."""
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -1527,21 +1819,27 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
 
     t_phase = time.monotonic()
     cfg = get_config(arch)
-    parallel = ParallelConfig(weight_quant=weight_quant)
+    parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=kv_quant)
+    long = arch == "qwen-72b" and kv_quant
+    opts = QWEN_LONG if long else dict(requests=SERVE_REQUESTS, batch=SERVE_BATCH,
+                                       prompt=(16, 128), max_new=SERVE_MAX_NEW,
+                                       max_len=SERVE_MAX_LEN)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = Engine(cfg, parallel=parallel, sampling=SamplingConfig(top_k=1),
-                 max_len=SERVE_MAX_LEN, seed=0, device=dev)
+                 max_len=opts["max_len"], seed=0, params=params, device=dev)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     rng = np.random.default_rng(0)
-    work = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))).astype(np.int32)
-            for _ in range(SERVE_REQUESTS)]
+    lo, hi = opts["prompt"]
+    work = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32)
+            for _ in range(opts["requests"])]
+    max_new = opts["max_new"]
 
     def run():
-        sched = WaveScheduler(eng, batch_size=SERVE_BATCH)
+        sched = WaveScheduler(eng, batch_size=opts["batch"])
         for p in work:
-            sched.submit(p, max_new=SERVE_MAX_NEW)
+            sched.submit(p, max_new=max_new)
         torch.cuda.synchronize()
         t = time.monotonic()
         done = sched.run()
@@ -1553,19 +1851,21 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
     launches = dict(ops.LAUNCHES)
     second, dt2 = run()
     n_tokens = sum(len(t) for t in first.values())
-    waves = -(-SERVE_REQUESTS // SERVE_BATCH)
+    waves = -(-opts["requests"] // opts["batch"])
+    L = cfg.n_layers
     expect = {name: 0 for name in ops.KERNELS}
-    expect.update({"flash_prefill": cfg.n_layers * waves,
-                   "decode_attention": cfg.n_layers * (SERVE_MAX_NEW - 1) * waves,
-                   "topk": SERVE_MAX_NEW * waves,
-                   "dequant_matmul": expected_dequant_launches(cfg, parallel, work),
+    expect.update({"flash_prefill": L * waves,
+                   "decode_attention" + ("_int8" if kv_quant else ""): L * (max_new - 1) * waves,
+                   "kv_quant_write": L * max_new * waves if kv_quant else 0,
+                   "topk": max_new * waves,
+                   "dequant_matmul": dequant_launches_per_forward(cfg, parallel) * max_new * waves,
                    # a parallel-residual layer: one per layer and forward
-                   "fused_dual_matmul": cfg.n_layers * SERVE_MAX_NEW * waves
-                                        if cfg.parallel_residual else 0})
+                   "fused_dual_matmul": L * max_new * waves if cfg.parallel_residual else 0})
     if launches != expect:
-        fail(f"{arch} {weight_quant}: kernel launches {launches} != expected {expect}")
+        fail(f"{arch} {weight_quant} kv_quant={kv_quant}: kernel launches {launches} != "
+             f"expected {expect}")
     for rid, toks in first.items():
-        if len(toks) != SERVE_MAX_NEW or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        if len(toks) != max_new or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
             fail(f"{arch} {weight_quant} request {rid}: tokens out of range or wrong count: {toks}")
         if not np.array_equal(toks, second[rid]):
             fail(f"{arch} {weight_quant} request {rid}: greedy tokens differ between two runs")
@@ -1576,19 +1876,27 @@ def serve_phase(dev, arch: str, weight_quant: str) -> dict:
         fail(f"{arch} {weight_quant}: full-width logits {tuple(logits.shape)} not finite / "
              f"wrong shape")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    params = eng.params
     del eng, logits
     torch.cuda.empty_cache()
+    # one wave's cache, from shapes: as run, and what a bf16 one would take
+    entries = L * 2 * opts["batch"] * cfg.n_kv_heads * opts["max_len"]
+    hd = cfg.resolved_head_dim
+    cache_gib = {"as_run": entries * (hd + 2 if kv_quant else 2 * hd) / 2**30,
+                 "bf16": entries * 2 * hd / 2**30}
+    if long and not peak < torch.cuda.get_device_properties(0).total_memory / 2**30:
+        fail(f"{arch}: peak memory {peak} GiB is not below the card's")
     return {
-        "arch": cfg.name, "weight_quant": weight_quant, "layers": cfg.n_layers,
-        "params": cfg.param_count(), "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
-        "max_new": SERVE_MAX_NEW, "max_len": SERVE_MAX_LEN,
+        "arch": cfg.name, "weight_quant": weight_quant, "kv_quant": kv_quant,
+        "layers": cfg.n_layers, "params": cfg.param_count(), "requests": opts["requests"],
+        "batch": opts["batch"], "max_new": max_new, "max_len": opts["max_len"],
         "prompt_lens": [len(p) for p in work], "tokens": n_tokens, "init_s": init_s,
         "wall_s": [dt1, dt2], "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
         "swept_bytes_per_token": M.decode_weight_bytes(cfg, parallel),
         "launches": launches, "repeatable": True, "peak_mem_gib": peak,
-        "phase_s": time.monotonic() - t_phase,
+        "kv_cache_gib": cache_gib, "phase_s": time.monotonic() - t_phase,
         "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
-    }
+    }, params
 
 
 # the slot phases: (name, scheduler, its admission and decode options)
@@ -1598,7 +1906,8 @@ SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
                ("paged-chunked-spec", "paged", dict(prefill_chunk=64, spec_k=SPEC_K)))
 
 
-def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = False) -> dict:
+def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = False,
+                           kv_quant: bool = False) -> dict:
     """Kernel launches of one slot phase from its scheduler's stats.  Per
     whole-prompt admission (``prefill_calls`` not made of chunks): L of
     flash_prefill, or of paged_flash_prefill where a prefix was cached.
@@ -1610,7 +1919,11 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     Decode blocks make up the rest of ``decode_steps``.  Every prefill,
     decode and verify call samples once through top-k (one launch), and
     each of those forwards of a parallel-residual model (``parallel``)
-    makes L of fused_dual_matmul: a mixed step with a decode half 2L."""
+    makes L of fused_dual_matmul: a mixed step with a decode half 2L.
+    ``kv_quant`` (the int8 cache): every forward L of kv_quant_write; the
+    decode kernels' int8 instances in place of theirs; and the paged chunks,
+    cached-prefix admissions and verify steps L of flash_prefill over the
+    dequantized views in place of paged_flash_prefill."""
     from repro_torch.kernels import ops
 
     mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
@@ -1622,14 +1935,19 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     forwards = st["prefill_calls"] + decodes + spec
     expect["topk"] = forwards
     expect["fused_dual_matmul"] = L * forwards if parallel else 0
-    if backend == "paged":
+    q8 = "_int8" if kv_quant else ""
+    expect["kv_quant_write"] = L * forwards if kv_quant else 0
+    if backend == "paged" and kv_quant:
+        expect["flash_prefill"] = L * (st["prefill_calls"] + spec)
+        expect["paged_decode_attention_int8"] = L * decodes
+    elif backend == "paged":
         expect["flash_prefill"] = L * (whole - prefix)
         expect["paged_flash_prefill"] = L * (prefix + mixed + spec)
         expect["paged_decode_attention"] = L * decodes
     else:
         expect["flash_prefill"] = L * st["prefill_calls"]
         expect["flash_verify"] = 2 * L * spec
-        expect["decode_attention"] = L * decodes
+        expect["decode_attention" + q8] = L * decodes
     return expect
 
 
@@ -1659,11 +1977,13 @@ class PlainContinuation:
         return np.stack(out).astype(np.int32)
 
 
-def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
+def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool = False) -> list:
     """Full-width ``arch`` bf16 (yi-9b or gptj-parallel) through the phases
     of SLOT_PHASES on one engine, a stream that parts from the dense
     phase's certified by ``tie_check`` ("gap" or "plain", see
-    ``parted``); see the module docstring."""
+    ``parted``); see the module docstring.  ``kv_quant``: the int8 KV cache,
+    every parting certified against the plain versions (its paged prefix
+    is a second approximation of the cache in the reference too)."""
     import argparse
 
     from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
@@ -1674,10 +1994,12 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
     from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
 
     cfg = get_config(arch)
+    if kv_quant:
+        tie_check = "plain"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK), sampling=SamplingConfig(top_k=1),
-                 max_len=SERVE_MAX_LEN, seed=0, device=dev)
+    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK, kv_quant=kv_quant),
+                 sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     args = argparse.Namespace(**SLOT_WORKLOAD)
@@ -1696,8 +2018,12 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
         return sched, {r.rid: r for r in done}, time.monotonic() - t
 
     def forward(seq):
+        """The logits after ``seq``, as a whole-prompt admission computes
+        them: through an int8 cache, with ``kv_quant``, whose prefill
+        attends the dequantized fresh K/V."""
         with torch.inference_mode():
-            return M.forward(eng.params, seq[None], cfg, last_only=True,
+            caches = eng.init_caches(1) if kv_quant else None
+            return M.forward(eng.params, seq[None], cfg, caches=caches, last_only=True,
                              head_f32=eng.head_f32)[0, -1]
 
     def parted(name, done):
@@ -1750,13 +2076,13 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
         launches = dict(ops.LAUNCHES)
         _, second, dt2 = run(backend, opts)
         st = sched.stats
-        expect = expected_slot_launches(backend, st, L, cfg.parallel_residual)
+        expect = expected_slot_launches(backend, st, L, cfg.parallel_residual, kv_quant)
         if launches != expect:
             fail(f"{name}: kernel launches {launches} != expected {expect} (stats {st})")
         if backend == "paged":
             if not (st["prefill_tokens_saved"] > 0 and st["shared_block_hits"] > 0
-                    and launches["paged_flash_prefill"] > 0
-                    and launches["paged_decode_attention"] > 0):
+                    and (kv_quant or launches["paged_flash_prefill"] > 0)
+                    and launches["paged_decode_attention" + ("_int8" if kv_quant else "")] > 0):
                 fail(f"{name}: no prefix reuse or a paged kernel never ran: {st}, {launches}")
             try:
                 sched.alloc.audit()
@@ -1779,7 +2105,8 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap") -> list:
         n_tokens = sum(len(r.output) for r in first.values())
         summary = sched.request_summary()
         result = {
-            "arch": cfg.name, "scheduler": name, "layers": L, "params": cfg.param_count(),
+            "arch": cfg.name, "scheduler": name, "kv_quant": kv_quant, "layers": L,
+            "params": cfg.param_count(),
             "requests": SLOT_WORKLOAD["requests"], "slots": SLOTS, "block_size": BLOCK,
             "max_len": SERVE_MAX_LEN, "options": opts, "workload": SLOT_WORKLOAD,
             "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1, dt2],
@@ -1839,16 +2166,28 @@ def main() -> None:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
     del flush
-    for mode in ("none", "int8", "int4"):
-        print(json.dumps({"reference": reference_check(dev, mode)}), flush=True)
-    print(json.dumps({"reference": slot_reference_check(dev)}), flush=True)
+    for mode, kvq in (("none", False), ("int8", False), ("int4", False), ("none", True),
+                      ("int4", True)):
+        print(json.dumps({"reference": reference_check(dev, mode, kvq)}), flush=True)
+    for kvq in (False, True):
+        print(json.dumps({"reference": slot_reference_check(dev, kvq)}), flush=True)
     print(json.dumps({"reference": hybrid_reference_check(dev)}), flush=True)
+    print(json.dumps({"reference": hybrid_reference_check(dev, "int8", kv_quant=True)}),
+          flush=True)
     print(json.dumps({"reference": parallel_reference_check(dev)}), flush=True)
-    phases = []
-    for run in ([lambda arch=arch, mode=mode: [serve_phase(dev, arch, mode)]
-                 for arch, mode in SERVE_PHASES] + [lambda: slot_phases(dev),
-                                                    lambda: hybrid_phases(dev),
-                                                    lambda: slot_phases(dev, GJ_ARCH, "plain")]):
+    phases, params, weights = [], None, None
+    for arch, mode, kvq in SERVE_PHASES:
+        if (arch, mode) != weights:
+            params = None
+            torch.cuda.empty_cache()
+        phase, params = serve_phase(dev, arch, mode, kvq, params)
+        weights = (arch, mode)
+        print(json.dumps({"serve": phase}), flush=True)
+        phases.append(phase)
+    del params
+    torch.cuda.empty_cache()
+    for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
+                lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain")):
         for phase in run():
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)
@@ -1862,9 +2201,11 @@ def main() -> None:
         if k["name"] == "topk":
             k[f"v{RG_VOCAB}"]["launches"] = sum(p["launches"]["topk"] for p in phases
                                                 if p["arch"] == RG_ARCH)
-        if k["name"] == "decode_attention_partial (head_dim 256)":
+        if k["name"] in ("decode_attention_partial (head_dim 256)",
+                         f"decode_attention_partial (int8), {RG_ARCH}"):
             k["in_step"] = next(p["decode_attention_in_step"] for p in phases
-                                if "decode_attention_in_step" in p)
+                                if "decode_attention_in_step" in p
+                                and p["kv_quant"] == ("int8" in k["name"]))
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))

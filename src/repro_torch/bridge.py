@@ -19,6 +19,9 @@ and returns the layout of ``repro_torch.models.model``:
   as ``model.init_params`` lays them out;
 * the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``.
 
+The tree's leaves may also be torch tensors, as ``training.checkpoint``
+reads a saved tree back.
+
 bf16 leaves cross bit-exact: numpy holds them as 2-byte values, viewed as
 ``uint16`` and then as ``torch.bfloat16``.  A weight-quantized tree's
 projection leaves are ``repro.core.wquant.QuantWeight``s; they are read by
@@ -47,9 +50,12 @@ def _is_quant(a) -> bool:
 
 def to_torch(a):
     """numpy array (bf16 included) -> CPU tensor with the same bits; a
-    quantized leaf -> the port's QuantWeight of such tensors."""
+    quantized leaf -> the port's QuantWeight of such tensors.  A torch
+    tensor (a tree read back from a checkpoint) passes through."""
     if _is_quant(a):
         return QuantWeight(to_torch(a.q), to_torch(a.scale), a.mode, int(a.group), int(a.k))
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -88,7 +94,7 @@ def _tree_layers(tree: Dict[str, Any], cfg: ModelConfig) -> list:
         subs = [f"sub{j}" for j in range(len(group))]
         if not subs or set(subs) != set(group):
             raise ValueError(f"a layer group holds sub-layers sub0, sub1, ..., got {sorted(group)}")
-        norm1 = np.asarray(group[subs[0]]["norm1"])
+        norm1 = group[subs[0]]["norm1"]
         n = norm1.shape[0] if norm1.ndim == 2 else 0     # 0: an unrolled group
         first = len(layers)
         layers.extend({} for _ in range(max(n, 1) * len(subs)))

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # exported C functions: name -> (source, argtypes); every one returns an int:
 # a launching one 0 on success and otherwise a cudaError_t or -1 (bad
 # arguments), the *_workspace helper a count
@@ -37,11 +38,14 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_verify_workspace": ("flash_verify", [_I, _I, _I, _I, _I, _I]),
     "decode_attention": ("decode_attention",
-                         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_decode_attention": ("paged_decode_attention",
-                               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "kv_quant_write": ("kv_quant_write",
+                       [_P, _P, _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P]),
     "paged_flash_prefill": ("paged_flash_prefill",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "topk": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),

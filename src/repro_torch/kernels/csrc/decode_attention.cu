@@ -22,10 +22,19 @@
 // picks chunk and splits so that the grid holds about one block an SM, and
 // the block that finishes last merges the splits in the same launch.
 //
+// An int8 cache (``ParallelConfig.kv_quant``) is read as it is stored, int8
+// values and a bf16 scale per (row, KV head, key): (hd + 2) / (2 hd) of a
+// bf16 cache's bytes.  The JAX package dequantizes the whole cache in jnp
+// and runs the Pallas kernel on the copy; here the body dequantizes in
+// registers, with the copy's bytes, so the result is the bf16 instance's on
+// that copy, bit for bit.
+//
 // The body (decode_attention.cuh) is shared with the paged kernel; its
 // design is described there.
 #include "decode_attention.cuh"
 
+// k_scale, v_scale: null for a bf16 / fp32 cache; for an int8 cache (k, v
+// int8, q bf16) its bf16 scales (b, hkv, S).
 // valid_per_row: 0 for a shared (S,) mask, 1 for a per-row (b, S) mask.
 // chunk, splits: the split plan (keys per split, a whole number of 32-key
 // tiles; splits covering S with none empty); work: the partials workspace
@@ -33,12 +42,14 @@
 // used only when splits > 1 (the counters zero before the launch, and left
 // zero after it).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
+                                const void* k_scale, const void* v_scale,
                                 const void* valid, int valid_per_row,
                                 void* m, void* l, void* acc, void* work, int work_floats,
                                 void* counters, int n_counters, int chunk, int splits,
                                 int b, int hq, int hkv, int S, int hd, int dtype, float scale,
                                 void* stream) {
-  decode::Args a{q, k, v, nullptr, 0, 0, 0, valid, valid_per_row ? S : 0, m, l, acc,
+  decode::Args a{q, k, v, k_scale, v_scale, nullptr, 0, 0, 0, valid, valid_per_row ? S : 0,
+                 m, l, acc,
                  static_cast<float*>(work), work_floats, static_cast<int*>(counters),
                  n_counters, chunk, splits, b, hq, hkv, S, scale,
                  static_cast<cudaStream_t>(stream)};

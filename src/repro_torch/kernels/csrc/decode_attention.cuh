@@ -40,6 +40,16 @@
 // once would need a buffer each).  With one split (b * hkv large enough to
 // fill the card) a block writes the outputs itself and touches neither.
 //
+// An int8 cache (Q8: the int8 KV cache of ``ParallelConfig.kv_quant``)
+// stores int8 K/V with one bf16 scale per (row, KV head, key).  Its tile is
+// loaded 16 values a 16-byte load, each value made bf16(fp32(q) * fp32(s))
+// in registers -- the bytes of the plain dequantization -- and stored in the
+// tile as the bf16 path stores a bf16 cache's (K widened to fp32, V as
+// bf16), so the scoring, the softmax, the merge and the split plan are the
+// bf16 path's and the result is its result on the dequantized cache, bit
+// for bit.  Lane l loads the scales of key t0 + l; a row's scale reaches
+// the lanes that copy it by a shuffle, as a paged row's block does.
+//
 // Paged rows.  There is no scalar prefetch on Hopper, so the block reads
 // its slot's table row itself: lane l loads the pool block of view index
 // t0 + l, and a row's block reaches the lanes that copy it by a shuffle.
@@ -47,6 +57,8 @@
 // entries are gathered into one shared-memory tile, where the TPU takes one
 // grid step per pool block.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -69,9 +81,48 @@ constexpr size_t smem_bytes() {
          (size_t)warps<T, HD>() * BK * HD * sizeof(T);
 }
 
-template <typename T, int HD, bool PAGED>
+// Stage one 16-byte load of a K row and of a V row into a warp's tile: K
+// widened to fp32, V as stored
+template <typename T>
+__device__ __forceinline__ void stage(const uint4& rk, const uint4& rv, float* kd, T* vd) {
+  constexpr int VN = Vec16<T>::N;
+  float x[VN];
+  Vec16<T>::load(reinterpret_cast<const T*>(&rk), x);
+#pragma unroll
+  for (int i = 0; i < VN; i += 4)
+    *reinterpret_cast<float4*>(kd + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+  *reinterpret_cast<uint4*>(vd) = rv;
+}
+
+// The same for 16 int8 values of K and of V with their rows' scales: each
+// value made bf16(fp32(q) * fp32(s)), K then widened to fp32, V kept bf16
+template <typename T>
+__device__ __forceinline__ void stage_q8(const uint4& rk, const uint4& rv, float sk, float sv,
+                                         float* kd, T* vd) {
+  const int8_t* qk = reinterpret_cast<const int8_t*>(&rk);
+  const int8_t* qv = reinterpret_cast<const int8_t*>(&rv);
+  __align__(16) __nv_bfloat16 y[16];
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = __bfloat162float(__float2bfloat16_rn((float)qk[i + e] * sk));
+    *reinterpret_cast<float4*>(kd + i) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) y[i] = __float2bfloat16_rn((float)qv[i] * sv);
+  *reinterpret_cast<uint4*>(vd) = *reinterpret_cast<const uint4*>(y);
+  *reinterpret_cast<uint4*>(vd + 8) = *reinterpret_cast<const uint4*>(y + 8);
+}
+
+// Q8: the cache holds int8 values and bf16 scales (T is then bf16, the
+// type of q and of the staged V tile)
+template <typename T, int HD, bool PAGED, bool Q8>
 __global__ void __launch_bounds__(warps<T, HD>() * 32)
-kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+kernel(const T* __restrict__ q, const std::conditional_t<Q8, int8_t, T>* __restrict__ k,
+       const std::conditional_t<Q8, int8_t, T>* __restrict__ v,
+       const __nv_bfloat16* __restrict__ k_scale, const __nv_bfloat16* __restrict__ v_scale,
        const int* __restrict__ bt, int nb, int bs, int nbps,
        const uint8_t* __restrict__ valid, int valid_stride,
        float* __restrict__ m_out, float* __restrict__ l_out,
@@ -123,8 +174,8 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
 
   const uint8_t* vm = valid + (size_t)b * valid_stride;
   const int* bt_row = PAGED ? bt + (size_t)b * nbps : nullptr;
-  const T* kb = k + (PAGED ? (size_t)kvh * bs * HD : (size_t)bh * S * HD);
-  const T* vb = v + (PAGED ? (size_t)kvh * bs * HD : (size_t)bh * S * HD);
+  const auto* kb = k + (PAGED ? (size_t)kvh * bs * HD : (size_t)bh * S * HD);
+  const auto* vb = v + (PAGED ? (size_t)kvh * bs * HD : (size_t)bh * S * HD);
   const size_t block_stride = (size_t)hkv * bs * HD;  // paged: elements per pool block
   float* Kw = Kall + warp * BK * KS;
   T* Vw = Vall + warp * BK * HD;
@@ -144,9 +195,22 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
         blk_lane = (unsigned)e < (unsigned)nb ? e : 0;
       }
     }
+    // the rows' 16-byte loads, LPR a row (VN stored values a load, 16 for
+    // Q8); the addressing is shared, only staging a load differs
+    constexpr int EPL = Q8 ? 16 : VN;
+    constexpr int LPR = HD / EPL;
+    float ks_lane = 0.f, vs_lane = 0.f;  // Q8: this lane's key scales (0 past S)
+    if constexpr (Q8) {
+      if (key < S) {
+        const size_t srow = PAGED ? ((size_t)blk_lane * hkv + kvh) * bs + key % bs
+                                  : (size_t)bh * S + key;
+        ks_lane = __bfloat162float(k_scale[srow]);
+        vs_lane = __bfloat162float(v_scale[srow]);
+      }
+    }
 #pragma unroll
-    for (int it = 0; it < CPR; ++it) {
-      const int c = it * 32 + lane, j = c / CPR, d0 = (c % CPR) * VN;
+    for (int it = 0; it < LPR; ++it) {
+      const int c = it * 32 + lane, j = c / LPR, d0 = (c % LPR) * EPL;
       size_t row;
       if constexpr (PAGED) {
         const int blk = __shfl_sync(0xffffffffu, blk_lane, j);
@@ -154,19 +218,20 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
       } else {
         row = (size_t)(t0 + j) * HD;
       }
-      float x[VN];
-      uint4 raw = make_uint4(0, 0, 0, 0);
+      uint4 rk = make_uint4(0, 0, 0, 0), rv = make_uint4(0, 0, 0, 0);
       if (t0 + j < S) {
-        Vec16<T>::load(kb + row + d0, x);
-        raw = *reinterpret_cast<const uint4*>(vb + row + d0);
-      } else {
-#pragma unroll
-        for (int i = 0; i < VN; ++i) x[i] = 0.f;
+        rk = *reinterpret_cast<const uint4*>(kb + row + d0);
+        rv = *reinterpret_cast<const uint4*>(vb + row + d0);
       }
-#pragma unroll
-      for (int i = 0; i < VN; i += 4)
-        *reinterpret_cast<float4*>(Kw + j * KS + d0 + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
-      *reinterpret_cast<uint4*>(Vw + j * HD + d0) = raw;
+      float* kd = Kw + j * KS + d0;
+      T* vd = Vw + j * HD + d0;
+      if constexpr (Q8) {
+        const float sk = __shfl_sync(0xffffffffu, ks_lane, j);
+        const float sv = __shfl_sync(0xffffffffu, vs_lane, j);
+        stage_q8(rk, rv, sk, sv, kd, vd);
+      } else {
+        stage(rk, rv, kd, vd);
+      }
     }
     __syncwarp();
 
@@ -337,6 +402,7 @@ kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
 // The arguments of one launch of either layout.
 struct Args {
   const void *q, *k, *v;
+  const void *k_scale, *v_scale;  // non-null: an int8 cache with these bf16 scales
   const int* bt;  // paged: block table (b, nbps) over nb pool blocks of bs rows
   int nb, bs, nbps;
   const void* valid;
@@ -358,9 +424,10 @@ inline long long partials_floats(int splits, int b, int hq, int hd) {
   return (long long)splits * b * hq * (hd + 2);
 }
 
-template <typename T, int HD, bool PAGED>
+template <typename T, int HD, bool PAGED, bool Q8 = false>
 int launch(const Args& a) {
-  auto kern = kernel<T, HD, PAGED>;
+  using C = std::conditional_t<Q8, int8_t, T>;
+  auto kern = kernel<T, HD, PAGED, Q8>;
   constexpr size_t smem = smem_bytes<T, HD>();
   static_assert(smem <= 232448, "staged tiles exceed a block's shared memory");
   static_assert(warps<T, HD>() * BK * (HD + 4) >= MAX_SPLITS * ROWS + 2 * ROWS,
@@ -371,7 +438,8 @@ int launch(const Args& a) {
   const int g = a.hq / a.hkv;
   const dim3 grid(a.b * a.hkv, (g + ROWS - 1) / ROWS, a.splits);
   kern<<<grid, warps<T, HD>() * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.k_scale), static_cast<const __nv_bfloat16*>(a.v_scale),
       a.bt, a.nb, a.bs, a.nbps, static_cast<const uint8_t*>(a.valid), a.valid_stride,
       static_cast<float*>(a.m), static_cast<float*>(a.l), static_cast<float*>(a.acc), a.part,
       a.counters, a.hq, a.hkv, a.S, a.chunk, a.scale);
@@ -379,9 +447,10 @@ int launch(const Args& a) {
 }
 
 // The (dtype, head_dim) instances of one layout: head_dim 64, 128 and 256
-// (recurrentgemma's MQA, gptj-parallel's MHA) in both.  A plan that does
-// not cover S with whole tiles and no empty split, or a workspace or
-// counter buffer too small for it, is refused.
+// (recurrentgemma's MQA, gptj-parallel's MHA) in both, and for an int8
+// cache (scales given; q bf16) at each head_dim.  A plan that does not
+// cover S with whole tiles and no empty split, or a workspace or counter
+// buffer too small for it, is refused.
 template <bool PAGED>
 int dispatch(const Args& a, int hd, int dtype) {
   if (a.b <= 0 || a.hkv <= 0 || a.hq % a.hkv || a.S <= 0 ||
@@ -395,6 +464,14 @@ int dispatch(const Args& a, int hd, int dtype) {
                        a.part_floats < partials_floats(a.splits, a.b, a.hq, hd) ||
                        (long long)a.n_counters < (long long)a.b * a.hkv * groups))
     return ERR_BAD_ARGS;
+  if ((a.k_scale == nullptr) != (a.v_scale == nullptr)) return ERR_BAD_ARGS;
+  if (a.k_scale != nullptr) {
+    if (dtype != DTYPE_BF16) return ERR_BAD_ARGS;
+    if (hd == 256) return launch<__nv_bfloat16, 256, PAGED, true>(a);
+    if (hd == 128) return launch<__nv_bfloat16, 128, PAGED, true>(a);
+    if (hd == 64) return launch<__nv_bfloat16, 64, PAGED, true>(a);
+    return ERR_BAD_ARGS;
+  }
   if (dtype == DTYPE_BF16 && hd == 256) return launch<__nv_bfloat16, 256, PAGED>(a);
   if (dtype == DTYPE_F32 && hd == 256) return launch<float, 256, PAGED>(a);
   if (dtype == DTYPE_BF16 && hd == 128) return launch<__nv_bfloat16, 128, PAGED>(a);

@@ -24,10 +24,12 @@
 // are all dead writes an empty partial without loading K or V.
 #include "decode_attention.cuh"
 
-// chunk, splits, work, counters: as decode_attention (decode_attention.cu),
-// over the view of nbps * bs keys.
+// k_scale, v_scale: null for bf16 / fp32 pools; for int8 pools (q bf16) the
+// bf16 scale pools (nb, hkv, bs).  chunk, splits, work, counters: as
+// decode_attention (decode_attention.cu), over the view of nbps * bs keys.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
-                                      const void* v_pool, const void* bt,
+                                      const void* v_pool, const void* k_scale,
+                                      const void* v_scale, const void* bt,
                                       const void* valid, void* m, void* l,
                                       void* acc, void* work, int work_floats, void* counters,
                                       int n_counters, int chunk, int splits, int b, int hq,
@@ -35,7 +37,8 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       float scale, void* stream) {
   if (nb <= 0 || bs <= 0 || nbps <= 0) return ERR_BAD_ARGS;
   const int S = nbps * bs;
-  decode::Args a{q, k_pool, v_pool, static_cast<const int*>(bt), nb, bs, nbps, valid, S, m, l,
+  decode::Args a{q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(bt), nb, bs,
+                 nbps, valid, S, m, l,
                  acc, static_cast<float*>(work), work_floats, static_cast<int*>(counters),
                  n_counters, chunk, splits, b, hq, hkv, S, scale,
                  static_cast<cudaStream_t>(stream)};

@@ -5,7 +5,9 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 * on CUDA tensors it launches its kernel on the current stream, adds the
   number of launches to ``LAUNCHES[name]`` (one; flash_verify two, the
   split pass and the merge; the decode kernels, top-k, dequant_matmul and
-  fused_dual_matmul one, their splits merged in the same launch)
+  fused_dual_matmul one, their splits merged in the same launch;
+  kv_quant_write one for K and V together; a decode kernel's launch over
+  an int8 cache counts under ``<name>_int8``, its own instance)
   and raises if a launch is refused;
   there is no fallback to the plain version;
 * on CPU tensors it runs the plain version from ``ref`` (the only place the
@@ -32,7 +34,8 @@ from repro_torch.kernels import build, ref
 LAUNCHES: Counter = Counter()
 KERNELS = ("flash_prefill", "decode_attention", "topk", "dequant_matmul",
            "paged_decode_attention", "paged_flash_prefill", "flash_verify", "lru_scan",
-           "fused_dual_matmul")
+           "fused_dual_matmul", "kv_quant_write", "decode_attention_int8",
+           "paged_decode_attention_int8")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head_dims every attention kernel has an instance for
@@ -341,12 +344,44 @@ def _decode_split(q: torch.Tensor, hkv: int, S: int):
                   splits)
 
 
+def _check_kv_scales(name: str, q, k, v, k_scale, v_scale):
+    """An int8 cache k/v (…, hd) takes bf16 scales of its shape less hd;
+    a bf16 / fp32 cache takes none.  -> the scales, or None."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: both scales or neither")
+    if k_scale is None:
+        if k.dtype == torch.int8:
+            raise ValueError(f"{name}: an int8 cache needs its scales")
+        return None
+    if (k.dtype != torch.int8 or v.dtype != torch.int8 or q.dtype != torch.bfloat16
+            or k_scale.shape != k.shape[:-1] or v_scale.shape != v.shape[:-1]
+            or k_scale.dtype != torch.bfloat16 or v_scale.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: an int8 cache ({k.dtype}/{v.dtype}, q {q.dtype}) takes "
+                         f"bf16 scales of shape {tuple(k.shape[:-1])}, got "
+                         f"{tuple(k_scale.shape)} {k_scale.dtype} / {tuple(v_scale.shape)}")
+    return k_scale, v_scale
+
+
+def _cache_pointers(name: str, q, k, v, scales) -> tuple:
+    """Dtype checks of a decode launch and its (k_scale, v_scale) pointers
+    (None for a bf16 / fp32 cache)."""
+    if scales is None:
+        if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+        return None, None
+    _check_cuda(name, *scales, align=2)
+    return scales[0].data_ptr(), scales[1].data_ptr()
+
+
 def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             valid: torch.Tensor, scale: float):
+                             valid: torch.Tensor, scale: float,
+                             k_scale: torch.Tensor = None, v_scale: torch.Tensor = None):
     """Unnormalized flash partials for one query token per row.
     q (b, hq, 1, hd), k/v (b, hkv, S, hd), valid (S,) or (b, S) bool ->
     m (b, hq, 1), l (b, hq, 1), acc (b, hq, 1, hd) fp32; a row with no
-    valid key gives m = -inf, l = 0, acc = 0.  On the card the KV axis is
+    valid key gives m = -inf, l = 0, acc = 0.  An int8 cache (k, v int8,
+    q bf16) comes with its bf16 scales k_scale, v_scale (b, hkv, S) and is
+    attended as ``ref.dequantize_kv`` of it.  On the card the KV axis is
     split across blocks by ``decode_split_plan`` and merged in the launch."""
     b, hq, one, hd = q.shape
     hkv, S = k.shape[1], k.shape[2]
@@ -356,10 +391,12 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v{tuple(v.shape)} valid{tuple(valid.shape)} do not agree")
     if hq % hkv:
         raise ValueError(f"decode_attention: {hq} q heads over {hkv} kv heads")
-    if _device_of(q, k, v, valid) == "cpu":
+    scales = _check_kv_scales("decode_attention", q, k, v, k_scale, v_scale)
+    if _device_of(q, k, v, valid, *(scales or ())) == "cpu":
+        if scales is not None:
+            k, v = ref.dequantize_kv(k, k_scale), ref.dequantize_kv(v, v_scale)
         return ref.decode_attention_ref(q, k, v, valid, scale)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    ks, vs = _cache_pointers("decode_attention", q, k, v, scales)
     if hd not in HEAD_DIMS or valid.dtype != torch.bool:
         raise ValueError(f"decode_attention: head_dim {hd} / mask {valid.dtype} not taken")
     _check_cuda("decode_attention", q, k, v, valid)
@@ -367,12 +404,12 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.empty_like(m)
     acc = torch.empty((b, hq, 1, hd), dtype=torch.float32, device=q.device)
     work, split = _decode_split(q, hkv, S)
-    build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), ks, vs,
                valid.data_ptr(), int(valid.dim() == 2), m.data_ptr(), l.data_ptr(),
                acc.data_ptr(), *split, b, hq, hkv, S, hd,
                _DTYPES[q.dtype], float(scale), _stream())
     del work    # held until the launch was queued
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_attention" if scales is None else "decode_attention_int8"] += 1
     return m, l, acc
 
 
@@ -392,39 +429,44 @@ def _check_pool(name: str, q, k_pool, v_pool, bt) -> tuple:
 
 def _check_paged_cuda(name: str, q, k_pool, v_pool, bt, idx, idx_dtype) -> None:
     hd = q.shape[-1]
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"{name}: dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     if hd not in HEAD_DIMS or bt.dtype != torch.int32 or idx.dtype != idx_dtype:
         raise ValueError(f"{name}: head_dim {hd} / table {bt.dtype} / {idx.dtype} not taken")
     _check_cuda(name, q, k_pool, v_pool, bt, idx)
 
 
 def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                                   bt: torch.Tensor, valid: torch.Tensor, scale: float):
+                                   bt: torch.Tensor, valid: torch.Tensor, scale: float,
+                                   k_scale: torch.Tensor = None, v_scale: torch.Tensor = None):
     """``decode_attention_partial`` with K/V read from block pools through
     each slot's block table.  q (b, hq, 1, hd), pools (nb, hkv, bs, hd),
     bt (b, nbps) int32 (entries outside the pool read the null block 0),
     valid (b, nbps*bs) bool -> fp32 m, l (b, hq, 1), acc (b, hq, 1, hd); a
-    row with no valid key gives m = -inf, l = 0, acc = 0.  The view is split
-    across blocks as ``decode_attention_partial``'s cache is."""
+    row with no valid key gives m = -inf, l = 0, acc = 0.  int8 pools (q
+    bf16) come with their bf16 scale pools k_scale, v_scale (nb, hkv, bs).
+    The view is split across blocks as ``decode_attention_partial``'s
+    cache is."""
     nb, hkv, bs, nbps = _check_pool("paged_decode_attention", q, k_pool, v_pool, bt)
     b, hq, one, hd = q.shape
     if one != 1 or valid.shape != (b, nbps * bs):
         raise ValueError(f"paged_decode_attention: q{tuple(q.shape)} valid{tuple(valid.shape)} "
                          f"for a view of {nbps * bs}")
-    if _device_of(q, k_pool, v_pool, bt, valid) == "cpu":
+    scales = _check_kv_scales("paged_decode_attention", q, k_pool, v_pool, k_scale, v_scale)
+    if _device_of(q, k_pool, v_pool, bt, valid, *(scales or ())) == "cpu":
+        if scales is not None:
+            k_pool, v_pool = ref.dequantize_kv(k_pool, k_scale), ref.dequantize_kv(v_pool, v_scale)
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, valid, scale)
+    ks, vs = _cache_pointers("paged_decode_attention", q, k_pool, v_pool, scales)
     _check_paged_cuda("paged_decode_attention", q, k_pool, v_pool, bt, valid, torch.bool)
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, hq, 1, hd), dtype=torch.float32, device=q.device)
     work, split = _decode_split(q, hkv, nbps * bs)
     build.call("paged_decode_attention", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-               bt.data_ptr(), valid.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+               ks, vs, bt.data_ptr(), valid.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
                *split, b, hq, hkv, nb, bs, nbps, hd,
                _DTYPES[q.dtype], float(scale), _stream())
     del work    # held until the launch was queued
-    LAUNCHES["paged_decode_attention"] += 1
+    LAUNCHES["paged_decode_attention" if scales is None else "paged_decode_attention_int8"] += 1
     return m, l, acc
 
 
@@ -441,6 +483,7 @@ def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
         raise ValueError(f"paged_flash_prefill: q_pos{tuple(q_pos.shape)} for q{tuple(q.shape)}")
     if _device_of(q, k_pool, v_pool, bt, q_pos) == "cpu":
         return ref.paged_flash_prefill_ref(q, k_pool, v_pool, bt, q_pos, scale)
+    _cache_pointers("paged_flash_prefill", q, k_pool, v_pool, None)
     _check_paged_cuda("paged_flash_prefill", q, k_pool, v_pool, bt, q_pos, torch.int32)
     out = torch.empty_like(q)
     build.call("paged_flash_prefill", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -448,6 +491,51 @@ def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
                hd, _DTYPES[q.dtype], float(scale), _stream())
     LAUNCHES["paged_flash_prefill"] += 1
     return out
+
+
+def kv_quant_write(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor,
+                   dst_row: torch.Tensor, dst_idx: torch.Tensor, dequantized: bool = False):
+    """Quantize a layer's fresh K and V (b, h, s, hd) bf16 as
+    ``ref.quantize_kv`` does and write them in place: token t of the flat
+    (row, position) order goes to [dst_row[t], :, dst_idx[t]] of the int8
+    caches (n, h, m, hd) and of their bf16 scales (n, h, m); dst_row[t] < 0
+    drops it.  ``dst_row``, ``dst_idx`` (b * s,) int32.  k and v may be
+    strided views (last dim contiguous).  -> the dequantized fresh (k, v)
+    (b, h, s, hd) bf16 when ``dequantized`` (what a prefill attends), else
+    None.  One launch for both sides on the card."""
+    b, h, s, hd = k.shape
+    n, m = k_cache.shape[0], k_cache.shape[2]
+    if (v.shape != k.shape or k_cache.shape != (n, h, m, hd) or v_cache.shape != k_cache.shape
+            or k_scale.shape != (n, h, m) or v_scale.shape != k_scale.shape
+            or dst_row.shape != (b * s,) or dst_idx.shape != (b * s,)):
+        raise ValueError(f"kv_quant_write: shapes k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"caches{tuple(k_cache.shape)} scales{tuple(k_scale.shape)} "
+                         f"targets{tuple(dst_row.shape)}/{tuple(dst_idx.shape)} do not agree")
+    if _device_of(k, v, k_cache, v_cache, k_scale, v_scale, dst_row, dst_idx) == "cpu":
+        out = ref.kv_quant_write_ref(k, v, k_cache, v_cache, k_scale, v_scale, dst_row, dst_idx)
+        return out if dequantized else None
+    if (k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16 or k_cache.dtype != torch.int8
+            or v_cache.dtype != torch.int8 or k_scale.dtype != torch.bfloat16
+            or v_scale.dtype != torch.bfloat16 or dst_row.dtype != torch.int32
+            or dst_idx.dtype != torch.int32 or hd not in HEAD_DIMS):
+        raise ValueError(f"kv_quant_write: dtypes k {k.dtype}, caches {k_cache.dtype}, scales "
+                         f"{k_scale.dtype}, targets {dst_row.dtype} / head_dim {hd} not taken")
+    for x in (k, v):
+        if x.stride(3) != 1 or x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError("kv_quant_write: k and v take 16-byte aligned rows, hd contiguous")
+    _check_cuda("kv_quant_write", k_cache, v_cache)
+    _check_cuda("kv_quant_write", k_scale, v_scale, dst_row, dst_idx, align=2)
+    kd = vd = None
+    if dequantized:
+        kd = torch.empty((b, h, s, hd), dtype=torch.bfloat16, device=k.device)
+        vd = torch.empty_like(kd)
+    build.call("kv_quant_write", k.data_ptr(), v.data_ptr(), *k.stride()[:3], *v.stride()[:3],
+               k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+               dst_row.data_ptr(), dst_idx.data_ptr(), None if kd is None else kd.data_ptr(),
+               None if vd is None else vd.data_ptr(), b, h, s, hd, n, m, _stream())
+    LAUNCHES["kv_quant_write"] += 1
+    return (kd, vd) if dequantized else None
 
 
 def lru_tile_plan():

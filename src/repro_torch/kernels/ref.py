@@ -83,6 +83,49 @@ def paged_view(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return g.reshape(b, pool.shape[1], nbps * pool.shape[2], pool.shape[3])
 
 
+# The int8 KV cache.  The JAX package's ``_quantize_kv`` divides the clamped
+# absmax by 127; jitted, XLA folds that division by a constant into a
+# product with the fp32 constant 1/127, which rounds apart from the
+# division for some values.  The port computes what the reference runs.
+KV_INV_QMAX = 1.0 / 127.0
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., hd) -> (int8 values (..., hd), bf16 scales (...)), bit for bit
+    the JAX package's ``_quantize_kv``: per row the fp32 absmax, ``scale =
+    max(amax, 1e-6) * (1/127)`` in fp32, ``q = clip(round(x / scale), -127,
+    127)`` (IEEE division, half to even) with the fp32 scale, the scale
+    stored in bf16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) * KV_INV_QMAX
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 (..., hd) with bf16 scales (...) -> ``dtype``: fp32(q) times
+    fp32(scale), rounded once (``_dequantize_kv``)."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def kv_quant_write_ref(k, v, k_cache, v_cache, k_scale, v_scale, dst_row, dst_idx):
+    """In place: ``quantize_kv`` of the fresh k, v (b, h, s, hd), token t of
+    the flat (row, position) order written to [dst_row[t], :, dst_idx[t]]
+    of the caches (n, h, m, hd) int8 and scales (n, h, m) bf16, tokens with
+    dst_row < 0 dropped.  -> the dequantized fresh (k, v) (b, h, s, hd)
+    bf16."""
+    b, h, s, hd = k.shape
+    keep = dst_row >= 0
+    rows, idx = dst_row[keep].long(), dst_idx[keep].long()
+    out = []
+    for x, cache, scales in ((k, k_cache, k_scale), (v, v_cache, v_scale)):
+        q, sc = quantize_kv(x)
+        cache[rows, :, idx] = q.transpose(1, 2).reshape(b * s, h, hd)[keep]
+        scales[rows, :, idx] = sc.transpose(1, 2).reshape(b * s, h)[keep]
+        out.append(dequantize_kv(q, sc))
+    return tuple(out)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, bt, valid, scale: float):
     """``decode_attention_ref`` over the view gathered through the block
     table.  q (b, hq, 1, hd); pools (nb, hkv, bs, hd); bt (b, nbps) int;

@@ -7,6 +7,8 @@
     python -m repro_torch.launch.profile_decode --scheduler paged --step mixed
     python -m repro_torch.launch.profile_decode --arch recurrentgemma-9b
     python -m repro_torch.launch.profile_decode --arch gptj-parallel
+    python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4 \
+        --kv-quant --prompt-len 2950 --max-len 4096
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -23,8 +25,8 @@ state every time.  SPEC_K and CHUNK are those of chip_smoke.py's chunked
 spec phases.  A sliding-window arch (recurrentgemma-9b) prefills
 window + 64 tokens by default in a wave, so its decode steps run over a
 ring that has wrapped, and window - 8 into a slot (admission caps prompts
-at the window), so its steps cross the window.  The wave path also profiles one more
-prefill on a fresh cache and reports its wall time and the device time
+at the window), so its steps cross the window.  The wave path also profiles the same
+prefill once more, into the same cache, and reports its wall time and the device time
 of its lru_scan, flash_prefill and fused_dual_matmul launches.  The
 device's idle share divides the profiled pass's device time by the plain
 pass's wall time (the profiler slows the host, so its own window overstates
@@ -33,12 +35,14 @@ JSON line (step times, device busy time per step, idle shares, kernel
 launches per step, the top kernels, and the device time of the
 dequant_matmul kernels and of the w_o dense copies under weight
 quantization, of the fused_dual_matmul kernels of a parallel-residual
-arch, and of the dense and paged decode_attention kernels) and the
-profiler's table.
+arch, of the dense and paged decode_attention kernels and, with
+``--kv-quant`` (the int8 KV cache), of the kv_quant_write kernel), the
+peak device memory and the cache's bytes, and the profiler's table.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -48,6 +52,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, SamplingConfig, get_config
 from repro_torch.core.zero_copy import W_O_DENSE_RANGE
 from repro_torch.launch.serve import add_weight_quant_args, parallel_config
+from repro_torch.runtime import kvcache
 from repro_torch.runtime.engine import Engine
 
 SPEC_K, CHUNK = 4, 64     # --step verify: drafts per slot; --step mixed: slot 0's chunk
@@ -70,6 +75,8 @@ def main(argv=None) -> dict:
                     help="slot engine: profile masked decode steps, spec-decode verify "
                          "steps or fused mixed chunk/decode steps")
     add_weight_quant_args(ap)
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="the int8 KV cache (ParallelConfig.kv_quant)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.prompt_len is None:
@@ -82,8 +89,10 @@ def main(argv=None) -> dict:
     if args.step != "decode" and args.scheduler == "wave":
         ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
 
-    eng = Engine(cfg, parallel=parallel_config(args), sampling=SamplingConfig(top_k=1),
-                 max_len=args.max_len, seed=args.seed, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, parallel=dataclasses.replace(parallel_config(args), kv_quant=args.kv_quant),
+                 sampling=SamplingConfig(top_k=1), max_len=args.max_len, seed=args.seed,
+                 device="cuda")
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     prefill = None
@@ -91,7 +100,7 @@ def main(argv=None) -> dict:
         if args.scheduler == "wave":
             caches = eng.init_caches(args.batch)
             tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches)
-            prefill = _profile_prefill(eng, prompts)
+            prefill = _profile_prefill(eng, prompts, caches)
             cur = args.prompt_len
             for _ in range(3):                        # warm-up
                 tok = eng.decode(tok, caches, cur)
@@ -102,7 +111,7 @@ def main(argv=None) -> dict:
                 for i in range(args.steps):
                     t = eng.decode(t, caches, cur + i)
         else:
-            steps = _slot_steps(eng, args, prompts)
+            steps, caches = _slot_steps(eng, args, prompts)
             steps()                                   # warm-up
         torch.cuda.synchronize()
 
@@ -133,13 +142,14 @@ def main(argv=None) -> dict:
     dq_us = sum(e.self_device_time_total for e in kernels if "::dq_" in e.key)
     fdm = [e for e in kernels if "fdm::" in e.key]
     dec = [e for e in kernels if "decode::kernel" in e.key]
+    kvq = [e for e in kernels if "kvq::" in e.key]
     w_o_us = sum(e.device_time_total for e in avgs
                  if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
     result = {
         "arch": cfg.name, "scheduler": args.scheduler, "step": args.step,
         "spec_k": SPEC_K if args.step == "verify" else 0,
         "prefill_chunk": CHUNK if args.step == "mixed" else 0,
-        "weight_quant": args.weight_quant,
+        "weight_quant": args.weight_quant, "kv_quant": args.kv_quant,
         "wq_group_size": args.wq_group_size, "batch": args.batch, "prompt_len": args.prompt_len,
         "steps": args.steps, "device": torch.cuda.get_device_name(0),
         "step_ms_wall": 1e3 * wall_s / args.steps,
@@ -158,6 +168,11 @@ def main(argv=None) -> dict:
         "decode_attention_ms_per_step": sum(e.self_device_time_total for e in dec) / 1e3
                                         / args.steps,
         "decode_attention_launches_per_step": sum(e.count for e in dec) / args.steps,
+        "kv_quant_write_ms_per_step": sum(e.self_device_time_total for e in kvq) / 1e3
+                                      / args.steps,
+        "kv_quant_write_launches_per_step": sum(e.count for e in kvq) / args.steps,
+        "cache_gib": kvcache.cache_bytes(caches) / 2**30,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / args.steps
                                     for e in top},
         "top_kernels_calls_per_step": {e.key[:80]: e.count / args.steps for e in top},
@@ -168,12 +183,12 @@ def main(argv=None) -> dict:
     return result
 
 
-def _profile_prefill(eng: Engine, prompts: np.ndarray) -> dict:
-    """One more wave prefill of ``prompts`` on a fresh cache, under the
-    profiler: its wall time and the device time and launches of its
-    kernels by family (``lru::`` the lru_scan kernel, ``prefill::`` the
-    flash_prefill body)."""
-    caches = eng.init_caches(prompts.shape[0])
+def _profile_prefill(eng: Engine, prompts: np.ndarray, caches) -> dict:
+    """The same wave prefill of ``prompts`` once more, into the same cache
+    (it writes the same bytes; no second cache, which qwen-72b's 4 x 4096
+    tokens would not leave room for), under the profiler: its wall time and
+    the device time and launches of its kernels by family (``lru::`` the
+    lru_scan kernel, ``prefill::`` the flash_prefill body)."""
     tokens = torch.as_tensor(prompts, device=eng.device)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -202,7 +217,8 @@ def _slot_steps(eng: Engine, args, prompts: np.ndarray):
     """Admit every prompt into its own slot (paged: slot b owns pool blocks
     1 + b*nbps ..), and return a function that runs the same ``--steps``
     masked decode steps from there as one ``decode_slots`` block, or
-    ``--steps`` verify or mixed steps from there (``--step``)."""
+    ``--steps`` verify or mixed steps from there (``--step``), and the
+    cache."""
     B, plen = prompts.shape
     admit, plens = np.ones(B, bool), np.full(B, plen)
     bt = None
@@ -237,7 +253,7 @@ def _slot_steps(eng: Engine, args, prompts: np.ndarray):
     else:
         def steps():
             eng.decode_slots(caches, *state, n=args.steps, block_tables=bt)
-    return steps
+    return steps, caches
 
 
 if __name__ == "__main__":

@@ -17,9 +17,11 @@ values; its sliding-window ring blocks the paged cache, and ``--scheduler
 paged`` raises the record's error.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
-projection and the lm_head go through the dequant_matmul kernel.  Runs on
-the card unless ``--device cpu`` is given, where the kernels' plain
-versions run.
+projection and the lm_head go through the dequant_matmul kernel, and
+``--wq-cache PATH`` keeps the packed weights on disk (restored when the
+file exists).  The int8 KV cache has no flag, as in the JAX serve CLI: it
+is ``ParallelConfig.kv_quant``.  Runs on the card unless ``--device cpu``
+is given, where the kernels' plain versions run.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def build_engine(args) -> Engine:
                                    spec_ngram=args.spec_ngram)
     return Engine(cfg, parallel=parallel,
                   sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
-                  seed=args.seed, device=args.device)
+                  seed=args.seed, device=args.device, wq_cache=args.wq_cache)
 
 
 def parallel_config(args) -> ParallelConfig:
@@ -150,6 +152,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed of the random weights and of the sampling noise")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     add_weight_quant_args(ap)
+    ap.add_argument("--wq-cache", default=None,
+                    help="path for the packed weight checkpoint: load it when present "
+                         "(no bf16 weights are drawn), else save it after quantizing "
+                         "at load")
     return ap
 
 

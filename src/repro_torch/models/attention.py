@@ -17,6 +17,13 @@ With a sliding window the wave and slot caches are rings of
 ``cache_len_for`` entries: position p lives at index p % S, and decode masks
 the entries more than ``window`` behind the query.
 
+With ``ParallelConfig.kv_quant`` every layout stores K/V as int8 with a
+bf16 scale per (row, KV head, entry), ``k_scale``/``v_scale`` beside
+``k``/``v`` (the JAX package's int8 cache): fresh K/V are quantized and
+written by one kv_quant_write launch a layer, decode reads the int8 cache
+through the decode kernels' int8 path, and a prefill attends the
+dequantized values, as the reference does.
+
 ``pos`` is shared by all layers, as every layer holds the same positions.
 What a forward does with the cache -- where it writes, which mask decode
 reads -- is worked out once per forward into a ``KVStep`` (as the RoPE
@@ -36,6 +43,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import wquant
 from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels import ops
+# the int8 cache's plain quantizer and dequantizer live beside the kernels'
+# plain versions, which use them; this module is where the model reads them
+from repro_torch.kernels.ref import dequantize_kv, paged_view, quantize_kv  # noqa: F401
 from repro_torch.models.common import apply_rope
 
 VERIFY_WIDTH = 8    # chunks of at most this many queries attend through flash_verify
@@ -53,6 +63,9 @@ class KVStep:
     flat (row, position) tokens ``src`` (None: every token, in order).
     ``ring_idx`` (wave ring, a prompt longer than the ring): the last
     ``len(ring_idx)`` tokens land at these indices (position % S) instead.
+    ``quant_dst`` (an int8 cache): the same writes as one (dim-0, dim-2)
+    pair per flat token, dim-0 -1 where a token is not written
+    (``quant_targets``), which kv_quant_write takes.
     ``state_rows``: the cache rows of recurrent state this forward
     continues from and writes (None: every row, in order).
     Decode reads the cache entries ``valid`` marks ((S,) shared or (b, S)
@@ -73,6 +86,7 @@ class KVStep:
     bt: Optional[torch.Tensor] = None
     paged_read: bool = False
     rows: Optional[torch.Tensor] = None
+    quant_dst: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +175,32 @@ def write_targets(side: torch.Tensor, new: torch.Tensor,
     side[targets[0], :, targets[1]] = flat.to(side.dtype)
 
 
+def quant_targets(b: int, s: int, device, *, wave_pos: Optional[int] = None,
+                  ring_idx: Optional[torch.Tensor] = None,
+                  targets: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  src: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A ``KVStep``'s writes as kv_quant_write takes them: (dst_row, dst_idx)
+    (b * s,) int32, one destination per flat (row, position) token, dst_row
+    -1 for a token not written.  The wave slice from ``wave_pos``, the last
+    ``len(ring_idx)`` tokens of each row at ``ring_idx``, or ``targets`` for
+    the tokens ``src`` (default all)."""
+    if targets is not None:
+        if src is None:
+            return targets[0].to(torch.int32), targets[1].to(torch.int32)
+        row = torch.full((b * s,), -1, dtype=torch.int32, device=device)
+        idx = torch.zeros((b * s,), dtype=torch.int32, device=device)
+        row[src], idx[src] = targets[0].to(torch.int32), targets[1].to(torch.int32)
+        return row, idx
+    rows = torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(s)
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    if ring_idx is None:
+        return rows, (pos + wave_pos).repeat(b)
+    n = ring_idx.numel()
+    at = torch.zeros((s,), dtype=torch.int32, device=device)
+    at[s - n:] = ring_idx.to(torch.int32)
+    return torch.where((pos >= s - n).repeat(b), rows, -1), at.repeat(b)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -207,6 +247,8 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     v = v.view(b, s, hkv, hd).transpose(1, 2)
 
     c = step.cache
+    if c is not None and "k_scale" in c:
+        return _attend_int8(q, k, v, c, step, layer, scale, window)
     if c is not None:
         ck, cv = c["k"][layer], c["v"][layer]
         if step.targets is not None:
@@ -236,3 +278,38 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
         out = ops.flash_prefill(q, k.contiguous(), v.contiguous(), step.q_pos, scale,
                                 window=window)
     return out
+
+
+def _attend_int8(q, k, v, c, step: KVStep, layer: int, scale: float, window: int):
+    """``gqa_heads``' cache write and attention over an int8 cache (the JAX
+    package's ``quant`` branches): the fresh K/V quantized and written by
+    one kv_quant_write launch; decode reads the int8 cache through the
+    decode kernels' int8 path; a chunk attends its rows' stripes dequantized
+    by the plain ``dequantize_kv`` (flash_verify up to ``VERIFY_WIDTH``
+    wide, flash_prefill above, as the JAX package does), or its slots'
+    paged views gathered and dequantized (flash_prefill at every width,
+    where the JAX package attends them in jnp); a whole prompt attends the
+    dequantized fresh K/V (``_dequantize_kv(kq, ksc)``)."""
+    ck, cv, cks, cvs = c["k"][layer], c["v"][layer], c["k_scale"][layer], c["v_scale"][layer]
+    fresh = not step.decode and not step.paged_read and step.rows is None
+    kd = ops.kv_quant_write(k, v, ck, cv, cks, cvs, *step.quant_dst, dequantized=fresh)
+    q = q.contiguous()
+    if step.decode:
+        if step.bt is not None:
+            _, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale,
+                                                           k_scale=cks, v_scale=cvs)
+        else:
+            _, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale,
+                                                     k_scale=cks, v_scale=cvs)
+        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    if fresh:
+        return ops.flash_prefill(q, kd[0], kd[1], step.q_pos, scale, window=window)
+    if step.paged_read:
+        # the scales gathered as a pool of head_dim 1
+        view = lambda pool, sc: dequantize_kv(paged_view(pool, step.bt),
+                                              paged_view(sc[..., None], step.bt)[..., 0])
+        return ops.flash_prefill(q, view(ck, cks), view(cv, cvs), step.q_pos, scale)
+    rows = step.rows.long()
+    k_att, v_att = dequantize_kv(ck[rows], cks[rows]), dequantize_kv(cv[rows], cvs[rows])
+    attend = ops.flash_verify if q.shape[2] <= VERIFY_WIDTH else ops.flash_prefill
+    return attend(q, k_att, v_att, step.q_pos, scale)

@@ -85,12 +85,8 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("n_codebooks>1 (multi-codebook heads)")
     if cfg.tie_embeddings:
         missing.append("tie_embeddings")
-    if parallel.kv_quant:
-        missing.append("kv_quant (int8 KV cache)")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
-    elif parallel.weight_quant != "none" and "rglru" in kinds:
-        missing.append(f"weight_quant={parallel.weight_quant} with rglru layers")
     if parallel.tp != 1:
         missing.append("tp>1 (tensor parallelism)")
     if missing:
@@ -237,22 +233,28 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
 def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
     """Quantize at load (``repro.models.model.quantize_params`` at tp=1):
     the bf16 leaves of ``WQ_SITES`` and the lm_head become QuantWeights in
-    new stacked storage; leaves already quantized pass through, and shapes
-    that do not quantize stay bf16."""
+    new storage stacked over each layer family (an RG-LRU layer's FFN; its
+    mixer's leaves are not sites); leaves already quantized pass through,
+    and shapes that do not quantize stay bf16."""
     if parallel.weight_quant == "none":
         return params
     mode, gs = parallel.weight_quant, parallel.wq_group_size
     layers = params["layers"]
     new_layers = [dict(p) for p in layers]
-    for name in WQ_SITES:
-        first = layers[0].get(name)   # None for the lm_head
-        if first is None or isinstance(first, QuantWeight) or not _quantizes(name, first.shape, parallel):
-            continue
-        dst = _quantized_empty((len(layers), *first.shape), mode, gs, first.device)
-        for i, p in enumerate(layers):
-            view = wquant.index_batch(dst, i)
-            _quantize_into(view, p[name], gs)
-            new_layers[i][name] = view
+    families: Dict[bool, List[int]] = {}   # an RG-LRU layer keeps a "mixer" dict
+    for i, p in enumerate(layers):
+        families.setdefault("mixer" in p, []).append(i)
+    for idx in families.values():
+        for name in WQ_SITES:
+            first = layers[idx[0]].get(name)   # None for the lm_head and the mixer's leaves
+            if (first is None or isinstance(first, QuantWeight)
+                    or not _quantizes(name, first.shape, parallel)):
+                continue
+            dst = _quantized_empty((len(idx), *first.shape), mode, gs, first.device)
+            for n, i in enumerate(idx):
+                view = wquant.index_batch(dst, n)
+                _quantize_into(view, layers[i][name], gs)
+                new_layers[i][name] = view
     out = dict(params, layers=new_layers)
     head = params["lm_head"]
     if not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel):
@@ -289,7 +291,7 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 per_slot: bool = False, paged: Optional[Tuple[int, int]] = None,
-                ring_slack: int = 0) -> Dict[str, torch.Tensor]:
+                ring_slack: int = 0, kv_quant: bool = False) -> Dict[str, torch.Tensor]:
     """The cache of all layers; ``pos`` -1 marks an empty entry.
 
     Wave (default): ``k``/``v`` (A, batch, hkv, S, hd) for the A attention
@@ -299,8 +301,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     entries (``attention.cache_len_for``).  ``paged=(n_blocks,
     block_size)``: ``k``/``v`` are block pools (A, n_blocks, hkv,
     block_size, hd) and ``pos`` is (batch, view) over each slot's view of
-    ceil(max_len / block_size) blocks.  RG-LRU layers add their recurrent
-    state, ``h`` and ``conv`` (``rglru.init_rglru_state``)."""
+    ceil(max_len / block_size) blocks.  ``kv_quant``: ``k``/``v`` are int8
+    and ``k_scale``/``v_scale`` hold a bf16 scale per entry, shaped as
+    ``k`` less its hd (pools of scales for a paged cache), zeros as the JAX
+    package's ``init_cache(quant=True)`` makes them.  RG-LRU layers add
+    their recurrent state, ``h`` and ``conv`` (``rglru.init_rglru_state``)."""
     fams = layer_families(cfg)
     n_attn, n_rec = len(fams.get("attn", ())), len(fams.get("rglru", ()))
     window = attention_window(cfg)
@@ -313,11 +318,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
         S = attn.cache_len_for(cfg, "local_attn" if window else "attn", max_len, ring_slack)
         shape = (n_attn, batch, hkv, S, hd)
         pos_shape = (batch, S) if per_slot else (S,)
+    kv_dtype = torch.int8 if kv_quant else torch.bfloat16
     caches = {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device),
     }
+    if kv_quant:
+        for key in ("k_scale", "v_scale"):
+            caches[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
     if n_rec:
         caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device))
     return caches
@@ -455,6 +464,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
                     block_tables=block_tables, write_rows=write_rows,
                     chunk_writes=chunk_writes, window=attention_window(cfg))
+    if caches is not None and "k_scale" in caches:    # the int8 cache's writes, once
+        step.quant_dst = attn.quant_targets(b, s, dev, wave_pos=step.wave_pos,
+                                            ring_idx=step.ring_idx, targets=step.targets,
+                                            src=step.src)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -25,6 +25,7 @@ from repro_torch.models import model as M
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.sampling import sample_tokens
+from repro_torch.training import checkpoint
 
 
 class Engine:
@@ -39,12 +40,18 @@ class Engine:
     computed in fp32 and casting the head on every step would allocate and
     write it anew each time; a quantized head is not, since an fp32 copy
     would undo its point.  ``caps`` is the arch's serving-capability record,
-    which the schedulers consult."""
+    which the schedulers consult.
+
+    ``wq_cache`` (with ``parallel.weight_quant``): the path of a packed
+    weight checkpoint (``training.checkpoint``): restored when it exists,
+    else written after the weights are quantized, as the JAX engine's
+    ``wq_cache`` does.  ``parallel.kv_quant`` gives every cache this engine
+    makes the int8 layout."""
 
     def __init__(self, cfg: ModelConfig, *, parallel: ParallelConfig = ParallelConfig(),
                  sampling: SamplingConfig = SamplingConfig(), max_len: int = 128,
                  params: Optional[Dict[str, Any]] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", wq_cache: Optional[str] = None):
         M.check_supported(cfg, parallel)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -54,15 +61,22 @@ class Engine:
         self.cfg, self.parallel, self.sampling = cfg, parallel, sampling
         self.caps = ArchCapabilities.from_config(cfg)
         self.max_len = max_len
-        if params is None:
+        wq = parallel.weight_quant != "none" and wq_cache is not None
+        loaded = params is None and wq and checkpoint.has_quantized(wq_cache)
+        if loaded:
+            params = checkpoint.load_quantized(wq_cache, cfg, parallel, device=self.device)
+        elif params is None:
             params = M.init_params(cfg, parallel, seed=seed, device=self.device)
         self.params = M.quantize_params(params, parallel)
+        if wq and not loaded:
+            checkpoint.save_quantized(self.params, cfg, parallel, wq_cache)
         head = self.params["lm_head"]
         self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:
-        return M.init_caches(self.cfg, batch, self.max_len, device=self.device)
+        return M.init_caches(self.cfg, batch, self.max_len, device=self.device,
+                             kv_quant=self.parallel.kv_quant)
 
     def prefill(self, tokens: torch.Tensor, caches) -> torch.Tensor:
         """Prompt step: writes the cache, samples from the LAST position's
@@ -92,12 +106,13 @@ class Engine:
         verify chunk of spec_k drafts never wraps onto live window entries
         (the JAX package's ``ring_slack``)."""
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             per_slot=True, ring_slack=self.parallel.spec_k)
+                             per_slot=True, ring_slack=self.parallel.spec_k,
+                             kv_quant=self.parallel.kv_quant)
 
     def init_paged_caches(self, n_slots: int, n_blocks: int,
                           block_size: int) -> Dict[str, torch.Tensor]:
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             paged=(n_blocks, block_size))
+                             paged=(n_blocks, block_size), kv_quant=self.parallel.kv_quant)
 
     def _admit_rows(self, tokens, admit, plens, **kw) -> np.ndarray:
         """Prefill the admitted rows of ``tokens`` (B, Lp) and sample each
@@ -140,7 +155,7 @@ class Engine:
         engine."""
         rows = np.flatnonzero(np.asarray(admit))
         start = np.asarray(starts)[rows]
-        kvcache.reset_slots(caches, admit)
+        kvcache.reset_slots(caches, admit, paged=True)
         tok = self._admit_rows(
             tokens, admit, plens, caches=caches,
             block_tables=kvcache.device_ints(np.asarray(block_tables)[rows], self.device,

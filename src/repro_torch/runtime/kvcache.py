@@ -13,7 +13,9 @@ same positions:
 * paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
   addressed through a per-slot block table (b, nbps) that the scheduler
   keeps on the host; ``pos`` (b, nbps*bs) is per-slot over the slot's view,
-  where view index == absolute position.
+  where view index == absolute position;
+* an int8 cache (``kv_quant``) holds int8 ``k``/``v`` and bf16
+  ``k_scale``/``v_scale`` of their shape less hd, in every layout.
 
 The JAX package updates caches functionally and picks the admitted rows
 with ``merge_slots``.  Here every update is **in place** and takes the
@@ -39,6 +41,14 @@ NULL_BLOCK = 0      # reserved write sink; never allocated, never valid
 
 # pool-shaped leaves of the paged layout: indexed by block id, not by slot
 POOL_KEYS = ("k", "v")
+# an int8 cache's scales, shaped as k / v less hd (pools in the paged layout)
+SCALE_KEYS = ("k_scale", "v_scale")
+
+
+def cache_bytes(caches: Dict[str, torch.Tensor]) -> int:
+    """Device bytes of a cache dict: K/V (or pools), an int8 cache's
+    scales, positions and recurrent state."""
+    return sum(t.numel() * t.element_size() for t in caches.values())
 
 
 def _rows(mask, device) -> torch.Tensor:
@@ -51,15 +61,19 @@ def device_ints(x, device, dtype=torch.long) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.int64)).to(device, dtype)
 
 
-def reset_slots(caches: Dict[str, torch.Tensor], mask) -> None:
+def reset_slots(caches: Dict[str, torch.Tensor], mask, *, paged: bool = False) -> None:
     """In place: the position rows of the slots in ``mask`` (b,) go to -1,
     which masks every stale K/V entry without touching the K/V bytes (they
     are dead by position and are overwritten as the new request runs), and
-    their recurrent state zeroes, since a prefill integrates it from t=0."""
+    their recurrent state zeroes, since a prefill integrates it from t=0.
+    An int8 slot cache's scale rows zero too, so that a dead entry
+    dequantizes to exactly 0 and a fresh slot starts as a fresh cache
+    does; ``paged``: scales are block pools, left alone like the K/V pools
+    (the JAX package's ``reset_slots``)."""
     pos = caches["pos"]
     rows = _rows(mask, pos.device)
     pos[rows] = -1
-    for key in ("h", "conv"):
+    for key in ("h", "conv") + (() if paged else SCALE_KEYS):
         if key in caches:
             caches[key][:, rows] = 0
 

@@ -826,7 +826,165 @@ def test_decode_attention_refuses_a_bad_plan(dev):
                                   (64, 5, 5 * 16 * 66), (64, 4, 4 * 16 * 66 - 1)):
         work = torch.empty(4 * 16 * 66 + 2 * 16 * 66, device=dev)
         with pytest.raises(RuntimeError, match="decode_attention"):
-            build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            build.call("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
                        valid.data_ptr(), 0, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
                        work.data_ptr(), n_work, counters.data_ptr(), counters.numel(), chunk,
                        splits, 2, 8, 1, 256, 64, 1, 0.125, ops._stream())
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache: the decode kernels' int8 load path and kv_quant_write
+# ---------------------------------------------------------------------------
+
+
+def _int8_cache(gen, dev, shape):
+    """An int8 cache side and its bf16 scales, as kv_quant_write leaves
+    them: ``ref.quantize_kv`` of seeded bf16 values, some rows all zero."""
+    x = _randn(gen, shape, torch.bfloat16, dev) * 3
+    x.view(-1, shape[-1])[::7] = 0
+    return ref.quantize_kv(x)
+
+
+def _equal_partials(got, want):
+    """m, l and acc bit for bit (a row with no valid key: -inf, 0, 0)."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def _close_to_plain(got, plain):
+    """m, l and acc against the plain version (dequantize, then the plain
+    decode) at the bf16 decode tests' tolerance."""
+    for g, w, atol in zip(got, plain, (1e-4, 1e-4, 1e-3)):
+        torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)    # -inf rows included
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,S,mask", [
+    (4, 32, 4, 512, "shared"), (3, 16, 1, 1000, "per_row"), (2, 8, 8, 77, "per_row"),
+    (4, 64, 64, 300, "window"),
+])
+def test_decode_attention_int8_equals_bf16_on_the_dequantized_cache(dev, b, hq, hkv, S, hd,
+                                                                     mask):
+    """The int8 load path against the bf16 instance on ``dequantize_kv`` of
+    the same cache, bit for bit: shared and per-row masks (a row with no
+    valid key), a window's mask over a ring, several splits and one."""
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q = _randn(gen, (b, hq, 1, hd), torch.bfloat16, dev)
+    (kq, ks), (vq, vs) = (_int8_cache(gen, dev, (b, hkv, S, hd)) for _ in range(2))
+    if mask == "shared":
+        valid = torch.arange(S, device=dev) < (3 * S) // 4
+    elif mask == "per_row":
+        lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+        lens[0] = 0
+        valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    else:                           # positions past a 128-key window over a wrapped ring
+        cur = torch.tensor([400, 299, 150, 1000][:b], device=dev)
+        pos = torch.arange(S, device=dev)[None, :] + (cur[:, None] // S) * S
+        pos = torch.where(pos > cur[:, None], pos - S, pos)
+        valid = (pos >= 0) & (pos <= cur[:, None]) & (pos > cur[:, None] - 128)
+    before = ops.LAUNCHES["decode_attention_int8"]
+    got = ops.decode_attention_partial(q, kq, vq, valid, hd ** -0.5, k_scale=ks, v_scale=vs)
+    assert ops.LAUNCHES["decode_attention_int8"] == before + 1
+    want = ops.decode_attention_partial(q, ref.dequantize_kv(kq, ks), ref.dequantize_kv(vq, vs),
+                                        valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    _equal_partials(got, want)
+    plain = ref.decode_attention_ref(q, ref.dequantize_kv(kq, ks), ref.dequantize_kv(vq, vs),
+                                     valid, hd ** -0.5)
+    _close_to_plain(got, plain)
+
+
+@pytest.mark.parametrize("b,hq,hkv,hd,nb,bs,nbps", PAGED_CASES + [(4, 16, 1, 256, 70, 16, 16)])
+def test_paged_decode_attention_int8_equals_bf16_on_the_dequantized_pools(dev, b, hq, hkv, hd,
+                                                                          nb, bs, nbps):
+    gen = torch.Generator(device=dev).manual_seed(nb + bs + 1)
+    q, _, _, bt = _paged(gen, dev, torch.bfloat16, b, hq, hkv, hd, nb, bs, nbps, 1)
+    (kq, ks), (vq, vs) = (_int8_cache(gen, dev, (nb, hkv, bs, hd)) for _ in range(2))
+    S = nbps * bs
+    lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    valid[0, bs:3 * bs] = False
+    valid[-1] = False
+    before = ops.LAUNCHES["paged_decode_attention_int8"]
+    got = ops.paged_decode_attention_partial(q, kq, vq, bt, valid, hd ** -0.5, k_scale=ks,
+                                             v_scale=vs)
+    assert ops.LAUNCHES["paged_decode_attention_int8"] == before + 1
+    want = ops.paged_decode_attention_partial(q, ref.dequantize_kv(kq, ks),
+                                              ref.dequantize_kv(vq, vs), bt, valid, hd ** -0.5)
+    torch.cuda.synchronize()
+    _equal_partials(got, want)
+    plain = ref.paged_decode_attention_ref(q, ref.dequantize_kv(kq, ks),
+                                           ref.dequantize_kv(vq, vs), bt, valid, hd ** -0.5)
+    _close_to_plain(got, plain)
+    assert torch.isneginf(got[0][-1]).all() and not got[2][-1].any()
+
+
+def _kvq_case(gen, dev, layout, b, h, s, hd, n, m):
+    """Fresh K/V (strided, as a layer makes them), int8 caches and scales
+    filled with a marker, and (dst_row, dst_idx) of one layout."""
+    from repro_torch.models import attention as attn
+
+    k, v = (_randn(gen, (b, s, h, hd), torch.bfloat16, dev).transpose(1, 2) for _ in range(2))
+    caches = [torch.full((n, h, m, hd), 99, dtype=torch.int8, device=dev) for _ in range(2)]
+    scales = [torch.full((n, h, m), -1.0, device=dev).bfloat16() for _ in range(2)]
+    if layout == "wave":
+        dst = attn.quant_targets(b, s, dev, wave_pos=m - s)
+    elif layout == "ring":          # the last m tokens at p % m, the others dropped
+        dst = attn.quant_targets(b, s, dev, ring_idx=torch.arange(s - m, s, device=dev) % m)
+    else:                           # pool targets: shuffled blocks, the null block 0 twice
+        bt = torch.randperm(n - 1, generator=gen, device=dev)[:b * 2].reshape(b, 2) + 1
+        bt[-1, -1] = 0
+        starts = torch.arange(b, device=dev) * 3
+        phys, off = attn.paged_flat_targets(bt, starts, s, m)
+        src = torch.arange(b * s, device=dev)[1:]         # token 0 is not written
+        dst = attn.quant_targets(b, s, dev, targets=(phys[1:], off[1:]), src=src)
+    return k, v, caches, scales, dst
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("layout,b,h,s,n,m", [
+    ("wave", 4, 4, 37, 4, 64), ("wave", 2, 64, 1, 2, 8), ("ring", 3, 1, 100, 3, 64),
+    ("targets", 4, 8, 13, 12, 16), ("targets", 2, 2, 1, 6, 8),
+])
+def test_kv_quant_write_kernel(dev, layout, b, h, s, hd, n, m):
+    """Bit for bit against the plain version in every layout: the wave's
+    slice, a ring's indices with the earlier tokens dropped, pool targets
+    with a dropped token and the null block named twice (its entries, never
+    read as valid, are left out of the comparison); the dequantized fresh
+    K/V too, and one launch."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + hd)
+    k, v, caches, scales, dst = _kvq_case(gen, dev, layout, b, h, s, hd, n, m)
+    plain = ([c.clone() for c in caches], [t.clone() for t in scales])
+    want = ref.kv_quant_write_ref(k, v, *plain[0], *plain[1], *dst)
+    before = ops.LAUNCHES["kv_quant_write"]
+    got = ops.kv_quant_write(k, v, *caches, *scales, *dst, dequantized=True)
+    assert ops.LAUNCHES["kv_quant_write"] == before + 1
+    torch.cuda.synchronize()
+    keep = slice(1, None) if layout == "targets" else slice(None)
+    for a, w in zip(caches + scales, plain[0] + plain[1]):
+        assert torch.equal(a[keep].view(torch.uint8) if a.dtype == torch.int8 else
+                           a[keep].view(torch.int16),
+                           w[keep].view(torch.uint8) if w.dtype == torch.int8 else
+                           w[keep].view(torch.int16))
+    for a, w in zip(got, want):
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16))
+    assert (caches[0] != 99).any() and ops.kv_quant_write(k, v, *caches, *scales, *dst) is None
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = _randn(gen, (2, 8, 1, 128), torch.bfloat16, dev)
+    (kq, ks), (vq, vs) = (_int8_cache(gen, dev, (2, 2, 64, 128)) for _ in range(2))
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="needs its scales"):
+        ops.decode_attention_partial(q, kq, vq, valid, 0.1)
+    with pytest.raises(ValueError, match="scales"):
+        ops.decode_attention_partial(q.float(), kq, vq, valid, 0.1, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="both scales"):
+        ops.decode_attention_partial(q, kq, vq, valid, 0.1, k_scale=ks)
+    k = _randn(gen, (2, 2, 3, 128), torch.bfloat16, dev)
+    dst = (torch.zeros(6, dtype=torch.int32, device=dev),) * 2
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.kv_quant_write(k.float(), k.float(), kq, vq, ks, vs, *dst)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.kv_quant_write(k, k, kq, vq, ks, vs, dst[0][:5], dst[1])

@@ -104,9 +104,11 @@ def test_prefill_and_decode_logits_match_jax(pair):
     assert_logits_match(eng, cfg, params)
 
 
-def assert_logits_match(eng, cfg, params):
+def assert_logits_match(eng, cfg, params, kv_quant=False):
     """Prefill logits and 8 teacher-forced decode steps of the JAX engine's
-    forward and the port's, on the same weights, within TOL."""
+    forward and the port's, on the same weights, within TOL; ``kv_quant``:
+    the port's cache is the int8 one (the JAX engine's follows its own
+    ParallelConfig)."""
     ctx = eng.ctx
     b, plen, steps = 2, 12, 8
     pspecs = JM.param_specs(ctx)
@@ -128,7 +130,7 @@ def assert_logits_match(eng, cfg, params):
 
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, plen)).astype(np.int32)
     jl, jc = jpre(eng.params, jnp.asarray(prompts), eng.init_caches(b))
-    tc = TM.init_caches(cfg, b, 32, device="cpu")
+    tc = TM.init_caches(cfg, b, 32, device="cpu", kv_quant=kv_quant)
     with torch.inference_mode():
         tl = TM.forward(params, torch.from_numpy(prompts).long(), cfg, caches=tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
@@ -149,9 +151,16 @@ def test_unsupported_features_raise_naming_them():
                               n_codebooks=2)
     with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*tp>1"):
         TM.check_supported(cfg, ParallelConfig(tp=2))
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        Engine(get_config("yi-9b").reduced(),
-               parallel=ParallelConfig(kv_quant=True, weight_quant="int4"), device="cpu")
+    # the int8 KV cache is served; what the port does not serve yet is still
+    # named and refused under it
+    kvq = ParallelConfig(kv_quant=True, weight_quant="int4")
+    for over, name in ((dict(moe=object()), "moe"), (dict(mla=object()), "mla")):
+        with pytest.raises(NotImplementedError, match=name):
+            Engine(dataclasses.replace(get_config("yi-9b").reduced(), **over), parallel=kvq,
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match=r"tp>1"):
+        TM.check_supported(get_config("yi-9b"), dataclasses.replace(kvq, tp=2))
+    TM.check_supported(get_config("yi-9b"), kvq)
     # int8 and int4 weights are served; any other mode is named and refused
     with pytest.raises(NotImplementedError, match="weight_quant=int2"):
         Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(weight_quant="int2"),

@@ -73,10 +73,10 @@ def configs(n_layers: int):
             dataclasses.replace(get_config("recurrentgemma-9b").reduced(), n_layers=n_layers))
 
 
-def hybrid_engine(jcfg, max_len=MAX_LEN):
-    """A JAX engine (Pallas on) with seeded nonzero norms and gate biases ->
-    (engine, numpy tree)."""
-    eng, tree = jax_engine(jcfg, max_len, use_pallas=True)
+def hybrid_engine(jcfg, max_len=MAX_LEN, **parallel_kw):
+    """A JAX engine (Pallas on; ``parallel_kw`` for its ParallelConfig) with
+    seeded nonzero norms and gate biases -> (engine, numpy tree)."""
+    eng, tree = jax_engine(jcfg, max_len, use_pallas=True, **parallel_kw)
     rng = np.random.default_rng(5)
 
     def perturb(path, leaf):
@@ -224,8 +224,11 @@ def test_slot_index_wraps_on_a_ring():
 def test_check_supported_admits_the_hybrid_and_names_what_it_refuses():
     cfg = get_config("recurrentgemma-9b")
     TM.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="weight_quant=int4 with rglru"):
-        TM.check_supported(cfg, ParallelConfig(weight_quant="int4"))
+    # weight quant and the int8 KV cache are served on the hybrid too
+    for mode in ("int8", "int4"):
+        TM.check_supported(cfg, ParallelConfig(weight_quant=mode, kv_quant=True))
+    with pytest.raises(NotImplementedError, match="weight_quant=int2"):
+        TM.check_supported(cfg, ParallelConfig(weight_quant="int2"))
     mixed = dataclasses.replace(cfg, layer_pattern=("attn", "local_attn"))
     with pytest.raises(NotImplementedError, match="attn and local_attn"):
         TM.check_supported(mixed)
