@@ -104,8 +104,46 @@ Phases, each fatal on failure:
    on the same inputs the port's logits lie within 5e-2 of theirs, and
    both tokens within 5e-2 of their top.
 
+9. tensor parallelism: two ranks, one process each, share the card over
+   gloo, their collectives staged through host memory (no wall time of
+   these phases is a tensor-parallel speed).  First the small GQA model,
+   the same with QKV bias in int4 and the small parallel-residual model at
+   tp=2 against the same weights at tp=1 on the CPU: every logits row of a
+   21-token prefill (the ranks' sequence chunks differ) and 8 decode steps
+   within 5e-2, the greedy wave's tokens the CPU's (a parting certified at
+   a CPU top-2 gap below 1e-2).  Then full width, each rank drawing every
+   global leaf from the tp=1 seed and keeping its shard: yi-9b bf16 (48
+   layers) through phase 5's wave workload and phase 6's paged
+   chunked-spec one; gptj-parallel bf16 (28 layers) waves with and
+   without one_shot_sync; qwen-72b int4 (80 layers) in one wave of 4, its
+   embedding vocab-sharded.  Per request, each holds the tokens of the
+   tp=1 phase of the same weights (qwen-72b: the first four of its int4
+   wave; the two-sync gptj wave: the one-shot one's too) or parts at a
+   near-tie of the tp=1 model, at most half parted: a top-2 gap below
+   1e-2 (not enough alone for gptj-parallel), or a witness: for
+   gptj-parallel the plain versions, as its slot phases; else the tp
+   ranks' own logits at the parting, within twice the tp=1 port's
+   distance from its plain versions there (at least 5e-2) of tp=1's, each
+   side's token within once that of the other's top.  Each phase prints its collectives (``comm``:
+   one decode step at b 4 and the whole run, by tag), and a decode step
+   must all-reduce 2 x L times (L with one_shot_sync), each 64 KiB on the
+   wire for yi-9b, plus the two top-k gathers and, for qwen-72b, the
+   embedding's all-reduce; every rank's launches as predicted (two top-k
+   launches a sampling call); every rank the same tokens.  With two or
+   more cards the yi-9b wave runs once more over NCCL, one card a rank;
+   with one, a line says why it did not run.
+
+Earlier slices' phases that no tp phase is held to and whose checks read
+the same at any depth run at a cut depth (``EARLIER_DEPTH``:
+recurrentgemma-9b 20 of 38 layers, the gptj-parallel slot phases 14 of
+28, the yi-9b int8-KV slot phases and its int8-weight and int8-KV waves
+24 of 48), so that the whole run stays near its ~600 s aim.  qwen-72b's
+int8-KV wave stays at 80 layers: its peak memory must show that 4 x 4096
+tokens fit the card.
+
 Each kernel row of the last lines counts its launches on the phases of the
-arches whose shapes it was timed at (``launches_counted_on``).
+arches whose shapes it was timed at (``launches_counted_on``), the tp
+phases' launches summed over their ranks.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the kernels' JSON and one serve JSON line per phase.
@@ -170,13 +208,43 @@ RG_VOCAB = 256000
 RG_WAVE = dict(requests=8, batch=4, prompt=(2100, 2300), max_new=32, max_len=2400)
 RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arrival_every=4,
                 max_len=2304)
+# The depth of earlier slices' phases that the tp phases do not hold to and
+# whose checks read the same at any depth, cut so that the whole run stays
+# near the ~600 s aim (PERF.md section 4): recurrentgemma-9b's four phases,
+# gptj-parallel's and yi-9b's int8-KV slot phases, yi-9b's int8-weight and
+# int8-KV waves (phase name -> layers).  The tp phases, the tp=1 phases
+# they are held to, and qwen-72b's int8-KV wave (its peak memory shows
+# that 4 x 4096 tokens fit one card) run at full depth.
+EARLIER_DEPTH = {"recurrentgemma-9b": 20, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
+                 "yi-9b int8 wave": 24, "yi-9b int8-KV wave": 24}
+
+
+def wave_name(weight_quant: str, kv_quant: bool) -> str:
+    """A wave phase's name in EARLIER_DEPTH: "wave", "int8 wave", "int8-KV
+    wave", "int8-KV int4 wave"."""
+    return ("int8-KV " if kv_quant else "") + ("" if weight_quant == "none"
+                                              else weight_quant + " ") + "wave"
+
+
+def phase_config(arch: str, phase: str = ""):
+    """``arch``'s config, at the cut depth of EARLIER_DEPTH where its entry
+    (``arch``, or ``arch`` + " " + ``phase``) has one."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    n = EARLIER_DEPTH.get(f"{arch} {phase}".strip(), EARLIER_DEPTH.get(arch))
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
 # dequant_matmul cases: (what, mode, T, K, N, out dtype); the first is the
 # int4 qwen-72b decode hot path and heads the kernels line
 DQ_CASES = (("qwen-72b w_up int4, decode", "int4", B, 8192, 24576, torch.bfloat16),
             ("yi-9b w_up int8, decode", "int8", B, 4096, 11008, torch.bfloat16),
             ("qwen-72b lm_head int4, decode", "int4", B, 8192, 151936, torch.float32),
             ("qwen-72b w_down int4, prefill", "int4", 512, 24576, 8192, torch.bfloat16),
-            ("yi-9b w_down int8, prefill", "int8", 512, 11008, 4096, torch.bfloat16))
+            ("yi-9b w_down int8, prefill", "int8", 512, 11008, 4096, torch.bfloat16),
+            # a tp=2 rank's w_down rows: shard-local int4 groups
+            ("qwen-72b w_down int4 tp=2 shard, decode", "int4", B, 12288, 8192, torch.bfloat16))
 
 
 def fail(msg: str) -> None:
@@ -330,8 +398,10 @@ def check_kernels(dev, flush) -> list:
     # version on the CPU, whose sort ranks NaN first by index as the JAX
     # package does; whether the card's sort agrees is recorded
     entry = None
+    # at tp=2 (the tp phases): a rank's vocab shard, then the tp * k candidates
     for V, kk, key in ((VOCAB, 1, None), (VOCAB, 40, "k40"), (RG_VOCAB, 1, f"v{RG_VOCAB}"),
-                       (VOCAB, 40, "nan")):
+                       (VOCAB, 40, "nan"), (VOCAB // TP, 1, "tp2_shard"),
+                       (TP, 1, "tp2_candidates"), (TP * 40, 40, "tp2_candidates_k40")):
         x = rnd(B, V)
         if key == "nan":
             chunk, _ = ops.topk_chunk_plan(B, V, kk, ops._sm_count(x.device))
@@ -404,6 +474,8 @@ def check_parallel_kernels(dev, flush) -> list:
     for what, a_shape, kb, d, dtype in (
             ("gptj decode", (B, GJ_H, 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
             ("gptj decode at 8 rows", (2 * B, GJ_H, 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
+            ("gptj tp=2 shard decode", (B, GJ_H // 2, 1, GJ_HD), GJ_F // 2, GJ_D,
+             torch.bfloat16),
             ("gptj verify step", (B, GJ_H, SPEC_K + 1, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
             ("gptj 64-token chunk", (1, GJ_H, PREFILL_SQ, GJ_HD), GJ_F, GJ_D, torch.bfloat16),
             ("gptj prefill, heads read in place", (B, GJ_H, PREFILL_S, GJ_HD), GJ_F, GJ_D,
@@ -1476,9 +1548,10 @@ def sequential_on_card(real):
     from repro_torch.models.common import rms_norm
     from repro_torch.models.mlp import mlp_forward
 
-    def sublayer(p, x, cfg, kind="attn", index=0, *, rope, step, length_mask=None):
+    def sublayer(p, x, cfg, kind="attn", index=0, *, rope, step, length_mask=None, policy):
         if x.device.type != "cuda":
-            return real(p, x, cfg, kind, index, rope=rope, step=step, length_mask=length_mask)
+            return real(p, x, cfg, kind, index, rope=rope, step=step, length_mask=length_mask,
+                        policy=policy)
         x = x + attn.gqa_forward(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg, rope=rope,
                                  step=step, layer=index)
         return x + mlp_forward(p, rms_norm(x, p["norm1"], cfg.rms_eps), cfg)
@@ -1623,7 +1696,8 @@ def parallel_reference_check(dev) -> dict:
 
 def hybrid_phases(dev) -> list:
     """Full-width recurrentgemma-9b, random weights from seed 0, greedy, in
-    bf16 and then with int8 weights and the int8 KV cache, all 38 layers:
+    bf16 and then with int8 weights and the int8 KV cache, at the depth of
+    EARLIER_DEPTH:
     (a)
     WaveScheduler over RG_WAVE; (b) ContinuousScheduler over RG_SLOTS with
     ``prefill_chunk`` left at its default, from which it falls back to
@@ -1661,7 +1735,7 @@ def hybrid_phases(dev) -> list:
     for weight_quant, phase in (("none", "wave"), ("none", "continuous"), ("int8", "wave"),
                                 ("int8", "continuous")):
         parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=weight_quant != "none")
-        cfg = get_config(RG_ARCH)
+        cfg = phase_config(RG_ARCH)
         t_phase = time.monotonic()
         opts = RG_WAVE if phase == "wave" else RG_SLOTS
         torch.cuda.reset_peak_memory_stats()
@@ -1818,9 +1892,9 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     from repro_torch.runtime.scheduler import WaveScheduler
 
     t_phase = time.monotonic()
-    cfg = get_config(arch)
-    parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=kv_quant)
     long = arch == "qwen-72b" and kv_quant
+    cfg = phase_config(arch, wave_name(weight_quant, kv_quant))
+    parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=kv_quant)
     opts = QWEN_LONG if long else dict(requests=SERVE_REQUESTS, batch=SERVE_BATCH,
                                        prompt=(16, 128), max_new=SERVE_MAX_NEW,
                                        max_len=SERVE_MAX_LEN)
@@ -1852,6 +1926,8 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     second, dt2 = run()
     n_tokens = sum(len(t) for t in first.values())
     waves = -(-opts["requests"] // opts["batch"])
+    if not kv_quant:
+        TP1_STREAMS[(cfg.name, weight_quant, "wave")] = (cfg.n_layers, first)
     L = cfg.n_layers
     expect = {name: 0 for name in ops.KERNELS}
     expect.update({"flash_prefill": L * waves,
@@ -1993,7 +2069,8 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
 
-    cfg = get_config(arch)
+    cfg = phase_config(arch, "int8-KV slots" if kv_quant else
+                       "slots" if arch == GJ_ARCH else "")
     if kv_quant:
         tie_check = "plain"
     torch.cuda.reset_peak_memory_stats()
@@ -2102,6 +2179,9 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
             if not np.array_equal(toks, second[rid].output):
                 fail(f"{name} request {rid}: greedy tokens differ between two runs")
         tokens[name] = first
+        if not kv_quant:
+            TP1_STREAMS[(cfg.name, "none", name)] = (L, {rid: r.output
+                                                          for rid, r in first.items()})
         n_tokens = sum(len(r.output) for r in first.values())
         summary = sched.request_summary()
         result = {
@@ -2135,6 +2215,437 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
     del eng
     torch.cuda.empty_cache()
     return results
+
+
+# -- tensor parallelism --------------------------------------------------------
+#
+# Two ranks, one process each, share the one card over gloo (NCCL puts one
+# rank on each card), every collective staged through host memory: no wall
+# time of these phases is a tensor-parallel speed.  The kernels are built
+# before the ranks start; each rank loads them.
+
+TP = 2
+# the tp=1 phases' streams, (arch, weight_quant, phase) -> (layers,
+# {rid: tokens}): the tp phases are held to them
+TP1_STREAMS: dict = {}
+LAYER_TAGS = ("mixer_reduce", "ffn_reduce", "one_shot", "attn_reduce")
+
+
+def tp_small_models():
+    """The tp reference checks' models -> (name, cfg, ParallelConfig kw):
+    the small GQA model, the same with QKV bias in int4 (qwen-like), and
+    the small parallel-residual model."""
+    from repro_torch.configs import get_config
+
+    gqa = dataclasses.replace(get_config("yi-9b").reduced(), n_heads=8, n_kv_heads=2,
+                              head_dim=128)
+    par = dataclasses.replace(get_config(GJ_ARCH).reduced(), n_layers=3, d_model=512,
+                              n_heads=2, n_kv_heads=2, head_dim=256, d_ff=1024)
+    return [("gqa-hd128", gqa, {}),
+            ("qwen-like-int4", dataclasses.replace(gqa, qkv_bias=True), {"weight_quant": "int4"}),
+            ("parallel-hd256", par, {})]
+
+
+TP_REF_B, TP_REF_PLEN, TP_REF_STEPS = 3, 21, 8
+
+
+def _tp_reference_rank(dist, dev, models, forced):
+    """One rank of ``tp_reference_check``: each small model's shard of the
+    CPU's seed-1 weights on the card; the logits of a 3 x 21-token prefill
+    (21: the ranks' sequence chunks differ) and 8 decode steps fed the
+    CPU's greedy tokens, all vocab gathered; a greedy wave of 12 tokens;
+    the collectives of one decode step and the launches."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.core import collectives as cc
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    out = {}
+    for (name, cfg, kw), (tokens, steps) in zip(models, forced):
+        par = ParallelConfig(tp=dist.tp, **kw)
+        params = to_device(M.init_params(cfg, par, seed=1, device="cpu", dist=dist), dev)
+        eng = Engine(cfg, parallel=par, params=params, sampling=SamplingConfig(top_k=1),
+                     max_len=128, device=dev, dist=dist)
+        full = lambda lg: cc.all_gather(lg, dist, 2)[..., :cfg.vocab_size].float().cpu()
+        ops.reset_launches()
+        with torch.inference_mode():
+            caches = eng.init_caches(TP_REF_B)
+            t = torch.as_tensor(tokens, device=dev)
+            logits = [full(eng.forward(t, caches=caches, seq_sharded=True))]
+            for i in range(TP_REF_STEPS):
+                tok = torch.as_tensor(steps[:, i], device=dev)[:, None]
+                with cc.comm_stats() as st:
+                    lg = eng.forward(tok, caches=caches, cur_pos=TP_REF_PLEN + i)
+                logits.append(full(lg))
+            gen = eng.generate(tokens, 12)
+        torch.cuda.synchronize()
+        out[name] = {"logits": logits, "tokens": gen, "comm_per_decode_step": st.by_tag(),
+                     "launches": dict(ops.LAUNCHES)}
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_reference_check(dev) -> dict:
+    """The small models at tp=2, two ranks on the card, against the same
+    weights at tp=1 on the CPU (plain versions): every logits row within
+    REF_TOL, and the greedy wave's tokens the CPU's (a parting certified
+    where the CPU's top-2 logits lie within TIE_GAP)."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    t0 = time.monotonic()
+    models, forced, cpu_runs = tp_small_models(), [], []
+    for name, cfg, kw in models:
+        par = ParallelConfig(**kw)
+        eng = Engine(cfg, parallel=par, params=M.init_params(cfg, par, seed=1, device="cpu"),
+                     sampling=SamplingConfig(top_k=1), max_len=128, device="cpu")
+        tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                   (TP_REF_B, TP_REF_PLEN))
+        with torch.inference_mode():
+            caches = eng.init_caches(TP_REF_B)
+            lg = eng.forward(torch.as_tensor(tokens), caches=caches)
+            logits, steps = [lg], []
+            tok = lg[:, -1].argmax(-1)
+            for i in range(TP_REF_STEPS):
+                steps.append(tok.numpy())
+                lg = eng.forward(tok[:, None], caches=caches, cur_pos=TP_REF_PLEN + i)
+                logits.append(lg)
+                tok = lg[:, -1].argmax(-1)
+        forced.append((tokens, np.stack(steps, axis=1)))
+        cpu_runs.append((eng, logits, eng.generate(tokens, 12), tokens))
+    got = mesh.spawn(_tp_reference_rank, TP, models, forced, backend="gloo", device="cuda")
+    result = {"ranks": TP, "backend": "gloo", "tolerance": REF_TOL, "models": {}}
+    for (name, cfg, kw), (eng, logits, toks, tokens) in zip(models, cpu_runs):
+        worst, parted = 0.0, []
+        for rank, res in enumerate(r[name] for r in got):
+            for a, b in zip(logits, res["logits"]):
+                if not torch.isfinite(b).all():
+                    fail(f"tp reference {name} rank {rank}: non-finite card logits")
+                worst = max(worst, (a - b).abs().max().item())
+            for row in range(TP_REF_B):
+                a, b = toks[row], res["tokens"][row]
+                if np.array_equal(a, b):
+                    continue
+                t = int(np.argmax(a != b))
+                seq = torch.as_tensor(np.concatenate([tokens[row], a[:t]]))[None]
+                with torch.inference_mode():
+                    top2 = torch.topk(eng.forward(seq, last_only=True)[0, -1], 2).values
+                gap = (top2[0] - top2[1]).item()
+                if not gap < TIE_GAP:
+                    fail(f"tp reference {name} rank {rank} row {row}: greedy tokens part from "
+                         f"the CPU's at step {t} with top-2 gap {gap}")
+                parted.append({"rank": rank, "row": row, "step": t, "top2_gap": gap})
+        if not worst <= REF_TOL:
+            fail(f"tp reference {name}: tp=2 card logits differ from the CPU's tp=1 by "
+                 f"{worst} > {REF_TOL}")
+        comm = got[0][name]["comm_per_decode_step"]
+        n_ar = sum(v["count"] for k, v in comm.items() if k.split(" ")[0] in LAYER_TAGS)
+        want = cfg.n_layers * (1 if cfg.parallel_residual else 2)
+        if n_ar != want:
+            fail(f"tp reference {name}: {n_ar} layer all-reduces a decode step, not {want}")
+        result["models"][name] = {
+            "config": cfg.name, "layers": cfg.n_layers, **kw, "max_abs_logit_err": worst,
+            "parted_at_near_ties": parted, "comm_per_decode_step": comm,
+            "launches_rank0": got[0][name]["launches"]}
+    result["phase_s"] = time.monotonic() - t0
+    return result
+
+
+def _tp_full_jobs():
+    """The full-width tp phases, in order, the consecutive ones of one
+    (arch, weight_quant) on one set of weights: yi-9b bf16 (48 layers) in
+    the wave workload and the paged chunked-spec one; gptj-parallel bf16
+    (28 layers) waves with and without ``one_shot_sync``; qwen-72b int4
+    (80 layers) in one wave of 4."""
+    from repro_torch.configs import get_config
+
+    def wave_work(arch, n):
+        rng = np.random.default_rng(0)      # serve_phase's draws
+        vocab = get_config(arch).vocab_size
+        return [rng.integers(0, vocab, int(rng.integers(16, 129))).astype(np.int32)
+                for _ in range(n)]
+
+    wave = dict(kind="wave", batch=SERVE_BATCH, max_new=SERVE_MAX_NEW)
+    return [
+        dict(name="tp2-wave", arch="yi-9b", quant="none", work=wave_work("yi-9b", 8), **wave),
+        dict(name="tp2-paged-chunked-spec", arch="yi-9b", quant="none", kind="paged",
+             opts=dict(prefill_chunk=64, spec_k=SPEC_K)),
+        dict(name="tp2-wave", arch=GJ_ARCH, quant="none", work=wave_work(GJ_ARCH, 8), **wave),
+        dict(name="tp2-wave-two-sync", arch=GJ_ARCH, quant="none", one_shot=False,
+             work=wave_work(GJ_ARCH, 8), **wave),
+        dict(name="tp2-wave", arch="qwen-72b", quant="int4", work=wave_work("qwen-72b", 4),
+             **wave),
+    ]
+
+
+def _tp_full_rank(dist, dev, jobs):
+    """One rank of the full-width tp phases (``_tp_full_jobs``): per job its
+    streams, launches, the collectives of the run and of one decode step at
+    b 4, walls, init time, peak memory, and where a stream parts from the
+    tp=1 phase's (``job["ref"]``) the whole vocab's logits there."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.core import collectives as cc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import PagedContinuousScheduler, WaveScheduler
+
+    out, eng, weights = [], None, None
+    for job in jobs:
+        cfg = get_config(job["arch"])
+        par = ParallelConfig(tp=dist.tp, weight_quant=job["quant"], kv_block_size=BLOCK,
+                             one_shot_sync=job.get("one_shot", True))
+        params = eng.params if (job["arch"], job["quant"]) == weights else None
+        eng = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN,
+                     seed=0, params=params, device=dev, dist=dist)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        weights = (job["arch"], job["quant"])
+        if job["kind"] == "wave":
+            sched = WaveScheduler(eng, batch_size=job["batch"])
+            for p in job["work"]:
+                sched.submit(p, max_new=job["max_new"])
+        else:
+            sched = PagedContinuousScheduler(eng, n_slots=SLOTS, **job["opts"])
+            serve.submit_workload(sched, cfg, argparse.Namespace(**SLOT_WORKLOAD))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        with cc.comm_stats() as st:
+            done = sched.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        launches = dict(ops.LAUNCHES)
+        parting_logits = {}
+        for r in done:          # the same on every rank: the streams are replicated
+            p = _parting(job, r.rid, r.output, job["ref"][r.rid], r.prompt)
+            if p is not None:
+                with torch.inference_mode():
+                    lg = eng.forward(torch.as_tensor(p[1], device=dev)[None].long(),
+                                     last_only=True)[0, -1].float()
+                    lg = cc.all_gather(lg, dist, 0)[:cfg.vocab_size]
+                parting_logits[r.rid] = lg.cpu().numpy()
+        res = {"streams": {r.rid: r.output for r in done}, "parting_logits": parting_logits,
+               "prompts": {r.rid: r.prompt for r in done}, "launches": launches,
+               "comm_run": st.by_tag(), "wall_s": wall, "init_s": init_s,
+               "stats": dict(getattr(sched, "stats", {})),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if job["kind"] == "wave":     # one decode step at b 4, after an 8-token prompt
+            with torch.inference_mode():
+                caches = eng.init_caches(SERVE_BATCH)
+                tok = eng.prefill(torch.zeros((SERVE_BATCH, 8), dtype=torch.long, device=dev),
+                                  caches)
+                with cc.comm_stats() as st:
+                    eng.decode(tok, caches, 8)
+            res["comm_per_decode_step"] = st.by_tag()
+            del caches, tok
+        res["job_s"] = time.monotonic() - t0
+        out.append(res)
+        del sched, done       # the scheduler holds the engine: free it before the next job
+    return out
+
+
+def _tp1_logits(job: dict, dev, cache: dict, seq: np.ndarray) -> torch.Tensor:
+    """The logits of the tp=1 model of seed 0 (``job``'s arch and weights,
+    drawn once on the card when a tp stream first parts) after ``seq``."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.runtime.engine import Engine
+
+    key = (job["arch"], job["quant"])
+    if key not in cache:
+        cache.clear()
+        torch.cuda.empty_cache()
+        cache[key] = Engine(get_config(job["arch"]),
+                            parallel=ParallelConfig(weight_quant=job["quant"]),
+                            sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
+                            device=dev)
+    with torch.inference_mode():
+        return cache[key].forward(torch.as_tensor(seq, device=dev)[None].long(),
+                                  last_only=True)[0, -1]
+
+
+def tp_phases(dev, backend: str = "gloo"):
+    """The full-width tp phases on ``TP`` ranks (``_tp_full_jobs``), each
+    phase's result yielded as soon as it is checked; see the module
+    docstring."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+
+    t0 = time.monotonic()
+    jobs = _tp_full_jobs()
+    if backend == "nccl":
+        jobs = jobs[:1]
+    for job in jobs:
+        # held to the tp=1 phase of the same seed and weights (its first
+        # requests where the tp phase serves fewer)
+        cfg = get_config(job["arch"])
+        key = (cfg.name, job["quant"], "wave" if job["kind"] == "wave" else "paged-chunked-spec")
+        if key not in TP1_STREAMS or TP1_STREAMS[key][0] != cfg.n_layers:
+            fail(f"{job['name']} {cfg.name}: no tp=1 phase of {cfg.n_layers} layers to hold "
+                 f"it to ({key})")
+        job["ref"] = TP1_STREAMS[key][1]
+    got = mesh.spawn(_tp_full_rank, TP, jobs, backend=backend, device="cuda")
+    spawn_s = time.monotonic() - t0
+    results, tp1, one_shot_streams = [], {}, None
+    for j, job in enumerate(jobs):
+        cfg = get_config(job["arch"])
+        L, name = cfg.n_layers, f"{job['name']} {cfg.name}"
+        ranks = [r[j] for r in got]
+        par = ParallelConfig(tp=TP, weight_quant=job["quant"])
+        for rank, res in enumerate(ranks):
+            if job["kind"] == "wave":
+                waves = -(-len(job["work"]) // job["batch"])
+                mn = job["max_new"]
+                expect = {k: 0 for k in ops.KERNELS}
+                expect.update({
+                    "flash_prefill": L * waves, "decode_attention": L * (mn - 1) * waves,
+                    "topk": 2 * mn * waves,     # the shard's top-k and the candidates'
+                    "dequant_matmul": dequant_launches_per_forward(cfg, par) * mn * waves,
+                    "fused_dual_matmul": (L * mn * waves if cfg.parallel_residual
+                                          and job.get("one_shot", True) else 0)})
+            else:
+                expect = expected_slot_launches("paged", res["stats"], L)
+                expect["topk"] *= 2
+            if res["launches"] != expect:
+                fail(f"{name} rank {rank}: kernel launches {res['launches']} != {expect}")
+            for rid, toks in res["streams"].items():
+                if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                    fail(f"{name} rank {rank} request {rid}: tokens out of range: {toks}")
+                if not np.array_equal(toks, ranks[0]["streams"][rid]):
+                    fail(f"{name}: rank {rank}'s stream {rid} differs from rank 0's")
+        r0 = ranks[0]
+        comm = r0.get("comm_per_decode_step")
+        if comm is not None:
+            layer = {k: v for k, v in comm.items() if k.split(" ")[0] in LAYER_TAGS}
+            per = 2 if not cfg.parallel_residual or not job.get("one_shot", True) else 1
+            payload = 2 * SERVE_BATCH * cfg.d_model * 2      # bf16 (b, 1, d) twice on the wire
+            if (sum(v["count"] for v in layer.values()) != per * L
+                    or any(v["bytes"] != v["count"] * payload for v in layer.values())):
+                fail(f"{name}: a decode step's layer all-reduces {layer}, not {per} x {L} "
+                     f"of {payload} bytes")
+            gathers = [k for k in comm if k.startswith(("topk_vals", "topk_idx"))]
+            if len(gathers) != 2 or any(comm[k]["count"] != 1 for k in gathers):
+                fail(f"{name}: top-k gathers of a decode step {comm}")
+            if (cfg.name == "qwen-72b") != any(k.startswith("embed_shard_merge") for k in comm):
+                fail(f"{name}: the vocab-sharded embedding's all-reduce {comm}")
+        # held to the tp=1 phase's tokens, and the two-sync baseline to the
+        # one-shot phase's too
+        parted = {"tp1": _tp_parted(name, job, r0, job["ref"], dev, tp1, r0["parting_logits"])}
+        if job["name"] == "tp2-wave-two-sync":
+            parted["one_shot"] = _tp_parted(name, job, r0, one_shot_streams, dev, tp1)
+        if job["name"] == "tp2-wave" and cfg.parallel_residual:
+            one_shot_streams = r0["streams"]
+        n_tokens = sum(len(t) for t in r0["streams"].values())
+        launches = {k: sum(r["launches"][k] for r in ranks) for k in ops.KERNELS}
+        results.append({
+            "arch": cfg.name, "scheduler": job["name"], "weight_quant": job["quant"],
+            "layers": L, "params": cfg.param_count(), "ranks": TP, "backend": backend,
+            "one_shot_sync": job.get("one_shot", True),
+            "note": "ranks share one card; collectives staged through host memory: "
+                    "no wall time here is a tensor-parallel speed" if backend == "gloo" else "",
+            "requests": len(r0["streams"]), "tokens": n_tokens,
+            "init_s": [r["init_s"] for r in ranks], "wall_s": [r["wall_s"] for r in ranks],
+            "ms_per_token": 1e3 * r0["wall_s"] / n_tokens,
+            "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+            "launches": launches, "launches_per_rank": r0["launches"],
+            "comm": {"per_decode_step": comm, "run": r0["comm_run"]},
+            "stats": r0["stats"], "parted_at_near_ties": parted,
+            "first_tokens": {rid: r0["streams"][rid][:8].tolist()
+                             for rid in sorted(r0["streams"])[:2]},
+            "ranks_spawn_to_exit_s": spawn_s,
+        })
+        if j == len(jobs) - 1:
+            tp1.clear()
+            torch.cuda.empty_cache()
+            results[-1]["tp_phases_s"] = time.monotonic() - t0
+        yield results[-1]
+
+
+def _parting(job: dict, rid: int, toks: np.ndarray, want: np.ndarray, prompt: np.ndarray):
+    """-> None where ``toks`` is ``want``, else (t, seq): the first step at
+    which it parts, and what the model read before it: the prompt as the
+    phase ran it (a wave's right-padded) and ``want``'s tokens before t."""
+    if np.array_equal(toks, want):
+        return None
+    n = min(len(toks), len(want))
+    t = int(np.argmax(toks[:n] != want[:n])) if (toks[:n] != want[:n]).any() else n
+    if job["kind"] == "wave":
+        w0 = rid - rid % job["batch"]
+        plen = max(len(p) for p in job["work"][w0:w0 + job["batch"]])
+        prompt = np.concatenate([prompt, np.zeros(plen - len(prompt), np.int32)])
+    return t, np.concatenate([prompt, want[:t]])
+
+
+def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
+               tp_logits: dict | None = None) -> list:
+    """Per request of a tp phase (rank 0's streams): ``ref``'s tokens, or a
+    first difference at a near-tie of the tp=1 model; at most half the
+    requests parted.  A near-tie: the tp=1 top-2 logits within TIE_GAP, as
+    the dense slot phases certify one.  Else a witness, which for the
+    parallel residual is the only one that counts (its one fused sum
+    rounds once where the two-sync baseline rounds each partial), as in
+    its slot phases: every kernel's plain version there within REF_TOL of
+    the tp=1 port's logits, and both tokens -- ``ref``'s and the tp
+    phase's -- within REF_TOL of the plain version's top.  Where the tp
+    ranks' own logits there are given (``tp_logits``) and the arch is not
+    the parallel residual, the witness is theirs.  ``spread``, the larger
+    of REF_TOL and the tp=1 port's distance from its plain versions on the
+    same input, is the port's own rounding at that depth; two computations
+    each that far from the exact logits lie within twice it of each other.
+    So the tp logits must lie within 2 x ``spread`` of the tp=1 ones (a
+    wrong shard or merge moves them by whole units), and each side must
+    rank the other side's token within ``spread`` of its top."""
+    parted = []
+    for rid, toks in r0["streams"].items():
+        want = ref[rid]
+        p = _parting(job, rid, toks, want, r0["prompts"][rid])
+        if p is None:
+            continue
+        t, seq = p
+        logits = _tp1_logits(job, dev, cache, seq).float()
+        gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
+        flip = {"rid": rid, "step": t, "top2_gap": gap}
+        if job["arch"] == GJ_ARCH or not gap < TIE_GAP:
+            with plain_on_card():
+                plain = _tp1_logits(job, dev, cache, seq).float()
+            err = (logits - plain).abs().max().item()
+            flip["plain_max_abs_err"] = err
+            tp = None if tp_logits is None else torch.as_tensor(tp_logits[rid], device=dev)
+            if tp is not None:
+                flip["tp_max_abs_diff"] = (tp - logits).abs().max().item()
+            if job["arch"] == GJ_ARCH or tp is None:
+                slack = [(plain.max() - plain[int(x[t])]).item() for x in (want, toks)
+                         if t < len(x)]
+                if not (err <= REF_TOL and max(slack) < REF_TOL):
+                    fail(f"{name} request {rid} parts at step {t}: the plain versions there "
+                         f"differ from the port by {err} and put the two tokens {slack} below "
+                         f"their top (limit {REF_TOL} each)")
+                flip["plain_slack"] = slack
+            else:
+                spread = max(REF_TOL, err)
+                slack = [(lg.max() - lg[int(x[t])]).item() for lg, x in ((logits, toks), (tp, want))
+                         if t < len(x)]
+                if not (flip["tp_max_abs_diff"] <= 2 * spread and max(slack) <= spread):
+                    fail(f"{name} request {rid} parts at step {t}: the tp logits there differ "
+                         f"from tp=1's by {flip['tp_max_abs_diff']} (limit {2 * spread}) and "
+                         f"the two sides put each other's token {slack} below their top "
+                         f"(limit {spread}: the tp=1 port is {err} from its plain versions)")
+                flip.update(tp_slack=slack, spread=spread)
+        parted.append(flip)
+    if len(parted) > len(r0["streams"]) // 2:
+        fail(f"{name}: {len(parted)} of {len(r0['streams'])} streams part")
+    return parted
 
 
 def main() -> None:
@@ -2177,11 +2688,12 @@ def main() -> None:
     print(json.dumps({"reference": parallel_reference_check(dev)}), flush=True)
     phases, params, weights = [], None, None
     for arch, mode, kvq in SERVE_PHASES:
-        if (arch, mode) != weights:
+        depth = phase_config(arch, wave_name(mode, kvq)).n_layers
+        if (arch, mode, depth) != weights:
             params = None
             torch.cuda.empty_cache()
         phase, params = serve_phase(dev, arch, mode, kvq, params)
-        weights = (arch, mode)
+        weights = (arch, mode, depth)
         print(json.dumps({"serve": phase}), flush=True)
         phases.append(phase)
     del params
@@ -2189,6 +2701,17 @@ def main() -> None:
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
                 lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain")):
         for phase in run():
+            print(json.dumps({"serve": phase}), flush=True)
+            phases.append(phase)
+    print(json.dumps({"reference": tp_reference_check(dev)}), flush=True)
+    tp_runs = [tp_phases]
+    if torch.cuda.device_count() >= TP:
+        tp_runs.append(lambda d: tp_phases(d, "nccl"))
+    else:
+        print(f"tp nccl phase: not run: {torch.cuda.device_count()} card(s); NCCL puts one "
+              f"rank on each card, so tp={TP} over NCCL needs {TP} cards", flush=True)
+    for run in tp_runs:
+        for phase in run(dev):
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)
     for k in kernels:

@@ -17,7 +17,12 @@ and returns the layout of ``repro_torch.models.model``:
   under ``mixer`` (its ``w_gate`` is not the FFN's);
 * each family's layers (attention, RG-LRU) are stacked in layer order,
   as ``model.init_params`` lays them out;
-* the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``.
+* the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``;
+* with ``dist`` at tp > 1 every leaf of the tp=1 tree is then cut to the
+  rank's shard by the rule ``init_params`` follows (``model.shard_leaf``):
+  quantized leaves too, by their values and scales, so a rank holds the
+  JAX package's tp=1 weights, split.  An int4 ``w_down`` whose groups
+  straddle the rank boundary raises.
 
 The tree's leaves may also be torch tensors, as ``training.checkpoint``
 reads a saved tree back.
@@ -39,9 +44,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.wquant import QuantWeight, map_tensors
-from repro_torch.models.common import resolve_device
-from repro_torch.models.model import (check_supported, layer_families, layer_param_defs,
-                                      split_layers)
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.models.common import Dist, resolve_device
+from repro_torch.models.model import (ModelCtx, check_supported, layer_families,
+                                      layer_param_defs, shard_leaf, split_layers)
 
 
 def _is_quant(a) -> bool:
@@ -112,11 +118,19 @@ def _tree_layers(tree: Dict[str, Any], cfg: ModelConfig) -> list:
     return layers
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
-    """JAX ``Engine.params`` with numpy leaves -> port params on ``device``
-    (the card unless ``device="cpu"`` is asked for)."""
-    check_supported(cfg)
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
+                    dist: Dist = Dist()) -> Dict[str, Any]:
+    """JAX ``Engine.params`` with numpy leaves (a tp=1 tree) -> port params
+    on ``device`` (the card unless ``device="cpu"`` is asked for): this
+    rank's shard of them under ``dist``."""
+    check_supported(cfg, ParallelConfig(tp=dist.tp))
     device = resolve_device(device)
+    plan = ModelCtx.make(cfg, ParallelConfig(tp=dist.tp), dist).plan
+
+    def place(name, t):
+        return map_tensors(shard_leaf(name, t, cfg, plan, dist.rank),
+                           lambda a: a.contiguous().to(device))
+
     per_layer = _tree_layers(tree, cfg)
     layers: list = [None] * cfg.n_layers
     for family, idx in layer_families(cfg).items():
@@ -130,7 +144,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Di
             want = (len(idx), *d.shape)
             if _shape(stacked[name]) != want:
                 raise ValueError(f"{name}: shape {_shape(stacked[name])} != {want}")
-        stacked = {name: map_tensors(t, lambda a: a.to(device)) for name, t in stacked.items()}
+        stacked = {name: place(name, t) for name, t in stacked.items()}
         for i, layer in zip(idx, split_layers(stacked, len(idx))):
             layers[i] = layer
     d, V = cfg.d_model, cfg.vocab_size
@@ -139,8 +153,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Di
         raise ValueError(f"embed {tuple(table.shape)} / lm_head {_shape(head)} "
                          f"!= (1, {V}, {d}) / (1, {d}, {V})")
     return {
-        "embed": {"table": table.to(device)},
+        "embed": {"table": place("table", table)},
         "layers": layers,
         "final_norm": to_torch(tree["final_norm"]).to(device),
-        "lm_head": map_tensors(head, lambda a: a.to(device)),
+        "lm_head": place("lm_head", head),
     }

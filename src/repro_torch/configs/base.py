@@ -107,11 +107,21 @@ class ParallelConfig:
     """The layout fields the port reads.  Weight-only quantization is
     served (quantize at load: int8 per-output-column scales, int4 scales per
     ``wq_group_size`` segment of the reduction dim), and so are the paged KV
-    backend of the slot engine, chunked admission and speculative decoding;
-    tensor parallelism and the int8 KV cache come in later slices, and
-    ``check_supported`` refuses them."""
+    backend of the slot engine, chunked admission, speculative decoding,
+    the int8 KV cache and tensor parallelism over ``tp`` ranks of one
+    process each (``launch/mesh.py``) with the paper's three toggles;
+    ``check_supported`` refuses data parallelism (``dp``) and the
+    sequence-sharded KV cache (``kv_seq_shard``), which come in later
+    slices."""
 
     tp: int = 1
+    dp: int = 1
+    # tensor parallelism (the JAX package's defaults, paper sections 2.1-2.2)
+    seq_parallel: bool = True   # Megatron-SP residual stream at prefill, chunk and verify
+    kv_seq_shard: bool = False  # shard the decode KV cache's sequence over the data axis
+    topk_sync: bool = True      # 2.1b: local top-k before the gather
+    id_broadcast: bool = True   # 2.1a: token ids are replicated, not embeddings
+    one_shot_sync: bool = True  # 2.2: one all-reduce per parallel-residual layer
     kv_quant: bool = False
     weight_quant: str = "none"  # none | int8 | int4
     wq_group_size: int = 128    # int4 group length along the reduction dim

@@ -1,0 +1,177 @@
+"""Explicit collectives with byte accounting (``repro.core.collectives``).
+
+The paper's contribution is which collectives a decode round runs and how
+many bytes they move, so every collective of the port goes through these
+wrappers, and running a step under ``comm_stats`` yields its schedule:
+one ``CommRecord`` per call with the JAX package's kinds, tags and wire
+factors (an all-reduce moves about twice its payload per rank in a ring,
+the others once).
+
+Differences from the JAX package:
+
+* JAX records a traced program, so a scanned layer body counts once; the
+  port records every call, so compare per layer.
+* At tp=1 every wrapper is the identity and records nothing (the JAX
+  package's ``reduce_out`` at tp=1).
+* Under gloo a CUDA tensor is staged through host memory here, explicitly:
+  copied to the host, reduced or gathered there, copied back.
+* ``all_gather`` and ``reduce_scatter`` along the sequence take any length
+  s: each rank's chunk is padded to ceil(s / tp) rows inside the
+  collective and trimmed after it (``seq_chunk``), so no padding row ever
+  leaves the collective.  The JAX package's ``shard_residual`` drops rows
+  where s % tp != 0.  A record counts the rows that cross, padding
+  included; where s % tp == 0 that is the JAX package's count.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as tdist
+
+from repro_torch.models.common import Dist
+
+AXIS = "model"     # the JAX package's name of the tensor-parallel mesh axis
+_local = threading.local()
+
+@dataclass
+class CommRecord:
+    kind: str
+    axis: str
+    bytes: int
+    shape: tuple
+    tag: str = ""
+
+
+@dataclass
+class CommStats:
+    records: List[CommRecord] = field(default_factory=list)
+
+    def count(self, kind: Optional[str] = None) -> int:
+        return sum(1 for r in self.records if kind is None or r.kind == kind)
+
+    def total_bytes(self, kind: Optional[str] = None, axis: Optional[str] = None) -> int:
+        return sum(r.bytes for r in self.records
+                   if (kind is None or r.kind == kind) and (axis is None or r.axis == axis))
+
+    def by_kind(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for r in self.records:
+            out[r.kind] = out.get(r.kind, 0) + r.bytes
+        return out
+
+    def by_tag(self) -> Dict[str, Dict[str, int]]:
+        """"tag (kind)" -> {"count", "bytes"} (wire bytes), in first-seen
+        order (one tag may name a gather at prefill and an all-reduce at
+        decode)."""
+        out: Dict[str, Dict[str, int]] = {}
+        for r in self.records:
+            e = out.setdefault(f"{r.tag} ({r.kind})", {"count": 0, "bytes": 0})
+            e["count"] += 1
+            e["bytes"] += r.bytes
+        return out
+
+
+@contextlib.contextmanager
+def comm_stats():
+    """Record every wrapped collective issued in this thread under the
+    context (nested contexts: the innermost records)."""
+    stats = CommStats()
+    prev = getattr(_local, "stats", None)
+    _local.stats = stats
+    try:
+        yield stats
+    finally:
+        _local.stats = prev
+
+
+def _record(kind: str, x: torch.Tensor, tag: str, wire_factor: float = 1.0) -> None:
+    stats: Optional[CommStats] = getattr(_local, "stats", None)
+    if stats is not None:
+        nbytes = x.numel() * x.element_size()
+        stats.records.append(CommRecord(kind, AXIS, int(nbytes * wire_factor),
+                                        tuple(x.shape), tag))
+
+
+def seq_chunk(s: int, tp: int, rank: int) -> Tuple[int, int]:
+    """Rows [lo, hi) of a length-s sequence that ``rank`` holds: chunks of
+    ceil(s / tp) rows, the last ones shorter or empty."""
+    c = -(-s // tp)
+    return min(s, rank * c), min(s, (rank + 1) * c)
+
+
+def _staged(x: torch.Tensor, dist: Dist) -> torch.Tensor:
+    """The tensor the backend reduces: under gloo a CUDA tensor's host copy."""
+    x = x.contiguous()
+    return x.cpu() if dist.backend == "gloo" and x.is_cuda else x
+
+
+def all_reduce(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
+    """The sum over the ranks (the JAX package's ``psum``); ``x`` may be
+    overwritten."""
+    if dist.tp == 1:
+        return x
+    _record("all_reduce", x, tag, wire_factor=2.0)
+    buf = _staged(x, dist)
+    tdist.all_reduce(buf, group=dist.group)
+    return buf.to(x.device)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x with dim 0 zero-padded to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    out = x.new_zeros((rows, *x.shape[1:]))
+    out[:x.shape[0]] = x
+    return out
+
+
+def all_gather(x: torch.Tensor, dist: Dist, dim: int, tag: str = "",
+               total: Optional[int] = None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order.  With
+    ``total``, x is this rank's ``seq_chunk`` of a length-``total`` axis:
+    padded to ceil(total / tp) rows for the collective, the padding
+    trimmed from the result."""
+    if dist.tp == 1:
+        return x
+    rows = x.shape[dim] if total is None else -(-total // dist.tp)
+    local = _pad_rows(x.movedim(dim, 0), rows)
+    _record("all_gather", local.movedim(0, dim), tag)
+    buf = _staged(local, dist)
+    out = buf.new_empty((dist.tp * rows, *buf.shape[1:]))
+    tdist.all_gather_into_tensor(out, buf, group=dist.group)
+    if total is not None:
+        out = out[:total]
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dist: Dist, dim: int, tag: str = "") -> torch.Tensor:
+    """Sum over the ranks of ``x``, of which each rank keeps its
+    ``seq_chunk`` along ``dim`` (any length: padded inside, trimmed after)."""
+    if dist.tp == 1:
+        return x
+    s = x.shape[dim]
+    rows = -(-s // dist.tp)
+    full = _pad_rows(x.movedim(dim, 0), dist.tp * rows)
+    _record("reduce_scatter", full.movedim(0, dim), tag)
+    buf = _staged(full, dist)
+    out = buf.new_empty((rows, *buf.shape[1:]))
+    tdist.reduce_scatter_tensor(out, buf, group=dist.group)
+    lo, hi = seq_chunk(s, dist.tp, dist.rank)
+    return out[:hi - lo].to(x.device).movedim(0, dim).contiguous()
+
+
+def broadcast_from0(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
+    """Rank 0's ``x`` on every rank: the paper's baseline, in which rank 0
+    computes the embedding activations and broadcasts them."""
+    if dist.tp == 1:
+        return x
+    _record("broadcast", x, tag)
+    buf = _staged(x, dist)
+    if buf is x:
+        buf = x.clone()
+    tdist.broadcast(buf, src=0, group=dist.group)
+    return buf.to(x.device)

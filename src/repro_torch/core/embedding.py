@@ -1,9 +1,22 @@
-"""Token embedding: the replicated-table lookup of ``repro.core.embedding``
-(paper section 2.1a, token ids are the only thing broadcast).
+"""Paper section 2.1a: broadcast token ids, not embedding activations
+(``repro.core.embedding``).
 
-The table is laid out ``(n_codebooks, V, d)`` as in the JAX package.  At
-tp=1 the vocab-sharded variant of the JAX package reduces to this same
-lookup, so one path serves every table size the port runs.
+The table is laid out ``(n_codebooks, V, d)`` as in the JAX package.  Token
+ids are replicated on every rank (each runs the same scheduler over the
+same requests and samples the same ids), so their "broadcast" costs
+nothing.  Two table layouts:
+
+* replicated (tables of at most ``REPLICATE_BYTES_LIMIT`` bytes in bf16:
+  yi-9b's 500 MiB, gptj-parallel's 413 MB): every rank looks up the whole
+  table, zero collective bytes;
+* vocab-sharded (qwen-72b's 2.49 GB): each rank holds rows
+  [rank * local_vocab, (rank + 1) * local_vocab) of the padded vocab, looks
+  up the ids that fall there, zeros elsewhere, and one all-reduce
+  (``embed_shard_merge``) sums the ranks' rows.
+
+``id_broadcast=False`` is the paper's baseline: rank 0's activations are
+broadcast (``embed_bcast``) after the lookup.  At tp=1 every layout is the
+plain lookup.
 """
 from __future__ import annotations
 
@@ -11,7 +24,34 @@ from typing import Dict
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as cc
+from repro_torch.models.common import Dist, ShardPlan
 
-def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (b, s) int -> (b, s, d) activations in the table's dtype."""
-    return params["table"][0][tokens]
+# tables at or below this many bytes (bf16) are replicated, paper-style
+REPLICATE_BYTES_LIMIT = 512 * 2**20
+
+
+def table_replicated(cfg: ModelConfig) -> bool:
+    return (not cfg.tie_embeddings
+            and cfg.vocab_size * cfg.d_model * 2 * cfg.n_codebooks <= REPLICATE_BYTES_LIMIT)
+
+
+def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 plan: ShardPlan = None, dist: Dist = Dist(), *,
+                 id_broadcast: bool = True) -> torch.Tensor:
+    """tokens (b, s) int -> (b, s, d) activations in the table's dtype, the
+    same on every rank.  The table's rows say its layout: all V, or this
+    rank's ``plan.local_vocab`` of a vocab-sharded one."""
+    table = params["table"][0]
+    if dist.tp == 1 or table.shape[0] != plan.local_vocab:
+        out = table[tokens]
+    else:
+        local = tokens - dist.rank * plan.local_vocab
+        ok = (local >= 0) & (local < plan.local_vocab)
+        out = torch.where(ok[..., None], table[local.clamp(0, plan.local_vocab - 1)], 0)
+        out = cc.all_reduce(out, dist, tag="embed_shard_merge")
+    if not id_broadcast:
+        # the baseline: rank 0's activations cross the wire
+        out = cc.broadcast_from0(out, dist, tag="embed_bcast")
+    return out

@@ -1,5 +1,5 @@
 """Weight-only quantization: packed low-precision weights and bf16 scales
-(``repro.core.wquant`` at tp=1).
+(``repro.core.wquant``).
 
 A decode step sweeps every weight byte once, so storing the projections in
 fewer bits shrinks the step's memory traffic: int4 sweeps about a quarter of
@@ -16,6 +16,12 @@ leading batch dims (the layer stack, the heads of ``w_o``, the codebook of
 the lm_head), the reduction dim at -2, the output dim last.  Quantization
 is bit-exact with the JAX package: the scale is rounded to bf16 before the
 division and ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+Under tensor parallelism a weight is quantized whole and then sliced, as
+the JAX package quantizes the global leaf: an int8 weight's per-column
+scale spans the whole reduction dim, so a row-parallel weight keeps it
+replicated; int4 groups are clamped to the per-rank reduction length
+(``k_shards``), so a row-parallel weight's scale rows shard with it.
 """
 from __future__ import annotations
 
@@ -45,26 +51,28 @@ class QuantWeight:
     k: int = 0
 
 
-def effective_group(k: int, group_size: int) -> int:
-    """Largest even group <= group_size that divides the reduction length;
-    0 if there is none.  (The JAX package also clamps to the per-shard
-    length under tensor parallelism, which the port does not have yet.)"""
-    for cand in range(min(group_size, k), 1, -1):
-        if cand % 2 == 0 and k % cand == 0:
+def effective_group(k: int, group_size: int, k_shards: int = 1) -> int:
+    """Largest even group <= group_size that divides the per-shard reduction
+    length k / k_shards, so that no int4 group straddles a rank; 0 if there
+    is none."""
+    k_local = k // max(1, k_shards)
+    for cand in range(min(group_size, k_local), 1, -1):
+        if cand % 2 == 0 and k_local % cand == 0:
             return cand
     return 0
 
 
-def quantizable(shape, mode: str, group_size: int) -> bool:
-    """A weight quantizes if it has a (K, N) tail and, for int4, an even
-    grouping of K exists."""
+def quantizable(shape, mode: str, group_size: int, k_shards: int = 1) -> bool:
+    """A weight quantizes if it has a (K, N) tail, K splits evenly over
+    ``k_shards`` ranks and, for int4, an even shard-local grouping of K
+    exists."""
     if len(shape) < 2:
         return False
     k = shape[-2]
-    if k < 2:
+    if k < 2 or (k_shards > 1 and k % k_shards):
         return False
     if mode == "int4":
-        return k % 2 == 0 and effective_group(k, group_size) > 0
+        return k % 2 == 0 and effective_group(k, group_size, k_shards) > 0
     return mode == "int8"
 
 
@@ -88,8 +96,9 @@ def unpack4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack(_nibbles(packed), dim=-2).reshape(shape)
 
 
-def quantize(w: torch.Tensor, mode: str, group_size: int) -> QuantWeight:
-    """Symmetric quantization of ``w`` (*B, K, N) at load time."""
+def quantize(w: torch.Tensor, mode: str, group_size: int, k_shards: int = 1) -> QuantWeight:
+    """Symmetric quantization of ``w`` (*B, K, N) at load time; int4 groups
+    stay within each of ``k_shards`` equal slices of K."""
     if mode not in MODES:
         raise ValueError(f"weight_quant mode {mode!r} not in {MODES}")
     k = w.shape[-2]
@@ -104,9 +113,10 @@ def quantize(w: torch.Tensor, mode: str, group_size: int) -> QuantWeight:
         scale = stored(wf.abs().amax(dim=-2), 127.0)                 # (*B, N)
         q = torch.clamp(torch.round(wf / scale[..., None, :]), -127, 127).to(torch.int8)
         return QuantWeight(q, scale.to(torch.bfloat16), "int8", 0, k)
-    g = effective_group(k, group_size)
+    g = effective_group(k, group_size, k_shards)
     if not g:
-        raise ValueError(f"no even int4 group for K={k}, group_size={group_size}")
+        raise ValueError(f"no even shard-local int4 group for K={k}, group_size={group_size}, "
+                         f"k_shards={k_shards}")
     lead = w.shape[:-2]
     wg = wf.reshape(*lead, k // g, g, w.shape[-1])
     scale = stored(wg.abs().amax(dim=-2), 7.0)                       # (*B, K/g, N)
@@ -154,6 +164,11 @@ def matmul(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     return y.reshape(*lead, y.shape[-1])
 
 
+def out_cols(w) -> int:
+    """The output width N of a (..., K, N) tensor or QuantWeight."""
+    return (w.q if isinstance(w, QuantWeight) else w).shape[-1]
+
+
 def map_tensors(w, fn):
     """``fn`` applied to a tensor, or to the values and the scales of a
     QuantWeight (an index, a device move)."""
@@ -162,17 +177,42 @@ def map_tensors(w, fn):
     return fn(w)
 
 
+def slice_cols(w: QuantWeight, start: int, size: int) -> QuantWeight:
+    """Output columns [start, start + size) of the values and the scales."""
+    return map_tensors(w, lambda t: t[..., start:start + size])
+
+
+def slice_rows(w: QuantWeight, start: int, size: int) -> QuantWeight:
+    """Reduction rows [start, start + size): a row-parallel shard.  int8
+    keeps its per-column scales (they span the whole K); int4 takes the
+    scale rows of its groups, which must not straddle the cut."""
+    if w.mode == "int8":
+        return QuantWeight(w.q[..., start:start + size, :], w.scale, "int8", 0, size)
+    if start % w.group or size % w.group:
+        raise ValueError(f"int4 groups of {w.group} straddle rows [{start}, {start + size})")
+    q = w.q[..., start // 2:(start + size) // 2, :]
+    s = w.scale[..., start // w.group:(start + size) // w.group, :]
+    return QuantWeight(q, s, "int4", w.group, size)
+
+
+def zero_scale(mode: str) -> float:
+    """The scale ``quantize`` stores for an all-zero column or group (the
+    padding of a tensor-parallel layout)."""
+    levels = 127.0 if mode == "int8" else 7.0
+    return torch.tensor(1e-8 / levels, dtype=torch.float32).to(torch.bfloat16).item()
+
+
 def index_batch(w: QuantWeight, i: int) -> QuantWeight:
     """Drop one leading batch dim (a layer of the stack, the codebook axis
     of the lm_head)."""
     return map_tensors(w, lambda t: t[i])
 
 
-def quant_bytes(shape, mode: str, group_size: int) -> int:
+def quant_bytes(shape, mode: str, group_size: int, k_shards: int = 1) -> int:
     """Stored bytes of the quantized form (values and bf16 scales)."""
     n_el = math.prod(shape)
     lead_n = n_el // shape[-2]                       # (*B, N) element count
     if mode == "int8":
         return n_el + 2 * lead_n
-    g = effective_group(shape[-2], group_size)
+    g = effective_group(shape[-2], group_size, k_shards)
     return n_el // 2 + 2 * lead_n * (shape[-2] // g)

@@ -5,7 +5,9 @@ between the heads and the out-projection (``repro.core.zero_copy``).
 ``parallel_partials`` is the same handoff for a parallel-residual layer
 (section 2.2): the out-projection of the heads and the FFN's
 down-projection are summed into one output by the fused_dual_matmul
-kernel, which reads the heads in place."""
+kernel, which reads the heads in place.  Under tensor parallelism that
+one buffer is the rank's partial that the layer's single all-reduce sums
+(``SyncPolicy.reduce_out``, tag ``one_shot``)."""
 from __future__ import annotations
 
 import torch

@@ -9,6 +9,7 @@
     python -m repro_torch.launch.profile_decode --arch gptj-parallel
     python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4 \
         --kv-quant --prompt-len 2950 --max-len 4096
+    python -m repro_torch.launch.profile_decode --tp 2       # ranks share the card over gloo
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -38,6 +39,13 @@ quantization, of the fused_dual_matmul kernels of a parallel-residual
 arch, of the dense and paged decode_attention kernels and, with
 ``--kv-quant`` (the int8 KV cache), of the kv_quant_write kernel), the
 peak device memory and the cache's bytes, and the profiler's table.
+
+``--tp N`` runs N ranks (``launch/mesh.py``, ``--dist-backend``; gloo lets
+them share one card, its collectives staged through host memory), each
+profiling its own shard; rank 0 reports, with its collectives of one pass
+of the steps (``comm_per_step``: count and wire bytes by tag) beside its
+kernel times.  Ranks that share a card share its time: their step times
+are no tensor-parallel speed.
 """
 from __future__ import annotations
 
@@ -50,8 +58,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, SamplingConfig, get_config
+from repro_torch.core import collectives as cc
 from repro_torch.core.zero_copy import W_O_DENSE_RANGE
-from repro_torch.launch.serve import add_weight_quant_args, parallel_config
+from repro_torch.launch import mesh
+from repro_torch.launch.serve import add_tp_args, add_weight_quant_args, parallel_config
+from repro_torch.models.common import Dist
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.engine import Engine
 
@@ -75,6 +86,7 @@ def main(argv=None) -> dict:
                     help="slot engine: profile masked decode steps, spec-decode verify "
                          "steps or fused mixed chunk/decode steps")
     add_weight_quant_args(ap)
+    add_tp_args(ap)
     ap.add_argument("--kv-quant", action="store_true",
                     help="the int8 KV cache (ParallelConfig.kv_quant)")
     args = ap.parse_args(argv)
@@ -88,11 +100,19 @@ def main(argv=None) -> dict:
         ap.error("--max-len must hold the prompt, 3 warm-up steps and --steps")
     if args.step != "decode" and args.scheduler == "wave":
         ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
+    if args.tp == 1:
+        return _profile(Dist(), "cuda", cfg, args)
+    from repro_torch.kernels import build
+    build.build_all()          # once, before the ranks load the libraries
+    return mesh.spawn(_profile, args.tp, cfg, args, backend=args.dist_backend)[0]
 
+
+def _profile(dist: Dist, device, cfg, args) -> dict:
+    """One rank's profile (the only one at tp=1); rank 0 prints."""
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, parallel=dataclasses.replace(parallel_config(args), kv_quant=args.kv_quant),
                  sampling=SamplingConfig(top_k=1), max_len=args.max_len, seed=args.seed,
-                 device="cuda")
+                 device=device, dist=dist)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     prefill = None
@@ -131,6 +151,8 @@ def main(argv=None) -> dict:
             steps()
             torch.cuda.synchronize()
             prof_wall_s = time.perf_counter() - t1
+        with cc.comm_stats() as comm:
+            steps()
     avgs = prof.key_averages()
     # device-side events only: an operator's own entry repeats its kernels'
     # time, and so does the device-side copy of a user range
@@ -152,6 +174,9 @@ def main(argv=None) -> dict:
         "weight_quant": args.weight_quant, "kv_quant": args.kv_quant,
         "wq_group_size": args.wq_group_size, "batch": args.batch, "prompt_len": args.prompt_len,
         "steps": args.steps, "device": torch.cuda.get_device_name(0),
+        "tp": dist.tp, "dist_backend": args.dist_backend if dist.tp > 1 else None,
+        "comm_per_step": {tag: {k: v / args.steps for k, v in e.items()}
+                          for tag, e in comm.by_tag().items()},
         "step_ms_wall": 1e3 * wall_s / args.steps,
         "step_ms_events": event_ms / args.steps,
         "host_enqueue_ms_per_step": 1e3 * enqueue_s / args.steps,
@@ -178,8 +203,9 @@ def main(argv=None) -> dict:
         "top_kernels_calls_per_step": {e.key[:80]: e.count / args.steps for e in top},
         "wave_prefill": prefill,
     }
-    print(json.dumps(result))
-    print(avgs.table(sort_by="self_device_time_total", row_limit=25))
+    if dist.rank == 0:
+        print(json.dumps(result))
+        print(avgs.table(sort_by="self_device_time_total", row_limit=25))
     return result
 
 

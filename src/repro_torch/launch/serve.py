@@ -22,6 +22,16 @@ projection and the lm_head go through the dequant_matmul kernel, and
 file exists).  The int8 KV cache has no flag, as in the JAX serve CLI: it
 is ``ParallelConfig.kv_quant``.  Runs on the card unless ``--device cpu``
 is given, where the kernels' plain versions run.
+
+``--tp N`` serves with tensor parallelism over N ranks, one process each
+(``launch/mesh.py``): every rank builds its shard of the same seeded
+model and runs the same scheduler over the same requests; rank 0 prints.
+``--dist-backend nccl`` puts one rank on each card and raises when there
+are fewer cards than ranks; ``gloo`` (the default) shares the cards, or
+runs on the CPU with ``--device cpu``, its collectives staged through host
+memory, so its wall times are no tensor-parallel speed.
+``--no-topk-sync`` gathers the whole logits row before the top-k (the
+paper's baseline of section 2.1b).
 """
 from __future__ import annotations
 
@@ -32,13 +42,16 @@ import time
 import numpy as np
 
 from repro_torch.configs import ALL_ARCHS, ParallelConfig, SamplingConfig, get_config
+from repro_torch.launch import mesh
 from repro_torch.models import model as M
+from repro_torch.models.common import Dist
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
                                            WaveScheduler)
 
 
-def build_engine(args) -> Engine:
+def build_engine(args, dist: Dist = Dist(), device=None) -> Engine:
+    """The CLI's engine; at --tp > 1 rank ``dist``'s, on its ``device``."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -50,11 +63,13 @@ def build_engine(args) -> Engine:
                                    spec_ngram=args.spec_ngram)
     return Engine(cfg, parallel=parallel,
                   sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
-                  seed=args.seed, device=args.device, wq_cache=args.wq_cache)
+                  seed=args.seed, device=device or args.device, wq_cache=args.wq_cache,
+                  dist=dist)
 
 
 def parallel_config(args) -> ParallelConfig:
-    return ParallelConfig(weight_quant=args.weight_quant, wq_group_size=args.wq_group_size)
+    return ParallelConfig(weight_quant=args.weight_quant, wq_group_size=args.wq_group_size,
+                          tp=args.tp, topk_sync=not args.no_topk_sync)
 
 
 def make_scheduler(eng: Engine, args):
@@ -73,6 +88,17 @@ def add_weight_quant_args(ap: argparse.ArgumentParser) -> None:
                          "scales, int4 = group-wise scales")
     ap.add_argument("--wq-group-size", type=int, default=128,
                     help="int4 group length along the reduction dim")
+
+
+def add_tp_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism over N ranks, one process each")
+    ap.add_argument("--dist-backend", choices=mesh.BACKENDS, default="gloo",
+                    help="--tp > 1: nccl (one card a rank) or gloo (ranks may share a card "
+                         "or run on the CPU; collectives staged through host memory)")
+    ap.add_argument("--no-topk-sync", action="store_true",
+                    help="gather the whole logits row before the top-k (the baseline of "
+                         "paper section 2.1b)")
 
 
 def weight_quant_line(cfg, args) -> str:
@@ -151,6 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of the sampling noise")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    add_tp_args(ap)
     add_weight_quant_args(ap)
     ap.add_argument("--wq-cache", default=None,
                     help="path for the packed weight checkpoint: load it when present "
@@ -160,15 +187,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Serve; -> the finished requests (rank 0's at --tp > 1)."""
     args = build_parser().parse_args(argv)
-    eng = build_engine(args)
-    if args.weight_quant != "none":
+    if args.tp == 1:
+        return _serve(Dist(), None, args)
+    mesh.check_backend(args.tp, args.dist_backend, args.device)
+    if args.device == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()          # once, before the ranks load the libraries
+    return mesh.spawn(_serve, args.tp, args, backend=args.dist_backend,
+                      device=args.device)[0]
+
+
+def _serve(dist: Dist, device, args):
+    """One rank's run (the only one at tp=1): rank 0 prints."""
+    eng = build_engine(args, dist, device)
+    talk = dist.rank == 0
+    if args.weight_quant != "none" and talk:
         print(weight_quant_line(eng.cfg, args))
     sched = make_scheduler(eng, args)
     submit_workload(sched, eng.cfg, args)
     t0 = time.monotonic()
     sched.run()
-    _report(sched, eng.cfg, args, time.monotonic() - t0)
+    if talk:
+        _report(sched, eng.cfg, args, time.monotonic() - t0)
     return sched.done
 
 
@@ -177,7 +219,8 @@ def _report(sched, cfg, args, dt: float) -> None:
     total_tokens = sum(len(r.output) for r in done)
     print(f"served {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s -> {1000 * dt / max(total_tokens, 1):.1f} ms/token "
-          f"({args.scheduler}; arch={cfg.name}, tp=1, device={args.device})")
+          f"({args.scheduler}; arch={cfg.name}, tp={args.tp}, device={args.device}"
+          + (f", {args.dist_backend}" if args.tp > 1 else "") + ")")
     if args.scheduler != "wave":
         s = sched.stats
         lat = sched.request_summary()

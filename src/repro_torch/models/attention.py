@@ -1,7 +1,7 @@
 """Dense GQA/MHA attention with RoPE and optional QKV bias, full causal
 (``attn``) or over a sliding window (``local_attn``): the subset of
-``repro.models.attention.gqa_forward`` that serves at tp=1 over the port's
-three KV layouts (see ``model.init_caches``):
+``repro.models.attention.gqa_forward`` that the port serves, over its three
+KV layouts (see ``model.init_caches``):
 
 * wave cache: ``k``/``v`` (L, b, hkv, S, hd) and one position row ``pos``
   (S,), since in wave serving every row sits at the same position;
@@ -23,6 +23,14 @@ bf16 scale per (row, KV head, entry), ``k_scale``/``v_scale`` beside
 written by one kv_quant_write launch a layer, decode reads the int8 cache
 through the decode kernels' int8 path, and a prefill attends the
 dequantized values, as the reference does.
+
+Under tensor parallelism each rank holds ``ShardPlan.local_q`` query heads
+and ``local_kv`` KV heads (its projection columns; a KV head replicated
+over ``kv_rep`` ranks is sliced to the rank's columns at load, where the
+JAX package slices it each forward in ``_slice_kv_weight``), caches those
+KV heads in every layout, and returns the unreduced row-parallel partial
+of the out-projection: the layer reduces it (``core/sync_policy.py``).
+The head counts are read from the projections' widths.
 
 ``pos`` is shared by all layers, as every layer holds the same positions.
 What a forward does with the cache -- where it writes, which mask decode
@@ -210,7 +218,8 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
                 rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
                 layer: int = 0, window: int = 0) -> torch.Tensor:
     """x (b, s, d) -> attention output (b, s, d) after the out-projection
-    (``gqa_heads``, then ``fused_out_projection``)."""
+    (``gqa_heads``, then ``fused_out_projection``): at tp > 1 this rank's
+    unreduced partial."""
     return fused_out_projection(
         gqa_heads(p, x, cfg, rope=rope, step=step, layer=layer, window=window), p["w_o"])
 
@@ -219,7 +228,8 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
               rope: Tuple[torch.Tensor, torch.Tensor], step: KVStep,
               layer: int = 0, window: int = 0) -> torch.Tensor:
     """x (b, s, d) -> the attention heads (b, hq, s, hd) that the
-    out-projection ``w_o`` (hq, hd, d) contracts.  ``rope`` holds the (cos,
+    out-projection ``w_o`` (hq, hd, d) contracts; hq and the KV heads hkv
+    are this rank's (the widths of ``w_q`` and ``w_k``).  ``rope`` holds the (cos,
     sin) tables of this forward's positions;
     ``layer`` is the layer's index among the attention layers, which own
     the cache's K/V; ``window`` > 0 is a ``local_attn`` layer's window
@@ -234,7 +244,7 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     through the decode kernel, or the paged decode kernel."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq, hkv = wquant.out_cols(p["w_q"]) // hd, wquant.out_cols(p["w_k"]) // hd
     scale = 1.0 / math.sqrt(hd)
 
     q = wquant.matmul(x, p["w_q"])

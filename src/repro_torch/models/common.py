@@ -1,14 +1,98 @@
-"""Shared model building blocks: device choice, init rules, norms, RoPE,
-activations, the carried conv history of recurrent blocks.  The math
-follows ``repro.models.common`` line for line, so the same weights give the
-same numbers up to float rounding."""
+"""Shared model building blocks: the tensor-parallel layout (``Dist``,
+``ShardPlan``), device choice, init rules, norms, RoPE, activations, the
+carried conv history of recurrent blocks.  The math follows
+``repro.models.common`` line for line, so the same weights give the same
+numbers up to float rounding.
+
+Under tensor parallelism every rank runs the same per-shard program on its
+own shard of the weights, as the JAX package's per-shard code runs inside
+``shard_map``; the collectives are explicit calls of
+``repro_torch.core.collectives``, which count them."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class Dist:
+    """This rank's place in the tensor-parallel group: ``tp`` ranks, this
+    one ``rank``, the ``torch.distributed`` process group of all the ranks
+    (``launch.mesh.init_tp`` joins it; rank 0 of the group is global rank 0)
+    and its ``backend`` ("gloo" stages CUDA tensors through
+    host memory, "nccl" reduces on the cards).  tp 1 is one process with no
+    group: every collective is the identity."""
+
+    tp: int = 1
+    rank: int = 0
+    group: Any = None
+    backend: str = "gloo"
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """How attention heads and the vocab land on the ``tp`` ranks
+    (``repro.models.common.ShardPlan``, the same rule).
+
+    Q heads are padded to a multiple of tp: zero heads, exact no-ops under
+    the row-parallel out-projection and its all-reduce.  When n_kv < tp each
+    KV head is replicated over ``kv_rep = tp // n_kv`` adjacent ranks and
+    each KV group's Q heads are padded to a multiple of ``kv_rep``."""
+
+    tp: int
+    n_heads: int            # true head count
+    n_kv_heads: int         # true kv head count
+    n_heads_p: int          # padded q heads (multiple of tp)
+    n_kv_p: int             # padded kv heads
+    kv_rep: int             # how many ranks share one kv head
+    local_q: int            # q heads per rank
+    local_kv: int           # kv heads per rank
+    vocab_p: int            # padded vocab (multiple of tp)
+    local_vocab: int
+
+    @staticmethod
+    def make(cfg, tp: int) -> "ShardPlan":
+        n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+        if n_kv >= tp:
+            # shard kv heads directly; pad both q and kv to multiples of tp
+            n_kv_p = pad_to(n_kv, tp)
+            g = max(1, n_q // n_kv)
+            if n_q % n_kv:
+                raise ValueError(f"{cfg.name}: n_heads {n_q} not a multiple of n_kv {n_kv}")
+            n_q_p = n_kv_p * g
+            kv_rep = 1
+        else:
+            if tp % n_kv:
+                raise ValueError(f"{cfg.name}: tp {tp} not a multiple of n_kv {n_kv}")
+            kv_rep = tp // n_kv
+            g = n_q // n_kv
+            if n_q % n_kv:
+                raise ValueError(f"{cfg.name}: ragged GQA groups unsupported")
+            n_q_p = n_kv * pad_to(g, kv_rep)
+            n_kv_p = n_kv
+        vocab_p = pad_to(cfg.vocab_size, tp)
+        return ShardPlan(tp=tp, n_heads=n_q, n_kv_heads=n_kv, n_heads_p=n_q_p, n_kv_p=n_kv_p,
+                         kv_rep=kv_rep, local_q=n_q_p // tp, local_kv=max(1, n_kv_p // tp),
+                         vocab_p=vocab_p, local_vocab=vocab_p // tp)
+
+    @property
+    def kv_sharded(self) -> bool:
+        """KV heads split over the ranks (else each is replicated over
+        ``kv_rep`` of them)."""
+        return self.n_kv_p >= self.tp
+
+    @property
+    def group_p(self) -> int:
+        """Q heads per KV head in the padded layout."""
+        return self.n_heads_p // self.n_kv_p
 
 
 def resolve_device(device) -> torch.device:

@@ -1,6 +1,6 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
-for the dense family, sequential or parallel residual, and the RG-LRU
-hybrid at tp=1).
+for the dense family, sequential or parallel residual, at any supported
+tensor-parallel degree, and the RG-LRU hybrid at tp=1).
 
 Parameters are a plain dict::
 
@@ -21,21 +21,34 @@ into one tensor stacked over the layers of its family (attention or
 RG-LRU), as the JAX package stacks a scanned layer group.  Under weight-only
 quantization the projections and the lm_head are ``QuantWeight``s whose
 packed values and scales are such views too.
+
+Under tensor parallelism (``ModelCtx.dist.tp`` ranks) each rank's dict
+holds its shard (``shard_leaf``): the padded q-head layout's and the KV
+heads' columns of ``w_q``/``w_k``/``w_v`` and their biases, its heads of
+``w_o``, its columns of ``w_up``/``w_gate`` and rows of ``w_down``, its
+columns of the lm_head (the vocab padded to a multiple of tp) and, for a
+table larger than ``embedding.REPLICATE_BYTES_LIMIT``, its rows of the
+embed table; norms and smaller tables are replicated.  The forward is the
+per-shard program: every rank runs it, and the collectives between them
+are the ``SyncPolicy``'s (``core/sync_policy.py``).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import wquant
+from repro_torch.core.embedding import embed_lookup, table_replicated
+from repro_torch.core.sync_policy import SyncPolicy
 from repro_torch.core.wquant import QuantWeight
-from repro_torch.core.embedding import embed_lookup
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru
-from repro_torch.models.common import init_leaf, resolve_device, rms_norm, rope_tables
+from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
+                                       rope_tables)
 from repro_torch.models.transformer import ATTN_KINDS, layers_forward
 
 Params = Dict[str, Any]
@@ -48,6 +61,42 @@ WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
             "w_up": "matmul", "w_gate": "matmul", "w_down": "matmul", "lm_head": "matmul"}
 
 
+# tensor-parallel degrees the dense family is served at
+TP_DEGREES = (1, 2, 4, 8)
+
+
+@dataclass(frozen=True)
+class ModelCtx:
+    """What the per-shard forward needs beside the config
+    (``repro.models.model.ModelCtx``): the rank's place, the shard plan and
+    the layout toggles.  The default is tp=1."""
+
+    plan: ShardPlan
+    dist: Dist = Dist()
+    parallel: ParallelConfig = ParallelConfig()
+
+    @staticmethod
+    def make(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(),
+             dist: Dist = Dist()) -> "ModelCtx":
+        if parallel.tp != dist.tp:
+            raise ValueError(f"ParallelConfig.tp {parallel.tp} != the rank group's tp {dist.tp}")
+        return ModelCtx(ShardPlan.make(cfg, dist.tp), dist, parallel)
+
+    def policy(self, *, seq_sharded: bool, seq_len: int) -> SyncPolicy:
+        """Prefill, chunk and verify forwards run ``seq_sharded`` (the
+        residual stream sequence-sharded unless ``parallel.seq_parallel`` is
+        off); decode keeps the residual replicated."""
+        return SyncPolicy(self.dist, seq_len=seq_len, one_shot=self.parallel.one_shot_sync,
+                          seq_sharded=(seq_sharded and self.parallel.seq_parallel
+                                       and self.dist.tp > 1))
+
+    def vocab_valid(self, vocab: int) -> int:
+        """How many of this rank's ``local_vocab`` logit columns are real
+        (the rest pad the vocab to a multiple of tp)."""
+        lv = self.plan.local_vocab
+        return max(0, min(lv, vocab - self.dist.rank * lv))
+
+
 class LeafDef(NamedTuple):
     """One parameter of a layer: the shape of one layer's leaf, the JAX
     ``ParamDef`` init rule, the fan-in of a "scaled" rule, the dtype."""
@@ -57,9 +106,12 @@ class LeafDef(NamedTuple):
     dtype: torch.dtype = torch.bfloat16
 
 
-def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> None:
+def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *,
+                    wq_cache: Optional[str] = None) -> None:
     """Raise NotImplementedError naming every feature of ``cfg`` and
-    ``parallel`` that the port does not serve yet."""
+    ``parallel`` that the port does not serve yet (``wq_cache``: the path of
+    a packed weight checkpoint), and ValueError where ``cfg`` cannot be
+    split over ``parallel.tp`` ranks."""
     missing = []
     kinds = set(cfg.layer_pattern)
     if cfg.moe is not None:
@@ -87,11 +139,23 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("tie_embeddings")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
-    if parallel.tp != 1:
-        missing.append("tp>1 (tensor parallelism)")
+    if parallel.tp not in TP_DEGREES:
+        missing.append(f"tp={parallel.tp} (tensor parallelism at tp 1, 2, 4 or 8)")
+    if parallel.tp > 1 and "rglru" in kinds:
+        missing.append("tp>1 with rglru layers (RG-LRU tensor parallelism)")
+    if parallel.tp > 1 and wq_cache is not None:
+        missing.append("wq_cache at tp>1 (a packed checkpoint per rank)")
+    if parallel.dp != 1:
+        missing.append("dp>1 (data parallelism, the data axis of the mesh)")
+    if parallel.kv_seq_shard:
+        missing.append("kv_seq_shard (the sequence-sharded KV cache and its LSE merge)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: the PyTorch port does not serve "
                                   f"{', '.join(missing)} yet")
+    if parallel.tp > 1:
+        ShardPlan.make(cfg, parallel.tp)        # raises where the heads cannot split
+        if cfg.d_ff % parallel.tp:
+            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} not a multiple of tp {parallel.tp}")
 
 
 def attention_window(cfg: ModelConfig) -> int:
@@ -168,23 +232,120 @@ def _quantized_empty(shape, mode: str, group_size: int, device) -> QuantWeight:
                        "int4", g, k)
 
 
-def _quantize_into(dst: QuantWeight, w: torch.Tensor, group_size: int, cols: int = 8192) -> None:
+def _quantize_into(dst: QuantWeight, w: torch.Tensor, group_size: int, cols: int = 8192,
+                   rows: Optional[Tuple[int, int]] = None) -> None:
     """Quantize ``w`` into ``dst``'s storage a block of columns at a time:
     every scale belongs to one column, so the bytes are those of one
-    ``quantize`` call, and the fp32 temporaries stay at K x 8192."""
+    ``quantize`` call, and the fp32 temporaries stay at K x 8192.
+    ``rows`` (start, size): keep those reduction rows of the int8 result
+    (a row-parallel shard, its scales taken over the whole K)."""
     for c in range(0, w.shape[-1], cols):
         qw = wquant.quantize(w[..., c:c + cols], dst.mode, group_size)
+        if rows is not None:
+            qw = wquant.slice_rows(qw, *rows)
         dst.q[..., c:c + cols] = qw.q
         dst.scale[..., c:c + cols] = qw.scale
 
 
+def _k_shards(name: str, tp: int) -> int:
+    """Ranks the reduction dim of leaf ``name`` is split over (the JAX
+    package's ``_wq_k_shards``): the row-parallel ``w_down``."""
+    return tp if name == "w_down" else 1
+
+
 def _quantizes(name: str, shape, parallel: ParallelConfig) -> bool:
     return (parallel.weight_quant != "none" and name in WQ_SITES
-            and wquant.quantizable(shape, parallel.weight_quant, parallel.wq_group_size))
+            and wquant.quantizable(shape, parallel.weight_quant, parallel.wq_group_size,
+                                   _k_shards(name, parallel.tp)))
+
+
+# -- tensor-parallel shards -------------------------------------------------
+
+
+def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int):
+    """How leaf ``name`` splits over the ranks -> (axis, dims, padded dims,
+    start, size): axis ``axis`` (counted from the end) of the global leaf
+    holds ``dims`` = (groups, heads a group, entries a head), is zero-padded
+    to ``padded dims``, and this rank keeps [start, start + size) of it.
+    None: replicated.  Q heads pad within their KV group
+    (``ShardPlan``); a KV head replicated over ``kv_rep`` ranks is the
+    rank's own columns."""
+    tp, hd = plan.tp, cfg.resolved_head_dim
+    g = plan.n_heads // plan.n_kv_heads
+    if tp == 1:
+        return None
+    if name in ("w_q", "b_q"):
+        return (-1, (plan.n_kv_heads, g, hd), (plan.n_kv_p, plan.group_p, hd),
+                rank * plan.local_q * hd, plan.local_q * hd)
+    if name in ("w_k", "w_v", "b_k", "b_v"):
+        dims = (plan.n_kv_heads, 1, hd)
+        if plan.kv_sharded:
+            return (-1, dims, (plan.n_kv_p, 1, hd), rank * plan.local_kv * hd,
+                    plan.local_kv * hd)
+        return (-1, dims, dims, rank // plan.kv_rep * hd, hd)
+    if name == "w_o":
+        return (-3, (plan.n_kv_heads, g, 1), (plan.n_kv_p, plan.group_p, 1),
+                rank * plan.local_q, plan.local_q)
+    if name in ("w_up", "w_gate", "w_down"):
+        f = cfg.d_ff // tp
+        return (-2 if name == "w_down" else -1, (cfg.d_ff, 1, 1), (cfg.d_ff, 1, 1), rank * f, f)
+    vocab = ((cfg.vocab_size, 1, 1), (plan.vocab_p, 1, 1), rank * plan.local_vocab,
+             plan.local_vocab)
+    if name == "lm_head":
+        return (-1, *vocab)
+    if name == "table" and not table_replicated(cfg):
+        return (-2, *vocab)
+    return None
+
+
+def _pad_slice(t: torch.Tensor, axis: int, dims, dims_p, start: int, size: int,
+               fill: float = 0.0) -> torch.Tensor:
+    """Axis ``axis`` of t viewed as ``dims``, padded with ``fill`` to
+    ``dims_p``, then [start, start + size) of it."""
+    if tuple(dims) != tuple(dims_p):
+        axis %= t.dim()
+        lead, tail = t.shape[:axis], t.shape[axis + 1:]
+        out = t.new_full((*lead, *dims_p, *tail), fill)
+        out[(slice(None),) * axis + tuple(slice(0, n) for n in dims)] = t.reshape(
+            *lead, *dims, *tail)
+        t = out.reshape(*lead, math.prod(dims_p), *tail)
+    return t.narrow(axis, start, size)
+
+
+def shard_leaf(name: str, w, cfg: ModelConfig, plan: ShardPlan, rank: int):
+    """A global leaf (one layer's, a stack of layers', the table or the
+    lm_head; a tensor or a QuantWeight) -> this rank's shard (``_split``).
+    A QuantWeight pads its columns or heads with zero values and the scale
+    ``quantize`` gives a zero column, so the shard is the quantization of
+    the padded global leaf, sliced; a row-parallel one keeps its int8
+    scales and its int4 groups' scale rows (``wquant.slice_rows``)."""
+    split = _split(name, cfg, plan, rank)
+    if split is None:
+        return w
+    axis, dims, dims_p, start, size = split
+    if not isinstance(w, QuantWeight):
+        return _pad_slice(w, axis, dims, dims_p, start, size)
+    if axis == -2:
+        return wquant.slice_rows(w, start, size)
+    # w_o's head axis is the last batch axis of the values and of the scales
+    s_axis = -2 if axis == -3 and w.mode == "int8" else axis
+    return QuantWeight(_pad_slice(w.q, axis, dims, dims_p, start, size),
+                       _pad_slice(w.scale, s_axis, dims, dims_p, start, size,
+                                  fill=wquant.zero_scale(w.mode)),
+                       w.mode, w.group, w.k)
+
+
+def _shard_shape(name: str, shape, cfg: ModelConfig, plan: ShardPlan, rank: int):
+    split = _split(name, cfg, plan, rank)
+    if split is None:
+        return tuple(shape)
+    out = list(shape)
+    out[split[0]] = split[4]
+    return tuple(out)
 
 
 def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *,
-                seed: int = 0, device="cuda") -> Params:
+                seed: int = 0, device="cuda", dist: Dist = Dist()) -> Params:
     """Random weights by the JAX package's init rules (normal std 0.02,
     scaled 1/sqrt(fan_in), zeros), drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  The draws differ from
@@ -195,47 +356,69 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
     quantized and written into the stacked packed storage before the next
     is drawn, so the bf16 tree never exists (qwen-72b's does not fit one
     card).  The draws are the same as without quantization: the result is
-    ``quantize_params`` of the bf16 weights of the same seed."""
+    ``quantize_params`` of the bf16 weights of the same seed.
+
+    At tp > 1 (``dist``) every rank draws each global leaf with the same
+    generator sequence as tp=1 and keeps its shard (``shard_leaf``), so one
+    seed is one model at every tp.  A quantized leaf is the quantization of
+    the global leaf, sliced: a row-parallel int8 ``w_down`` is quantized
+    whole, every other leaf's shard alone, which gives the same bytes
+    (its scales see only its own columns, or its groups only its rows)."""
     check_supported(cfg, parallel)
     device = resolve_device(device)
+    plan = ModelCtx.make(cfg, parallel, dist).plan
     gen = torch.Generator(device=device).manual_seed(seed)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     mode, gs = parallel.weight_quant, parallel.wq_group_size
     layers: List[Dict[str, Any]] = [{} for _ in range(L)]
+    shard = lambda name, w: shard_leaf(name, w, cfg, plan, dist.rank)
     for family, idx in layer_families(cfg).items():
         n, stacked = len(idx), {}
         for name, (shape, rule, fan_in, dtype) in layer_param_defs(cfg, family).items():
             quant = _quantizes(name, shape, parallel)
+            local = (n, *_shard_shape(name, shape, cfg, plan, dist.rank))
             if quant:
-                t = _quantized_empty((n, *shape), mode, gs, device)
+                t = _quantized_empty(local, mode, gs, device)
             else:
-                t = torch.empty((n, *shape), dtype=dtype, device=device)
+                t = torch.empty(local, dtype=dtype, device=device)
+            # a row-parallel int8 shard's scales span the global K: quantize
+            # the whole leaf and keep the rank's rows
+            split = _split(name, cfg, plan, dist.rank)
+            whole_k = quant and mode == "int8" and split is not None and split[0] == -2
             for i in range(n):   # per layer: an fp32 draw of one layer at a time
                 leaf = init_leaf(shape, rule, gen, device=device, fan_in=fan_in, dtype=dtype)
-                if quant:
-                    _quantize_into(wquant.index_batch(t, i), leaf, gs)
+                if whole_k:
+                    _quantize_into(wquant.index_batch(t, i), leaf, gs, rows=split[3:])
+                elif quant:
+                    _quantize_into(wquant.index_batch(t, i), shard(name, leaf), gs)
                 else:
-                    t[i] = leaf
+                    t[i] = shard(name, leaf)
             stacked[name] = t
         for i, layer in zip(idx, split_layers(stacked, n)):
             layers[i] = layer
-    table = init_leaf((1, V, d), "normal", gen, device=device)
+    table = shard("table", init_leaf((1, V, d), "normal", gen, device=device))
     final_norm = init_leaf((d,), "zeros", gen, device=device)
     head = init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d)
     if _quantizes("lm_head", head.shape, parallel):
-        qhead = _quantized_empty(head.shape, mode, gs, device)
-        _quantize_into(qhead, head, gs)
+        local = shard("lm_head", head)
+        qhead = _quantized_empty(local.shape, mode, gs, device)
+        _quantize_into(qhead, local, gs)
         head = qhead
-    return {"embed": {"table": table}, "layers": layers,
+    else:
+        head = shard("lm_head", head).contiguous()
+    return {"embed": {"table": table.contiguous()}, "layers": layers,
             "final_norm": final_norm, "lm_head": head}
 
 
 def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
-    """Quantize at load (``repro.models.model.quantize_params`` at tp=1):
-    the bf16 leaves of ``WQ_SITES`` and the lm_head become QuantWeights in
-    new storage stacked over each layer family (an RG-LRU layer's FFN; its
+    """Quantize at load (``repro.models.model.quantize_params``): the bf16
+    leaves of ``WQ_SITES`` and the lm_head become QuantWeights in new
+    storage stacked over each layer family (an RG-LRU layer's FFN; its
     mixer's leaves are not sites); leaves already quantized pass through,
-    and shapes that do not quantize stay bf16."""
+    and shapes that do not quantize stay bf16.  At tp > 1 a shard cannot
+    be quantized alone (an int8 row-parallel scale spans the global K), so
+    the leaves must come quantized (``init_params``, or
+    ``bridge.params_from_jax`` of a quantized tree)."""
     if parallel.weight_quant == "none":
         return params
     mode, gs = parallel.weight_quant, parallel.wq_group_size
@@ -244,20 +427,26 @@ def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
     families: Dict[bool, List[int]] = {}   # an RG-LRU layer keeps a "mixer" dict
     for i, p in enumerate(layers):
         families.setdefault("mixer" in p, []).append(i)
+    todo = []
     for idx in families.values():
         for name in WQ_SITES:
             first = layers[idx[0]].get(name)   # None for the lm_head and the mixer's leaves
-            if (first is None or isinstance(first, QuantWeight)
-                    or not _quantizes(name, first.shape, parallel)):
-                continue
-            dst = _quantized_empty((len(idx), *first.shape), mode, gs, first.device)
-            for n, i in enumerate(idx):
-                view = wquant.index_batch(dst, n)
-                _quantize_into(view, layers[i][name], gs)
-                new_layers[i][name] = view
-    out = dict(params, layers=new_layers)
+            if (first is not None and not isinstance(first, QuantWeight)
+                    and _quantizes(name, first.shape, parallel)):
+                todo.append((idx, name, first))
     head = params["lm_head"]
-    if not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel):
+    head_todo = not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel)
+    if parallel.tp > 1 and (todo or head_todo):
+        raise ValueError("at tp>1 the weights are quantized whole before they are sharded: "
+                         "pass quantized shards (init_params, bridge.params_from_jax)")
+    for idx, name, first in todo:
+        dst = _quantized_empty((len(idx), *first.shape), mode, gs, first.device)
+        for n, i in enumerate(idx):
+            view = wquant.index_batch(dst, n)
+            _quantize_into(view, layers[i][name], gs)
+            new_layers[i][name] = view
+    out = dict(params, layers=new_layers)
+    if head_todo:
         out["lm_head"] = _quantized_empty(head.shape, mode, gs, head.device)
         _quantize_into(out["lm_head"], head, gs)
     return out
@@ -280,7 +469,8 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
     quantized = dense = ref_einsum = 0
     for name, shape, dtype in leaves:
         if _quantizes(name, shape, parallel):
-            b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size)
+            b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size,
+                                   _k_shards(name, parallel.tp))
             quantized += b
             ref_einsum += b if WQ_SITES[name] == "einsum" else 0
         else:
@@ -291,7 +481,8 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 per_slot: bool = False, paged: Optional[Tuple[int, int]] = None,
-                ring_slack: int = 0, kv_quant: bool = False) -> Dict[str, torch.Tensor]:
+                ring_slack: int = 0, kv_quant: bool = False,
+                kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The cache of all layers; ``pos`` -1 marks an empty entry.
 
     Wave (default): ``k``/``v`` (A, batch, hkv, S, hd) for the A attention
@@ -305,11 +496,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     and ``k_scale``/``v_scale`` hold a bf16 scale per entry, shaped as
     ``k`` less its hd (pools of scales for a paged cache), zeros as the JAX
     package's ``init_cache(quant=True)`` makes them.  RG-LRU layers add
-    their recurrent state, ``h`` and ``conv`` (``rglru.init_rglru_state``)."""
+    their recurrent state, ``h`` and ``conv`` (``rglru.init_rglru_state``).
+    ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
+    default all of them)."""
     fams = layer_families(cfg)
     n_attn, n_rec = len(fams.get("attn", ())), len(fams.get("rglru", ()))
     window = attention_window(cfg)
-    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    hkv, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     if paged is not None:
         n_blocks, bs = paged
         shape = (n_attn, n_blocks, hkv, bs, hd)
@@ -332,16 +525,23 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     return caches
 
 
-def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (b, s, d) -> logits (b, s, V) in fp32, as ``_lm_head`` computes them.
-    A quantized head goes through the dequant_matmul kernel with fp32 out.
-    ``head_f32`` is a resident fp32 copy of a bf16 ``lm_head[0]``; without
-    one the head is cast for this call."""
+def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = None,
+            valid: Optional[int] = None) -> torch.Tensor:
+    """x (b, s, d) -> logits (b, s, V) in fp32, as ``_lm_head`` computes them
+    (at tp > 1 this rank's columns of the padded vocab).  A quantized head
+    goes through the dequant_matmul kernel with fp32 out.  ``head_f32`` is a
+    resident fp32 copy of a bf16 ``lm_head[0]``; without one the head is
+    cast for this call.  Columns from ``valid`` on pad the vocab to a
+    multiple of tp and read -inf, so no top-k picks them (the JAX package
+    leaves them as drawn weights)."""
     head = params["lm_head"]
     if isinstance(head, QuantWeight):
-        return wquant.matmul(x, wquant.index_batch(head, 0), out_dtype=torch.float32)
-    head = head_f32 if head_f32 is not None else head[0].float()
-    return x.float() @ head
+        logits = wquant.matmul(x, wquant.index_batch(head, 0), out_dtype=torch.float32)
+    else:
+        logits = x.float() @ (head_f32 if head_f32 is not None else head[0].float())
+    if valid is not None and valid < logits.shape[-1]:
+        logits[..., valid:] = float("-inf")
+    return logits
 
 
 def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
@@ -427,8 +627,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             block_tables: Optional[torch.Tensor] = None,
             slots: Optional[torch.Tensor] = None,
             write_rows: Optional[torch.Tensor] = None,
-            chunk_writes=None) -> torch.Tensor:
-    """tokens (b, s) -> fp32 logits (b, s or 1, V).
+            chunk_writes=None, ctx: Optional[ModelCtx] = None,
+            seq_sharded: bool = False) -> torch.Tensor:
+    """tokens (b, s) -> fp32 logits (b, s or 1, V): at tp > 1 (``ctx``) this
+    rank's vocab shard of them (b, s or 1, local_vocab).
 
     Without ``cur_pos`` this is a prefill: from position 0, or per row from
     ``start_pos`` (b,) (positions start_pos[b] + arange(s): a cached-prefix
@@ -448,10 +650,18 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``length_mask`` keeps their pad steps out of it.
     ``last_only`` keeps one position per row: the last, or with
     ``length_mask`` (b, s) (true at real tokens of a right-padded batch)
-    each row's last real token."""
+    each row's last real token.
+
+    ``ctx`` (default tp=1) places this rank; ``seq_sharded`` (a prefill,
+    chunk or verify forward, as the JAX engine chooses) keeps each rank's
+    chunk of the sequence in the residual stream between the layers'
+    branches (``ModelCtx.policy``)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = embed_lookup(params["embed"], tokens)
+    ctx = ctx or ModelCtx.make(cfg)
+    policy = ctx.policy(seq_sharded=seq_sharded, seq_len=s)
+    x = embed_lookup(params["embed"], tokens, ctx.plan, ctx.dist,
+                     id_broadcast=ctx.parallel.id_broadcast)
     if cur_pos is not None:
         if s != 1 or caches is None:
             raise ValueError("a decode step takes one token per row and a cache")
@@ -469,11 +679,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                             ring_idx=step.ring_idx, targets=step.targets,
                                             src=step.src)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask)
+    x = policy.shard_residual(x)
+    x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask,
+                       policy=policy)
+    x = policy.unshard_residual(x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if last_only and length_mask is not None:
         last = (length_mask.sum(dim=1) - 1).clamp_min(0)
         x = x[torch.arange(b, device=dev), last][:, None]
     elif last_only:
         x = x[:, -1:]
-    return lm_head(params, x, head_f32)
+    return lm_head(params, x, head_f32, ctx.vocab_valid(cfg.vocab_size))

@@ -7,6 +7,14 @@ loop that the JAX package runs as scans over groups of stacked parameters
 Layer i's kind is ``cfg.block_kind(i)``, the layer pattern cycled over the
 layers.  Each kind owns its part of the cache: the attention layers the
 K/V, in their own order, the RG-LRU layers the recurrent state.
+
+Every residual-stream collective is the ``SyncPolicy``'s, with the JAX
+package's tags (``transformer.py:220-247`` there): ``pre_mixer`` and
+``pre_ffn`` gathers of a sequence-sharded residual, ``mixer_reduce`` and
+``ffn_reduce`` after a sequential layer's branches, and one ``one_shot``
+reduction of a parallel-residual layer's summed partials (``attn_reduce``
+and ``ffn_reduce`` without ``one_shot_sync``).  At tp=1 each is the
+identity.
 """
 from __future__ import annotations
 
@@ -15,7 +23,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.zero_copy import parallel_partials
+from repro_torch.core import wquant
+from repro_torch.core.sync_policy import SyncPolicy
+from repro_torch.core.zero_copy import fused_out_projection, parallel_partials
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru
 from repro_torch.models.common import rms_norm
@@ -38,21 +48,31 @@ def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
 def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                      kind: str = "attn", index: int = 0, *,
                      rope: Tuple[torch.Tensor, torch.Tensor], step: attn.KVStep,
-                     length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     length_mask: Optional[torch.Tensor] = None,
+                     policy: SyncPolicy) -> torch.Tensor:
     """x + mixer(norm1(x)), then + mlp(norm2(.)): one decoder layer of kind
-    ``kind``, the ``index``-th of its kind's cache.  With
-    ``cfg.parallel_residual`` (attention layers): x + (attn + mlp)(norm1(x)),
-    the one summed partial of JAX's one-shot sync order, both partials in
-    one fused_dual_matmul (``zero_copy.parallel_partials``)."""
-    xa = rms_norm(x, p["norm1"], cfg.rms_eps)
+    ``kind``, the ``index``-th of its kind's cache, each branch's partial
+    reduced by ``policy``.  With ``cfg.parallel_residual`` (attention
+    layers): x + (attn + mlp)(norm1(x)); under ``policy.one_shot`` both
+    partials are summed by one fused_dual_matmul
+    (``zero_copy.parallel_partials``) into the one buffer that the one
+    reduction reads (paper section 2.2), else each is computed and reduced
+    on its own."""
+    xa = policy.gather_in(rms_norm(x, p["norm1"], cfg.rms_eps), tag="pre_mixer")
     if cfg.parallel_residual and kind in ATTN_KINDS:
         heads = attn.gqa_heads(p, xa, cfg, rope=rope, step=step, layer=index,
                                window=cfg.window if kind == "local_attn" else 0)
-        return x + parallel_partials(heads, p["w_o"], mlp_hidden(p, xa, cfg), p["w_down"])
-    x = x + _mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
-                           length_mask=length_mask)
-    xf = rms_norm(x, p["norm2"], cfg.rms_eps)
-    return x + mlp_forward(p, xf, cfg)
+        h = mlp_hidden(p, xa, cfg)
+        if policy.one_shot:
+            return x + policy.reduce_out(parallel_partials(heads, p["w_o"], h, p["w_down"]),
+                                         tag="one_shot")
+        # the two-sync baseline the paper improves on
+        return (x + policy.reduce_out(fused_out_projection(heads, p["w_o"]), tag="attn_reduce")
+                + policy.reduce_out(wquant.matmul(h, p["w_down"]), tag="ffn_reduce"))
+    x = x + policy.reduce_out(_mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
+                                             length_mask=length_mask), tag="mixer_reduce")
+    xf = policy.gather_in(rms_norm(x, p["norm2"], cfg.rms_eps), tag="pre_ffn")
+    return x + policy.reduce_out(mlp_forward(p, xf, cfg), tag="ffn_reduce")
 
 
 def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,

@@ -1,7 +1,13 @@
 """Serving engine: weights and caches on one device, prefill and decode
 steps, the wave ``generate`` loop and the slot engine of continuous
-batching over a dense or a paged KV cache (``repro.runtime.engine.Engine``
-at tp=1).
+batching over a dense or a paged KV cache (``repro.runtime.engine.Engine``).
+
+Under tensor parallelism (``dist``) each rank's engine holds its shard of
+the weights and caches its KV heads, and every rank makes the same calls
+in the same order: the same scheduler over the same requests, so the token
+ids are replicated and need no broadcast (the paper's SPMD form).  The
+forwards that the JAX engine runs sequence-sharded (prefill, admission,
+chunks, verify) run so here.
 
 The decode step is the paper's experiment unit (ms/token of exactly this
 function).  The JAX package fuses n decode steps into one ``lax.scan``
@@ -12,17 +18,19 @@ in place instead of donated.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, SamplingConfig
+from repro_torch.core import collectives as cc
 from repro_torch.core.capabilities import ArchCapabilities
 from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import Dist, resolve_device
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.sampling import sample_tokens
 from repro_torch.training import checkpoint
@@ -46,13 +54,21 @@ class Engine:
     weight checkpoint (``training.checkpoint``): restored when it exists,
     else written after the weights are quantized, as the JAX engine's
     ``wq_cache`` does.  ``parallel.kv_quant`` gives every cache this engine
-    makes the int8 layout."""
+    makes the int8 layout.
+
+    ``dist`` (``launch.mesh.init_tp``) makes this engine one of
+    ``parallel.tp`` ranks: ``params`` default to this rank's shard of the
+    seed's model, and given ones must be a shard (``bridge.params_from_jax``
+    with the same ``dist``).  Every rank seeds its sampling generator alike,
+    so stochastic draws agree across the ranks too."""
 
     def __init__(self, cfg: ModelConfig, *, parallel: ParallelConfig = ParallelConfig(),
                  sampling: SamplingConfig = SamplingConfig(), max_len: int = 128,
                  params: Optional[Dict[str, Any]] = None, seed: int = 0,
-                 device="cuda", wq_cache: Optional[str] = None):
-        M.check_supported(cfg, parallel)
+                 device="cuda", wq_cache: Optional[str] = None, dist: Dist = Dist()):
+        M.check_supported(cfg, parallel, wq_cache=wq_cache)
+        self.ctx = M.ModelCtx.make(cfg, parallel, dist)
+        self.dist = dist
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # fp32 products (the lm_head) in full fp32, as the reference does
@@ -66,7 +82,7 @@ class Engine:
         if loaded:
             params = checkpoint.load_quantized(wq_cache, cfg, parallel, device=self.device)
         elif params is None:
-            params = M.init_params(cfg, parallel, seed=seed, device=self.device)
+            params = M.init_params(cfg, parallel, seed=seed, device=self.device, dist=dist)
         self.params = M.quantize_params(params, parallel)
         if wq and not loaded:
             checkpoint.save_quantized(self.params, cfg, parallel, wq_cache)
@@ -74,23 +90,51 @@ class Engine:
         self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
+    def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
+        """``model.forward`` on this engine's weights and rank (its local
+        logits); ``seq_sharded`` where the JAX engine shards the sequence."""
+        return M.forward(self.params, tokens, self.cfg, head_f32=self.head_f32, ctx=self.ctx,
+                         **kw)
+
+    def sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """(b, V or local_vocab) logits -> token ids (b,), the same on every
+        rank (``parallel.topk_sync`` picks the paper's top-k before the
+        gather or the full-row gather)."""
+        return sample_tokens(logits, self.sampling, self.generator, self.ctx.plan, self.dist,
+                             self.parallel.topk_sync)
+
+    def _kv_kw(self) -> dict:
+        return dict(kv_quant=self.parallel.kv_quant, kv_heads=self.ctx.plan.local_kv)
+
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:
-        return M.init_caches(self.cfg, batch, self.max_len, device=self.device,
-                             kv_quant=self.parallel.kv_quant)
+        return M.init_caches(self.cfg, batch, self.max_len, device=self.device, **self._kv_kw())
 
     def prefill(self, tokens: torch.Tensor, caches) -> torch.Tensor:
         """Prompt step: writes the cache, samples from the LAST position's
         logits (a pad position for right-padded short rows, as in the JAX
         package) -> next token ids (b,)."""
-        logits = M.forward(self.params, tokens, self.cfg, caches=caches,
-                           last_only=True, head_f32=self.head_f32)
-        return sample_tokens(logits[:, -1], self.sampling, self.generator)
+        logits = self.forward(tokens, caches=caches, last_only=True, seq_sharded=True)
+        return self.sample(logits[:, -1])
 
     def decode(self, tok: torch.Tensor, caches, cur_pos: int) -> torch.Tensor:
         """One decode step for the whole batch at the shared position."""
-        logits = M.forward(self.params, tok[:, None], self.cfg, caches=caches,
-                           cur_pos=cur_pos, head_f32=self.head_f32)
-        return sample_tokens(logits[:, -1], self.sampling, self.generator)
+        logits = self.forward(tok[:, None], caches=caches, cur_pos=cur_pos)
+        return self.sample(logits[:, -1])
+
+    def check_replicated(self, done) -> None:
+        """The end of a run at tp > 1: every rank must have served the same
+        streams (one all-gathered hash of the finished requests' tokens,
+        tag ``stream_check``); raises on a mismatch."""
+        if self.dist.tp == 1:
+            return
+        h = hashlib.sha256()
+        for r in sorted(done, key=lambda r: r.rid):
+            h.update(np.int64(r.rid).tobytes() + np.asarray(r.output, np.int64).tobytes())
+        mine = torch.tensor([int.from_bytes(h.digest()[:8], "little", signed=True)],
+                            dtype=torch.int64, device=self.device)
+        hashes = cc.all_gather(mine, self.dist, 0, tag="stream_check").tolist()
+        if len(set(hashes)) != 1:
+            raise RuntimeError(f"tp ranks served different streams (hashes {hashes})")
 
     # -- slot engine (continuous batching) -----------------------------------
     #
@@ -106,13 +150,12 @@ class Engine:
         verify chunk of spec_k drafts never wraps onto live window entries
         (the JAX package's ``ring_slack``)."""
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             per_slot=True, ring_slack=self.parallel.spec_k,
-                             kv_quant=self.parallel.kv_quant)
+                             per_slot=True, ring_slack=self.parallel.spec_k, **self._kv_kw())
 
     def init_paged_caches(self, n_slots: int, n_blocks: int,
                           block_size: int) -> Dict[str, torch.Tensor]:
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             paged=(n_blocks, block_size), kv_quant=self.parallel.kv_quant)
+                             paged=(n_blocks, block_size), **self._kv_kw())
 
     def _admit_rows(self, tokens, admit, plens, **kw) -> np.ndarray:
         """Prefill the admitted rows of ``tokens`` (B, Lp) and sample each
@@ -122,10 +165,9 @@ class Engine:
         tok = torch.as_tensor(np.asarray(tokens)[rows], dtype=torch.long, device=self.device)
         plens_d = kvcache.device_ints(np.asarray(plens)[rows], self.device)
         lmask = torch.arange(tok.shape[1], device=self.device)[None, :] < plens_d[:, None]
-        logits = M.forward(self.params, tok, self.cfg, last_only=True, length_mask=lmask,
-                           head_f32=self.head_f32, **kw)
+        logits = self.forward(tok, last_only=True, length_mask=lmask, seq_sharded=True, **kw)
         out = np.zeros(len(admit), np.int32)
-        out[rows] = self.land(sample_tokens(logits[:, -1], self.sampling, self.generator))
+        out[rows] = self.land(self.sample(logits[:, -1]))
         return out
 
     @torch.inference_mode()
@@ -176,9 +218,9 @@ class Engine:
         finished row (``done`` or no budget left) keeps its token and
         position.  Every row writes its token at its position unless
         ``write_rows`` names the rows that do.  -> (tok, pos, done, rem)."""
-        logits = M.forward(self.params, tok[:, None], self.cfg, caches=caches, cur_pos=pos,
-                           block_tables=bt, write_rows=write_rows, head_f32=self.head_f32)
-        nxt = sample_tokens(logits[:, -1], self.sampling, self.generator)
+        logits = self.forward(tok[:, None], caches=caches, cur_pos=pos, block_tables=bt,
+                              write_rows=write_rows)
+        nxt = self.sample(logits[:, -1])
         active = ~done & (rem > 0)
         tok = torch.where(active, nxt, tok)
         pos = torch.where(active, pos + 1, pos)
@@ -266,13 +308,12 @@ class Engine:
         tok_c = torch.as_tensor(np.asarray(ctokens)[rows], dtype=torch.long, device=dev)
         clens_d = kvcache.device_ints(np.asarray(clens)[rows], dev)
         lmask = torch.arange(C, device=dev)[None, :] < clens_d[:, None]
-        logits = M.forward(self.params, tok_c, self.cfg, caches=caches, last_only=True,
-                           length_mask=lmask, head_f32=self.head_f32,
-                           **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
-                                            block_tables))
+        logits = self.forward(tok_c, caches=caches, last_only=True, length_mask=lmask,
+                              seq_sharded=True,
+                              **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
+                                               block_tables))
         ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)
-        ptok[kvcache.device_ints(rows, dev)] = sample_tokens(logits[:, -1], self.sampling,
-                                                            self.generator)
+        ptok[kvcache.device_ints(rows, dev)] = self.sample(logits[:, -1])
         kvcache.set_slot_positions(caches, totals, admit)
         (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
             tok, pos, done, remaining, eos, block_tables)
@@ -312,10 +353,9 @@ class Engine:
         if rows.size:
             dev = self.device
             vt = torch.as_tensor(vtokens[rows], dtype=torch.long, device=dev)
-            logits = M.forward(self.params, vt, self.cfg, caches=caches, head_f32=self.head_f32,
-                               **self._chunk_kw(caches, rows, pos[rows], K1, block_tables))
-            tg = sample_tokens(logits.reshape(len(rows) * K1, -1), self.sampling,
-                               self.generator).reshape(len(rows), K1)
+            logits = self.forward(vt, caches=caches, seq_sharded=True,
+                                  **self._chunk_kw(caches, rows, pos[rows], K1, block_tables))
+            tg = self.sample(logits.reshape(len(rows) * K1, -1)).reshape(len(rows), K1)
             pos_r, rem_r, eos_r = kvcache.device_ints(
                 np.stack([pos[rows], remaining[rows], eos[rows]]), dev)
             acc = (vt[:, 1:] == tg[:, :-1]).long().cumprod(dim=1).sum(dim=1)

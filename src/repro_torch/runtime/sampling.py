@@ -1,24 +1,34 @@
 """Sampling on the logits of the last position (``repro.runtime.sampling``
-and ``repro.core.topk_sync.sample`` at tp=1, one codebook)."""
+and ``repro.core.topk_sync.sample``, one codebook)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import SamplingConfig
-from repro_torch.core.topk_sync import local_topk
+from repro_torch.core.topk_sync import distributed_topk, full_gather_topk
+from repro_torch.models.common import Dist, ShardPlan
 
 
 def sample_tokens(logits: torch.Tensor, sampling: SamplingConfig,
-                  generator: torch.Generator) -> torch.Tensor:
-    """Next token ids (b,) int64 from (b, V) fp32 logits.
+                  generator: torch.Generator, plan: Optional[ShardPlan] = None,
+                  dist: Dist = Dist(), topk_sync: bool = True) -> torch.Tensor:
+    """Next token ids (b,) int64 from (b, V) fp32 logits, or at tp > 1 this
+    rank's vocab shard of them (b, local_vocab).
 
-    Greedy (``top_k`` 1) is ``idx[:, 0]``, so ties go to the lowest index.
+    The top-k is taken on each shard before the gather (``topk_sync``, the
+    paper's section 2.1b) or after gathering the whole row.  Greedy
+    (``top_k`` 1) is ``idx[:, 0]``, so ties go to the lowest index.
     Otherwise one draw from the softmax of the top-k values at
     ``temperature``, by the Gumbel-max rule that ``jax.random.categorical``
     uses; the noise comes from ``generator``, so a run repeats itself but
-    does not reproduce the JAX package's threefry draws."""
+    does not reproduce the JAX package's threefry draws.  Every rank seeds
+    its generator alike and draws in the same order, so the sampled ids
+    are the same on every rank."""
     k = max(1, sampling.top_k)
-    vals, idx = local_topk(logits, k)
+    topk = distributed_topk if topk_sync else full_gather_topk
+    vals, idx = topk(logits, k, plan, dist)
     idx = idx.long()
     if k == 1:
         return idx[:, 0]

@@ -17,6 +17,12 @@ With ``spec_k`` set, a step verifies ``spec_k`` n-gram drafts per active
 slot and emits 1..spec_k+1 tokens; otherwise decode runs in fused blocks
 of masked steps.  Not ported yet: the overlapped loop, fault plans,
 priority classes and reserves, and disaggregated serving.
+
+Under tensor parallelism every rank runs its own scheduler over the same
+requests; its decisions depend on the requests and the sampled tokens
+only, which are the same on every rank, so the ranks make the same engine
+calls.  A run ends by checking that every rank served the same streams
+(``Engine.check_replicated``).
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ class WaveScheduler:
         while self.queue:
             wave, self.queue = self.queue[:self.batch_size], self.queue[self.batch_size:]
             self._run_wave(wave)
+        self.engine.check_replicated(self.done)
         return self.done
 
     def _run_wave(self, wave: List[Request]) -> None:
@@ -611,6 +618,7 @@ class ContinuousScheduler:
         while self._serve_round():
             pass
         self._retire()
+        self.engine.check_replicated(self.done)
         return self.done
 
 

@@ -988,3 +988,77 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         ops.kv_quant_write(k.float(), k.float(), kq, vq, ks, vs, *dst)
     with pytest.raises(ValueError, match="shapes"):
         ops.kv_quant_write(k, k, kq, vq, ks, vs, dst[0][:5], dst[1])
+
+
+# -- tensor parallelism: the kernels at a rank's shard shapes -----------------
+
+
+@pytest.mark.parametrize("k", [1, 40])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("fill", ["randn", "ties", "nan"])
+def test_topk_kernel_merges_shard_candidates(dev, tp, k, fill):
+    """distributed_topk's two launches on one card: each rank's top-k of its
+    vocab shard (yi-9b's 64000 over tp), the tp * k candidates (V = tp * k:
+    2, 4, 80, 160) in rank order with global indices, and the top-k of
+    those, equal bit for bit to the plain top-k of the whole row: ties to
+    the lowest global index, NaN above +inf by index."""
+    gen = torch.Generator(device=dev).manual_seed(tp * 100 + k)
+    rows, V = 4, 64000
+    if fill == "ties":
+        x = torch.randint(0, 3, (rows, V), generator=gen, device=dev).float()
+    else:
+        x = torch.randn((rows, V), generator=gen, device=dev)
+    if fill == "nan":
+        x[0, ::977] = float("nan")
+        x[1] = float("nan")
+    lv = V // tp
+    parts = [ops.topk(x[:, r * lv:(r + 1) * lv].contiguous(), k) for r in range(tp)]
+    vals = torch.cat([v for v, _ in parts], dim=1)
+    gidx = torch.cat([i + r * lv for r, (_, i) in enumerate(parts)], dim=1)
+    assert vals.shape == (rows, tp * k)
+    top, pos = ops.topk(vals, k)
+    want_v, want_i = ref.topk_ref(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.gather(gidx, 1, pos.long()), want_i)
+    assert torch.equal(top.nan_to_num(7.0), want_v.nan_to_num(7.0))
+    cand_v, cand_i = ref.topk_ref(vals, k)       # the candidates' top-k, plain
+    assert torch.equal(pos, cand_i)
+
+
+@pytest.mark.parametrize("T", [4, 100])
+@pytest.mark.parametrize("K,N,k_shards", [(8192, 4096, 1), (8192, 12288, 1), (24576, 8192, 2)])
+def test_dequant_matmul_kernel_at_qwen_tp2_shards(dev, K, N, k_shards, T):
+    """qwen-72b int4 at tp=2: a rank's w_q (8192, 4096) and w_up (8192,
+    12288) columns, and its w_down rows (12288, 8192) of the global leaf
+    quantized with shard-local groups (``k_shards``), rank 1's slice."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + T)
+    w = wquant.quantize(0.02 * _randn(gen, (K, N), torch.bfloat16, dev), "int4", 128,
+                        k_shards=k_shards)
+    if k_shards > 1:
+        w = wquant.slice_rows(w, K // 2, K // 2)
+    if k_shards == 1:
+        w = wquant.slice_cols(w, N // 2, N // 2)
+    q, s = w.q.contiguous(), w.scale.contiguous()
+    x = _randn(gen, (T, w.k), torch.bfloat16, dev)
+    got = ops.dequant_matmul(x, q, s, mode="int4", group=w.group, out_dtype=torch.float32)
+    want = ref.dequant_matmul_ref(x, q, s, "int4", w.group)
+    torch.cuda.synchronize()
+    assert got.shape == (T, q.shape[1]) and w.group == 128
+    _dq_check(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 37])
+def test_fused_dual_matmul_kernel_at_gptj_tp2_shard(dev, s):
+    """gptj-parallel at tp=2: a rank's 8 heads of 256 read in place @ w_o
+    (8, 256, 4096) plus h (4 s, 8192) @ w_down (8192, 4096): decode (s 1)
+    and a 37-token prefill."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    heads = _randn(gen, (4, 8, s, 256), torch.bfloat16, dev)
+    wo = (torch.randn((8, 256, 4096), generator=gen, device=dev) * 4096 ** -0.5).bfloat16()
+    h = _randn(gen, (4 * s, 8192), torch.bfloat16, dev)
+    wd = (torch.randn((8192, 4096), generator=gen, device=dev) * 16384 ** -0.5).bfloat16()
+    got = ops.fused_dual_matmul(heads, wo, h, wd)
+    want = ref.fused_dual_matmul_ref(heads.transpose(1, 2).reshape(4 * s, 2048),
+                                     wo.reshape(2048, 4096), h, wd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(torch.bfloat16))

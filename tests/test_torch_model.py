@@ -149,8 +149,8 @@ def assert_logits_match(eng, cfg, params, kv_quant=False):
 def test_unsupported_features_raise_naming_them():
     cfg = dataclasses.replace(get_config("yi-9b").reduced(), moe=object(), window=64,
                               n_codebooks=2)
-    with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*tp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2))
+    with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*dp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2))
     # the int8 KV cache is served; what the port does not serve yet is still
     # named and refused under it
     kvq = ParallelConfig(kv_quant=True, weight_quant="int4")
@@ -158,8 +158,11 @@ def test_unsupported_features_raise_naming_them():
         with pytest.raises(NotImplementedError, match=name):
             Engine(dataclasses.replace(get_config("yi-9b").reduced(), **over), parallel=kvq,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match=r"tp>1"):
-        TM.check_supported(get_config("yi-9b"), dataclasses.replace(kvq, tp=2))
+    # tensor parallelism is served for the dense family, int8 KV and int4
+    # weights included; at tp>1 the RG-LRU hybrid is still refused by name
+    TM.check_supported(get_config("yi-9b"), dataclasses.replace(kvq, tp=2))
+    with pytest.raises(NotImplementedError, match=r"tp>1 with rglru"):
+        TM.check_supported(get_config("recurrentgemma-9b"), dataclasses.replace(kvq, tp=2))
     TM.check_supported(get_config("yi-9b"), kvq)
     # int8 and int4 weights are served; any other mode is named and refused
     with pytest.raises(NotImplementedError, match="weight_quant=int2"):

@@ -178,7 +178,8 @@ def test_prefill_and_decode_logits_match_jax(engines, fused_calls):
     assert fused_calls[0] == (2, teng.cfg.n_heads, 12, 64)       # the prefill's heads, in place
 
 
-def _sequential_sublayer(p, x, cfg, kind="attn", index=0, *, rope, step, length_mask=None):
+def _sequential_sublayer(p, x, cfg, kind="attn", index=0, *, rope, step, length_mask=None,
+                         policy=None):
     """The planted fault: a sequential residual, the FFN reading the norm of
     x + attn (with norm1's gamma: the layer has no norm2)."""
     from repro_torch.models import attention as attn
