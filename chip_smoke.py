@@ -133,11 +133,32 @@ Phases, each fatal on failure:
    more cards the yi-9b wave runs once more over NCCL, one card a rank;
    with one, a line says why it did not run.
 
+10. latent attention and experts (run before 9): reduced minicpm3-4b
+   (MLA) and deepseek-moe-16b (MoE; bf16 and int4) on the card against
+   the same weights on the CPU: prefill and 8 decode-step logits within
+   5e-2, and the paged pool's greedy streams in chunks of 16 with spec
+   decode equal or parted at a CPU top-2 gap below 1e-2; one MoE forward
+   of 320 tokens on both with the same top experts and the same dropped
+   assignments.  Then full width from seed 0: minicpm3-4b bf16 (62
+   layers; its latent attention is plain PyTorch, no attention kernel
+   runs) and deepseek-moe-16b bf16 (28 layers) each through phase 5's
+   wave workload and phase 6's paged chunked-spec phase, and deepseek in
+   int4 through the wave, whose 4 x <= 125-token prefills route more than
+   256 tokens and drop assignments past capacity: tokens in range, a
+   second run identical, launches as predicted (one routing top-k launch
+   per MoE layer and forward beside the sampling one), ms/token, peak
+   memory and the drops.  Kernel rows at deepseek's shapes: flash_prefill
+   and decode_attention at 16 MHA heads of 128 (g 1), the routing top-k
+   over (T, 64) fp32 rows, k 6.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
-recurrentgemma-9b 20 of 38 layers, the gptj-parallel slot phases 14 of
-28, the yi-9b int8-KV slot phases and its int8-weight and int8-KV waves
-24 of 48), so that the whole run stays near its ~600 s aim.  qwen-72b's
+recurrentgemma-9b 8 of 38 layers, the gptj-parallel slot phases 14 of 28,
+the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
+12 of 48), so that the whole run stays near its ~600 s aim with phase 10
+added.  The slot phases hold at most MAX_PARTED partings, and shallower
+random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
+12), so they keep their earlier depths.  qwen-72b's
 int8-KV wave stays at 80 layers: its peak memory must show that 4 x 4096
 tokens fit the card.
 
@@ -215,8 +236,8 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 # int8-KV waves (phase name -> layers).  The tp phases, the tp=1 phases
 # they are held to, and qwen-72b's int8-KV wave (its peak memory shows
 # that 4 x 4096 tokens fit one card) run at full depth.
-EARLIER_DEPTH = {"recurrentgemma-9b": 20, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
-                 "yi-9b int8 wave": 24, "yi-9b int8-KV wave": 24}
+EARLIER_DEPTH = {"recurrentgemma-9b": 8, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
+                 "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -451,6 +472,7 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_hybrid_kernels(dev, flush))
     out.extend(check_parallel_kernels(dev, flush))
     out.extend(check_int8_kernels(dev, flush))
+    out.extend(check_moe_kernels(dev, flush))
     return out
 
 
@@ -1875,9 +1897,41 @@ def dequant_launches_per_forward(cfg, parallel) -> int:
 
     if parallel.weight_quant == "none":
         return 0
-    return 1 + sum(len(idx) * sum(M.WQ_SITES.get(name) == "matmul"
+    return 1 + sum(len(idx) * sum(M.wq_site(family, name) == "matmul"
                                   for name in M.layer_param_defs(cfg, family))
                    for family, idx in M.layer_families(cfg).items())
+
+
+def kernel_attention_layers(cfg) -> int:
+    """Layers whose attention runs the attention kernels: every attention
+    layer but MLA's, whose latent attention is plain PyTorch."""
+    return 0 if cfg.mla is not None else sum(cfg.block_kind(i) != "rglru"
+                                             for i in range(cfg.n_layers))
+
+
+def moe_layers(cfg) -> int:
+    """MoE layers: one routing top-k launch each per forward."""
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+
+
+@contextlib.contextmanager
+def drop_log():
+    """Record every MoE layer call inside (``moe.LOG``); on exit the
+    yielded dict holds the forwards past 256 tokens, their assignments and
+    how many were dropped."""
+    from repro_torch.models import moe
+
+    out: dict = {}
+    moe.LOG = []
+    try:
+        yield out
+    finally:
+        recs, moe.LOG = moe.LOG, None
+        big = [r for r in recs if r["T"] > 256]
+        out.update(layer_calls=len(recs), layer_calls_past_256=len(big),
+                   assignments_past_256=sum(r["T"] * r["k"] for r in big),
+                   dropped=sum(int((~r["keep"]).sum()) for r in big),
+                   capacity_at_largest_T=max((r["C"] for r in big), default=None))
 
 
 def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, params=None):
@@ -1921,19 +1975,21 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
         return {r.rid: r.output for r in done}, time.monotonic() - t
 
     ops.reset_launches()
-    first, dt1 = run()
+    with drop_log() as drops:
+        first, dt1 = run()
     launches = dict(ops.LAUNCHES)
     second, dt2 = run()
     n_tokens = sum(len(t) for t in first.values())
     waves = -(-opts["requests"] // opts["batch"])
     if not kv_quant:
         TP1_STREAMS[(cfg.name, weight_quant, "wave")] = (cfg.n_layers, first)
-    L = cfg.n_layers
+    L, A, n_moe = cfg.n_layers, kernel_attention_layers(cfg), moe_layers(cfg)
     expect = {name: 0 for name in ops.KERNELS}
-    expect.update({"flash_prefill": L * waves,
-                   "decode_attention" + ("_int8" if kv_quant else ""): L * (max_new - 1) * waves,
-                   "kv_quant_write": L * max_new * waves if kv_quant else 0,
-                   "topk": max_new * waves,
+    expect.update({"flash_prefill": A * waves,
+                   "decode_attention" + ("_int8" if kv_quant else ""): A * (max_new - 1) * waves,
+                   "kv_quant_write": A * max_new * waves if kv_quant else 0,
+                   # sampling, and each MoE layer's routing, once a forward
+                   "topk": max_new * waves * (1 + n_moe),
                    "dequant_matmul": dequant_launches_per_forward(cfg, parallel) * max_new * waves,
                    # a parallel-residual layer: one per layer and forward
                    "fused_dual_matmul": L * max_new * waves if cfg.parallel_residual else 0})
@@ -1960,10 +2016,15 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     hd = cfg.resolved_head_dim
     cache_gib = {"as_run": entries * (hd + 2 if kv_quant else 2 * hd) / 2**30,
                  "bf16": entries * 2 * hd / 2**30}
+    if cfg.mla is not None:        # one bf16 latent (kv_lora_rank + rope dims) a token
+        lat = L * opts["batch"] * opts["max_len"] * 2 * (cfg.mla.kv_lora_rank
+                                                        + cfg.mla.qk_rope_head_dim) / 2**30
+        cache_gib = {"as_run": lat, "bf16": lat}
     if long and not peak < torch.cuda.get_device_properties(0).total_memory / 2**30:
         fail(f"{arch}: peak memory {peak} GiB is not below the card's")
     return {
-        "arch": cfg.name, "weight_quant": weight_quant, "kv_quant": kv_quant,
+        # an MLA model's latent cache stays bf16 whatever kv_quant says
+        "arch": cfg.name, "weight_quant": weight_quant, "kv_quant": kv_quant and cfg.mla is None,
         "layers": cfg.n_layers, "params": cfg.param_count(), "requests": opts["requests"],
         "batch": opts["batch"], "max_new": max_new, "max_len": opts["max_len"],
         "prompt_lens": [len(p) for p in work], "tokens": n_tokens, "init_s": init_s,
@@ -1972,6 +2033,7 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
         "launches": launches, "repeatable": True, "peak_mem_gib": peak,
         "kv_cache_gib": cache_gib, "phase_s": time.monotonic() - t_phase,
         "first_tokens": {rid: first[rid][:8].tolist() for rid in sorted(first)[:2]},
+        **({"moe_drops": drops} if n_moe else {}),
     }, params
 
 
@@ -1983,7 +2045,7 @@ SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
 
 
 def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = False,
-                           kv_quant: bool = False) -> dict:
+                           kv_quant: bool = False, moe: int = 0) -> dict:
     """Kernel launches of one slot phase from its scheduler's stats.  Per
     whole-prompt admission (``prefill_calls`` not made of chunks): L of
     flash_prefill, or of paged_flash_prefill where a prefix was cached.
@@ -1999,7 +2061,9 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     ``kv_quant`` (the int8 cache): every forward L of kv_quant_write; the
     decode kernels' int8 instances in place of theirs; and the paged chunks,
     cached-prefix admissions and verify steps L of flash_prefill over the
-    dequantized views in place of paged_flash_prefill."""
+    dequantized views in place of paged_flash_prefill.  ``L`` counts the
+    layers whose attention runs the kernels (0 for MLA); ``moe``: the MoE
+    layers, each one routing top-k launch a forward."""
     from repro_torch.kernels import ops
 
     mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
@@ -2009,7 +2073,7 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     decodes = st["decode_steps"] - mixed - spec + st["mixed_decode_steps"]
     expect = {name: 0 for name in ops.KERNELS}
     forwards = st["prefill_calls"] + decodes + spec
-    expect["topk"] = forwards
+    expect["topk"] = forwards * (1 + moe)
     expect["fused_dual_matmul"] = L * forwards if parallel else 0
     q8 = "_int8" if kv_quant else ""
     expect["kv_quant_write"] = L * forwards if kv_quant else 0
@@ -2215,6 +2279,393 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
     del eng
     torch.cuda.empty_cache()
     return results
+
+
+# -- latent attention and mixture of experts -----------------------------------
+#
+# minicpm3-4b (MLA: its latent attention is plain PyTorch, its MLP and
+# lm_head run dequant_matmul when quantized, its sampling top-k) and
+# deepseek-moe-16b (MHA at head_dim 128, g 1, through the attention
+# kernels; 27 MoE layers, each routing through the top-k kernel).
+
+MLA_ARCH, MOE_ARCH = "minicpm3-4b", "deepseek-moe-16b"
+# their wave phases, (arch, weight_quant), in order; deepseek's int4 wave
+# reads its int4 experts through wquant.to_dense each forward
+LATENT_MOE_WAVES = ((MLA_ARCH, "none"), (MOE_ARCH, "none"), (MOE_ARCH, "int4"))
+# the routing top-k's rows: a decode step of 4 slots, a 4 x 125 wave prefill
+ROUTER_T = (B, 500)
+
+
+# a router near-tie: the CPU's k-th best expert and the one the card chose
+# in its place lie within this much probability
+ROUTER_TIE = 1e-2
+
+
+@contextlib.contextmanager
+def card_routes():
+    """Inside: MoE forwards on the card record their top experts.  Yields a
+    function that runs a CPU call replaying them, call by call, -> (its
+    result, the router near-ties it took: one (layer call, token, margin)
+    where the card ranked experts apart from the CPU's own top-k, margin
+    the CPU's k-th probability less that of the card's other choice);
+    fails where a margin is not below ROUTER_TIE."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+
+    moe.LOG = []
+
+    def replay(cpu_call):
+        card = [rec["top_e"].cpu() for rec in moe.LOG]
+        moe.LOG, moe.ROUTE_REPLAY = [], card
+        try:
+            out = cpu_call()
+            log = moe.LOG
+        finally:
+            moe.LOG = moe.ROUTE_REPLAY = None
+        ties = []
+        for call, rec in enumerate(log):
+            probs, chosen = rec["probs"], rec["top_e"]
+            own = ref.topk_ref(probs, chosen.shape[1])[1].long()
+            chosen = chosen.long()
+            for t in torch.nonzero((own.sort(1).values != chosen.sort(1).values).any(1))[:, 0]:
+                kth = probs[t, own[t]].min()
+                other = probs[t, [e for e in chosen[t].tolist() if e not in own[t].tolist()]]
+                margin = float(kth - other.min())
+                if not margin < ROUTER_TIE:
+                    fail(f"the card routed token {int(t)} of MoE call {call} to experts "
+                         f"{chosen[t].tolist()}, the CPU to {own[t].tolist()}, "
+                         f"{margin} apart in probability (limit {ROUTER_TIE})")
+                ties.append((call, int(t), margin))
+        return out, ties
+
+    try:
+        yield replay
+    finally:
+        moe.LOG = moe.ROUTE_REPLAY = None
+
+
+def routed_teacher_forced(cfg, cpu, gpu, dev):
+    """``teacher_forced_worst`` for an MoE model: each forward runs on the
+    card first and then on the CPU replaying the card's expert choices
+    (``card_routes``), so that a router near-tie, where the two devices
+    rank experts apart, does not stand for a fault -> (the largest |card -
+    CPU|, the near-ties replayed)."""
+    from repro_torch.models import model as M
+
+    b, plen, max_len = 3, 20, 128
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
+    caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
+    worst, ties = 0.0, []
+    with torch.inference_mode():
+        tok, cur = tokens, None
+        for _ in range(9):                      # the prefill, then 8 decode steps
+            kw = {} if cur is None else {"cur_pos": cur}
+            with card_routes() as replay:
+                lg = M.forward(gpu, tok.to(dev), cfg, caches=caches[dev], **kw).cpu()
+                lc, t = replay(lambda: M.forward(cpu, tok, cfg, caches=caches["cpu"], **kw))
+            ties += t
+            if not torch.isfinite(lg).all():
+                fail(f"{cfg.name}: non-finite card logits")
+            worst = max(worst, (lc - lg).abs().max().item())
+            cur = plen if cur is None else cur + 1
+            tok = lc[:, -1].argmax(-1)[:, None]
+    return worst, ties
+
+
+def small_latent_moe(dev, arch: str, weight_quant: str = "none"):
+    """Reduced minicpm3-4b or deepseek-moe-16b, random weights from seed 1
+    with nonzero norm gammas -> (cfg, CPU params, the same on ``dev``)."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).reduced()
+    cpu = M.init_params(cfg, ParallelConfig(weight_quant=weight_quant), seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for layer in cpu["layers"]:
+        for name in ("norm1", "norm2", "q_norm", "kv_norm"):
+            if name in layer:
+                layer[name].copy_(0.2 * torch.randn(layer[name].shape, generator=gen))
+    return cfg, cpu, to_device(cpu, dev)
+
+
+def latent_moe_reference_check(dev) -> list:
+    """Reduced minicpm3-4b (bf16) and deepseek-moe-16b (bf16 and int4) on
+    the card against the same weights on the CPU, where the plain versions
+    run: prefill logits and 8 teacher-forced decode steps within REF_TOL,
+    and the greedy streams of the paged pool in chunks of 16 with spec
+    decode (12 requests behind a shared prompt) equal, or parted at a CPU
+    top-2 gap below TIE_GAP.  deepseek also routes one MoE forward of 320
+    skewed tokens on both: the same top experts, and so the same dropped
+    (token, expert) assignments, which must be some."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import PagedContinuousScheduler
+
+    out = []
+    for arch, mode in ((MLA_ARCH, "none"), (MOE_ARCH, "none"), (MOE_ARCH, "int4")):
+        cfg, cpu, gpu = small_latent_moe(dev, arch, mode)
+        ties = []
+        if cfg.moe is not None:
+            worst, ties = routed_teacher_forced(cfg, cpu, gpu, dev)
+        else:
+            worst = teacher_forced_worst(cfg, cpu, gpu, dev)
+        if not worst <= REF_TOL:
+            fail(f"small {arch} {mode}: card logits differ from the CPU's by {worst}")
+        par = ParallelConfig(weight_quant=mode, kv_block_size=8)
+        streams = {}
+        for d, params in (("cpu", cpu), (dev, gpu)):
+            eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1), max_len=128,
+                         params=params, device=d)
+            sched = PagedContinuousScheduler(eng, n_slots=3, prefill_chunk=16, spec_k=3)
+            serve.submit_workload(sched, cfg, argparse.Namespace(
+                requests=12, shared_prefix=16, prompt_len=24, max_new=12, max_new_spread=4,
+                arrival_every=2))
+            streams[str(d)] = {r.rid: r for r in sched.run()}
+            if not sched.stats["spec_steps"] or not sched.stats["prefill_tokens_saved"]:
+                fail(f"small {arch}: no verify step or no prefix reuse: {sched.stats}")
+        parted = []
+        for rid, r in streams["cpu"].items():
+            a, b = r.output, streams[str(dev)][rid].output
+            if np.array_equal(a, b):
+                continue
+            n = min(len(a), len(b))
+            t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+            with torch.inference_mode():
+                lc = M.forward(cpu, torch.from_numpy(np.concatenate([r.prompt, a[:t]]))[None]
+                               .long(), cfg, last_only=True)[0, -1]
+            gap = float((lambda v: v[0] - v[1])(torch.topk(lc, 2).values))
+            flip = {"rid": rid, "step": t, "top2_gap": gap}
+            if not gap < TIE_GAP and cfg.moe is not None:
+                # a router near-tie on the way: the sequence on the card, and
+                # on the CPU with the card's expert choices
+                seq = torch.from_numpy(np.concatenate([r.prompt, a[:t]]))[None].long()
+                with torch.inference_mode(), card_routes() as replay:
+                    lg = M.forward(gpu, seq.to(dev), cfg, last_only=True).cpu()
+                    lr, rt = replay(lambda: M.forward(cpu, seq, cfg, last_only=True))
+                err = (lr - lg).abs().max().item()
+                if rt and err <= REF_TOL:
+                    flip.update(router_ties=len(rt), replayed_max_abs_err=err)
+                    gap = 0.0
+            if not gap < TIE_GAP:
+                fail(f"small {arch} request {rid}: card and CPU part at step {t}, gap {gap}")
+            parted.append(flip)
+        row = {"config": cfg.name, "weight_quant": mode, "max_abs_logit_err": worst,
+               "tolerance": REF_TOL, "router_ties_replayed": len(ties),
+               "router_tie_margins": sorted(m for *_, m in ties)[-3:],
+               "paged_chunked_spec_requests": len(streams["cpu"]),
+               "parted_at_near_ties": parted}
+        if arch == MOE_ARCH and mode == "none":
+            row["drops_t320"] = moe_drop_check(cfg, cpu, gpu, dev)
+        out.append(row)
+    return out
+
+
+def moe_drop_check(cfg, cpu, gpu, dev) -> dict:
+    """One MoE layer's forward over 320 tokens leaning toward expert 0 on the
+    card and on the CPU: the same top experts, the same drops."""
+    from repro_torch.models import moe
+
+    layer = next(i for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+    router = cpu["layers"][layer]["router"]
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn((1, 320, cfg.d_model), generator=gen)
+         + 3.0 * router[:, 0] / router[:, 0].norm()).to(torch.bfloat16)
+    got = {}
+    for d, params in (("cpu", cpu), (dev, gpu)):
+        moe.LOG = []
+        with torch.inference_mode():
+            y = moe.moe_forward(params["layers"][layer], x.to(d), cfg).float().cpu()
+        (rec,) = moe.LOG
+        moe.LOG = None
+        got[str(d)] = (set(map(tuple, moe.dropped(rec).tolist())), rec["top_e"].cpu(), y,
+                       rec["C"])
+    (dc, tc, yc, C), (dg, tg, yg, _) = got["cpu"], got[str(dev)]
+    err = (yc - yg).abs().max().item()
+    if not (torch.equal(tc, tg) and dc == dg and dc and err <= REF_TOL):
+        fail(f"small {cfg.name}: 320-token MoE forward: top experts equal {torch.equal(tc, tg)}, "
+             f"drops {len(dc)} on the CPU and {len(dg)} on the card (equal {dc == dg}), "
+             f"output error {err}")
+    return {"tokens": 320, "capacity": C, "dropped": len(dc), "max_abs_err": err}
+
+
+def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
+    """Full-width ``arch`` bf16 through SLOT_PHASES' paged-chunked-spec
+    phase (the workload of the slot phases), twice: tokens in range, the
+    second run identical, every launch as the scheduler's stats predict
+    it, chunked admission, decode during admission, verify steps and
+    prefix reuse, and the allocator's audit; deepseek's drops reported."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import PagedContinuousScheduler
+
+    name, _, opts = SLOT_PHASES[3]
+    cfg = get_config(arch)
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK),
+                 sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
+                 params=params, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+
+    def run():
+        sched = PagedContinuousScheduler(eng, n_slots=SLOTS, **opts)
+        serve.submit_workload(sched, cfg, argparse.Namespace(**SLOT_WORKLOAD))
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done = sched.run()
+        torch.cuda.synchronize()
+        return sched, {r.rid: r.output for r in done}, time.monotonic() - t
+
+    ops.reset_launches()
+    with drop_log() as drops:
+        sched, first, dt1 = run()
+    launches = dict(ops.LAUNCHES)
+    _, second, dt2 = run()
+    st = sched.stats
+    expect = expected_slot_launches("paged", st, kernel_attention_layers(cfg), moe=moe_layers(cfg))
+    if launches != expect:
+        fail(f"{arch} {name}: kernel launches {launches} != expected {expect} (stats {st})")
+    if not (st["prefill_tokens_saved"] > 0 and st["chunked_admissions"] > 0
+            and st["mixed_decode_steps"] > 0 and st["spec_steps"] > 0):
+        fail(f"{arch} {name}: no prefix reuse, chunked admission, decode during admission "
+             f"or verify step: {st}")
+    try:
+        sched.alloc.audit()
+    except AssertionError as e:
+        fail(f"{arch} {name}: block allocator audit: {e}")
+    if sorted(first) != list(range(SLOT_WORKLOAD["requests"])):
+        fail(f"{arch} {name}: served requests {sorted(first)}")
+    for rid, toks in first.items():
+        if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{arch} {name} request {rid}: tokens out of range or none: {toks}")
+        if not np.array_equal(toks, second[rid]):
+            fail(f"{arch} {name} request {rid}: greedy tokens differ between two runs")
+    n_tokens = sum(len(t) for t in first.values())
+    result = {
+        "arch": cfg.name, "scheduler": name, "kv_quant": False, "layers": cfg.n_layers,
+        "params": cfg.param_count(), "requests": SLOT_WORKLOAD["requests"], "slots": SLOTS,
+        "block_size": BLOCK, "max_len": SERVE_MAX_LEN, "options": opts,
+        "workload": SLOT_WORKLOAD, "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1, dt2],
+        "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens], "stats": dict(st),
+        "summary": sched.request_summary(), "launches": launches, "repeatable": True,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "phase_s": time.monotonic() - t_phase,
+    }
+    if moe_layers(cfg):
+        result["moe_drops"] = drops
+    del eng
+    torch.cuda.empty_cache()
+    return result
+
+
+def latent_moe_phases(dev) -> list:
+    """minicpm3-4b and deepseek-moe-16b at full width (62 and 28 layers),
+    random weights from seed 0: each's bf16 wave (phase 5's workload) and
+    paged chunked-spec phase on the same weights, then deepseek's int4
+    wave, whose 4 x <= 125-token prefills route more than 256 tokens."""
+    for arch, mode in LATENT_MOE_WAVES:
+        phase, params = serve_phase(dev, arch, mode)
+        yield phase
+        if mode == "none":
+            yield latent_moe_slot_phase(dev, arch, params)
+        del params
+        torch.cuda.empty_cache()
+
+
+def check_moe_kernels(dev, flush) -> list:
+    """deepseek-moe-16b's kernel rows: flash_prefill and decode_attention at
+    its 16 MHA heads of 128 (g 1), a wave of 4 x 125 tokens and one decode
+    step over 300 of 512 entries, and the routing top-k over (T, 64) fp32
+    softmax rows, k 6, at ROUTER_T, bit for bit; each against its plain
+    version, with its time, SDPA's or torch.topk's, and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    H, hd, sq, scale = 16, 128, 125, 128 ** -0.5
+    rows = []
+    q, k, v = (rnd(B, H, sq, hd).bfloat16() for _ in range(3))
+    q_pos = torch.arange(sq, device=dev, dtype=torch.int32).expand(B, -1).contiguous()
+    got, want = ops.flash_prefill(q, k, v, q_pos, scale), ref.flash_prefill_ref(q, k, v, q_pos,
+                                                                                  scale)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= 3e-2:
+        fail(f"flash_prefill at {MOE_ARCH}'s heads differs from its plain version by {err}")
+    pairs = B * H * sq * (sq + 1) // 2
+    rows.append({
+        "name": f"flash_prefill ({MOE_ARCH}, g 1)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:114", "counter": "flash_prefill",
+        "shape": f"q/k/v ({B},{H},{sq},{hd}) bf16, causal", "max_abs_err": err,
+        "tolerance": 3e-2,
+        "ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.flash_prefill_ref(q, k, v, q_pos, scale), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), flush),
+        **bound(2 * 4 * q.numel() + 4 * q_pos.numel(), 4 * hd * pairs, BF16_FLOPS)})
+    S, n_valid = DECODE_S, DECODE_VALID
+    q = rnd(B, H, 1, hd).bfloat16()
+    k, v = rnd(B, H, S, hd).bfloat16(), rnd(B, H, S, hd).bfloat16()
+    valid = torch.arange(S, device=dev) < n_valid
+    m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+    m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+    err = (acc / l[..., None] - acc2 / l2[..., None]).abs().max().item()
+    if not err <= 1e-3:
+        fail(f"decode_attention at {MOE_ARCH}'s heads differs from its plain version by {err}")
+    rows.append({
+        "name": f"decode_attention_partial ({MOE_ARCH}, g 1)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:66", "counter": "decode_attention",
+        "shape": f"q ({B},{H},1,{hd}) bf16, k/v ({B},{H},{S},{hd}), {n_valid} valid",
+        "ptxas": ptxas_row("decode_attention", _dec(hd, False)),
+        "max_abs_err": err, "tolerance": 1e-3,
+        "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[None, None, None, :], scale=scale), flush),
+        **bound(2 * (q.numel() + 2 * B * H * n_valid * hd) + valid.numel()
+                + 4 * (m.numel() + l.numel() + acc.numel()), 4 * hd * B * H * n_valid,
+                BF16_FLOPS)})
+    entry = None
+    for T in ROUTER_T:
+        probs = torch.softmax(rnd(T, 64), dim=-1)
+        probs[:, 7] = probs[:, 3]                     # planted ties
+        before = ops.LAUNCHES["topk"]
+        vals, idx = ops.topk(probs, 6)
+        if ops.LAUNCHES["topk"] != before + 1:
+            fail("topk at the router shape made more than one launch")
+        rv, ri = ref.topk_ref(probs, 6)
+        if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+            fail(f"topk at the router shape ({T}, 64) k 6 differs from its plain version")
+        timed = {"shape": f"x ({T},64) fp32 softmax rows, k=6, tied columns",
+                 "max_abs_err": 0.0, "tolerance": 0.0,
+                 "ms": cold_ms(lambda: ops.topk(probs, 6), flush),
+                 "plain_ms": cold_ms(lambda: ref.topk_ref(probs, 6), flush),
+                 "library_ms": cold_ms(lambda: torch.topk(probs, 6), flush),
+                 **bound(4 * probs.numel() + 8 * T * 6, probs.numel(), FP32_FLOPS)}
+        if entry is None:
+            entry = {"name": f"topk (router, {MOE_ARCH})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/topk.cu",
+                     "replaces": "src/repro/kernels/topk_shard.py:66", "counter": "topk",
+                     **timed}
+        else:
+            entry[f"T{T}"] = timed
+    rows.append(entry)
+    for row in rows:
+        row["arches"] = [MOE_ARCH]
+    return rows
 
 
 # -- tensor parallelism --------------------------------------------------------
@@ -2686,6 +3137,8 @@ def main() -> None:
     print(json.dumps({"reference": hybrid_reference_check(dev, "int8", kv_quant=True)}),
           flush=True)
     print(json.dumps({"reference": parallel_reference_check(dev)}), flush=True)
+    for row in latent_moe_reference_check(dev):
+        print(json.dumps({"reference": row}), flush=True)
     phases, params, weights = [], None, None
     for arch, mode, kvq in SERVE_PHASES:
         depth = phase_config(arch, wave_name(mode, kvq)).n_layers
@@ -2699,7 +3152,8 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
-                lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain")):
+                lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain"),
+                lambda: latent_moe_phases(dev)):
         for phase in run():
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)

@@ -12,11 +12,15 @@ and returns the layout of ``repro_torch.models.model``:
   scanned (``stack_defs``, n > 1) and are not when it is unrolled (n = 1).
   Repeat r of sub-layer j is layer ``first + r * len(subs) + j``.  A
   sub-layer holds ``norm1``, ``norm2`` (none in a parallel-residual layer),
-  ``mixer`` and ``ffn``; an attention
+  ``mixer`` and ``ffn``; an attention (GQA or MLA)
   mixer's leaves flatten into the layer's dict, an RG-LRU mixer's stay
-  under ``mixer`` (its ``w_gate`` is not the FFN's);
-* each family's layers (attention, RG-LRU) are stacked in layer order,
-  as ``model.init_params`` lays them out;
+  under ``mixer`` (its ``w_gate`` is not the FFN's); an MoE ``ffn``'s
+  router (fp32) and expert blocks flatten too, and its shared experts'
+  MLP stays under ``shared``;
+* each family's layers (``model.layer_family``: attention, MLA, RG-LRU,
+  each with a dense or an MoE FFN) are stacked in layer order, as
+  ``model.init_params`` lays them out: deepseek-moe-16b's unrolled dense
+  layer 0 is one family, its scanned MoE layers another;
 * the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``;
 * with ``dist`` at tp > 1 every leaf of the tp=1 tree is then cut to the
   rank's shard by the rule ``init_params`` follows (``model.shard_leaf``):
@@ -32,7 +36,8 @@ bf16 leaves cross bit-exact: numpy holds them as 2-byte values, viewed as
 projection leaves are ``repro.core.wquant.QuantWeight``s; they are read by
 their fields (``q``, ``scale``, ``mode``, ``group``, ``k``), since this
 module imports nothing of the JAX package, and become the port's
-``QuantWeight``s with the same bytes.  This module imports neither jax nor
+``QuantWeight``s with the same bytes (an MoE expert block with two leading
+dims, ``(L, E, K, N)``).  This module imports neither jax nor
 ml_dtypes.
 """
 from __future__ import annotations
@@ -88,8 +93,14 @@ def _layer_leaves(sub: Dict[str, Any], family: str) -> Dict[str, Any]:
     mixer = sub["mixer"]
     if family == "rglru":
         mixer = {f"mixer.{name}": a for name, a in mixer.items()}
+    ffn = {}
+    for name, a in sub["ffn"].items():
+        if isinstance(a, dict):         # an MoE layer's shared experts
+            ffn.update({f"{name}.{n}": t for n, t in a.items()})
+        else:
+            ffn[name] = a
     norms = {k: sub[k] for k in ("norm1", "norm2") if k in sub}
-    return {**norms, **mixer, **sub["ffn"]}
+    return {**norms, **mixer, **ffn}
 
 
 def _tree_layers(tree: Dict[str, Any], cfg: ModelConfig) -> list:

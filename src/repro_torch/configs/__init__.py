@@ -1,11 +1,12 @@
 """Config registry: ``get_config("<arch-id>")`` for the archs the port
-serves, dense (sequential or parallel residual) and RG-LRU hybrid (the same
-arch ids as ``repro.configs``)."""
+serves, dense (sequential or parallel residual), RG-LRU hybrid, MLA and MoE
+(the same arch ids as ``repro.configs``)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig, RGLRUConfig, SamplingConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig, ParallelConfig,
+                                     RGLRUConfig, SamplingConfig)
 
 # arch-id -> module name
 _REGISTRY = {
@@ -15,6 +16,8 @@ _REGISTRY = {
     "qwen-72b": "qwen_72b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "gptj-parallel": "gptj_parallel",
+    "minicpm3-4b": "minicpm3_4b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)
@@ -30,5 +33,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_REGISTRY[key]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "ModelConfig", "ParallelConfig", "RGLRUConfig", "SamplingConfig",
-           "get_config"]
+__all__ = ["ALL_ARCHS", "MLAConfig", "ModelConfig", "MoEConfig", "ParallelConfig", "RGLRUConfig",
+           "SamplingConfig", "get_config"]

@@ -1,19 +1,42 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the dense-decoder and RG-LRU-hybrid part of
+A copy of the dense-decoder, RG-LRU-hybrid, MLA and MoE part of
 ``repro.configs.base``: the field names, defaults, ``block_kind``,
 ``param_count`` and ``reduced()`` rule are the same, so a config built here
 describes the same model as its JAX namesake.  The family features the port
-does not serve yet (MoE, MLA, SSM, frontends, multi-codebook heads, tied
-embeddings) keep their fields, so that
-``repro_torch.models.model.check_supported`` can name what a config needs
-and refuse it.
+does not serve yet (SSM, frontends, multi-codebook heads, tied embeddings)
+keep their fields, so that ``repro_torch.models.model.check_supported`` can
+name what a config needs and refuse it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (GShard-style capacity dispatch)."""
+
+    n_experts: int
+    top_k: int
+    expert_d_ff: int
+    n_shared: int = 0           # DeepSeekMoE shared experts (always-on)
+    shared_d_ff: int = 0        # d_ff of the shared experts (total)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01  # load-balance loss weight (training)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 / MiniCPM3 style)."""
+
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
 
 
 @dataclass(frozen=True)
@@ -38,6 +61,8 @@ class ModelConfig:
     head_dim: int = 0           # 0 -> d_model // n_heads
     # block pattern, cycled over layers, e.g. ("rglru", "rglru", "local_attn")
     layer_pattern: Tuple[str, ...] = ("attn",)
+    # layer indices whose FFN is dense even in an MoE model (deepseek layer 0)
+    dense_ffn_layers: Tuple[int, ...] = ()
     qkv_bias: bool = False
     parallel_residual: bool = False
     tie_embeddings: bool = False
@@ -47,8 +72,8 @@ class ModelConfig:
     act: str = "silu"           # silu (gated) | gelu
     gated_mlp: bool = True      # SwiGLU vs plain 2-matmul MLP
     n_codebooks: int = 1
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[Any] = None
     rglru: Optional[RGLRUConfig] = None
     frontend: Optional[Any] = None
@@ -61,34 +86,53 @@ class ModelConfig:
     def block_kind(self, layer: int) -> str:
         return self.layer_pattern[layer % len(self.layer_pattern)]
 
+    def is_moe_layer(self, layer: int) -> bool:
+        """An MoE FFN: ``moe`` set and the layer not in ``dense_ffn_layers``."""
+        return self.moe is not None and layer not in self.dense_ffn_layers
+
     def param_count(self) -> int:
-        """Parameters of the dense decoder or the RG-LRU hybrid: embed,
-        attention or RG-LRU mixer per layer, FFN, lm_head."""
+        """Parameters of the dense decoder, the RG-LRU hybrid, MLA and MoE:
+        embed, attention (GQA or latent) or RG-LRU mixer per layer, dense or
+        MoE FFN (router and shared experts included), lm_head."""
         d, hd = self.d_model, self.resolved_head_dim
-        ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+        mats = 3 if self.gated_mlp else 2
         heads = 1 if self.tie_embeddings else 2
         total = heads * self.vocab_size * d * self.n_codebooks
         for layer in range(self.n_layers):
             if self.block_kind(layer) == "rglru":
                 w = self.rglru.lru_width or d
                 total += d * 2 * w + 3 * w + w * d  # in-proj (x2), gates, out-proj
+            elif self.mla is not None:
+                m, n_q = self.mla, self.n_heads
+                qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += d * m.q_lora_rank + m.q_lora_rank * n_q * qd
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank * n_q * (m.qk_nope_head_dim + m.v_head_dim)
+                total += n_q * m.v_head_dim * d
             else:
                 total += d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
-            total += ffn
+            if self.is_moe_layer(layer):
+                m = self.moe
+                total += m.n_experts * mats * d * m.expert_d_ff + d * m.n_experts
+                total += mats * d * m.shared_d_ff if m.n_shared else 0
+            else:
+                total += mats * d * self.d_ff
         return total
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (or one period of a longer layer
-        pattern), d_model<=256, head_dim 64, window<=64 (the dense and RG-LRU
-        part of ``repro.configs.base.ModelConfig.reduced``)."""
+        pattern), d_model<=256, head_dim 64, window<=64, <=4 experts of top
+        2 and the small MLA ranks (the dense, RG-LRU, MoE and MLA part of
+        ``repro.configs.base.ModelConfig.reduced``)."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
             n_kv -= 1
         pat = self.layer_pattern
+        n_layers = max(2, len(pat)) if len(pat) > 1 else 2
         kw = dict(
             name=self.name + "-smoke",
-            n_layers=max(2, len(pat)) if len(pat) > 1 else 2,
+            n_layers=n_layers,
             d_model=min(self.d_model, 256),
             n_heads=n_heads,
             n_kv_heads=n_kv,
@@ -96,7 +140,16 @@ class ModelConfig:
             d_ff=min(self.d_ff, 512) or 0,
             vocab_size=min(self.vocab_size, 512),
             window=min(self.window, 64) if self.window else 0,
+            dense_ffn_layers=tuple(i for i in self.dense_ffn_layers if i < n_layers),
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4), top_k=min(self.moe.top_k, 2),
+                expert_d_ff=min(self.moe.expert_d_ff, 128),
+                shared_d_ff=min(self.moe.shared_d_ff, 128))
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                                  qk_rope_head_dim=16, v_head_dim=32)
         if self.rglru is not None:
             kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
         return dataclasses.replace(self, **kw)

@@ -7,6 +7,8 @@
     python -m repro_torch.launch.profile_decode --scheduler paged --step mixed
     python -m repro_torch.launch.profile_decode --arch recurrentgemma-9b
     python -m repro_torch.launch.profile_decode --arch gptj-parallel
+    python -m repro_torch.launch.profile_decode --arch minicpm3-4b
+    python -m repro_torch.launch.profile_decode --arch deepseek-moe-16b --weight-quant int4
     python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4 \
         --kv-quant --prompt-len 2950 --max-len 4096
     python -m repro_torch.launch.profile_decode --tp 2       # ranks share the card over gloo
@@ -37,8 +39,12 @@ launches per step, the top kernels, and the device time of the
 dequant_matmul kernels and of the w_o dense copies under weight
 quantization, of the fused_dual_matmul kernels of a parallel-residual
 arch, of the dense and paged decode_attention kernels and, with
-``--kv-quant`` (the int8 KV cache), of the kv_quant_write kernel), the
-peak device memory and the cache's bytes, and the profiler's table.
+``--kv-quant`` (the int8 KV cache), of the kv_quant_write kernel; of an MLA
+arch's latent attention, which runs in plain PyTorch, and of an MoE arch's
+routing/dispatch/combine bookkeeping and expert matmuls, each a profiler
+range), the peak device memory and the cache's bytes, and the profiler's
+table.  An MLA arch's latent cache stays bf16 whatever ``--kv-quant``
+says, and the line's ``kv_cache`` says which cache ran.
 
 ``--tp N`` runs N ranks (``launch/mesh.py``, ``--dist-backend``; gloo lets
 them share one card, its collectives staged through host memory), each
@@ -63,10 +69,15 @@ from repro_torch.core.zero_copy import W_O_DENSE_RANGE
 from repro_torch.launch import mesh
 from repro_torch.launch.serve import add_tp_args, add_weight_quant_args, parallel_config
 from repro_torch.models.common import Dist
+from repro_torch.models.mla import MLA_RANGE
+from repro_torch.models.moe import DISPATCH_RANGE, EXPERTS_RANGE
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.engine import Engine
 
 SPEC_K, CHUNK = 4, 64     # --step verify: drafts per slot; --step mixed: slot 0's chunk
+# user ranges whose device time the line reports per step, by its key
+RANGES = {"w_o_dense_copy": W_O_DENSE_RANGE, "mla_latent_attention": MLA_RANGE,
+          "moe_dispatch": DISPATCH_RANGE, "moe_experts": EXPERTS_RANGE}
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -157,7 +168,7 @@ def _profile(dist: Dist, device, cfg, args) -> dict:
     # device-side events only: an operator's own entry repeats its kernels'
     # time, and so does the device-side copy of a user range
     cuda = torch.autograd.DeviceType.CUDA
-    device = [e for e in avgs if e.device_type == cuda and e.key != W_O_DENSE_RANGE]
+    device = [e for e in avgs if e.device_type == cuda and e.key not in RANGES.values()]
     device_us = sum(e.self_device_time_total for e in device)
     kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
@@ -165,13 +176,15 @@ def _profile(dist: Dist, device, cfg, args) -> dict:
     fdm = [e for e in kernels if "fdm::" in e.key]
     dec = [e for e in kernels if "decode::kernel" in e.key]
     kvq = [e for e in kernels if "kvq::" in e.key]
-    w_o_us = sum(e.device_time_total for e in avgs
-                 if e.key == W_O_DENSE_RANGE and e.device_type != cuda)
+    range_ms = {name: sum(e.device_time_total for e in avgs
+                          if e.key == key and e.device_type != cuda) / 1e3 / args.steps
+                for name, key in RANGES.items()}
     result = {
         "arch": cfg.name, "scheduler": args.scheduler, "step": args.step,
         "spec_k": SPEC_K if args.step == "verify" else 0,
         "prefill_chunk": CHUNK if args.step == "mixed" else 0,
-        "weight_quant": args.weight_quant, "kv_quant": args.kv_quant,
+        "weight_quant": args.weight_quant, "kv_quant": "k_scale" in caches,
+        "kv_cache": "int8" if "k_scale" in caches else "bf16",
         "wq_group_size": args.wq_group_size, "batch": args.batch, "prompt_len": args.prompt_len,
         "steps": args.steps, "device": torch.cuda.get_device_name(0),
         "tp": dist.tp, "dist_backend": args.dist_backend if dist.tp > 1 else None,
@@ -186,7 +199,7 @@ def _profile(dist: Dist, device, cfg, args) -> dict:
         "device_idle_share": 1 - device_us / 1e6 / wall_s,
         "device_idle_share_profiled_window": 1 - device_us / 1e6 / prof_wall_s,
         "dequant_matmul_ms_per_step": dq_us / 1e3 / args.steps,
-        "w_o_dense_copy_ms_per_step": w_o_us / 1e3 / args.steps,
+        **{f"{name}_ms_per_step": ms for name, ms in range_ms.items()},
         "fused_dual_matmul_ms_per_step": sum(e.self_device_time_total for e in fdm) / 1e3
                                          / args.steps,
         "fused_dual_matmul_launches_per_step": sum(e.count for e in fdm) / args.steps,
@@ -225,7 +238,7 @@ def _profile_prefill(eng: Engine, prompts: np.ndarray, caches) -> dict:
         wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     device = [e for e in prof.key_averages() if e.device_type == cuda
-              and e.key != W_O_DENSE_RANGE]
+              and e.key not in RANGES.values()]
     fam = lambda tag: [e for e in device if tag in e.key]
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"wall_ms": 1e3 * wall_s,

@@ -112,6 +112,11 @@ def cache_len_for(cfg: ModelConfig, kind: str, seq_len: int, ring_slack: int = 0
     return seq_len
 
 
+def block_size(caches: Dict[str, Any]) -> int:
+    """Tokens per block of a paged cache's pools (K/V or MLA latents)."""
+    return (caches["k"] if "k" in caches else caches["ckv"]).shape[3]
+
+
 def slot_index(pos: torch.Tensor, S: int, ring: bool = False) -> torch.Tensor:
     """(b,) positions -> per-slot write index: position % S on a ring,
     else clamped into [0, S).  Empty or overrun slots are masked (pos -1)

@@ -1,26 +1,34 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
 for the dense family, sequential or parallel residual, at any supported
-tensor-parallel degree, and the RG-LRU hybrid at tp=1).
+tensor-parallel degree, and the RG-LRU hybrid, multi-head latent attention
+and the mixture-of-experts FFN at tp=1).
 
 Parameters are a plain dict::
 
     {"embed": {"table": (1, V, d)},
-     "layers": [ one dict per layer, by its kind (``cfg.block_kind``):
-                 attn / local_attn: {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v],
-                                     [norm2], w_up, [w_gate], w_down}
+     "layers": [ one dict per layer, by its family (``layer_family``):
+                 attn: {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v],
+                        [norm2], <FFN>}
+                 mla: {norm1, w_dq, q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv,
+                       w_o (h, v_head_dim, d), norm2, <FFN>}
                  rglru: {norm1, mixer: {w_gate, w_x, conv_w, gate_a_w, gate_a_b,
                                         gate_x_w, gate_x_b, Lambda, w_out},
-                         norm2, w_up, [w_gate], w_down} ],
+                         norm2, <FFN>} ],
      "final_norm": (d,), "lm_head": (1, d, V)}
+
+    <FFN> dense: w_up, [w_gate], w_down
+          MoE ("+moe" families): router (d, E) fp32, w_up / [w_gate] (E, d, f),
+          w_down (E, f, d), [shared: {w_up, [w_gate], w_down}]
 
 A parallel-residual layer (``cfg.parallel_residual``) has no ``norm2``: its
 attention and FFN both read norm1's output.  An RG-LRU layer keeps its
 mixer's leaves under ``mixer``: its ``w_gate`` and the GeGLU FFN's are
-different weights.  Each per-layer tensor is a view
-into one tensor stacked over the layers of its family (attention or
-RG-LRU), as the JAX package stacks a scanned layer group.  Under weight-only
-quantization the projections and the lm_head are ``QuantWeight``s whose
-packed values and scales are such views too.
+different weights; an MoE layer keeps its shared experts' dense MLP under
+``shared``.  Each per-layer tensor is a view into one tensor stacked over
+the layers of its family, as the JAX package stacks a scanned layer group.
+Under weight-only quantization the projections and the lm_head are
+``QuantWeight``s whose packed values and scales are such views too (an
+expert block ``(L, E, K, N)``).
 
 Under tensor parallelism (``ModelCtx.dist.tp`` ranks) each rank's dict
 holds its shard (``shard_leaf``): the padded q-head layout's and the KV
@@ -46,19 +54,24 @@ from repro_torch.core.embedding import embed_lookup, table_replicated
 from repro_torch.core.sync_policy import SyncPolicy
 from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
-from repro_torch.models.transformer import ATTN_KINDS, layers_forward
+from repro_torch.models.transformer import ATTN_KINDS, Ghost, layers_forward
 
 Params = Dict[str, Any]
 
 # The leaves weight-only quantization covers (``_map_wq_leaves``), with how
 # the forward consumes each: "matmul" through the dequant_matmul kernel,
 # "einsum" dequantized for a batched contraction (the out-projection w_o,
-# (n_heads, hd, d)).  Embed, norms and biases stay bf16.
+# (n_heads, hd, d)).  Embed, norms and biases stay bf16.  ``wq_site`` adds
+# what the layer's family changes: an MLA mixer stays bf16, MoE expert
+# blocks are einsum sites and its shared experts matmul sites.
 WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
             "w_up": "matmul", "w_gate": "matmul", "w_down": "matmul", "lm_head": "matmul"}
+FFN_KEYS = ("w_up", "w_gate", "w_down")
 
 
 # tensor-parallel degrees the dense family is served at
@@ -114,10 +127,16 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
     split over ``parallel.tp`` ranks."""
     missing = []
     kinds = set(cfg.layer_pattern)
-    if cfg.moe is not None:
-        missing.append("moe (mixture-of-experts FFN)")
-    if cfg.mla is not None:
-        missing.append("mla (multi-head latent attention)")
+    if cfg.moe is not None and parallel.tp > 1:
+        missing.append("moe at tp>1 (expert-parallel MoE)")
+    if cfg.mla is not None and parallel.tp > 1:
+        missing.append("mla at tp>1 (head-sharded latent attention)")
+    if cfg.moe is not None and cfg.window:
+        missing.append("moe with a sliding-window ring (the ring chunk writer)")
+    if cfg.mla is not None and (cfg.window or "rglru" in kinds):
+        missing.append("mla with windowed or rglru layers")
+    if cfg.parallel_residual and (cfg.moe is not None or cfg.mla is not None):
+        missing.append("parallel_residual with moe or mla layers")
     if cfg.ssm is not None:
         missing.append("ssm (Mamba-2 blocks)")
     if kinds - {*ATTN_KINDS, "rglru"}:
@@ -164,28 +183,52 @@ def attention_window(cfg: ModelConfig) -> int:
     return cfg.window if "local_attn" in cfg.layer_pattern else 0
 
 
+def layer_family(cfg: ModelConfig, layer: int) -> str:
+    """The parameter layout of layer ``layer``, keyed as the JAX package's
+    ``layer_signature`` keys its scan groups: the mixer ("attn" for attn
+    and local_attn, "mla" for latent attention, "rglru"), with "+moe" where
+    the FFN is a mixture of experts."""
+    kind = cfg.block_kind(layer)
+    mixer = "rglru" if kind == "rglru" else "mla" if cfg.mla is not None else "attn"
+    return mixer + ("+moe" if cfg.is_moe_layer(layer) else "")
+
+
 def layer_families(cfg: ModelConfig) -> Dict[str, List[int]]:
-    """family -> its layer indices in order: "attn" (attn and local_attn
-    layers, which share one parameter layout) and "rglru"."""
+    """family (``layer_family``) -> its layer indices in order."""
     fams: Dict[str, List[int]] = {}
     for i in range(cfg.n_layers):
-        fams.setdefault("rglru" if cfg.block_kind(i) == "rglru" else "attn", []).append(i)
+        fams.setdefault(layer_family(cfg, i), []).append(i)
     return fams
+
+
+def _ffn_defs(cfg: ModelConfig, d_ff: int, prefix: str = "") -> Dict[str, LeafDef]:
+    """``mlp_defs`` at width ``d_ff``, the names prefixed."""
+    d = cfg.d_model
+    defs = {f"{prefix}w_up": LeafDef((d, d_ff), "scaled", d),
+            f"{prefix}w_down": LeafDef((d_ff, d), "scaled", d_ff)}
+    if cfg.gated_mlp:
+        defs[f"{prefix}w_gate"] = LeafDef((d, d_ff), "scaled", d)
+    return defs
 
 
 def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDef]:
     """name -> LeafDef of one layer of ``family``: the JAX ParamDefs of a
-    sub-layer (``attn_defs``, or ``rglru_defs`` as ``mixer.<name>``;
-    ``mlp_defs``; ``norm1``, and ``norm2`` unless the residual is
-    parallel)."""
+    sub-layer (``attn_defs``, ``_mla_defs``, or ``rglru_defs`` as
+    ``mixer.<name>``; ``mlp_defs``, or ``moe_defs`` with its shared
+    experts as ``shared.<name>``; ``norm1``, and ``norm2`` unless the
+    residual is parallel)."""
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"{cfg.name}: n_heads {cfg.n_heads} not a multiple of "
                          f"n_kv_heads {cfg.n_kv_heads}")
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     q_cols, kv_cols = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    if family == "rglru":
+    mixer, _, ffn = family.partition("+")
+    if mixer == "rglru":
         defs = {"norm1": LeafDef((d,), "zeros", 0),
                 **{f"mixer.{n}": LeafDef(*spec) for n, spec in rglru.rglru_defs(cfg).items()}}
+    elif mixer == "mla":
+        defs = {"norm1": LeafDef((d,), "zeros", 0),
+                **{n: LeafDef(*spec) for n, spec in mla_mod.mla_defs(cfg).items()}}
     else:
         defs = {
             "norm1": LeafDef((d,), "zeros", 0),
@@ -196,18 +239,44 @@ def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDe
         }
     if not cfg.parallel_residual:
         defs["norm2"] = LeafDef((d,), "zeros", 0)
-    defs.update({"w_up": LeafDef((d, f), "scaled", d), "w_down": LeafDef((f, d), "scaled", f)})
-    if cfg.qkv_bias and family == "attn":
+    if ffn == "moe":
+        m = cfg.moe
+        E, f = m.n_experts, m.expert_d_ff
+        defs["router"] = LeafDef((d, E), "scaled", d, torch.float32)
+        defs.update({"w_up": LeafDef((E, d, f), "scaled", d),
+                     "w_down": LeafDef((E, f, d), "scaled", f)})
+        if cfg.gated_mlp:
+            defs["w_gate"] = LeafDef((E, d, f), "scaled", d)
+        if m.n_shared:
+            defs.update(_ffn_defs(cfg, m.shared_d_ff, "shared."))
+    else:
+        defs.update(_ffn_defs(cfg, cfg.d_ff))
+    if cfg.qkv_bias and mixer == "attn":
         defs.update(b_q=LeafDef((q_cols,), "zeros", 0), b_k=LeafDef((kv_cols,), "zeros", 0),
                     b_v=LeafDef((kv_cols,), "zeros", 0))
-    if cfg.gated_mlp:
-        defs["w_gate"] = LeafDef((d, f), "scaled", d)
     return defs
+
+
+def wq_site(family: str, name: str) -> Optional[str]:
+    """How the forward consumes leaf ``name`` of a ``family`` layer under
+    weight-only quantization (``_map_wq_leaves``): "matmul", "einsum", or
+    None where it stays bf16.  An MLA mixer's leaves stay bf16; the expert
+    blocks of an MoE layer are einsum sites (``wquant.to_dense``), its
+    shared experts matmul sites."""
+    mixer, _, ffn = family.partition("+")
+    if name.startswith("shared."):
+        return "matmul" if name[len("shared."):] in FFN_KEYS else None
+    if ffn == "moe" and name in FFN_KEYS:
+        return "einsum"
+    if mixer == "mla" and name not in FFN_KEYS:
+        return None
+    return WQ_SITES.get(name)
 
 
 def split_layers(stacked: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
     """Stacked (n, ...) tensors or QuantWeights -> one dict of views per
-    layer; a ``mixer.<name>`` leaf goes to ``layer["mixer"][name]``."""
+    layer; a ``mixer.<name>`` leaf goes to ``layer["mixer"][name]``, a
+    ``shared.<name>`` one to ``layer["shared"][name]``."""
     out = []
     for i in range(n_layers):
         layer: Dict[str, Any] = {}
@@ -253,8 +322,8 @@ def _k_shards(name: str, tp: int) -> int:
     return tp if name == "w_down" else 1
 
 
-def _quantizes(name: str, shape, parallel: ParallelConfig) -> bool:
-    return (parallel.weight_quant != "none" and name in WQ_SITES
+def _quantizes(name: str, shape, parallel: ParallelConfig, family: str = "attn") -> bool:
+    return (parallel.weight_quant != "none" and wq_site(family, name) is not None
             and wquant.quantizable(shape, parallel.weight_quant, parallel.wq_group_size,
                                    _k_shards(name, parallel.tp)))
 
@@ -375,7 +444,7 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
     for family, idx in layer_families(cfg).items():
         n, stacked = len(idx), {}
         for name, (shape, rule, fan_in, dtype) in layer_param_defs(cfg, family).items():
-            quant = _quantizes(name, shape, parallel)
+            quant = _quantizes(name, shape, parallel, family)
             local = (n, *_shard_shape(name, shape, cfg, plan, dist.rank))
             if quant:
                 t = _quantized_empty(local, mode, gs, device)
@@ -412,27 +481,28 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
 
 def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
     """Quantize at load (``repro.models.model.quantize_params``): the bf16
-    leaves of ``WQ_SITES`` and the lm_head become QuantWeights in new
-    storage stacked over each layer family (an RG-LRU layer's FFN; its
-    mixer's leaves are not sites); leaves already quantized pass through,
-    and shapes that do not quantize stay bf16.  At tp > 1 a shard cannot
-    be quantized alone (an int8 row-parallel scale spans the global K), so
-    the leaves must come quantized (``init_params``, or
-    ``bridge.params_from_jax`` of a quantized tree)."""
+    leaves that ``wq_site`` names and the lm_head become QuantWeights in
+    new storage stacked over each layer family (an RG-LRU or MLA layer's
+    FFN, not its mixer; an MoE layer's expert blocks and shared experts);
+    leaves already quantized pass through, and shapes that do not quantize
+    stay bf16.  At tp > 1 a shard cannot be quantized alone (an int8
+    row-parallel scale spans the global K), so the leaves must come
+    quantized (``init_params``, or ``bridge.params_from_jax`` of a
+    quantized tree)."""
     if parallel.weight_quant == "none":
         return params
     mode, gs = parallel.weight_quant, parallel.wq_group_size
     layers = params["layers"]
-    new_layers = [dict(p) for p in layers]
-    families: Dict[bool, List[int]] = {}   # an RG-LRU layer keeps a "mixer" dict
+    new_layers = [{k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
+                  for p in layers]
+    families: Dict[str, List[int]] = {}
     for i, p in enumerate(layers):
-        families.setdefault("mixer" in p, []).append(i)
+        families.setdefault(_family_of(p), []).append(i)
     todo = []
-    for idx in families.values():
-        for name in WQ_SITES:
-            first = layers[idx[0]].get(name)   # None for the lm_head and the mixer's leaves
-            if (first is not None and not isinstance(first, QuantWeight)
-                    and _quantizes(name, first.shape, parallel)):
+    for family, idx in families.items():
+        for name, first in _flat_leaves(layers[idx[0]]).items():
+            if (not isinstance(first, QuantWeight)
+                    and _quantizes(name, first.shape, parallel, family)):
                 todo.append((idx, name, first))
     head = params["lm_head"]
     head_todo = not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel)
@@ -441,10 +511,11 @@ def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
                          "pass quantized shards (init_params, bridge.params_from_jax)")
     for idx, name, first in todo:
         dst = _quantized_empty((len(idx), *first.shape), mode, gs, first.device)
+        nest, _, leaf = name.rpartition(".")
         for n, i in enumerate(idx):
             view = wquant.index_batch(dst, n)
-            _quantize_into(view, layers[i][name], gs)
-            new_layers[i][name] = view
+            _quantize_into(view, _flat_leaves(layers[i])[name], gs)
+            (new_layers[i][nest] if nest else new_layers[i])[leaf] = view
     out = dict(params, layers=new_layers)
     if head_todo:
         out["lm_head"] = _quantized_empty(head.shape, mode, gs, head.device)
@@ -452,27 +523,46 @@ def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
     return out
 
 
+def _family_of(layer: Dict[str, Any]) -> str:
+    """``layer_family`` read off one layer's leaves."""
+    mixer = "rglru" if "mixer" in layer else "mla" if "w_dkv" in layer else "attn"
+    return mixer + ("+moe" if "router" in layer else "")
+
+
+def _flat_leaves(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """One layer's leaves by their ``layer_param_defs`` names (a nested
+    ``mixer`` or ``shared`` dict's as ``<dict>.<name>``)."""
+    out = {}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{n}": t for n, t in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
 def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Dict[str, int]:
     """Weight bytes one decode token sweeps, from shapes alone
     (``repro.models.model.decode_weight_bytes`` at tp=1).  ``quantized``:
     the leaves the transform covers, at their packed size; ``dense``: the
-    rest (norms, biases, unquantized projections) in bf16;
-    ``quantized_ref_einsum``: the part of ``quantized`` served by
-    dequantizing (w_o), which also writes and reads a bf16 copy per step;
-    ``swept``: the sum.  The embed table is left out: a token reads one
-    row of it."""
-    leaves = [(name, (len(idx), *d.shape), d.dtype)
+    rest (norms, biases, routers, MLA's latent projections, unquantized
+    projections) at their stored width; ``quantized_ref_einsum``: the part
+    of ``quantized`` served by dequantizing (w_o, MoE expert blocks), which
+    also writes and reads a bf16 copy per step; ``swept``: the sum.  The
+    embed table is left out: a token reads one row of it.  MoE counts
+    every expert, as the reference's decode (C = T) runs every one."""
+    leaves = [(family, name, (len(idx), *d.shape), d.dtype)
               for family, idx in layer_families(cfg).items()
               for name, d in layer_param_defs(cfg, family).items()]
-    leaves += [("final_norm", (cfg.d_model,), torch.bfloat16),
-               ("lm_head", (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
+    leaves += [("", "final_norm", (cfg.d_model,), torch.bfloat16),
+               ("", "lm_head", (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
     quantized = dense = ref_einsum = 0
-    for name, shape, dtype in leaves:
-        if _quantizes(name, shape, parallel):
+    for family, name, shape, dtype in leaves:
+        if _quantizes(name, shape, parallel, family):
             b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size,
                                    _k_shards(name, parallel.tp))
             quantized += b
-            ref_einsum += b if WQ_SITES[name] == "einsum" else 0
+            ref_einsum += b if wq_site(family, name) == "einsum" else 0
         else:
             dense += dtype.itemsize * math.prod(shape)
     return {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
@@ -498,28 +588,34 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     package's ``init_cache(quant=True)`` makes them.  RG-LRU layers add
     their recurrent state, ``h`` and ``conv`` (``rglru.init_rglru_state``).
     ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
-    default all of them)."""
+    default all of them).  MLA layers cache latents instead of K/V:
+    ``ckv``/``krope`` with a unit head axis and their own widths
+    (``mla.cache_dims``), bf16 whatever ``kv_quant`` says, as the reference
+    keeps its latent cache."""
     fams = layer_families(cfg)
-    n_attn, n_rec = len(fams.get("attn", ())), len(fams.get("rglru", ()))
+    n_rec = len(fams.get("rglru", ()))
+    n_attn = cfg.n_layers - n_rec
     window = attention_window(cfg)
     hkv, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        leaves, kv_quant = {k: (1, w) for k, w in mla_mod.cache_dims(cfg).items()}, False
+    else:
+        leaves = {"k": (hkv, hd), "v": (hkv, hd)}
     if paged is not None:
         n_blocks, bs = paged
-        shape = (n_attn, n_blocks, hkv, bs, hd)
+        shape = lambda h, w: (n_attn, n_blocks, h, bs, w)
         pos_shape = (batch, -(-max_len // bs) * bs)
     else:
         S = attn.cache_len_for(cfg, "local_attn" if window else "attn", max_len, ring_slack)
-        shape = (n_attn, batch, hkv, S, hd)
+        shape = lambda h, w: (n_attn, batch, h, S, w)
         pos_shape = (batch, S) if per_slot else (S,)
     kv_dtype = torch.int8 if kv_quant else torch.bfloat16
-    caches = {
-        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
-        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
-        "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device),
-    }
+    caches = {key: torch.zeros(shape(*hw), dtype=kv_dtype, device=device)
+              for key, hw in leaves.items()}
+    caches["pos"] = torch.full(pos_shape, -1, dtype=torch.int32, device=device)
     if kv_quant:
         for key in ("k_scale", "v_scale"):
-            caches[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+            caches[key] = torch.zeros(shape(hkv, hd)[:-1], dtype=torch.bfloat16, device=device)
     if n_rec:
         caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device))
     return caches
@@ -596,7 +692,7 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
             targets = (rows, attn.slot_index(wpos, pos.shape[1], ring))
         else:
             targets = attn.paged_decode_targets(bt if write_rows is None else bt[rows], wpos,
-                                                caches["k"].shape[3])
+                                                attn.block_size(caches))
         return attn.KVStep(caches, decode=True, valid=valid, targets=targets, src=write_rows,
                            bt=bt)
     if bt is None and chunk:                                  # slot chunk
@@ -614,7 +710,7 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
         targets = (slots.repeat_interleave(s), torch.arange(s, device=dev).repeat(len(slots)))
         return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets,
                            state_rows=slots)
-    targets = attn.paged_flat_targets(bt, q_pos[:, 0], s, caches["k"].shape[3])
+    targets = attn.paged_flat_targets(bt, q_pos[:, 0], s, attn.block_size(caches))
     return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, bt=bt,
                        paged_read=positions.dim() == 2)
 
@@ -628,7 +724,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             slots: Optional[torch.Tensor] = None,
             write_rows: Optional[torch.Tensor] = None,
             chunk_writes=None, ctx: Optional[ModelCtx] = None,
-            seq_sharded: bool = False) -> torch.Tensor:
+            seq_sharded: bool = False, layout: Optional[moe_mod.RowLayout] = None) -> torch.Tensor:
     """tokens (b, s) -> fp32 logits (b, s or 1, V): at tp > 1 (``ctx``) this
     rank's vocab shard of them (b, s or 1, local_vocab).
 
@@ -655,7 +751,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``ctx`` (default tp=1) places this rank; ``seq_sharded`` (a prefill,
     chunk or verify forward, as the JAX engine chooses) keeps each rank's
     chunk of the sequence in the residual stream between the layers'
-    branches (``ModelCtx.policy``)."""
+    branches (``ModelCtx.policy``).
+
+    ``layout`` (an MoE model's prefill or chunk, tp=1): the reference's
+    other full-width rows, whose pad tokens from position 0 ride along
+    for the MoE layers' routing (``moe.RowLayout``); their logits are not
+    computed."""
     b, s = tokens.shape
     dev = tokens.device
     ctx = ctx or ModelCtx.make(cfg)
@@ -678,10 +779,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         step.quant_dst = attn.quant_targets(b, s, dev, wave_pos=step.wave_pos,
                                             ring_idx=step.ring_idx, targets=step.targets,
                                             src=step.src)
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+    rope = rope_tables(positions, rope_dim, cfg.rope_theta)
+    ghost = None
+    if layout is not None:
+        g, gs = layout.tokens.shape
+        gpos = torch.arange(gs, device=dev)
+        ghost = Ghost(layout, embed_lookup(params["embed"], layout.tokens, ctx.plan, ctx.dist),
+                      rope_tables(gpos, rope_dim, cfg.rope_theta),
+                      attn.KVStep(None, decode=False,
+                                  q_pos=gpos.to(torch.int32).expand(g, gs).contiguous()))
     x = policy.shard_residual(x)
+    kw = {} if ghost is None else {"ghost": ghost}
     x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask,
-                       policy=policy)
+                       policy=policy, **kw)
     x = policy.unshard_residual(x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if last_only and length_mask is not None:

@@ -1,0 +1,172 @@
+"""Mixture-of-experts FFN (``repro.models.moe`` at tp=1): softmax -> top-k ->
+renormalise routing, index dispatch with GShard capacity clipping, the
+batched expert FFN and a deterministic combine, plus the always-on shared
+experts.
+
+* ``capacity``: C = T for T <= 256 tokens (no assignment drops), else
+  max(4, ceil(T * k / E * capacity_factor)).  Past 256, which assignments
+  drop depends on T and on the order of the flattened (row, position)
+  tokens, pad tokens included: an expert keeps its first C assignments in
+  token order.  ``RowLayout`` lets a forward that computes only some of
+  the reference's rows present the rest of them to the router.
+* ``route`` ranks the experts through ``ops.topk`` (the kernel on the card,
+  which puts the lower index first among equal values as ``lax.top_k``
+  does; its plain version on the CPU), never ``torch.topk``, whose order
+  among ties is unspecified.  One launch per MoE layer and forward.
+* The expert blocks ``(E, d, f)`` / ``(E, f, d)`` run as batched matmuls on
+  ``wquant.to_dense`` weights (an int8/int4 block is dequantized each
+  forward, as the reference serves this einsum site).
+* The combine scatters each kept assignment's gated fp32 output back to its
+  token and sums the k of them in ascending expert order, the order of the
+  reference's scatter-add, in a fixed loop (``index_add_`` on the card adds
+  in no fixed order).  The sum is rounded to bf16 before the shared
+  experts' output is added.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.core import wquant
+from repro_torch.kernels import ops
+from repro_torch.models.common import activation
+from repro_torch.models.mlp import mlp_forward
+
+# profiler ranges: the routing, dispatch and combine bookkeeping, and the
+# expert blocks' matmuls (with an int8/int4 block's dequantization);
+# launch/profile_decode.py reports their device time per step
+DISPATCH_RANGE, EXPERTS_RANGE = "moe dispatch", "moe experts"
+
+# A list in LOG collects one record per MoE layer call, as device tensors:
+# T, C, the router's fp32 probabilities and top experts, and the dispatch
+# bookkeeping, read with ``dropped`` (chip_smoke.py and the tests).  A list
+# in ROUTE_REPLAY supplies each call's top experts in order (another
+# device's choice, replayed: chip_smoke.py's witness of a router near-tie),
+# gated by the call's own probabilities.  None (the default): neither.
+LOG: Optional[List[Dict[str, Any]]] = None
+ROUTE_REPLAY: Optional[List[torch.Tensor]] = None
+
+
+def dropped(rec: Dict[str, Any]) -> torch.Tensor:
+    """A LOG record -> its dropped assignments, (n, 2) rows of (token,
+    expert) on the host."""
+    lost = ~rec["keep"]
+    order = rec["order"][lost]
+    return torch.stack([order // rec["k"], rec["top_e"].reshape(-1)[order]], 1).cpu()
+
+
+@dataclass
+class RowLayout:
+    """The reference's full-width rows around the rows a forward computes.
+
+    The JAX engine's whole-prompt slot admission and the chunk half of its
+    mixed step run every slot's row, pad tokens from position 0 on the rows
+    not admitted, and discard those rows' results; the port computes the
+    admitted rows only.  Where that changes an MoE layer's T past 256, the
+    forward carries the other rows along as ``tokens`` (g, s) attending
+    their own fresh K/V, and every MoE layer routes the B rows in slot
+    order: the computed rows at ``rows`` (b,) and these at ``others`` (g,)."""
+
+    tokens: torch.Tensor
+    rows: torch.Tensor
+    others: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return len(self.rows) + len(self.others)
+
+    def merge(self, x: torch.Tensor, xo: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((self.width, *x.shape[1:]))
+        out[self.rows], out[self.others] = x, xo
+        return out
+
+
+def capacity(m: MoEConfig, tokens: int) -> int:
+    """Expert capacity: decode-sized batches get C = T (drop-free), larger
+    ones the GShard capacity-factor clipping."""
+    if tokens <= 256:
+        return tokens
+    return max(4, int(math.ceil(tokens * m.top_k / m.n_experts * m.capacity_factor)))
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
+    """x (T, d) -> (top experts (T, k) int64, gates (T, k) fp32, the fp32
+    probabilities (T, E)): fp32 logits, softmax, top-k, renormalised."""
+    probs = torch.softmax(x.float() @ router_w, dim=-1)
+    top_p, top_e = ops.topk(probs, m.top_k)
+    if ROUTE_REPLAY is not None:
+        top_e = ROUTE_REPLAY.pop(0).to(device=probs.device, dtype=top_e.dtype)
+        top_p = probs.gather(1, top_e.long())
+    gates = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+    return top_e.long(), gates, probs
+
+
+def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (b, s, d) -> the FFN output (b, s, d) of an MoE layer: routed
+    experts plus the shared ones."""
+    m = cfg.moe
+    b, s, d = x.shape
+    T, k, E = b * s, m.top_k, m.n_experts
+    xf = x.reshape(T, d)
+    C = capacity(m, T)
+    with torch.profiler.record_function(DISPATCH_RANGE):
+        top_e, gates, probs = route(p["router"], xf, m)
+        xe, order, keep, slot = _dispatch(top_e, xf, m, C)
+    if LOG is not None:
+        LOG.append({"T": T, "C": C, "k": k, "keep": keep, "order": order, "top_e": top_e,
+                    "probs": probs})
+    with torch.profiler.record_function(EXPERTS_RANGE):
+        act = activation(cfg.act)
+        up = torch.bmm(xe, wquant.to_dense(p["w_up"]))
+        up = (act(torch.bmm(xe, wquant.to_dense(p["w_gate"]))) * up if cfg.gated_mlp
+              else act(up))
+        ye = torch.bmm(up, wquant.to_dense(p["w_down"])).view(E * C, d)
+    with torch.profiler.record_function(DISPATCH_RANGE):
+        out = _combine(ye, top_e, gates, order, keep, slot).view(b, s, d).to(x.dtype)
+    if m.n_shared:
+        out = out + mlp_forward(p["shared"], x, cfg)
+    return out
+
+
+def _dispatch(top_e: torch.Tensor, xf: torch.Tensor, m: MoEConfig, C: int):
+    """Lay the T tokens out per expert -> (xe (E, C, d), the sort order of
+    the flat (token, rank) assignments, which sorted ones are kept, their
+    slot among the E * C rows, E * C for the dump row)."""
+    T, d = xf.shape
+    k, E = m.top_k, m.n_experts
+    # a stable sort by expert, each assignment's place in its expert's
+    # queue, and the first C of each queue kept
+    flat_e = top_e.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    counts = torch.zeros(E, dtype=torch.long, device=xf.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=xf.device) - starts[sorted_e]
+    keep = pos < C
+    slot = torch.where(keep, sorted_e * C + pos, E * C)
+    x_disp = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
+    x_disp[slot] = xf[order // k]
+    return x_disp[:E * C].view(E, C, d), order, keep, slot
+
+
+def _combine(ye: torch.Tensor, top_e, gates, order, keep, slot) -> torch.Tensor:
+    """Expert outputs ye (E * C, d) -> (T, d) fp32: each kept assignment's
+    gated output at its (token, rank) place, then the k ranks summed in
+    ascending expert order."""
+    T, k = top_e.shape
+    d = ye.shape[1]
+    ye = torch.cat([ye, ye.new_zeros((1, d))])                         # the dump row
+    gate = torch.where(keep, gates.reshape(-1)[order], 0.0)
+    contrib = torch.empty((T * k, d), dtype=torch.float32, device=ye.device)
+    contrib[order] = ye[slot].float() * gate[:, None]
+    contrib = contrib.view(T, k, d)
+    by_expert = torch.argsort(top_e, dim=1)
+    out = torch.zeros((T, d), dtype=torch.float32, device=ye.device)
+    for j in range(k):
+        out = out + contrib.gather(1, by_expert[:, j, None, None].expand(T, 1, d))[:, 0]
+    return out

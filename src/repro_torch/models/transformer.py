@@ -1,12 +1,20 @@
 """Decoder layers: the sub-layer of ``repro.models.transformer.sublayer_forward``,
 sequential or parallel residual, with its mixer dispatch
-(``_mixer_forward``: ``attn``, ``local_attn`` or ``rglru``), and the layer
-loop that the JAX package runs as scans over groups of stacked parameters
-(here a Python loop over per-layer views of the same stacked tensors).
+(``_mixer_forward``: ``attn``, ``local_attn`` -- GQA, or latent attention
+where ``cfg.mla`` -- or ``rglru``) and its FFN (dense, or mixture of
+experts on ``cfg.is_moe_layer`` layers), and the layer loop that the JAX
+package runs as scans over groups of stacked parameters (here a Python
+loop over per-layer views of the same stacked tensors).
 
 Layer i's kind is ``cfg.block_kind(i)``, the layer pattern cycled over the
-layers.  Each kind owns its part of the cache: the attention layers the
-K/V, in their own order, the RG-LRU layers the recurrent state.
+layers.  Each kind owns its part of the cache: the attention layers (GQA
+or MLA) the K/V or latents, in their own order, the RG-LRU layers the
+recurrent state.
+
+A ``moe.RowLayout`` (``Ghost``) carries the reference's other full-width
+rows through the layers beside the computed ones: each of their mixers
+attends their own fresh K/V, and each MoE layer routes all the rows
+together in slot order.
 
 Every residual-stream collective is the ``SyncPolicy``'s, with the JAX
 package's tags (``transformer.py:220-247`` there): ``pre_mixer`` and
@@ -18,6 +26,7 @@ identity.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -27,15 +36,28 @@ from repro_torch.core import wquant
 from repro_torch.core.sync_policy import SyncPolicy
 from repro_torch.core.zero_copy import fused_out_projection, parallel_partials
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru
+from repro_torch.models import mla, moe, rglru
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import mlp_forward, mlp_hidden
 
 ATTN_KINDS = ("attn", "local_attn")
 
 
+@dataclass
+class Ghost:
+    """The other rows of a ``moe.RowLayout`` in flight: their residual
+    ``x``, their RoPE tables and their fresh-K/V ``KVStep``."""
+
+    layout: moe.RowLayout
+    x: torch.Tensor
+    rope: Tuple[torch.Tensor, torch.Tensor]
+    step: attn.KVStep
+
+
 def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
                    step: attn.KVStep, length_mask) -> torch.Tensor:
+    if kind in ATTN_KINDS and cfg.mla is not None:
+        return mla.mla_forward(p, xa, cfg, rope=rope, step=step, layer=index)
     if kind in ATTN_KINDS:
         return attn.gqa_forward(p, xa, cfg, rope=rope, step=step, layer=index,
                                 window=cfg.window if kind == "local_attn" else 0)
@@ -45,11 +67,27 @@ def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
     raise ValueError(kind)
 
 
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, ghost: Optional[Ghost]) -> torch.Tensor:
+    """The FFN branch: dense, or an MoE layer's experts, which route the
+    ghost rows' normed residual together with ``x`` (slot order) and
+    advance the ghost's residual in place."""
+    if "router" not in p:
+        if ghost is not None:
+            ghost.x = ghost.x + mlp_forward(p, rms_norm(ghost.x, p["norm2"], cfg.rms_eps), cfg)
+        return mlp_forward(p, x, cfg)
+    if ghost is None:
+        return moe.moe_forward(p, x, cfg)
+    lay = ghost.layout
+    out = moe.moe_forward(p, lay.merge(x, rms_norm(ghost.x, p["norm2"], cfg.rms_eps)), cfg)
+    ghost.x = ghost.x + out[lay.others]
+    return out[lay.rows]
+
+
 def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                      kind: str = "attn", index: int = 0, *,
                      rope: Tuple[torch.Tensor, torch.Tensor], step: attn.KVStep,
                      length_mask: Optional[torch.Tensor] = None,
-                     policy: SyncPolicy) -> torch.Tensor:
+                     policy: SyncPolicy, ghost: Optional[Ghost] = None) -> torch.Tensor:
     """x + mixer(norm1(x)), then + mlp(norm2(.)): one decoder layer of kind
     ``kind``, the ``index``-th of its kind's cache, each branch's partial
     reduced by ``policy``.  With ``cfg.parallel_residual`` (attention
@@ -57,7 +95,8 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     partials are summed by one fused_dual_matmul
     (``zero_copy.parallel_partials``) into the one buffer that the one
     reduction reads (paper section 2.2), else each is computed and reduced
-    on its own."""
+    on its own.  ``ghost`` (tp=1): rows carried beside ``x`` for the MoE
+    layers' routing (``Ghost``)."""
     xa = policy.gather_in(rms_norm(x, p["norm1"], cfg.rms_eps), tag="pre_mixer")
     if cfg.parallel_residual and kind in ATTN_KINDS:
         heads = attn.gqa_heads(p, xa, cfg, rope=rope, step=step, layer=index,
@@ -71,12 +110,18 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                 + policy.reduce_out(wquant.matmul(h, p["w_down"]), tag="ffn_reduce"))
     x = x + policy.reduce_out(_mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
                                              length_mask=length_mask), tag="mixer_reduce")
+    if ghost is not None:
+        ghost.x = ghost.x + _mixer_forward(p, rms_norm(ghost.x, p["norm1"], cfg.rms_eps), cfg,
+                                           kind, index, rope=ghost.rope, step=ghost.step,
+                                           length_mask=None)
     xf = policy.gather_in(rms_norm(x, p["norm2"], cfg.rms_eps), tag="pre_ffn")
-    return x + policy.reduce_out(mlp_forward(p, xf, cfg), tag="ffn_reduce")
+    return x + policy.reduce_out(_ffn(p, xf, cfg, ghost), tag="ffn_reduce")
 
 
 def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
                    cfg: ModelConfig, **kw) -> torch.Tensor:
+    """The layers in order; each takes the next cache index of its mixer's
+    family (attention, GQA or MLA, and RG-LRU count apart)."""
     seen = {"attn": 0, "rglru": 0}
     for i, p in enumerate(layers):
         kind = cfg.block_kind(i)

@@ -31,6 +31,7 @@ from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.models.common import Dist, resolve_device
+from repro_torch.models.moe import RowLayout
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.sampling import sample_tokens
 from repro_torch.training import checkpoint
@@ -142,8 +143,10 @@ class Engine:
     # Admission prefills only the admitted slots, in place: the rows it
     # computes are the admitted ones (the JAX package computes the full
     # width and keeps the admitted rows with merge_slots; each row is
-    # independent, so the result for an admitted row is the same).  Decode
-    # runs all slots; finished and empty slots are masked inside the step.
+    # independent, so the result for an admitted row is the same -- except
+    # in an MoE layer past 256 tokens, where the other rows ride along:
+    # ``_layout``).  Decode runs all slots; finished and empty slots are
+    # masked inside the step.
 
     def init_slot_caches(self, n_slots: int) -> Dict[str, torch.Tensor]:
         """A sliding-window ring holds ``window + spec_k`` entries, so that a
@@ -157,6 +160,20 @@ class Engine:
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
                              paged=(n_blocks, block_size), **self._kv_kw())
 
+    def _layout(self, tokens, rows: np.ndarray):
+        """The ``RowLayout`` of a prefill or chunk that computes ``rows`` of
+        the (B, s) ``tokens``, where the reference computes all B: needed
+        by an MoE model once B * s passes 256 tokens (``moe.capacity``:
+        then which assignments drop depends on every row), else None."""
+        tokens = np.asarray(tokens)
+        B, s = tokens.shape
+        if self.cfg.moe is None or len(rows) == B or B * s <= 256:
+            return None
+        others = np.setdiff1d(np.arange(B), rows)
+        dev = self.device
+        return RowLayout(torch.as_tensor(tokens[others], dtype=torch.long, device=dev),
+                         kvcache.device_ints(rows, dev), kvcache.device_ints(others, dev))
+
     def _admit_rows(self, tokens, admit, plens, **kw) -> np.ndarray:
         """Prefill the admitted rows of ``tokens`` (B, Lp) and sample each
         one's first token from its own last real prompt position -> (B,)
@@ -165,7 +182,8 @@ class Engine:
         tok = torch.as_tensor(np.asarray(tokens)[rows], dtype=torch.long, device=self.device)
         plens_d = kvcache.device_ints(np.asarray(plens)[rows], self.device)
         lmask = torch.arange(tok.shape[1], device=self.device)[None, :] < plens_d[:, None]
-        logits = self.forward(tok, last_only=True, length_mask=lmask, seq_sharded=True, **kw)
+        logits = self.forward(tok, last_only=True, length_mask=lmask, seq_sharded=True,
+                              layout=self._layout(tokens, rows), **kw)
         out = np.zeros(len(admit), np.int32)
         out[rows] = self.land(self.sample(logits[:, -1]))
         return out
@@ -309,7 +327,7 @@ class Engine:
         clens_d = kvcache.device_ints(np.asarray(clens)[rows], dev)
         lmask = torch.arange(C, device=dev)[None, :] < clens_d[:, None]
         logits = self.forward(tok_c, caches=caches, last_only=True, length_mask=lmask,
-                              seq_sharded=True,
+                              seq_sharded=True, layout=self._layout(ctokens, rows),
                               **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
                                                block_tables))
         ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)

@@ -10,6 +10,8 @@ same positions:
   (-1 = empty);
 * the recurrent state of the n RG-LRU layers (slot cache): ``h`` (n, b, w)
   and ``conv`` (n, b, W-1, w), slot b's in row b;
+* an MLA model caches latents, ``ckv``/``krope`` (L, b, 1, S, r), in place
+  of K/V, in every layout (pools (L, n_blocks, 1, bs, r));
 * paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
   addressed through a per-slot block table (b, nbps) that the scheduler
   keeps on the host; ``pos`` (b, nbps*bs) is per-slot over the slot's view,
@@ -40,7 +42,8 @@ import torch
 NULL_BLOCK = 0      # reserved write sink; never allocated, never valid
 
 # pool-shaped leaves of the paged layout: indexed by block id, not by slot
-POOL_KEYS = ("k", "v")
+# (K/V, or an MLA model's latents)
+POOL_KEYS = ("k", "v", "ckv", "krope")
 # an int8 cache's scales, shaped as k / v less hd (pools in the paged layout)
 SCALE_KEYS = ("k_scale", "v_scale")
 

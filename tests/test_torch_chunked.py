@@ -117,11 +117,12 @@ def _live_and_admitting(teng, kind):
 def _slot_bytes(caches, bt, slot):
     """Slot ``slot``'s K and V as (L, hkv, view, hd) -- through its blocks,
     if paged -- and its position row."""
+    keys = [k for k in POOL_KEYS if k in caches]
     if bt is None:
-        kv = [caches[k][:, slot].clone() for k in POOL_KEYS]
+        kv = [caches[k][:, slot].clone() for k in keys]
     else:
         blocks = torch.from_numpy(bt[slot][bt[slot] > 0]).long()
-        kv = [caches[k][:, blocks].transpose(1, 2).flatten(2, 3).clone() for k in POOL_KEYS]
+        kv = [caches[k][:, blocks].transpose(1, 2).flatten(2, 3).clone() for k in keys]
     return kv + [caches["pos"][slot].clone()]
 
 

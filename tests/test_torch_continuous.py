@@ -18,12 +18,18 @@ own prompt only (other rows and the bucket's padding never reach it), so
 the teacher-forced forward is the prompt followed by the JAX tokens.
 """
 import dataclasses
+from functools import partial
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
+from repro import compat
 from repro.configs import get_config as jget_config
+from repro.models import model as JM
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro_torch import bridge
 from repro_torch.configs import SamplingConfig, get_config
@@ -79,11 +85,32 @@ def top2_gap(teng, prompt, tokens) -> float:
     return float(top2[1] - top2[0])
 
 
-def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None):
+_JAX_FORWARD = {}
+
+
+def jax_top2_gap(jeng, prompt, tokens) -> float:
+    """Top-2 logit gap of the reference's own forward after ``prompt`` +
+    ``tokens`` (its prefill, teacher-forced)."""
+    if id(jeng) not in _JAX_FORWARD:
+        sm = partial(compat.shard_map, mesh=jeng.mesh, check_vma=False)
+        fwd = lambda p, t: JM.forward(p, t, jeng.ctx, seq_sharded=True)[0]
+        _JAX_FORWARD[id(jeng)] = jax.jit(sm(fwd, in_specs=(JM.param_specs(jeng.ctx),
+                                                           P("data", None)),
+                                            out_specs=P("data", None, None)))
+    seq = np.concatenate([prompt, np.asarray(tokens, np.int32)]).astype(np.int32)[None]
+    logits = _JAX_FORWARD[id(jeng)](jeng.params, jnp.asarray(seq))
+    top2 = np.sort(np.asarray(logits)[0, -1])[-2:]
+    return float(top2[1] - top2[0])
+
+
+def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None, jeng=None):
     """Per request: identical greedy tokens, or a first difference at a
     certified near-tie.  ``ref_other`` holds the JAX package's streams from
     its other KV backend: where the reference's own two backends disagree on
-    a request, the port may equal either."""
+    a request, the port may equal either.  With the reference engine
+    ``jeng``, a near-tie in its own teacher-forced logits certifies a
+    parting too (where the reference's decode and prefill paths
+    themselves pick apart)."""
     assert sorted(port) == sorted(ref) == list(range(len(reqs)))
     flips = 0
     for rid, (prompt, *_) in enumerate(reqs):
@@ -97,6 +124,8 @@ def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None):
         n = min(len(a), len(b))
         t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
         gap = top2_gap(teng, prompt, b[:t])
+        if gap >= TIE_GAP and jeng is not None:
+            gap = jax_top2_gap(jeng, prompt, b[:t])
         assert gap < TIE_GAP, f"request {rid} differs at step {t} with top-2 gap {gap}"
         flips += 1
     assert flips <= max_flips          # flips are rare ties, not systematic drift

@@ -1062,3 +1062,72 @@ def test_fused_dual_matmul_kernel_at_gptj_tp2_shard(dev, s):
                                      wo.reshape(2048, 4096), h, wd)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_fdm_tol(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# deepseek-moe-16b's shapes: the router's top-k and the g-1 attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [4, 256, 500])
+def test_topk_kernel_at_the_router_shape(dev, T):
+    """deepseek-moe-16b's routing: softmax rows of 64 experts in fp32, top
+    6, one launch; rows with planted ties (equal router columns give equal
+    probabilities) rank the lower expert first, as lax.top_k does."""
+    gen = torch.Generator(device=dev).manual_seed(T)
+    logits = _randn(gen, (T, 64), torch.float32, dev)
+    logits[:, 7] = logits[:, 3]                # ties at every rank they reach
+    logits[::2, 40:48] = logits[::2, 40:41] + 2.0
+    probs = torch.softmax(logits, dim=-1)
+    before = ops.LAUNCHES["topk"]
+    vals, idx = ops.topk(probs, 6)
+    assert ops.LAUNCHES["topk"] == before + 1
+    rv, ri = ref.topk_ref(probs.cpu(), 6)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri)
+    assert torch.equal(idx[0].cpu(), torch.arange(40, 46, dtype=torch.int32))
+
+
+# deepseek-moe-16b's attention: 16 MHA heads of head_dim 128 (g 1), b 4
+DS_H, DS_HD = 16, 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "paged_decode", "paged_prefill"])
+def test_attention_kernels_at_deepseek_heads(dev, kernel, dtype):
+    """decode_attention over 300 of 512 entries per row, flash_prefill of
+    125-token rows (a wave of deepseek's chip phase), and the paged pair
+    over 16-token blocks, each against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(len(kernel))
+    b, scale = 4, DS_HD ** -0.5
+    if kernel.startswith("paged"):
+        sq = 1 if kernel == "paged_decode" else 64
+        q, kp, vp, bt = _paged(gen, dev, dtype, b, DS_H, DS_H, DS_HD, 80, 16, 16, sq)
+        if kernel == "paged_decode":
+            valid = torch.arange(256, device=dev)[None, :] < torch.tensor(
+                [[200], [256], [17], [1]], device=dev)
+            got = ops.paged_decode_attention_partial(q, kp, vp, bt, valid, scale)
+            want = ref.paged_decode_attention_ref(q, kp, vp, bt, valid, scale)
+        else:
+            q_pos = (torch.tensor([[0], [64], [100], [192]], device=dev)
+                     + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
+            got = ops.paged_flash_prefill(q, kp, vp, bt, q_pos, scale)
+            want = ref.paged_flash_prefill_ref(q, kp, vp, bt, q_pos, scale)
+    elif kernel == "decode":
+        q = _randn(gen, (b, DS_H, 1, DS_HD), dtype, dev)
+        k, v = (_randn(gen, (b, DS_H, 512, DS_HD), dtype, dev) for _ in range(2))
+        valid = torch.arange(512, device=dev) < 300
+        got = ops.decode_attention_partial(q, k, v, valid, scale)
+        want = ref.decode_attention_ref(q, k, v, valid, scale)
+    else:
+        q, k, v = (_randn(gen, (b, DS_H, 125, DS_HD), dtype, dev) for _ in range(3))
+        q_pos = torch.arange(125, device=dev, dtype=torch.int32).repeat(b, 1)
+        q_pos[1, 100:] = -1                    # a right-padded row
+        got = ops.flash_prefill(q, k, v, q_pos, scale)
+        want = ref.flash_prefill_ref(q, k, v, q_pos, scale)
+    torch.cuda.synchronize()
+    if kernel.endswith("decode"):
+        for g, w in zip(got, want):          # (m, l, acc) in fp32
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))

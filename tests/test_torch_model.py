@@ -152,11 +152,12 @@ def test_unsupported_features_raise_naming_them():
     with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*dp>1"):
         TM.check_supported(cfg, ParallelConfig(tp=2, dp=2))
     # the int8 KV cache is served; what the port does not serve yet is still
-    # named and refused under it
+    # named and refused under it: MoE and MLA are served at tp=1 only
     kvq = ParallelConfig(kv_quant=True, weight_quant="int4")
-    for over, name in ((dict(moe=object()), "moe"), (dict(mla=object()), "mla")):
+    for arch, name in (("deepseek-moe-16b", "moe at tp>1"), ("minicpm3-4b", "mla at tp>1")):
+        TM.check_supported(get_config(arch), kvq)
         with pytest.raises(NotImplementedError, match=name):
-            Engine(dataclasses.replace(get_config("yi-9b").reduced(), **over), parallel=kvq,
+            Engine(get_config(arch).reduced(), parallel=dataclasses.replace(kvq, tp=2),
                    device="cpu")
     # tensor parallelism is served for the dense family, int8 KV and int4
     # weights included; at tp>1 the RG-LRU hybrid is still refused by name

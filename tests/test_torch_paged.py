@@ -101,12 +101,12 @@ def test_shared_blocks_are_never_written(engines):
     while sched.slots[0].req is None:
         sched._serve_round()
     shared = sched.slot_blocks[0][:2]
-    before = {k: sched.caches[k][:, shared].clone() for k in POOL_KEYS}
+    before = {k: sched.caches[k][:, shared].clone() for k in POOL_KEYS if k in sched.caches}
     while not any(r.rid == 1 for r in sched.done):
         sched._serve_round()
     assert sched.stats["shared_block_hits"] == 2
     assert sched.alloc.refcount(shared[0]) == 1               # the second request released it
-    for k in POOL_KEYS:
+    for k in before:
         assert torch.equal(sched.caches[k][:, shared], before[k]), k
     sched.run()
     sched.alloc.audit()

@@ -253,8 +253,9 @@ def test_verify_rewinds_active_rows_and_leaves_frozen_rows(engines, kind):
     _, teng = engines
     plens = np.array([12, 16], np.int32)
     caches, bt, first, _ = _admit(teng, kind, plens, seed=1)
-    frozen = ([caches[k][:, 1].clone() for k in POOL_KEYS] if bt is None
-              else [caches[k][:, torch.from_numpy(bt[1]).long()].clone() for k in POOL_KEYS])
+    keys = [k for k in POOL_KEYS if k in caches]
+    frozen = ([caches[k][:, 1].clone() for k in keys] if bt is None
+              else [caches[k][:, torch.from_numpy(bt[1]).long()].clone() for k in keys])
     frozen.append(caches["pos"][1].clone())
     vt = np.full((2, K + 1), teng.cfg.vocab_size - 1, np.int32)
     vt[:, 0] = first
@@ -265,8 +266,8 @@ def test_verify_rewinds_active_rows_and_leaves_frozen_rows(engines, kind):
     assert 1 <= ne[0] <= K + 1 and pos[0] == plens[0] + ne[0] and rem[0] == 20 - ne[0]
     idx = np.arange(caches["pos"].shape[1])
     np.testing.assert_array_equal(caches["pos"][0].numpy(), np.where(idx < pos[0], idx, -1))
-    after = ([caches[k][:, 1] for k in POOL_KEYS] if bt is None
-             else [caches[k][:, torch.from_numpy(bt[1]).long()] for k in POOL_KEYS])
+    after = ([caches[k][:, 1] for k in keys] if bt is None
+             else [caches[k][:, torch.from_numpy(bt[1]).long()] for k in keys])
     after.append(caches["pos"][1])
     assert all(torch.equal(a, b) for a, b in zip(after, frozen))
 
