@@ -139,9 +139,9 @@ Phases, each fatal on failure:
    5e-2, and the paged pool's greedy streams in chunks of 16 with spec
    decode equal or parted at a CPU top-2 gap below 1e-2; one MoE forward
    of 320 tokens on both with the same top experts and the same dropped
-   assignments.  Then full width from seed 0: minicpm3-4b bf16 (62
+   assignments.  Then full width from seed 0: minicpm3-4b bf16 (16 of 62
    layers; its latent attention is plain PyTorch, no attention kernel
-   runs) and deepseek-moe-16b bf16 (28 layers) each through phase 5's
+   runs) and deepseek-moe-16b bf16 (12 of 28 layers) each through phase 5's
    wave workload and phase 6's paged chunked-spec phase, and deepseek in
    int4 through the wave, whose 4 x <= 125-token prefills route more than
    256 tokens and drop assignments past capacity: tokens in range, a
@@ -151,11 +151,37 @@ Phases, each fatal on failure:
    and decode_attention at 16 MHA heads of 128 (g 1), the routing top-k
    over (T, 64) fp32 rows, k 6.
 
+11. experts over a sliding-window ring, and Mamba-2 SSD (run before 9):
+   reduced mixtral-8x7b (window 64) in bf16, int4 and over the int8 KV
+   cache on the card against the CPU: a 72-token prompt into its 64-entry
+   wave ring and 8 decode steps, the CPU replaying the card's expert
+   choices, within 5e-2; the continuous scheduler in chunks of 16 with
+   spec decode of 4 drafts, its chunks and verify steps landing on a
+   68-entry ring that has wrapped: greedy streams equal, or parted where
+   the card's token lies within 5e-2 of the CPU's top, the CPU's top-2 gap
+   is below 1e-2 or a router near-tie was replayed.  Reduced mamba2-1.3b:
+   logits and its recurrent state (h, conv) through a prefill and 8
+   decode steps, and the wave, continuous and paged streams.  Then full
+   width from seed 0: mixtral-8x7b int4 (32 layers) through phase 5's
+   wave workload, then 4 prompts of 4040-4090 tokens into 4 slots in
+   chunks of 256 with spec decode of 4 drafts, every slot decoding past
+   its 4100-entry ring (the wrap asserted from its position rows), in
+   bf16 K/V and over the int8 cache, once each; mamba2-1.3b bf16 (48 layers)
+   through the wave and the continuous and paged slot phases (the pool
+   reserves no block).  Launches as predicted (a chunk or a verify step
+   into the ring attends in plain PyTorch, as the reference's jnp), peak
+   memory, ms/token and the MoE drops.  Kernel rows at mixtral's shapes:
+   flash_prefill at g 4 with the window, decode_attention and its int8
+   instance over the wrapped ring, the routing top-k over (T, 8), k 2,
+   dequant_matmul at its int4 w_q and lm_head; and the top-k over mamba2's
+   vocab.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 8 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
-12 of 48), so that the whole run stays near its ~600 s aim with phase 10
+12 of 48, phase 10's minicpm3-4b 16 of 62 and deepseek-moe-16b 12 of 28),
+so that the whole run stays near its ~800 s aim with phases 10 and 11
 added.  The slot phases hold at most MAX_PARTED partings, and shallower
 random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
 12), so they keep their earlier depths.  qwen-72b's
@@ -231,13 +257,15 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
                 max_len=2304)
 # The depth of earlier slices' phases that the tp phases do not hold to and
 # whose checks read the same at any depth, cut so that the whole run stays
-# near the ~600 s aim (PERF.md section 4): recurrentgemma-9b's four phases,
+# near its ~800 s aim (PERF.md section 4): recurrentgemma-9b's four phases,
 # gptj-parallel's and yi-9b's int8-KV slot phases, yi-9b's int8-weight and
-# int8-KV waves (phase name -> layers).  The tp phases, the tp=1 phases
-# they are held to, and qwen-72b's int8-KV wave (its peak memory shows
-# that 4 x 4096 tokens fit one card) run at full depth.
+# int8-KV waves, and phase 10's minicpm3-4b and deepseek-moe-16b phases
+# (phase name -> layers).  The tp phases, the tp=1 phases they are held
+# to, qwen-72b's int8-KV wave (its peak memory shows that 4 x 4096 tokens
+# fit one card) and phase 11 run at full depth.
 EARLIER_DEPTH = {"recurrentgemma-9b": 8, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
-                 "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12}
+                 "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 16,
+                 "deepseek-moe-16b": 12}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -473,6 +501,7 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_parallel_kernels(dev, flush))
     out.extend(check_int8_kernels(dev, flush))
     out.extend(check_moe_kernels(dev, flush))
+    out.extend(check_ring_ssd_kernels(dev, flush))
     return out
 
 
@@ -1154,8 +1183,8 @@ def check_int8_kernels(dev, flush) -> list:
     return out
 
 
-def check_dequant(dev, flush) -> dict:
-    """dequant_matmul at the cases of DQ_CASES.  Tolerance: 1e-4 of the
+def check_dequant(dev, flush, cases=DQ_CASES, name: str = "dequant_matmul") -> dict:
+    """dequant_matmul at ``cases`` (DQ_CASES'), the row ``name``.  Tolerance: 1e-4 of the
     largest |output| for sums over K <= 24576 in another order (every
     product is exact in fp32), plus, for a bf16 output, one bf16 ulp (the
     spacing of bf16 values) at the plain version's fp32 value."""
@@ -1163,8 +1192,8 @@ def check_dequant(dev, flush) -> dict:
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = []
-    for what, mode, T, K, N, out_dtype in DQ_CASES:
+    rows = []
+    for what, mode, T, K, N, out_dtype in cases:
         w_dense = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).bfloat16()
         w = wquant.quantize(w_dense, mode, 128)
         x = torch.randn((T, K), generator=gen, device=dev).bfloat16()
@@ -1183,7 +1212,7 @@ def check_dequant(dev, flush) -> dict:
         w_dense = wquant.dequantize(w)    # the bf16 weight the quantized one replaces
         n_bytes = (2 * x.numel() + w.q.numel() + 2 * w.scale.numel()
                    + got.element_size() * got.numel())
-        cases.append({
+        rows.append({
             "case": what, "shape": f"x ({T},{K}) bf16 @ {mode} ({K},{N}) g{w.group} -> {out_dtype}",
             "max_abs_err": err, "tolerance": tol,
             "ptxas": ptxas_row("dequant_matmul", _gemm(mode, T)),
@@ -1195,15 +1224,15 @@ def check_dequant(dev, flush) -> dict:
             **bound(n_bytes, 2 * T * K * N, BF16_FLOPS),
         })
         del w_dense, w, x, got, want
-    head = cases[0]
-    return {"name": "dequant_matmul", "route": "cuda",
+    head = rows[0]
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
             "replaces": "src/repro/kernels/wquant_matmul.py:84",
             "counter": "dequant_matmul",
             "library": "torch.matmul on the dense bf16 weight (cuBLAS; not a dequant)",
             **{k: head[k] for k in ("shape", "max_abs_err", "tolerance", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by")},
-            "cases": cases}
+            "cases": rows}
 
 
 def to_device(params: dict, dev) -> dict:
@@ -1256,6 +1285,12 @@ def teacher_forced_worst(cfg, cpu, gpu, dev, kv_quant: bool = False) -> float:
     """The largest |card - CPU| over the logits of a 3 x 20-token prefill
     and 8 decode steps fed the CPU's greedy tokens; fails on non-finite
     card logits."""
+    return teacher_forced(cfg, cpu, gpu, dev, kv_quant)[0]
+
+
+def teacher_forced(cfg, cpu, gpu, dev, kv_quant: bool = False):
+    """``teacher_forced_worst`` -> (the largest |card - CPU|, the caches
+    after the steps, by device)."""
     from repro_torch.models import model as M
 
     b, plen, max_len = 3, 20, 128
@@ -1276,7 +1311,7 @@ def teacher_forced_worst(cfg, cpu, gpu, dev, kv_quant: bool = False) -> float:
             tok = lc[:, -1].argmax(-1)
     if not torch.isfinite(lg).all():
         fail(f"{cfg.name}: non-finite card logits")
-    return worst
+    return worst, caches
 
 
 @contextlib.contextmanager
@@ -1904,8 +1939,9 @@ def dequant_launches_per_forward(cfg, parallel) -> int:
 
 def kernel_attention_layers(cfg) -> int:
     """Layers whose attention runs the attention kernels: every attention
-    layer but MLA's, whose latent attention is plain PyTorch."""
-    return 0 if cfg.mla is not None else sum(cfg.block_kind(i) != "rglru"
+    layer but MLA's, whose latent attention is plain PyTorch (none in an
+    RG-LRU or SSD layer)."""
+    return 0 if cfg.mla is not None else sum(cfg.block_kind(i) in ("attn", "local_attn")
                                              for i in range(cfg.n_layers))
 
 
@@ -2012,6 +2048,7 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     del eng, logits
     torch.cuda.empty_cache()
     # one wave's cache, from shapes: as run, and what a bf16 one would take
+    # (an SSD model's is its recurrent state)
     entries = L * 2 * opts["batch"] * cfg.n_kv_heads * opts["max_len"]
     hd = cfg.resolved_head_dim
     cache_gib = {"as_run": entries * (hd + 2 if kv_quant else 2 * hd) / 2**30,
@@ -2020,6 +2057,11 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
         lat = L * opts["batch"] * opts["max_len"] * 2 * (cfg.mla.kv_lora_rank
                                                         + cfg.mla.qk_rope_head_dim) / 2**30
         cache_gib = {"as_run": lat, "bf16": lat}
+    if cfg.ssm is not None:
+        from repro_torch.runtime.kvcache import cache_bytes
+        state = cache_bytes(M.init_caches(cfg, opts["batch"], opts["max_len"],
+                                          device="meta")) / 2**30
+        cache_gib = {"as_run": state, "bf16": state}
     if long and not peak < torch.cuda.get_device_properties(0).total_memory / 2**30:
         fail(f"{arch}: peak memory {peak} GiB is not below the card's")
     return {
@@ -2045,7 +2087,8 @@ SLOT_PHASES = (("continuous", "dense", dict(prefill_chunk=0)),
 
 
 def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = False,
-                           kv_quant: bool = False, moe: int = 0) -> dict:
+                           kv_quant: bool = False, moe: int = 0, ring: bool = False,
+                           dequant: int = 0) -> dict:
     """Kernel launches of one slot phase from its scheduler's stats.  Per
     whole-prompt admission (``prefill_calls`` not made of chunks): L of
     flash_prefill, or of paged_flash_prefill where a prefix was cached.
@@ -2063,7 +2106,10 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     cached-prefix admissions and verify steps L of flash_prefill over the
     dequantized views in place of paged_flash_prefill.  ``L`` counts the
     layers whose attention runs the kernels (0 for MLA); ``moe``: the MoE
-    layers, each one routing top-k launch a forward."""
+    layers, each one routing top-k launch a forward.  ``ring`` (a dense
+    slot ring): a chunk or a verify step attends in plain PyTorch, so only
+    whole-prompt admissions launch flash_prefill.  ``dequant``: the
+    dequant_matmul launches of one forward."""
     from repro_torch.kernels import ops
 
     mixed = st["prefill_calls"] if st["prefill_chunks"] else 0
@@ -2074,6 +2120,7 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
     expect = {name: 0 for name in ops.KERNELS}
     forwards = st["prefill_calls"] + decodes + spec
     expect["topk"] = forwards * (1 + moe)
+    expect["dequant_matmul"] = dequant * forwards
     expect["fused_dual_matmul"] = L * forwards if parallel else 0
     q8 = "_int8" if kv_quant else ""
     expect["kv_quant_write"] = L * forwards if kv_quant else 0
@@ -2084,6 +2131,9 @@ def expected_slot_launches(backend: str, st: dict, L: int, parallel: bool = Fals
         expect["flash_prefill"] = L * (whole - prefix)
         expect["paged_flash_prefill"] = L * (prefix + mixed + spec)
         expect["paged_decode_attention"] = L * decodes
+    elif ring:
+        expect["flash_prefill"] = L * whole
+        expect["decode_attention" + q8] = L * decodes
     else:
         expect["flash_prefill"] = L * st["prefill_calls"]
         expect["flash_verify"] = 2 * L * spec
@@ -2344,17 +2394,19 @@ def card_routes():
         moe.LOG = moe.ROUTE_REPLAY = None
 
 
-def routed_teacher_forced(cfg, cpu, gpu, dev):
+def routed_teacher_forced(cfg, cpu, gpu, dev, plen: int = 20, kv_quant: bool = False):
     """``teacher_forced_worst`` for an MoE model: each forward runs on the
     card first and then on the CPU replaying the card's expert choices
     (``card_routes``), so that a router near-tie, where the two devices
     rank experts apart, does not stand for a fault -> (the largest |card -
-    CPU|, the near-ties replayed)."""
+    CPU|, the near-ties replayed).  ``plen``: the prompt (past a window's
+    ring of 64 it wraps); ``kv_quant``: over the int8 cache."""
     from repro_torch.models import model as M
 
-    b, plen, max_len = 3, 20, 128
+    b, max_len = 3, 128
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, plen)))
-    caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
+    caches = {d: M.init_caches(cfg, b, max_len, device=d, kv_quant=kv_quant)
+              for d in ("cpu", dev)}
     worst, ties = 0.0, []
     with torch.inference_mode():
         tok, cur = tokens, None
@@ -2372,9 +2424,30 @@ def routed_teacher_forced(cfg, cpu, gpu, dev):
     return worst, ties
 
 
-def small_latent_moe(dev, arch: str, weight_quant: str = "none"):
-    """Reduced minicpm3-4b or deepseek-moe-16b, random weights from seed 1
-    with nonzero norm gammas -> (cfg, CPU params, the same on ``dev``)."""
+def parted_streams(cpu_done: dict, gpu_done: dict, certify) -> list:
+    """Per request: the card's stream equals the CPU's, or parts where
+    ``certify(prompt + the CPU's tokens before, the card's token)`` allows
+    it -> the partings."""
+    parted = []
+    for rid, r in cpu_done.items():
+        a, b = r.output, gpu_done[rid].output
+        if np.array_equal(a, b):
+            continue
+        n = min(len(a), len(b))
+        t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+        if t == n:
+            fail(f"request {rid}: the card's stream and the CPU's differ in length")
+        parted.append({"rid": rid, "step": t,
+                       **certify(np.concatenate([r.prompt, a[:t]]).astype(np.int32),
+                                 int(b[t]))})
+    return parted
+
+
+def small_model(dev, arch: str, weight_quant: str = "none"):
+    """Reduced ``arch`` (minicpm3-4b, deepseek-moe-16b, mixtral-8x7b,
+    mamba2-1.3b), random weights from seed 1, norm gammas (and an SSD
+    mixer's dt_bias, A_log and D) drawn nonzero -> (cfg, CPU params, the
+    same on ``dev``)."""
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import model as M
 
@@ -2382,9 +2455,11 @@ def small_latent_moe(dev, arch: str, weight_quant: str = "none"):
     cpu = M.init_params(cfg, ParallelConfig(weight_quant=weight_quant), seed=1, device="cpu")
     gen = torch.Generator().manual_seed(2)
     for layer in cpu["layers"]:
-        for name in ("norm1", "norm2", "q_norm", "kv_norm"):
-            if name in layer:
-                layer[name].copy_(0.2 * torch.randn(layer[name].shape, generator=gen))
+        for leaves in (layer, layer.get("mixer", {})):
+            for name, sd in (("norm1", 0.2), ("norm2", 0.2), ("q_norm", 0.2), ("kv_norm", 0.2),
+                             ("norm", 0.2), ("dt_bias", 0.5), ("A_log", 0.5), ("D", 1.0)):
+                if name in leaves:
+                    leaves[name].copy_(sd * torch.randn(leaves[name].shape, generator=gen))
     return cfg, cpu, to_device(cpu, dev)
 
 
@@ -2407,7 +2482,7 @@ def latent_moe_reference_check(dev) -> list:
 
     out = []
     for arch, mode in ((MLA_ARCH, "none"), (MOE_ARCH, "none"), (MOE_ARCH, "int4")):
-        cfg, cpu, gpu = small_latent_moe(dev, arch, mode)
+        cfg, cpu, gpu = small_model(dev, arch, mode)
         ties = []
         if cfg.moe is not None:
             worst, ties = routed_teacher_forced(cfg, cpu, gpu, dev)
@@ -2427,32 +2502,29 @@ def latent_moe_reference_check(dev) -> list:
             streams[str(d)] = {r.rid: r for r in sched.run()}
             if not sched.stats["spec_steps"] or not sched.stats["prefill_tokens_saved"]:
                 fail(f"small {arch}: no verify step or no prefix reuse: {sched.stats}")
-        parted = []
-        for rid, r in streams["cpu"].items():
-            a, b = r.output, streams[str(dev)][rid].output
-            if np.array_equal(a, b):
-                continue
-            n = min(len(a), len(b))
-            t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+        def certify(seq, tok):
+            """A parting after ``seq``: the CPU's top-2 gap there below
+            TIE_GAP, or a router near-tie on the way (the sequence on the
+            card, and on the CPU with the card's expert choices, within
+            REF_TOL)."""
+            t = torch.from_numpy(seq)[None].long()
             with torch.inference_mode():
-                lc = M.forward(cpu, torch.from_numpy(np.concatenate([r.prompt, a[:t]]))[None]
-                               .long(), cfg, last_only=True)[0, -1]
+                lc = M.forward(cpu, t, cfg, last_only=True)[0, -1]
             gap = float((lambda v: v[0] - v[1])(torch.topk(lc, 2).values))
-            flip = {"rid": rid, "step": t, "top2_gap": gap}
+            flip = {"top2_gap": gap}
             if not gap < TIE_GAP and cfg.moe is not None:
-                # a router near-tie on the way: the sequence on the card, and
-                # on the CPU with the card's expert choices
-                seq = torch.from_numpy(np.concatenate([r.prompt, a[:t]]))[None].long()
                 with torch.inference_mode(), card_routes() as replay:
-                    lg = M.forward(gpu, seq.to(dev), cfg, last_only=True).cpu()
-                    lr, rt = replay(lambda: M.forward(cpu, seq, cfg, last_only=True))
+                    lg = M.forward(gpu, t.to(dev), cfg, last_only=True).cpu()
+                    lr, rt = replay(lambda: M.forward(cpu, t, cfg, last_only=True))
                 err = (lr - lg).abs().max().item()
                 if rt and err <= REF_TOL:
                     flip.update(router_ties=len(rt), replayed_max_abs_err=err)
                     gap = 0.0
             if not gap < TIE_GAP:
-                fail(f"small {arch} request {rid}: card and CPU part at step {t}, gap {gap}")
-            parted.append(flip)
+                fail(f"small {arch}: card and CPU part after {len(seq)} tokens, gap {gap}")
+            return flip
+
+        parted = parted_streams(streams["cpu"], streams[str(dev)], certify)
         row = {"config": cfg.name, "weight_quant": mode, "max_abs_logit_err": worst,
                "tolerance": REF_TOL, "router_ties_replayed": len(ties),
                "router_tie_margins": sorted(m for *_, m in ties)[-3:],
@@ -2500,14 +2572,14 @@ def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
     prefix reuse, and the allocator's audit; deepseek's drops reported."""
     import argparse
 
-    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import PagedContinuousScheduler
 
     name, _, opts = SLOT_PHASES[3]
-    cfg = get_config(arch)
+    cfg = phase_config(arch)
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2569,7 +2641,8 @@ def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
 
 
 def latent_moe_phases(dev) -> list:
-    """minicpm3-4b and deepseek-moe-16b at full width (62 and 28 layers),
+    """minicpm3-4b and deepseek-moe-16b at full width, at EARLIER_DEPTH's
+    cut depth (16 of 62 and 12 of 28 layers),
     random weights from seed 0: each's bf16 wave (phase 5's workload) and
     paged chunked-spec phase on the same weights, then deepseek's int4
     wave, whose 4 x <= 125-token prefills route more than 256 tokens."""
@@ -2666,6 +2739,507 @@ def check_moe_kernels(dev, flush) -> list:
     for row in rows:
         row["arches"] = [MOE_ARCH]
     return rows
+
+
+# -- mixture of experts over a sliding-window ring, and Mamba-2 SSD ------------
+#
+# mixtral-8x7b (32 local_attn layers, 32 q over 8 KV heads of 128, window
+# 4096; 8 experts of 14336, top 2; int4 here, its bf16 weights, 93 GB, do not
+# fit the card): the attention kernels at g 4, flash_prefill with the window
+# and decode over a ring, the routing top-k over (T, 8), dequant_matmul for
+# its int4 attention projections and lm_head; a chunk or a verify step into
+# its slot ring attends in plain PyTorch (the reference's jnp).  mamba2-1.3b
+# (48 SSD layers, tied embeddings, vocab 50280): its SSD is plain PyTorch
+# (the reference's jnp), so only the sampling top-k launches a kernel.
+
+RING_ARCH, SSD_ARCH = "mixtral-8x7b", "mamba2-1.3b"
+RING_WINDOW, RING_HQ, RING_HKV, RING_VOCAB, SSD_VOCAB = 4096, 32, 8, 32000, 50280
+# the ring phase: 4 prompts of 4040-4090 tokens into 4 slots, arriving 8
+# steps apart, in chunks of 256 with spec decode of SPEC_K drafts, budgets
+# of 64-128: every slot decodes past its 4100-entry ring (window + spec_k),
+# so that verify chunks read and write a wrapped ring; while a later prompt
+# streams in, the earlier slots decode in the mixed steps' decode halves,
+# and two prompts' chunks together route 512 tokens beside the rows not
+# admitted (``moe.RowLayout`` over the ring)
+RING_PHASE = dict(requests=4, slots=4, prompt=(4040, 4090), max_new=(64, 128), chunk=256,
+                  max_len=4224, arrival_every=8)
+# the decode rows' ring: each row's query at its own position past the wrap
+RING_S, RING_CUR = RING_WINDOW + SPEC_K, (4200, 4350, 5000, 8191)
+DQ_RING_CASES = (("mixtral-8x7b w_q int4, decode", "int4", B, 4096, 4096, torch.bfloat16),
+                 ("mixtral-8x7b lm_head int4, decode", "int4", B, 4096, RING_VOCAB,
+                  torch.float32))
+
+
+def check_ring_ssd_kernels(dev, flush) -> list:
+    """mixtral-8x7b's and mamba2-1.3b's kernel rows: flash_prefill at
+    (4, 32 over 8, 125, 128) with the 4096 window; decode_attention at
+    (4, 32, 1, 128) over a wrapped 4100-entry ring, each row's 4096 live
+    entries by its position stripe, and its int8 instance there; the
+    routing top-k over (T, 8) fp32 softmax rows, k 2, T 4 and 500;
+    dequant_matmul at mixtral's int4 w_q and lm_head at T 4; the sampling
+    top-k over mamba2's vocab (4, 50280), k 1.  Each against its plain
+    version (tolerances as the rows of the other shapes), with its time,
+    SDPA's, torch.topk's or torch.matmul's, and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime.kvcache import position_rows
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    sq, scale = 125, HD ** -0.5
+    rows = []
+    q = rnd(B, RING_HQ, sq, HD).bfloat16()
+    k, v = (rnd(B, RING_HKV, sq, HD).bfloat16() for _ in range(2))
+    q_pos = torch.arange(sq, device=dev, dtype=torch.int32).expand(B, -1).contiguous()
+    call = lambda: ops.flash_prefill(q, k, v, q_pos, scale, window=RING_WINDOW)
+    err = (call().float() - ref.flash_prefill_ref(q, k, v, q_pos, scale, window=RING_WINDOW)
+           .float()).abs().max().item()
+    if not err <= 3e-2:
+        fail(f"flash_prefill at {RING_ARCH}'s heads differs from its plain version by {err}")
+    pairs = B * RING_HQ * sq * (sq + 1) // 2
+    rows.append({
+        "name": f"flash_prefill ({RING_ARCH}, g 4, window {RING_WINDOW})", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:114", "counter": "flash_prefill",
+        "shape": f"q ({B},{RING_HQ},{sq},{HD}) k/v ({B},{RING_HKV},{sq},{HD}) bf16, window "
+                 f"{RING_WINDOW}", "max_abs_err": err, "tolerance": 3e-2,
+        "ms": cold_ms(call, flush),
+        "plain_ms": cold_ms(lambda: ref.flash_prefill_ref(q, k, v, q_pos, scale,
+                                                          window=RING_WINDOW), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), flush),
+        **bound(2 * (2 * q.numel() + 2 * k.numel()) + 4 * q_pos.numel(), 4 * HD * pairs,
+                BF16_FLOPS)})
+    cur = torch.tensor(RING_CUR, device=dev)
+    pos = position_rows(cur + 1, RING_S, ring=True)          # the query's token written
+    valid = (pos >= 0) & (pos <= cur[:, None]) & (pos > cur[:, None] - RING_WINDOW)
+    n_valid = int(valid.sum())
+    q = rnd(B, RING_HQ, 1, HD).bfloat16()
+    k, v = (rnd(B, RING_HKV, RING_S, HD).bfloat16() for _ in range(2))
+    m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+    m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+    err = (acc / l[..., None] - acc2 / l2[..., None]).abs().max().item()
+    if not err <= 1e-3:
+        fail(f"decode_attention over {RING_ARCH}'s ring differs from its plain version by {err}")
+    ring = f"({B},{RING_HKV},{RING_S},{HD}), wrapped, {n_valid // B} live a row"
+    rows.append({
+        "name": f"decode_attention_partial ({RING_ARCH} ring)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:66", "counter": "decode_attention",
+        "shape": f"q ({B},{RING_HQ},1,{HD}) bf16, k/v {ring}",
+        "ptxas": ptxas_row("decode_attention", _dec(HD, False)),
+        "max_abs_err": err, "tolerance": 1e-3,
+        "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[:, None, None, :], scale=scale, enable_gqa=True), flush),
+        **bound(2 * q.numel() + 4 * RING_HKV * n_valid * HD + valid.numel()
+                + 4 * (m.numel() + l.numel() + acc.numel()), 4 * HD * RING_HQ * n_valid,
+                BF16_FLOPS)})
+    (kq, ks), (vq, vs) = ref.quantize_kv(k), ref.quantize_kv(v)
+    rows.append({"name": f"decode_attention_partial (int8), {RING_ARCH} ring", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention.py:66",
+                 "counter": "decode_attention_int8",
+                 "shape": f"q ({B},{RING_HQ},1,{HD}) bf16, int8 k/v {ring}, bf16 scales",
+                 "ptxas": ptxas_row("decode_attention", _dec(HD, False, q8=True)),
+                 **int8_decode_case(q, kq, ks, vq, vs, valid, scale, flush)})
+    entry = None
+    for T in ROUTER_T:
+        probs = torch.softmax(rnd(T, 8), dim=-1)
+        probs[:, 5] = probs[:, 2]                     # planted ties
+        before = ops.LAUNCHES["topk"]
+        vals, idx = ops.topk(probs, 2)
+        if ops.LAUNCHES["topk"] != before + 1:
+            fail("topk at mixtral's router shape made more than one launch")
+        rv, ri = ref.topk_ref(probs, 2)
+        if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+            fail(f"topk at mixtral's router shape ({T}, 8) k 2 differs from its plain version")
+        timed = {"shape": f"x ({T},8) fp32 softmax rows, k=2, tied columns",
+                 "max_abs_err": 0.0, "tolerance": 0.0,
+                 "ms": cold_ms(lambda: ops.topk(probs, 2), flush),
+                 "plain_ms": cold_ms(lambda: ref.topk_ref(probs, 2), flush),
+                 "library_ms": cold_ms(lambda: torch.topk(probs, 2), flush),
+                 **bound(4 * probs.numel() + 8 * T * 2, probs.numel(), FP32_FLOPS)}
+        if entry is None:
+            entry = {"name": f"topk (router, {RING_ARCH})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/topk.cu",
+                     "replaces": "src/repro/kernels/topk_shard.py:66", "counter": "topk",
+                     **timed}
+        else:
+            entry[f"T{T}"] = timed
+    rows.append(entry)
+    rows.append(check_dequant(dev, flush, DQ_RING_CASES, f"dequant_matmul ({RING_ARCH} int4)"))
+    for row in rows:
+        row["arches"] = [RING_ARCH]
+    x = rnd(B, SSD_VOCAB).float()
+    vals, idx = ops.topk(x, 1)
+    rv, ri = ref.topk_ref(x, 1)
+    if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+        fail(f"topk over {SSD_ARCH}'s vocab differs from its plain version")
+    rows.append({"name": f"topk ({SSD_ARCH} vocab)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/topk.cu",
+                 "replaces": "src/repro/kernels/topk_shard.py:66", "counter": "topk",
+                 "shape": f"x ({B},{SSD_VOCAB}) fp32, k=1", "max_abs_err": 0.0,
+                 "tolerance": 0.0, "ms": cold_ms(lambda: ops.topk(x, 1), flush),
+                 "plain_ms": cold_ms(lambda: ref.topk_ref(x, 1), flush),
+                 "library_ms": cold_ms(lambda: torch.topk(x, 1), flush),
+                 **bound(4 * x.numel() + 8 * B, x.numel(), FP32_FLOPS), "arches": [SSD_ARCH]})
+    return rows
+
+
+def moe_parting(cfg, cpu, gpu, dev, seq: np.ndarray, token: int, kv_quant: bool) -> dict:
+    """A parting of the card's stream (its ``token``) from the CPU's after
+    ``seq``: the prefill logits of ``seq`` (through an int8 cache with
+    ``kv_quant``) on the card, then on the CPU replaying the card's expert
+    choices; certified where they lie within REF_TOL and either the CPU's
+    top-2 gap is below TIE_GAP, the card's token lies within REF_TOL of the
+    CPU's top, or the card routed some token apart (a router near-tie,
+    ``card_routes``); fails otherwise."""
+    from repro_torch.models import model as M
+
+    t = torch.from_numpy(seq)[None].long()
+    caches = lambda d: M.init_caches(cfg, 1, len(seq), device=d, kv_quant=kv_quant)
+    with torch.inference_mode(), card_routes() as replay:
+        lg = M.forward(gpu, t.to(dev), cfg, caches=caches(dev), last_only=True).cpu()[0, -1]
+        lc, ties = replay(lambda: M.forward(cpu, t, cfg, caches=caches("cpu"),
+                                            last_only=True)[0, -1])
+    err = (lc - lg).abs().max().item()
+    gap = float((lambda v: v[0] - v[1])(torch.topk(lc, 2).values))
+    slack = float(lc.max() - lc[token])
+    if not (err <= REF_TOL and (gap < TIE_GAP or slack < REF_TOL or ties)):
+        fail(f"small {cfg.name}: card and CPU part after {len(seq)} tokens: logits "
+             f"{err} apart, CPU top-2 gap {gap}, the card's token {slack} below the top, "
+             f"{len(ties)} router near-ties")
+    return {"after": len(seq), "replayed_max_abs_err": err, "top2_gap": gap,
+            "card_token_slack": slack, "router_ties": len(ties)}
+
+
+def ring_ssd_reference_check(dev) -> list:
+    """Reduced mixtral-8x7b (window 64) in bf16, int4 and over the int8 KV
+    cache, and reduced mamba2-1.3b, on the card against the same weights
+    on the CPU, where the plain versions run.  mixtral: a 72-token prompt
+    into a 64-entry wave ring and 8 decode steps (every forward replaying
+    the card's expert choices on the CPU, ``routed_teacher_forced``)
+    within REF_TOL; and the continuous scheduler in chunks of 16 with spec
+    decode of 4 drafts (a 68-entry ring), 3 slots, prompts of 34..64 and
+    budgets that decode past the wrap: the greedy streams equal, or parted
+    where ``moe_parting`` certifies.  mamba2: a 3 x 20-token prefill and 8
+    decode steps, logits within REF_TOL and the recurrent state (h, conv)
+    within 2e-2 of its largest value; the wave, the continuous scheduler
+    and the paged pool (no block reserved): the greedy streams equal, or
+    parted at a CPU top-2 gap below TIE_GAP."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
+                                               WaveScheduler)
+
+    out = []
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, 512, int(rng.integers(34, 65))).astype(np.int32),
+             int(rng.integers(30, 45)), 2 * i) for i in range(6)]
+    for mode, kvq in (("none", False), ("int4", False), ("none", True)):
+        cfg, cpu, gpu = small_model(dev, RING_ARCH, mode)
+        worst, ties = routed_teacher_forced(cfg, cpu, gpu, dev, plen=72, kv_quant=kvq)
+        if not worst <= REF_TOL:
+            fail(f"small {RING_ARCH} {mode} kv_quant={kvq}: card logits differ from the "
+                 f"CPU's by {worst}")
+        par = ParallelConfig(weight_quant=mode, kv_quant=kvq)
+        streams, st = {}, {}
+        for d, params in (("cpu", cpu), (dev, gpu)):
+            eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1), max_len=128,
+                         params=params, device=d)
+            sched = ContinuousScheduler(eng, n_slots=3, prefill_chunk=16, spec_k=SPEC_K)
+            for p, m, arrival in reqs:
+                sched.submit(p, m, arrival_step=arrival)
+            streams[str(d)] = {r.rid: r for r in sched.run()}
+            st[str(d)] = dict(sched.stats)
+            if not (sched.stats["spec_steps"] and sched.stats["chunked_admissions"]
+                    and sched.caches["pos"].max().item() >= cfg.window + SPEC_K):
+                fail(f"small {RING_ARCH}: no verify step, no chunked admission or no wrap: "
+                     f"{sched.stats}")
+        parted = parted_streams(streams["cpu"], streams[str(dev)], lambda seq, tok: moe_parting(
+            cfg, cpu, gpu, dev, seq, tok, kvq))
+        out.append({"config": cfg.name, "weight_quant": mode, "kv_quant": kvq,
+                    "max_abs_logit_err": worst, "tolerance": REF_TOL,
+                    "router_ties_replayed": len(ties),
+                    "chunked_spec_requests": len(reqs), "ring": cfg.window + SPEC_K,
+                    "spec_steps": st[str(dev)]["spec_steps"], "parted": parted})
+    cfg, cpu, gpu = small_model(dev, SSD_ARCH)
+    worst, caches = teacher_forced(cfg, cpu, gpu, dev)
+    state = {key: ((caches[dev][key].float().cpu() - caches["cpu"][key].float()).abs().max()
+                   / caches["cpu"][key].float().abs().max()).item() for key in ("h", "conv")}
+    if not (worst <= REF_TOL and max(state.values()) <= 2e-2):
+        fail(f"small {SSD_ARCH}: card logits {worst} from the CPU's, state {state}")
+    rows = {"config": cfg.name, "max_abs_logit_err": worst, "tolerance": REF_TOL,
+            "state_rel_err": state, "state_tolerance": 2e-2}
+    wave_reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(10, 33))).astype(np.int32),
+                  12) for _ in range(6)]
+    make = {"wave": lambda e: WaveScheduler(e, 3),
+            "continuous": lambda e: ContinuousScheduler(e, n_slots=3, prefill_chunk=0),
+            "paged": lambda e: PagedContinuousScheduler(e, n_slots=3, prefill_chunk=0,
+                                                        block_size=8)}
+    for kind, mk in make.items():
+        streams = {}
+        for d, params in (("cpu", cpu), (dev, gpu)):
+            eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=128, params=params,
+                         device=d)
+            sched = mk(eng)
+            if kind == "wave":
+                for p, m in wave_reqs:
+                    sched.submit(p, m)
+            else:
+                serve.submit_workload(sched, cfg, argparse.Namespace(
+                    requests=8, shared_prefix=16, prompt_len=24, max_new=12, max_new_spread=4,
+                    arrival_every=2))
+            streams[str(d)] = {r.rid: r for r in sched.run()}
+            if kind == "paged" and sched.stats["blocks_hwm"] != 0:
+                fail(f"small {SSD_ARCH}: the paged pool reserved blocks: {sched.stats}")
+
+        def gap(seq, tok):
+            with torch.inference_mode():
+                lc = M.forward(cpu, torch.from_numpy(seq)[None].long(), cfg,
+                               last_only=True)[0, -1]
+            g = float((lambda v: v[0] - v[1])(torch.topk(lc, 2).values))
+            if not g < TIE_GAP:
+                fail(f"small {SSD_ARCH} {kind}: card and CPU part after {len(seq)} tokens, "
+                     f"CPU top-2 gap {g}")
+            return {"top2_gap": g}
+
+        rows[f"{kind}_parted"] = parted_streams(streams["cpu"], streams[str(dev)], gap)
+        rows[f"{kind}_requests"] = len(streams["cpu"])
+    out.append(rows)
+    return out
+
+
+def ring_slot_phase(dev, params, kv_quant: bool, want=None) -> dict:
+    """Full-width mixtral-8x7b int4 (on the wave phase's weights ``params``)
+    through the ContinuousScheduler over RING_PHASE: chunks of 256 with spec
+    decode of SPEC_K drafts into a 4100-entry slot ring, every slot decoding
+    past it.  Tokens in range, launches as the scheduler's stats predict
+    them (no attention kernel in a chunk or a verify step: they attend in
+    plain PyTorch), chunked admission, decode during admission, verify
+    steps, mixed steps carrying the rows not admitted and the ring's wrap
+    (its position rows hold positions past 4100); over the int8 cache
+    (``kv_quant``) the streams equal to the bf16 run's (``want``) counted.
+    One run each (the wave phase on the same weights runs twice): peak
+    memory and ms/token."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import ContinuousScheduler
+
+    t_phase = time.monotonic()
+    cfg = get_config(RING_ARCH)
+    o = RING_PHASE
+    parallel = ParallelConfig(weight_quant="int4", kv_quant=kv_quant)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=parallel, sampling=SamplingConfig(top_k=1),
+                 max_len=o["max_len"], seed=0, params=params, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rng = np.random.default_rng(6)
+    work = [(rng.integers(0, cfg.vocab_size, int(rng.integers(o["prompt"][0], o["prompt"][1] + 1)))
+             .astype(np.int32), int(rng.integers(o["max_new"][0], o["max_new"][1] + 1)))
+            for _ in range(o["requests"])]
+
+    layouts = []
+    layout = eng._layout
+
+    def counted_layout(*args):
+        """The engine's RowLayout, noting each mixed step that carries one."""
+        lay = layout(*args)
+        layouts.append(lay is not None)
+        return lay
+
+    eng._layout = counted_layout
+
+    def run():
+        layouts.clear()
+        sched = ContinuousScheduler(eng, n_slots=o["slots"], prefill_chunk=o["chunk"],
+                                    spec_k=SPEC_K)
+        for i, (p, m) in enumerate(work):
+            sched.submit(p, m, arrival_step=i * o["arrival_every"])
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done = sched.run()
+        torch.cuda.synchronize()
+        return sched, {r.rid: r.output for r in done}, time.monotonic() - t
+
+    ops.reset_launches()
+    with drop_log() as drops:
+        sched, first, dt1 = run()
+    launches = dict(ops.LAUNCHES)
+    st = sched.stats
+    L = cfg.n_layers
+    per_forward = dequant_launches_per_forward(cfg, parallel)
+    expect = expected_slot_launches("dense", st, L, kv_quant=kv_quant, moe=moe_layers(cfg),
+                                    ring=True, dequant=per_forward)
+    # a mixed step whose chunk rows are not all the slots routes them beside
+    # the others (B x 256 > 256 tokens): their projections are matmuls too,
+    # their attention plain PyTorch (the ring branch) and their routing the
+    # same top-k launch
+    carried = sum(layouts)
+    expect["dequant_matmul"] += (per_forward - 1) * carried
+    if launches != expect:
+        fail(f"{RING_ARCH} ring kv_quant={kv_quant}: kernel launches {launches} != expected "
+             f"{expect} (stats {st})")
+    S = sched.caches["pos"].shape[1]
+    wrapped = int(sched.caches["pos"].max())
+    if not (S == RING_WINDOW + SPEC_K and wrapped >= S and st["chunked_admissions"]
+            and st["mixed_decode_steps"] and st["spec_steps"]
+            and all(len(p) + len(first[i]) > S for i, (p, _) in enumerate(work))):
+        fail(f"{RING_ARCH} ring: no chunked admission, no decode during admission, no "
+             f"verify step or no slot past the {S}-entry ring (largest position held "
+             f"{wrapped}): {st}")
+    for rid, toks in first.items():
+        if len(toks) != work[rid][1] or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"{RING_ARCH} ring request {rid}: tokens out of range or wrong count")
+    n_tokens = sum(len(t) for t in first.values())
+    result = {
+        "arch": cfg.name, "scheduler": "continuous-chunked-spec (ring)", "weight_quant": "int4",
+        "kv_quant": kv_quant, "layers": L, "params": cfg.param_count(),
+        "requests": o["requests"], "slots": o["slots"], "arrival_every": o["arrival_every"],
+        "ring_entries": S,
+        "largest_position_held": wrapped, "mixed_steps_carrying_other_rows": carried,
+        "options": {"prefill_chunk": o["chunk"], "spec_k": SPEC_K},
+        "prompt_lens": [len(p) for p, _ in work], "max_new": [m for _, m in work],
+        "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1],
+        "ms_per_token": [1e3 * dt1 / n_tokens], "stats": dict(st),
+        "summary": sched.request_summary(), "launches": launches, "moe_drops": drops}
+    if want is not None:
+        result["equal_to_bf16_kv_streams"] = sum(np.array_equal(t, want[rid])
+                                                 for rid, t in first.items())
+    result.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  kv_cache_gib=sum(t.numel() * t.element_size() for key, t in
+                                   sched.caches.items() if key != "pos") / 2**30,
+                  phase_s=time.monotonic() - t_phase)
+    if not carried:
+        fail(f"{RING_ARCH} ring: no mixed step carried the rows not admitted")
+    del eng._layout         # the wrapper holds the engine: free it with the phase
+    del eng, sched
+    torch.cuda.empty_cache()
+    return result, first
+
+
+def ssd_slot_phases(dev, params) -> list:
+    """Full-width mamba2-1.3b bf16 (the wave phase's weights ``params``)
+    through the ContinuousScheduler and the PagedContinuousScheduler on
+    the slot phases' workload, whole prompts (its recurrent state refuses
+    chunks and verify steps), twice each: tokens in range, the second run
+    identical, launches as predicted (the sampling top-k alone), the paged
+    pool reserving no block (``blocks_hwm`` 0) and its audit passing, and
+    the paged streams equal to the dense ones or parted at a top-2 gap
+    below TIE_GAP."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
+
+    cfg = get_config(SSD_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK),
+                 sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
+                 params=params, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    results, tokens = [], {}
+    for name, cls in (("continuous", ContinuousScheduler), ("paged", PagedContinuousScheduler)):
+        t_phase = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            sched = cls(eng, n_slots=SLOTS, prefill_chunk=0)
+            serve.submit_workload(sched, cfg, argparse.Namespace(**SLOT_WORKLOAD))
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            done = sched.run()
+            torch.cuda.synchronize()
+            return sched, {r.rid: r for r in done}, time.monotonic() - t
+
+        ops.reset_launches()
+        sched, first, dt1 = run()
+        launches = dict(ops.LAUNCHES)
+        _, second, dt2 = run()
+        st = sched.stats
+        expect = expected_slot_launches("paged" if name == "paged" else "dense", st, 0)
+        if launches != expect:
+            fail(f"{SSD_ARCH} {name}: kernel launches {launches} != expected {expect} ({st})")
+        if name == "paged":
+            if st["blocks_hwm"] != 0:
+                fail(f"{SSD_ARCH} paged: the pool reserved blocks for an attention-free model")
+            try:
+                sched.alloc.audit()
+            except AssertionError as e:
+                fail(f"{SSD_ARCH} paged: block allocator audit: {e}")
+        for rid, r in first.items():
+            if not (len(r.output) and ((r.output >= 0) & (r.output < cfg.vocab_size)).all()):
+                fail(f"{SSD_ARCH} {name} request {rid}: tokens out of range or none")
+            if not np.array_equal(r.output, second[rid].output):
+                fail(f"{SSD_ARCH} {name} request {rid}: greedy tokens differ between two runs")
+        tokens[name] = first
+        n_tokens = sum(len(r.output) for r in first.values())
+        result = {"arch": cfg.name, "scheduler": name, "kv_quant": False, "layers": cfg.n_layers,
+                  "params": cfg.param_count(), "requests": SLOT_WORKLOAD["requests"],
+                  "slots": SLOTS, "max_len": SERVE_MAX_LEN, "workload": SLOT_WORKLOAD,
+                  "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1, dt2],
+                  "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
+                  "stats": dict(st), "summary": sched.request_summary(),
+                  "launches": launches, "repeatable": True,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name == "paged":
+            flips = []
+            for rid, r in tokens["continuous"].items():
+                a, b = r.output, first[rid].output
+                if np.array_equal(a, b):
+                    continue
+                n = min(len(a), len(b))
+                t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+                with torch.inference_mode():
+                    lg = M.forward(eng.params, torch.as_tensor(np.concatenate(
+                        [r.prompt, a[:t]]), device=dev)[None].long(), cfg, last_only=True,
+                        head_f32=eng.head_f32)[0, -1]
+                gap = float((lambda v: v[0] - v[1])(torch.topk(lg, 2).values))
+                if not gap < TIE_GAP:
+                    fail(f"{SSD_ARCH} paged request {rid} parts from dense at step {t}, gap {gap}")
+                flips.append({"rid": rid, "step": t, "top2_gap": gap})
+            result["parted_from_dense_at_near_ties"] = flips
+        result["phase_s"] = time.monotonic() - t_phase
+        results.append(result)
+    del eng
+    torch.cuda.empty_cache()
+    return results
+
+
+def ring_ssd_phases(dev):
+    """mixtral-8x7b int4 at full depth (32 layers): phase 5's wave workload,
+    then the ring phase in bf16 K/V and over the int8 cache, on the same
+    weights; mamba2-1.3b bf16 at full depth (48 layers): phase 5's wave
+    workload, then the continuous and paged slot phases, on the same
+    weights."""
+    phase, params = serve_phase(dev, RING_ARCH, "int4")
+    yield phase
+    ring, streams = ring_slot_phase(dev, params, False)
+    yield ring
+    yield ring_slot_phase(dev, params, True, want=streams)[0]
+    del params
+    torch.cuda.empty_cache()
+    phase, params = serve_phase(dev, SSD_ARCH, "none")
+    yield phase
+    yield from ssd_slot_phases(dev, params)
+    del params
+    torch.cuda.empty_cache()
 
 
 # -- tensor parallelism --------------------------------------------------------
@@ -3139,6 +3713,8 @@ def main() -> None:
     print(json.dumps({"reference": parallel_reference_check(dev)}), flush=True)
     for row in latent_moe_reference_check(dev):
         print(json.dumps({"reference": row}), flush=True)
+    for row in ring_ssd_reference_check(dev):
+        print(json.dumps({"reference": row}), flush=True)
     phases, params, weights = [], None, None
     for arch, mode, kvq in SERVE_PHASES:
         depth = phase_config(arch, wave_name(mode, kvq)).n_layers
@@ -3153,7 +3729,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
                 lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain"),
-                lambda: latent_moe_phases(dev)):
+                lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev)):
         for phase in run():
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)

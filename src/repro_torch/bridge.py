@@ -12,16 +12,18 @@ and returns the layout of ``repro_torch.models.model``:
   scanned (``stack_defs``, n > 1) and are not when it is unrolled (n = 1).
   Repeat r of sub-layer j is layer ``first + r * len(subs) + j``.  A
   sub-layer holds ``norm1``, ``norm2`` (none in a parallel-residual layer),
-  ``mixer`` and ``ffn``; an attention (GQA or MLA)
-  mixer's leaves flatten into the layer's dict, an RG-LRU mixer's stay
-  under ``mixer`` (its ``w_gate`` is not the FFN's); an MoE ``ffn``'s
+  ``mixer`` and ``ffn`` (an SSD sub-layer: ``norm1`` and ``mixer`` only);
+  an attention (GQA or MLA) mixer's leaves flatten into the layer's dict,
+  a recurrent (RG-LRU or SSD) mixer's stay under ``mixer`` (an RG-LRU
+  ``w_gate`` is not the FFN's); an MoE ``ffn``'s
   router (fp32) and expert blocks flatten too, and its shared experts'
   MLP stays under ``shared``;
 * each family's layers (``model.layer_family``: attention, MLA, RG-LRU,
   each with a dense or an MoE FFN) are stacked in layer order, as
   ``model.init_params`` lays them out: deepseek-moe-16b's unrolled dense
   layer 0 is one family, its scanned MoE layers another;
-* the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``;
+* the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``; a
+  tied tree has no lm_head (the table is the head);
 * with ``dist`` at tp > 1 every leaf of the tp=1 tree is then cut to the
   rank's shard by the rule ``init_params`` follows (``model.shard_leaf``):
   quantized leaves too, by their values and scales, so a rank holds the
@@ -53,6 +55,7 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.common import Dist, resolve_device
 from repro_torch.models.model import (ModelCtx, check_supported, layer_families,
                                       layer_param_defs, shard_leaf, split_layers)
+from repro_torch.models.transformer import RECURRENT
 
 
 def _is_quant(a) -> bool:
@@ -91,10 +94,10 @@ def _shape(t) -> tuple:
 
 def _layer_leaves(sub: Dict[str, Any], family: str) -> Dict[str, Any]:
     mixer = sub["mixer"]
-    if family == "rglru":
+    if family in RECURRENT:
         mixer = {f"mixer.{name}": a for name, a in mixer.items()}
     ffn = {}
-    for name, a in sub["ffn"].items():
+    for name, a in sub.get("ffn", {}).items():
         if isinstance(a, dict):         # an MoE layer's shared experts
             ffn.update({f"{name}.{n}": t for n, t in a.items()})
         else:
@@ -159,13 +162,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
         for i, layer in zip(idx, split_layers(stacked, len(idx))):
             layers[i] = layer
     d, V = cfg.d_model, cfg.vocab_size
-    table, head = to_torch(tree["embed"]["table"]), to_torch(tree["lm_head"])
-    if tuple(table.shape) != (1, V, d) or _shape(head) != (1, d, V):
-        raise ValueError(f"embed {tuple(table.shape)} / lm_head {_shape(head)} "
+    table = to_torch(tree["embed"]["table"])
+    if ("lm_head" in tree) == cfg.tie_embeddings:
+        raise ValueError(f"an lm_head leaf with tie_embeddings={cfg.tie_embeddings}")
+    head = None if cfg.tie_embeddings else to_torch(tree["lm_head"])
+    if tuple(table.shape) != (1, V, d) or (head is not None and _shape(head) != (1, d, V)):
+        raise ValueError(f"embed {tuple(table.shape)} / lm_head {head and _shape(head)} "
                          f"!= (1, {V}, {d}) / (1, {d}, {V})")
-    return {
+    out = {
         "embed": {"table": place("table", table)},
         "layers": layers,
         "final_norm": to_torch(tree["final_norm"]).to(device),
-        "lm_head": place("lm_head", head),
     }
+    if head is not None:
+        out["lm_head"] = place("lm_head", head)
+    return out

@@ -1,12 +1,13 @@
 """Config registry: ``get_config("<arch-id>")`` for the archs the port
-serves, dense (sequential or parallel residual), RG-LRU hybrid, MLA and MoE
-(the same arch ids as ``repro.configs``)."""
+serves, dense (sequential or parallel residual), RG-LRU hybrid, MLA, MoE
+(over a sliding-window ring too) and Mamba-2 SSD (the same arch ids as
+``repro.configs``)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig, ParallelConfig,
-                                     RGLRUConfig, SamplingConfig)
+                                     RGLRUConfig, SamplingConfig, SSMConfig)
 
 # arch-id -> module name
 _REGISTRY = {
@@ -18,6 +19,8 @@ _REGISTRY = {
     "gptj-parallel": "gptj_parallel",
     "minicpm3-4b": "minicpm3_4b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)
@@ -34,4 +37,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ALL_ARCHS", "MLAConfig", "ModelConfig", "MoEConfig", "ParallelConfig", "RGLRUConfig",
-           "SamplingConfig", "get_config"]
+           "SSMConfig", "SamplingConfig", "get_config"]

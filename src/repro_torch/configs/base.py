@@ -1,12 +1,12 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the dense-decoder, RG-LRU-hybrid, MLA and MoE part of
-``repro.configs.base``: the field names, defaults, ``block_kind``,
+A copy of the dense-decoder, RG-LRU-hybrid, MLA, MoE and Mamba-2 SSD part
+of ``repro.configs.base``: the field names, defaults, ``block_kind``,
 ``param_count`` and ``reduced()`` rule are the same, so a config built here
 describes the same model as its JAX namesake.  The family features the port
-does not serve yet (SSM, frontends, multi-codebook heads, tied embeddings)
-keep their fields, so that ``repro_torch.models.model.check_supported`` can
-name what a config needs and refuse it.
+does not serve yet (frontends, multi-codebook heads) keep their fields, so
+that ``repro_torch.models.model.check_supported`` can name what a config
+needs and refuse it.
 """
 from __future__ import annotations
 
@@ -37,6 +37,19 @@ class MLAConfig:
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block config."""
+
+    state_dim: int = 128        # N
+    head_dim: int = 64          # P
+    expand: int = 2             # d_inner = expand * d_model
+    chunk: int = 256            # SSD chunk length
+    conv_width: int = 4         # depthwise conv kernel size
+    dt_min: float = 0.001
+    dt_max: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -74,7 +87,7 @@ class ModelConfig:
     n_codebooks: int = 1
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     frontend: Optional[Any] = None
     citation: str = ""
@@ -87,13 +100,16 @@ class ModelConfig:
         return self.layer_pattern[layer % len(self.layer_pattern)]
 
     def is_moe_layer(self, layer: int) -> bool:
-        """An MoE FFN: ``moe`` set and the layer not in ``dense_ffn_layers``."""
-        return self.moe is not None and layer not in self.dense_ffn_layers
+        """An MoE FFN: ``moe`` set and the layer not in ``dense_ffn_layers``
+        (an ``ssd`` layer has no FFN)."""
+        return (self.moe is not None and layer not in self.dense_ffn_layers
+                and self.block_kind(layer) != "ssd")
 
     def param_count(self) -> int:
-        """Parameters of the dense decoder, the RG-LRU hybrid, MLA and MoE:
-        embed, attention (GQA or latent) or RG-LRU mixer per layer, dense or
-        MoE FFN (router and shared experts included), lm_head."""
+        """Parameters of the dense decoder, the RG-LRU hybrid, MLA, MoE and
+        Mamba-2: embed, attention (GQA or latent), RG-LRU or SSD mixer per
+        layer, dense or MoE FFN (router and shared experts included; none
+        in an SSD layer), lm_head unless tied."""
         d, hd = self.d_model, self.resolved_head_dim
         mats = 3 if self.gated_mlp else 2
         heads = 1 if self.tie_embeddings else 2
@@ -102,6 +118,11 @@ class ModelConfig:
             if self.block_kind(layer) == "rglru":
                 w = self.rglru.lru_width or d
                 total += d * 2 * w + 3 * w + w * d  # in-proj (x2), gates, out-proj
+            elif self.block_kind(layer) == "ssd":
+                s = self.ssm
+                di = s.expand * d
+                total += d * (2 * di + 2 * s.state_dim + di // s.head_dim) + di * d
+                continue                            # no FFN
             elif self.mla is not None:
                 m, n_q = self.mla, self.n_heads
                 qd = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -122,7 +143,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (or one period of a longer layer
         pattern), d_model<=256, head_dim 64, window<=64, <=4 experts of top
-        2 and the small MLA ranks (the dense, RG-LRU, MoE and MLA part of
+        2, the small MLA ranks and SSD state 32, head 32, chunk 32 (the
+        dense, RG-LRU, MoE, MLA and SSD part of
         ``repro.configs.base.ModelConfig.reduced``)."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -150,6 +172,8 @@ class ModelConfig:
         if self.mla is not None:
             kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
                                   qk_rope_head_dim=16, v_head_dim=32)
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, state_dim=32, head_dim=32, chunk=32)
         if self.rglru is not None:
             kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
         return dataclasses.replace(self, **kw)

@@ -40,11 +40,12 @@ dequant_matmul kernels and of the w_o dense copies under weight
 quantization, of the fused_dual_matmul kernels of a parallel-residual
 arch, of the dense and paged decode_attention kernels and, with
 ``--kv-quant`` (the int8 KV cache), of the kv_quant_write kernel; of an MLA
-arch's latent attention, which runs in plain PyTorch, and of an MoE arch's
-routing/dispatch/combine bookkeeping and expert matmuls, each a profiler
-range), the peak device memory and the cache's bytes, and the profiler's
-table.  An MLA arch's latent cache stays bf16 whatever ``--kv-quant``
-says, and the line's ``kv_cache`` says which cache ran.
+arch's latent attention, which runs in plain PyTorch, of an MoE arch's
+routing/dispatch/combine bookkeeping and expert matmuls, and of an SSD
+arch's recurrence (plain PyTorch), each a profiler range), the peak
+device memory and the cache's bytes, and the profiler's table.  An MLA
+arch's latent cache stays bf16 whatever ``--kv-quant`` says, and the
+line's ``kv_cache`` says which cache ran.
 
 ``--tp N`` runs N ranks (``launch/mesh.py``, ``--dist-backend``; gloo lets
 them share one card, its collectives staged through host memory), each
@@ -71,13 +72,15 @@ from repro_torch.launch.serve import add_tp_args, add_weight_quant_args, paralle
 from repro_torch.models.common import Dist
 from repro_torch.models.mla import MLA_RANGE
 from repro_torch.models.moe import DISPATCH_RANGE, EXPERTS_RANGE
+from repro_torch.models.ssm import SSD_RANGE
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.engine import Engine
 
 SPEC_K, CHUNK = 4, 64     # --step verify: drafts per slot; --step mixed: slot 0's chunk
 # user ranges whose device time the line reports per step, by its key
 RANGES = {"w_o_dense_copy": W_O_DENSE_RANGE, "mla_latent_attention": MLA_RANGE,
-          "moe_dispatch": DISPATCH_RANGE, "moe_experts": EXPERTS_RANGE}
+          "moe_dispatch": DISPATCH_RANGE, "moe_experts": EXPERTS_RANGE,
+          "ssd_scan": SSD_RANGE}
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])

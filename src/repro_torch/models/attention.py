@@ -15,7 +15,13 @@ KV layouts (see ``model.init_caches``):
 
 With a sliding window the wave and slot caches are rings of
 ``cache_len_for`` entries: position p lives at index p % S, and decode masks
-the entries more than ``window`` behind the query.
+the entries more than ``window`` behind the query.  A chunk into a slot
+ring (chunked admission, a verify step) cannot attend the ring after its
+write, since writing position p clobbers the entry for p - S that the
+chunk's earlier queries still read: it attends the rows' pre-write ring,
+by its position stripe, beside the fresh chunk, in plain PyTorch
+(``ring_chunk_attention``, the reference's jnp ``chunked_causal_attention``),
+and then scatters the chunk's real tokens to p % S.
 
 With ``ParallelConfig.kv_quant`` every layout stores K/V as int8 with a
 bf16 scale per (row, KV head, entry), ``k_scale``/``v_scale`` beside
@@ -53,10 +59,11 @@ from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels import ops
 # the int8 cache's plain quantizer and dequantizer live beside the kernels'
 # plain versions, which use them; this module is where the model reads them
-from repro_torch.kernels.ref import dequantize_kv, paged_view, quantize_kv  # noqa: F401
-from repro_torch.models.common import apply_rope
+from repro_torch.kernels.ref import dequantize_kv, paged_view, quantize_kv
+from repro_torch.models.common import apply_rope, online_softmax_step
 
 VERIFY_WIDTH = 8    # chunks of at most this many queries attend through flash_verify
+KV_CHUNK = 1024     # the reference's flash-style KV chunk of its jnp attention
 
 
 @dataclass
@@ -95,6 +102,7 @@ class KVStep:
     paged_read: bool = False
     rows: Optional[torch.Tensor] = None
     quant_dst: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ring_kv_pos: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -132,18 +140,27 @@ def write_pos_batched(pos_arr: torch.Tensor, pos: torch.Tensor, rows: torch.Tens
     pos_arr[rows, slot_index(pos, pos_arr.shape[1], ring)] = pos.to(pos_arr.dtype)
 
 
-def chunk_writes(slots: np.ndarray, starts: np.ndarray, s: int, S: int, device):
+def chunk_writes(slots: np.ndarray, starts: np.ndarray, s: int, S: int, device, *,
+                 ring: bool = False, lens: Optional[np.ndarray] = None):
     """Host side of a chunk into the dense slot cache: row r of the chunk
     covers view positions [starts[r], starts[r] + s) of slot slots[r] ->
     ((slot, view index) targets, src) for ``KVStep``.  Positions at or past
     the cache end S are dropped, not clamped (``_write_prefill_chunk``'s
     ``mode="drop"``): padding or rejected drafts of a row at the cache's
-    end would otherwise race the real write at S - 1.  Built from host
-    arrays, so dropping needs no device sync; ``src`` is None when nothing
-    is dropped."""
+    end would otherwise race the real write at S - 1.  On a ``ring`` of S
+    entries position p goes to index p % S, and the pad columns (from
+    ``lens[r]`` on; default none) are dropped instead
+    (``_write_prefill_chunk_ring``): every ring index holds a live entry.
+    Built from host arrays, so dropping needs no device sync; ``src`` is
+    None when nothing is dropped."""
     vpos = (np.asarray(starts, np.int64)[:, None] + np.arange(s)[None, :]).ravel()
     rows = np.repeat(np.asarray(slots, np.int64), s)
-    keep = vpos < S
+    if ring:
+        n = np.full(len(slots), s) if lens is None else np.asarray(lens, np.int64)
+        keep = (np.arange(s)[None, :] < n[:, None]).ravel()
+        vpos = vpos % S
+    else:
+        keep = vpos < S
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     src = None if keep.all() else dev(np.flatnonzero(keep))
     return (dev(rows[keep]), dev(vpos[keep])), src
@@ -245,8 +262,10 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     the slot's paged view (cached-prefix admission, every chunk) through the
     paged one, or over the slots' stripes of the dense slot cache (a chunk),
     through flash_verify when the chunk is at most ``VERIFY_WIDTH`` wide.
-    Decode (s == 1) writes its token and attends the valid cache entries
-    through the decode kernel, or the paged decode kernel."""
+    A chunk into a slot ring attends the rows' pre-write ring beside the
+    fresh chunk and writes after (``_attend_ring_chunk``).  Decode (s == 1)
+    writes its token and attends the valid cache entries through the
+    decode kernel, or the paged decode kernel."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = wquant.out_cols(p["w_q"]) // hd, wquant.out_cols(p["w_k"]) // hd
@@ -262,6 +281,8 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     v = v.view(b, s, hkv, hd).transpose(1, 2)
 
     c = step.cache
+    if step.ring_kv_pos is not None:
+        return _attend_ring_chunk(q, k, v, c, step, layer, scale, window)
     if c is not None and "k_scale" in c:
         return _attend_int8(q, k, v, c, step, layer, scale, window)
     if c is not None:
@@ -328,3 +349,67 @@ def _attend_int8(q, k, v, c, step: KVStep, layer: int, scale: float, window: int
     k_att, v_att = dequantize_kv(ck[rows], cks[rows]), dequantize_kv(cv[rows], cvs[rows])
     attend = ops.flash_verify if q.shape[2] <= VERIFY_WIDTH else ops.flash_prefill
     return attend(q, k_att, v_att, step.q_pos, scale)
+
+
+def _attend_ring_chunk(q, k, v, c, step: KVStep, layer: int, scale: float, window: int):
+    """``gqa_heads``' chunk into a slot ring (the JAX package's ring branch,
+    ``attention.py:949-992`` there): the rows' ring as it stood before the
+    chunk (gathered, so a copy), concatenated with the fresh K/V and masked
+    by ``step.ring_kv_pos`` and the window, then the chunk's real tokens
+    written at p % S (a step with no ``targets`` writes nothing: the rows
+    of a ``moe.RowLayout``).  Over an int8 ring the old entries and the
+    fresh K/V attend dequantized, and one kv_quant_write launch writes the
+    int8 values and scales."""
+    rows = step.rows.long()
+    ck, cv = c["k"][layer], c["v"][layer]
+    write = step.targets is not None
+    if "k_scale" in c:
+        cks, cvs = c["k_scale"][layer], c["v_scale"][layer]
+        k_old, v_old = dequantize_kv(ck[rows], cks[rows]), dequantize_kv(cv[rows], cvs[rows])
+        if write:
+            k, v = ops.kv_quant_write(k, v, ck, cv, cks, cvs, *step.quant_dst, dequantized=True)
+        else:
+            k, v = dequantize_kv(*quantize_kv(k)), dequantize_kv(*quantize_kv(v))
+        return ring_chunk_attention(q, torch.cat([k_old, k], 2), torch.cat([v_old, v], 2),
+                                    step.q_pos, step.ring_kv_pos, window, scale)
+    out = ring_chunk_attention(q, torch.cat([ck[rows], k.to(ck.dtype)], 2),
+                               torch.cat([cv[rows], v.to(cv.dtype)], 2), step.q_pos,
+                               step.ring_kv_pos, window, scale)
+    if write:
+        write_targets(ck, k, step.targets, step.src)
+        write_targets(cv, v, step.targets, step.src)
+    return out
+
+
+def ring_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
+                         scale: float) -> torch.Tensor:
+    """The reference's ``chunked_causal_attention`` with per-row positions:
+    q (b, hq, sq, hd) over k, v (b, hkv, sk, hd) (GQA groups), q_pos (b, sq),
+    kv_pos (b, sk) (-1 empty); entry j is attended iff 0 <= kv_pos <= q_pos
+    and, with ``window``, kv_pos > q_pos - window.  fp32 scores of the bf16
+    operands, an online softmax over KV_CHUNK-entry chunks, the
+    probabilities rounded to v's dtype before P.V (``_grouped_attend``) ->
+    (b, hq, sq, hd) in q's dtype."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, sq, hd).float()
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full(qg.shape[:-1], float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qg.shape, device=q.device)
+    chunk = min(KV_CHUNK, sk)
+    for c0 in range(0, sk, chunk):
+        k_i, v_i = k[:, :, None, c0:c0 + chunk].float(), v[:, :, None, c0:c0 + chunk]
+        p_i = kv_pos[:, None, None, None, c0:c0 + chunk]
+        sc = (qg @ k_i.transpose(-1, -2)) * scale                      # (b, hkv, g, sq, t)
+        valid = (p_i >= 0) & (p_i <= qp)
+        if window:
+            valid &= p_i > qp - window
+        sc = sc.masked_fill(~valid, float("-inf"))
+        m, m_safe, corr = online_softmax_step(sc, m)
+        p = torch.exp(sc - m_safe[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p.to(v.dtype).float() @ v_i.float()
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, hd).to(q.dtype)

@@ -1,6 +1,7 @@
 """Shared model building blocks: the tensor-parallel layout (``Dist``,
 ``ShardPlan``), device choice, init rules, norms, RoPE, activations, the
-carried conv history of recurrent blocks.  The math follows
+streaming softmax step of the jnp attention paths, the carried conv history
+of recurrent blocks and their state-carrying layer.  The math follows
 ``repro.models.common`` line for line, so the same weights give the same
 numbers up to float rounding.
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -173,6 +174,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def online_softmax_step(sc: torch.Tensor, m: torch.Tensor):
+    """One KV chunk of the reference's streaming softmax: scores ``sc``
+    (..., t) and the running max ``m`` (...) -> (new max, its finite
+    stand-in, the correction of the old accumulators), a fully masked row
+    keeping max -inf."""
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+    return m_new, m_safe, corr
+
+
 def conv_tail(ext: torch.Tensor, W: int, valid_len: Optional[torch.Tensor],
               tail: torch.Tensor) -> torch.Tensor:
     """Carried depthwise-conv history from the extended input ``ext``
@@ -185,3 +197,25 @@ def conv_tail(ext: torch.Tensor, W: int, valid_len: Optional[torch.Tensor],
         idx = valid_len.long()[:, None] + torch.arange(W - 1, device=ext.device)[None, :]
         return torch.gather(ext, 1, idx[..., None].expand(-1, -1, ext.shape[2]))
     return ext[:, -(W - 1):]
+
+
+def recurrent_layer(forward: Callable, p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
+                    cache: Optional[Dict[str, torch.Tensor]], index: int,
+                    rows: Optional[torch.Tensor] = None,
+                    length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One recurrent mixer (``forward``: ``rglru_forward`` or
+    ``ssd_forward``) over the model's cache: continue from the state of the
+    ``index``-th recurrent layer in the cache rows ``rows`` (None: every
+    row, in order) and write the new state back in place."""
+    if cache is None:
+        return forward(p, x, cfg, length_mask=length_mask)[0]
+    h, conv = cache["h"][index], cache["conv"][index]
+    state = {"h": h, "conv": conv} if rows is None else {"h": h[rows], "conv": conv[rows]}
+    out, new = forward(p, x, cfg, state=state, length_mask=length_mask)
+    if rows is None:
+        h.copy_(new["h"])
+        conv.copy_(new["conv"])
+    else:
+        h[rows] = new["h"]
+        conv[rows] = new["conv"].to(conv.dtype)
+    return out

@@ -32,10 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels.ref import paged_view
-from repro_torch.models.attention import write_targets
-from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.attention import KV_CHUNK, write_targets
+from repro_torch.models.common import apply_rope, online_softmax_step, rms_norm
 
-KV_CHUNK = 1024     # the reference's flash-style KV chunk of prefill
 # profiler range around the latent attention (scores, softmax, values):
 # launch/profile_decode.py reports its device time per step
 MLA_RANGE = "mla latent attention"
@@ -69,15 +68,6 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float().transpose(-1, -2)
 
 
-def _softmax_step(sc: torch.Tensor, m: torch.Tensor):
-    """The reference's guarded running max: (new max, its finite stand-in,
-    the correction of the old accumulators)."""
-    m_new = torch.maximum(m, sc.amax(dim=-1))
-    m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
-    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
-    return m_new, m_safe, corr
-
-
 def latent_attention(qa: torch.Tensor, qr: torch.Tensor, kv: torch.Tensor,
                      krope: torch.Tensor, q_pos: torch.Tensor, kv_pos: torch.Tensor,
                      scale: float) -> torch.Tensor:
@@ -99,7 +89,7 @@ def latent_attention(qa: torch.Tensor, qr: torch.Tensor, kv: torch.Tensor,
         sc = (_dot(qa, k_i) + _dot(qr, r_i)) * scale                 # (b, h, sq, t)
         valid = (p_i[:, None, :] >= 0) & (p_i[:, None, :] <= qpos[:, :, None])
         sc = sc.masked_fill(~valid[:, None], float("-inf"))
-        m, m_safe, corr = _softmax_step(sc, m)
+        m, m_safe, corr = online_softmax_step(sc, m)
         p = torch.exp(sc - m_safe[..., None])
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + p.to(qa.dtype).float() @ k_i.float()

@@ -1,7 +1,8 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
 for the dense family, sequential or parallel residual, at any supported
-tensor-parallel degree, and the RG-LRU hybrid, multi-head latent attention
-and the mixture-of-experts FFN at tp=1).
+tensor-parallel degree, and the RG-LRU hybrid, multi-head latent attention,
+the mixture-of-experts FFN (over a sliding-window ring too) and the Mamba-2
+SSD mixer at tp=1).
 
 Parameters are a plain dict::
 
@@ -13,7 +14,9 @@ Parameters are a plain dict::
                        w_o (h, v_head_dim, d), norm2, <FFN>}
                  rglru: {norm1, mixer: {w_gate, w_x, conv_w, gate_a_w, gate_a_b,
                                         gate_x_w, gate_x_b, Lambda, w_out},
-                         norm2, <FFN>} ],
+                         norm2, <FFN>}
+                 ssd: {norm1, mixer: {w_z, w_x, w_bc, w_dt, dt_bias, A_log, D,
+                                      conv_w, norm, w_out}} ],
      "final_norm": (d,), "lm_head": (1, d, V)}
 
     <FFN> dense: w_up, [w_gate], w_down
@@ -23,8 +26,10 @@ Parameters are a plain dict::
 A parallel-residual layer (``cfg.parallel_residual``) has no ``norm2``: its
 attention and FFN both read norm1's output.  An RG-LRU layer keeps its
 mixer's leaves under ``mixer``: its ``w_gate`` and the GeGLU FFN's are
-different weights; an MoE layer keeps its shared experts' dense MLP under
-``shared``.  Each per-layer tensor is a view into one tensor stacked over
+different weights; an SSD layer has no FFN and no ``norm2``; an MoE layer
+keeps its shared experts' dense MLP under ``shared``.  With
+``cfg.tie_embeddings`` the tree has no ``lm_head``: the logits read the
+embed table (``lm_head``).  Each per-layer tensor is a view into one tensor stacked over
 the layers of its family, as the JAX package stacks a scanned layer group.
 Under weight-only quantization the projections and the lm_head are
 ``QuantWeight``s whose packed values and scales are such views too (an
@@ -42,6 +47,7 @@ are the ``SyncPolicy``'s (``core/sync_policy.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -56,10 +62,10 @@ from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models import rglru
+from repro_torch.models import rglru, ssm
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
-from repro_torch.models.transformer import ATTN_KINDS, Ghost, layers_forward
+from repro_torch.models.transformer import ATTN_KINDS, RECURRENT, Ghost, layers_forward
 
 Params = Dict[str, Any]
 
@@ -131,19 +137,19 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("moe at tp>1 (expert-parallel MoE)")
     if cfg.mla is not None and parallel.tp > 1:
         missing.append("mla at tp>1 (head-sharded latent attention)")
-    if cfg.moe is not None and cfg.window:
-        missing.append("moe with a sliding-window ring (the ring chunk writer)")
     if cfg.mla is not None and (cfg.window or "rglru" in kinds):
         missing.append("mla with windowed or rglru layers")
     if cfg.parallel_residual and (cfg.moe is not None or cfg.mla is not None):
         missing.append("parallel_residual with moe or mla layers")
-    if cfg.ssm is not None:
-        missing.append("ssm (Mamba-2 blocks)")
-    if kinds - {*ATTN_KINDS, "rglru"}:
+    if kinds - {*ATTN_KINDS, *RECURRENT}:
         missing.append(f"layer_pattern {cfg.layer_pattern} "
-                       "(only attn, local_attn and rglru layers)")
+                       "(only attn, local_attn, rglru and ssd layers)")
     if "rglru" in kinds and cfg.rglru is None:
         missing.append("rglru layers without an RGLRUConfig")
+    if "ssd" in kinds and cfg.ssm is None:
+        missing.append("ssd layers without an SSMConfig")
+    if kinds >= set(RECURRENT):
+        missing.append("rglru and ssd layers together (one recurrent-state layout)")
     if cfg.window and "local_attn" not in kinds:
         missing.append("window (on full-attention layers, which ignore it)")
     if cfg.window and kinds >= set(ATTN_KINDS):
@@ -154,16 +160,21 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("frontend (modality prefix)")
     if cfg.n_codebooks != 1:
         missing.append("n_codebooks>1 (multi-codebook heads)")
-    if cfg.tie_embeddings:
-        missing.append("tie_embeddings")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
     if parallel.tp not in TP_DEGREES:
         missing.append(f"tp={parallel.tp} (tensor parallelism at tp 1, 2, 4 or 8)")
     if parallel.tp > 1 and "rglru" in kinds:
         missing.append("tp>1 with rglru layers (RG-LRU tensor parallelism)")
+    if parallel.tp > 1 and "ssd" in kinds:
+        missing.append("tp>1 with ssd layers (head-sharded SSD)")
+    if parallel.tp > 1 and cfg.tie_embeddings:
+        missing.append("tie_embeddings at tp>1 (the vocab-sharded table as the head)")
     if parallel.tp > 1 and wq_cache is not None:
         missing.append("wq_cache at tp>1 (a packed checkpoint per rank)")
+    if wq_cache is not None and (cfg.moe is not None or "ssd" in kinds or cfg.tie_embeddings):
+        missing.append("wq_cache with moe or ssd layers or tied embeddings (the packed "
+                       "file's layer groups)")
     if parallel.dp != 1:
         missing.append("dp>1 (data parallelism, the data axis of the mesh)")
     if parallel.kv_seq_shard:
@@ -186,10 +197,10 @@ def attention_window(cfg: ModelConfig) -> int:
 def layer_family(cfg: ModelConfig, layer: int) -> str:
     """The parameter layout of layer ``layer``, keyed as the JAX package's
     ``layer_signature`` keys its scan groups: the mixer ("attn" for attn
-    and local_attn, "mla" for latent attention, "rglru"), with "+moe" where
-    the FFN is a mixture of experts."""
+    and local_attn, "mla" for latent attention, "rglru", "ssd"), with "+moe"
+    where the FFN is a mixture of experts."""
     kind = cfg.block_kind(layer)
-    mixer = "rglru" if kind == "rglru" else "mla" if cfg.mla is not None else "attn"
+    mixer = kind if kind in RECURRENT else "mla" if cfg.mla is not None else "attn"
     return mixer + ("+moe" if cfg.is_moe_layer(layer) else "")
 
 
@@ -213,16 +224,19 @@ def _ffn_defs(cfg: ModelConfig, d_ff: int, prefix: str = "") -> Dict[str, LeafDe
 
 def layer_param_defs(cfg: ModelConfig, family: str = "attn") -> Dict[str, LeafDef]:
     """name -> LeafDef of one layer of ``family``: the JAX ParamDefs of a
-    sub-layer (``attn_defs``, ``_mla_defs``, or ``rglru_defs`` as
-    ``mixer.<name>``; ``mlp_defs``, or ``moe_defs`` with its shared
-    experts as ``shared.<name>``; ``norm1``, and ``norm2`` unless the
-    residual is parallel)."""
+    sub-layer (``attn_defs``, ``_mla_defs``, or ``rglru_defs`` or
+    ``ssd_defs`` as ``mixer.<name>``; ``mlp_defs``, or ``moe_defs`` with its
+    shared experts as ``shared.<name>``; ``norm1``, and ``norm2`` unless the
+    residual is parallel).  An SSD layer is ``norm1`` and its mixer."""
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"{cfg.name}: n_heads {cfg.n_heads} not a multiple of "
                          f"n_kv_heads {cfg.n_kv_heads}")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q_cols, kv_cols = cfg.n_heads * hd, cfg.n_kv_heads * hd
     mixer, _, ffn = family.partition("+")
+    if mixer == "ssd":
+        return {"norm1": LeafDef((d,), "zeros", 0),
+                **{f"mixer.{n}": LeafDef(*spec) for n, spec in ssm.ssd_defs(cfg).items()}}
     if mixer == "rglru":
         defs = {"norm1": LeafDef((d,), "zeros", 0),
                 **{f"mixer.{n}": LeafDef(*spec) for n, spec in rglru.rglru_defs(cfg).items()}}
@@ -467,6 +481,9 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
             layers[i] = layer
     table = shard("table", init_leaf((1, V, d), "normal", gen, device=device))
     final_norm = init_leaf((d,), "zeros", gen, device=device)
+    out = {"embed": {"table": table.contiguous()}, "layers": layers, "final_norm": final_norm}
+    if cfg.tie_embeddings:
+        return out
     head = init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d)
     if _quantizes("lm_head", head.shape, parallel):
         local = shard("lm_head", head)
@@ -475,8 +492,7 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
         head = qhead
     else:
         head = shard("lm_head", head).contiguous()
-    return {"embed": {"table": table.contiguous()}, "layers": layers,
-            "final_norm": final_norm, "lm_head": head}
+    return {**out, "lm_head": head}
 
 
 def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
@@ -504,8 +520,9 @@ def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
             if (not isinstance(first, QuantWeight)
                     and _quantizes(name, first.shape, parallel, family)):
                 todo.append((idx, name, first))
-    head = params["lm_head"]
-    head_todo = not isinstance(head, QuantWeight) and _quantizes("lm_head", head.shape, parallel)
+    head = params.get("lm_head")
+    head_todo = (head is not None and not isinstance(head, QuantWeight)
+                 and _quantizes("lm_head", head.shape, parallel))
     if parallel.tp > 1 and (todo or head_todo):
         raise ValueError("at tp>1 the weights are quantized whole before they are sharded: "
                          "pass quantized shards (init_params, bridge.params_from_jax)")
@@ -525,7 +542,10 @@ def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
 
 def _family_of(layer: Dict[str, Any]) -> str:
     """``layer_family`` read off one layer's leaves."""
-    mixer = "rglru" if "mixer" in layer else "mla" if "w_dkv" in layer else "attn"
+    if "mixer" in layer:
+        mixer = "ssd" if "w_z" in layer["mixer"] else "rglru"
+    else:
+        mixer = "mla" if "w_dkv" in layer else "attn"
     return mixer + ("+moe" if "router" in layer else "")
 
 
@@ -549,13 +569,16 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
     projections) at their stored width; ``quantized_ref_einsum``: the part
     of ``quantized`` served by dequantizing (w_o, MoE expert blocks), which
     also writes and reads a bf16 copy per step; ``swept``: the sum.  The
-    embed table is left out: a token reads one row of it.  MoE counts
-    every expert, as the reference's decode (C = T) runs every one."""
+    embed table is left out, since a token reads one row of it, except
+    where it is tied to the head: then the head's sweep reads it whole, in
+    bf16 whatever the quantization.  MoE counts every expert, as the
+    reference's decode (C = T) runs every one."""
     leaves = [(family, name, (len(idx), *d.shape), d.dtype)
               for family, idx in layer_families(cfg).items()
               for name, d in layer_param_defs(cfg, family).items()]
+    head = "table" if cfg.tie_embeddings else "lm_head"
     leaves += [("", "final_norm", (cfg.d_model,), torch.bfloat16),
-               ("", "lm_head", (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
+               ("", head, (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
     quantized = dense = ref_einsum = 0
     for family, name, shape, dtype in leaves:
         if _quantizes(name, shape, parallel, family):
@@ -585,15 +608,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     ceil(max_len / block_size) blocks.  ``kv_quant``: ``k``/``v`` are int8
     and ``k_scale``/``v_scale`` hold a bf16 scale per entry, shaped as
     ``k`` less its hd (pools of scales for a paged cache), zeros as the JAX
-    package's ``init_cache(quant=True)`` makes them.  RG-LRU layers add
-    their recurrent state, ``h`` and ``conv`` (``rglru.init_rglru_state``).
+    package's ``init_cache(quant=True)`` makes them.  Recurrent layers add
+    their state, ``h`` and ``conv`` (``rglru.init_rglru_state`` or
+    ``ssm.init_ssd_state``).
     ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
     default all of them).  MLA layers cache latents instead of K/V:
     ``ckv``/``krope`` with a unit head axis and their own widths
     (``mla.cache_dims``), bf16 whatever ``kv_quant`` says, as the reference
     keeps its latent cache."""
     fams = layer_families(cfg)
-    n_rec = len(fams.get("rglru", ()))
+    n_rec = sum(len(fams.get(kind, ())) for kind in RECURRENT)
     n_attn = cfg.n_layers - n_rec
     window = attention_window(cfg)
     hkv, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
@@ -617,7 +641,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
         for key in ("k_scale", "v_scale"):
             caches[key] = torch.zeros(shape(hkv, hd)[:-1], dtype=torch.bfloat16, device=device)
     if n_rec:
-        caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device))
+        init_state = ssm.init_ssd_state if "ssd" in fams else rglru.init_rglru_state
+        caches.update(init_state(cfg, n_rec, batch, device=device))
     return caches
 
 
@@ -626,11 +651,15 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     """x (b, s, d) -> logits (b, s, V) in fp32, as ``_lm_head`` computes them
     (at tp > 1 this rank's columns of the padded vocab).  A quantized head
     goes through the dequant_matmul kernel with fp32 out.  ``head_f32`` is a
-    resident fp32 copy of a bf16 ``lm_head[0]``; without one the head is
+    resident fp32 copy of a bf16 ``lm_head[0]`` (d, V), or of the embed
+    table's transpose where the head is tied (no ``lm_head``: the table,
+    bf16 whatever the quantization, is the head); without one the head is
     cast for this call.  Columns from ``valid`` on pad the vocab to a
     multiple of tp and read -inf, so no top-k picks them (the JAX package
     leaves them as drawn weights)."""
-    head = params["lm_head"]
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"]["table"].transpose(1, 2)
     if isinstance(head, QuantWeight):
         logits = wquant.matmul(x, wquant.index_batch(head, 0), out_dtype=torch.float32)
     else:
@@ -641,12 +670,17 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
 
 
 def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
-             block_tables, write_rows=None, chunk_writes=None, window: int = 0) -> attn.KVStep:
+             block_tables, write_rows=None, chunk_writes=None, window: int = 0,
+             length_mask: Optional[torch.Tensor] = None) -> attn.KVStep:
     """Where this forward writes K/V and recurrent state and what it
     attends, worked out once for all layers; writes the position rows that
     decode needs first.  ``window`` > 0: the attention layers are a
     sliding-window ring, written at position % S and read with the
-    window's mask."""
+    window's mask; a chunk into a slot ring attends the rows' position
+    stripe as it stands before the chunk, beside the chunk's positions (-1
+    where ``length_mask`` marks a pad column).  Recurrent state is carried
+    through whole prompts and decode steps, over a dense or a paged cache;
+    a chunk does not carry it, as in the reference."""
     dev = positions.device
     bt = block_tables
     ring = window > 0
@@ -676,9 +710,12 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
         pos[:s] = positions
         return attn.KVStep(caches, decode=False, q_pos=q_pos, wave_pos=0)
     chunk = cur_pos is None and positions.dim() == 2
-    if (ring or "h" in caches) and (bt is not None or chunk):
-        raise NotImplementedError("chunks and paged caches are not ported for sliding-window "
-                                  "rings or recurrent state")
+    if "h" in caches and chunk:
+        raise NotImplementedError("a chunk carries no recurrent state (the reference refuses "
+                                  "chunks and verify steps on recurrent layers)")
+    if ring and bt is not None:
+        raise NotImplementedError("a sliding-window ring is not block-addressable (no paged "
+                                  "cache for it)")
     if bt is not None:
         bt = bt.to(device=dev, dtype=torch.int32).contiguous()
     if cur_pos is not None:                                   # slot decode
@@ -699,8 +736,12 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
         if slots is None or chunk_writes is None:
             raise ValueError("a chunk into a slot cache names its slots and its writes")
         targets, src = chunk_writes
+        kv_pos = None
+        if ring:
+            real = positions if length_mask is None else torch.where(length_mask, positions, -1)
+            kv_pos = torch.cat([pos[slots], real.to(pos.dtype)], dim=1)
         return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, src=src,
-                           rows=slots.to(torch.int32).contiguous())
+                           rows=slots.to(torch.int32).contiguous(), ring_kv_pos=kv_pos)
     if bt is None:                                            # slot admission
         if slots is None:
             raise ValueError("a prefill into a slot cache names the slots it fills")
@@ -712,7 +753,7 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
                            state_rows=slots)
     targets = attn.paged_flat_targets(bt, q_pos[:, 0], s, attn.block_size(caches))
     return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=targets, bt=bt,
-                       paged_read=positions.dim() == 2)
+                       paged_read=positions.dim() == 2, state_rows=slots)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -739,11 +780,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     row's own offset where ``chunk_writes`` says (``attention.chunk_writes``)
     and attends those slots' stripes.  Into a paged cache a prefill writes
     through ``block_tables`` (b, nbps), which decode reads and writes
-    through too.  A slot decode writes the token of the rows ``write_rows``
+    through too; its recurrent state is that of rows ``slots`` (the
+    admitted ones) of a paged admission.  A slot decode writes the token of the rows ``write_rows``
     (default all: a row being admitted must not write its stale position).
-    RG-LRU layers continue from the cache's recurrent state of the rows
+    Recurrent layers continue from the cache's recurrent state of the rows
     computed (the admitted ``slots``, else every row) and write it back;
-    ``length_mask`` keeps their pad steps out of it.
+    ``length_mask`` keeps their pad steps out of it; in a chunk into a slot
+    ring it marks the columns written (the rest are chunk padding).
     ``last_only`` keeps one position per row: the last, or with
     ``length_mask`` (b, s) (true at real tokens of a right-padded batch)
     each row's last real token.
@@ -756,7 +799,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``layout`` (an MoE model's prefill or chunk, tp=1): the reference's
     other full-width rows, whose pad tokens from position 0 ride along
     for the MoE layers' routing (``moe.RowLayout``); their logits are not
-    computed."""
+    computed, and they write no cache.  They attend their own fresh K/V,
+    or in a chunk into a slot ring, as in the reference, their rows' ring
+    beside a chunk whose first column alone is real."""
     b, s = tokens.shape
     dev = tokens.device
     ctx = ctx or ModelCtx.make(cfg)
@@ -774,7 +819,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=dev)
     step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
                     block_tables=block_tables, write_rows=write_rows,
-                    chunk_writes=chunk_writes, window=attention_window(cfg))
+                    chunk_writes=chunk_writes, window=attention_window(cfg),
+                    length_mask=length_mask)
     if caches is not None and "k_scale" in caches:    # the int8 cache's writes, once
         step.quant_dst = attn.quant_targets(b, s, dev, wave_pos=step.wave_pos,
                                             ring_idx=step.ring_idx, targets=step.targets,
@@ -785,10 +831,18 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if layout is not None:
         g, gs = layout.tokens.shape
         gpos = torch.arange(gs, device=dev)
+        gstep = attn.KVStep(None, decode=False,
+                            q_pos=gpos.to(torch.int32).expand(g, gs).contiguous())
+        if step.ring_kv_pos is not None:
+            # a chunk into a slot ring: the reference runs those rows through
+            # the same ring branch, at offset 0 with one real column,
+            # attending their own pre-write ring, and keeps nothing of them
+            real = torch.where(gpos == 0, gpos, -1).to(torch.int32).expand(g, gs)
+            gstep = dataclasses.replace(
+                gstep, cache=caches, rows=layout.others.to(torch.int32),
+                ring_kv_pos=torch.cat([caches["pos"][layout.others], real], dim=1))
         ghost = Ghost(layout, embed_lookup(params["embed"], layout.tokens, ctx.plan, ctx.dist),
-                      rope_tables(gpos, rope_dim, cfg.rope_theta),
-                      attn.KVStep(None, decode=False,
-                                  q_pos=gpos.to(torch.int32).expand(g, gs).contiguous()))
+                      rope_tables(gpos, rope_dim, cfg.rope_theta), gstep)
     x = policy.shard_residual(x)
     kw = {} if ghost is None else {"ghost": ghost}
     x = layers_forward(params["layers"], x, cfg, rope=rope, step=step, length_mask=length_mask,

@@ -145,23 +145,3 @@ def rglru_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     y = (hs * gate).to(x.dtype)
     return y @ p["w_out"], new_state
 
-
-def rglru_layer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
-                cache: Optional[Dict[str, torch.Tensor]], index: int,
-                rows: Optional[torch.Tensor] = None,
-                length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One RG-LRU mixer over the model's cache: continue from the state of
-    RG-LRU layer ``index`` in the cache rows ``rows`` (None: every row, in
-    order) and write the new state back in place."""
-    if cache is None:
-        return rglru_forward(p, x, cfg, length_mask=length_mask)[0]
-    h, conv = cache["h"][index], cache["conv"][index]
-    state = {"h": h, "conv": conv} if rows is None else {"h": h[rows], "conv": conv[rows]}
-    out, new = rglru_forward(p, x, cfg, state=state, length_mask=length_mask)
-    if rows is None:
-        h.copy_(new["h"])
-        conv.copy_(new["conv"])
-    else:
-        h[rows] = new["h"]
-        conv[rows] = new["conv"].to(conv.dtype)
-    return out

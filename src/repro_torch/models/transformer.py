@@ -1,15 +1,16 @@
 """Decoder layers: the sub-layer of ``repro.models.transformer.sublayer_forward``,
 sequential or parallel residual, with its mixer dispatch
 (``_mixer_forward``: ``attn``, ``local_attn`` -- GQA, or latent attention
-where ``cfg.mla`` -- or ``rglru``) and its FFN (dense, or mixture of
-experts on ``cfg.is_moe_layer`` layers), and the layer loop that the JAX
+where ``cfg.mla`` -- ``rglru`` or ``ssd``) and its FFN (dense, or mixture of
+experts on ``cfg.is_moe_layer`` layers; an ``ssd`` layer has none and no
+``norm2``: x + ssd(norm1(x))), and the layer loop that the JAX
 package runs as scans over groups of stacked parameters (here a Python
 loop over per-layer views of the same stacked tensors).
 
 Layer i's kind is ``cfg.block_kind(i)``, the layer pattern cycled over the
 layers.  Each kind owns its part of the cache: the attention layers (GQA
-or MLA) the K/V or latents, in their own order, the RG-LRU layers the
-recurrent state.
+or MLA) the K/V or latents, in their own order, the recurrent layers
+(RG-LRU or SSD) the recurrent state.
 
 A ``moe.RowLayout`` (``Ghost``) carries the reference's other full-width
 rows through the layers beside the computed ones: each of their mixers
@@ -36,11 +37,13 @@ from repro_torch.core import wquant
 from repro_torch.core.sync_policy import SyncPolicy
 from repro_torch.core.zero_copy import fused_out_projection, parallel_partials
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe, rglru
-from repro_torch.models.common import rms_norm
+from repro_torch.models import mla, moe, rglru, ssm
+from repro_torch.models.common import recurrent_layer, rms_norm
 from repro_torch.models.mlp import mlp_forward, mlp_hidden
 
 ATTN_KINDS = ("attn", "local_attn")
+# mixers that carry recurrent state (``h``/``conv`` in the cache) -> forward
+RECURRENT = {"rglru": rglru.rglru_forward, "ssd": ssm.ssd_forward}
 
 
 @dataclass
@@ -61,9 +64,9 @@ def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
     if kind in ATTN_KINDS:
         return attn.gqa_forward(p, xa, cfg, rope=rope, step=step, layer=index,
                                 window=cfg.window if kind == "local_attn" else 0)
-    if kind == "rglru":
-        return rglru.rglru_layer(p["mixer"], xa, cfg, cache=step.cache, index=index,
-                                 rows=step.state_rows, length_mask=length_mask)
+    if kind in RECURRENT:
+        return recurrent_layer(RECURRENT[kind], p["mixer"], xa, cfg, cache=step.cache,
+                               index=index, rows=step.state_rows, length_mask=length_mask)
     raise ValueError(kind)
 
 
@@ -110,6 +113,8 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                 + policy.reduce_out(wquant.matmul(h, p["w_down"]), tag="ffn_reduce"))
     x = x + policy.reduce_out(_mixer_forward(p, xa, cfg, kind, index, rope=rope, step=step,
                                              length_mask=length_mask), tag="mixer_reduce")
+    if kind == "ssd":
+        return x
     if ghost is not None:
         ghost.x = ghost.x + _mixer_forward(p, rms_norm(ghost.x, p["norm1"], cfg.rms_eps), cfg,
                                            kind, index, rope=ghost.rope, step=ghost.step,
@@ -121,11 +126,11 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
 def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
                    cfg: ModelConfig, **kw) -> torch.Tensor:
     """The layers in order; each takes the next cache index of its mixer's
-    family (attention, GQA or MLA, and RG-LRU count apart)."""
-    seen = {"attn": 0, "rglru": 0}
+    family (attention, GQA or MLA, and recurrent count apart)."""
+    seen = {"attn": 0, "recurrent": 0}
     for i, p in enumerate(layers):
         kind = cfg.block_kind(i)
-        family = "rglru" if kind == "rglru" else "attn"
+        family = "recurrent" if kind in RECURRENT else "attn"
         x = sublayer_forward(p, x, cfg, kind, seen[family], **kw)
         seen[family] += 1
     return x

@@ -48,8 +48,9 @@ class Engine:
     lm_head is kept resident as one fp32 copy, because the logits are
     computed in fp32 and casting the head on every step would allocate and
     write it anew each time; a quantized head is not, since an fp32 copy
-    would undo its point.  ``caps`` is the arch's serving-capability record,
-    which the schedulers consult.
+    would undo its point; a tied head is the embed table, kept as an fp32
+    copy of its transpose.  ``caps`` is the arch's serving-capability
+    record, which the schedulers consult.
 
     ``wq_cache`` (with ``parallel.weight_quant``): the path of a packed
     weight checkpoint (``training.checkpoint``): restored when it exists,
@@ -77,6 +78,8 @@ class Engine:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg, self.parallel, self.sampling = cfg, parallel, sampling
         self.caps = ArchCapabilities.from_config(cfg)
+        # the slot cache's attention layers are a sliding-window ring
+        self.ring = M.attention_window(cfg) > 0
         self.max_len = max_len
         wq = parallel.weight_quant != "none" and wq_cache is not None
         loaded = params is None and wq and checkpoint.has_quantized(wq_cache)
@@ -87,8 +90,11 @@ class Engine:
         self.params = M.quantize_params(params, parallel)
         if wq and not loaded:
             checkpoint.save_quantized(self.params, cfg, parallel, wq_cache)
-        head = self.params["lm_head"]
-        self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
+        head = self.params.get("lm_head")
+        if head is None:                    # tied: the table's transpose
+            self.head_f32 = self.params["embed"]["table"][0].float().t()
+        else:
+            self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
@@ -148,12 +154,15 @@ class Engine:
     # ``_layout``).  Decode runs all slots; finished and empty slots are
     # masked inside the step.
 
-    def init_slot_caches(self, n_slots: int) -> Dict[str, torch.Tensor]:
-        """A sliding-window ring holds ``window + spec_k`` entries, so that a
-        verify chunk of spec_k drafts never wraps onto live window entries
-        (the JAX package's ``ring_slack``)."""
+    def init_slot_caches(self, n_slots: int, *,
+                         ring_slack: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """A sliding-window ring holds ``window + ring_slack`` entries
+        (default ``parallel.spec_k``; a scheduler passes its own spec_k), so
+        that a verify chunk of spec_k drafts never wraps onto live window
+        entries (the JAX package's ``ring_slack``)."""
+        slack = self.parallel.spec_k if ring_slack is None else ring_slack
         return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             per_slot=True, ring_slack=self.parallel.spec_k, **self._kv_kw())
+                             per_slot=True, ring_slack=slack, **self._kv_kw())
 
     def init_paged_caches(self, n_slots: int, n_blocks: int,
                           block_size: int) -> Dict[str, torch.Tensor]:
@@ -217,7 +226,7 @@ class Engine:
         start = np.asarray(starts)[rows]
         kvcache.reset_slots(caches, admit, paged=True)
         tok = self._admit_rows(
-            tokens, admit, plens, caches=caches,
+            tokens, admit, plens, caches=caches, slots=kvcache.device_ints(rows, self.device),
             block_tables=kvcache.device_ints(np.asarray(block_tables)[rows], self.device,
                                              torch.int32),
             start_pos=kvcache.device_ints(start, self.device) if start.any() else None)
@@ -287,14 +296,15 @@ class Engine:
     # merge_slots keeps.
 
     def _chunk_kw(self, caches, rows: np.ndarray, starts: np.ndarray, width: int,
-                  block_tables) -> dict:
+                  block_tables, lens: Optional[np.ndarray] = None) -> dict:
         """forward() arguments of a chunk over slots ``rows`` starting at
-        ``starts`` (host arrays, one entry per row)."""
+        ``starts`` with ``lens`` real tokens each (host arrays, one entry
+        per row; default the whole width)."""
         kw = {"start_pos": kvcache.device_ints(starts, self.device)}
         if block_tables is None:
             kw["slots"] = kvcache.device_ints(rows, self.device)
             kw["chunk_writes"] = attn.chunk_writes(rows, starts, width, caches["pos"].shape[1],
-                                                   self.device)
+                                                   self.device, ring=self.ring, lens=lens)
         else:
             kw["block_tables"] = kvcache.device_ints(np.asarray(block_tables)[rows],
                                                      self.device, torch.int32)
@@ -317,22 +327,29 @@ class Engine:
         stale decode write is kept out of the cache.  With
         ``block_tables`` (B, nbps) the cache is paged: the chunk writes
         through the admitted rows' tables only, the decode half through
-        all of them.  One host copy at the end.  Returns host (ptok (B,),
-        nxt (B,), pos, done, remaining) and whether the decode half ran."""
+        all of them.  Over a dense slot ring a request's first chunk (at
+        offset 0) resets its slot's position row first, since the chunk
+        attends the ring's pre-write entries by it.  One host copy at the
+        end.  Returns host (ptok (B,), nxt (B,), pos, done, remaining) and
+        whether the decode half ran."""
         admit = np.asarray(admit, bool)
         rows = np.flatnonzero(admit)
         C = np.asarray(ctokens).shape[1]
         dev = self.device
+        ring = self.ring and block_tables is None
+        if ring:
+            kvcache.reset_slots(caches, admit & (np.asarray(starts) == 0))
         tok_c = torch.as_tensor(np.asarray(ctokens)[rows], dtype=torch.long, device=dev)
-        clens_d = kvcache.device_ints(np.asarray(clens)[rows], dev)
+        clens_r = np.asarray(clens)[rows]
+        clens_d = kvcache.device_ints(clens_r, dev)
         lmask = torch.arange(C, device=dev)[None, :] < clens_d[:, None]
         logits = self.forward(tok_c, caches=caches, last_only=True, length_mask=lmask,
                               seq_sharded=True, layout=self._layout(ctokens, rows),
                               **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
-                                               block_tables))
+                                               block_tables, clens_r))
         ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)
         ptok[kvcache.device_ints(rows, dev)] = self.sample(logits[:, -1])
-        kvcache.set_slot_positions(caches, totals, admit)
+        kvcache.set_slot_positions(caches, totals, admit, ring=ring)
         (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
             tok, pos, done, remaining, eos, block_tables)
         decoded = bool(((~np.asarray(done, bool)) & (np.asarray(remaining) > 0)).any())
@@ -381,7 +398,8 @@ class Engine:
             is_eos = (eos_r[:, None] >= 0) & (tg == eos_r[:, None])
             j_eos = torch.where(is_eos, idx[None, :], K1).min(dim=1).values
             e = torch.minimum(torch.minimum(acc + 1, j_eos + 1), rem_r)
-            kvcache.rewind_slots(caches, kvcache.device_ints(rows, dev), pos_r + e)
+            kvcache.rewind_slots(caches, kvcache.device_ints(rows, dev), pos_r + e,
+                                 ring=self.ring and block_tables is None)
             last = tg.gather(1, (e - 1).clamp(0, K1 - 1)[:, None])[:, 0]
             out = self.land(torch.cat([tg.reshape(-1), e, j_eos, last]))
             c = len(rows)

@@ -9,7 +9,11 @@ same positions:
   slot b, and ``pos[b, j]`` is the absolute position held at index j
   (-1 = empty);
 * the recurrent state of the n RG-LRU layers (slot cache): ``h`` (n, b, w)
-  and ``conv`` (n, b, W-1, w), slot b's in row b;
+  and ``conv`` (n, b, W-1, w), slot b's in row b; of n SSD layers ``h``
+  (n, b, heads, P, N) and ``conv`` (n, b, W-1, d_in + 2N), in every layout
+  (an attention-free model's pools hold no layer);
+* a sliding-window ring (slot cache): ``pos[b, j]`` is the position held at
+  ring index j = position % S;
 * an MLA model caches latents, ``ckv``/``krope`` (L, b, 1, S, r), in place
   of K/V, in every layout (pools (L, n_blocks, 1, bs, r));
 * paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
@@ -85,37 +89,58 @@ def mask_prompt_padding(caches: Dict[str, torch.Tensor], plens, mask) -> None:
     """In place, for the slots in ``mask``: invalidate the position entries
     at and after each slot's true prompt length ``plens[b]``.  Admission
     prefills a right-padded batch; the K/V written for padding tokens must
-    never be attended, and decode overwrites index plen, plen+1, ...  (On a
-    ring the admitted prompt fits the ring, so index == position here too.)"""
+    never be attended, and decode overwrites index plen, plen+1, ...  On a
+    ring this holds only while index == position, so a prompt longer than
+    the cache raises (the schedulers cap prompts at the window)."""
     pos = caches["pos"]
+    longest = int(np.max(np.asarray(plens)[np.asarray(mask, bool)], initial=0))
+    if longest > pos.shape[1]:
+        raise ValueError(f"an admitted prompt of {longest} tokens is longer than the cache "
+                         f"of {pos.shape[1]}")
     idx = torch.arange(pos.shape[1], device=pos.device)
     plens = device_ints(plens, pos.device)
     drop = _rows(mask, pos.device)[:, None] & (idx[None, :] >= plens[:, None])
     pos.masked_fill_(drop, -1)
 
 
-def set_slot_positions(caches: Dict[str, torch.Tensor], total_lens, mask) -> None:
+def position_rows(totals: torch.Tensor, S: int, ring: bool = False) -> torch.Tensor:
+    """(c,) totals -> (c, S) position rows over which exactly positions
+    [0, totals[r]) read valid, -1 elsewhere: index j holds position j, or
+    on a ``ring`` the largest p = j (mod S) below the total, valid iff it
+    is among the last S written (``set_slot_positions`` of the reference,
+    its ring layout)."""
+    idx = torch.arange(S, device=totals.device, dtype=totals.dtype)[None, :]
+    t = totals[:, None]
+    if not ring:
+        return torch.where(idx < t, idx, -1)
+    p = idx + torch.div(t - 1 - idx, S, rounding_mode="floor") * S
+    return torch.where((p >= 0) & (p >= t - S), p, -1)
+
+
+def set_slot_positions(caches: Dict[str, torch.Tensor], total_lens, mask, *,
+                       ring: bool = False) -> None:
     """In place, for the slots in ``mask``: rewrite the position row so that
-    exactly positions [0, total_lens[b]) read as valid (view index ==
-    position), everything else -1.  The paged admission's position update:
-    a cached prefix and the freshly written suffix become one valid run."""
+    exactly positions [0, total_lens[b]) read as valid (``position_rows``;
+    ``ring``: a sliding-window slot ring), everything else -1.  The paged
+    admission's and the chunk's position update: a cached prefix or the
+    earlier chunks and the freshly written tokens become one valid run."""
     pos = caches["pos"]
-    idx = torch.arange(pos.shape[1], device=pos.device, dtype=pos.dtype)
-    total = device_ints(total_lens, pos.device)
-    row = torch.where(idx[None, :] < total[:, None], idx[None, :], -1)
+    row = position_rows(device_ints(total_lens, pos.device, pos.dtype), pos.shape[1], ring)
     m = _rows(mask, pos.device)
     pos[m] = row[m]
 
 
 def rewind_slots(caches: Dict[str, torch.Tensor], rows: torch.Tensor,
-                 totals: torch.Tensor) -> None:
+                 totals: torch.Tensor, *, ring: bool = False) -> None:
     """In place, from device tensors: the position rows of slots ``rows``
     (c,) read valid over exactly [0, totals[r]) -- the verify step's rewind.
     Accepted drafts stay valid; the K/V of rejected ones stay behind, dead
-    by position, until the next chunk at the frontier overwrites them."""
+    by position, until the next chunk at the frontier overwrites them.  On
+    a ``ring`` a rejected draft at position q sits where q - S was, which
+    the row then claims; the ring's ``spec_k`` slack entries keep q - S
+    out of every later query's window."""
     pos = caches["pos"]
-    idx = torch.arange(pos.shape[1], device=pos.device, dtype=pos.dtype)
-    pos[rows] = torch.where(idx[None, :] < totals[:, None].to(pos.dtype), idx[None, :], -1)
+    pos[rows] = position_rows(totals.to(pos.dtype), pos.shape[1], ring)
 
 
 class BlockAllocator:

@@ -586,7 +586,9 @@ class ContinuousScheduler:
 
     # -- main loop --------------------------------------------------------
     def _init_caches(self) -> None:
-        self.caches = self.engine.init_slot_caches(self.B)
+        # ring caches get spec_k slack entries so that a verify chunk of
+        # spec_k drafts never wraps onto live window history
+        self.caches = self.engine.init_slot_caches(self.B, ring_slack=self.spec_k)
 
     def _serve_round(self) -> bool:
         """One round (retire -> admit -> a mixed step while any slot is
@@ -642,6 +644,10 @@ class PagedContinuousScheduler(ContinuousScheduler):
 
     ``n_blocks`` defaults to the dense footprint (n_slots x blocks per slot
     + the null block); smaller overcommits the pool against short requests.
+    An attention-free model (mamba2-1.3b) has no pools: its requests take
+    no blocks and share no prefix (recurrent state cannot be grafted from
+    another slot's history), and each slot carries its state, as in the
+    reference.
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
@@ -653,12 +659,14 @@ class PagedContinuousScheduler(ContinuousScheduler):
         engine.caps.require("paged")
         super().__init__(engine, n_slots, pad_id, block_steps, prefill_chunk=prefill_chunk,
                          spec_k=spec_k, spec_ngram=spec_ngram)
+        kinds = set(engine.cfg.layer_pattern)
+        self.has_attn = bool(kinds & {"attn", "local_attn"})
         self.bs = block_size or engine.parallel.kv_block_size
         self.view_blocks = -(-engine.max_len // self.bs)
         self.n_blocks = (n_blocks or engine.parallel.kv_pool_blocks
                          or n_slots * self.view_blocks + 1)
         self.alloc = kvcache.BlockAllocator(self.n_blocks, self.bs)
-        self.prefix_cache = prefix_cache
+        self.prefix_cache = prefix_cache and kinds <= {"attn", "local_attn"}
         # per-slot block table; unallocated entries point at the null block
         self.bt = np.zeros((n_slots, self.view_blocks), np.int32)
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
@@ -674,7 +682,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
     def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
                arrival_step: int = 0) -> int:
         need = -(-(len(prompt) + max_new) // self.bs)
-        if need > self.n_blocks - 1:
+        if self.has_attn and need > self.n_blocks - 1:
             raise ValueError(f"request needs {need} blocks > pool {self.n_blocks - 1}")
         return super().submit(prompt, max_new, eos_id, arrival_step)
 
@@ -737,6 +745,8 @@ class PagedContinuousScheduler(ContinuousScheduler):
         slot that finishes mid-block freezes; its frozen rewrites stay in
         its blocks or go to the null block).  When the pool is short, the
         youngest request is preempted and the slot checked again."""
+        if not self.has_attn:       # recurrent-only: nothing to own
+            return
         i = 0
         while i < len(self.slots):
             s = self.slots[i]
@@ -767,6 +777,10 @@ class PagedContinuousScheduler(ContinuousScheduler):
         # FIFO until the first request whose blocks do not fit
         pairs, starts_of = [], {}
         for r, slot in zip(arrived, free):
+            if not self.has_attn:   # recurrent-only: no blocks to reserve
+                starts_of[r.rid] = 0
+                pairs.append((slot, r))
+                continue
             plen = len(r.prompt)
             shared, n_cached = [], 0
             if self.prefix_cache:

@@ -103,14 +103,18 @@ def jax_top2_gap(jeng, prompt, tokens) -> float:
     return float(top2[1] - top2[0])
 
 
-def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None, jeng=None):
+def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None, jeng=None,
+                         certify=None):
     """Per request: identical greedy tokens, or a first difference at a
     certified near-tie.  ``ref_other`` holds the JAX package's streams from
     its other KV backend: where the reference's own two backends disagree on
     a request, the port may equal either.  With the reference engine
     ``jeng``, a near-tie in its own teacher-forced logits certifies a
     parting too (where the reference's decode and prefill paths
-    themselves pick apart)."""
+    themselves pick apart).  ``certify(prompt, tokens, token)`` (an MoE
+    model) may certify a parting after the reference's ``tokens``, where
+    the port chose ``token`` (None past the end of its stream), that the
+    logits' gaps do not."""
     assert sorted(port) == sorted(ref) == list(range(len(reqs)))
     flips = 0
     for rid, (prompt, *_) in enumerate(reqs):
@@ -126,6 +130,9 @@ def assert_streams_match(teng, reqs, port, ref, max_flips=1, ref_other=None, jen
         gap = top2_gap(teng, prompt, b[:t])
         if gap >= TIE_GAP and jeng is not None:
             gap = jax_top2_gap(jeng, prompt, b[:t])
+        if gap >= TIE_GAP and certify is not None and certify(prompt, b[:t],
+                                                              a[t] if t < len(a) else None):
+            gap = 0.0
         assert gap < TIE_GAP, f"request {rid} differs at step {t} with top-2 gap {gap}"
         flips += 1
     assert flips <= max_flips          # flips are rare ties, not systematic drift

@@ -1131,3 +1131,106 @@ def test_attention_kernels_at_deepseek_heads(dev, kernel, dtype):
             torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+# mixtral-8x7b's attention: 32 q heads over 8 KV heads of head_dim 128 (g 4),
+# a 4096-token window, its slot ring of window + spec_k 4 entries
+MX_HQ, MX_HKV, MX_HD, MX_WINDOW, MX_RING = 32, 8, 128, 4096, 4100
+
+
+@pytest.mark.parametrize("kernel,dtype", [
+    ("prefill", torch.float32), ("prefill", torch.bfloat16), ("decode", torch.float32),
+    ("decode", torch.bfloat16), ("decode_int8", torch.bfloat16)])
+def test_attention_kernels_at_mixtral_heads(dev, kernel, dtype):
+    """flash_prefill of 125-token rows with the 4096 window (a wave of
+    mixtral's chip phase; one row right-padded), and decode_attention and
+    its int8 instance over the wrapped 4100-entry ring, each row's 4096 live
+    entries named by the reference's ring position rows, each against its
+    plain version (the int8 instance bit for bit against the bf16 one on
+    the dequantized cache)."""
+    from repro_torch.runtime.kvcache import position_rows
+
+    gen = torch.Generator(device=dev).manual_seed(len(kernel))
+    b, scale = 4, MX_HD ** -0.5
+    if kernel == "prefill":
+        q = _randn(gen, (b, MX_HQ, 125, MX_HD), dtype, dev)
+        k, v = (_randn(gen, (b, MX_HKV, 125, MX_HD), dtype, dev) for _ in range(2))
+        q_pos = torch.arange(125, device=dev, dtype=torch.int32).repeat(b, 1)
+        q_pos[1, 100:] = -1
+        got = ops.flash_prefill(q, k, v, q_pos, scale, window=MX_WINDOW)
+        want = ref.flash_prefill_ref(q, k, v, q_pos, scale, window=MX_WINDOW)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+        return
+    cur = torch.tensor([4200, 4099, 8191, 100], device=dev)
+    pos = position_rows(cur + 1, MX_RING, ring=True)
+    valid = (pos >= 0) & (pos <= cur[:, None]) & (pos > cur[:, None] - MX_WINDOW)
+    assert valid.sum(1).tolist() == [4096, 4096, 4096, 101]
+    q = _randn(gen, (b, MX_HQ, 1, MX_HD), dtype, dev)
+    if kernel == "decode":
+        k, v = (_randn(gen, (b, MX_HKV, MX_RING, MX_HD), dtype, dev) for _ in range(2))
+        got = ops.decode_attention_partial(q, k, v, valid, scale)
+        want = ref.decode_attention_ref(q, k, v, valid, scale)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):          # (m, l, acc) in fp32
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
+        return
+    (kq, ks), (vq, vs) = (_int8_cache(gen, dev, (b, MX_HKV, MX_RING, MX_HD)) for _ in range(2))
+    got = ops.decode_attention_partial(q, kq, vq, valid, scale, k_scale=ks, v_scale=vs)
+    want = ops.decode_attention_partial(q, ref.dequantize_kv(kq, ks), ref.dequantize_kv(vq, vs),
+                                        valid, scale)
+    torch.cuda.synchronize()
+    _equal_partials(got, want)
+
+
+@pytest.mark.parametrize("T", [4, 500, 1024])
+def test_topk_kernel_at_mixtral_router(dev, T):
+    """mixtral-8x7b's routing: softmax rows of 8 experts in fp32, top 2, one
+    launch, planted ties ranking the lower expert first (T 1024: a mixed
+    step of 4 chunks of 256)."""
+    gen = torch.Generator(device=dev).manual_seed(T + 8)
+    logits = _randn(gen, (T, 8), torch.float32, dev)
+    logits[:, 6] = logits[:, 1]
+    probs = torch.softmax(logits, dim=-1)
+    before = ops.LAUNCHES["topk"]
+    vals, idx = ops.topk(probs, 2)
+    assert ops.LAUNCHES["topk"] == before + 1
+    rv, ri = ref.topk_ref(probs.cpu(), 2)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri)
+
+
+@pytest.mark.parametrize("K,N,out_dtype", [(4096, 4096, torch.bfloat16),
+                                           (4096, 1024, torch.bfloat16),
+                                           (4096, 32000, torch.float32)])
+@pytest.mark.parametrize("T", [4, 20, 500])
+def test_dequant_matmul_kernel_at_mixtral_int4(dev, K, N, out_dtype, T):
+    """mixtral-8x7b's int4 attention projections (w_q, w_k/w_v) and its
+    lm_head (fp32 out), group 128, at a decode step (T 4), a verify step of
+    4 slots (T 20) and a wave prefill (T 500), against the plain version
+    (fp32: 1e-4 of the largest output; bf16: within one bf16 ulp of it)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + T)
+    w = wquant.quantize((torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+                        .bfloat16(), "int4", 128)
+    x = _randn(gen, (T, K), torch.bfloat16, dev)
+    got = ops.dequant_matmul(x, w.q, w.scale, mode="int4", group=w.group, out_dtype=out_dtype)
+    want = ref.dequant_matmul_ref(x, w.q, w.scale, "int4", w.group)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    if out_dtype == torch.float32:
+        assert (got - want).abs().max().item() <= tol
+    else:
+        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        assert bool(((got.float() - want).abs() <= ulp + tol).all())
+
+
+def test_topk_kernel_at_mamba2_vocab(dev):
+    """mamba2-1.3b's sampling: (4, 50280) fp32 logits, k 1, with a tied
+    maximum ranking the lower index first."""
+    gen = torch.Generator(device=dev).manual_seed(50280)
+    x = _randn(gen, (4, 50280), torch.float32, dev)
+    x[2, 777] = x[2, 40000] = x[2].max() + 1.0
+    vals, idx = ops.topk(x, 1)
+    rv, ri = ref.topk_ref(x.cpu(), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri) and idx[2, 0] == 777

@@ -104,13 +104,17 @@ def test_prefill_and_decode_logits_match_jax(pair):
     assert_logits_match(eng, cfg, params)
 
 
-def assert_logits_match(eng, cfg, params, kv_quant=False):
-    """Prefill logits and 8 teacher-forced decode steps of the JAX engine's
-    forward and the port's, on the same weights, within TOL; ``kv_quant``:
-    the port's cache is the int8 one (the JAX engine's follows its own
-    ParallelConfig)."""
+def assert_logits_match(eng, cfg, params, kv_quant=False, plen=12, max_len=32,
+                        port=lambda call: call()):
+    """Prefill logits of a ``plen``-token prompt and 8 teacher-forced decode
+    steps of the JAX engine's forward and the port's, on the same weights,
+    within TOL; the port's cache holds ``max_len`` positions (a ring of
+    the window, where the config has one, as the JAX engine's);
+    ``kv_quant``: the port's cache is the int8 one (the JAX engine's
+    follows its own ParallelConfig).  ``port`` runs each port forward
+    (given as a call), after the JAX one of the same step."""
     ctx = eng.ctx
-    b, plen, steps = 2, 12, 8
+    b, steps = 2, 8
     pspecs = JM.param_specs(ctx)
     cspec = kvcache.cache_pspecs(ctx, kv_seq_shard=False)
     sm = partial(compat.shard_map, mesh=eng.mesh, check_vma=False)
@@ -130,17 +134,17 @@ def assert_logits_match(eng, cfg, params, kv_quant=False):
 
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, plen)).astype(np.int32)
     jl, jc = jpre(eng.params, jnp.asarray(prompts), eng.init_caches(b))
-    tc = TM.init_caches(cfg, b, 32, device="cpu", kv_quant=kv_quant)
+    tc = TM.init_caches(cfg, b, max_len, device="cpu", kv_quant=kv_quant)
     with torch.inference_mode():
-        tl = TM.forward(params, torch.from_numpy(prompts).long(), cfg, caches=tc)
+        tl = port(lambda: TM.forward(params, torch.from_numpy(prompts).long(), cfg, caches=tc))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
     tok = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)     # teacher-forced
     for step in range(steps):
         cur = plen + step
         jl, jc = jdec(eng.params, jnp.asarray(tok), jc, jnp.int32(cur))
         with torch.inference_mode():
-            tl = TM.forward(params, torch.from_numpy(tok).long()[:, None], cfg,
-                            caches=tc, cur_pos=cur)[:, -1]
+            tl = port(lambda: TM.forward(params, torch.from_numpy(tok).long()[:, None], cfg,
+                                         caches=tc, cur_pos=cur))[:, -1]
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL,
                                    err_msg=f"decode step {step}")
         tok = np.asarray(jl).argmax(-1).astype(np.int32)

@@ -87,9 +87,13 @@ def test_supported_at_tp1_refused_at_tp2():
             TM.check_supported(cfg, ParallelConfig(weight_quant=mode, kv_quant=kvq))
     with pytest.raises(NotImplementedError, match="moe at tp>1"):
         TM.check_supported(cfg, ParallelConfig(tp=2))
+    # MoE over a sliding-window ring is served (the ring chunk writer); what
+    # still stands there is the reference's refusal of the paged pool
     mixtral_like = dataclasses.replace(cfg, window=64, layer_pattern=("local_attn",))
-    with pytest.raises(NotImplementedError, match="moe with a sliding-window ring"):
-        TM.check_supported(mixtral_like)
+    TM.check_supported(mixtral_like)
+    with pytest.raises(ValueError, match="does not support paged KV: blocked by the "
+                                         "sliding-window ring"):
+        ArchCapabilities.from_config(mixtral_like).require("paged")
     assert ArchCapabilities.from_config(cfg).blockers == {}
     assert moe.capacity(cfg.moe, 256) == 256 and moe.capacity(cfg.moe, 257) == 31
 
