@@ -83,7 +83,7 @@ Phases, each fatal on failure:
    int8 KV cache, each parting certified against the plain versions (as
    gptj-parallel's are, in 8): its paged cached prefix is a second
    approximation of the cache in the reference too;
-7. hybrid: full-width recurrentgemma-9b (38 layers), in bf16 and then
+7. hybrid: full-width recurrentgemma-9b (5 of 38 layers), in bf16 and then
    with int8 weights and the int8 KV cache, through the
    WaveScheduler (prompts of 2100-2300 tokens, longer than the 2048-token
    window) and the ContinuousScheduler (its default chunk falls back to
@@ -139,9 +139,9 @@ Phases, each fatal on failure:
    5e-2, and the paged pool's greedy streams in chunks of 16 with spec
    decode equal or parted at a CPU top-2 gap below 1e-2; one MoE forward
    of 320 tokens on both with the same top experts and the same dropped
-   assignments.  Then full width from seed 0: minicpm3-4b bf16 (16 of 62
+   assignments.  Then full width from seed 0: minicpm3-4b bf16 (8 of 62
    layers; its latent attention is plain PyTorch, no attention kernel
-   runs) and deepseek-moe-16b bf16 (12 of 28 layers) each through phase 5's
+   runs) and deepseek-moe-16b bf16 (6 of 28 layers) each through phase 5's
    wave workload and phase 6's paged chunked-spec phase, and deepseek in
    int4 through the wave, whose 4 x <= 125-token prefills route more than
    256 tokens and drop assignments past capacity: tokens in range, a
@@ -162,12 +162,12 @@ Phases, each fatal on failure:
    is below 1e-2 or a router near-tie was replayed.  Reduced mamba2-1.3b:
    logits and its recurrent state (h, conv) through a prefill and 8
    decode steps, and the wave, continuous and paged streams.  Then full
-   width from seed 0: mixtral-8x7b int4 (32 layers) through phase 5's
+   width from seed 0: mixtral-8x7b int4 (4 of 32 layers) through phase 5's
    wave workload, then 4 prompts of 4040-4090 tokens into 4 slots in
    chunks of 256 with spec decode of 4 drafts, every slot decoding past
    its 4100-entry ring (the wrap asserted from its position rows), in
-   bf16 K/V and over the int8 cache, once each; mamba2-1.3b bf16 (48 layers)
-   through the wave and the continuous and paged slot phases (the pool
+   bf16 K/V and over the int8 cache, once each; mamba2-1.3b bf16 (8 of
+   48 layers) through the wave and the continuous and paged slot phases (the pool
    reserves no block).  Launches as predicted (a chunk or a verify step
    into the ring attends in plain PyTorch, as the reference's jnp), peak
    memory, ms/token and the MoE drops.  Kernel rows at mixtral's shapes:
@@ -176,17 +176,45 @@ Phases, each fatal on failure:
    dequant_matmul at its int4 w_q and lm_head; and the top-k over mamba2's
    vocab.
 
+12. the modality prefix and the multi-codebook head (run before 9):
+   reduced internvl2-26b and musicgen-medium on the card against the same
+   weights on the CPU behind 8 positions of seeded non-zero features: a
+   prefill and 8 decode-step logits within 5e-2, and Engine.generate's
+   greedy streams equal or parted where every differing codebook shows a
+   CPU top-2 gap below 1e-2.  Then full width and full depth from seed 0,
+   zero features: internvl2-26b bf16 (48 layers, its 256-position prefix)
+   through phase 5's wave workload, the slot workload through the
+   ContinuousScheduler (whole prompts: the frontend blocks chunks) in bf16
+   and over the int8 KV cache on the same weights, and the int4 wave;
+   musicgen-medium bf16 (48 layers, its 64-position prefix, (b, 4) frames)
+   through the wave and continuous phases.  Tokens in range, a second run
+   identical, launches as predicted (a multi-codebook head is dequantized
+   for its einsum, no dequant_matmul launch; one top-k launch samples a
+   step's b x 4 frames), peak memory and ms a frame; the bf16 continuous
+   streams equal the same requests served through the wave, each in a
+   wave of 4 copies of itself (no padding), or part where both tokens of
+   every differing codebook lie within 5e-2 of the card's teacher-forced
+   top (the two paths prefill at other widths), at most MAX_PARTED
+   parted.  Kernel rows at
+   their shapes: flash_prefill over prefix + prompt at g 6 / head_dim 128
+   and g 1 / head_dim 64, decode_attention there (internvl's int8
+   instance too), the top-k over (4, 92553) and (16, 2048), dequant_matmul
+   at internvl's int4 w_q and 92553-column lm_head, kv_quant_write of
+   internvl's slot admission and decode.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
-recurrentgemma-9b 8 of 38 layers, the gptj-parallel slot phases 14 of 28,
+recurrentgemma-9b 5 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
-12 of 48, phase 10's minicpm3-4b 16 of 62 and deepseek-moe-16b 12 of 28),
-so that the whole run stays near its ~800 s aim with phases 10 and 11
-added.  The slot phases hold at most MAX_PARTED partings, and shallower
+12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 6 of 28,
+phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48), so that the
+whole run stays near its ~800 s aim with phases 10-12 added.  The slot
+phases hold at most MAX_PARTED partings, and shallower
 random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
 12), so they keep their earlier depths.  qwen-72b's
 int8-KV wave stays at 80 layers: its peak memory must show that 4 x 4096
-tokens fit the card.
+tokens fit the card; phase 12 runs at full depth (its peak memory shows
+that internvl2-26b's 39.7 GB of bf16 weights serve on one card).
 
 Each kernel row of the last lines counts its launches on the phases of the
 arches whose shapes it was timed at (``launches_counted_on``), the tp
@@ -259,13 +287,15 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 # whose checks read the same at any depth, cut so that the whole run stays
 # near its ~800 s aim (PERF.md section 4): recurrentgemma-9b's four phases,
 # gptj-parallel's and yi-9b's int8-KV slot phases, yi-9b's int8-weight and
-# int8-KV waves, and phase 10's minicpm3-4b and deepseek-moe-16b phases
-# (phase name -> layers).  The tp phases, the tp=1 phases they are held
-# to, qwen-72b's int8-KV wave (its peak memory shows that 4 x 4096 tokens
-# fit one card) and phase 11 run at full depth.
-EARLIER_DEPTH = {"recurrentgemma-9b": 8, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
-                 "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 16,
-                 "deepseek-moe-16b": 12}
+# int8-KV waves, phase 10's minicpm3-4b and deepseek-moe-16b phases and
+# phase 11's mixtral-8x7b and mamba2-1.3b phases (phase name -> layers;
+# their full-depth peaks and ms/token are in PERF.md section 6).  The
+# tp phases, the tp=1 phases they are held to, qwen-72b's int8-KV wave (its
+# peak memory shows that 4 x 4096 tokens fit one card) and phase 12 run at
+# full depth.
+EARLIER_DEPTH = {"recurrentgemma-9b": 5, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
+                 "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
+                 "deepseek-moe-16b": 6, "mixtral-8x7b": 4, "mamba2-1.3b": 8}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -502,6 +532,7 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_int8_kernels(dev, flush))
     out.extend(check_moe_kernels(dev, flush))
     out.extend(check_ring_ssd_kernels(dev, flush))
+    out.extend(check_frontend_kernels(dev, flush))
     return out
 
 
@@ -1927,12 +1958,13 @@ def dequant_launches_per_forward(cfg, parallel) -> int:
     """dequant_matmul launches of one forward: one for each quantized
     projection of every layer (an RG-LRU layer's FFN; its mixer is not
     quantized) and one for the lm_head (the kernel merges its K splits in
-    the launch)."""
+    the launch), none for a multi-codebook head (dequantized for its
+    einsum, as the reference serves it)."""
     from repro_torch.models import model as M
 
     if parallel.weight_quant == "none":
         return 0
-    return 1 + sum(len(idx) * sum(M.wq_site(family, name) == "matmul"
+    return (M.head_site(cfg) == "matmul") + sum(len(idx) * sum(M.wq_site(family, name) == "matmul"
                                   for name in M.layer_param_defs(cfg, family))
                    for family, idx in M.layer_families(cfg).items())
 
@@ -1987,7 +2019,8 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     parallel = ParallelConfig(weight_quant=weight_quant, kv_quant=kv_quant)
     opts = QWEN_LONG if long else dict(requests=SERVE_REQUESTS, batch=SERVE_BATCH,
                                        prompt=(16, 128), max_new=SERVE_MAX_NEW,
-                                       max_len=SERVE_MAX_LEN)
+                                       max_len=FRONTEND_MAX_LEN.get(arch, SERVE_MAX_LEN))
+    frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = Engine(cfg, parallel=parallel, sampling=SamplingConfig(top_k=1),
@@ -1996,8 +2029,8 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     init_s = time.monotonic() - t0
     rng = np.random.default_rng(0)
     lo, hi = opts["prompt"]
-    work = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32)
-            for _ in range(opts["requests"])]
+    work = [rng.integers(0, cfg.vocab_size, (int(rng.integers(lo, hi + 1)), *frame))
+            .astype(np.int32) for _ in range(opts["requests"])]
     max_new = opts["max_new"]
 
     def run():
@@ -2039,12 +2072,13 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
             fail(f"{arch} {weight_quant} request {rid}: greedy tokens differ between two runs")
     with torch.inference_mode():   # one full-width logits row: finite, right shape
         logits = M.forward(eng.params, torch.as_tensor(work[0], device=dev)[None].long(), cfg,
-                           last_only=True, head_f32=eng.head_f32)
-    if logits.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+                           last_only=True, head_f32=eng.head_f32,
+                           features=eng.zero_features(1))
+    if logits.shape != (1, 1, *frame, cfg.vocab_size) or not torch.isfinite(logits).all():
         fail(f"{arch} {weight_quant}: full-width logits {tuple(logits.shape)} not finite / "
              f"wrong shape")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    params = eng.params
+    params, eng_prefix = eng.params, eng.prefix
     del eng, logits
     torch.cuda.empty_cache()
     # one wave's cache, from shapes: as run, and what a bf16 one would take
@@ -2070,6 +2104,8 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
         "layers": cfg.n_layers, "params": cfg.param_count(), "requests": opts["requests"],
         "batch": opts["batch"], "max_new": max_new, "max_len": opts["max_len"],
         "prompt_lens": [len(p) for p in work], "tokens": n_tokens, "init_s": init_s,
+        **({"prefix": eng_prefix} if eng_prefix else {}),
+        **({"codebooks": cfg.n_codebooks} if frame else {}),
         "wall_s": [dt1, dt2], "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
         "swept_bytes_per_token": M.decode_weight_bytes(cfg, parallel),
         "launches": launches, "repeatable": True, "peak_mem_gib": peak,
@@ -2642,7 +2678,7 @@ def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
 
 def latent_moe_phases(dev) -> list:
     """minicpm3-4b and deepseek-moe-16b at full width, at EARLIER_DEPTH's
-    cut depth (16 of 62 and 12 of 28 layers),
+    cut depth (8 of 62 and 6 of 28 layers),
     random weights from seed 0: each's bf16 wave (phase 5's workload) and
     paged chunked-spec phase on the same weights, then deepseek's int4
     wave, whose 4 x <= 125-token prefills route more than 256 tokens."""
@@ -3029,13 +3065,13 @@ def ring_slot_phase(dev, params, kv_quant: bool, want=None) -> dict:
     (``kv_quant``) the streams equal to the bf16 run's (``want``) counted.
     One run each (the wave phase on the same weights runs twice): peak
     memory and ms/token."""
-    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.kernels import ops
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler
 
     t_phase = time.monotonic()
-    cfg = get_config(RING_ARCH)
+    cfg = phase_config(RING_ARCH)
     o = RING_PHASE
     parallel = ParallelConfig(weight_quant="int4", kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats()
@@ -3139,14 +3175,14 @@ def ssd_slot_phases(dev, params) -> list:
     below TIE_GAP."""
     import argparse
 
-    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
 
-    cfg = get_config(SSD_ARCH)
+    cfg = phase_config(SSD_ARCH)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK),
@@ -3223,11 +3259,11 @@ def ssd_slot_phases(dev, params) -> list:
 
 
 def ring_ssd_phases(dev):
-    """mixtral-8x7b int4 at full depth (32 layers): phase 5's wave workload,
-    then the ring phase in bf16 K/V and over the int8 cache, on the same
-    weights; mamba2-1.3b bf16 at full depth (48 layers): phase 5's wave
-    workload, then the continuous and paged slot phases, on the same
-    weights."""
+    """mixtral-8x7b int4 at its cut depth (4 of 32 layers): phase 5's wave
+    workload, then the ring phase in bf16 K/V and over the int8 cache, on
+    the same weights; mamba2-1.3b bf16 at its cut depth (8 of 48 layers):
+    phase 5's wave workload, then the continuous and paged slot phases, on
+    the same weights."""
     phase, params = serve_phase(dev, RING_ARCH, "int4")
     yield phase
     ring, streams = ring_slot_phase(dev, params, False)
@@ -3240,6 +3276,396 @@ def ring_ssd_phases(dev):
     yield from ssd_slot_phases(dev, params)
     del params
     torch.cuda.empty_cache()
+
+
+# -- the modality prefix and the multi-codebook head ---------------------------
+#
+# internvl2-26b (a 256-position vision prefix projected from 3200-wide stub
+# features, then an InternLM2 backbone of 48 layers, 48 q over 8 KV heads of
+# 128, vocab 92553; 19.86 B, 39.7 GB in bf16) and musicgen-medium (a
+# 64-position audio prefix of 768-wide features, then 48 layers of 24 MHA
+# heads of 64, a plain GELU FFN, 4 codebooks of 2048 summed at the
+# embedding and sampled per codebook; 1.38 B).  The projector, the codebook
+# sum and the multi-codebook head are plain PyTorch (the reference's jnp);
+# the attention kernels run over prefix + prompt, and the top-k samples
+# internvl's 92553-wide rows and musicgen's (b * 4, 2048) frames.
+
+VLM_ARCH, AUD_ARCH = "internvl2-26b", "musicgen-medium"
+VLM_HQ, VLM_HKV, VLM_PREFIX, VLM_VOCAB, VLM_D = 48, 8, 256, 92553, 6144
+AUD_H, AUD_HD, AUD_PREFIX, AUD_NCB, AUD_VOCAB = 24, 64, 64, 4, 2048
+# a cache holds the prefix, the longest prompt (the wave's 128 tokens, or
+# the slot workload's 64 + 64 shared) and 32 new
+FRONTEND_MAX_LEN = {VLM_ARCH: 448, AUD_ARCH: 256}
+# the decode rows' cache: each row's valid length (prefix + prompt + steps)
+FRONTEND_DECODE = {VLM_ARCH: (448, (300, 350, 400, 413)), AUD_ARCH: (256, (100, 150, 189, 221))}
+DQ_VLM_CASES = (("internvl2-26b w_q int4, decode", "int4", B, VLM_D, VLM_D, torch.bfloat16),
+                ("internvl2-26b lm_head int4, decode", "int4", B, VLM_D, VLM_VOCAB,
+                 torch.float32))
+
+
+def check_frontend_kernels(dev, flush) -> list:
+    """internvl2-26b's and musicgen-medium's kernel rows: flash_prefill over
+    prefix + a 125-token prompt at (4, 48 over 8, 381, 128) and (4, 24, 189,
+    64); decode_attention at (4, 48, 1, 128) over a 448-entry cache and (4,
+    24, 1, 64) over a 256-entry one, each row's valid length its own, and
+    internvl's int8 instance; the sampling top-k over internvl's (4, 92553)
+    rows and musicgen's (16, 2048) frames, k 1; dequant_matmul at internvl's
+    int4 w_q and lm_head (N 92553, no 16-byte weight rows); kv_quant_write
+    of internvl's slot admission and slot decode.  Each against its plain
+    version (tolerances as the rows of the other shapes), with its time,
+    SDPA's, torch.topk's or torch.matmul's, and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    heads = {VLM_ARCH: (VLM_HQ, VLM_HKV, HD, VLM_PREFIX),
+             AUD_ARCH: (AUD_H, AUD_H, AUD_HD, AUD_PREFIX)}
+    rows = []
+    for arch, (hq, hkv, hd, prefix) in heads.items():
+        sq, scale = prefix + 125, hd ** -0.5
+        q = rnd(B, hq, sq, hd).bfloat16()
+        k, v = (rnd(B, hkv, sq, hd).bfloat16() for _ in range(2))
+        q_pos = torch.arange(sq, device=dev, dtype=torch.int32).expand(B, -1).contiguous()
+        err = (ops.flash_prefill(q, k, v, q_pos, scale).float()
+               - ref.flash_prefill_ref(q, k, v, q_pos, scale).float()).abs().max().item()
+        if not err <= 3e-2:
+            fail(f"flash_prefill at {arch}'s heads differs from its plain version by {err}")
+        pairs = B * hq * sq * (sq + 1) // 2
+        rows.append({
+            "name": f"flash_prefill ({arch}, g {hq // hkv}, head_dim {hd})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+            "replaces": "src/repro/kernels/prefill_attention.py:114", "counter": "flash_prefill",
+            "shape": f"q ({B},{hq},{sq},{hd}) k/v ({B},{hkv},{sq},{hd}) bf16, causal over "
+                     f"{prefix} prefix + 125 prompt positions", "max_abs_err": err,
+            "tolerance": 3e-2, "ms": cold_ms(lambda: ops.flash_prefill(q, k, v, q_pos, scale),
+                                             flush),
+            "plain_ms": cold_ms(lambda: ref.flash_prefill_ref(q, k, v, q_pos, scale), flush),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale, enable_gqa=True), flush),
+            **bound(2 * (2 * q.numel() + 2 * k.numel()) + 4 * q_pos.numel(), 4 * hd * pairs,
+                    BF16_FLOPS), "arches": [arch]})
+        S, lens = FRONTEND_DECODE[arch]
+        valid = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        q = rnd(B, hq, 1, hd).bfloat16()
+        k, v = (rnd(B, hkv, S, hd).bfloat16() for _ in range(2))
+        m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+        m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+        err = (acc / l[..., None] - acc2 / l2[..., None]).abs().max().item()
+        if not err <= 1e-3:
+            fail(f"decode_attention at {arch}'s heads differs from its plain version by {err}")
+        n_valid = sum(lens)
+        shape = f"q ({B},{hq},1,{hd}) bf16, k/v ({B},{hkv},{S},{hd}), valid {list(lens)}"
+        rows.append({
+            "name": f"decode_attention_partial ({arch}, g {hq // hkv}, head_dim {hd})",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:66",
+            "counter": "decode_attention", "shape": shape, "max_abs_err": err, "tolerance": 1e-3,
+            "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+            "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=valid[:, None, None, :], scale=scale, enable_gqa=True),
+                flush),
+            **bound(2 * q.numel() + 4 * hkv * n_valid * hd + valid.numel()
+                    + 4 * (m.numel() + l.numel() + acc.numel()), 4 * hd * hq * n_valid,
+                    BF16_FLOPS), "arches": [arch]})
+        if arch == VLM_ARCH:
+            (kq, ks), (vq, vs) = ref.quantize_kv(k), ref.quantize_kv(v)
+            rows.append({"name": f"decode_attention_partial (int8), {arch}", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "replaces": "src/repro/kernels/decode_attention.py:66",
+                         "counter": "decode_attention_int8",
+                         "shape": shape.replace("), valid", ") int8, bf16 scales, valid"),
+                         **int8_decode_case(q, kq, ks, vq, vs, valid, scale, flush),
+                         "arches": [arch]})
+            del kq, ks, vq, vs
+        del q, k, v
+    entry = None
+    for n_rows, n, arch in ((B, VLM_VOCAB, VLM_ARCH), (B * AUD_NCB, AUD_VOCAB, AUD_ARCH)):
+        x = rnd(n_rows, n).float()
+        before = ops.LAUNCHES["topk"]
+        vals, idx = ops.topk(x, 1)
+        if ops.LAUNCHES["topk"] != before + 1:
+            fail(f"topk over {arch}'s rows made more than one launch")
+        rv, ri = ref.topk_ref(x, 1)
+        if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+            fail(f"topk over {arch}'s ({n_rows}, {n}) rows differs from its plain version")
+        timed = {"shape": f"x ({n_rows},{n}) fp32, k=1", "max_abs_err": 0.0, "tolerance": 0.0,
+                 "ms": cold_ms(lambda: ops.topk(x, 1), flush),
+                 "plain_ms": cold_ms(lambda: ref.topk_ref(x, 1), flush),
+                 "library_ms": cold_ms(lambda: torch.topk(x, 1), flush),
+                 **bound(4 * x.numel() + 8 * n_rows, x.numel(), FP32_FLOPS)}
+        if entry is None:
+            entry = {"name": f"topk ({VLM_ARCH} vocab, {AUD_ARCH} frames)", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/topk.cu",
+                     "replaces": "src/repro/kernels/topk_shard.py:66", "counter": "topk",
+                     **timed, "arches": [VLM_ARCH, AUD_ARCH]}
+        else:
+            entry[AUD_ARCH] = timed
+    rows.append(entry)
+    dq = check_dequant(dev, flush, DQ_VLM_CASES, f"dequant_matmul ({VLM_ARCH} int4)")
+    rows.append({**dq, "arches": [VLM_ARCH]})
+    # kv_quant_write: K/V as a layer makes them (transposed views of (b, s, h, hd))
+    fresh = lambda s: tuple(rnd(B, s, VLM_HKV, HD).bfloat16().transpose(1, 2) for _ in range(2))
+    S = FRONTEND_MAX_LEN[VLM_ARCH]
+    sq = VLM_PREFIX + 125
+    slots = torch.arange(B, device=dev)
+    k, v = fresh(sq)
+    writes = [kvq_write_case(
+        f"{VLM_ARCH} slot admission of {B} x {sq}", k, v, B, S,
+        attn.quant_targets(B, sq, dev, targets=(slots.repeat_interleave(sq),
+                                                 torch.arange(sq, device=dev).repeat(B))),
+        flush, False)]
+    k, v = fresh(1)
+    writes.append(kvq_write_case(
+        f"{VLM_ARCH} slot decode", k, v, B, S,
+        attn.quant_targets(B, 1, dev, targets=(slots, torch.tensor(FRONTEND_DECODE[VLM_ARCH][1],
+                                                                   device=dev) - 1)),
+        flush, False))
+    del k, v
+    head = writes[0]
+    rows.append({"name": f"kv_quant_write ({VLM_ARCH})", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/kv_quant_write.cu",
+                 "replaces": "src/repro/models/attention.py:156",
+                 "replaces_what": "no Pallas kernel: _quantize_kv and the cache writes in jnp",
+                 "counter": "kv_quant_write", "arches": [VLM_ARCH],
+                 "library": "none: no single PyTorch call quantizes and scatters",
+                 **{k: head[k] for k in ("shape", "max_abs_err", "tolerance", "ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by")},
+                 "cases": writes})
+    return rows
+
+
+def small_frontend_model(dev, arch: str):
+    """Reduced ``arch`` (``small_model``), its projector's norm gamma drawn
+    nonzero too -> (cfg, CPU params, the same on ``dev``)."""
+    cfg, cpu, _ = small_model(dev, arch)
+    norm = cpu["frontend"]["norm"]
+    norm.copy_(0.2 * torch.randn(norm.shape, generator=torch.Generator().manual_seed(3)))
+    return cfg, cpu, to_device(cpu, dev)
+
+
+def frontend_reference_check(dev) -> list:
+    """Reduced internvl2-26b and musicgen-medium on the card against the
+    same weights on the CPU, where the plain versions run, behind 8
+    positions of seeded non-zero features: the logits of a 3 x 20-token
+    (frame) prefill and 8 decode steps fed the CPU's greedy tokens within
+    REF_TOL, and ``Engine.generate``'s greedy streams of 16 new tokens
+    (frames) from the same prompts and features equal, or parted where
+    every codebook that differs shows a CPU top-2 gap below TIE_GAP."""
+    from repro_torch.configs import SamplingConfig
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    out = []
+    for arch in (VLM_ARCH, AUD_ARCH):
+        cfg, cpu, gpu = small_frontend_model(dev, arch)
+        frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
+        f = cfg.frontend
+        rng = np.random.default_rng(5)
+        b, plen, max_len = 3, 20, 64
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, plen, *frame)))
+        feats = torch.from_numpy(rng.standard_normal((b, f.prefix_len, f.feature_dim))
+                                 .astype(np.float32))
+        caches = {d: M.init_caches(cfg, b, max_len, device=d) for d in ("cpu", dev)}
+        worst = 0.0
+        with torch.inference_mode():
+            lc = M.forward(cpu, tokens, cfg, caches=caches["cpu"], features=feats)
+            lg = M.forward(gpu, tokens.to(dev), cfg, caches=caches[dev],
+                           features=feats.to(dev)).cpu()
+            worst = max(worst, (lc - lg).abs().max().item())
+            tok = lc[:, -1].argmax(-1)
+            for cur in range(f.prefix_len + plen, f.prefix_len + plen + 8):
+                lc = M.forward(cpu, tok[:, None], cfg, caches=caches["cpu"], cur_pos=cur)
+                lg = M.forward(gpu, tok[:, None].to(dev), cfg, caches=caches[dev],
+                               cur_pos=cur).cpu()
+                worst = max(worst, (lc - lg).abs().max().item())
+                tok = lc[:, -1].argmax(-1)
+        if not (worst <= REF_TOL and torch.isfinite(lg).all()):
+            fail(f"small {arch}: card logits differ from the CPU's by {worst} > {REF_TOL}")
+        streams = {}
+        for d, params in (("cpu", cpu), (dev, gpu)):
+            eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=max_len, params=params,
+                         device=d)
+            streams[str(d)] = eng.generate(tokens.numpy(), 16, feats.numpy())
+        parted = []
+        for i in range(b):
+            a, c = streams["cpu"][i], streams[str(dev)][i]
+            if np.array_equal(a, c):
+                continue
+            diff = (a != c).reshape(len(a), -1)
+            t = int(np.argmax(diff.any(axis=1)))
+            seq = np.concatenate([tokens[i].numpy(), a[:t]])
+            with torch.inference_mode():
+                lc = M.forward(cpu, torch.from_numpy(seq)[None].long(), cfg, last_only=True,
+                               features=feats[i:i + 1])[0, -1].reshape(-1, cfg.vocab_size)
+            top2 = torch.topk(lc, 2).values
+            gaps = (top2[:, 0] - top2[:, 1])[torch.from_numpy(np.flatnonzero(diff[t]))]
+            if not (gaps < TIE_GAP).all():
+                fail(f"small {arch}: the card's generate stream {i} parts from the CPU's at "
+                     f"step {t}, CPU top-2 gaps {gaps.tolist()}")
+            parted.append({"row": i, "step": t, "top2_gaps": gaps.tolist()})
+        out.append({"config": cfg.name, "prefix": f.prefix_len, "codebooks": cfg.n_codebooks,
+                    "features": "seeded normal", "max_abs_logit_err": worst,
+                    "tolerance": REF_TOL, "generate_rows": b, "generate_parted": parted})
+    return out
+
+
+class _Recorder:
+    """Keeps what ``serve.submit_workload`` submits."""
+
+    def __init__(self):
+        self.reqs = []
+
+    def submit(self, prompt, max_new, arrival_step=0):
+        self.reqs.append((np.asarray(prompt), max_new, arrival_step))
+
+
+def frontend_slot_phase(dev, arch: str, params, kv_quant: bool = False, want=None):
+    """Full-width ``arch`` (the wave phase's weights ``params``) through the
+    ContinuousScheduler over SLOT_WORKLOAD (12 requests into 4 slots, arrivals
+    every 4 decode steps, budgets 8..32; musicgen-medium's prompts are
+    frames and take no shared prompt), whole prompts behind the prefix (the
+    default chunk of 256 falls back: the frontend blocks chunks), twice:
+    tokens in range, the second run identical, launches as predicted.  In
+    bf16 (``want`` None) the same requests then go through the WaveScheduler,
+    each alone in a wave of SLOTS copies of itself (no padding, so the
+    stream is the request's own, and its decode steps as wide as the
+    slots'), and each continuous stream must equal its wave stream or part
+    first where, for every differing codebook, both tokens lie within
+    REF_TOL of the top of the card's logits teacher-forced along the wave's
+    stream: a slot's prompt is prefilled alone in its bucket and the wave's
+    four copies together, so their products run at other widths (other
+    cuBLAS tiles) and, over 48 random layers, their logits stand a few 1e-2
+    apart, as the card's and the CPU's do (REF_TOL); at most MAX_PARTED
+    parted.  Over the int8 cache (``kv_quant``) the streams
+    equal to the bf16 run's (``want``) are counted.  -> (result, streams)."""
+    import argparse
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.scheduler import ContinuousScheduler, WaveScheduler
+
+    t_phase = time.monotonic()
+    cfg = phase_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=ParallelConfig(kv_quant=kv_quant),
+                 sampling=SamplingConfig(top_k=1), max_len=FRONTEND_MAX_LEN[arch], seed=0,
+                 params=params, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rec = _Recorder()
+    serve.submit_workload(rec, cfg, argparse.Namespace(**SLOT_WORKLOAD))
+
+    def run(sched, arrivals=True):
+        for p, m, a in rec.reqs:
+            sched.submit(p, m, arrival_step=a if arrivals else 0)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done = sched.run()
+        torch.cuda.synchronize()
+        return {r.rid: r.output for r in done}, time.monotonic() - t
+
+    ops.reset_launches()
+    sched = ContinuousScheduler(eng, n_slots=SLOTS)
+    first, dt1 = run(sched)
+    launches = dict(ops.LAUNCHES)
+    second, dt2 = run(ContinuousScheduler(eng, n_slots=SLOTS))
+    st = sched.stats
+    expect = expected_slot_launches("dense", st, cfg.n_layers, kv_quant=kv_quant)
+    if sched.chunk != 0 or launches != expect:
+        fail(f"{arch} continuous kv_quant={kv_quant}: chunk {sched.chunk}, kernel launches "
+             f"{launches} != expected {expect} ({st})")
+    frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
+    for rid, toks in first.items():
+        if (toks.shape != (rec.reqs[rid][1], *frame)
+                or not ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{arch} continuous request {rid}: tokens out of range or wrong count")
+        if not np.array_equal(toks, second[rid]):
+            fail(f"{arch} continuous request {rid}: greedy tokens differ between two runs")
+    n_tokens = sum(len(t) for t in first.values())
+    result = {"arch": cfg.name, "scheduler": "continuous", "weight_quant": "none",
+              "kv_quant": kv_quant, "layers": cfg.n_layers, "params": cfg.param_count(),
+              "prefix": eng.prefix, "codebooks": cfg.n_codebooks,
+              "requests": len(rec.reqs), "slots": SLOTS, "max_len": FRONTEND_MAX_LEN[arch],
+              "workload": SLOT_WORKLOAD, "prompt_lens": [len(p) for p, _, _ in rec.reqs],
+              "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1, dt2],
+              "ms_per_token": [1e3 * dt1 / n_tokens, 1e3 * dt2 / n_tokens],
+              "stats": dict(st), "summary": sched.request_summary(), "launches": launches,
+              "repeatable": True, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if want is not None:
+        result["equal_to_bf16_kv_streams"] = sum(np.array_equal(t, want[rid])
+                                                 for rid, t in first.items())
+    else:
+        # each request alone in a wave of SLOTS copies of itself: no padding,
+        # and its decode steps as wide as the slots' (SLOTS rows)
+        sched_w = WaveScheduler(eng, batch_size=SLOTS)
+        for p, m, _ in rec.reqs:
+            for _ in range(SLOTS):
+                sched_w.submit(p, m)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done_w = sched_w.run()
+        torch.cuda.synchronize()
+        dt_w = time.monotonic() - t
+        wave = {r.rid // SLOTS: r.output for r in done_w if r.rid % SLOTS == 0}
+        parted = []
+        for rid, toks in first.items():
+            a, b = wave[rid], toks
+            if np.array_equal(a, b):
+                continue
+            diff = (a != b).reshape(len(a), -1)
+            t = int(np.argmax(diff.any(axis=1)))
+            seq = np.concatenate([rec.reqs[rid][0], a[:t]])
+            with torch.inference_mode():
+                lg = M.forward(eng.params, torch.as_tensor(seq, device=dev)[None].long(), cfg,
+                               last_only=True, head_f32=eng.head_f32,
+                               features=eng.zero_features(1))[0, -1].reshape(-1, cfg.vocab_size)
+            cbs = np.flatnonzero(diff[t])
+            top = lg.max(dim=-1).values[cbs].cpu()
+            at = lambda toks: lg[cbs, torch.as_tensor(np.asarray(toks).reshape(-1)[cbs],
+                                                      device=dev)].cpu()
+            slack = torch.maximum(top - at(a[t]), top - at(b[t])).tolist()
+            top2 = torch.topk(lg, 2).values[cbs]
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            if not max(slack) < REF_TOL:
+                fail(f"{arch} continuous request {rid} parts from its wave stream at step {t}: "
+                     f"a token {slack} below the top (top-2 gaps {gaps})")
+            parted.append({"rid": rid, "step": t, "codebooks": cbs.tolist(),
+                           "tokens_below_top": slack, "top2_gaps": gaps})
+        if len(parted) > MAX_PARTED:
+            fail(f"{arch} continuous: {len(parted)} streams part from the wave's")
+        result.update(wave_copies_s=dt_w, parted_from_wave_at_near_ties=parted)
+    result["phase_s"] = time.monotonic() - t_phase
+    del eng
+    torch.cuda.empty_cache()
+    return result, first
+
+
+def frontend_phases(dev):
+    """internvl2-26b at full depth: phase 5's wave workload behind its
+    256-position prefix in bf16, the slot workload through the continuous
+    scheduler in bf16 and over the int8 KV cache on the same weights, then
+    the int4 wave; musicgen-medium at full depth: the bf16 wave and
+    continuous phases in (b, 4) frames."""
+    for arch in (VLM_ARCH, AUD_ARCH):
+        phase, params = serve_phase(dev, arch, "none")
+        yield phase
+        result, streams = frontend_slot_phase(dev, arch, params)
+        yield result
+        if arch == VLM_ARCH:
+            yield frontend_slot_phase(dev, arch, params, kv_quant=True, want=streams)[0]
+        del params
+        torch.cuda.empty_cache()
+        if arch == VLM_ARCH:
+            yield serve_phase(dev, arch, "int4")[0]
+            torch.cuda.empty_cache()
 
 
 # -- tensor parallelism --------------------------------------------------------
@@ -3715,6 +4141,8 @@ def main() -> None:
         print(json.dumps({"reference": row}), flush=True)
     for row in ring_ssd_reference_check(dev):
         print(json.dumps({"reference": row}), flush=True)
+    for row in frontend_reference_check(dev):
+        print(json.dumps({"reference": row}), flush=True)
     phases, params, weights = [], None, None
     for arch, mode, kvq in SERVE_PHASES:
         depth = phase_config(arch, wave_name(mode, kvq)).n_layers
@@ -3729,7 +4157,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
                 lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain"),
-                lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev)):
+                lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev),
+                lambda: frontend_phases(dev)):
         for phase in run():
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)

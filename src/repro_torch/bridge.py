@@ -22,8 +22,10 @@ and returns the layout of ``repro_torch.models.model``:
   each with a dense or an MoE FFN) are stacked in layer order, as
   ``model.init_params`` lays them out: deepseek-moe-16b's unrolled dense
   layer 0 is one family, its scanned MoE layers another;
-* the embed table stays ``(1, V, d)`` and the lm_head ``(1, d, V)``; a
-  tied tree has no lm_head (the table is the head);
+* the embed table stays ``(ncb, V, d)`` and the lm_head ``(ncb, d, V)``
+  (ncb codebooks, 1 but for musicgen-medium); a tied tree has no lm_head
+  (the table is the head); a frontend's projector (``norm``, ``w1``,
+  ``w2``) crosses as it is, bf16 whatever the quantization;
 * with ``dist`` at tp > 1 every leaf of the tp=1 tree is then cut to the
   rank's shard by the rule ``init_params`` follows (``model.shard_leaf``):
   quantized leaves too, by their values and scales, so a rank holds the
@@ -52,6 +54,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.wquant import QuantWeight, map_tensors
 from repro_torch.configs.base import ParallelConfig
+from repro_torch.models import multimodal
 from repro_torch.models.common import Dist, resolve_device
 from repro_torch.models.model import (ModelCtx, check_supported, layer_families,
                                       layer_param_defs, shard_leaf, split_layers)
@@ -161,14 +164,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
         stacked = {name: place(name, t) for name, t in stacked.items()}
         for i, layer in zip(idx, split_layers(stacked, len(idx))):
             layers[i] = layer
-    d, V = cfg.d_model, cfg.vocab_size
+    d, V, ncb = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
     table = to_torch(tree["embed"]["table"])
     if ("lm_head" in tree) == cfg.tie_embeddings:
         raise ValueError(f"an lm_head leaf with tie_embeddings={cfg.tie_embeddings}")
     head = None if cfg.tie_embeddings else to_torch(tree["lm_head"])
-    if tuple(table.shape) != (1, V, d) or (head is not None and _shape(head) != (1, d, V)):
+    if tuple(table.shape) != (ncb, V, d) or (head is not None and _shape(head) != (ncb, d, V)):
         raise ValueError(f"embed {tuple(table.shape)} / lm_head {head and _shape(head)} "
-                         f"!= (1, {V}, {d}) / (1, {d}, {V})")
+                         f"!= ({ncb}, {V}, {d}) / ({ncb}, {d}, {V})")
     out = {
         "embed": {"table": place("table", table)},
         "layers": layers,
@@ -176,4 +179,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     }
     if head is not None:
         out["lm_head"] = place("lm_head", head)
+    if ("frontend" in tree) != (cfg.frontend is not None):
+        raise ValueError(f"a frontend leaf with frontend={cfg.frontend}")
+    if cfg.frontend is not None:
+        defs = multimodal.frontend_defs(cfg)
+        front = {name: to_torch(a) for name, a in tree["frontend"].items()}
+        shapes = {n: spec[0] for n, spec in defs.items()}
+        if {n: tuple(t.shape) for n, t in front.items()} != shapes:
+            raise ValueError(f"frontend leaves {sorted(front)} != {sorted(defs)} by shape")
+        out["frontend"] = {name: t.to(device) for name, t in front.items()}
     return out

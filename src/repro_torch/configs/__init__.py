@@ -1,13 +1,13 @@
-"""Config registry: ``get_config("<arch-id>")`` for the archs the port
-serves, dense (sequential or parallel residual), RG-LRU hybrid, MLA, MoE
-(over a sliding-window ring too) and Mamba-2 SSD (the same arch ids as
-``repro.configs``)."""
+"""Config registry: ``get_config("<arch-id>")`` for every arch of
+``repro.configs`` (the same ids): dense (sequential or parallel residual),
+RG-LRU hybrid, MLA, MoE (over a sliding-window ring too), Mamba-2 SSD, and
+the modality-prefix VLM and multi-codebook audio decoders."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig, ParallelConfig,
-                                     RGLRUConfig, SamplingConfig, SSMConfig)
+from repro_torch.configs.base import (FrontendStub, MLAConfig, ModelConfig, MoEConfig,
+                                     ParallelConfig, RGLRUConfig, SamplingConfig, SSMConfig)
 
 # arch-id -> module name
 _REGISTRY = {
@@ -21,6 +21,8 @@ _REGISTRY = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "internvl2-26b": "internvl2_26b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)
@@ -36,5 +38,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_REGISTRY[key]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "MLAConfig", "ModelConfig", "MoEConfig", "ParallelConfig", "RGLRUConfig",
-           "SSMConfig", "SamplingConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "FrontendStub", "MLAConfig", "ModelConfig", "MoEConfig", "ParallelConfig",
+           "RGLRUConfig", "SSMConfig", "SamplingConfig", "get_config"]

@@ -1,18 +1,16 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the dense-decoder, RG-LRU-hybrid, MLA, MoE and Mamba-2 SSD part
-of ``repro.configs.base``: the field names, defaults, ``block_kind``,
-``param_count`` and ``reduced()`` rule are the same, so a config built here
-describes the same model as its JAX namesake.  The family features the port
-does not serve yet (frontends, multi-codebook heads) keep their fields, so
-that ``repro_torch.models.model.check_supported`` can name what a config
-needs and refuse it.
+A copy of ``repro.configs.base`` for every family the JAX package
+registers (dense, RG-LRU hybrid, MLA, MoE, Mamba-2 SSD, and the
+modality-prefix and multi-codebook archs): the field names, defaults,
+``block_kind``, ``param_count`` and ``reduced()`` rule are the same, so a
+config built here describes the same model as its JAX namesake.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -62,6 +60,18 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class FrontendStub:
+    """Stub modality frontend: the encoder (a ViT, EnCodec) is not built.
+    The caller gives precomputed patch or frame features, (batch,
+    prefix_len, feature_dim); the projector (``models/multimodal.py``) maps
+    them to d_model and prepends them to the prompt."""
+
+    kind: str                   # "vision" | "audio"
+    prefix_len: int             # number of patch/frame positions
+    feature_dim: int            # raw frontend feature width
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # dense | moe | ssm | hybrid | vlm | audio
@@ -89,7 +99,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    frontend: Optional[Any] = None
+    frontend: Optional[FrontendStub] = None
     citation: str = ""
 
     @property
@@ -143,9 +153,9 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (or one period of a longer layer
         pattern), d_model<=256, head_dim 64, window<=64, <=4 experts of top
-        2, the small MLA ranks and SSD state 32, head 32, chunk 32 (the
-        dense, RG-LRU, MoE, MLA and SSD part of
-        ``repro.configs.base.ModelConfig.reduced``)."""
+        2, the small MLA ranks, SSD state 32, head 32, chunk 32, and a
+        frontend of 8 positions of 64 features
+        (``repro.configs.base.ModelConfig.reduced``)."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
@@ -176,6 +186,8 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(self.ssm, state_dim=32, head_dim=32, chunk=32)
         if self.rglru is not None:
             kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
+        if self.frontend is not None:
+            kw["frontend"] = dataclasses.replace(self.frontend, prefix_len=8, feature_dim=64)
         return dataclasses.replace(self, **kw)
 
 

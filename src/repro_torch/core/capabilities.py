@@ -1,7 +1,7 @@
 """Declarative per-architecture serving capabilities: the port's copy of
 ``repro.core.capabilities`` (``ArchCapabilities.from_config``,
-``supports``, ``require``), with the same derivation rules and the same
-wording of the error.
+``supports``, ``require``, ``render_text``), with the same derivation
+rules, the same wording of the error and the same matrix.
 
 One record per architecture, derived from its ``ModelConfig`` when the
 engine is built (``Engine.caps``).  The schedulers consult it through
@@ -21,7 +21,7 @@ worded error naming the blocking capability and the fallback.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
 
@@ -119,3 +119,32 @@ class ArchCapabilities:
             f"arch {self.arch!r} does not support {PATH_NAMES[path]}: "
             f"blocked by {BLOCKERS[tag]} — use {FALLBACKS[path]} instead"
         )
+
+
+def registry() -> Dict[str, ArchCapabilities]:
+    """arch-id -> capability record, for every registered architecture."""
+    from repro_torch import configs      # configs never imports core
+
+    return {arch: ArchCapabilities.from_config(configs.get_config(arch))
+            for arch in configs.ALL_ARCHS}
+
+
+def _cell(caps: ArchCapabilities, path: str) -> str:
+    tag = caps.blocker(path)
+    return "✓" if tag is None else f"✗ {tag}"
+
+
+def render_text() -> str:
+    """Plain-text capability matrix (``serve.py --list-archs``), arch by
+    arch in sorted order, then the blocking capabilities' legend."""
+    header = ["arch", *PATHS, "sampling", "max-prompt"]
+    rows: List[List[str]] = [header]
+    for arch, caps in sorted(registry().items()):
+        rows.append([arch, *(_cell(caps, p) for p in PATHS), caps.sampling,
+                     str(caps.max_prompt) if caps.max_prompt else "-"])
+    widths = [max(len(r[i]) for r in rows) for i in range(len(header))]
+    lines = ["  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip() for r in rows]
+    lines.insert(1, "  ".join("-" * w for w in widths))
+    legend = ["", "blocking capabilities:"]
+    legend += [f"  {tag:<10} {phrase}" for tag, phrase in sorted(BLOCKERS.items())]
+    return "\n".join(lines + legend)

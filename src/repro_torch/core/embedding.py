@@ -1,7 +1,8 @@
 """Paper section 2.1a: broadcast token ids, not embedding activations
 (``repro.core.embedding``).
 
-The table is laid out ``(n_codebooks, V, d)`` as in the JAX package.  Token
+The table is laid out ``(n_codebooks, V, d)`` as in the JAX package; a
+multi-codebook token frame sums its codebooks' rows.  Token
 ids are replicated on every rank (each runs the same scheduler over the
 same requests and samples the same ids), so their "broadcast" costs
 nothing.  Two table layouts:
@@ -40,16 +41,25 @@ def table_replicated(cfg: ModelConfig) -> bool:
 def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                  plan: ShardPlan = None, dist: Dist = Dist(), *,
                  id_broadcast: bool = True) -> torch.Tensor:
-    """tokens (b, s) int -> (b, s, d) activations in the table's dtype, the
-    same on every rank.  The table's rows say its layout: all V, or this
+    """tokens (b, s) int, or (b, s, n_codebooks) token frames -> (b, s, d)
+    activations in the table's dtype, the same on every rank.  A frame's
+    rows are summed codebook by codebook in the table's dtype, in the
+    reference's order.  The table's rows say its layout: all V, or this
     rank's ``plan.local_vocab`` of a vocab-sharded one."""
-    table = params["table"][0]
-    if dist.tp == 1 or table.shape[0] != plan.local_vocab:
-        out = table[tokens]
-    else:
-        local = tokens - dist.rank * plan.local_vocab
-        ok = (local >= 0) & (local < plan.local_vocab)
-        out = torch.where(ok[..., None], table[local.clamp(0, plan.local_vocab - 1)], 0)
+    table = params["table"]
+    if tokens.dim() == 2:
+        tokens = tokens[..., None]
+    out = None
+    for cb in range(tokens.shape[-1]):
+        ids = tokens[..., cb]
+        if dist.tp == 1 or table.shape[1] != plan.local_vocab:
+            rows = table[cb][ids]
+        else:
+            local = ids - dist.rank * plan.local_vocab
+            ok = (local >= 0) & (local < plan.local_vocab)
+            rows = torch.where(ok[..., None], table[cb][local.clamp(0, plan.local_vocab - 1)], 0)
+        out = rows if out is None else out + rows
+    if dist.tp > 1 and table.shape[1] == plan.local_vocab:
         out = cc.all_reduce(out, dist, tag="embed_shard_merge")
     if not id_broadcast:
         # the baseline: rank 0's activations cross the wire

@@ -11,6 +11,8 @@
     python -m repro_torch.launch.profile_decode --arch deepseek-moe-16b --weight-quant int4
     python -m repro_torch.launch.profile_decode --arch qwen-72b --weight-quant int4 \
         --kv-quant --prompt-len 2950 --max-len 4096
+    python -m repro_torch.launch.profile_decode --arch internvl2-26b
+    python -m repro_torch.launch.profile_decode --arch musicgen-medium --scheduler continuous
     python -m repro_torch.launch.profile_decode --tp 2       # ranks share the card over gloo
 
 Builds the arch at full width from random weights, prefills one wave (or,
@@ -28,7 +30,11 @@ state every time.  SPEC_K and CHUNK are those of chip_smoke.py's chunked
 spec phases.  A sliding-window arch (recurrentgemma-9b) prefills
 window + 64 tokens by default in a wave, so its decode steps run over a
 ring that has wrapped, and window - 8 into a slot (admission caps prompts
-at the window), so its steps cross the window.  The wave path also profiles the same
+at the window), so its steps cross the window.  A frontend arch
+(internvl2-26b, musicgen-medium) prefills its prefix of zero features
+before each prompt, musicgen-medium's prompts are (prompt_len, 4) codebook
+frames and its steps sample a frame, and the paths its capability record
+blocks (paged, verify, mixed) raise its error.  The wave path also profiles the same
 prefill once more, into the same cache, and reports its wall time and the device time
 of its lru_scan, flash_prefill and fused_dual_matmul launches.  The
 device's idle share divides the profiled pass's device time by the plain
@@ -108,10 +114,11 @@ def main(argv=None) -> dict:
     if args.prompt_len is None:
         args.prompt_len = (128 if not cfg.window else
                            cfg.window + 64 if args.scheduler == "wave" else cfg.window - 8)
+    prefix = cfg.frontend.prefix_len if cfg.frontend is not None else 0
     if args.max_len is None:
-        args.max_len = max(256, args.prompt_len + 3 + args.steps)
-    if args.prompt_len + 3 + args.steps > args.max_len:
-        ap.error("--max-len must hold the prompt, 3 warm-up steps and --steps")
+        args.max_len = max(256, prefix + args.prompt_len + 3 + args.steps)
+    if prefix + args.prompt_len + 3 + args.steps > args.max_len:
+        ap.error("--max-len must hold the prefix, the prompt, 3 warm-up steps and --steps")
     if args.step != "decode" and args.scheduler == "wave":
         ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
     if args.tp == 1:
@@ -127,15 +134,21 @@ def _profile(dist: Dist, device, cfg, args) -> dict:
     eng = Engine(cfg, parallel=dataclasses.replace(parallel_config(args), kv_quant=args.kv_quant),
                  sampling=SamplingConfig(top_k=1), max_len=args.max_len, seed=args.seed,
                  device=device, dist=dist)
+    if args.scheduler == "paged":
+        eng.caps.require("paged")
+    if args.step != "decode":
+        eng.caps.require("spec" if args.step == "verify" else "chunked")
+    frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
     prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))
+        0, cfg.vocab_size, (args.batch, args.prompt_len, *frame))
     prefill = None
     with torch.inference_mode():
         if args.scheduler == "wave":
             caches = eng.init_caches(args.batch)
-            tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches)
+            tok = eng.prefill(torch.as_tensor(prompts, device=eng.device), caches,
+                              eng.zero_features(args.batch))
             prefill = _profile_prefill(eng, prompts, caches)
-            cur = args.prompt_len
+            cur = eng.prefix + args.prompt_len
             for _ in range(3):                        # warm-up
                 tok = eng.decode(tok, caches, cur)
                 cur += 1
@@ -236,7 +249,7 @@ def _profile_prefill(eng: Engine, prompts: np.ndarray, caches) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.prefill(tokens, caches)
+        eng.prefill(tokens, caches, eng.zero_features(len(prompts)))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -261,7 +274,7 @@ def _slot_steps(eng: Engine, args, prompts: np.ndarray):
     masked decode steps from there as one ``decode_slots`` block, or
     ``--steps`` verify or mixed steps from there (``--step``), and the
     cache."""
-    B, plen = prompts.shape
+    B, plen = prompts.shape[:2]
     admit, plens = np.ones(B, bool), np.full(B, plen)
     bt = None
     if args.scheduler == "paged":
@@ -273,7 +286,8 @@ def _slot_steps(eng: Engine, args, prompts: np.ndarray):
     else:
         caches = eng.init_slot_caches(B)
         tok = eng.prefill_into_slots(caches, prompts, admit, plens)
-    state = (tok, plens, np.zeros(B, bool), np.full(B, args.max_len), np.full(B, -1))
+    state = (tok, plens + eng.prefix, np.zeros(B, bool), np.full(B, args.max_len),
+             np.full(B, -1))
     if args.step == "verify":
         vtok = np.repeat(tok[:, None], SPEC_K + 1, axis=1)
 

@@ -14,7 +14,11 @@ in the JAX serve CLI, so an arch whose capability record blocks chunks or
 spec decode (``core/capabilities.py``: recurrentgemma-9b's recurrent state)
 falls back to whole-prompt admission and plain decode whatever their
 values; its sliding-window ring blocks the paged cache, and ``--scheduler
-paged`` raises the record's error.
+paged`` raises the record's error.  So do internvl2-26b's and
+musicgen-medium's (the modality prefix), which serve the wave and the
+dense continuous paths: their prompts follow a prefix of zero stub
+features, and musicgen-medium's are (prompt_len, 4) codebook frames.
+``--list-archs`` prints the capability matrix and exits.
 Weights are random, drawn on the device from ``--seed``; with
 ``--weight-quant int8|int4`` they are quantized as they are drawn and every
 projection and the lm_head go through the dequant_matmul kernel, and
@@ -42,6 +46,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import ALL_ARCHS, ParallelConfig, SamplingConfig, get_config
+from repro_torch.core.capabilities import render_text
 from repro_torch.launch import mesh
 from repro_torch.models import model as M
 from repro_torch.models.common import Dist
@@ -115,18 +120,20 @@ def submit_workload(sched, cfg, args) -> None:
     """The JAX serve CLI's workload, the same draws from the same seed: one
     shared prefix of ``--shared-prefix`` tokens, then per request a prompt
     length from [4, --prompt-len], a budget from [max_new // spread,
-    max_new] when ``--max-new-spread`` > 1, and uniform token ids; request
-    i arrives at decode step i * ``--arrival-every``."""
+    max_new] when ``--max-new-spread`` > 1, and uniform token ids, (plen,
+    ncb) frames for a multi-codebook arch, which takes no shared prefix;
+    request i arrives at decode step i * ``--arrival-every``."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, args.shared_prefix).astype(np.int32)
     for i in range(args.requests):
         plen = int(rng.integers(4, args.prompt_len + 1))
+        shape = (plen,) if cfg.n_codebooks == 1 else (plen, cfg.n_codebooks)
         max_new = args.max_new
         if args.max_new_spread > 1:
             max_new = int(rng.integers(max(1, args.max_new // args.max_new_spread),
                                        args.max_new + 1))
-        prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
-        if args.shared_prefix:
+        prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        if args.shared_prefix and cfg.n_codebooks == 1:
             prompt = np.concatenate([shared, prompt])
         sched.submit(prompt, max_new=max_new, arrival_step=i * args.arrival_every)
 
@@ -134,6 +141,9 @@ def submit_workload(sched, cfg, args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="yi-9b", choices=ALL_ARCHS)
+    ap.add_argument("--list-archs", action="store_true",
+                    help="print the architecture capability matrix (which serving paths "
+                         "each registered arch supports, and what blocks the rest) and exit")
     ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4, help="wave scheduler: requests per wave")
@@ -189,6 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Serve; -> the finished requests (rank 0's at --tp > 1)."""
     args = build_parser().parse_args(argv)
+    if args.list_archs:
+        print(render_text())
+        return []
     if args.tp == 1:
         return _serve(Dist(), None, args)
     mesh.check_backend(args.tp, args.dist_backend, args.device)

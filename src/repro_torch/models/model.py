@@ -1,12 +1,12 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
 for the dense family, sequential or parallel residual, at any supported
 tensor-parallel degree, and the RG-LRU hybrid, multi-head latent attention,
-the mixture-of-experts FFN (over a sliding-window ring too) and the Mamba-2
-SSD mixer at tp=1).
+the mixture-of-experts FFN (over a sliding-window ring too), the Mamba-2
+SSD mixer, the modality-prefix frontend and multi-codebook heads at tp=1).
 
 Parameters are a plain dict::
 
-    {"embed": {"table": (1, V, d)},
+    {"embed": {"table": (ncb, V, d)},
      "layers": [ one dict per layer, by its family (``layer_family``):
                  attn: {norm1, w_q, w_k, w_v, w_o, [b_q, b_k, b_v],
                         [norm2], <FFN>}
@@ -17,7 +17,13 @@ Parameters are a plain dict::
                          norm2, <FFN>}
                  ssd: {norm1, mixer: {w_z, w_x, w_bc, w_dt, dt_bias, A_log, D,
                                       conv_w, norm, w_out}} ],
-     "final_norm": (d,), "lm_head": (1, d, V)}
+     "final_norm": (d,), "lm_head": (ncb, d, V),
+     ["frontend": {"norm": (feature_dim,), "w1": (feature_dim, d), "w2": (d, d)}]}
+
+ncb is ``cfg.n_codebooks`` (1 but for musicgen-medium): a token frame sums
+its codebooks' embedding rows and the head gives ncb logit rows a position.
+A config with a ``frontend`` holds the projector of its stub encoder's
+features (``models/multimodal.py``).
 
     <FFN> dense: w_up, [w_gate], w_down
           MoE ("+moe" families): router (d, E) fp32, w_up / [w_gate] (E, d, f),
@@ -62,7 +68,7 @@ from repro_torch.core.wquant import QuantWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models import rglru, ssm
+from repro_torch.models import multimodal, rglru, ssm
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
 from repro_torch.models.transformer import ATTN_KINDS, RECURRENT, Ghost, layers_forward
@@ -72,9 +78,10 @@ Params = Dict[str, Any]
 # The leaves weight-only quantization covers (``_map_wq_leaves``), with how
 # the forward consumes each: "matmul" through the dequant_matmul kernel,
 # "einsum" dequantized for a batched contraction (the out-projection w_o,
-# (n_heads, hd, d)).  Embed, norms and biases stay bf16.  ``wq_site`` adds
-# what the layer's family changes: an MLA mixer stays bf16, MoE expert
-# blocks are einsum sites and its shared experts matmul sites.
+# (n_heads, hd, d)).  Embed, norms, biases and the frontend's projector
+# stay bf16.  ``wq_site`` adds what the layer's family changes: an MLA mixer
+# stays bf16, MoE expert blocks are einsum sites and its shared experts
+# matmul sites; ``head_site`` makes a multi-codebook head an einsum site.
 WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
             "w_up": "matmul", "w_gate": "matmul", "w_down": "matmul", "lm_head": "matmul"}
 FFN_KEYS = ("w_up", "w_gate", "w_down")
@@ -156,10 +163,10 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("attn and local_attn layers together (one cache length for all)")
     if cfg.parallel_residual and "rglru" in kinds:
         missing.append("parallel_residual with rglru layers")
-    if cfg.frontend is not None:
-        missing.append("frontend (modality prefix)")
-    if cfg.n_codebooks != 1:
-        missing.append("n_codebooks>1 (multi-codebook heads)")
+    if cfg.frontend is not None and parallel.tp > 1:
+        missing.append("frontend at tp>1 (the modality prefix's sequence sharding)")
+    if cfg.n_codebooks != 1 and parallel.tp > 1:
+        missing.append("n_codebooks>1 at tp>1 (vocab-sharded multi-codebook heads)")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
     if parallel.tp not in TP_DEGREES:
@@ -175,6 +182,9 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
     if wq_cache is not None and (cfg.moe is not None or "ssd" in kinds or cfg.tie_embeddings):
         missing.append("wq_cache with moe or ssd layers or tied embeddings (the packed "
                        "file's layer groups)")
+    if wq_cache is not None and (cfg.frontend is not None or cfg.n_codebooks != 1):
+        missing.append("wq_cache with a frontend or a multi-codebook head (the packed "
+                       "file's frontend leaves and codebook axis)")
     if parallel.dp != 1:
         missing.append("dp>1 (data parallelism, the data axis of the mesh)")
     if parallel.kv_seq_shard:
@@ -285,6 +295,13 @@ def wq_site(family: str, name: str) -> Optional[str]:
     if mixer == "mla" and name not in FFN_KEYS:
         return None
     return WQ_SITES.get(name)
+
+
+def head_site(cfg: ModelConfig) -> str:
+    """How the forward consumes a quantized lm_head (``_map_wq_leaves``):
+    through dequant_matmul at one codebook, dequantized for the einsum over
+    the codebooks of a multi-codebook head."""
+    return "matmul" if cfg.n_codebooks == 1 else "einsum"
 
 
 def split_layers(stacked: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
@@ -479,20 +496,25 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
             stacked[name] = t
         for i, layer in zip(idx, split_layers(stacked, n)):
             layers[i] = layer
-    table = shard("table", init_leaf((1, V, d), "normal", gen, device=device))
+    ncb = cfg.n_codebooks
+    table = shard("table", init_leaf((ncb, V, d), "normal", gen, device=device))
     final_norm = init_leaf((d,), "zeros", gen, device=device)
     out = {"embed": {"table": table.contiguous()}, "layers": layers, "final_norm": final_norm}
-    if cfg.tie_embeddings:
-        return out
-    head = init_leaf((1, d, V), "scaled", gen, device=device, fan_in=d)
-    if _quantizes("lm_head", head.shape, parallel):
-        local = shard("lm_head", head)
-        qhead = _quantized_empty(local.shape, mode, gs, device)
-        _quantize_into(qhead, local, gs)
-        head = qhead
-    else:
-        head = shard("lm_head", head).contiguous()
-    return {**out, "lm_head": head}
+    if not cfg.tie_embeddings:
+        head = init_leaf((ncb, d, V), "scaled", gen, device=device, fan_in=d)
+        if _quantizes("lm_head", head.shape, parallel):
+            local = shard("lm_head", head)
+            qhead = _quantized_empty(local.shape, mode, gs, device)
+            _quantize_into(qhead, local, gs)
+            head = qhead
+        else:
+            head = shard("lm_head", head).contiguous()
+        out["lm_head"] = head
+    if cfg.frontend is not None:        # replicated, bf16 whatever the quantization
+        out["frontend"] = {name: init_leaf(shape, rule, gen, device=device, fan_in=fan_in)
+                           for name, (shape, rule, fan_in) in
+                           multimodal.frontend_defs(cfg).items()}
+    return out
 
 
 def quantize_params(params: Params, parallel: ParallelConfig) -> Params:
@@ -568,24 +590,27 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
     rest (norms, biases, routers, MLA's latent projections, unquantized
     projections) at their stored width; ``quantized_ref_einsum``: the part
     of ``quantized`` served by dequantizing (w_o, MoE expert blocks), which
-    also writes and reads a bf16 copy per step; ``swept``: the sum.  The
-    embed table is left out, since a token reads one row of it, except
-    where it is tied to the head: then the head's sweep reads it whole, in
-    bf16 whatever the quantization.  MoE counts every expert, as the
-    reference's decode (C = T) runs every one."""
+    also writes and reads a bf16 copy per step, and a multi-codebook
+    head); ``swept``: the sum.  The embed table is left out, since a token
+    reads one row of each codebook's, except where it is tied to the head:
+    then the head's sweep reads it whole, in bf16 whatever the quantization.
+    The frontend's projector is left out too: a prefill runs it, decode
+    never does.  The head counts its ncb codebooks.  MoE counts every
+    expert, as the reference's decode (C = T) runs every one."""
     leaves = [(family, name, (len(idx), *d.shape), d.dtype)
               for family, idx in layer_families(cfg).items()
               for name, d in layer_param_defs(cfg, family).items()]
     head = "table" if cfg.tie_embeddings else "lm_head"
     leaves += [("", "final_norm", (cfg.d_model,), torch.bfloat16),
-               ("", head, (1, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
+               ("", head, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
     quantized = dense = ref_einsum = 0
     for family, name, shape, dtype in leaves:
         if _quantizes(name, shape, parallel, family):
             b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size,
                                    _k_shards(name, parallel.tp))
             quantized += b
-            ref_einsum += b if wq_site(family, name) == "einsum" else 0
+            site = head_site(cfg) if name == "lm_head" else wq_site(family, name)
+            ref_einsum += b if site == "einsum" else 0
         else:
             dense += dtype.itemsize * math.prod(shape)
     return {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
@@ -648,10 +673,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = None,
             valid: Optional[int] = None) -> torch.Tensor:
-    """x (b, s, d) -> logits (b, s, V) in fp32, as ``_lm_head`` computes them
-    (at tp > 1 this rank's columns of the padded vocab).  A quantized head
-    goes through the dequant_matmul kernel with fp32 out.  ``head_f32`` is a
-    resident fp32 copy of a bf16 ``lm_head[0]`` (d, V), or of the embed
+    """x (b, s, d) -> logits (b, s, V) in fp32, or (b, s, ncb, V) for a
+    multi-codebook head, as ``_lm_head`` computes them (at tp > 1 this
+    rank's columns of the padded vocab).  A quantized head goes through the
+    dequant_matmul kernel with fp32 out; a quantized multi-codebook head is
+    dequantized to bf16 and widened for the einsum, as the reference does.
+    ``head_f32`` is a resident fp32 copy of a bf16 ``lm_head[0]`` (d, V),
+    of the whole (ncb, d, V) head of a multi-codebook one, or of the embed
     table's transpose where the head is tied (no ``lm_head``: the table,
     bf16 whatever the quantization, is the head); without one the head is
     cast for this call.  Columns from ``valid`` on pad the vocab to a
@@ -660,7 +688,11 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     head = params.get("lm_head")
     if head is None:
         head = params["embed"]["table"].transpose(1, 2)
-    if isinstance(head, QuantWeight):
+    quant = isinstance(head, QuantWeight)
+    if (head.q if quant else head).shape[0] > 1:                 # multi-codebook
+        w = head_f32 if head_f32 is not None else wquant.to_dense(head).float()
+        logits = torch.einsum("bsd,cdv->bscv", x.float(), w)
+    elif quant:
         logits = wquant.matmul(x, wquant.index_batch(head, 0), out_dtype=torch.float32)
     else:
         logits = x.float() @ (head_f32 if head_f32 is not None else head[0].float())
@@ -765,9 +797,19 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             slots: Optional[torch.Tensor] = None,
             write_rows: Optional[torch.Tensor] = None,
             chunk_writes=None, ctx: Optional[ModelCtx] = None,
-            seq_sharded: bool = False, layout: Optional[moe_mod.RowLayout] = None) -> torch.Tensor:
-    """tokens (b, s) -> fp32 logits (b, s or 1, V): at tp > 1 (``ctx``) this
-    rank's vocab shard of them (b, s or 1, local_vocab).
+            seq_sharded: bool = False, layout: Optional[moe_mod.RowLayout] = None,
+            features: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (b, s), or (b, s, ncb) frames of a multi-codebook model ->
+    fp32 logits (b, s or 1, V), or (b, s or 1, ncb, V): at tp > 1
+    (``ctx``) this rank's vocab shard of them (b, s or 1, local_vocab).
+
+    ``features`` (b, prefix_len, feature_dim), for a config with a
+    ``frontend``: the stub encoder's output, projected and put in front of
+    the tokens' activations (``multimodal.project_features``), so the
+    sequence is prefix_len + s long and every position, cache write and
+    mask counts from the prefix's start (``length_mask`` and the logits
+    cover prefix + tokens).  Without it the tokens stand alone, as in a
+    decode step.
 
     Without ``cur_pos`` this is a prefill: from position 0, or per row from
     ``start_pos`` (b,) (positions start_pos[b] + arange(s): a cached-prefix
@@ -802,12 +844,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     computed, and they write no cache.  They attend their own fresh K/V,
     or in a chunk into a slot ring, as in the reference, their rows' ring
     beside a chunk whose first column alone is real."""
-    b, s = tokens.shape
+    b = tokens.shape[0]
     dev = tokens.device
     ctx = ctx or ModelCtx.make(cfg)
-    policy = ctx.policy(seq_sharded=seq_sharded, seq_len=s)
     x = embed_lookup(params["embed"], tokens, ctx.plan, ctx.dist,
                      id_broadcast=ctx.parallel.id_broadcast)
+    if cfg.frontend is not None and features is not None:
+        prefix = multimodal.project_features(params["frontend"], features, cfg)
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    policy = ctx.policy(seq_sharded=seq_sharded, seq_len=s)
     if cur_pos is not None:
         if s != 1 or caches is None:
             raise ValueError("a decode step takes one token per row and a cache")

@@ -49,8 +49,16 @@ class Engine:
     computed in fp32 and casting the head on every step would allocate and
     write it anew each time; a quantized head is not, since an fp32 copy
     would undo its point; a tied head is the embed table, kept as an fp32
-    copy of its transpose.  ``caps`` is the arch's serving-capability
-    record, which the schedulers consult.
+    copy of its transpose; a multi-codebook head is kept whole, (ncb, d,
+    V).  ``caps`` is the arch's serving-capability record, which the
+    schedulers consult.
+
+    A config with a ``frontend`` puts ``prefix`` projected feature
+    positions in front of every prompt: the stub encoder's features are
+    zeros unless ``generate`` is given some, as in the JAX engine, and
+    every cache extent and position counts the prefix.  A multi-codebook
+    model takes and gives (.., ncb) token frames where a single-codebook
+    one takes and gives tokens; its EOS reads codebook 0.
 
     ``wq_cache`` (with ``parallel.weight_quant``): the path of a packed
     weight checkpoint (``training.checkpoint``): restored when it exists,
@@ -93,8 +101,11 @@ class Engine:
         head = self.params.get("lm_head")
         if head is None:                    # tied: the table's transpose
             self.head_f32 = self.params["embed"]["table"][0].float().t()
+        elif isinstance(head, QuantWeight):
+            self.head_f32 = None
         else:
-            self.head_f32 = None if isinstance(head, QuantWeight) else head[0].float()
+            self.head_f32 = head[0].float() if cfg.n_codebooks == 1 else head.float()
+        self.prefix = cfg.frontend.prefix_len if cfg.frontend is not None else 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
@@ -104,9 +115,10 @@ class Engine:
                          **kw)
 
     def sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """(b, V or local_vocab) logits -> token ids (b,), the same on every
-        rank (``parallel.topk_sync`` picks the paper's top-k before the
-        gather or the full-row gather)."""
+        """(b, V or local_vocab) logits -> token ids (b,), or (b, ncb, V) ->
+        frames (b, ncb), the same on every rank (``parallel.topk_sync``
+        picks the paper's top-k before the gather or the full-row
+        gather)."""
         return sample_tokens(logits, self.sampling, self.generator, self.ctx.plan, self.dist,
                              self.parallel.topk_sync)
 
@@ -116,11 +128,24 @@ class Engine:
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:
         return M.init_caches(self.cfg, batch, self.max_len, device=self.device, **self._kv_kw())
 
-    def prefill(self, tokens: torch.Tensor, caches) -> torch.Tensor:
-        """Prompt step: writes the cache, samples from the LAST position's
-        logits (a pad position for right-padded short rows, as in the JAX
-        package) -> next token ids (b,)."""
-        logits = self.forward(tokens, caches=caches, last_only=True, seq_sharded=True)
+    def zero_features(self, b: int) -> Optional[torch.Tensor]:
+        """The stub encoder's output where none is given: zeros (b, prefix,
+        feature_dim) fp32, as the JAX engine feeds; None without a
+        frontend."""
+        f = self.cfg.frontend
+        if f is None:
+            return None
+        return torch.zeros((b, f.prefix_len, f.feature_dim), dtype=torch.float32,
+                           device=self.device)
+
+    def prefill(self, tokens: torch.Tensor, caches,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prompt step: writes the cache (``features`` projected in front of
+        the tokens, for a config with a frontend), samples from the LAST
+        position's logits (a pad position for right-padded short rows, as
+        in the JAX package) -> next token ids (b,) or frames (b, ncb)."""
+        logits = self.forward(tokens, caches=caches, last_only=True, seq_sharded=True,
+                              features=features)
         return self.sample(logits[:, -1])
 
     def decode(self, tok: torch.Tensor, caches, cur_pos: int) -> torch.Tensor:
@@ -175,7 +200,7 @@ class Engine:
         by an MoE model once B * s passes 256 tokens (``moe.capacity``:
         then which assignments drop depends on every row), else None."""
         tokens = np.asarray(tokens)
-        B, s = tokens.shape
+        B, s = tokens.shape[:2]
         if self.cfg.moe is None or len(rows) == B or B * s <= 256:
             return None
         others = np.setdiff1d(np.arange(B), rows)
@@ -184,16 +209,19 @@ class Engine:
                          kvcache.device_ints(rows, dev), kvcache.device_ints(others, dev))
 
     def _admit_rows(self, tokens, admit, plens, **kw) -> np.ndarray:
-        """Prefill the admitted rows of ``tokens`` (B, Lp) and sample each
+        """Prefill the admitted rows of ``tokens`` (B, Lp[, ncb]) behind the
+        zero features' prefix (a config with a frontend) and sample each
         one's first token from its own last real prompt position -> (B,)
-        host tokens (0 on rows not admitted)."""
+        host tokens, or (B, ncb) frames (0 on rows not admitted)."""
+        tokens = np.asarray(tokens)
         rows = np.flatnonzero(np.asarray(admit))
-        tok = torch.as_tensor(np.asarray(tokens)[rows], dtype=torch.long, device=self.device)
-        plens_d = kvcache.device_ints(np.asarray(plens)[rows], self.device)
-        lmask = torch.arange(tok.shape[1], device=self.device)[None, :] < plens_d[:, None]
+        tok = torch.as_tensor(tokens[rows], dtype=torch.long, device=self.device)
+        ext = kvcache.device_ints(np.asarray(plens)[rows] + self.prefix, self.device)
+        lmask = torch.arange(self.prefix + tok.shape[1], device=self.device)[None, :] < ext[:, None]
         logits = self.forward(tok, last_only=True, length_mask=lmask, seq_sharded=True,
-                              layout=self._layout(tokens, rows), **kw)
-        out = np.zeros(len(admit), np.int32)
+                              layout=self._layout(tokens, rows),
+                              features=self.zero_features(len(rows)), **kw)
+        out = np.zeros((len(admit), *tokens.shape[2:]), np.int32)
         out[rows] = self.land(self.sample(logits[:, -1]))
         return out
 
@@ -202,12 +230,14 @@ class Engine:
         """Admit requests in flight: prefill ``tokens`` (B, Lp) into the
         slots flagged by ``admit`` (B,) of a live slot cache, right-padded to
         ``plens``; other slots keep their bytes.  The length mask keeps the
-        padding out of the RG-LRU state and conv tails.  Returns each
-        admitted slot's first sampled token (B,) on the host."""
+        padding out of the RG-LRU state and conv tails.  A frontend's
+        prefix stands before every prompt: each slot's cache then holds
+        prefix + plen positions.  Returns each admitted slot's first
+        sampled token (B,), or frame (B, ncb), on the host."""
         kvcache.reset_slots(caches, admit)
         slots = kvcache.device_ints(np.flatnonzero(np.asarray(admit)), self.device)
         tok = self._admit_rows(tokens, admit, plens, caches=caches, slots=slots)
-        kvcache.mask_prompt_padding(caches, plens, admit)
+        kvcache.mask_prompt_padding(caches, np.asarray(plens) + self.prefix, admit)
         return tok
 
     @torch.inference_mode()
@@ -242,24 +272,29 @@ class Engine:
 
     def _decode_step(self, caches, tok, pos, done, rem, eos, bt, write_rows=None):
         """One masked decode step over all slots, on device tensors: a
-        finished row (``done`` or no budget left) keeps its token and
-        position.  Every row writes its token at its position unless
-        ``write_rows`` names the rows that do.  -> (tok, pos, done, rem)."""
+        finished row (``done`` or no budget left) keeps its token (frame)
+        and position; a frame's EOS reads codebook 0.  Every row writes
+        its token at its position unless ``write_rows`` names the rows
+        that do.  -> (tok, pos, done, rem)."""
         logits = self.forward(tok[:, None], caches=caches, cur_pos=pos, block_tables=bt,
                               write_rows=write_rows)
         nxt = self.sample(logits[:, -1])
         active = ~done & (rem > 0)
-        tok = torch.where(active, nxt, tok)
+        tok = torch.where(active if tok.dim() == 1 else active[:, None], nxt, tok)
         pos = torch.where(active, pos + 1, pos)
-        hit_eos = active & (eos >= 0) & (tok == eos)
+        hit_eos = active & (eos >= 0) & ((tok if tok.dim() == 1 else tok[:, 0]) == eos)
         rem = torch.where(active, rem - 1, rem)
         return tok, pos, done | hit_eos | (rem <= 0), rem
 
     def _slot_state(self, tok, pos, done, remaining, eos, block_tables):
         """Host slot state -> device (tok, pos, done, rem, eos) and the block
-        table (None for the dense cache), in one copy each."""
-        tok_d, pos_d, done_d, rem_d, eos_d = kvcache.device_ints(
-            np.stack([tok, pos, done, remaining, eos]), self.device)
+        table (None for the dense cache), in one copy each; ``tok`` (B,) or
+        frames (B, ncb)."""
+        tok = np.asarray(tok)
+        state = kvcache.device_ints(np.concatenate(
+            [tok.reshape(-1), pos, done, remaining, eos]), self.device)
+        tok_d, rest = state[:tok.size].reshape(tok.shape), state[tok.size:]
+        pos_d, done_d, rem_d, eos_d = rest.reshape(4, -1)
         bt = None if block_tables is None else kvcache.device_ints(
             block_tables, self.device, torch.int32)
         return (tok_d, pos_d, done_d.bool(), rem_d, eos_d), bt
@@ -273,7 +308,7 @@ class Engine:
         position and rewrite their frozen index, row-locally.  With
         ``block_tables`` (B, nbps) the cache is paged: the table is copied
         to the device once per call, from a fresh host array.  Returns
-        host (toks (n, B), pos, done, remaining)."""
+        host (toks (n, B) or frames (n, B, ncb), pos, done, remaining)."""
         (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
             tok, pos, done, remaining, eos, block_tables)
         toks = []
@@ -281,9 +316,11 @@ class Engine:
             tok_d, pos_d, done_d, rem_d = self._decode_step(caches, tok_d, pos_d, done_d,
                                                             rem_d, eos_d, bt)
             toks.append(tok_d)
-        out = self.land(torch.stack([*toks, pos_d, done_d.long(), rem_d]))
-        return (out[:n].astype(np.int32), out[n].astype(np.int32), out[n + 1].astype(bool),
-                out[n + 2].astype(np.int32))
+        k = n * tok_d.numel()
+        out = self.land(torch.cat([torch.stack(toks).reshape(-1), pos_d, done_d.long(), rem_d]))
+        state = out[k:].reshape(3, -1)
+        return (out[:k].reshape(n, *tok_d.shape).astype(np.int32), state[0].astype(np.int32),
+                state[1].astype(bool), state[2].astype(np.int32))
 
     # -- chunked admission and speculative decoding --------------------------
     #
@@ -414,17 +451,27 @@ class Engine:
         return targets, n_emit, nxt, pos, done, remaining
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
-        """prompts (b, prompt_len) int -> generated tokens (b, max_new) int32."""
-        b, plen = prompts.shape
-        if plen + max_new > self.max_len:
-            raise ValueError(f"prompt_len {plen} + max_new {max_new} exceeds "
-                             f"max_len {self.max_len}")
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 features: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts (b, prompt_len[, ncb]) int -> generated tokens (b,
+        max_new[, ncb]) int32.  A config with a frontend projects
+        ``features`` (b, prefix, feature_dim), zeros when not given, in
+        front of the prompts: decode starts at prompt_len + prefix."""
+        b, plen = prompts.shape[:2]
+        if self.prefix + plen + max_new > self.max_len:
+            raise ValueError(f"prefix {self.prefix} + prompt_len {plen} + max_new {max_new} "
+                             f"exceeds max_len {self.max_len}")
         caches = self.init_caches(b)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
-        tok = self.prefill(tokens, caches)
+        if features is not None and self.cfg.frontend is not None:
+            features = torch.as_tensor(np.asarray(features), dtype=torch.float32,
+                                       device=self.device)
+        else:
+            features = self.zero_features(b)
+        tok = self.prefill(tokens, caches, features)
         outs = [tok]
-        for cur in range(plen, plen + max_new - 1):
+        start = plen + self.prefix
+        for cur in range(start, start + max_new - 1):
             tok = self.decode(tok, caches, cur)
             outs.append(tok)
         return torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()

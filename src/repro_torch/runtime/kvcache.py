@@ -14,6 +14,9 @@ same positions:
   (an attention-free model's pools hold no layer);
 * a sliding-window ring (slot cache): ``pos[b, j]`` is the position held at
   ring index j = position % S;
+* behind a modality frontend's prefix (internvl2-26b, musicgen-medium) a
+  slot's positions 0..prefix-1 hold the projected features and its prompt
+  follows: every extent the engine passes here counts the prefix;
 * an MLA model caches latents, ``ckv``/``krope`` (L, b, 1, S, r), in place
   of K/V, in every layout (pools (L, n_blocks, 1, bs, r));
 * paged cache: ``k``/``v`` are block pools (L, n_blocks, hkv, bs, hd)
@@ -87,9 +90,11 @@ def reset_slots(caches: Dict[str, torch.Tensor], mask, *, paged: bool = False) -
 
 def mask_prompt_padding(caches: Dict[str, torch.Tensor], plens, mask) -> None:
     """In place, for the slots in ``mask``: invalidate the position entries
-    at and after each slot's true prompt length ``plens[b]``.  Admission
-    prefills a right-padded batch; the K/V written for padding tokens must
-    never be attended, and decode overwrites index plen, plen+1, ...  On a
+    at and after each slot's true prompt length ``plens[b]`` (behind a
+    frontend's prefix, the prefix and the prompt: positions count from the
+    prefix's start).  Admission prefills a right-padded batch; the K/V
+    written for padding tokens must never be attended, and decode
+    overwrites index plen, plen+1, ...  On a
     ring this holds only while index == position, so a prompt longer than
     the cache raises (the schedulers cap prompts at the window)."""
     pos = caches["pos"]

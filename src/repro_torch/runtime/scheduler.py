@@ -8,6 +8,12 @@ to the longest one, runs one prefill and decodes every row to the wave's
 largest ``max_new``; each request then keeps its own ``max_new`` tokens, cut
 after its EOS.
 
+A multi-codebook arch (musicgen-medium) serves (prompt_len, ncb) prompts
+and emits (n, ncb) frames; codebook 0 carries the EOS stream
+(``tok_scalar``).  A frontend arch (internvl2-26b, musicgen-medium) puts
+its fixed prefix in front of every prompt: every cache extent and position
+counts it.
+
 The continuous schedulers run the JAX package's blocking loop: retire
 finished slots, admit arrived requests into free slots, then step.  With
 ``prefill_chunk`` set (the default, 256) every admitted prompt streams
@@ -40,10 +46,17 @@ from repro_torch.runtime.engine import Engine
 MIN_BUCKET = 8      # smallest admission width: prompts pad to a power of two >= this
 
 
+def tok_scalar(tok) -> int:
+    """The token id EOS checks read: the token itself, or codebook 0 of a
+    multi-codebook frame (the primary stream in every config here)."""
+    a = np.asarray(tok)
+    return int(a if a.ndim == 0 else a.reshape(-1)[0])
+
+
 @dataclass
 class Request:
     rid: int
-    prompt: np.ndarray            # (prompt_len,)
+    prompt: np.ndarray            # (prompt_len,) or (prompt_len, ncb)
     max_new: int
     eos_id: Optional[int] = None
     arrival_step: int = 0         # virtual-clock arrival (decode steps)
@@ -82,18 +95,20 @@ class WaveScheduler:
     def _run_wave(self, wave: List[Request]) -> None:
         plen = max(len(r.prompt) for r in wave)
         max_new = max(r.max_new for r in wave)
-        prompts = np.full((len(wave), plen), self.pad_id, dtype=np.int32)
+        ncb = self.engine.cfg.n_codebooks
+        shape = (len(wave), plen) if ncb == 1 else (len(wave), plen, ncb)
+        prompts = np.full(shape, self.pad_id, dtype=np.int32)
         for i, r in enumerate(wave):
             # left-aligned; short prompts are right-padded (positions aligned)
             prompts[i, :len(r.prompt)] = r.prompt
         t0 = time.monotonic()
-        out = self.engine.generate(prompts, max_new)       # (b, max_new)
+        out = self.engine.generate(prompts, max_new)       # (b, max_new[, ncb])
         dt = time.monotonic() - t0
         cut = []
         for i, r in enumerate(wave):
             toks = out[i, :r.max_new]
             if r.eos_id is not None:
-                hits = np.nonzero(toks == r.eos_id)[0]
+                hits = np.nonzero((toks if toks.ndim == 1 else toks[:, 0]) == r.eos_id)[0]
                 if hits.size:
                     toks = toks[:hits[0] + 1]
             cut.append(toks)
@@ -103,7 +118,7 @@ class WaveScheduler:
         for r, toks in zip(wave, cut):
             r.output = toks
             r.finish_reason = ("stop" if r.eos_id is not None and len(toks)
-                               and toks[-1] == r.eos_id else "length")
+                               and tok_scalar(toks[-1]) == r.eos_id else "length")
             r.stats = {
                 "wave_batch": len(wave),
                 "queue_s": t0 - r.submitted_at,
@@ -151,7 +166,9 @@ class ContinuousScheduler:
     spec decode (recurrent state) falls back to whole-prompt admission and
     plain decode when the value is the config's default, and raises the
     record's error when it was asked for here.  A sliding-window arch caps
-    prompts (and buckets) at its window.
+    prompts (and buckets) at its window.  A multi-codebook arch's slots hold
+    (ncb,) frames, and a frontend arch's positions start after its prefix
+    (the engine's slot prefill projects zero features itself).
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
@@ -183,13 +200,15 @@ class ContinuousScheduler:
         self.spec_ngram = int(par.spec_ngram if spec_ngram is None else spec_ngram)
         self.drafter = NgramDrafter(self.spec_k, ngram_max=self.spec_ngram) if self.spec_k else None
         self.vocab = engine.cfg.vocab_size
+        self.ncb = engine.cfg.n_codebooks
+        self._prefix = engine.prefix
         self.queue: List[Request] = []
         self.done: List[Request] = []
         self._next_id = 0
         self.caches = None
         self.slots = [_Slot() for _ in range(n_slots)]
         self.step_count = 0               # virtual clock: decode steps so far
-        self.tok = np.zeros((n_slots,), np.int32)
+        self.tok = np.zeros((n_slots,) if self.ncb == 1 else (n_slots, self.ncb), np.int32)
         self.pos = np.zeros((n_slots,), np.int32)
         self.dones = np.ones((n_slots,), bool)
         self.remaining = np.zeros((n_slots,), np.int32)
@@ -215,9 +234,9 @@ class ContinuousScheduler:
     def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
                arrival_step: int = 0) -> int:
         prompt = np.asarray(prompt)
-        if len(prompt) + max_new > self.engine.max_len:
-            raise ValueError(f"request needs {len(prompt)}+{max_new} positions > max_len "
-                             f"{self.engine.max_len}")
+        if self._prefix + len(prompt) + max_new > self.engine.max_len:
+            raise ValueError(f"request needs {self._prefix + len(prompt)}+{max_new} positions "
+                             f"> max_len {self.engine.max_len}")
         if len(prompt) > self.prompt_limit:
             raise ValueError(
                 f"prompt len {len(prompt)} exceeds the sliding-window cache "
@@ -246,18 +265,20 @@ class ContinuousScheduler:
                 r.output = np.asarray(s.toks, dtype=np.int32)
                 if r.finish_reason is None:
                     r.finish_reason = ("stop" if (r.eos_id is not None and s.toks
-                                                  and s.toks[-1] == r.eos_id) else "length")
+                                                  and tok_scalar(s.toks[-1]) == r.eos_id)
+                                       else "length")
                 r.stats.update({"emitted": len(s.toks), "finished_at": now,
                                 "decode_steps_held": self.step_count - s.admitted_step})
                 self.slots[i] = _Slot()
                 self._finish(r)
 
     def _bucket(self, plen: int) -> int:
-        """Pow-2 prompt bucket (at least ``MIN_BUCKET``, at most the cache)."""
+        """Pow-2 prompt bucket (at least ``MIN_BUCKET``, at most what the
+        cache holds behind a frontend's prefix)."""
         b = MIN_BUCKET
         while b < plen:
             b *= 2
-        return min(b, self.prompt_limit)
+        return min(b, self.prompt_limit - self._prefix)
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.req is None]
@@ -311,7 +332,8 @@ class ContinuousScheduler:
         """Whole-prompt admission: one bucketed prefill of every admitted
         prompt, right-padded."""
         Lp = self._bucket(max(len(r.prompt) for _, r in pairs))
-        tokens = np.full((self.B, Lp), self.pad_id, np.int32)
+        shape = (self.B, Lp) if self.ncb == 1 else (self.B, Lp, self.ncb)
+        tokens = np.full(shape, self.pad_id, np.int32)
         admit = np.zeros((self.B,), bool)
         plens = np.ones((self.B,), np.int32)
         for slot, r in pairs:
@@ -325,13 +347,13 @@ class ContinuousScheduler:
         self._finish_admission(pairs, admit, new_tok)
 
     def _finish_admission(self, pairs, admit, new_tok) -> None:
-        """Record each admitted request's first token and arm its decode
-        state."""
-        self.tok = np.where(admit, new_tok, self.tok)
+        """Record each admitted request's first token (frame) and arm its
+        decode state: its position follows the prefix and the prompt."""
+        self.tok = np.where(admit if self.ncb == 1 else admit[:, None], new_tok, self.tok)
         for slot, r in pairs:
-            t = int(new_tok[slot])
-            self.slots[slot].toks.append(t)
-            self.pos[slot] = len(r.prompt)
+            t = tok_scalar(new_tok[slot])
+            self.slots[slot].toks.append(t if self.ncb == 1 else new_tok[slot].copy())
+            self.pos[slot] = len(r.prompt) + self._prefix
             self.remaining[slot] = r.max_new - 1
             self.eos[slot] = -1 if r.eos_id is None else r.eos_id
             self.dones[slot] = r.max_new <= 1 or (r.eos_id is not None and t == r.eos_id)
@@ -351,9 +373,10 @@ class ContinuousScheduler:
         self._apply_decode(*self._run_decode(n), n)
 
     def _apply_decode(self, toks, pos, done, remaining, n: int) -> None:
-        """Host bookkeeping for ``n`` decode steps (toks (n, B)): replay the
-        device's masking rule to tell real emissions from frozen-slot
-        repeats; the final state is the device's."""
+        """Host bookkeeping for ``n`` decode steps (toks (n, B) or frames
+        (n, B, ncb)): replay the device's masking rule to tell real
+        emissions from frozen-slot repeats; the final state is the
+        device's."""
         cur_done = self.dones.copy()
         cur_rem = self.remaining.copy()
         emitted = 0
@@ -361,8 +384,8 @@ class ContinuousScheduler:
             for i, slot in enumerate(self.slots):
                 if slot.req is None or cur_done[i] or cur_rem[i] <= 0:
                     continue
-                t = int(toks[s, i])
-                slot.toks.append(t)
+                t = tok_scalar(toks[s, i])
+                slot.toks.append(t if self.ncb == 1 else toks[s, i].copy())
                 cur_rem[i] -= 1
                 if cur_rem[i] == 0 or (self.eos[i] >= 0 and t == self.eos[i]):
                     cur_done[i] = True

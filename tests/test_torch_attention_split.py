@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro_torch.kernels import ops, ref
 
 NEG_BIG = -3.0e38

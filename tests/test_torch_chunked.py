@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro.runtime.scheduler import PagedContinuousScheduler as JPagedScheduler
 from repro_torch.runtime.kvcache import POOL_KEYS

@@ -27,6 +27,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+import torch_threads  # noqa: F401
 from repro import compat
 from repro.configs import get_config as jget_config
 from repro.models import model as JM

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro_torch.core import wquant
 from repro_torch.kernels import build, ops, ref
 
@@ -1234,3 +1235,94 @@ def test_topk_kernel_at_mamba2_vocab(dev):
     rv, ri = ref.topk_ref(x.cpu(), 1)
     torch.cuda.synchronize()
     assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri) and idx[2, 0] == 777
+
+
+# internvl2-26b: a 256-position prefix, 48 q heads over 8 KV heads of head_dim
+# 128 (g 6), vocab 92553, d 6144; musicgen-medium: a 64-position prefix, 24 MHA
+# heads of head_dim 64 (g 1), 4 codebooks of 2048
+FRONTEND_HEADS = {"internvl2-26b": (48, 8, 128, 256, 448), "musicgen-medium": (24, 24, 64, 64, 256)}
+
+
+@pytest.mark.parametrize("kernel,dtype", [
+    ("prefill", torch.float32), ("prefill", torch.bfloat16), ("decode", torch.float32),
+    ("decode", torch.bfloat16), ("decode_int8", torch.bfloat16)])
+@pytest.mark.parametrize("arch", sorted(FRONTEND_HEADS))
+def test_attention_kernels_at_frontend_heads(dev, arch, kernel, dtype):
+    """flash_prefill over prefix + 125 prompt positions (a wave of the chip
+    phase; one row right-padded past its prompt), and decode_attention and
+    its int8 instance over the slot cache, each row's valid length its own
+    (prefix + prompt + steps), each against its plain version (the int8
+    instance bit for bit against the bf16 one on the dequantized cache)."""
+    hq, hkv, hd, prefix, S = FRONTEND_HEADS[arch]
+    gen = torch.Generator(device=dev).manual_seed(hd + len(kernel))
+    b, scale = 4, hd ** -0.5
+    if kernel == "prefill":
+        sq = prefix + 125
+        q = _randn(gen, (b, hq, sq, hd), dtype, dev)
+        k, v = (_randn(gen, (b, hkv, sq, hd), dtype, dev) for _ in range(2))
+        q_pos = torch.arange(sq, device=dev, dtype=torch.int32).repeat(b, 1)
+        q_pos[1, prefix + 60:] = -1
+        got = ops.flash_prefill(q, k, v, q_pos, scale)
+        want = ref.flash_prefill_ref(q, k, v, q_pos, scale)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+        return
+    lens = torch.tensor([prefix + 41, prefix + 90, prefix + 125 + 31, S], device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    q = _randn(gen, (b, hq, 1, hd), dtype, dev)
+    if kernel == "decode":
+        k, v = (_randn(gen, (b, hkv, S, hd), dtype, dev) for _ in range(2))
+        got = ops.decode_attention_partial(q, k, v, valid, scale)
+        want = ref.decode_attention_ref(q, k, v, valid, scale)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):          # (m, l, acc) in fp32
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
+        return
+    (kq, ks), (vq, vs) = (_int8_cache(gen, dev, (b, hkv, S, hd)) for _ in range(2))
+    got = ops.decode_attention_partial(q, kq, vq, valid, scale, k_scale=ks, v_scale=vs)
+    want = ops.decode_attention_partial(q, ref.dequantize_kv(kq, ks), ref.dequantize_kv(vq, vs),
+                                        valid, scale)
+    torch.cuda.synchronize()
+    _equal_partials(got, want)
+
+
+@pytest.mark.parametrize("rows,n", [(4, 92553), (16, 2048), (1, 92553)])
+def test_topk_kernel_at_frontend_rows(dev, rows, n):
+    """The sampling top-k over internvl2-26b's 92553-wide rows (no whole
+    number of chunks, rows not 16-byte aligned) and musicgen-medium's
+    (4 x 4, 2048) codebook frames, k 1, one launch, a tied maximum ranking
+    the lower index first."""
+    gen = torch.Generator(device=dev).manual_seed(rows + n)
+    x = _randn(gen, (rows, n), torch.float32, dev)
+    x[rows - 1, 5] = x[rows - 1, n - 1] = x[rows - 1].max() + 1.0
+    before = ops.LAUNCHES["topk"]
+    vals, idx = ops.topk(x, 1)
+    assert ops.LAUNCHES["topk"] == before + 1
+    rv, ri = ref.topk_ref(x.cpu(), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri) and idx[rows - 1, 0] == 5
+
+
+@pytest.mark.parametrize("K,N,out_dtype", [(6144, 6144, torch.bfloat16),
+                                           (6144, 1024, torch.bfloat16),
+                                           (6144, 92553, torch.float32)])
+@pytest.mark.parametrize("T", [4, 500])
+def test_dequant_matmul_kernel_at_internvl_int4(dev, K, N, out_dtype, T):
+    """internvl2-26b's int4 attention projections (w_q, w_k/w_v) and its
+    lm_head of 92553 columns (no 16-byte weight rows; fp32 out), group 128,
+    at a decode step (T 4) and a wave prefill (T 500), against the plain
+    version (fp32: 1e-4 of the largest output; bf16: within one bf16 ulp of
+    it)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + T)
+    w = wquant.quantize((torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+                        .bfloat16(), "int4", 128)
+    x = _randn(gen, (T, K), torch.bfloat16, dev)
+    got = ops.dequant_matmul(x, w.q, w.scale, mode="int4", group=w.group, out_dtype=out_dtype)
+    want = ref.dequant_matmul_ref(x, w.q, w.scale, "int4", w.group)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    if out_dtype == torch.float32:
+        assert (got - want).abs().max().item() <= tol
+    else:
+        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        assert bool(((got.float() - want).abs() <= ulp + tol).all())

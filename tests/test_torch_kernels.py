@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention

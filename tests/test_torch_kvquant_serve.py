@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro.runtime.scheduler import PagedContinuousScheduler as JPagedScheduler

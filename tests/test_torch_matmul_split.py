@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro_torch.core import wquant
 from repro_torch.kernels import ops, ref
 

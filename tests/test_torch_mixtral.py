@@ -32,6 +32,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+import torch_threads  # noqa: F401
 from repro import compat
 from repro.configs import get_config as jget_config
 from repro.core.capabilities import ArchCapabilities as JArchCapabilities

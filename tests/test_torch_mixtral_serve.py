@@ -18,6 +18,7 @@ this length somewhere, so every stream may part, each certified.
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro_torch.models import moe
 from repro_torch.runtime.scheduler import ContinuousScheduler

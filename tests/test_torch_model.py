@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+import torch_threads  # noqa: F401
 from repro import compat
 from repro.configs import ParallelConfig as JParallelConfig
 from repro.configs import SamplingConfig as JSamplingConfig

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import wquant as jwquant
 from repro.models import moe as jmoe

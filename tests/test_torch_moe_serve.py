@@ -14,6 +14,7 @@ by the port's or the reference's top-2 gap (< 1e-2,
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro.runtime.scheduler import WaveScheduler as JWaveScheduler
 from repro_torch.models import moe

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core.capabilities import ArchCapabilities as JArchCapabilities
 from repro.kernels import ops as jops

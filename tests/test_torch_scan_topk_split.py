@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro_torch.kernels import build, ops, ref
 
 SMS = 132

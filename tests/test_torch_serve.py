@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.runtime.scheduler import WaveScheduler as JWaveScheduler
 from repro_torch import bridge

@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import wquant as jwq
 from repro.models import model as JM

@@ -26,6 +26,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.runtime.scheduler import ContinuousScheduler as JContinuousScheduler
 from repro.runtime.scheduler import PagedContinuousScheduler as JPagedScheduler
@@ -99,7 +100,9 @@ def served():
            for name, (kind, kw, par, reqs, top_k) in runs.items() if top_k == 1}
     teng = Engine(tcfg, sampling=SamplingConfig(top_k=1), max_len=MAX_LEN,
                   params=bridge.params_from_jax(tree, tcfg, device="cpu"), device="cpu")
-    return runs, got, ref, teng
+    jengs = {name: jeng_q if par.get("kv_quant") else jeng
+             for name, (_, _, par, *_) in runs.items()}
+    return runs, got, ref, teng, jengs
 
 
 def _requests(streams):
@@ -123,12 +126,14 @@ def _as_run(reqs, kind, kw):
 @pytest.mark.parametrize("name", ["wave", "continuous", "paged-shared-prefix", "chunked-spec3",
                                   "paged-chunked-spec4", "int8-kv"])
 def test_tp2_streams_match_jax_tp1(served, name):
-    runs, got, ref, teng = served
+    """Each rank's streams against the reference's at tp=1, a parting
+    certified by either side's teacher-forced top-2 gap."""
+    runs, got, ref, teng, jengs = served
     kind, kw, _, reqs = runs[name][:4]
     for rank in range(TP):
         streams, stats = got[rank][name]
         assert_streams_match(teng, _as_run(reqs, kind, kw), _requests(streams), ref[name],
-                             max_flips=len(reqs) - 1)
+                             max_flips=len(reqs) - 1, jeng=jengs[name])
     stats = got[0][name][1]
     if kw.get("spec_k"):
         assert stats["spec_steps"] > 0 and stats["prefill_chunks"] > 0
@@ -139,7 +144,7 @@ def test_tp2_streams_match_jax_tp1(served, name):
 def test_top_k40_streams_are_the_same_on_every_rank(served):
     """Stochastic sampling: every rank seeds its generator alike and draws
     the same tokens (each run also checks it itself)."""
-    _, got, _, _ = served
+    _, got, _, _, _ = served
     a, b = (got[r]["top_k40"][0] for r in range(TP))
     assert sorted(a) == sorted(b) and len(a) == 7
     for rid in a:

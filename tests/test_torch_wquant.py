@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from repro.configs import ParallelConfig as JParallelConfig
 from repro.configs import get_config as jget_config
 from repro.core import wquant as jwq

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.runtime.scheduler import WaveScheduler as JWaveScheduler
 from repro_torch import bridge
