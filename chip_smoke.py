@@ -83,7 +83,7 @@ Phases, each fatal on failure:
    int8 KV cache, each parting certified against the plain versions (as
    gptj-parallel's are, in 8): its paged cached prefix is a second
    approximation of the cache in the reference too;
-7. hybrid: full-width recurrentgemma-9b (5 of 38 layers), in bf16 and then
+7. hybrid: full-width recurrentgemma-9b (3 of 38 layers), in bf16 and then
    with int8 weights and the int8 KV cache, through the
    WaveScheduler (prompts of 2100-2300 tokens, longer than the 2048-token
    window) and the ContinuousScheduler (its default chunk falls back to
@@ -202,13 +202,37 @@ Phases, each fatal on failure:
    at internvl's int4 w_q and 92553-column lm_head, kv_quant_write of
    internvl's slot admission and decode.
 
+13. the serving control plane (run with phase 6, on its yi-9b engine at 48
+   layers): the slot workload through the ContinuousScheduler and the
+   PagedContinuousScheduler (whole prompts), blocking and overlapped
+   (``overlap``: decode block N+1 dispatched on block N's device outputs
+   before N lands), twice each in the order B, O, O, B, every overlapped
+   dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")``: the same streams and the
+   same launches, the loop ahead of the host (landings, dispatch-ahead
+   depth 2), the host-blocked and overlapped seconds and each loop's wall
+   printed; the paged overlapped loop under the fault plan
+   ``step:at=6,times=2;poison:slot=1,at=12;alloc:at=20``: one request
+   quarantined, two step retries, every survivor's stream the clean run's;
+   the dense loop with the class mix interactive=0.25,standard=0.5,
+   batch=0.25, the degradation ladder on and a burst of 12 batch requests:
+   the ladder's level after every round printed, only batch shed, the
+   workload's admitted survivors as the unloaded run's; and the HTTP
+   frontend (``launch/frontend.py``) on 127.0.0.1 over the overlapped
+   continuous scheduler: 4 concurrent SSE clients get the tokens the
+   scheduler retired with, 6 concurrent requests against max_pending 4 get
+   a 429 with Retry-After, and a stream in flight at the drain is served
+   whole before the listener closes.  A stream may part from its reference
+   at a top-2 gap below 1e-2 (the runs admit in other batches), at most
+   MAX_PARTED.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
-recurrentgemma-9b 5 of 38 layers, the gptj-parallel slot phases 14 of 28,
+recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
 12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 6 of 28,
 phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48), so that the
-whole run stays near its ~800 s aim with phases 10-12 added.  The slot
+whole run stays near its ~800 s aim with phases 10-13 added.  The slot
 phases hold at most MAX_PARTED partings, and shallower
 random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
 12), so they keep their earlier depths.  qwen-72b's
@@ -231,6 +255,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -293,7 +318,7 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 # tp phases, the tp=1 phases they are held to, qwen-72b's int8-KV wave (its
 # peak memory shows that 4 x 4096 tokens fit one card) and phase 12 run at
 # full depth.
-EARLIER_DEPTH = {"recurrentgemma-9b": 5, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
+EARLIER_DEPTH = {"recurrentgemma-9b": 3, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
                  "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
                  "deepseek-moe-16b": 6, "mixtral-8x7b": 4, "mamba2-1.3b": 8}
 
@@ -2362,9 +2387,305 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
                 "parted_from_dense_at_near_ties": parted(name + " right drafts", oracle)}
         result["phase_s"] = time.monotonic() - t_phase
         results.append(result)
+    if arch == "yi-9b" and not kv_quant:
+        def top2_gap(seq: np.ndarray) -> float:
+            logits = forward(torch.as_tensor(seq, device=dev).long())
+            return float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
+        results.extend(control_plane_phases(dev, eng, cfg, top2_gap))
     del eng
     torch.cuda.empty_cache()
     return results
+
+
+# -- the serving control plane (phase 13) ---------------------------------------
+#
+# On the yi-9b slot phases' engine (48 layers): the overlapped loop against
+# the blocking one, a fault plan, priority classes under an overload burst,
+# and the HTTP frontend.
+
+CP_FAULTS = "step:at=6,times=2;poison:slot=1,at=12;alloc:at=20"
+CP_CLASS_MIX = "interactive=0.25,standard=0.5,batch=0.25"
+CP_BURST = "burst:at=8,count=12,plen=16,new=8,cls=batch"
+
+
+@contextlib.contextmanager
+def sync_checked_dispatch(eng, sched, counts: dict):
+    """Every decode dispatch of ``eng`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that waits for the
+    card (a blocking copy, ``.item()``, a synchronize) raises.  ``counts``:
+    dispatches in all, and those queued while an earlier block was still
+    unlanded (block N+1 before block N lands)."""
+    plain = eng.dispatch_decode
+
+    def dispatch(*a, **k):
+        counts["dispatches"] += 1
+        counts["ahead"] += bool(sched._pipeline)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return plain(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng.dispatch_decode = dispatch
+    try:
+        yield
+    finally:
+        del eng.dispatch_decode
+
+
+def control_plane_phases(dev, eng, cfg, top2_gap) -> list:
+    """Phase 13 on the slot phases' yi-9b engine: (a) continuous and paged,
+    whole-prompt admission, blocking, overlapped, overlapped, blocking: the
+    same streams and launches, every overlapped dispatch free of host
+    synchronisation, the host-blocked and overlapped seconds and the walls; (b) paged overlapped
+    under CP_FAULTS: one quarantine, two retries, a preemption, survivors
+    as the clean overlapped run's; (c) dense with CP_CLASS_MIX, the ladder
+    on and CP_BURST: its levels, the workload's admitted survivors as the
+    unloaded run's; (d) the HTTP frontend on 127.0.0.1: 4 concurrent SSE
+    clients get the scheduler's tokens, a 429 at max_pending, a graceful
+    drain.  A parting from the reference stream is allowed at a top-2 gap
+    below TIE_GAP (the runs admit in other batches), at most MAX_PARTED."""
+    import argparse
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.scheduler import ContinuousScheduler, PagedContinuousScheduler
+
+    classes = {"dense": ContinuousScheduler, "paged": PagedContinuousScheduler}
+    base = argparse.Namespace(**SLOT_WORKLOAD)
+
+    def run(backend, args=base, **kw):
+        sched = classes[backend](eng, n_slots=SLOTS, prefill_chunk=0, **kw)
+        serve.submit_workload(sched, cfg, args)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        done = sched.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        return sched, {r.rid: r for r in done}, wall, dict(ops.LAUNCHES)
+
+    def parted(name, ref, done, rids=None):
+        flips = []
+        for rid in (ref if rids is None else rids):
+            a, b = ref[rid].output, done[rid].output
+            if np.array_equal(a, b):
+                continue
+            n = min(len(a), len(b))
+            t = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+            gap = top2_gap(np.concatenate([ref[rid].prompt, a[:t]]))
+            if not gap < TIE_GAP:
+                fail(f"{name} request {rid} parts from its reference at step {t} with top-2 "
+                     f"gap {gap}")
+            flips.append({"rid": rid, "step": t, "top2_gap": gap})
+        if len(flips) > MAX_PARTED:
+            fail(f"{name}: {len(flips)} streams parted, more than {MAX_PARTED}: {flips}")
+        return flips
+
+    def loop_line(runs):
+        """The walls and host split of one loop's runs, each a list."""
+        st = [sched.stats for sched, _, _, _ in runs]
+        walls = [wall for _, _, wall, _ in runs]
+        return {"wall_s": walls, "decode_steps": st[0]["decode_steps"],
+                "wall_per_decode_step_ms": [1e3 * w / max(1, x["decode_steps"])
+                                            for w, x in zip(walls, st)],
+                "host_blocked_s": [x["host_blocked_s"] for x in st],
+                "host_overlap_s": [x["host_overlap_s"] for x in st],
+                "host_blocked_share": [x["host_blocked_s"] / w for w, x in zip(walls, st)],
+                "landings": st[0]["landings"], "max_dispatch_ahead": st[0]["max_dispatch_ahead"],
+                "dispatch_ahead_steps": st[0]["dispatch_ahead_steps"],
+                "eos_rollbacks": st[0]["eos_rollbacks"]}
+
+    results, clean = [], {}
+    # (a) overlap against blocking: blocking, overlapped, overlapped,
+    # blocking, so that each loop's two walls straddle the other's
+    for backend in ("dense", "paged"):
+        t_phase = time.monotonic()
+        name = f"overlap {backend}"
+        loops = {False: [], True: []}
+        counts = {"dispatches": 0, "ahead": 0}
+        for overlap in (False, True, True, False):
+            if not overlap:
+                loops[False].append(run(backend))
+                continue
+            sched = classes[backend](eng, n_slots=SLOTS, prefill_chunk=0, overlap=True)
+            serve.submit_workload(sched, cfg, base)
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            with sync_checked_dispatch(eng, sched, counts):
+                done = sched.run()
+            torch.cuda.synchronize()
+            loops[True].append((sched, {r.rid: r for r in done}, time.monotonic() - t,
+                                dict(ops.LAUNCHES)))
+        _, d0, _, l0 = loops[False][0]
+        for sched, done, _, launches in loops[True] + loops[False][1:]:
+            if sorted(d0) != sorted(done) or any(not np.array_equal(d0[r].output,
+                                                                    done[r].output) for r in d0):
+                fail(f"{name}: the streams differ between the loops or their repeats")
+            if launches != l0:
+                fail(f"{name}: launches {launches} != the blocking loop's {l0}")
+        for sched, _, _, _ in loops[True]:
+            if not (sched.stats["landings"] > 0 and sched.stats["max_dispatch_ahead"] >= 2
+                    and sched.stats["eos_rollbacks"] == 0):
+                fail(f"{name}: the loop never ran ahead: {sched.stats}")
+            if backend == "paged":
+                sched.alloc.audit()
+        if not counts["ahead"]:
+            fail(f"{name}: no dispatch was queued ahead of a landing: {counts}")
+        clean[backend] = loops[True][0][1]
+        line = {"blocking": loop_line(loops[False]), "overlapped": loop_line(loops[True])}
+        print(f"control plane {name}: " + json.dumps(line), flush=True)
+        results.append({"arch": cfg.name, "scheduler": name, "kv_quant": False,
+                        "layers": cfg.n_layers, "launches": loops[True][0][3],
+                        "sync_checked": counts, **line, "phase_s": time.monotonic() - t_phase})
+    # (b) faults on the paged overlapped loop
+    t_phase = time.monotonic()
+    sched, done, wall, launches = run("paged", overlap=True, fault_plan=CP_FAULTS,
+                                      retry_backoff_s=0.0)
+    st = sched.stats
+    bad = [rid for rid, r in done.items() if r.finish_reason == "error"]
+    # the alloc clause's denial lands while a block is in flight: the loop
+    # lands it and retries the allocation, or preempts when nothing is
+    if not (st["quarantined"] == 1 and st["step_retries"] == 2 and st["step_faults"] == 2
+            and len(bad) == 1 and sorted(done) == sorted(clean["paged"])
+            and all(c.times == 0 for c in sched.faults.clauses)):
+        fail(f"faults: quarantine or retries not as planned: {st}, errors {bad}")
+    sched.alloc.audit()
+    survivors = [rid for rid in done if rid not in bad]
+    flips = parted("faults", clean["paged"], done, survivors)
+    results.append({"arch": cfg.name, "scheduler": "paged overlapped, faults", "kv_quant": False,
+                    "fault_plan": CP_FAULTS, "launches": launches, "wall_s": wall,
+                    "quarantined": bad, "faults": sched.request_summary()["faults"],
+                    "preemptions": st["preemptions"], "parted_at_near_ties": flips,
+                    "phase_s": time.monotonic() - t_phase})
+    # (c) classes and the degradation ladder under a burst
+    t_phase = time.monotonic()
+    args = argparse.Namespace(**SLOT_WORKLOAD, class_mix=CP_CLASS_MIX)
+    sched = ContinuousScheduler(eng, n_slots=SLOTS, prefill_chunk=0, fault_plan=CP_BURST,
+                                overload_opts={"enabled": True})
+    serve.submit_workload(sched, cfg, args)
+    ops.reset_launches()
+    levels, t = [], time.monotonic()
+    while sched.serve_step():
+        levels.append(sched.overload_level())
+    done = {r.rid: r for r in sched.run()}
+    wall, launches = time.monotonic() - t, dict(ops.LAUNCHES)
+    summary = sched.request_summary()
+    st = sched.stats
+    kept = [rid for rid in clean["dense"] if done[rid].finish_reason in ("stop", "length")]
+    shed = [rid for rid, r in done.items() if r.finish_reason == "shed"]
+    if not (st["burst_injected"] == 12 and max(levels) >= 1 and shed and kept
+            and all(done[rid].priority == "batch" for rid in shed)):
+        fail(f"overload: the ladder never engaged or shed a latency class: levels {levels}, "
+             f"{st}")
+    flips = parted("overload", clean["dense"], done, kept)
+    print(f"control plane overload: levels {levels}", flush=True)
+    results.append({"arch": cfg.name, "scheduler": "dense, classes and ladder", "kv_quant": False,
+                    "class_mix": CP_CLASS_MIX, "burst": CP_BURST, "launches": launches,
+                    "wall_s": wall, "levels": levels, "overload": summary["overload"],
+                    "classes": st["classes"], "kept": len(kept), "shed": len(shed),
+                    "parted_at_near_ties": flips, "phase_s": time.monotonic() - t_phase})
+    results.append(frontend_phase(eng, cfg, clean["dense"], parted))
+    return results
+
+
+def frontend_phase(eng, cfg, ref: dict, parted) -> dict:
+    """(d): the HTTP frontend on 127.0.0.1 over an overlapped continuous
+    scheduler on the card: 4 concurrent SSE clients (the workload's first
+    four prompts and budgets) get the tokens the scheduler retired with,
+    the blocking run's streams (near-ties aside); 6 concurrent requests
+    against max_pending 4 get at least one 429 with Retry-After and the
+    rest their whole budgets; a stream in flight when the drain begins is
+    served to its end, and then nothing listens."""
+    import asyncio
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.frontend import EngineService, HttpFrontend
+    from repro_torch.runtime.scheduler import ContinuousScheduler
+
+    t_phase = time.monotonic()
+    sched = ContinuousScheduler(eng, n_slots=SLOTS, prefill_chunk=0, overlap=True)
+    service = EngineService(sched, max_pending=SLOTS, idle_wait_s=0.002)
+    frontend = HttpFrontend(service, port=0)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=lambda: (asyncio.set_event_loop(loop),
+                                              loop.run_until_complete(frontend.start()),
+                                              loop.run_forever()), daemon=True)
+    ops.reset_launches()
+    thread.start()
+    deadline = time.monotonic() + 60
+    while frontend._server is None:
+        if time.monotonic() > deadline:
+            fail("frontend: the server did not start")
+        time.sleep(0.01)
+    port = frontend.port
+
+    def post(body):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        c.request("POST", "/v1/completions", json.dumps(body),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+
+    def sse(raw: bytes) -> list:
+        toks = []
+        for ev in raw.decode().split("\n\n"):
+            if ev.startswith("data: {"):
+                toks += json.loads(ev[6:])["choices"][0]["token_ids"]
+        return toks
+
+    reqs = [ref[rid] for rid in sorted(ref)[:4]]
+    bodies = [{"prompt": r.prompt.tolist(), "max_tokens": r.max_new, "stream": True}
+              for r in reqs]
+    with ThreadPoolExecutor(6) as pool:
+        streamed = list(pool.map(post, bodies))
+        if any(st != 200 for st, _, _ in streamed):
+            fail(f"frontend: statuses {[st for st, _, _ in streamed]}")
+        retired = {tuple(r.prompt.tolist()): r.output.tolist() for r in sched.done}
+        got = {}
+        for i, (body, (_, _, raw)) in enumerate(zip(bodies, streamed)):
+            toks = sse(raw)
+            if toks != retired.get(tuple(body["prompt"])) or len(toks) != body["max_tokens"]:
+                fail(f"frontend: client {i} streamed {toks}, the scheduler retired "
+                     f"{retired.get(tuple(body['prompt']))}")
+            got[i] = types.SimpleNamespace(output=np.asarray(toks, np.int32))
+        flips = parted("frontend", {i: r for i, r in enumerate(reqs)}, got)
+        launches = dict(ops.LAUNCHES)
+        overload = list(pool.map(post, [{"prompt": r.prompt.tolist(), "max_tokens": 32}
+                                        for r in list(ref.values())[4:10]]))
+    statuses = [st for st, _, _ in overload]
+    for st, headers, data in overload:
+        if st == 429 and headers.get("Retry-After") != "1":
+            fail(f"frontend: a 429 without Retry-After: {headers}")
+        if st == 200 and len(json.loads(data)["choices"][0]["token_ids"]) != 32:
+            fail("frontend: an admitted request lost tokens under shedding")
+    if statuses.count(429) < 1 or sched.stats["shed_requests"] != statuses.count(429):
+        fail(f"frontend: 6 requests against max_pending {SLOTS} shed none: {statuses}")
+    # graceful drain: a stream in flight when stop() begins is served whole
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(post, dict(bodies[0], max_tokens=32))
+        time.sleep(0.5)
+        asyncio.run_coroutine_threadsafe(frontend.stop(), loop).result(timeout=300)
+        st, _, raw = fut.result(timeout=300)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(timeout=60)
+    loop.close()
+    if st != 200 or len(sse(raw)) != 32:
+        fail(f"frontend: the stream in flight at the drain got {st}, {len(sse(raw))} tokens")
+    try:
+        post({"prompt": [1, 2], "max_tokens": 1})
+        fail("frontend: still listening after the drain")
+    except OSError:
+        pass
+    return {"arch": cfg.name, "scheduler": "frontend (HTTP, overlapped continuous)",
+            "kv_quant": False, "launches": launches, "clients": len(bodies),
+            "parted_at_near_ties": flips, "overload_statuses": statuses,
+            "shed_requests": sched.stats["shed_requests"], "drained_tokens": len(sse(raw)),
+            "phase_s": time.monotonic() - t_phase}
 
 
 # -- latent attention and mixture of experts -----------------------------------
@@ -3519,7 +3840,7 @@ class _Recorder:
     def __init__(self):
         self.reqs = []
 
-    def submit(self, prompt, max_new, arrival_step=0):
+    def submit(self, prompt, max_new, arrival_step=0, priority="standard"):
         self.reqs.append((np.asarray(prompt), max_new, arrival_step))
 
 

@@ -225,6 +225,36 @@ class ParallelConfig:
     # paged KV cache (PagedContinuousScheduler reads these as its defaults)
     kv_block_size: int = 16     # tokens per KV block
     kv_pool_blocks: int = 0     # total pool blocks; 0 = n_slots * blocks/slot + 1
+    # the serving control plane of the continuous schedulers (the JAX
+    # package's fields, names and defaults).  overlap_decode: dispatch decode
+    # block N+1 on block N's device outputs and land N's tokens one block
+    # late, the host state advancing on a prediction that a landed EOS rolls
+    # back; greedy streams equal the blocking loop's.
+    overlap_decode: bool = False
+    # fault injection (runtime/faults.py's grammar; "" = none): a transient
+    # step failure is retried max_step_retries times, with a backoff from
+    # retry_backoff_s doubling per failure, from the exact pre-step state;
+    # past that a failure blamed on a slot quarantines its request
+    fault_plan: str = ""
+    max_step_retries: int = 3
+    retry_backoff_s: float = 0.05
+    # priority classes: per-class per-token SLO targets in seconds (0 = none),
+    # slots and paged blocks only interactive admissions may take, and the
+    # degradation ladder of runtime/overload.py (queue_hi/lo 0 = from the
+    # slot count; patience/cooldown rounds; itl_hi/lo scale the interactive
+    # SLO into the latency band)
+    slo_interactive_s: float = 0.0
+    slo_standard_s: float = 0.0
+    slo_batch_s: float = 0.0
+    interactive_reserve_slots: int = 0
+    interactive_reserve_blocks: int = 0
+    overload_degrade: bool = False
+    overload_queue_hi: int = 0
+    overload_queue_lo: int = 0
+    overload_patience: int = 3
+    overload_cooldown: int = 6
+    overload_itl_hi: float = 1.5
+    overload_itl_lo: float = 1.0
 
 
 @dataclass(frozen=True)

@@ -148,3 +148,12 @@ def render_text() -> str:
     legend = ["", "blocking capabilities:"]
     legend += [f"  {tag:<10} {phrase}" for tag, phrase in sorted(BLOCKERS.items())]
     return "\n".join(lines + legend)
+
+
+def as_dict() -> Dict[str, dict]:
+    """The capability matrix as JSON (the frontend's ``GET /health``)."""
+    return {arch: {"paths": {p: {"supported": caps.supports(p), "blocker": caps.blocker(p)}
+                             for p in PATHS},
+                   "cache_layouts": list(caps.cache_layouts), "sampling": caps.sampling,
+                   "max_prompt": caps.max_prompt}
+            for arch, caps in sorted(registry().items())}

@@ -36,11 +36,25 @@ runs on the CPU with ``--device cpu``, its collectives staged through host
 memory, so its wall times are no tensor-parallel speed.
 ``--no-topk-sync`` gathers the whole logits row before the top-k (the
 paper's baseline of section 2.1b).
+
+The continuous schedulers' control plane takes the JAX serve CLI's flags:
+``--overlap`` (dispatch decode block N+1 before block N lands),
+``--responsive-blocks``, ``--fault-plan`` with ``--max-step-retries`` and
+``--retry-backoff-s`` (``runtime/faults.py``), ``--class-mix`` (each
+request's priority class drawn from a weighted mix), ``--slo-*``,
+``--interactive-reserve-*`` and ``--overload-*`` (the degradation ladder of
+``runtime/overload.py``), ``--no-spec-decode`` and ``--stats-json``, which
+writes the scheduler's summary and counters, even when the run raised.
+Overlap, fault plans and the ladder are refused at ``--tp`` > 1.  The
+parser is shared with the HTTP frontend (``launch/frontend.py``).  Not
+ported: ``--scheduler disagg``, ``--dp``, ``--prefill-shards`` and
+``--no-flash-prefill``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -60,16 +74,28 @@ def build_engine(args, dist: Dist = Dist(), device=None) -> Engine:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    # admission and decode options ride on ParallelConfig, where the
-    # schedulers read them as defaults that an arch may fall back from
-    parallel = dataclasses.replace(parallel_config(args), kv_block_size=args.kv_block_size,
-                                   kv_pool_blocks=args.kv_pool_blocks,
-                                   prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-                                   spec_ngram=args.spec_ngram)
-    return Engine(cfg, parallel=parallel,
+    return Engine(cfg, parallel=engine_parallel(args),
                   sampling=SamplingConfig(top_k=args.top_k), max_len=args.max_len,
                   seed=args.seed, device=device or args.device, wq_cache=args.wq_cache,
                   dist=dist)
+
+
+def engine_parallel(args) -> ParallelConfig:
+    """The engine's ParallelConfig: admission, decode and control-plane
+    options ride on it, where the schedulers read them as defaults that an
+    arch may fall back from."""
+    return dataclasses.replace(
+        parallel_config(args), kv_block_size=args.kv_block_size,
+        kv_pool_blocks=args.kv_pool_blocks, prefill_chunk=args.prefill_chunk,
+        spec_k=0 if args.no_spec_decode else args.spec_k, spec_ngram=args.spec_ngram,
+        overlap_decode=args.overlap, fault_plan=args.fault_plan,
+        max_step_retries=args.max_step_retries, retry_backoff_s=args.retry_backoff_s,
+        slo_interactive_s=args.slo_interactive, slo_standard_s=args.slo_standard,
+        slo_batch_s=args.slo_batch, interactive_reserve_slots=args.interactive_reserve_slots,
+        interactive_reserve_blocks=args.interactive_reserve_blocks,
+        overload_degrade=args.overload_degrade, overload_queue_hi=args.overload_queue_hi,
+        overload_queue_lo=args.overload_queue_lo, overload_patience=args.overload_patience,
+        overload_cooldown=args.overload_cooldown)
 
 
 def parallel_config(args) -> ParallelConfig:
@@ -78,7 +104,8 @@ def parallel_config(args) -> ParallelConfig:
 
 
 def make_scheduler(eng: Engine, args):
-    slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps)
+    slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps,
+                   responsive_blocks=args.responsive_blocks)
     if args.scheduler == "paged":
         # block and pool sizes ride on ParallelConfig; the scheduler reads them
         return PagedContinuousScheduler(eng, prefix_cache=not args.no_prefix_cache, **slot_kw)
@@ -116,15 +143,38 @@ def weight_quant_line(cfg, args) -> str:
             f"{bb / 2**20:.1f} MiB bf16 ({bb / max(wb, 1):.2f}x less)")
 
 
+def parse_class_mix(spec):
+    """``interactive=0.25,standard=0.5,batch=0.25`` -> (classes,
+    probabilities); None for an empty spec.  Weights are normalized, so
+    ratios (``interactive=1,batch=3``) work too."""
+    if not spec:
+        return None
+    classes, weights = [], []
+    for item in spec.split(","):
+        k, _, v = item.strip().partition("=")
+        if k not in ("interactive", "standard", "batch"):
+            raise ValueError(f"unknown priority class {k!r} in class mix")
+        classes.append(k)
+        weights.append(float(v) if v else 1.0)
+    total = sum(weights)
+    if total <= 0:
+        raise ValueError("class mix weights must sum to > 0")
+    return classes, [w / total for w in weights]
+
+
 def submit_workload(sched, cfg, args) -> None:
     """The JAX serve CLI's workload, the same draws from the same seed: one
     shared prefix of ``--shared-prefix`` tokens, then per request a prompt
     length from [4, --prompt-len], a budget from [max_new // spread,
     max_new] when ``--max-new-spread`` > 1, and uniform token ids, (plen,
     ncb) frames for a multi-codebook arch, which takes no shared prefix;
-    request i arrives at decode step i * ``--arrival-every``."""
+    request i arrives at decode step i * ``--arrival-every``.  With
+    ``--class-mix`` each request's class is drawn from a stream of its own,
+    so the mix leaves the prompts and budgets as they were."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, args.shared_prefix).astype(np.int32)
+    mix = parse_class_mix(getattr(args, "class_mix", ""))
+    cls_rng = np.random.default_rng(0xC1A55) if mix else None
     for i in range(args.requests):
         plen = int(rng.integers(4, args.prompt_len + 1))
         shape = (plen,) if cfg.n_codebooks == 1 else (plen, cfg.n_codebooks)
@@ -135,11 +185,16 @@ def submit_workload(sched, cfg, args) -> None:
         prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         if args.shared_prefix and cfg.n_codebooks == 1:
             prompt = np.concatenate([shared, prompt])
-        sched.submit(prompt, max_new=max_new, arrival_step=i * args.arrival_every)
+        priority = mix[0][int(cls_rng.choice(len(mix[0]), p=mix[1]))] if mix else "standard"
+        sched.submit(prompt, max_new=max_new, arrival_step=i * args.arrival_every,
+                     priority=priority)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def build_parser(ap: argparse.ArgumentParser = None) -> argparse.ArgumentParser:
+    """The engine and scheduler flags, shared with the HTTP frontend
+    (``launch.frontend`` adds its server flags to them)."""
+    if ap is None:
+        ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="yi-9b", choices=ALL_ARCHS)
     ap.add_argument("--list-archs", action="store_true",
                     help="print the architecture capability matrix (which serving paths "
@@ -151,6 +206,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continuous/paged scheduler: fixed slot count")
     ap.add_argument("--block-steps", type=int, default=8,
                     help="continuous/paged scheduler: fused decode steps per host round trip")
+    ap.add_argument("--responsive-blocks", action="store_true",
+                    help="end fused blocks at the shortest active budget while requests "
+                         "wait (fewer total steps, more dispatches)")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="paged scheduler: tokens per KV block")
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
@@ -167,6 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "active slot verified in one step (1..N+1 tokens per step); "
                          "0 = plain one-token decode; an arch that cannot verify "
                          "chunks decodes plainly")
+    ap.add_argument("--no-spec-decode", action="store_true",
+                    help="force plain one-token decode even when --spec-k is set")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest n-gram the prompt-lookup drafter matches against "
                          "each request's history")
@@ -193,7 +253,86 @@ def build_parser() -> argparse.ArgumentParser:
                     help="path for the packed weight checkpoint: load it when present "
                          "(no bf16 weights are drawn), else save it after quantizing "
                          "at load")
+    add_control_plane_args(ap)
     return ap
+
+
+def add_control_plane_args(ap: argparse.ArgumentParser) -> None:
+    """Overlap, faults, priority classes and the degradation ladder of the
+    continuous schedulers, and ``--stats-json`` (the JAX CLI's flags)."""
+    ap.add_argument("--overlap", action="store_true",
+                    help="continuous schedulers: overlapped host/device loop, decode block "
+                         "N+1 dispatched on block N's device outputs while N's tokens land "
+                         "on the host (greedy streams equal the blocking loop's)")
+    ap.add_argument("--fault-plan", default="", metavar="SPEC",
+                    help="deterministic fault injection (continuous schedulers): "
+                         "';'-separated clauses, e.g. 'step:at=12;poison:slot=1,at=20;"
+                         "alloc:at=8;delay:at=4,s=0.5' (repro_torch.runtime.faults has the "
+                         "grammar).  Injured requests are quarantined (finish_reason "
+                         "error); survivors' greedy streams equal a clean run's")
+    ap.add_argument("--max-step-retries", type=int, default=3,
+                    help="a transient step failure is retried this many times (exponential "
+                         "backoff) from the exact pre-dispatch state before the blamed "
+                         "request is quarantined")
+    ap.add_argument("--retry-backoff-s", type=float, default=0.05,
+                    help="base backoff before a step retry; doubles per consecutive failure")
+    ap.add_argument("--class-mix", default="", metavar="SPEC",
+                    help="per-request priority classes of the synthetic workload, drawn "
+                         "from a weighted mix, e.g. 'interactive=0.25,standard=0.5,"
+                         "batch=0.25' (empty = everything 'standard')")
+    ap.add_argument("--slo-interactive", type=float, default=0.0, metavar="S",
+                    help="interactive-class per-token SLO target in seconds (0 = unset); "
+                         "reported as slo_attainment per class and read by the overload "
+                         "ladder's latency signal")
+    ap.add_argument("--slo-standard", type=float, default=0.0, metavar="S",
+                    help="standard-class per-token SLO target (seconds)")
+    ap.add_argument("--slo-batch", type=float, default=0.0, metavar="S",
+                    help="batch-class per-token SLO target (seconds)")
+    ap.add_argument("--interactive-reserve-slots", type=int, default=0,
+                    help="slots held back for interactive requests: non-interactive "
+                         "admission stops once free slots drop to this reserve")
+    ap.add_argument("--interactive-reserve-blocks", type=int, default=0,
+                    help="paged: KV pool blocks held back for interactive admissions")
+    ap.add_argument("--overload-degrade", action="store_true",
+                    help="the adaptive degradation ladder (shed batch -> suspend spec "
+                         "decode -> tighten admission), walked with hysteresis from queue "
+                         "depth and landed inter-token latency; see "
+                         "repro_torch.runtime.overload")
+    ap.add_argument("--overload-queue-hi", type=int, default=0,
+                    help="queue depth that counts as pressure (0 = auto: 2x slots)")
+    ap.add_argument("--overload-queue-lo", type=int, default=0,
+                    help="queue depth that counts as clear (0 = auto: slots/2)")
+    ap.add_argument("--overload-patience", type=int, default=3,
+                    help="consecutive pressured rounds before escalating one ladder level")
+    ap.add_argument("--overload-cooldown", type=int, default=6,
+                    help="consecutive clear rounds before restoring one ladder level")
+    ap.add_argument("--stats-json", default=None, metavar="PATH",
+                    help="dump the scheduler's request_summary() and raw stats counters "
+                         "(overlap, faults, classes, ladder) as JSON to PATH")
+
+
+def _jsonable(obj):
+    """numpy scalars and arrays -> what json.dump takes, recursively."""
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def dump_stats_json(sched, path, extra=None) -> dict:
+    """Write ``request_summary()`` and the raw stats counters to ``path``."""
+    payload = {"request_summary": _jsonable(sched.request_summary()),
+               "stats": _jsonable(sched.stats)}
+    if extra:
+        payload.update(_jsonable(extra))
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, sort_keys=True)
+    return payload
 
 
 def main(argv=None):
@@ -204,6 +343,8 @@ def main(argv=None):
         return []
     if args.tp == 1:
         return _serve(Dist(), None, args)
+    # refuse what the ranks would (overlap, faults, the ladder) before spawning
+    M.check_supported(get_config(args.arch), engine_parallel(args), wq_cache=args.wq_cache)
     mesh.check_backend(args.tp, args.dist_backend, args.device)
     if args.device == "cuda":
         from repro_torch.kernels import build
@@ -221,15 +362,19 @@ def _serve(dist: Dist, device, args):
     sched = make_scheduler(eng, args)
     submit_workload(sched, eng.cfg, args)
     t0 = time.monotonic()
-    sched.run()
-    if talk:
-        _report(sched, eng.cfg, args, time.monotonic() - t0)
+    try:
+        sched.run()
+    finally:
+        # the report and --stats-json flush even when the run raised: done
+        # holds what retired so far, so a crashed chaos run keeps its counters
+        if talk:
+            _report(sched, eng.cfg, args, time.monotonic() - t0)
     return sched.done
 
 
 def _report(sched, cfg, args, dt: float) -> None:
     done = sched.done
-    total_tokens = sum(len(r.output) for r in done)
+    total_tokens = sum(len(r.output) for r in done if r.output is not None)
     print(f"served {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s -> {1000 * dt / max(total_tokens, 1):.1f} ms/token "
           f"({args.scheduler}; arch={cfg.name}, tp={args.tp}, device={args.device}"
@@ -256,6 +401,30 @@ def _report(sched, cfg, args, dt: float) -> None:
         if "decode_itl_s" in lat:
             itl = lat["decode_itl_s"]
             print(f"  decode inter-token p50/p95 {itl['p50'] * 1e3:.1f}/{itl['p95'] * 1e3:.1f} ms")
+        if "faults" in lat:
+            fc = lat["faults"]
+            print(f"  faults: {fc['step_faults']} step faults ({fc['step_retries']} retried), "
+                  f"{fc['quarantined']} quarantined, {fc['timeouts']} timeouts, "
+                  f"{fc['aborts_exhaustion']} exhaustion aborts; finish_reasons "
+                  f"{lat['finish_reasons']}")
+        for name, c in lat.get("classes", {}).items():
+            line = (f"  class {name}: {c.get('served', 0)} served, {c.get('shed', 0)} shed, "
+                    f"{c.get('timeout', 0)} timed out")
+            if "itl_s" in c:
+                line += f"; itl p50/p95 {c['itl_s']['p50'] * 1e3:.1f}/{c['itl_s']['p95'] * 1e3:.1f} ms"
+            if "slo_attainment" in c:
+                line += f"; SLO {c['slo_attainment']:.0%} @ {c['slo_target_s'] * 1e3:.0f} ms/token"
+            print(line)
+        if "overload" in lat:
+            ov = lat["overload"]
+            print(f"  overload ladder: level {ov['level']} ({ov['level_name']}), peak "
+                  f"{ov['max_level_name']}, {ov['escalations']} escalations / "
+                  f"{ov['restorations']} restorations")
+        ov = lat["overlap"]
+        print(f"  host blocked {ov['host_blocked_s']:.3f}s ({ov['host_blocked_per_step_s'] * 1e3:.2f} "
+              f"ms/step)" + (f", overlapped {ov['host_overlap_s']:.3f}s, {ov['landings']} "
+                             f"landings, dispatch-ahead max {ov['max_dispatch_ahead']}, eos "
+                             f"rollbacks {ov['eos_rollbacks']}" if ov["enabled"] else ""))
     if args.scheduler == "paged":
         s = sched.stats
         print(f"  pool {sched.n_blocks} x {sched.bs}-token blocks, high-water "
@@ -263,7 +432,16 @@ def _report(sched, cfg, args, dt: float) -> None:
               f"(+{s['prefill_tokens_saved']} reused, {s['shared_block_hits']} shared block "
               f"hits), preemptions {s['preemptions']}")
     for r in done[:4]:
-        print(f"  req {r.rid}: {len(r.output)} tokens, first 8: {r.output[:8].tolist()}")
+        if r.output is not None:
+            print(f"  req {r.rid}: {len(r.output)} tokens, first 8: {r.output[:8].tolist()}")
+    if args.stats_json:
+        if args.scheduler == "wave":
+            print("  --stats-json needs a continuous scheduler; skipping")
+        else:
+            dump_stats_json(sched, args.stats_json,
+                            extra={"wall_s": dt, "total_tokens": total_tokens,
+                                   "scheduler": args.scheduler, "arch": cfg.name})
+            print(f"  stats -> {args.stats_json}")
 
 
 if __name__ == "__main__":

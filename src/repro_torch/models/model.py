@@ -189,6 +189,15 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("dp>1 (data parallelism, the data axis of the mesh)")
     if parallel.kv_seq_shard:
         missing.append("kv_seq_shard (the sequence-sharded KV cache and its LSE merge)")
+    # each tp rank runs its own scheduler in lockstep: a decision read off
+    # the wall clock (deadlines, the ITL signal, delay clauses, retry
+    # backoff) would part the ranks' schedulers
+    if parallel.tp > 1 and parallel.overlap_decode:
+        missing.append("overlap_decode at tp>1 (the overlapped loop)")
+    if parallel.tp > 1 and parallel.fault_plan:
+        missing.append("fault_plan at tp>1 (fault injection and step retry)")
+    if parallel.tp > 1 and parallel.overload_degrade:
+        missing.append("overload_degrade at tp>1 (the degradation ladder)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: the PyTorch port does not serve "
                                   f"{', '.join(missing)} yet")

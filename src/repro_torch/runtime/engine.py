@@ -15,11 +15,21 @@ program; here the steps are a plain Python loop that keeps the sampled
 tokens on the device, so the host waits only once per block (at the end of
 ``generate``, and in ``land`` for the slot engine).  KV caches are updated
 in place instead of donated.
+
+A slot decode block is dispatched and landed apart (``dispatch_decode``,
+``land_decode``), as the JAX package's async dispatch allows: the
+dispatch queues the block's kernels and a copy of its outputs into pinned
+host memory behind a CUDA event, and returns without waiting; the landing
+waits on that event.  A dispatch takes the previous block's device outputs
+as its inputs, and what it uploads from the host goes through pinned
+buffers copied without waiting, so the overlapped scheduler queues block
+N+1 before block N lands.  ``dispatch_hook`` runs before every slot step
+launches anything: the fault boundary of ``runtime/faults.py``.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +45,24 @@ from repro_torch.models.moe import RowLayout
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.sampling import sample_tokens
 from repro_torch.training import checkpoint
+
+
+class DecodeBlock(NamedTuple):
+    """A dispatched slot decode block (``Engine.dispatch_decode``): the
+    device state after its last step, which the next dispatch may take as
+    its inputs, and the host copy of its outputs, queued behind ``event``
+    (None on the CPU, where the copy is the tensor itself)."""
+    tok: torch.Tensor              # (B,) or frames (B, ncb) after the last step
+    pos: torch.Tensor              # (B,)
+    done: torch.Tensor             # (B,) bool
+    remaining: torch.Tensor        # (B,)
+    n: int                         # steps in the block
+    host: torch.Tensor             # tokens (n * B[* ncb]), pos, done, remaining
+    event: Optional[Any]           # torch.cuda.Event recorded after the copy
+
+    @property
+    def state(self):
+        return self.tok, self.pos, self.done, self.remaining
 
 
 class Engine:
@@ -107,6 +135,11 @@ class Engine:
             self.head_f32 = head[0].float() if cfg.n_codebooks == 1 else head.float()
         self.prefix = cfg.frontend.prefix_len if cfg.frontend is not None else 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # called with no arguments before every slot step (decode, mixed,
+        # verify) launches anything: an exception raised here leaves the
+        # caches as they were, so the caller may issue the step again.  A
+        # scheduler with a fault plan installs it; None costs nothing.
+        self.dispatch_hook: Optional[Callable[[], None]] = None
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
         """``model.forward`` on this engine's weights and rank (its local
@@ -286,41 +319,87 @@ class Engine:
         rem = torch.where(active, rem - 1, rem)
         return tok, pos, done | hit_eos | (rem <= 0), rem
 
+    def _predispatch(self) -> None:
+        """The fault boundary (``dispatch_hook``), before a slot step
+        launches anything."""
+        if self.dispatch_hook is not None:
+            self.dispatch_hook()
+
+    def _upload(self, x, dtype=np.int64) -> torch.Tensor:
+        """Host ints -> a fresh device tensor of ``dtype``, without waiting:
+        on the card through a pinned buffer copied on the stream (a copy
+        from pageable memory would wait for every kernel queued before it);
+        the caching host allocator keeps the buffer until its copy has
+        run.  The caller may change ``x`` at once."""
+        a = torch.from_numpy(np.array(x, dtype=dtype))
+        if self.device.type != "cuda":
+            return a
+        return a.pin_memory().to(self.device, non_blocking=True)
+
     def _slot_state(self, tok, pos, done, remaining, eos, block_tables):
         """Host slot state -> device (tok, pos, done, rem, eos) and the block
         table (None for the dense cache), in one copy each; ``tok`` (B,) or
         frames (B, ncb)."""
         tok = np.asarray(tok)
-        state = kvcache.device_ints(np.concatenate(
-            [tok.reshape(-1), pos, done, remaining, eos]), self.device)
+        state = self._upload(np.concatenate([tok.reshape(-1), pos, done, remaining, eos]))
         tok_d, rest = state[:tok.size].reshape(tok.shape), state[tok.size:]
         pos_d, done_d, rem_d, eos_d = rest.reshape(4, -1)
-        bt = None if block_tables is None else kvcache.device_ints(
-            block_tables, self.device, torch.int32)
+        bt = None if block_tables is None else self._upload(block_tables, np.int32)
         return (tok_d, pos_d, done_d.bool(), rem_d, eos_d), bt
 
     @torch.inference_mode()
-    def decode_slots(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
-                     block_tables=None):
-        """``n`` masked decode steps over all slots, as a Python loop whose
-        tokens and state stay on the device; one host copy at the end.
-        Finished rows (``done`` or no budget left) keep their token and
-        position and rewrite their frozen index, row-locally.  With
-        ``block_tables`` (B, nbps) the cache is paged: the table is copied
-        to the device once per call, from a fresh host array.  Returns
-        host (toks (n, B) or frames (n, B, ncb), pos, done, remaining)."""
-        (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
-            tok, pos, done, remaining, eos, block_tables)
+    def dispatch_decode(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
+                        block_tables=None) -> DecodeBlock:
+        """Queue ``n`` masked decode steps over all slots, as a Python loop
+        whose tokens and state stay on the device, and a copy of the block's
+        outputs into pinned host memory behind an event; return without
+        waiting (``land_decode`` waits).  Finished rows (``done`` or no
+        budget left) keep their token and position and rewrite their frozen
+        index, row-locally.  ``tok``, ``pos``, ``done`` and ``remaining``
+        are host arrays, or the previous block's device state
+        (``DecodeBlock.state``); ``eos`` and ``block_tables`` (B, nbps; the
+        cache is paged) come from the host, uploaded without waiting."""
+        self._predispatch()
+        if isinstance(tok, torch.Tensor):
+            tok_d, pos_d, done_d, rem_d = tok, pos, done, remaining
+            eos_d = self._upload(eos)
+            bt = None if block_tables is None else self._upload(block_tables, np.int32)
+        else:
+            (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
+                tok, pos, done, remaining, eos, block_tables)
         toks = []
         for _ in range(n):
             tok_d, pos_d, done_d, rem_d = self._decode_step(caches, tok_d, pos_d, done_d,
                                                             rem_d, eos_d, bt)
             toks.append(tok_d)
-        k = n * tok_d.numel()
-        out = self.land(torch.cat([torch.stack(toks).reshape(-1), pos_d, done_d.long(), rem_d]))
+        out = torch.cat([torch.stack(toks).reshape(-1), pos_d, done_d.long(), rem_d])
+        event = None
+        if out.is_cuda:
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            out = host
+        return DecodeBlock(tok_d, pos_d, done_d, rem_d, n, out, event)
+
+    @staticmethod
+    def land_decode(block: DecodeBlock):
+        """Wait for a dispatched block's host copy -> host (toks (n, B) or
+        frames (n, B, ncb), pos, done, remaining)."""
+        if block.event is not None:
+            block.event.synchronize()
+        out = block.host.numpy()
+        k = block.n * block.tok.numel()
         state = out[k:].reshape(3, -1)
-        return (out[:k].reshape(n, *tok_d.shape).astype(np.int32), state[0].astype(np.int32),
-                state[1].astype(bool), state[2].astype(np.int32))
+        return (out[:k].reshape(block.n, *block.tok.shape).astype(np.int32),
+                state[0].astype(np.int32), state[1].astype(bool), state[2].astype(np.int32))
+
+    def decode_slots(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
+                     block_tables=None):
+        """``dispatch_decode`` landed at once: host (toks (n, B) or frames
+        (n, B, ncb), pos, done, remaining) after ``n`` masked steps."""
+        return self.land_decode(self.dispatch_decode(caches, tok, pos, done, remaining, eos,
+                                                     n=n, block_tables=block_tables))
 
     # -- chunked admission and speculative decoding --------------------------
     #
@@ -369,6 +448,7 @@ class Engine:
         attends the ring's pre-write entries by it.  One host copy at the
         end.  Returns host (ptok (B,), nxt (B,), pos, done, remaining) and
         whether the decode half ran."""
+        self._predispatch()
         admit = np.asarray(admit, bool)
         rows = np.flatnonzero(admit)
         C = np.asarray(ctokens).shape[1]
@@ -414,6 +494,7 @@ class Engine:
         the active rows route both the chunk's writes and its reads).  One
         host copy at the end.  Returns host (targets (B, K+1), n_emit (B,),
         nxt (B,), pos, done, remaining)."""
+        self._predispatch()
         vtokens = np.asarray(vtokens)
         pos, done = np.asarray(pos, np.int32), np.asarray(done, bool)
         remaining, eos = np.asarray(remaining, np.int32), np.asarray(eos, np.int32)

@@ -14,36 +14,76 @@ and emits (n, ncb) frames; codebook 0 carries the EOS stream
 its fixed prefix in front of every prompt: every cache extent and position
 counts it.
 
-The continuous schedulers run the JAX package's blocking loop: retire
-finished slots, admit arrived requests into free slots, then step.  With
+The continuous schedulers run the JAX package's loop: retire finished
+slots, admit arrived requests into free slots, then step.  With
 ``prefill_chunk`` set (the default, 256) every admitted prompt streams
 through fused mixed steps, one chunk per step while the other slots
 decode one token; with 0 it is admitted whole by one bucketed prefill.
 With ``spec_k`` set, a step verifies ``spec_k`` n-gram drafts per active
 slot and emits 1..spec_k+1 tokens; otherwise decode runs in fused blocks
-of masked steps.  Not ported yet: the overlapped loop, fault plans,
-priority classes and reserves, and disaggregated serving.
+of masked steps.
+
+The serving control plane is the JAX package's too:
+
+* **overlap** (``overlap_decode``): decode block N+1 is dispatched on
+  block N's device outputs before N lands (``Engine.dispatch_decode``);
+  the host state advances on a prediction that only a landed EOS can
+  break, rolled back at the landing.  Admission, chunks and verify steps
+  drain the pipeline first.  Greedy streams, retire order and the (rid,
+  token) emission order equal the blocking loop's.
+* **faults** (``fault_plan``, ``runtime/faults.py``): a step failure
+  raised before the step launches anything is retried from the exact
+  pre-step state with exponential backoff, then quarantines its blamed
+  slot; a poisoned token quarantines its slot; an injected allocation
+  denial preempts; nothing of another slot's stream changes.  Deadlines
+  (``deadline_s``) retire a request with finish_reason "timeout".
+* **priority classes** (``interactive`` | ``standard`` | ``batch``):
+  admission orders arrivals by class, reserves keep slots (and paged
+  blocks) for interactive admissions, preemption evicts the lowest class
+  first, and the degradation ladder (``runtime/overload.py``) sheds batch,
+  suspends spec decode and tightens admission under sustained overload.
+  Every lever changes which requests run and when, never their tokens.
 
 Under tensor parallelism every rank runs its own scheduler over the same
 requests; its decisions depend on the requests and the sampled tokens
 only, which are the same on every rank, so the ranks make the same engine
 calls.  A run ends by checking that every rank served the same streams
-(``Engine.check_replicated``).
+(``Engine.check_replicated``).  Decisions read off the wall clock would
+part the ranks, so overlap, fault plans, the degradation ladder and
+deadlines are refused at tp > 1; priority classes and reserves read only
+the virtual clock and work at any tp.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.models import model as M
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.drafter import NgramDrafter
-from repro_torch.runtime.engine import Engine
+from repro_torch.runtime.engine import DecodeBlock, Engine
+from repro_torch.runtime.faults import FaultPlan, TransientStepError
+from repro_torch.runtime.overload import OverloadController
 
 MIN_BUCKET = 8      # smallest admission width: prompts pad to a power of two >= this
+
+# Priority classes, best first.  Rank 0 (interactive) admits first, is
+# never shed by the degradation ladder and is protected by the reserves;
+# rank 2 (batch) is shed first and preempted first.
+PRIORITY_CLASSES = ("interactive", "standard", "batch")
+PRIORITY_RANK = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
+
+
+def check_priority(priority: str) -> str:
+    if priority not in PRIORITY_RANK:
+        raise ValueError(f"unknown priority class {priority!r}; expected one of "
+                         f"{PRIORITY_CLASSES}")
+    return priority
 
 
 def tok_scalar(tok) -> int:
@@ -63,7 +103,15 @@ class Request:
     submitted_at: float = field(default_factory=time.monotonic)
     output: Optional[np.ndarray] = None
     stats: Dict = field(default_factory=dict)
-    finish_reason: Optional[str] = None   # "stop" (EOS) | "length" (budget)
+    # why it retired: "stop" (EOS) | "length" (budget) | "error"
+    # (quarantined: poisoned output, persistent step failure, pool
+    # exhaustion) | "timeout" (deadline) | "shed" (by the degradation
+    # ladder at admission: empty output, never held a slot)
+    finish_reason: Optional[str] = None
+    # wall-clock deadline in seconds from submission: past it the request
+    # retires with finish_reason "timeout", keeping what it emitted
+    deadline_s: Optional[float] = None
+    priority: str = "standard"    # PRIORITY_CLASSES
 
 
 class WaveScheduler:
@@ -76,12 +124,14 @@ class WaveScheduler:
         self._next_id = 0
 
     def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
-               arrival_step: int = 0) -> int:
+               arrival_step: int = 0, priority: str = "standard") -> int:
         """Queue a request; waves ignore ``arrival_step`` (they drain the
-        queue in order), which the continuous schedulers read."""
+        queue in order), which the continuous schedulers read, and record
+        ``priority`` without scheduling by it (the pessimistic baseline)."""
         rid = self._next_id
         self._next_id += 1
-        self.queue.append(Request(rid, np.asarray(prompt), max_new, eos_id, arrival_step))
+        self.queue.append(Request(rid, np.asarray(prompt), max_new, eos_id, arrival_step,
+                                  priority=check_priority(priority)))
         return rid
 
     def run(self) -> List[Request]:
@@ -140,6 +190,24 @@ def percentile_summary(vals) -> Optional[Dict[str, float]]:
 
 
 @dataclass
+class _Pending:
+    """A dispatched decode block not landed yet (the overlapped loop): the
+    engine's ``DecodeBlock`` and the host context its landing replays the
+    emissions against, as the blocking loop would have: the slot objects
+    and eos ids at dispatch and the predicted-active mask (a superset of
+    the device's: an EOS freezes a slot earlier than predicted)."""
+
+    block: DecodeBlock
+    n: int                        # fused steps in the block
+    base_step: int                # engine step of the block's first row
+    slots: List                   # slot objects at dispatch
+    eos: np.ndarray               # per-slot eos ids at dispatch
+    active: np.ndarray            # predicted-active mask at dispatch
+    adm_mark: bool                # the admission mark this block took over
+    dispatch_t: float = 0.0       # host clock when the dispatch returned
+
+
+@dataclass
 class _Slot:
     req: Optional[Request] = None
     toks: List = field(default_factory=list)
@@ -159,7 +227,8 @@ class ContinuousScheduler:
     The loop per round: retire finished slots, admit arrived requests into
     free slots, then step: a fused mixed step while any slot is mid-prefill
     (chunked admission), else a verify step (``spec_k`` > 0) or a block of
-    up to ``block_steps`` masked decode steps.  ``prefill_chunk``,
+    up to ``block_steps`` masked decode steps (``responsive_blocks``: cut at
+    the shortest active budget while arrivals wait).  ``prefill_chunk``,
     ``spec_k`` and ``spec_ngram`` default to the engine's
     ``ParallelConfig``; a chunk of 0 admits whole prompts by one bucketed
     prefill.  An arch whose capability record blocks chunked prefill or
@@ -169,15 +238,33 @@ class ContinuousScheduler:
     prompts (and buckets) at its window.  A multi-codebook arch's slots hold
     (ncb,) frames, and a frontend arch's positions start after its prefix
     (the engine's slot prefill projects zero features itself).
+
+    The control plane's options (``overlap``, ``fault_plan``,
+    ``max_step_retries``, ``retry_backoff_s``, ``reserve_slots``,
+    ``reserve_blocks``, the SLO targets and the ladder's knobs) default to
+    the ``ParallelConfig`` fields of the same names; ``overload_opts``
+    merges over the ladder's and its "enabled" key turns it on or off.
+    ``on_token(rid, token)`` streams each emission, ``on_finish(request)``
+    each retirement; ``serve_step`` runs one round for an external driver.
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
                  *, prefill_chunk: Optional[int] = None, spec_k: Optional[int] = None,
-                 spec_ngram: Optional[int] = None):
+                 spec_ngram: Optional[int] = None, responsive_blocks: bool = False,
+                 on_token: Optional[Callable[[int, int], None]] = None,
+                 overlap: Optional[bool] = None, fault_plan: Optional[str] = None,
+                 max_step_retries: Optional[int] = None,
+                 retry_backoff_s: Optional[float] = None,
+                 slo_targets: Optional[Dict[str, float]] = None,
+                 reserve_slots: Optional[int] = None, reserve_blocks: Optional[int] = None,
+                 overload_opts: Optional[Dict] = None):
         self.engine = engine
         self.B = n_slots
         self.pad_id = pad_id
         self.block_steps = block_steps
+        self.responsive_blocks = responsive_blocks
+        self.on_token = on_token
+        self.on_finish: Optional[Callable[[Request], None]] = None
         caps = engine.caps
         # a ring keeps only the last window tokens: a bucket padded past the
         # window would push real prompt history out of it
@@ -216,23 +303,96 @@ class ContinuousScheduler:
         self.stats = {
             "decode_steps": 0, "slot_steps": 0, "active_slot_steps": 0,
             "emitted": 0, "admission_rounds": 0, "in_flight_admissions": 0,
-            "prefill_calls": 0, "prefill_tokens": 0, "quarantined": 0,
+            "prefill_calls": 0, "prefill_tokens": 0,
             "prefill_chunks": 0, "chunked_admissions": 0,
             # mixed steps whose decode half ran (some slot was decode-active)
             "mixed_decode_steps": 0,
+            # host/device split, both loops: host_blocked_s sums the waits
+            # for decode blocks to land (``_materialize``), host_overlap_s
+            # the host time between a block's dispatch and its landing
+            "host_blocked_s": 0.0, "host_overlap_s": 0.0, "landings": 0,
+            "eos_rollbacks": 0, "dispatch_ahead_steps": 0,
+            "max_dispatch_ahead": 0, "shed_requests": 0,
+            # failure isolation (request_summary shows them when any is set)
+            "step_faults": 0, "step_retries": 0, "quarantined": 0,
+            "timeouts": 0, "aborts_exhaustion": 0, "livelock_aborts": 0,
+            "migration_faults": 0,
         }
         if self.spec_k:
             self.stats.update({"spec_steps": 0, "spec_slot_steps": 0, "spec_proposed": 0,
                                "spec_accepted": 0, "spec_emitted": 0})
+        # faults: the plan (an empty one costs nothing), bounded retry, and
+        # the liveness clock the frontend's watchdog reads
+        self.faults = FaultPlan.parse(par.fault_plan if fault_plan is None else fault_plan)
+        self.max_step_retries = int(par.max_step_retries if max_step_retries is None
+                                    else max_step_retries)
+        self.retry_backoff_s = float(par.retry_backoff_s if retry_backoff_s is None
+                                     else retry_backoff_s)
+        self._retry_streak = 0            # consecutive failures of one step
+        self._progress_t = time.monotonic()
+        self._has_deadlines = False       # some request carries a deadline
+        # slots retired by the host (quarantine, timeout) that the device
+        # still decodes: a landed done mask is OR-ed with this, so a block
+        # dispatched before the retirement cannot bring the slot back
+        self._forced_done = np.zeros((n_slots,), bool)
+        # the overlapped loop: the pipeline of dispatched blocks, and the
+        # exact landed state its landings replay from
+        self.overlap = bool(par.overlap_decode if overlap is None else overlap)
+        self._pipeline: "deque[_Pending]" = deque()
+        self._exact_tok = self._exact_pos = None
+        self._exact_dones = self._exact_rem = None
         # decode inter-token latency samples (seconds/step, during
         # admission), the most recent window
         self._itl: "deque" = deque(maxlen=65536)
         self._last_step_t: Optional[float] = None
         self._admission_mark = False
+        # tokens emitted per (engine step, active slot): 1, or 1..spec_k+1
+        self._tps: "deque[int]" = deque(maxlen=65536)
+        # priority classes: per-class per-token SLO targets, the interactive
+        # reserves (slots here; blocks read by the paged backend) and the
+        # degradation ladder
+        self.slo_targets = {"interactive": par.slo_interactive_s,
+                            "standard": par.slo_standard_s, "batch": par.slo_batch_s}
+        if slo_targets:
+            self.slo_targets.update(slo_targets)
+        self.reserve_slots = int(par.interactive_reserve_slots if reserve_slots is None
+                                 else reserve_slots)
+        self.reserve_blocks = int(par.interactive_reserve_blocks if reserve_blocks is None
+                                  else reserve_blocks)
+        opts = {"enabled": par.overload_degrade, "queue_hi": par.overload_queue_hi,
+                "queue_lo": par.overload_queue_lo,
+                "slo_s": float(self.slo_targets.get("interactive") or 0.0),
+                "itl_hi": par.overload_itl_hi, "itl_lo": par.overload_itl_lo,
+                "patience": par.overload_patience, "cooldown": par.overload_cooldown}
+        opts.update(overload_opts or {})
+        enabled = opts.pop("enabled")
+        # what this scheduler turns on is refused where the config's would be
+        M.check_supported(engine.cfg, dataclasses.replace(
+            par, overlap_decode=self.overlap, fault_plan="on" if self.faults else "",
+            overload_degrade=bool(enabled)))
+        if self.faults:
+            engine.dispatch_hook = self._fault_dispatch
+        self.overload_ctl = None
+        if enabled:
+            if opts["queue_hi"] <= 0:
+                opts["queue_hi"] = 2 * n_slots
+            if opts["queue_lo"] <= 0:
+                opts["queue_lo"] = max(1, n_slots // 2)
+            opts["queue_lo"] = min(opts["queue_lo"], opts["queue_hi"])
+            self.overload_ctl = OverloadController(**opts)
+        self.stats["classes"] = {c: {"served": 0, "shed": 0, "timeout": 0, "error": 0}
+                                 for c in PRIORITY_CLASSES}
+        self.stats.update({"burst_injected": 0, "overload_transitions": 0,
+                           "spec_off_rounds": 0})
+        # recent per-step ITL the ladder reads (wall clock: advisory beside
+        # the queue depth on the virtual clock)
+        self._itl_recent: "deque[float]" = deque(
+            maxlen=self.overload_ctl.window if self.overload_ctl else 32)
 
     # -- submission -------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
-               arrival_step: int = 0) -> int:
+               arrival_step: int = 0, deadline_s: Optional[float] = None,
+               priority: str = "standard") -> int:
         prompt = np.asarray(prompt)
         if self._prefix + len(prompt) + max_new > self.engine.max_len:
             raise ValueError(f"request needs {self._prefix + len(prompt)}+{max_new} positions "
@@ -244,23 +404,60 @@ class ContinuousScheduler:
                 f"admissible in-flight yet — use WaveScheduler")
         if len(prompt) < 2:
             raise ValueError("prompts must have >= 2 tokens")
+        if deadline_s is not None and self.engine.dist.tp > 1:
+            raise NotImplementedError("deadline_s at tp>1 (a wall-clock deadline would part "
+                                      "the ranks' schedulers)")
         rid = self._next_id
         self._next_id += 1
-        self.queue.append(Request(rid, prompt, max_new, eos_id, arrival_step))
+        self.queue.append(Request(rid, prompt, max_new, eos_id, arrival_step,
+                                  deadline_s=deadline_s, priority=check_priority(priority)))
+        if deadline_s is not None:
+            self._has_deadlines = True
         return rid
 
     # -- internals --------------------------------------------------------
+    def _inflight_mask(self) -> Optional[np.ndarray]:
+        """Slots with emissions still in flight (predicted active in an
+        unlanded block): they may not retire or be reused before it lands."""
+        if not self._pipeline:
+            return None
+        m = np.zeros((self.B,), bool)
+        for rec in self._pipeline:
+            m |= rec.active
+        return m
+
     def _finish(self, r: Request) -> None:
-        """Every retirement ends here; ``finished_step`` stamps it on the
-        virtual decode-step clock."""
+        """Every retirement ends here (retire, quarantine, deadline, shed):
+        ``finished_step`` stamps it on the virtual decode-step clock, the
+        class counters count it and ``on_finish`` sees it."""
         r.stats["finished_step"] = self.step_count
+        buckets = self.stats["classes"].setdefault(
+            r.priority, {"served": 0, "shed": 0, "timeout": 0, "error": 0})
+        fr = r.finish_reason or "length"
+        buckets["served" if fr in ("stop", "length")
+                else fr if fr in ("shed", "timeout") else "error"] += 1
         self.done.append(r)
+        if self.on_finish is not None:
+            self.on_finish(r)
+
+    def _shed_request(self, r: Request) -> None:
+        """The ladder's admission shed: the queued request retires at once
+        with finish_reason "shed" and an empty output; it never held a
+        slot."""
+        r.output = np.zeros((0,), np.int32)
+        r.finish_reason = "shed"
+        r.stats.update({"emitted": 0, "finished_at": time.monotonic()})
+        self.stats["shed_requests"] += 1
+        self._finish(r)
 
     def _retire(self) -> None:
         now = time.monotonic()
+        infl = self._inflight_mask()
         for i, s in enumerate(self.slots):
-            # mid-prefill slots ride with done=True but are not finished
-            if s.req is not None and self.dones[i] and s.chunk_next is None:
+            # mid-prefill slots ride with done=True but are not finished; a
+            # done slot with emissions in flight waits for them to land
+            if (s.req is not None and self.dones[i] and s.chunk_next is None
+                    and (infl is None or not infl[i])):
                 r = s.req
                 r.output = np.asarray(s.toks, dtype=np.int32)
                 if r.finish_reason is None:
@@ -284,8 +481,27 @@ class ContinuousScheduler:
         return [i for i, s in enumerate(self.slots) if s.req is None]
 
     def _admissible(self) -> List[Request]:
-        """Arrived queue entries, first come first served."""
-        return [r for r in self.queue if r.arrival_step <= self.step_count]
+        """Arrived queue entries, interactive first: a stable sort by class,
+        so FIFO order (and a preempted request's place at the head) holds
+        within a class.  Classes the ladder sheds retire here."""
+        arrived = [r for r in self.queue if r.arrival_step <= self.step_count]
+        ctl = self.overload_ctl
+        if ctl is not None and ctl.shed_classes and arrived:
+            for r in [r for r in arrived if r.priority in ctl.shed_classes]:
+                self.queue.remove(r)
+                self._shed_request(r)
+            arrived = [r for r in arrived if r.priority not in ctl.shed_classes]
+        arrived.sort(key=lambda r: PRIORITY_RANK[r.priority])
+        return arrived
+
+    def _admission_quota(self, n_free: int) -> int:
+        """Admissions allowed this round: the free slots, cut at
+        tight-admission to the ladder's cap on concurrent admissions (slots
+        still mid-prefill count)."""
+        ctl = self.overload_ctl
+        if ctl is not None and ctl.admission_cap is not None:
+            n_free = min(n_free, max(0, ctl.admission_cap - len(self._prefilling())))
+        return n_free
 
     def _in_flight(self) -> bool:
         return any(s.req is not None and (not self.dones[i] or s.chunk_next is not None)
@@ -297,6 +513,7 @@ class ContinuousScheduler:
         for slot, r in pairs:
             self.queue.remove(r)
             self.slots[slot] = _Slot(req=r, admitted_step=self.step_count)
+            self._forced_done[slot] = False
             r.stats["queue_s"] = now - r.submitted_at
             r.stats["admitted_step"] = self.step_count
 
@@ -305,7 +522,22 @@ class ContinuousScheduler:
         arrived = self._admissible()
         if not free or not arrived:
             return 0
-        pairs = list(zip(free, arrived))
+        # class order; a non-interactive request may not take the last
+        # reserve_slots free slots, and since arrivals are sorted by class
+        # the first refusal ends the scan
+        quota = self._admission_quota(len(free))
+        chosen: List[Request] = []
+        left = len(free)
+        for r in arrived:
+            if len(chosen) >= quota:
+                break
+            if r.priority != "interactive" and left <= self.reserve_slots:
+                break
+            chosen.append(r)
+            left -= 1
+        if not chosen:
+            return 0
+        pairs = list(zip(free, chosen))
         in_flight = self._in_flight()
         self._assign(pairs)
         self.stats["admission_rounds"] += 1
@@ -340,7 +572,7 @@ class ContinuousScheduler:
             tokens[slot, :len(r.prompt)] = r.prompt
             admit[slot] = True
             plens[slot] = len(r.prompt)
-        new_tok = self.engine.prefill_into_slots(self.caches, tokens, admit, plens)
+        new_tok = self._landed(self.engine.prefill_into_slots(self.caches, tokens, admit, plens))
         self.stats["prefill_tokens"] += int(plens[admit].sum())
         self.stats["prefill_calls"] += 1
         self._admission_mark = True
@@ -348,11 +580,18 @@ class ContinuousScheduler:
 
     def _finish_admission(self, pairs, admit, new_tok) -> None:
         """Record each admitted request's first token (frame) and arm its
-        decode state: its position follows the prefix and the prompt."""
+        decode state: its position follows the prefix and the prompt.  A
+        token out of the vocab (what non-finite logits sample to)
+        quarantines the request before it reaches the stream."""
         self.tok = np.where(admit if self.ncb == 1 else admit[:, None], new_tok, self.tok)
         for slot, r in pairs:
             t = tok_scalar(new_tok[slot])
+            if not 0 <= t < self.vocab:
+                self._quarantine_slot(slot, "error", f"poisoned prefill token {t}")
+                continue
             self.slots[slot].toks.append(t if self.ncb == 1 else new_tok[slot].copy())
+            if self.on_token is not None:
+                self.on_token(r.rid, t)
             self.pos[slot] = len(r.prompt) + self._prefix
             self.remaining[slot] = r.max_new - 1
             self.eos[slot] = -1 if r.eos_id is None else r.eos_id
@@ -360,38 +599,171 @@ class ContinuousScheduler:
             r.stats["ttft_s"] = time.monotonic() - r.submitted_at
             self.stats["emitted"] += 1
 
-    def _run_decode(self, n: int):
-        """Engine call for one block (the paged backend adds its tables)."""
-        return self.engine.decode_slots(self.caches, self.tok, self.pos, self.dones,
-                                        self.remaining, self.eos, n=n)
+    def _landed(self, out):
+        """Engine outputs just reached the host: the liveness clock the
+        watchdog reads (a wedged device stops it)."""
+        self._progress_t = time.monotonic()
+        return out
+
+    def _decode_inputs(self):
+        """Decode state for the next dispatch: the newest unlanded block's
+        device outputs while the pipeline holds one (exact: the device
+        chains its own masking), else the host arrays."""
+        if self._pipeline:
+            return self._pipeline[-1].block.state
+        return self.tok, self.pos, self.dones, self.remaining
+
+    def _materialize(self, block: DecodeBlock):
+        """Land a dispatched block, the wait counted in ``host_blocked_s``:
+        the one place either loop waits for a decode block."""
+        t0 = time.monotonic()
+        out = self.engine.land_decode(block)
+        self.stats["host_blocked_s"] += time.monotonic() - t0
+        return self._landed(out)
+
+    def _run_decode(self, n: int) -> DecodeBlock:
+        """Engine dispatch of one block (the paged backend adds its tables)."""
+        tok, pos, dones, remaining = self._decode_inputs()
+        return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
+                                           n=n)
 
     def _ensure_capacity(self, n: int) -> None:
         """Pre-decode capacity hook (paged backend: block allocation)."""
 
     def _decode_block(self, n: int) -> None:
         self._ensure_capacity(n)
-        self._apply_decode(*self._run_decode(n), n)
+        self._apply_decode(*self._materialize(self._run_decode(n)), n)
 
-    def _apply_decode(self, toks, pos, done, remaining, n: int) -> None:
-        """Host bookkeeping for ``n`` decode steps (toks (n, B) or frames
-        (n, B, ncb)): replay the device's masking rule to tell real
-        emissions from frozen-slot repeats; the final state is the
-        device's."""
-        cur_done = self.dones.copy()
-        cur_rem = self.remaining.copy()
+    # -- overlapped loop (dispatch ahead, land one block late) ---------------
+    def _dispatch_block(self, n: int) -> None:
+        """Dispatch one decode block without landing it; the host state
+        advances on a prediction (budgets fall by the steps run; a landed
+        EOS is the one surprise, rolled back in ``_land_next``).  The
+        virtual clock advances at dispatch, so that arrivals become
+        admissible at the blocking loop's rounds."""
+        self._ensure_capacity(n)
+        active = (~self.dones) & (self.remaining > 0)
+        if not self._pipeline:
+            # drained: the host arrays are the exact frontier
+            self._exact_tok = self.tok.copy()
+            self._exact_pos = self.pos.copy()
+            self._exact_dones = self.dones.copy()
+            self._exact_rem = self.remaining.copy()
+        block = self._run_decode(n)
+        self._pipeline.append(_Pending(
+            block=block, n=n, base_step=self.step_count, slots=list(self.slots),
+            eos=self.eos.copy(), active=active, adm_mark=self._admission_mark,
+            dispatch_t=time.monotonic()))
+        self._admission_mark = False
+        # the predicted frontier: the device's masking, blind to EOS
+        steps = np.where(active, np.minimum(n, self.remaining), 0)
+        self.pos = (self.pos + steps).astype(np.int32)
+        self.remaining = (self.remaining - steps).astype(np.int32)
+        self.dones = self.dones | (self.remaining <= 0)
+        self.step_count += n
+        self.stats["decode_steps"] += n
+        self.stats["slot_steps"] += n * self.B
+        depth = len(self._pipeline)
+        if depth > 1:
+            self.stats["dispatch_ahead_steps"] += n
+        self.stats["max_dispatch_ahead"] = max(self.stats["max_dispatch_ahead"], depth)
+
+    def _land_next(self) -> None:
+        """Land the oldest unlanded block and replay its emissions as the
+        blocking loop's ``_apply_decode`` would (the same appends, on_token
+        order and stats), stamp the ITL at host visibility, then reconcile
+        the prediction: slots the device froze early (EOS) roll back in the
+        predicted arrays, so later decisions see the truth."""
+        if not self._pipeline:
+            return
+        rec = self._pipeline.popleft()
+        self.stats["host_overlap_s"] += time.monotonic() - rec.dispatch_t
+        toks, pos, done, remaining = self._materialize(rec.block)
+        self.stats["landings"] += 1
+        toks, emitted, poisoned = self._replay(toks, rec.base_step, rec.slots, self._exact_dones,
+                                               self._exact_rem, rec.eos)
+        # the landed state is the exact frontier after the block; the device
+        # never learns of host retirements, so they are OR-ed in
+        self._exact_tok = toks[-1].copy()
+        self._exact_pos = np.array(pos)
+        self._exact_dones = np.array(done) | self._forced_done
+        self._exact_rem = np.where(self._forced_done, 0, np.array(remaining)).astype(np.int32)
+        # the rollback: slots predicted to decode that a landed EOS froze
+        fix = self._exact_dones & ~self.dones
+        if fix.any():
+            self.stats["eos_rollbacks"] += int(fix.sum())
+            self.dones = self.dones | fix
+            self.remaining = np.where(fix, self._exact_rem, self.remaining).astype(np.int32)
+            self.pos = np.where(fix, self._exact_pos, self.pos).astype(np.int32)
+        if not self._pipeline:
+            # everything landed: the prediction is exact (and so the tokens)
+            self.tok = self._exact_tok.copy()
+            self.pos = self._exact_pos.copy()
+            self.dones = self._exact_dones.copy()
+            self.remaining = self._exact_rem.copy()
+        self._admission_mark = rec.adm_mark
+        self._note_itl(rec.n, emitted)
+        for i, t in poisoned.items():
+            self._quarantine_slot(i, "error", f"poisoned step output (token {t})")
+        # retire in landing order, as the blocking loop retires after every
+        # block, so both loops retire requests in the same order
+        self._retire()
+
+    def _drain_pipeline(self) -> None:
+        """Land every unlanded block (the host state becomes exact): before
+        any decision that merges host values into the engine state
+        (admission, mixed and verify steps, preemption)."""
+        while self._pipeline:
+            self._land_next()
+
+    def _overlap_turn(self, n: int) -> None:
+        self._dispatch_block(n)
+        while len(self._pipeline) > 1:
+            self._land_next()
+
+    def _replay(self, toks, base_step: int, slots, done, remaining, eos):
+        """Replay the device's masking rule over landed steps (toks (n, B)
+        or frames (n, B, ncb), the first at engine step ``base_step``) from
+        the state before them, to tell real emissions from frozen-slot
+        repeats: each goes to its slot's stream, ``on_token`` and the
+        stats.  A token out of the vocab freezes its slot at once, so no
+        later token of the block reaches the stream.  -> (the tokens after
+        the fault plan's poison clauses, emissions, {slot: poisoned
+        token})."""
+        if self.faults:
+            toks = self.faults.corrupt_tokens(
+                toks, base_step, active=(np.array([s.req is not None for s in slots])
+                                         & ~done & (remaining > 0)))
+        cur_done, cur_rem = done.copy(), remaining.copy()
         emitted = 0
-        for s in range(n):
-            for i, slot in enumerate(self.slots):
+        poisoned: Dict[int, int] = {}
+        for s in range(toks.shape[0]):
+            for i, slot in enumerate(slots):
                 if slot.req is None or cur_done[i] or cur_rem[i] <= 0:
                     continue
                 t = tok_scalar(toks[s, i])
+                if not 0 <= t < self.vocab:
+                    poisoned[i] = t
+                    cur_done[i] = True
+                    continue
                 slot.toks.append(t if self.ncb == 1 else toks[s, i].copy())
+                if self.on_token is not None:
+                    self.on_token(slot.req.rid, t)
                 cur_rem[i] -= 1
-                if cur_rem[i] == 0 or (self.eos[i] >= 0 and t == self.eos[i]):
+                if cur_rem[i] == 0 or (eos[i] >= 0 and t == eos[i]):
                     cur_done[i] = True
                 self.stats["emitted"] += 1
                 self.stats["active_slot_steps"] += 1
+                self._tps.append(1)
                 emitted += 1
+        return toks, emitted, poisoned
+
+    def _apply_decode(self, toks, pos, done, remaining, n: int) -> None:
+        """Host bookkeeping for ``n`` decode steps: the emissions replayed,
+        then the device's final state adopted; a poisoned slot is
+        quarantined."""
+        toks, emitted, poisoned = self._replay(toks, self.step_count, self.slots, self.dones,
+                                               self.remaining, self.eos)
         self.tok = toks[-1].copy()
         self.pos = np.array(pos)
         self.dones = np.array(done)
@@ -400,44 +772,176 @@ class ContinuousScheduler:
         self.stats["decode_steps"] += n
         self.stats["slot_steps"] += n * self.B
         self._note_itl(n, emitted)
+        for i, t in poisoned.items():
+            self._quarantine_slot(i, "error", f"poisoned step output (token {t})")
 
     def _note_itl(self, n: int, emissions: int = 0, tokens_per_slot=None) -> None:
-        """One inter-token latency sample per emitted token: the block's
-        per-step share of the time since the last stamp, tagged when the
-        interval absorbed admission work (a prefill or a chunk).  A verify
-        step's slot that emitted e tokens in a T-second step gives e samples
-        of T / e (``tokens_per_slot``)."""
+        """One inter-token latency sample per emitted token, stamped when the
+        tokens reach the host (never at a dispatch): the block's per-step
+        share of the time since the last stamp, tagged when the interval
+        absorbed admission work (a prefill or a chunk).  A verify step's
+        slot that emitted e tokens in a T-second step gives e samples of
+        T / e (``tokens_per_slot``)."""
         now = time.monotonic()
         if self._last_step_t is not None:
             dt = (now - self._last_step_t) / n
+            self._itl_recent.append(dt)
             if tokens_per_slot is None:
                 self._itl.extend([(dt, self._admission_mark)] * emissions)
             else:
                 for e in tokens_per_slot:
-                    self._itl.extend([(dt / e, self._admission_mark)] * e)
+                    if e > 0:
+                        self._itl.extend([(dt / e, self._admission_mark)] * e)
         self._last_step_t = now
         self._admission_mark = False
 
-    def _abort_slot(self, i: int, error: str) -> None:
-        """Retire slot ``i``'s request now with finish_reason "error",
-        releasing what it holds; no other slot's stream is touched."""
+    # -- failure isolation (quarantine, bounded retry, deadlines) -----------
+    def liveness_age(self) -> float:
+        """Seconds since engine outputs last reached the host: the watchdog
+        signal of the frontend's /health."""
+        return time.monotonic() - self._progress_t
+
+    def _release_slot(self, i: int) -> None:
+        """Storage release for slot ``i`` (paged: blocks and refcounts); the
+        dense cache owns nothing per slot."""
+
+    def _quarantine_slot(self, i: int, finish_reason: str = "error",
+                         error: Optional[str] = None) -> None:
+        """Retire slot ``i``'s request now with a failure finish_reason,
+        releasing what it holds; no other slot's stream is touched.  Safe
+        with blocks in flight: the forced-done mask keeps landed device
+        state from reviving the slot, and a block already queued that reads
+        its freed blocks runs before any later step could write them (one
+        stream, in order)."""
         s = self.slots[i]
+        if s.req is None:
+            return
         r = s.req
         self._release_slot(i)
         r.output = np.asarray(s.toks, dtype=np.int32)
-        r.finish_reason = "error"
-        r.stats.update({"error": error, "emitted": len(s.toks), "finished_at": time.monotonic(),
+        r.finish_reason = finish_reason
+        if error is not None:
+            r.stats["error"] = error
+        r.stats.update({"emitted": len(s.toks), "finished_at": time.monotonic(),
                         "decode_steps_held": self.step_count - s.admitted_step})
         self.slots[i] = _Slot()
         self.tok[i] = 0
         self.dones[i] = True
         self.remaining[i] = 0
-        self.stats["quarantined"] += 1
+        self._forced_done[i] = True
+        if self._pipeline and self._exact_dones is not None:
+            self._exact_tok[i] = 0
+            self._exact_dones[i] = True
+            self._exact_rem[i] = 0
+        self.stats["timeouts" if finish_reason == "timeout" else "quarantined"] += 1
+        if self.faults:
+            self.faults.on_quarantine(i)
         self._finish(r)
 
-    def _release_slot(self, i: int) -> None:
-        """Storage release for slot ``i`` (paged: blocks and refcounts); the
-        dense cache owns nothing per slot."""
+    def _fault_dispatch(self) -> None:
+        """``Engine.dispatch_hook`` under a fault plan: consulted before
+        every slot step launches anything."""
+        self.faults.on_dispatch(self.step_count)
+
+    def _try_step(self, fn):
+        """Run one engine step under the bounded-retry policy.  A
+        ``TransientStepError`` raised at the dispatch boundary changed
+        nothing on the device (the step launched nothing and drew no
+        sample): the pipeline drains to the exact landed frontier and the
+        round ends, so the next round issues the same work again, bit for
+        bit.  When retries run out, a failure blamed on a slot quarantines
+        its request; an unattributed one propagates."""
+        try:
+            out = fn()
+        except TransientStepError as e:
+            self._recover_step_fault(e)
+            return None
+        self._retry_streak = 0
+        return out
+
+    def _recover_step_fault(self, e: TransientStepError) -> None:
+        self._drain_pipeline()
+        self.stats["step_faults"] += 1
+        self._retry_streak += 1
+        if self._retry_streak <= self.max_step_retries:
+            self.stats["step_retries"] += 1
+            backoff = self.retry_backoff_s * (2 ** (self._retry_streak - 1))
+            if backoff > 0:
+                time.sleep(backoff)
+            return
+        self._retry_streak = 0
+        slot = e.slot
+        if slot is not None and self.slots[slot].req is not None:
+            self._quarantine_slot(slot, "error", f"persistent step failure: {e}")
+            return
+        raise e
+
+    def _expire_deadlines(self) -> None:
+        """Retire every request past its deadline with finish_reason
+        "timeout": queued (an empty output) or in a slot (what it emitted so
+        far).  The forced-done mask drops a slot's unlanded emissions."""
+        now = time.monotonic()
+
+        def late(r: Request) -> bool:
+            return r.deadline_s is not None and now - r.submitted_at >= r.deadline_s
+
+        for r in [r for r in self.queue if late(r)]:
+            self.queue.remove(r)
+            r.output = np.zeros((0,), np.int32)
+            r.finish_reason = "timeout"
+            r.stats.update({"emitted": 0, "finished_at": now})
+            self.stats["timeouts"] += 1
+            self._finish(r)
+        for i, s in enumerate(self.slots):
+            if s.req is not None and late(s.req):
+                self._quarantine_slot(i, "timeout")
+
+    # -- overload (burst injection, the degradation ladder) ------------------
+    def _inject_bursts(self) -> None:
+        """Submit the fault plan's due ``burst:`` clauses, arriving now on
+        the virtual clock; prompts seeded by the scheduled fire step, so two
+        runs of a plan inject the same traffic."""
+        for count, plen, max_new, cls, fire_step in self.faults.burst(self.step_count):
+            rng = np.random.default_rng(0xB0057 + fire_step)
+            plen = min(plen, self.prompt_limit, max(2, self.engine.max_len - max_new))
+            for _ in range(count):
+                self.submit(rng.integers(0, self.vocab, plen, dtype=np.int32), max_new,
+                            arrival_step=self.step_count, priority=cls)
+                self.stats["burst_injected"] += 1
+
+    def _overload_observe(self) -> None:
+        """One ladder observation a round: the arrived queue's depth (on the
+        virtual clock) and the recent landed per-step ITL (wall clock)."""
+        ctl = self.overload_ctl
+        depth = sum(1 for r in self.queue if r.arrival_step <= self.step_count)
+        recent = float(np.mean(self._itl_recent)) if self._itl_recent else None
+        before = ctl.level
+        ctl.observe(depth, recent)
+        if ctl.level != before:
+            self.stats["overload_transitions"] += 1
+
+    def _round_prologue(self) -> None:
+        """Every round's head: bursts, deadlines, one ladder observation."""
+        if self.faults:
+            self._inject_bursts()
+        if self._has_deadlines:
+            self._expire_deadlines()
+        if self.overload_ctl is not None:
+            self._overload_observe()
+
+    def _spec_suspended(self) -> bool:
+        """True while the ladder holds spec decode off (level 2+); greedy
+        spec decode gives plain decode's tokens, so this changes speed
+        only."""
+        ctl = self.overload_ctl
+        if ctl is not None and ctl.spec_off:
+            self.stats["spec_off_rounds"] += 1
+            return True
+        return False
+
+    def overload_level(self) -> int:
+        """The ladder's level (0: normal, or no ladder); /health shows it."""
+        return 0 if self.overload_ctl is None else self.overload_ctl.level
 
     # -- speculative decoding (fused multi-token verify steps) ---------------
     def _active_slots(self) -> List[int]:
@@ -483,12 +987,17 @@ class ContinuousScheduler:
         vtok = np.zeros((self.B, K + 1), np.int32)
         vtok[:, 0] = self.tok
         vtok[active, 1:] = self.drafter.propose_many([self._slot_history(i) for i in active])
-        targets, n_emit, nxt, pos, done, remaining = self._run_verify(vtok)
+        targets, n_emit, nxt, pos, done, remaining = self._landed(self._run_verify(vtok))
         counts = []
         for i in active:
             e = int(n_emit[i])
-            self.slots[i].toks.extend(int(t) for t in targets[i, :e])
+            slot = self.slots[i]
+            for t in targets[i, :e].tolist():
+                slot.toks.append(int(t))
+                if self.on_token is not None:
+                    self.on_token(slot.req.rid, int(t))
             counts.append(e)
+            self._tps.append(e)
             # accepted drafts: the leading run the model verified, whatever
             # an EOS or the budget cut from the emitted run
             acc = int(np.cumprod(vtok[i, 1:] == targets[i, :-1]).sum())
@@ -549,8 +1058,8 @@ class ContinuousScheduler:
             clens[i], starts[i], totals[i] = nc, off, off + nc
             if off + nc == plen:
                 emits.append(i)
-        ptok, toks, pos, done, remaining, decoded = self._run_mixed(tokens, admit, clens,
-                                                                   starts, totals)
+        ptok, toks, pos, done, remaining, decoded = self._landed(
+            self._run_mixed(tokens, admit, clens, starts, totals))
         self.stats["mixed_decode_steps"] += decoded
         self._admission_mark = True        # this step carried prefill work
         self._apply_decode(toks[None], pos, done, remaining, 1)
@@ -568,22 +1077,32 @@ class ContinuousScheduler:
                 self.slots[i].chunk_next = None
 
     def _block_size(self) -> int:
-        """Fused block size in {1, 2, 4, ..., block_steps}, stretched to the
-        longest active budget: the fewest host round trips; admission waits
-        at most one block."""
+        """Fused block size in {1, 2, 4, ..., block_steps}.  Amortizing (the
+        default): stretched to the longest active budget, the fewest host
+        round trips; admission waits at most one block.  Responsive
+        (``responsive_blocks``): while arrivals wait, cut at the shortest
+        active budget (at least block_steps / 4) so that a finished slot
+        refills at once."""
         active = self.remaining[(~self.dones) & (self.remaining > 0)]
         if active.size == 0:
             return 0
+        waiting = any(r.arrival_step <= self.step_count for r in self.queue)
+        if self.responsive_blocks and waiting:
+            need = max(int(active.min()), max(1, self.block_steps // 4))
+        else:
+            need = int(active.max())
         n = 1
-        while n * 2 <= min(self.block_steps, int(active.max())):
+        while n * 2 <= min(self.block_steps, need):
             n *= 2
         return n
 
     def request_summary(self) -> Dict:
         """Latency over the completed requests (TTFT, queue wait), the
-        decode inter-token latency overall and in admission windows, the
-        finish reasons and, under spec decode, acceptance and tokens per
-        verify step."""
+        decode inter-token latency overall and in admission windows, tokens
+        per step, the host/device split of either loop (``overlap``), the
+        finish reasons, the fault counters when any is set, the per-class
+        breakdown, the ladder and, under spec decode, acceptance and tokens
+        per verify step."""
         out: Dict = {"requests": len(self.done)}
         for key in ("ttft_s", "queue_s"):
             s = percentile_summary(r.stats[key] for r in self.done if key in r.stats)
@@ -594,6 +1113,19 @@ class ContinuousScheduler:
             adm = percentile_summary(d for d, a in self._itl if a)
             if adm is not None:
                 out["decode_itl_admission_s"] = adm
+        if self._tps:
+            out["tokens_per_step"] = percentile_summary(self._tps)
+        hb, ho = self.stats["host_blocked_s"], self.stats["host_overlap_s"]
+        out["overlap"] = {
+            "enabled": self.overlap, "host_blocked_s": hb, "host_overlap_s": ho,
+            "host_overlap_fraction": ho / (ho + hb) if ho + hb > 0 else 0.0,
+            "host_blocked_per_step_s": hb / max(1, self.stats["decode_steps"]),
+            "landings": self.stats["landings"],
+            "dispatch_ahead_steps": self.stats["dispatch_ahead_steps"],
+            "max_dispatch_ahead": self.stats["max_dispatch_ahead"],
+            "eos_rollbacks": self.stats["eos_rollbacks"],
+            "shed_requests": self.stats["shed_requests"],
+        }
         if self.stats.get("spec_steps"):
             prop = self.stats["spec_proposed"]
             slot_steps = max(1, self.stats["spec_slot_steps"])
@@ -605,7 +1137,53 @@ class ContinuousScheduler:
         for r in self.done:
             reasons[r.finish_reason or "length"] = reasons.get(r.finish_reason or "length", 0) + 1
         out["finish_reasons"] = reasons
+        fkeys = ("step_faults", "step_retries", "quarantined", "timeouts",
+                 "aborts_exhaustion", "livelock_aborts", "migration_faults")
+        if any(self.stats.get(k) for k in fkeys):
+            out["faults"] = {k: self.stats.get(k, 0) for k in fkeys}
+        classes = self._class_summary()
+        if classes:
+            out["classes"] = classes
+        if self.overload_ctl is not None:
+            out["overload"] = self.overload_ctl.summary()
         return out
+
+    def _class_summary(self) -> Dict:
+        """Per priority class over the completed requests: the outcome
+        counters, TTFT, per-request decode ITL, and where the class has an
+        SLO target the share of its retired requests (shed and timed out
+        ones included) that completed within it per token."""
+        counters = self.stats.get("classes", {})
+        classes: Dict = {}
+        for cls in PRIORITY_CLASSES:
+            recs = [r for r in self.done if r.priority == cls]
+            counts = counters.get(cls, {})
+            if not recs and not any(counts.values()):
+                continue
+            entry: Dict = {"requests": len(recs)}
+            entry.update(counts)
+            s = percentile_summary(r.stats["ttft_s"] for r in recs if "ttft_s" in r.stats)
+            if s is not None:
+                entry["ttft_s"] = s
+            s = percentile_summary(
+                (r.stats["finished_at"] - r.submitted_at - r.stats["ttft_s"])
+                / (r.stats["emitted"] - 1)
+                for r in recs
+                if r.stats.get("emitted", 0) >= 2 and "ttft_s" in r.stats
+                and "finished_at" in r.stats)
+            if s is not None:
+                entry["itl_s"] = s
+            target = float(self.slo_targets.get(cls) or 0.0)
+            if target > 0 and recs:
+                ok = sum(1 for r in recs
+                         if r.finish_reason in ("stop", "length")
+                         and r.stats.get("emitted", 0) > 0 and "finished_at" in r.stats
+                         and (r.stats["finished_at"] - r.submitted_at) / r.stats["emitted"]
+                         <= target)
+                entry["slo_target_s"] = target
+                entry["slo_attainment"] = ok / len(recs)
+            classes[cls] = entry
+        return classes
 
     # -- main loop --------------------------------------------------------
     def _init_caches(self) -> None:
@@ -616,25 +1194,53 @@ class ContinuousScheduler:
     def _serve_round(self) -> bool:
         """One round (retire -> admit -> a mixed step while any slot is
         mid-prefill, else a verify step or a decode block); False when idle
-        with nothing queued."""
+        with nothing queued or in flight.  Overlapped, a round drains the
+        pipeline only where it merges exact host values into the engine
+        state (an admission could fill a slot; a chunk or verify step reads
+        the token frontier); otherwise it dispatches the next block on the
+        previous block's device outputs and then lands the older one."""
+        self._round_prologue()
+        if self._pipeline and any(r.arrival_step <= self.step_count for r in self.queue):
+            # an arrival may admit once done slots retire: land first, so
+            # that admission sees the blocking loop's frontier
+            if any(s.req is None or (self.dones[i] and s.chunk_next is None)
+                   for i, s in enumerate(self.slots)):
+                self._drain_pipeline()
         self._retire()
         self._admit()
         if self._prefilling():
-            self._mixed_step()
+            self._drain_pipeline()
+            self._try_step(self._mixed_step)
             return True
         n = self._block_size()
         if n == 0:
+            if self._pipeline:
+                self._land_next()          # the tail lands before going idle
+                return True
             pending = [r.arrival_step for r in self.queue]
             if not pending:
                 return False
             # idle: jump the virtual clock to the next arrival
             self.step_count = max(self.step_count, min(pending))
             return True
-        if self.spec_k:
-            self._spec_step()
+        if self.spec_k and not self._spec_suspended():
+            # the drafter reads the previous step's tokens: spec runs blocking
+            self._drain_pipeline()
+            self._try_step(self._spec_step)
+        elif self.overlap:
+            self._try_step(lambda: self._overlap_turn(n))
         else:
-            self._decode_block(n)
+            self._try_step(lambda: self._decode_block(n))
         return True
+
+    def serve_step(self) -> bool:
+        """One round for an external driver (the frontend's worker):
+        admits what is queued, advances the engine one round, retires;
+        False when there is nothing left to do.  Safe to call again after
+        new ``submit`` calls."""
+        if self.caches is None:
+            self._init_caches()
+        return self._serve_round()
 
     def run(self) -> List[Request]:
         """Serve until queue and slots drain; requests in completion order."""
@@ -642,6 +1248,7 @@ class ContinuousScheduler:
             self._init_caches()
         while self._serve_round():
             pass
+        self._drain_pipeline()
         self._retire()
         self.engine.check_replicated(self.done)
         return self.done
@@ -654,34 +1261,39 @@ class PagedContinuousScheduler(ContinuousScheduler):
     * block-aware admission: a request is admitted only when free blocks
       cover its whole prompt; full blocks of a prefix already resident are
       referenced instead of recomputed, and only the suffix is prefilled;
+      a non-interactive admission may not take the last ``reserve_blocks``
+      free blocks;
     * incremental allocation: decode claims a slot's next block only when
       its position crosses a block boundary;
-    * preempt-to-requeue: when the pool runs out mid-decode, the most
-      recently admitted request is evicted (blocks freed, requeued at the
-      head, recomputed on readmission);
+    * preempt-to-requeue: when the pool runs out mid-decode, the lowest-
+      class, most recently admitted request is evicted (blocks freed,
+      requeued at the head, recomputed on readmission); with nothing to
+      evict, the starved request alone aborts (finish_reason "error");
     * prefix reuse: a prompt's full blocks are published after its prefill
       (under chunked admission, as each chunk completes them) and evicted
       with their last reference;
     * spec decode: a verify step claims blocks for its spec_k + 1 writes
-      first and frees those past the rewound frontier after.
+      first and frees those past the rewound frontier after;
+    * overlap: each dispatch uploads the block tables as they stand, so a
+      block claimed for a later dispatch never reaches an earlier one.
 
     ``n_blocks`` defaults to the dense footprint (n_slots x blocks per slot
     + the null block); smaller overcommits the pool against short requests.
     An attention-free model (mamba2-1.3b) has no pools: its requests take
     no blocks and share no prefix (recurrent state cannot be grafted from
     another slot's history), and each slot carries its state, as in the
-    reference.
+    reference.  ``on_preempt(rid)`` tells a streaming client to drop what
+    it buffered for a preempted request.
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
-                 *, prefill_chunk: Optional[int] = None, spec_k: Optional[int] = None,
-                 spec_ngram: Optional[int] = None, block_size: Optional[int] = None,
-                 n_blocks: Optional[int] = None, prefix_cache: bool = True):
+                 *, block_size: Optional[int] = None, n_blocks: Optional[int] = None,
+                 prefix_cache: bool = True, on_preempt: Optional[Callable[[int], None]] = None,
+                 **kw):
         # paged is a hard backend choice, no silent fallback: the registry
         # raises its error for ring archs
         engine.caps.require("paged")
-        super().__init__(engine, n_slots, pad_id, block_steps, prefill_chunk=prefill_chunk,
-                         spec_k=spec_k, spec_ngram=spec_ngram)
+        super().__init__(engine, n_slots, pad_id, block_steps, **kw)
         kinds = set(engine.cfg.layer_pattern)
         self.has_attn = bool(kinds & {"attn", "local_attn"})
         self.bs = block_size or engine.parallel.kv_block_size
@@ -690,6 +1302,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
                          or n_slots * self.view_blocks + 1)
         self.alloc = kvcache.BlockAllocator(self.n_blocks, self.bs)
         self.prefix_cache = prefix_cache and kinds <= {"attn", "local_attn"}
+        self.on_preempt = on_preempt
         # per-slot block table; unallocated entries point at the null block
         self.bt = np.zeros((n_slots, self.view_blocks), np.int32)
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
@@ -703,11 +1316,12 @@ class PagedContinuousScheduler(ContinuousScheduler):
         self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"], used)
 
     def submit(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int] = None,
-               arrival_step: int = 0) -> int:
+               arrival_step: int = 0, deadline_s: Optional[float] = None,
+               priority: str = "standard") -> int:
         need = -(-(len(prompt) + max_new) // self.bs)
         if self.has_attn and need > self.n_blocks - 1:
             raise ValueError(f"request needs {need} blocks > pool {self.n_blocks - 1}")
-        return super().submit(prompt, max_new, eos_id, arrival_step)
+        return super().submit(prompt, max_new, eos_id, arrival_step, deadline_s, priority)
 
     def _init_caches(self) -> None:
         self.caches = self.engine.init_paged_caches(self.B, self.n_blocks, self.bs)
@@ -721,22 +1335,30 @@ class PagedContinuousScheduler(ContinuousScheduler):
         self._note_usage()
 
     def _retire(self) -> None:
+        infl = self._inflight_mask()
         for i, s in enumerate(self.slots):
-            if s.req is not None and self.dones[i] and s.chunk_next is None:
+            if (s.req is not None and self.dones[i] and s.chunk_next is None
+                    and (infl is None or not infl[i])):
                 self._release_slot(i)
         super()._retire()
 
     def _preempt_youngest(self) -> bool:
-        """Evict the most recently admitted running request: free its
-        blocks and requeue it at the head (recomputed on readmission).  Its
-        tokens so far are discarded and the emitted counter rolls back.  A
-        slot mid-prefill is a candidate too; its chunk progress is dropped."""
+        """Evict the lowest-class, most recently admitted running request
+        (victim key: class rank, then admission step, then rid; with one
+        class, the youngest): free its blocks and requeue it at the head
+        (recomputed on readmission).  Its tokens so far are discarded and
+        the emitted counter rolls back.  A slot mid-prefill is a candidate
+        too; its chunk progress is dropped.  Never under an unlanded block:
+        the pipeline drains first."""
+        if self._pipeline:
+            self._drain_pipeline()
         cand = [i for i, s in enumerate(self.slots)
                 if s.req is not None and ((not self.dones[i] and self.remaining[i] > 0)
                                           or s.chunk_next is not None)]
         if not cand:
             return False
-        i = max(cand, key=lambda j: (self.slots[j].admitted_step, self.slots[j].req.rid))
+        i = max(cand, key=lambda j: (PRIORITY_RANK[self.slots[j].req.priority],
+                                     self.slots[j].admitted_step, self.slots[j].req.rid))
         req = self.slots[i].req
         self.stats["emitted"] -= len(self.slots[i].toks)
         self._release_slot(i)
@@ -746,14 +1368,18 @@ class PagedContinuousScheduler(ContinuousScheduler):
         req.stats["preempted"] = req.stats.get("preempted", 0) + 1
         self.queue.insert(0, req)
         self.stats["preemptions"] += 1
+        if self.on_preempt is not None:
+            self.on_preempt(req.rid)
         return True
 
     def _grow_slot(self, i: int, n_needed: int) -> bool:
         """Extend slot i's table to ``n_needed`` blocks; False if the pool
-        cannot supply them."""
+        cannot supply them (or the fault plan denies the allocation)."""
         have = len(self.slot_blocks[i])
         if n_needed <= have:
             return True
+        if self.faults and self.faults.deny_alloc(self.step_count):
+            return False
         fresh = self.alloc.alloc(n_needed - have)
         if fresh is None:
             return False
@@ -767,7 +1393,9 @@ class PagedContinuousScheduler(ContinuousScheduler):
         the blocks of its writes at pos .. pos + min(n, remaining) - 1 (a
         slot that finishes mid-block freezes; its frozen rewrites stay in
         its blocks or go to the null block).  When the pool is short, the
-        youngest request is preempted and the slot checked again."""
+        pipeline lands first (an EOS may free blocks), then a victim is
+        preempted and the slot checked again; with nothing to evict the
+        starved request alone aborts."""
         if not self.has_attn:       # recurrent-only: nothing to own
             return
         i = 0
@@ -780,15 +1408,22 @@ class PagedContinuousScheduler(ContinuousScheduler):
             if self._grow_slot(i, -(-(int(self.pos[i]) + steps) // self.bs)):
                 i += 1
                 continue
+            if self._pipeline:
+                # blocks may be tied up in requests whose end has not
+                # landed: land, retire, then check slot i again
+                self._drain_pipeline()
+                self._retire()
+                continue
             if not self._preempt_youngest():
-                # no block and nothing to evict: abort this request only
-                self._abort_slot(i, "paged pool exhausted with nothing to preempt")
+                self.stats["aborts_exhaustion"] += 1
+                self._quarantine_slot(i, "error", "paged pool exhausted with nothing to preempt")
                 i += 1
             # else re-check slot i (it may itself have been evicted)
 
-    def _run_decode(self, n: int):
-        return self.engine.decode_slots(self.caches, self.tok, self.pos, self.dones,
-                                        self.remaining, self.eos, n=n, block_tables=self.bt)
+    def _run_decode(self, n: int) -> DecodeBlock:
+        tok, pos, dones, remaining = self._decode_inputs()
+        return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
+                                           n=n, block_tables=self.bt)
 
     # -- admission --------------------------------------------------------
     def _admit(self) -> int:
@@ -797,12 +1432,20 @@ class PagedContinuousScheduler(ContinuousScheduler):
         if not free or not arrived:
             return 0
         in_flight = self._in_flight()
-        # FIFO until the first request whose blocks do not fit
+        # class order; stop at the first request whose blocks, or whose
+        # claim on the interactive slot and block reserves, do not fit
+        quota = self._admission_quota(len(free))
         pairs, starts_of = [], {}
+        left = len(free)
         for r, slot in zip(arrived, free):
+            if len(pairs) >= quota:
+                break
+            if r.priority != "interactive" and left <= self.reserve_slots:
+                break
             if not self.has_attn:   # recurrent-only: no blocks to reserve
                 starts_of[r.rid] = 0
                 pairs.append((slot, r))
+                left -= 1
                 continue
             plen = len(r.prompt)
             shared, n_cached = [], 0
@@ -811,7 +1454,12 @@ class PagedContinuousScheduler(ContinuousScheduler):
                 while n_cached > plen - 1:   # keep >= 1 suffix token to run
                     shared = shared[:-1]
                     n_cached -= self.bs
-            fresh = self.alloc.alloc(-(-plen // self.bs) - len(shared))
+            need = -(-plen // self.bs) - len(shared)
+            if r.priority != "interactive" and self.alloc.free_count() - need < self.reserve_blocks:
+                # the blocks exist but are held for interactive admissions
+                self.stats["deferred_admissions"] += 1
+                break
+            fresh = self.alloc.alloc(need)
             if fresh is None:
                 self.stats["deferred_admissions"] += 1
                 break
@@ -824,6 +1472,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
             self.bt[slot, :len(blocks)] = blocks
             starts_of[r.rid] = n_cached
             pairs.append((slot, r))
+            left -= 1
         if not pairs:
             return 0
         self._note_usage()
@@ -859,8 +1508,8 @@ class PagedContinuousScheduler(ContinuousScheduler):
             self.stats["prefill_tokens"] += len(suffix)
         # the engine computes and writes the admitted rows only, through
         # their own table rows: a live slot's blocks are never written
-        new_tok = self.engine.prefill_into_slots_paged(self.caches, tokens, admit, plens,
-                                                       starts, totals, self.bt)
+        new_tok = self._landed(self.engine.prefill_into_slots_paged(
+            self.caches, tokens, admit, plens, starts, totals, self.bt))
         self.stats["prefill_calls"] += 1
         self.stats["prefix_prefill_calls"] += int(starts.any())
         self._admission_mark = True

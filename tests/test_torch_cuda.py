@@ -1326,3 +1326,43 @@ def test_dequant_matmul_kernel_at_internvl_int4(dev, K, N, out_dtype, T):
     else:
         ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
         assert bool(((got.float() - want).abs() <= ulp + tol).all())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_dispatch_decode_waits_for_nothing(dev, paged):
+    """The overlapped loop's contract on the card: a decode block
+    dispatched on the previous block's device state before that block
+    lands, under ``set_sync_debug_mode("error")``, makes no synchronising
+    call; the two chained blocks give one block of 4's tokens and state."""
+    from repro_torch.configs import SamplingConfig, get_config
+    from repro_torch.runtime.engine import Engine
+
+    eng = Engine(get_config("yi-9b").reduced(), sampling=SamplingConfig(top_k=1), max_len=64,
+                 seed=0, device=dev)
+    toks = np.tile(np.arange(8, dtype=np.int32) + 3, (2, 1))
+    bt = np.arange(1, 9, dtype=np.int32).reshape(2, 4) if paged else None
+    state = dict(pos=np.full(2, 8), done=np.zeros(2, bool), remaining=np.array([4, 2]),
+                 eos=np.full(2, -1))
+    outs = []
+    for chained in (False, True):
+        if paged:
+            caches = eng.init_paged_caches(2, 9, 16)
+            first = eng.prefill_into_slots_paged(caches, toks, np.ones(2, bool), np.full(2, 8),
+                                                 np.zeros(2, np.int32), np.full(2, 8), bt)
+        else:
+            caches = eng.init_slot_caches(2)
+            first = eng.prefill_into_slots(caches, toks, np.ones(2, bool), np.full(2, 8))
+        if not chained:
+            outs.append(eng.decode_slots(caches, first, **state, n=4, block_tables=bt))
+            continue
+        a = eng.dispatch_decode(caches, first, state["pos"], state["done"], state["remaining"],
+                                state["eos"], n=2, block_tables=bt)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            b = eng.dispatch_decode(caches, *a.state, state["eos"], n=2, block_tables=bt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ta, tb = eng.land_decode(a), eng.land_decode(b)
+        outs.append((np.concatenate([ta[0], tb[0]]), *tb[1:]))
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x, y)

@@ -24,7 +24,9 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or k == "repro" or k.startswith("repro."))
 tp = {"repro_torch.core.collectives", "repro_torch.core.sync_policy", "repro_torch.launch.mesh"}
-print(len(names), "repro_torch.runtime.drafter" in names and tp <= set(names), bad)
+control = {"repro_torch.runtime.faults", "repro_torch.runtime.overload",
+           "repro_torch.launch.frontend"}
+print(len(names), "repro_torch.runtime.drafter" in names and tp | control <= set(names), bad)
 """
 
 
@@ -34,7 +36,8 @@ def test_import_loads_no_jax_and_no_repro():
                          env=env, cwd=str(SRC.parent), timeout=120, check=True).stdout
     n, drafter, bad = out.split(" ", 2)
     # the drafter is the port's own copy of repro.runtime.drafter; the
-    # tensor-parallel modules (collectives, sync policy, mesh) load too
+    # tensor-parallel modules (collectives, sync policy, mesh) and the
+    # serving control plane (faults, overload, the HTTP frontend) load too
     assert int(n) >= 20 and drafter == "True" and bad.strip() == "[]", out
 
 

@@ -180,3 +180,74 @@ def test_sampling_is_seeded():
     outs = [Engine(cfg, sampling=SamplingConfig(top_k=40), seed=5, device="cpu")
             .generate(prompts, 8) for _ in range(2)]
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _options(parser):
+    """Every option string of ``parser`` -> its action."""
+    return {o: a for a in parser._actions for o in a.option_strings}
+
+
+def test_parser_flags_match_the_jax_cli():
+    """The port's serve flags are the JAX CLI's, less the set left for later
+    (the data axis and disaggregated serving: --dp, --prefill-shards, the
+    disagg scheduler; --no-flash-prefill) and plus the port's own --device,
+    --seed and --dist-backend; the shared flags keep the JAX defaults and
+    choices.  A later change cannot drop a flag unnoticed."""
+    from repro.launch import serve as jserve
+
+    jopts, topts = _options(jserve.build_parser()), _options(serve.build_parser())
+    later = {"--prefill-shards", "--dp", "--no-flash-prefill"}
+    own = {"--device", "--seed", "--dist-backend"}
+    assert set(jopts) - later == set(topts) - own
+    assert later.isdisjoint(topts)
+    for flag in set(jopts) - later - {"-h", "--help"}:
+        j, t = jopts[flag], topts[flag]
+        assert j.default == t.default, flag
+        if flag == "--scheduler":
+            assert set(j.choices) - {"disagg"} == set(t.choices)
+        elif j.choices is not None and flag != "--arch":
+            assert list(j.choices) == list(t.choices), flag
+
+
+def test_class_mix_draws_match_the_jax_cli():
+    """``--class-mix`` draws each request's class from a stream of its own:
+    the port's workload has the JAX CLI's prompts, budgets and classes."""
+    from repro.launch import serve as jserve
+
+    argv = ["--scheduler", "continuous", "--requests", "12", "--max-new-spread", "4",
+            "--class-mix", "interactive=0.25,standard=0.5,batch=0.25", "--arrival-every", "2"]
+    got = {}
+    for name, mod in (("jax", jserve), ("port", serve)):
+        args = mod.build_parser().parse_args(argv)
+
+        reqs = got[name] = []
+
+        class Recorder:
+            def submit(self, prompt, max_new, arrival_step=0, priority="standard"):
+                reqs.append((prompt.tolist(), max_new, arrival_step, priority))
+
+        mod.submit_workload(Recorder(), get_config("yi-9b").reduced(), args)
+    assert got["jax"] == got["port"]
+    assert {r[3] for r in got["port"]} == {"interactive", "standard", "batch"}
+    with pytest.raises(ValueError, match="unknown priority class"):
+        serve.parse_class_mix("vip=1")
+
+
+def test_serve_main_control_plane_flags(capsys, tmp_path):
+    """The control-plane flags through the CLI: overlap, a fault plan and the
+    class mix on the paged scheduler; the report and --stats-json show the
+    quarantine, the retries and the landings."""
+    path = tmp_path / "stats.json"
+    done = serve.main(["--device", "cpu", "--scheduler", "paged", "--top-k", "1",
+                       "--requests", "6", "--arrival-every", "2", "--max-len", "64",
+                       "--overlap", "--fault-plan", "step:at=3,times=2;poison:slot=1,at=6",
+                       "--retry-backoff-s", "0", "--class-mix", "interactive=1,batch=1",
+                       "--responsive-blocks", "--stats-json", str(path)])
+    out = capsys.readouterr().out
+    assert "1 quarantined" in out and "landings" in out and "class batch" in out
+    assert sorted(r.finish_reason for r in done).count("error") == 1
+    import json
+
+    stats = json.loads(path.read_text())
+    assert stats["stats"]["step_retries"] == 2 and stats["stats"]["landings"] > 0
+    assert stats["request_summary"]["overlap"]["enabled"]
