@@ -116,9 +116,19 @@ Phases, each fatal on failure:
    layers) through phase 5's wave workload and phase 6's paged
    chunked-spec one; gptj-parallel bf16 (28 layers) waves with and
    without one_shot_sync; qwen-72b int4 (80 layers) in one wave of 4, its
-   embedding vocab-sharded.  Per request, each holds the tokens of the
-   tp=1 phase of the same weights (qwen-72b: the first four of its int4
-   wave; the two-sync gptj wave: the one-shot one's too) or parts at a
+   embedding vocab-sharded; and at the cut depth of the tp=1 phases they
+   are held to: recurrentgemma-9b bf16 (3 layers: R, R, A; its rank's 2048
+   of 4096 RG-LRU channels and 8 q heads over the replicated KV head; its
+   256000-row table vocab-sharded) in one wave of 4 of phase 7's
+   2100-2300-token prompts, past the window; deepseek-moe-16b bf16 (14
+   layers; 32 of 64 experts a rank) in one wave of 4 of phase 5's prompts
+   (> 256 routed tokens: drops) and phase 6's paged chunked-spec workload;
+   mixtral-8x7b int4 (4 layers; 4 of 8 experts a rank, 16 q over 4 KV
+   heads) and minicpm3-4b bf16 (8 layers; 20 of 40 latent heads a rank,
+   the latent cache replicated) in one wave of 4 each.  Per request, each
+   holds the tokens of the tp=1 phase of the same weights (qwen-72b and
+   the cut-depth waves: the first four of their tp=1 wave; the two-sync
+   gptj wave: the one-shot one's too) or parts at a
    near-tie of the tp=1 model, at most half parted: a top-2 gap below
    1e-2 (not enough alone for gptj-parallel), or a witness: for
    gptj-parallel the plain versions, as its slot phases; else the tp
@@ -127,9 +137,17 @@ Phases, each fatal on failure:
    side's token within once that of the other's top.  Each phase prints its collectives (``comm``:
    one decode step at b 4 and the whole run, by tag), and a decode step
    must all-reduce 2 x L times (L with one_shot_sync), each 64 KiB on the
-   wire for yi-9b, plus the two top-k gathers and, for qwen-72b, the
-   embedding's all-reduce; every rank's launches as predicted (two top-k
-   launches a sampling call); every rank the same tokens.  With two or
+   wire for yi-9b, plus the two top-k gathers and, for qwen-72b and
+   recurrentgemma-9b, the embedding's all-reduce; every rank's launches as
+   predicted (two top-k launches a sampling call; each MoE layer's routing
+   top-k once a forward on every rank; one lru_scan a recurrent layer a
+   prefill); every rank the same tokens and the same dropped assignments,
+   and deepseek's wave the tp=1 wave's drops, layer call by layer call
+   (its paged job too where no stream parted).  Kernel rows at the ranks'
+   shapes: lru_scan at (4, 2304, 2048), decode_attention at
+   recurrentgemma's (4, 8, 1, 256) over its ring and at mixtral's (4, 16
+   over 4, 1, 128) over the wrapped 4100-entry ring, their launches
+   counted on the tp phases.  With two or
    more cards the yi-9b wave runs once more over NCCL, one card a rank;
    with one, a line says why it did not run.
 
@@ -141,7 +159,7 @@ Phases, each fatal on failure:
    of 320 tokens on both with the same top experts and the same dropped
    assignments.  Then full width from seed 0: minicpm3-4b bf16 (8 of 62
    layers; its latent attention is plain PyTorch, no attention kernel
-   runs) and deepseek-moe-16b bf16 (6 of 28 layers) each through phase 5's
+   runs) and deepseek-moe-16b bf16 (14 of 28 layers) each through phase 5's
    wave workload and phase 6's paged chunked-spec phase, and deepseek in
    int4 through the wave, whose 4 x <= 125-token prefills route more than
    256 tokens and drop assignments past capacity: tokens in range, a
@@ -230,9 +248,13 @@ Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
-12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 6 of 28,
+12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 14 of 28,
 phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48), so that the
-whole run stays near its ~800 s aim with phases 10-13 added.  The slot
+whole run stays near its ~800 s aim with phases 10-13 added.  The tp
+phases of the dense family and the tp=1 phases they are held to run at
+full depth; the RG-LRU, MoE and MLA tp phases run at their tp=1 phases'
+cut depth (drawing those weights again at full depth would cost
+minutes).  The slot
 phases hold at most MAX_PARTED partings, and shallower
 random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
 12), so they keep their earlier depths.  qwen-72b's
@@ -314,13 +336,17 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 # gptj-parallel's and yi-9b's int8-KV slot phases, yi-9b's int8-weight and
 # int8-KV waves, phase 10's minicpm3-4b and deepseek-moe-16b phases and
 # phase 11's mixtral-8x7b and mamba2-1.3b phases (phase name -> layers;
-# their full-depth peaks and ms/token are in PERF.md section 6).  The
+# their full-depth peaks and ms/token are in PERF.md section 6).  The dense
 # tp phases, the tp=1 phases they are held to, qwen-72b's int8-KV wave (its
 # peak memory shows that 4 x 4096 tokens fit one card) and phase 12 run at
-# full depth.
+# full depth; the RG-LRU, MoE and MLA tp phases at their tp=1 phases' cut
+# depth here.  deepseek-moe-16b runs 14 layers: its tp=2 paged chunked-spec
+# job parted from the tp=1 phase in 7 of 12 streams at 6 and at 28 layers
+# and in 3 at 14, every parting certified (router near-ties; PERF.md
+# section 6), against the at-most-half rule.
 EARLIER_DEPTH = {"recurrentgemma-9b": 3, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
                  "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
-                 "deepseek-moe-16b": 6, "mixtral-8x7b": 4, "mamba2-1.3b": 8}
+                 "deepseek-moe-16b": 14, "mixtral-8x7b": 4, "mamba2-1.3b": 8}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -558,6 +584,7 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_moe_kernels(dev, flush))
     out.extend(check_ring_ssd_kernels(dev, flush))
     out.extend(check_frontend_kernels(dev, flush))
+    out.extend(check_tp_rank_kernels(dev, flush))
     return out
 
 
@@ -1890,6 +1917,8 @@ def hybrid_phases(dev) -> list:
         sched, first, dt1 = run()
         launches = dict(ops.LAUNCHES)
         _, second, dt2 = run()
+        if (weight_quant, phase) == ("none", "wave"):     # phase 9's RG-LRU wave is held to it
+            TP1_STREAMS[(cfg.name, "none", "wave")] = (cfg.n_layers, first)
         if phase == "wave":
             waves = -(-len(work) // opts["batch"])
             want = expect(cfg, waves, waves * (opts["max_new"] - 1), parallel)
@@ -2008,10 +2037,13 @@ def moe_layers(cfg) -> int:
 
 
 @contextlib.contextmanager
-def drop_log():
+def drop_log(routes: bool = False):
     """Record every MoE layer call inside (``moe.LOG``); on exit the
     yielded dict holds the forwards past 256 tokens, their assignments and
-    how many were dropped."""
+    how many were dropped, and ``per_call``: every call's dropped
+    assignments in order (the tp phases hold theirs to the tp=1 phase's;
+    popped before the dict is printed); with ``routes``, every call's top
+    experts on the host (``routes``, popped too)."""
     from repro_torch.models import moe
 
     out: dict = {}
@@ -2024,7 +2056,10 @@ def drop_log():
         out.update(layer_calls=len(recs), layer_calls_past_256=len(big),
                    assignments_past_256=sum(r["T"] * r["k"] for r in big),
                    dropped=sum(int((~r["keep"]).sum()) for r in big),
-                   capacity_at_largest_T=max((r["C"] for r in big), default=None))
+                   capacity_at_largest_T=max((r["C"] for r in big), default=None),
+                   per_call=[int((~r["keep"]).sum()) for r in recs])
+        if routes:
+            out["routes"] = [r["top_e"].cpu() for r in recs]
 
 
 def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, params=None):
@@ -2075,8 +2110,10 @@ def serve_phase(dev, arch: str, weight_quant: str, kv_quant: bool = False, param
     second, dt2 = run()
     n_tokens = sum(len(t) for t in first.values())
     waves = -(-opts["requests"] // opts["batch"])
+    per_call = drops.pop("per_call", None)
     if not kv_quant:
         TP1_STREAMS[(cfg.name, weight_quant, "wave")] = (cfg.n_layers, first)
+        TP1_DROPS[(cfg.name, weight_quant, "wave")] = per_call
     L, A, n_moe = cfg.n_layers, kernel_attention_layers(cfg), moe_layers(cfg)
     expect = {name: 0 for name in ops.KERNELS}
     expect.update({"flash_prefill": A * waves,
@@ -2960,6 +2997,9 @@ def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
         sched, first, dt1 = run()
     launches = dict(ops.LAUNCHES)
     _, second, dt2 = run()
+    # phase 9's MoE paged chunked-spec job is held to these
+    TP1_STREAMS[(cfg.name, "none", name)] = (cfg.n_layers, first)
+    TP1_DROPS[(cfg.name, "none", name)] = drops.pop("per_call")
     st = sched.stats
     expect = expected_slot_launches("paged", st, kernel_attention_layers(cfg), moe=moe_layers(cfg))
     if launches != expect:
@@ -2999,7 +3039,7 @@ def latent_moe_slot_phase(dev, arch: str, params=None) -> dict:
 
 def latent_moe_phases(dev) -> list:
     """minicpm3-4b and deepseek-moe-16b at full width, at EARLIER_DEPTH's
-    cut depth (8 of 62 and 6 of 28 layers),
+    cut depth (8 of 62 and 14 of 28 layers),
     random weights from seed 0: each's bf16 wave (phase 5's workload) and
     paged chunked-spec phase on the same weights, then deepseek's int4
     wave, whose 4 x <= 125-token prefills route more than 256 tokens."""
@@ -3469,7 +3509,8 @@ def ring_slot_phase(dev, params, kv_quant: bool, want=None) -> dict:
         "prompt_lens": [len(p) for p, _ in work], "max_new": [m for _, m in work],
         "tokens": n_tokens, "init_s": init_s, "wall_s": [dt1],
         "ms_per_token": [1e3 * dt1 / n_tokens], "stats": dict(st),
-        "summary": sched.request_summary(), "launches": launches, "moe_drops": drops}
+        "summary": sched.request_summary(), "launches": launches,
+        "moe_drops": {k: v for k, v in drops.items() if k != "per_call"}}
     if want is not None:
         result["equal_to_bf16_kv_streams"] = sum(np.array_equal(t, want[rid])
                                                  for rid, t in first.items())
@@ -3597,6 +3638,93 @@ def ring_ssd_phases(dev):
     yield from ssd_slot_phases(dev, params)
     del params
     torch.cuda.empty_cache()
+
+
+def check_tp_rank_kernels(dev, flush) -> list:
+    """The kernels at a tp=2 rank's shapes of phase 9's RG-LRU and MoE
+    jobs: lru_scan over recurrentgemma-9b's (4, 2304, 2048), a rank's half
+    of the 4096 channels; decode_attention at its (4, 8, 1, 256), a rank's
+    8 q heads over the replicated KV head, over the 2048-entry ring; and at
+    mixtral-8x7b's (4, 16 over 4, 1, 128) over the wrapped 4100-entry ring.
+    Each held to its plain version as the tp=1 rows are, with its time,
+    SDPA's (none for lru_scan) and its bound; its launches are counted on
+    the tp phases only (``tp_only``), summed over the ranks."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime.kvcache import position_rows
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    rows = []
+    w = RG_W // TP
+    a, x, h0 = torch.sigmoid(rnd(B, RG_SQ, w)), rnd(B, RG_SQ, w), rnd(B, w)
+    hs, hT = ops.lru_scan(a, x, h0)
+    want, want_T = ref.lru_scan_ref(a, x, h0)
+    err = max((hs - want).abs().max().item(), (hT - want_T).abs().max().item())
+    del want
+    lim = ref.lru_scan_limit(a, x, h0)
+    kern64 = max((hs.double() - lim["want"]).abs().max().item(),
+                 (hT.double() - lim["want_T"]).abs().max().item())
+    if not kern64 <= lim["limit"]:
+        fail(f"lru_scan at a tp=2 rank's ({B}, {RG_SQ}, {w}): error {kern64} against fp64 > "
+             f"{lim['limit']} (the plain version's {lim['plain']})")
+    rows.append({
+        "name": f"lru_scan ({RG_ARCH} tp=2 rank)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:39", "counter": "lru_scan",
+        "arches": [RG_ARCH], "tp_only": True,
+        "shape": f"a, b ({B},{RG_SQ},{w}) fp32, h0 ({B},{w}): {w} of {RG_W} channels",
+        "library": "none: no single PyTorch call computes a linear recurrence",
+        "max_abs_err": err, "err_fp64": kern64, "plain_err_fp64": lim["plain"],
+        "tolerance": f"fp64 error <= max({ref.LRU_ERR_FACTOR} x plain's, "
+                     f"{ref.LRU_ERR_FLOOR} max|h|) = {lim['limit']}",
+        "ms": cold_ms(lambda: ops.lru_scan(a, x, h0), flush),
+        "plain_ms": cold_ms(lambda: ref.lru_scan_ref(a, x, h0), flush, iters=3, warmup=1),
+        "library_ms": None,
+        **bound(4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel(), FP32_FLOPS)})
+    del a, x, h0, hs, lim
+
+    def decode_row(name, arch, hq, hkv, hd, S, valid, what):
+        scale = hd ** -0.5
+        q = rnd(B, hq, 1, hd).bfloat16()
+        k, v = (rnd(B, hkv, S, hd).bfloat16() for _ in range(2))
+        m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+        m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+        err = (acc / l[..., None] - acc2 / l2[..., None]).abs().max().item()
+        if not err <= 1e-3:
+            fail(f"decode_attention at {name} differs from its plain version by {err}")
+        n_valid = int(valid.sum())
+        return {
+            "name": f"decode_attention_partial ({name})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:66",
+            "counter": "decode_attention", "arches": [arch], "tp_only": True,
+            "shape": f"q ({B},{hq},1,{hd}) bf16, k/v ({B},{hkv},{S},{hd}) {what} "
+                     f"({n_valid} valid)",
+            "library": "SDPA with a per-row bool mask",
+            "ptxas": ptxas_row("decode_attention", _dec(hd, False)),
+            "max_abs_err": err, "tolerance": 1e-3,
+            "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+            "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=valid[:, None, None, :], scale=scale, enable_gqa=True),
+                flush),
+            **bound(2 * q.numel() + 4 * hkv * n_valid * hd + valid.numel()
+                    + 4 * (m.numel() + l.numel() + acc.numel()), 4 * hd * hq * n_valid,
+                    BF16_FLOPS)}
+
+    idx = torch.arange(RG_WINDOW, device=dev)
+    frontiers = [2300, 2047, 1500, 3000]
+    valid = torch.stack([(f - (f - idx) % RG_WINDOW >= 0) for f in frontiers]).contiguous()
+    rows.append(decode_row(f"{RG_ARCH} tp=2 rank, g 8", RG_ARCH, RG_HQ // TP, 1, RG_HD,
+                           RG_WINDOW, valid, f"ring, window masks at {frontiers}"))
+    cur = torch.tensor(RING_CUR, device=dev)
+    pos = position_rows(cur + 1, RING_S, ring=True)
+    valid = (pos >= 0) & (pos <= cur[:, None]) & (pos > cur[:, None] - RING_WINDOW)
+    rows.append(decode_row(f"{RING_ARCH} tp=2 rank ring, g 4", RING_ARCH, RING_HQ // TP,
+                           RING_HKV // TP, HD, RING_S, valid, "wrapped ring"))
+    return rows
 
 
 # -- the modality prefix and the multi-codebook head ---------------------------
@@ -3998,8 +4126,10 @@ def frontend_phases(dev):
 
 TP = 2
 # the tp=1 phases' streams, (arch, weight_quant, phase) -> (layers,
-# {rid: tokens}): the tp phases are held to them
+# {rid: tokens}), and an MoE arch's dropped assignments a layer call, in
+# order (``drop_log``'s ``per_call``): the tp phases are held to them
 TP1_STREAMS: dict = {}
+TP1_DROPS: dict = {}
 LAYER_TAGS = ("mixer_reduce", "ffn_reduce", "one_shot", "attn_reduce")
 
 
@@ -4129,39 +4259,68 @@ def tp_reference_check(dev) -> dict:
 
 def _tp_full_jobs():
     """The full-width tp phases, in order, the consecutive ones of one
-    (arch, weight_quant) on one set of weights: yi-9b bf16 (48 layers) in
-    the wave workload and the paged chunked-spec one; gptj-parallel bf16
-    (28 layers) waves with and without ``one_shot_sync``; qwen-72b int4
-    (80 layers) in one wave of 4."""
+    (arch, weight_quant, layers) on one set of weights: yi-9b bf16 (48
+    layers) in the wave workload and the paged chunked-spec one;
+    gptj-parallel bf16 (28 layers) waves with and without
+    ``one_shot_sync``; qwen-72b int4 (80 layers) in one wave of 4; and at
+    their tp=1 phases' cut depth (EARLIER_DEPTH): recurrentgemma-9b bf16
+    (3 layers) in one wave of 4 of phase 7's 2100-2300-token prompts,
+    deepseek-moe-16b bf16 (14 layers) in one wave of 4 and the paged
+    chunked-spec workload, mixtral-8x7b int4 (4 layers) and minicpm3-4b
+    bf16 (8 layers) in one wave of 4 each.  Each job's ``layers`` is its
+    depth and ``max_len`` its cache length."""
     from repro_torch.configs import get_config
 
-    def wave_work(arch, n):
-        rng = np.random.default_rng(0)      # serve_phase's draws
+    def wave_work(arch, n, lo=16, hi=128):
+        rng = np.random.default_rng(0)      # serve_phase's and hybrid_phases' draws
         vocab = get_config(arch).vocab_size
-        return [rng.integers(0, vocab, int(rng.integers(16, 129))).astype(np.int32)
+        return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(np.int32)
                 for _ in range(n)]
 
-    wave = dict(kind="wave", batch=SERVE_BATCH, max_new=SERVE_MAX_NEW)
-    return [
+    wave = dict(kind="wave", batch=SERVE_BATCH, max_new=SERVE_MAX_NEW, max_len=SERVE_MAX_LEN)
+    paged = dict(name="tp2-paged-chunked-spec", kind="paged", max_len=SERVE_MAX_LEN,
+                 opts=dict(prefill_chunk=64, spec_k=SPEC_K))
+    cut = lambda arch: phase_config(arch).n_layers
+    jobs = [
         dict(name="tp2-wave", arch="yi-9b", quant="none", work=wave_work("yi-9b", 8), **wave),
-        dict(name="tp2-paged-chunked-spec", arch="yi-9b", quant="none", kind="paged",
-             opts=dict(prefill_chunk=64, spec_k=SPEC_K)),
+        dict(arch="yi-9b", quant="none", **paged),
         dict(name="tp2-wave", arch=GJ_ARCH, quant="none", work=wave_work(GJ_ARCH, 8), **wave),
         dict(name="tp2-wave-two-sync", arch=GJ_ARCH, quant="none", one_shot=False,
              work=wave_work(GJ_ARCH, 8), **wave),
         dict(name="tp2-wave", arch="qwen-72b", quant="int4", work=wave_work("qwen-72b", 4),
              **wave),
+        dict(name="tp2-wave", arch=RG_ARCH, quant="none", layers=cut(RG_ARCH),
+             work=wave_work(RG_ARCH, SERVE_BATCH, *RG_WAVE["prompt"]),
+             **dict(wave, max_len=RG_WAVE["max_len"])),
+        dict(name="tp2-wave", arch=MOE_ARCH, quant="none", layers=cut(MOE_ARCH),
+             work=wave_work(MOE_ARCH, SERVE_BATCH), **wave),
+        dict(arch=MOE_ARCH, quant="none", layers=cut(MOE_ARCH), **paged),
+        dict(name="tp2-wave", arch=RING_ARCH, quant="int4", layers=cut(RING_ARCH),
+             work=wave_work(RING_ARCH, SERVE_BATCH), **wave),
+        dict(name="tp2-wave", arch=MLA_ARCH, quant="none", layers=cut(MLA_ARCH),
+             work=wave_work(MLA_ARCH, SERVE_BATCH), **wave),
     ]
+    for job in jobs:
+        job.setdefault("layers", get_config(job["arch"]).n_layers)
+    return jobs
+
+
+def _job_config(job: dict):
+    """A tp job's config: its arch at the job's depth."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(job["arch"]), n_layers=job["layers"])
 
 
 def _tp_full_rank(dist, dev, jobs):
     """One rank of the full-width tp phases (``_tp_full_jobs``): per job its
-    streams, launches, the collectives of the run and of one decode step at
-    b 4, walls, init time, peak memory, and where a stream parts from the
-    tp=1 phase's (``job["ref"]``) the whole vocab's logits there."""
+    streams, launches, dropped assignments (``drop_log``), the collectives
+    of the run and of one decode step at b 4, walls, init time, peak
+    memory, and where a stream parts from the tp=1 phase's (``job["ref"]``)
+    the whole vocab's logits there."""
     import argparse
 
-    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.core import collectives as cc
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -4170,19 +4329,19 @@ def _tp_full_rank(dist, dev, jobs):
 
     out, eng, weights = [], None, None
     for job in jobs:
-        cfg = get_config(job["arch"])
+        cfg = _job_config(job)
         par = ParallelConfig(tp=dist.tp, weight_quant=job["quant"], kv_block_size=BLOCK,
                              one_shot_sync=job.get("one_shot", True))
-        params = eng.params if (job["arch"], job["quant"]) == weights else None
+        params = eng.params if (job["arch"], job["quant"], job["layers"]) == weights else None
         eng = None
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN,
+        eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1), max_len=job["max_len"],
                      seed=0, params=params, device=dev, dist=dist)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
-        weights = (job["arch"], job["quant"])
+        weights = (job["arch"], job["quant"], job["layers"])
         if job["kind"] == "wave":
             sched = WaveScheduler(eng, batch_size=job["batch"])
             for p in job["work"]:
@@ -4193,7 +4352,7 @@ def _tp_full_rank(dist, dev, jobs):
         ops.reset_launches()
         torch.cuda.synchronize()
         t = time.monotonic()
-        with cc.comm_stats() as st:
+        with cc.comm_stats() as st, drop_log(routes=job["kind"] == "wave") as drops:
             done = sched.run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t
@@ -4208,9 +4367,10 @@ def _tp_full_rank(dist, dev, jobs):
                     lg = cc.all_gather(lg, dist, 0)[:cfg.vocab_size]
                 parting_logits[r.rid] = lg.cpu().numpy()
         res = {"streams": {r.rid: r.output for r in done}, "parting_logits": parting_logits,
+               "routes": drops.pop("routes", None),
                "prompts": {r.rid: r.prompt for r in done}, "launches": launches,
                "comm_run": st.by_tag(), "wall_s": wall, "init_s": init_s,
-               "stats": dict(getattr(sched, "stats", {})),
+               "stats": dict(getattr(sched, "stats", {})), "moe_drops": drops,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         if job["kind"] == "wave":     # one decode step at b 4, after an 8-token prompt
             with torch.inference_mode():
@@ -4227,30 +4387,82 @@ def _tp_full_rank(dist, dev, jobs):
     return out
 
 
-def _tp1_logits(job: dict, dev, cache: dict, seq: np.ndarray) -> torch.Tensor:
-    """The logits of the tp=1 model of seed 0 (``job``'s arch and weights,
-    drawn once on the card when a tp stream first parts) after ``seq``."""
-    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+def _tp1_engine(job: dict, dev, cache: dict):
+    """The tp=1 model of seed 0 (``job``'s arch, depth and weights, drawn
+    once on the card when a tp stream first parts)."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
     from repro_torch.runtime.engine import Engine
 
-    key = (job["arch"], job["quant"])
+    key = (job["arch"], job["quant"], job["layers"])
     if key not in cache:
         cache.clear()
         torch.cuda.empty_cache()
-        cache[key] = Engine(get_config(job["arch"]),
-                            parallel=ParallelConfig(weight_quant=job["quant"]),
-                            sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
+        cache[key] = Engine(_job_config(job), parallel=ParallelConfig(weight_quant=job["quant"]),
+                            sampling=SamplingConfig(top_k=1), max_len=job["max_len"], seed=0,
                             device=dev)
+    return cache[key]
+
+
+def _tp1_logits(job: dict, dev, cache: dict, seq: np.ndarray) -> torch.Tensor:
+    """The logits of the tp=1 model (``_tp1_engine``) after ``seq``."""
     with torch.inference_mode():
-        return cache[key].forward(torch.as_tensor(seq, device=dev)[None].long(),
-                                  last_only=True)[0, -1]
+        return _tp1_engine(job, dev, cache).forward(torch.as_tensor(seq, device=dev)[None].long(),
+                                                    last_only=True)[0, -1]
+
+
+def _moe_wave_witness(job: dict, dev, cache: dict, r0: dict) -> dict:
+    """An MoE tp wave as the tp=1 model (``_tp1_engine``) computes it
+    replaying the ranks' expert choices call by call (``r0["routes"]``):
+    ``Engine.generate``'s calls, the right-padded prompts, then the ranks'
+    tokens one decode step at a time, so that the prefill's capacity drops,
+    which the routes decide and which shape every row, are the ranks' ->
+    {"logits": each forward's last logits (b, V), "drops": every call's
+    dropped assignments, "margins": where its own router ranked experts
+    apart from the replayed ones, its k-th probability less that of the
+    ranks' other choice}."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+
+    eng = _tp1_engine(job, dev, cache)
+    work = job["work"]
+    plen = max(len(p) for p in work)
+    prompts = np.zeros((len(work), plen), np.int64)
+    for i, p in enumerate(work):
+        prompts[i, :len(p)] = p
+    streams = np.stack([r0["streams"][i] for i in range(len(work))])
+    logits = []
+    moe.LOG, moe.ROUTE_REPLAY = [], [e.to(dev) for e in r0["routes"]]
+    try:
+        with torch.inference_mode():
+            caches = eng.init_caches(len(work))
+            logits.append(eng.forward(torch.as_tensor(prompts, device=dev), caches=caches,
+                                      last_only=True, seq_sharded=True)[:, -1].float())
+            for i in range(1, streams.shape[1]):
+                tok = torch.as_tensor(streams[:, i - 1], device=dev)[:, None].long()
+                logits.append(eng.forward(tok, caches=caches, cur_pos=plen + i - 1)[:, -1]
+                              .float())
+        log = moe.LOG
+        if moe.ROUTE_REPLAY:
+            fail(f"{job['arch']}: {len(moe.ROUTE_REPLAY)} of the ranks' routes not replayed")
+    finally:
+        moe.LOG = moe.ROUTE_REPLAY = None
+    margins = []
+    for rec in log:
+        probs, chosen = rec["probs"], rec["top_e"].long()
+        own = ref.topk_ref(probs, chosen.shape[1])[1].long()
+        for j in torch.nonzero((own.sort(1).values != chosen.sort(1).values).any(1))[:, 0]:
+            other = probs[j, [e for e in chosen[j].tolist() if e not in own[j].tolist()]]
+            margins.append(float(probs[j, own[j]].min() - other.min()))
+    return {"logits": logits, "drops": [int((~r["keep"]).sum()) for r in log],
+            "margins": margins}
 
 
 def tp_phases(dev, backend: str = "gloo"):
     """The full-width tp phases on ``TP`` ranks (``_tp_full_jobs``), each
     phase's result yielded as soon as it is checked; see the module
     docstring."""
-    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.core.embedding import table_replicated
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh
 
@@ -4259,20 +4471,22 @@ def tp_phases(dev, backend: str = "gloo"):
     if backend == "nccl":
         jobs = jobs[:1]
     for job in jobs:
-        # held to the tp=1 phase of the same seed and weights (its first
-        # requests where the tp phase serves fewer)
-        cfg = get_config(job["arch"])
+        # held to the tp=1 phase of the same seed, weights and depth (its
+        # first requests where the tp phase serves fewer)
+        cfg = _job_config(job)
         key = (cfg.name, job["quant"], "wave" if job["kind"] == "wave" else "paged-chunked-spec")
         if key not in TP1_STREAMS or TP1_STREAMS[key][0] != cfg.n_layers:
             fail(f"{job['name']} {cfg.name}: no tp=1 phase of {cfg.n_layers} layers to hold "
                  f"it to ({key})")
-        job["ref"] = TP1_STREAMS[key][1]
+        job["ref"], job["ref_drops"] = TP1_STREAMS[key][1], TP1_DROPS.get(key)
     got = mesh.spawn(_tp_full_rank, TP, jobs, backend=backend, device="cuda")
     spawn_s = time.monotonic() - t0
     results, tp1, one_shot_streams = [], {}, None
     for j, job in enumerate(jobs):
-        cfg = get_config(job["arch"])
+        cfg = _job_config(job)
         L, name = cfg.n_layers, f"{job['name']} {cfg.name}"
+        A, n_moe = kernel_attention_layers(cfg), moe_layers(cfg)
+        n_rec = sum(cfg.block_kind(i) == "rglru" for i in range(L))
         ranks = [r[j] for r in got]
         par = ParallelConfig(tp=TP, weight_quant=job["quant"])
         for rank, res in enumerate(ranks):
@@ -4281,16 +4495,22 @@ def tp_phases(dev, backend: str = "gloo"):
                 mn = job["max_new"]
                 expect = {k: 0 for k in ops.KERNELS}
                 expect.update({
-                    "flash_prefill": L * waves, "decode_attention": L * (mn - 1) * waves,
-                    "topk": 2 * mn * waves,     # the shard's top-k and the candidates'
+                    "flash_prefill": A * waves, "decode_attention": A * (mn - 1) * waves,
+                    "lru_scan": n_rec * waves,
+                    # the shard's top-k and the candidates', and each MoE
+                    # layer's routing on every rank, once a forward
+                    "topk": (2 + n_moe) * mn * waves,
                     "dequant_matmul": dequant_launches_per_forward(cfg, par) * mn * waves,
                     "fused_dual_matmul": (L * mn * waves if cfg.parallel_residual
                                           and job.get("one_shot", True) else 0)})
             else:
-                expect = expected_slot_launches("paged", res["stats"], L)
-                expect["topk"] *= 2
+                expect = expected_slot_launches("paged", res["stats"], A, moe=n_moe)
+                expect["topk"] += expect["topk"] // (1 + n_moe)     # two a sampling call
             if res["launches"] != expect:
                 fail(f"{name} rank {rank}: kernel launches {res['launches']} != {expect}")
+            if res["moe_drops"] != ranks[0]["moe_drops"]:
+                fail(f"{name}: rank {rank}'s dropped assignments {res['moe_drops']} differ "
+                     f"from rank 0's")
             for rid, toks in res["streams"].items():
                 if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
                     fail(f"{name} rank {rank} request {rid}: tokens out of range: {toks}")
@@ -4309,11 +4529,38 @@ def tp_phases(dev, backend: str = "gloo"):
             gathers = [k for k in comm if k.startswith(("topk_vals", "topk_idx"))]
             if len(gathers) != 2 or any(comm[k]["count"] != 1 for k in gathers):
                 fail(f"{name}: top-k gathers of a decode step {comm}")
-            if (cfg.name == "qwen-72b") != any(k.startswith("embed_shard_merge") for k in comm):
+            if table_replicated(cfg) == any(k.startswith("embed_shard_merge") for k in comm):
                 fail(f"{name}: the vocab-sharded embedding's all-reduce {comm}")
         # held to the tp=1 phase's tokens, and the two-sync baseline to the
         # one-shot phase's too
-        parted = {"tp1": _tp_parted(name, job, r0, job["ref"], dev, tp1, r0["parting_logits"])}
+        drops = r0["moe_drops"]
+        per_call = drops.pop("per_call")
+        witness = None
+        if n_moe and job["kind"] == "wave":
+            # the tp=1 model replaying the ranks' expert choices through the
+            # wave: the same drops, and routes apart only at near-ties
+            witness = _moe_wave_witness(job, dev, tp1, r0)
+            bad = [m for m in witness["margins"] if not m < ROUTER_TIE]
+            if witness["drops"] != per_call or bad:
+                fail(f"{name}: replaying the ranks' routes, the tp=1 model drops "
+                     f"{witness['drops']} a layer call, the ranks {per_call}; its own router "
+                     f"ranks experts apart from theirs by {bad} (limit {ROUTER_TIE})")
+            drops.update(router_near_ties=len(witness["margins"]),
+                         as_replayed_at_tp1=True)
+            # the wave's calls are the first of the tp=1 phase's (its first
+            # wave): its drops, or apart through those near-ties alone
+            want = job["ref_drops"][:len(per_call)]
+            drops.update(as_tp1_phase=per_call == want, tp1_phase_dropped=sum(want))
+            if not drops["dropped"] or (per_call != want and not witness["margins"]):
+                fail(f"{name}: dropped assignments a layer call {per_call} != the tp=1 "
+                     f"phase's {want} with no router near-tie, or none past 256 tokens")
+        elif n_moe:
+            drops["as_tp1_phase"] = per_call == job["ref_drops"]
+        parted = {"tp1": _tp_parted(name, job, r0, job["ref"], dev, tp1, r0["parting_logits"],
+                                    witness)}
+        if n_moe and job["kind"] != "wave" and not parted["tp1"] and not drops["as_tp1_phase"]:
+            fail(f"{name}: the streams of the tp=1 phase, but dropped assignments a layer call "
+                 f"{per_call} != its {job['ref_drops']}")
         if job["name"] == "tp2-wave-two-sync":
             parted["one_shot"] = _tp_parted(name, job, r0, one_shot_streams, dev, tp1)
         if job["name"] == "tp2-wave" and cfg.parallel_residual:
@@ -4331,6 +4578,7 @@ def tp_phases(dev, backend: str = "gloo"):
             "ms_per_token": 1e3 * r0["wall_s"] / n_tokens,
             "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
             "launches": launches, "launches_per_rank": r0["launches"],
+            **({"moe_drops": drops} if n_moe else {}),
             "comm": {"per_decode_step": comm, "run": r0["comm_run"]},
             "stats": r0["stats"], "parted_at_near_ties": parted,
             "first_tokens": {rid: r0["streams"][rid][:8].tolist()
@@ -4360,7 +4608,7 @@ def _parting(job: dict, rid: int, toks: np.ndarray, want: np.ndarray, prompt: np
 
 
 def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
-               tp_logits: dict | None = None) -> list:
+               tp_logits: dict | None = None, witness: dict | None = None) -> list:
     """Per request of a tp phase (rank 0's streams): ``ref``'s tokens, or a
     first difference at a near-tie of the tp=1 model; at most half the
     requests parted.  A near-tie: the tp=1 top-2 logits within TIE_GAP, as
@@ -4377,7 +4625,10 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
     each that far from the exact logits lie within twice it of each other.
     So the tp logits must lie within 2 x ``spread`` of the tp=1 ones (a
     wrong shard or merge moves them by whole units), and each side must
-    rank the other side's token within ``spread`` of its top."""
+    rank the other side's token within ``spread`` of its top.  An MoE
+    wave's ``witness`` (``_moe_wave_witness``) takes the tp logits' place:
+    the tp=1 model through the same wave, replaying the ranks' expert
+    choices, must rank their token within ``spread`` of its top."""
     parted = []
     for rid, toks in r0["streams"].items():
         want = ref[rid]
@@ -4388,7 +4639,7 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
         logits = _tp1_logits(job, dev, cache, seq).float()
         gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
         flip = {"rid": rid, "step": t, "top2_gap": gap}
-        if job["arch"] == GJ_ARCH or not gap < TIE_GAP:
+        if witness is not None or job["arch"] == GJ_ARCH or not gap < TIE_GAP:
             with plain_on_card():
                 plain = _tp1_logits(job, dev, cache, seq).float()
             err = (logits - plain).abs().max().item()
@@ -4396,7 +4647,20 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
             tp = None if tp_logits is None else torch.as_tensor(tp_logits[rid], device=dev)
             if tp is not None:
                 flip["tp_max_abs_diff"] = (tp - logits).abs().max().item()
-            if job["arch"] == GJ_ARCH or tp is None:
+            if witness is not None:
+                # an MoE wave: the wave as the ranks ran it, their expert
+                # choices replayed (``_moe_wave_witness``), ranks their
+                # token within ``spread`` of its top; its routes apart
+                # from the ranks' are near-ties (checked by the caller)
+                spread = max(REF_TOL, err)
+                row = witness["logits"][t][rid]
+                slack = (row.max() - row[int(toks[t])]).item()
+                if not slack <= spread:
+                    fail(f"{name} request {rid} parts at step {t}: the tp=1 model replaying "
+                         f"the ranks' expert choices through the wave puts their token "
+                         f"{slack} below its top (limit {spread})")
+                flip.update(replayed_wave_slack=slack, spread=spread)
+            elif job["arch"] == GJ_ARCH or tp is None:
                 slack = [(plain.max() - plain[int(x[t])]).item() for x in (want, toks)
                          if t < len(x)]
                 if not (err <= REF_TOL and max(slack) < REF_TOL):
@@ -4496,9 +4760,10 @@ def main() -> None:
             phases.append(phase)
     for k in kernels:
         # a row counts the phases of the arches whose shapes it was timed at
-        arches, counter = k.pop("arches"), k.pop("counter")
-        k["launches"] = sum(p["launches"][counter] for p in phases if p["arch"] in arches)
-        k["launches_counted_on"] = arches
+        arches, counter, tp_only = k.pop("arches"), k.pop("counter"), k.pop("tp_only", False)
+        k["launches"] = sum(p["launches"][counter] for p in phases
+                            if p["arch"] in arches and (p.get("ranks") or not tp_only))
+        k["launches_counted_on"] = [f"{a} tp={TP}" if tp_only else a for a in arches]
         if k["launches"] == 0:
             fail(f"{k['name']} was not launched on the serving paths")
         if k["name"] == "topk":

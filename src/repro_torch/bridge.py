@@ -27,7 +27,9 @@ and returns the layout of ``repro_torch.models.model``:
   (the table is the head); a frontend's projector (``norm``, ``w1``,
   ``w2``) crosses as it is, bf16 whatever the quantization;
 * with ``dist`` at tp > 1 every leaf of the tp=1 tree is then cut to the
-  rank's shard by the rule ``init_params`` follows (``model.shard_leaf``):
+  rank's shard by the rule ``init_params`` follows (``model.shard_leaf``,
+  by the leaf's layer family: an expert block by expert, MLA's
+  up-projections by head, an RG-LRU mixer by channel):
   quantized leaves too, by their values and scales, so a rank holds the
   JAX package's tp=1 weights, split.  An int4 ``w_down`` whose groups
   straddle the rank boundary raises.
@@ -144,8 +146,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     device = resolve_device(device)
     plan = ModelCtx.make(cfg, ParallelConfig(tp=dist.tp), dist).plan
 
-    def place(name, t):
-        return map_tensors(shard_leaf(name, t, cfg, plan, dist.rank),
+    def place(name, t, family="attn"):
+        return map_tensors(shard_leaf(name, t, cfg, plan, dist.rank, family),
                            lambda a: a.contiguous().to(device))
 
     per_layer = _tree_layers(tree, cfg)
@@ -161,7 +163,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
             want = (len(idx), *d.shape)
             if _shape(stacked[name]) != want:
                 raise ValueError(f"{name}: shape {_shape(stacked[name])} != {want}")
-        stacked = {name: place(name, t) for name, t in stacked.items()}
+        stacked = {name: place(name, t, family) for name, t in stacked.items()}
         for i, layer in zip(idx, split_layers(stacked, len(idx))):
             layers[i] = layer
     d, V, ncb = cfg.d_model, cfg.vocab_size, cfg.n_codebooks

@@ -14,6 +14,7 @@
     python -m repro_torch.launch.profile_decode --arch internvl2-26b
     python -m repro_torch.launch.profile_decode --arch musicgen-medium --scheduler continuous
     python -m repro_torch.launch.profile_decode --tp 2       # ranks share the card over gloo
+    python -m repro_torch.launch.profile_decode --arch deepseek-moe-16b --tp 2 --layers 14
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -58,7 +59,10 @@ them share one card, its collectives staged through host memory), each
 profiling its own shard; rank 0 reports, with its collectives of one pass
 of the steps (``comm_per_step``: count and wire bytes by tag) beside its
 kernel times.  Ranks that share a card share its time: their step times
-are no tensor-parallel speed.
+are no tensor-parallel speed.  ``--layers N`` cuts the arch to its first N
+layers, at full width, as chip_smoke.py's cut-depth phases run it (phase
+9's RG-LRU, MoE and MLA jobs: their ``comm`` a decode step is this
+line's ``comm_per_step`` at the same depth).
 """
 from __future__ import annotations
 
@@ -96,6 +100,8 @@ def main(argv=None) -> dict:
                     help="default 128; for a sliding-window arch window + 64 (wave) "
                          "or window - 8 (slots)")
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch to its first N layers (0: all of them)")
     ap.add_argument("--max-len", type=int, default=None,
                     help="default the larger of 256 and what the prompt and the steps need")
     ap.add_argument("--seed", type=int, default=0)
@@ -111,6 +117,8 @@ def main(argv=None) -> dict:
                     help="the int8 KV cache (ParallelConfig.kv_quant)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.prompt_len is None:
         args.prompt_len = (128 if not cfg.window else
                            cfg.window + 64 if args.scheduler == "wave" else cfg.window - 8)

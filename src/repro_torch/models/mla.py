@@ -21,6 +21,13 @@ in one masked softmax; prefill, chunks and verify steps stream over
 single-chunk result equals decode's, which is what makes chunked == whole
 and spec == plain hold.  The fp32 latent output is up-projected by w_uv in
 fp32, cast to bf16, and contracted by ``fused_out_projection``.
+
+Under tensor parallelism a rank holds its heads (``ShardPlan``'s padded
+layout, n_kv = n_heads) of ``w_uq``/``w_uk``/``w_uv`` and ``w_o``, as the
+JAX package's ``_mla_defs`` shards them; ``w_dq``, ``w_dkv`` and the norms
+are replicated, so every rank computes and caches the whole latent (the
+cache is replicated), and the out-projection returns an unreduced partial
+that the layer's ``mixer_reduce`` sums.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
-for the dense family, sequential or parallel residual, at any supported
-tensor-parallel degree, and the RG-LRU hybrid, multi-head latent attention,
-the mixture-of-experts FFN (over a sliding-window ring too), the Mamba-2
-SSD mixer, the modality-prefix frontend and multi-codebook heads at tp=1).
+for the dense family, sequential or parallel residual, the RG-LRU hybrid,
+multi-head latent attention and the mixture-of-experts FFN (over a
+sliding-window ring too) at any supported tensor-parallel degree, and the
+Mamba-2 SSD mixer, tied embeddings, the modality-prefix frontend and
+multi-codebook heads at tp=1).
 
 Parameters are a plain dict::
 
@@ -42,12 +43,18 @@ Under weight-only quantization the projections and the lm_head are
 expert block ``(L, E, K, N)``).
 
 Under tensor parallelism (``ModelCtx.dist.tp`` ranks) each rank's dict
-holds its shard (``shard_leaf``): the padded q-head layout's and the KV
-heads' columns of ``w_q``/``w_k``/``w_v`` and their biases, its heads of
-``w_o``, its columns of ``w_up``/``w_gate`` and rows of ``w_down``, its
-columns of the lm_head (the vocab padded to a multiple of tp) and, for a
-table larger than ``embedding.REPLICATE_BYTES_LIMIT``, its rows of the
-embed table; norms and smaller tables are replicated.  The forward is the
+holds its shard (``shard_leaf``, by the leaf's layer family): the padded
+q-head layout's and the KV heads' columns of ``w_q``/``w_k``/``w_v`` and
+their biases, its heads of ``w_o``, its columns of ``w_up``/``w_gate`` and
+rows of ``w_down``, its columns of the lm_head (the vocab padded to a
+multiple of tp) and, for a table larger than
+``embedding.REPLICATE_BYTES_LIMIT``, its rows of the embed table; an MLA
+layer its heads' columns of ``w_uq``/``w_uk``/``w_uv``; an MoE layer its
+experts' blocks (``moe.moe_plan``: where tp > E, a slice of one expert's
+d_ff) and its columns and rows of the shared experts; an RG-LRU layer its
+channels, gate blocks and ``w_out`` rows.  Norms, smaller tables, the
+router and MLA's down-projections (the latent cache they feed is
+replicated) are replicated.  The forward is the
 per-shard program: every rank runs it, and the collectives between them
 are the ``SyncPolicy``'s (``core/sync_policy.py``).
 """
@@ -87,7 +94,8 @@ WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
 FFN_KEYS = ("w_up", "w_gate", "w_down")
 
 
-# tensor-parallel degrees the dense family is served at
+# tensor-parallel degrees the port serves (SSD, tied embeddings, frontends
+# and multi-codebook heads at 1 only)
 TP_DEGREES = (1, 2, 4, 8)
 
 
@@ -140,10 +148,6 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
     split over ``parallel.tp`` ranks."""
     missing = []
     kinds = set(cfg.layer_pattern)
-    if cfg.moe is not None and parallel.tp > 1:
-        missing.append("moe at tp>1 (expert-parallel MoE)")
-    if cfg.mla is not None and parallel.tp > 1:
-        missing.append("mla at tp>1 (head-sharded latent attention)")
     if cfg.mla is not None and (cfg.window or "rglru" in kinds):
         missing.append("mla with windowed or rglru layers")
     if cfg.parallel_residual and (cfg.moe is not None or cfg.mla is not None):
@@ -171,8 +175,6 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append(f"weight_quant={parallel.weight_quant}")
     if parallel.tp not in TP_DEGREES:
         missing.append(f"tp={parallel.tp} (tensor parallelism at tp 1, 2, 4 or 8)")
-    if parallel.tp > 1 and "rglru" in kinds:
-        missing.append("tp>1 with rglru layers (RG-LRU tensor parallelism)")
     if parallel.tp > 1 and "ssd" in kinds:
         missing.append("tp>1 with ssd layers (head-sharded SSD)")
     if parallel.tp > 1 and cfg.tie_embeddings:
@@ -202,9 +204,22 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         raise NotImplementedError(f"{cfg.name}: the PyTorch port does not serve "
                                   f"{', '.join(missing)} yet")
     if parallel.tp > 1:
-        ShardPlan.make(cfg, parallel.tp)        # raises where the heads cannot split
-        if cfg.d_ff % parallel.tp:
-            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} not a multiple of tp {parallel.tp}")
+        tp = parallel.tp
+        ShardPlan.make(cfg, tp)        # raises where the heads cannot split
+        if cfg.d_ff % tp:
+            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} not a multiple of tp {tp}")
+        # the JAX plans' own refusals: experts (moe_plan), the shared
+        # experts' d_ff, the RG-LRU channels and gate blocks (_dims)
+        try:
+            if cfg.moe is not None:
+                moe_mod.moe_plan(cfg.moe, tp)
+                if cfg.moe.n_shared and cfg.moe.shared_d_ff % tp:
+                    raise ValueError(f"shared_d_ff {cfg.moe.shared_d_ff} not a multiple of "
+                                     f"tp {tp}")
+            if "rglru" in kinds:
+                rglru._dims(cfg, tp)
+        except ValueError as e:
+            raise ValueError(f"{cfg.name}: {e}") from None
 
 
 def attention_window(cfg: ModelConfig) -> int:
@@ -356,55 +371,113 @@ def _quantize_into(dst: QuantWeight, w: torch.Tensor, group_size: int, cols: int
         dst.scale[..., c:c + cols] = qw.scale
 
 
-def _k_shards(name: str, tp: int) -> int:
+def _k_shards(name: str, tp: int, family: str = "attn",
+              cfg: Optional[ModelConfig] = None) -> int:
     """Ranks the reduction dim of leaf ``name`` is split over (the JAX
-    package's ``_wq_k_shards``): the row-parallel ``w_down``."""
-    return tp if name == "w_down" else 1
+    package's ``_wq_k_shards``): the row-parallel ``w_down`` of a dense FFN
+    or of the shared experts; an expert block's ``w_down`` where each
+    expert's d_ff is split over ffn_tp > 1 ranks (``cfg`` given), whose
+    JAX blocks of d_ff / ffn_tp rows are quantized each alone."""
+    if name == "shared.w_down" or (name == "w_down" and not family.endswith("+moe")):
+        return tp
+    if name == "w_down" and cfg is not None and tp > 1:
+        return moe_mod.moe_plan(cfg.moe, tp)[3]
+    return 1
 
 
-def _quantizes(name: str, shape, parallel: ParallelConfig, family: str = "attn") -> bool:
+def _quantizes(name: str, shape, parallel: ParallelConfig, family: str = "attn",
+               cfg: Optional[ModelConfig] = None) -> bool:
     return (parallel.weight_quant != "none" and wq_site(family, name) is not None
             and wquant.quantizable(shape, parallel.weight_quant, parallel.wq_group_size,
-                                   _k_shards(name, parallel.tp)))
+                                   _k_shards(name, parallel.tp, family, cfg)))
 
 
 # -- tensor-parallel shards -------------------------------------------------
 
 
-def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int):
-    """How leaf ``name`` splits over the ranks -> (axis, dims, padded dims,
-    start, size): axis ``axis`` (counted from the end) of the global leaf
-    holds ``dims`` = (groups, heads a group, entries a head), is zero-padded
-    to ``padded dims``, and this rank keeps [start, start + size) of it.
-    None: replicated.  Q heads pad within their KV group
-    (``ShardPlan``); a KV head replicated over ``kv_rep`` ranks is the
-    rank's own columns."""
-    tp, hd = plan.tp, cfg.resolved_head_dim
-    g = plan.n_heads // plan.n_kv_heads
+class Split(NamedTuple):
+    """One axis of a leaf's shard: axis ``axis`` (counted from the end) of
+    the global leaf holds ``dims`` = (groups, heads a group, entries a
+    head), is zero-padded to ``dims_p``, and the rank keeps [start, start +
+    size) of it."""
+    axis: int
+    dims: Tuple[int, int, int]
+    dims_p: Tuple[int, int, int]
+    start: int
+    size: int
+
+
+def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int,
+           family: str = "attn") -> Tuple[Split, ...]:
+    """How leaf ``name`` of a ``family`` layer (``layer_family``; "attn"
+    for the table and the lm_head) splits over the ranks: its ``Split``s,
+    applied in order; () where it is replicated.  Q heads pad within their
+    KV group (``ShardPlan``); a KV head replicated over ``kv_rep`` ranks is
+    the rank's own columns.  MLA's up-projections split by head like
+    ``w_q`` (n_kv = n_heads), its down-projections, norms and the router
+    are replicated; an expert block splits on its expert axis and, where
+    ffn_tp > 1, on its d_ff too (``moe.moe_plan``); the shared experts
+    split as a dense FFN of ``shared_d_ff``; an RG-LRU mixer by channel,
+    gate block and ``w_out`` row (``rglru._dims``)."""
+    tp = plan.tp
     if tp == 1:
-        return None
+        return ()
+    mixer, _, ffn = family.partition("+")
+    g = plan.n_heads // plan.n_kv_heads
+
+    def even(n: int, axis: int) -> Split:
+        return Split(axis, (n, 1, 1), (n, 1, 1), rank * (n // tp), n // tp)
+
+    def heads(width: int) -> Split:
+        return Split(-1, (plan.n_kv_heads, g, width), (plan.n_kv_p, plan.group_p, width),
+                     rank * plan.local_q * width, plan.local_q * width)
+
+    if name.startswith("mixer."):                     # RG-LRU (SSD is tp=1 only)
+        leaf = name[len("mixer."):]
+        w, nb, _ = rglru._dims(cfg, tp)
+        axis = {"w_gate": -1, "w_x": -1, "conv_w": -1, "Lambda": -1, "w_out": -2}
+        if leaf in axis:
+            return (even(w, axis[leaf]),)
+        return (even(nb, -3 if leaf.endswith("_w") else -2),)
+    if name.startswith("shared."):
+        return (even(cfg.moe.shared_d_ff, -2 if name == "shared.w_down" else -1),)
+    if ffn == "moe" and name in FFN_KEYS:
+        m = cfg.moe
+        _, dff_b, _, ffn_tp = moe_mod.moe_plan(m, tp)
+        e_lo, local_e = moe_mod.local_experts(m, tp, rank)
+        E = (m.n_experts, 1, 1)
+        out = (Split(-3, E, E, e_lo, local_e),)
+        if ffn_tp > 1:
+            f = (m.expert_d_ff, 1, 1)
+            out += (Split(-2 if name == "w_down" else -1, f, f, rank % ffn_tp * dff_b, dff_b),)
+        return out
+    if name == "w_o":
+        return (Split(-3, (plan.n_kv_heads, g, 1), (plan.n_kv_p, plan.group_p, 1),
+                      rank * plan.local_q, plan.local_q),)
+    if mixer == "mla":
+        m = cfg.mla
+        width = {"w_uq": m.qk_nope_head_dim + m.qk_rope_head_dim,
+                 "w_uk": m.qk_nope_head_dim, "w_uv": m.v_head_dim}.get(name)
+        if width is not None:
+            return (heads(width),)
+    hd = cfg.resolved_head_dim
     if name in ("w_q", "b_q"):
-        return (-1, (plan.n_kv_heads, g, hd), (plan.n_kv_p, plan.group_p, hd),
-                rank * plan.local_q * hd, plan.local_q * hd)
+        return (heads(hd),)
     if name in ("w_k", "w_v", "b_k", "b_v"):
         dims = (plan.n_kv_heads, 1, hd)
         if plan.kv_sharded:
-            return (-1, dims, (plan.n_kv_p, 1, hd), rank * plan.local_kv * hd,
-                    plan.local_kv * hd)
-        return (-1, dims, dims, rank // plan.kv_rep * hd, hd)
-    if name == "w_o":
-        return (-3, (plan.n_kv_heads, g, 1), (plan.n_kv_p, plan.group_p, 1),
-                rank * plan.local_q, plan.local_q)
-    if name in ("w_up", "w_gate", "w_down"):
-        f = cfg.d_ff // tp
-        return (-2 if name == "w_down" else -1, (cfg.d_ff, 1, 1), (cfg.d_ff, 1, 1), rank * f, f)
-    vocab = ((cfg.vocab_size, 1, 1), (plan.vocab_p, 1, 1), rank * plan.local_vocab,
-             plan.local_vocab)
+            return (Split(-1, dims, (plan.n_kv_p, 1, hd), rank * plan.local_kv * hd,
+                          plan.local_kv * hd),)
+        return (Split(-1, dims, dims, rank // plan.kv_rep * hd, hd),)
+    if name in FFN_KEYS:
+        return (even(cfg.d_ff, -2 if name == "w_down" else -1),)
+    vocab = Split(-1, (cfg.vocab_size, 1, 1), (plan.vocab_p, 1, 1), rank * plan.local_vocab,
+                  plan.local_vocab)
     if name == "lm_head":
-        return (-1, *vocab)
+        return (vocab,)
     if name == "table" and not table_replicated(cfg):
-        return (-2, *vocab)
-    return None
+        return (vocab._replace(axis=-2),)
+    return ()
 
 
 def _pad_slice(t: torch.Tensor, axis: int, dims, dims_p, start: int, size: int,
@@ -421,35 +494,39 @@ def _pad_slice(t: torch.Tensor, axis: int, dims, dims_p, start: int, size: int,
     return t.narrow(axis, start, size)
 
 
-def shard_leaf(name: str, w, cfg: ModelConfig, plan: ShardPlan, rank: int):
-    """A global leaf (one layer's, a stack of layers', the table or the
-    lm_head; a tensor or a QuantWeight) -> this rank's shard (``_split``).
-    A QuantWeight pads its columns or heads with zero values and the scale
-    ``quantize`` gives a zero column, so the shard is the quantization of
-    the padded global leaf, sliced; a row-parallel one keeps its int8
-    scales and its int4 groups' scale rows (``wquant.slice_rows``)."""
-    split = _split(name, cfg, plan, rank)
-    if split is None:
-        return w
-    axis, dims, dims_p, start, size = split
+def _apply_split(w, sp: Split):
+    """One ``Split`` of a tensor or a QuantWeight.  A QuantWeight pads its
+    columns or heads with zero values and the scale ``quantize`` gives a
+    zero column, so the result is the quantization of the padded leaf,
+    sliced; a row split keeps its int8 scales and its int4 groups' scale
+    rows (``wquant.slice_rows``)."""
     if not isinstance(w, QuantWeight):
-        return _pad_slice(w, axis, dims, dims_p, start, size)
-    if axis == -2:
-        return wquant.slice_rows(w, start, size)
-    # w_o's head axis is the last batch axis of the values and of the scales
-    s_axis = -2 if axis == -3 and w.mode == "int8" else axis
-    return QuantWeight(_pad_slice(w.q, axis, dims, dims_p, start, size),
-                       _pad_slice(w.scale, s_axis, dims, dims_p, start, size,
-                                  fill=wquant.zero_scale(w.mode)),
+        return _pad_slice(w, *sp)
+    if sp.axis == -2:
+        return wquant.slice_rows(w, sp.start, sp.size)
+    # a batch axis (w_o's heads, an expert block's experts) is the last
+    # batch axis of the values and of the int8 scales
+    s_axis = -2 if sp.axis == -3 and w.mode == "int8" else sp.axis
+    return QuantWeight(_pad_slice(w.q, *sp),
+                       _pad_slice(w.scale, s_axis, *sp[1:], fill=wquant.zero_scale(w.mode)),
                        w.mode, w.group, w.k)
 
 
-def _shard_shape(name: str, shape, cfg: ModelConfig, plan: ShardPlan, rank: int):
-    split = _split(name, cfg, plan, rank)
-    if split is None:
-        return tuple(shape)
+def shard_leaf(name: str, w, cfg: ModelConfig, plan: ShardPlan, rank: int,
+               family: str = "attn"):
+    """A global leaf of a ``family`` layer (one layer's, a stack of layers',
+    the table or the lm_head; a tensor or a QuantWeight) -> this rank's
+    shard (``_split``)."""
+    for sp in _split(name, cfg, plan, rank, family):
+        w = _apply_split(w, sp)
+    return w
+
+
+def _shard_shape(name: str, shape, cfg: ModelConfig, plan: ShardPlan, rank: int,
+                 family: str = "attn"):
     out = list(shape)
-    out[split[0]] = split[4]
+    for sp in _split(name, cfg, plan, rank, family):
+        out[sp.axis] = sp.size
     return tuple(out)
 
 
@@ -480,28 +557,32 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     mode, gs = parallel.weight_quant, parallel.wq_group_size
     layers: List[Dict[str, Any]] = [{} for _ in range(L)]
-    shard = lambda name, w: shard_leaf(name, w, cfg, plan, dist.rank)
+    shard = lambda name, w, family="attn": shard_leaf(name, w, cfg, plan, dist.rank, family)
     for family, idx in layer_families(cfg).items():
         n, stacked = len(idx), {}
         for name, (shape, rule, fan_in, dtype) in layer_param_defs(cfg, family).items():
-            quant = _quantizes(name, shape, parallel, family)
-            local = (n, *_shard_shape(name, shape, cfg, plan, dist.rank))
+            quant = _quantizes(name, shape, parallel, family, cfg)
+            local = (n, *_shard_shape(name, shape, cfg, plan, dist.rank, family))
             if quant:
                 t = _quantized_empty(local, mode, gs, device)
             else:
                 t = torch.empty(local, dtype=dtype, device=device)
             # a row-parallel int8 shard's scales span the global K: quantize
-            # the whole leaf and keep the rank's rows
-            split = _split(name, cfg, plan, dist.rank)
-            whole_k = quant and mode == "int8" and split is not None and split[0] == -2
+            # the leaf's other splits whole and keep the rank's rows
+            splits = _split(name, cfg, plan, dist.rank, family)
+            rows = [sp for sp in splits if sp.axis == -2]
+            whole_k = quant and mode == "int8" and bool(rows)
             for i in range(n):   # per layer: an fp32 draw of one layer at a time
                 leaf = init_leaf(shape, rule, gen, device=device, fan_in=fan_in, dtype=dtype)
                 if whole_k:
-                    _quantize_into(wquant.index_batch(t, i), leaf, gs, rows=split[3:])
+                    for sp in splits:
+                        leaf = leaf if sp.axis == -2 else _apply_split(leaf, sp)
+                    _quantize_into(wquant.index_batch(t, i), leaf, gs,
+                                   rows=(rows[0].start, rows[0].size))
                 elif quant:
-                    _quantize_into(wquant.index_batch(t, i), shard(name, leaf), gs)
+                    _quantize_into(wquant.index_batch(t, i), shard(name, leaf, family), gs)
                 else:
-                    t[i] = shard(name, leaf)
+                    t[i] = shard(name, leaf, family)
             stacked[name] = t
         for i, layer in zip(idx, split_layers(stacked, n)):
             layers[i] = layer
@@ -614,9 +695,9 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
                ("", head, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
     quantized = dense = ref_einsum = 0
     for family, name, shape, dtype in leaves:
-        if _quantizes(name, shape, parallel, family):
+        if _quantizes(name, shape, parallel, family, cfg):
             b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size,
-                                   _k_shards(name, parallel.tp))
+                                   _k_shards(name, parallel.tp, family, cfg))
             quantized += b
             site = head_site(cfg) if name == "lm_head" else wq_site(family, name)
             ref_einsum += b if site == "einsum" else 0
@@ -629,7 +710,7 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 per_slot: bool = False, paged: Optional[Tuple[int, int]] = None,
                 ring_slack: int = 0, kv_quant: bool = False,
-                kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                kv_heads: Optional[int] = None, tp: int = 1) -> Dict[str, torch.Tensor]:
     """The cache of all layers; ``pos`` -1 marks an empty entry.
 
     Wave (default): ``k``/``v`` (A, batch, hkv, S, hd) for the A attention
@@ -646,7 +727,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     their state, ``h`` and ``conv`` (``rglru.init_rglru_state`` or
     ``ssm.init_ssd_state``).
     ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
-    default all of them).  MLA layers cache latents instead of K/V:
+    default all of them); ``tp``: the ranks the RG-LRU channels of the
+    recurrent state split over (each holds w / tp).  MLA layers cache latents instead of K/V:
     ``ckv``/``krope`` with a unit head axis and their own widths
     (``mla.cache_dims``), bf16 whatever ``kv_quant`` says, as the reference
     keeps its latent cache."""
@@ -675,8 +757,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
         for key in ("k_scale", "v_scale"):
             caches[key] = torch.zeros(shape(hkv, hd)[:-1], dtype=torch.bfloat16, device=device)
     if n_rec:
-        init_state = ssm.init_ssd_state if "ssd" in fams else rglru.init_rglru_state
-        caches.update(init_state(cfg, n_rec, batch, device=device))
+        if "ssd" in fams:
+            caches.update(ssm.init_ssd_state(cfg, n_rec, batch, device=device))
+        else:
+            caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device, tp=tp))
     return caches
 
 
@@ -847,7 +931,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     chunk of the sequence in the residual stream between the layers'
     branches (``ModelCtx.policy``).
 
-    ``layout`` (an MoE model's prefill or chunk, tp=1): the reference's
+    ``layout`` (an MoE model's prefill or chunk): the reference's
     other full-width rows, whose pad tokens from position 0 ride along
     for the MoE layers' routing (``moe.RowLayout``); their logits are not
     computed, and they write no cache.  They attend their own fresh K/V,
@@ -856,8 +940,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     b = tokens.shape[0]
     dev = tokens.device
     ctx = ctx or ModelCtx.make(cfg)
-    x = embed_lookup(params["embed"], tokens, ctx.plan, ctx.dist,
-                     id_broadcast=ctx.parallel.id_broadcast)
+    emb = dict(plan=ctx.plan, dist=ctx.dist, id_broadcast=ctx.parallel.id_broadcast)
+    if layout is None:
+        x = embed_lookup(params["embed"], tokens, **emb)
+    else:       # the ghost rows' activations in the same lookup (and its collective)
+        x = embed_lookup(params["embed"], torch.cat([tokens, layout.tokens]), **emb)
+        x, gx = x[:b], x[b:]
     if cfg.frontend is not None and features is not None:
         prefix = multimodal.project_features(params["frontend"], features, cfg)
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
@@ -896,7 +984,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             gstep = dataclasses.replace(
                 gstep, cache=caches, rows=layout.others.to(torch.int32),
                 ring_kv_pos=torch.cat([caches["pos"][layout.others], real], dim=1))
-        ghost = Ghost(layout, embed_lookup(params["embed"], layout.tokens, ctx.plan, ctx.dist),
+        ghost = Ghost(layout, policy.shard_residual(gx),
                       rope_tables(gpos, rope_dim, cfg.rope_theta), gstep)
     x = policy.shard_residual(x)
     kw = {} if ghost is None else {"ghost": ghost}

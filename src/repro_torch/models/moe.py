@@ -1,7 +1,16 @@
-"""Mixture-of-experts FFN (``repro.models.moe`` at tp=1): softmax -> top-k ->
+"""Mixture-of-experts FFN (``repro.models.moe``): softmax -> top-k ->
 renormalise routing, index dispatch with GShard capacity clipping, the
 batched expert FFN and a deterministic combine, plus the always-on shared
 experts.
+
+Under tensor parallelism the experts are sharded over the ranks as the JAX
+package shards them (``moe_plan``): ``n_blocks = max(E, tp)`` expert
+blocks, ``local_blocks`` a rank, and where E < tp each expert's d_ff split
+over ``ffn_tp = tp // E`` ranks.  The FFN's input is replicated (decode)
+or gathered (``pre_ffn``), so every rank routes every token the same way,
+dispatches only the assignments of its own experts and returns an
+unreduced partial; the layer's ``ffn_reduce`` is the only collective, as
+in the reference: no all-to-all.
 
 * ``capacity``: C = T for T <= 256 tokens (no assignment drops), else
   max(4, ceil(T * k / E * capacity_factor)).  Past 256, which assignments
@@ -26,7 +35,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,6 +94,30 @@ class RowLayout:
         return out
 
 
+def moe_plan(m: MoEConfig, tp: int) -> Tuple[int, int, int, int]:
+    """-> (n_blocks, dff_block, local_blocks, ffn_tp), raising where the
+    experts do not split over ``tp`` ranks (``repro.models.moe.moe_plan``)."""
+    E = m.n_experts
+    if E >= tp:
+        if E % tp:
+            raise ValueError(f"n_experts {E} not divisible by tp {tp}")
+        return E, m.expert_d_ff, E // tp, 1
+    if tp % E:
+        raise ValueError(f"tp {tp} not divisible by n_experts {E}")
+    ffn_tp = tp // E
+    if m.expert_d_ff % ffn_tp:
+        raise ValueError("expert_d_ff not divisible by ffn_tp")
+    return tp, m.expert_d_ff // ffn_tp, 1, ffn_tp
+
+
+def local_experts(m: MoEConfig, tp: int, rank: int) -> Tuple[int, int]:
+    """(e_lo, local_E): the experts rank ``rank`` serves, [e_lo, e_lo +
+    local_E) (one expert, a slice of its d_ff, where ffn_tp > 1)."""
+    n_blocks, _, local_blocks, _ = moe_plan(m, tp)
+    return (rank * local_blocks * m.n_experts) // n_blocks, max(1, local_blocks * m.n_experts
+                                                                 // n_blocks)
+
+
 def capacity(m: MoEConfig, tokens: int) -> int:
     """Expert capacity: decode-sized batches get C = T (drop-free), larger
     ones the GShard capacity-factor clipping."""
@@ -105,17 +138,21 @@ def route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
     return top_e.long(), gates, probs
 
 
-def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (b, s, d) -> the FFN output (b, s, d) of an MoE layer: routed
-    experts plus the shared ones."""
+def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
+                rank: int = 0) -> torch.Tensor:
+    """x (b, s, d), the whole token set -> the FFN output (b, s, d) of an
+    MoE layer: routed experts plus the shared ones.  At ``tp`` > 1 this
+    rank's unreduced partial: its experts' (``local_experts``) share of
+    the routed output and its shard of the shared experts'."""
     m = cfg.moe
     b, s, d = x.shape
-    T, k, E = b * s, m.top_k, m.n_experts
+    T, k = b * s, m.top_k
     xf = x.reshape(T, d)
     C = capacity(m, T)
+    e_lo, E = local_experts(m, tp, rank)
     with torch.profiler.record_function(DISPATCH_RANGE):
         top_e, gates, probs = route(p["router"], xf, m)
-        xe, order, keep, slot = _dispatch(top_e, xf, m, C)
+        xe, order, keep, slot = _dispatch(top_e, xf, m, C, e_lo, E)
     if LOG is not None:
         LOG.append({"T": T, "C": C, "k": k, "keep": keep, "order": order, "top_e": top_e,
                     "probs": probs})
@@ -126,42 +163,47 @@ def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.T
               else act(up))
         ye = torch.bmm(up, wquant.to_dense(p["w_down"])).view(E * C, d)
     with torch.profiler.record_function(DISPATCH_RANGE):
-        out = _combine(ye, top_e, gates, order, keep, slot).view(b, s, d).to(x.dtype)
+        out = _combine(ye, top_e, gates, order, slot).view(b, s, d).to(x.dtype)
     if m.n_shared:
         out = out + mlp_forward(p["shared"], x, cfg)
     return out
 
 
-def _dispatch(top_e: torch.Tensor, xf: torch.Tensor, m: MoEConfig, C: int):
-    """Lay the T tokens out per expert -> (xe (E, C, d), the sort order of
-    the flat (token, rank) assignments, which sorted ones are kept, their
-    slot among the E * C rows, E * C for the dump row)."""
+def _dispatch(top_e: torch.Tensor, xf: torch.Tensor, m: MoEConfig, C: int, e_lo: int,
+              E: int):
+    """Lay the T tokens out per expert -> (xe (E, C, d) for the E experts
+    from ``e_lo`` on, the sort order of the flat (token, rank)
+    assignments, which sorted ones are kept (by every rank alike), their
+    slot among the E * C rows, E * C for the dump row: a dropped
+    assignment's, or another rank's expert's)."""
     T, d = xf.shape
-    k, E = m.top_k, m.n_experts
+    k, n_e = m.top_k, m.n_experts
     # a stable sort by expert, each assignment's place in its expert's
     # queue, and the first C of each queue kept
     flat_e = top_e.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.zeros(E, dtype=torch.long, device=xf.device).scatter_add_(
+    counts = torch.zeros(n_e, dtype=torch.long, device=xf.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=xf.device) - starts[sorted_e]
     keep = pos < C
-    slot = torch.where(keep, sorted_e * C + pos, E * C)
+    mine = keep & (sorted_e >= e_lo) & (sorted_e < e_lo + E)
+    slot = torch.where(mine, (sorted_e - e_lo) * C + pos, E * C)
     x_disp = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
     x_disp[slot] = xf[order // k]
     return x_disp[:E * C].view(E, C, d), order, keep, slot
 
 
-def _combine(ye: torch.Tensor, top_e, gates, order, keep, slot) -> torch.Tensor:
+def _combine(ye: torch.Tensor, top_e, gates, order, slot) -> torch.Tensor:
     """Expert outputs ye (E * C, d) -> (T, d) fp32: each kept assignment's
     gated output at its (token, rank) place, then the k ranks summed in
-    ascending expert order."""
+    ascending expert order.  An assignment in the dump row (dropped, or
+    another rank's) adds zero."""
     T, k = top_e.shape
     d = ye.shape[1]
     ye = torch.cat([ye, ye.new_zeros((1, d))])                         # the dump row
-    gate = torch.where(keep, gates.reshape(-1)[order], 0.0)
+    gate = torch.where(slot < ye.shape[0] - 1, gates.reshape(-1)[order], 0.0)
     contrib = torch.empty((T * k, d), dtype=torch.float32, device=ye.device)
     contrib[order] = ye[slot].float() * gate[:, None]
     contrib = contrib.view(T, k, d)

@@ -1,5 +1,5 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427):
-``repro.models.rglru`` at tp=1.
+``repro.models.rglru``.
 
 Block: two input branches (gate: GELU; recurrent: causal depthwise conv ->
 RG-LRU), their product, an out-projection.  The RG-LRU is elementwise over
@@ -22,6 +22,13 @@ computes it on the CPU.
 The recurrent state lives in the model's cache dict, stacked over the
 RG-LRU layers: ``h`` (n, b, w) fp32 and ``conv`` (n, b, conv_width - 1, w)
 bf16 (``init_rglru_state``).
+
+Under tensor parallelism a rank holds w / tp channels of every leaf (the
+branches' and the conv's columns, ``Lambda``, n_blocks / tp gate blocks,
+the rows of ``w_out``) and of the state, as the JAX package shards them:
+the block is elementwise over the channels, so the rank's program is the
+tp=1 one at its width, and ``w_out`` returns an unreduced partial that the
+layer's ``mixer_reduce`` sums.
 """
 from __future__ import annotations
 
@@ -35,11 +42,13 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import conv_tail, gelu_tanh
 
 
-def _dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+def _dims(cfg: ModelConfig, tp: int = 1) -> Tuple[int, int, int]:
+    """(lru_width, n_blocks, block size), raising where the gate blocks do
+    not split over ``tp`` ranks (``repro.models.rglru._dims``)."""
     w = cfg.rglru.lru_width or cfg.d_model
     n_blocks = cfg.n_heads
-    if w % n_blocks:
-        raise ValueError(f"lru_width {w} is not a multiple of n_blocks {n_blocks}")
+    if w % n_blocks or n_blocks % tp:
+        raise ValueError(f"lru_width {w} / n_blocks {n_blocks} / tp {tp} mismatch")
     return w, n_blocks, w // n_blocks
 
 
@@ -66,10 +75,11 @@ def rglru_defs(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def init_rglru_state(cfg: ModelConfig, n_layers: int, batch: int, *,
-                     device) -> Dict[str, torch.Tensor]:
+                     device, tp: int = 1) -> Dict[str, torch.Tensor]:
     """Zero recurrent state of ``n_layers`` RG-LRU layers: fp32 ``h``, bf16
-    ``conv`` (``init_rglru_state``, stacked)."""
-    w, _, _ = _dims(cfg)
+    ``conv`` (``init_rglru_state``, stacked), at a rank's w / ``tp``
+    channels."""
+    w = _dims(cfg, tp)[0] // tp
     return {
         "h": torch.zeros((n_layers, batch, w), dtype=torch.float32, device=device),
         "conv": torch.zeros((n_layers, batch, cfg.rglru.conv_width - 1, w),

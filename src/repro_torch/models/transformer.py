@@ -14,8 +14,9 @@ or MLA) the K/V or latents, in their own order, the recurrent layers
 
 A ``moe.RowLayout`` (``Ghost``) carries the reference's other full-width
 rows through the layers beside the computed ones: each of their mixers
-attends their own fresh K/V, and each MoE layer routes all the rows
-together in slot order.
+attends their own fresh K/V, each MoE layer routes all the rows together
+in slot order, and at tp > 1 they ride in the computed rows' gathers and
+reductions.
 
 Every residual-stream collective is the ``SyncPolicy``'s, with the JAX
 package's tags (``transformer.py:220-247`` there): ``pre_mixer`` and
@@ -70,20 +71,12 @@ def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
     raise ValueError(kind)
 
 
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig, ghost: Optional[Ghost]) -> torch.Tensor:
-    """The FFN branch: dense, or an MoE layer's experts, which route the
-    ghost rows' normed residual together with ``x`` (slot order) and
-    advance the ghost's residual in place."""
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, policy: SyncPolicy) -> torch.Tensor:
+    """The FFN branch's partial: dense, or an MoE layer's experts (this
+    rank's, routing every token of ``x``)."""
     if "router" not in p:
-        if ghost is not None:
-            ghost.x = ghost.x + mlp_forward(p, rms_norm(ghost.x, p["norm2"], cfg.rms_eps), cfg)
         return mlp_forward(p, x, cfg)
-    if ghost is None:
-        return moe.moe_forward(p, x, cfg)
-    lay = ghost.layout
-    out = moe.moe_forward(p, lay.merge(x, rms_norm(ghost.x, p["norm2"], cfg.rms_eps)), cfg)
-    ghost.x = ghost.x + out[lay.others]
-    return out[lay.rows]
+    return moe.moe_forward(p, x, cfg, policy.dist.tp, policy.dist.rank)
 
 
 def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
@@ -98,8 +91,11 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     partials are summed by one fused_dual_matmul
     (``zero_copy.parallel_partials``) into the one buffer that the one
     reduction reads (paper section 2.2), else each is computed and reduced
-    on its own.  ``ghost`` (tp=1): rows carried beside ``x`` for the MoE
-    layers' routing (``Ghost``)."""
+    on its own.  ``ghost``: rows carried beside ``x`` for the MoE layers'
+    routing (``Ghost``, ``_ghost_sublayer``)."""
+    if ghost is not None:
+        return _ghost_sublayer(p, x, cfg, kind, index, rope=rope, step=step,
+                               length_mask=length_mask, policy=policy, ghost=ghost)
     xa = policy.gather_in(rms_norm(x, p["norm1"], cfg.rms_eps), tag="pre_mixer")
     if cfg.parallel_residual and kind in ATTN_KINDS:
         heads = attn.gqa_heads(p, xa, cfg, rope=rope, step=step, layer=index,
@@ -115,12 +111,40 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                                              length_mask=length_mask), tag="mixer_reduce")
     if kind == "ssd":
         return x
-    if ghost is not None:
-        ghost.x = ghost.x + _mixer_forward(p, rms_norm(ghost.x, p["norm1"], cfg.rms_eps), cfg,
-                                           kind, index, rope=ghost.rope, step=ghost.step,
-                                           length_mask=None)
     xf = policy.gather_in(rms_norm(x, p["norm2"], cfg.rms_eps), tag="pre_ffn")
-    return x + policy.reduce_out(_ffn(p, xf, cfg, ghost), tag="ffn_reduce")
+    return x + policy.reduce_out(_ffn(p, xf, cfg, policy), tag="ffn_reduce")
+
+
+def _ghost_sublayer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, index: int, *, rope,
+                    step: attn.KVStep, length_mask, policy: SyncPolicy,
+                    ghost: Ghost) -> torch.Tensor:
+    """A sequential layer over the computed rows ``x`` and the ghost's,
+    which advances ``ghost.x`` in place.  Each row set runs its own mixer
+    (its own KVStep); the ghost rows ride in the same gathers and
+    reductions as ``x``, stacked after its rows, so the layer issues the
+    collectives of the reference's one tensor of all the rows; an MoE
+    layer routes all of them together in slot order."""
+    b = x.shape[0]
+    cat = lambda a, o: torch.cat([a, o])
+    n1 = lambda t: rms_norm(t, p["norm1"], cfg.rms_eps)
+    n2 = lambda t: rms_norm(t, p["norm2"], cfg.rms_eps)
+    xa = policy.gather_in(cat(n1(x), n1(ghost.x)), tag="pre_mixer")
+    mix = cat(_mixer_forward(p, xa[:b], cfg, kind, index, rope=rope, step=step,
+                             length_mask=length_mask),
+              _mixer_forward(p, xa[b:], cfg, kind, index, rope=ghost.rope, step=ghost.step,
+                             length_mask=None))
+    red = policy.reduce_out(mix, tag="mixer_reduce")
+    x, ghost.x = x + red[:b], ghost.x + red[b:]
+    xf = policy.gather_in(cat(n2(x), n2(ghost.x)), tag="pre_ffn")
+    if "router" in p:
+        lay = ghost.layout
+        out = _ffn(p, lay.merge(xf[:b], xf[b:]), cfg, policy)
+        out = cat(out[lay.rows], out[lay.others])
+    else:
+        out = cat(_ffn(p, xf[:b], cfg, policy), _ffn(p, xf[b:], cfg, policy))
+    red = policy.reduce_out(out, tag="ffn_reduce")
+    ghost.x = ghost.x + red[b:]
+    return x + red[:b]
 
 
 def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,

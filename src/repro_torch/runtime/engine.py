@@ -156,7 +156,8 @@ class Engine:
                              self.parallel.topk_sync)
 
     def _kv_kw(self) -> dict:
-        return dict(kv_quant=self.parallel.kv_quant, kv_heads=self.ctx.plan.local_kv)
+        return dict(kv_quant=self.parallel.kv_quant, kv_heads=self.ctx.plan.local_kv,
+                    tp=self.dist.tp)
 
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:
         return M.init_caches(self.cfg, batch, self.max_len, device=self.device, **self._kv_kw())

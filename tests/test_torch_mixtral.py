@@ -109,15 +109,16 @@ def test_config_and_capabilities_equal_jax():
 
 
 def test_served_at_tp1_refused_where_the_reference_refuses():
-    """tp=1 in bf16, int8 or int4 weights over dense or int8 K/V; tp>1 is
-    refused by name, and the paged pool by the capability record, as the
-    JAX scheduler refuses it."""
+    """tp 1, 2, 4 and 8 in bf16, int8 or int4 weights over dense or int8
+    K/V; the packed weight file at tp>1 is refused by name, and the paged
+    pool by the capability record, as the JAX scheduler refuses it."""
     cfg = get_config(ARCH)
     for mode in ("none", "int8", "int4"):
         for kvq in (False, True):
-            TM.check_supported(cfg, ParallelConfig(weight_quant=mode, kv_quant=kvq))
-    with pytest.raises(NotImplementedError, match="moe at tp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2))
+            for tp in (1, 2, 4, 8):
+                TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode, kv_quant=kvq))
+    with pytest.raises(NotImplementedError, match="wq_cache at tp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, weight_quant="int4"), wq_cache="x.npz")
     _, _, teng = engines()
     with pytest.raises(ValueError, match="does not support paged KV: blocked by the "
                                          "sliding-window ring"):

@@ -87,9 +87,14 @@ def requests(vocab, n=4, seed=0):
 def test_supported_at_tp1_refused_at_tp2():
     cfg = get_config(ARCH)
     for mode in ("none", "int8", "int4"):
-        TM.check_supported(cfg, ParallelConfig(weight_quant=mode))
-    with pytest.raises(NotImplementedError, match="mla at tp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2))
+        for tp in (1, 2, 4, 8):       # head-sharded at tp>1 (40 heads: 5 a rank at tp 8)
+            TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode))
+    # what stays refused at tp>1: the overlapped loop, and windowed MLA layers
+    with pytest.raises(NotImplementedError, match="overlap_decode at tp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, overlap_decode=True))
+    with pytest.raises(NotImplementedError, match="mla with windowed"):
+        TM.check_supported(dataclasses.replace(cfg, window=64, layer_pattern=("local_attn",)),
+                           ParallelConfig(tp=2))
     caps = ArchCapabilities.from_config(cfg)
     assert caps.blockers == {} and caps.cache_layouts == ("dense", "latent", "paged")
 

@@ -35,6 +35,7 @@ from repro.runtime.engine import Engine as JEngine
 from repro_torch import bridge
 from repro_torch.configs import ParallelConfig, get_config
 from repro_torch.models import model as TM
+from repro_torch.models.common import Dist
 from repro_torch.runtime.engine import Engine
 
 TOL = 5e-2
@@ -152,24 +153,30 @@ def assert_logits_match(eng, cfg, params, kv_quant=False, plen=12, max_len=32,
 
 
 def test_unsupported_features_raise_naming_them():
-    cfg = dataclasses.replace(get_config("yi-9b").reduced(), moe=object(), window=64,
-                              n_codebooks=2)
-    with pytest.raises(NotImplementedError, match=r"moe.*window.*n_codebooks.*dp>1"):
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(), window=64, n_codebooks=2,
+                              tie_embeddings=True)
+    with pytest.raises(NotImplementedError,
+                       match=r"window.*n_codebooks.*tie_embeddings.*dp>1"):
         TM.check_supported(cfg, ParallelConfig(tp=2, dp=2))
-    # the int8 KV cache is served; what the port does not serve yet is still
-    # named and refused under it: MoE and MLA are served at tp=1 only
+    # the int8 KV cache is served; tensor parallelism is served for the
+    # dense, MoE, MLA and RG-LRU families, int8 KV and int4 weights included
     kvq = ParallelConfig(kv_quant=True, weight_quant="int4")
-    for arch, name in (("deepseek-moe-16b", "moe at tp>1"), ("minicpm3-4b", "mla at tp>1")):
+    for arch in ("yi-9b", "deepseek-moe-16b", "mixtral-8x7b", "minicpm3-4b",
+                 "recurrentgemma-9b"):
+        for tp in (1, 2, 4, 8):
+            TM.check_supported(get_config(arch), dataclasses.replace(kvq, tp=tp))
+    Engine(get_config("minicpm3-4b").reduced(), parallel=dataclasses.replace(kvq, tp=2),
+           device="cpu", dist=Dist(2, 0))
+    # what the port does not serve at tp>1 yet is still named and refused:
+    # SSD, tied embeddings, the frontend and multi-codebook heads
+    for arch, name in (("mamba2-1.3b", "tp>1 with ssd layers"),
+                       ("mamba2-1.3b", "tie_embeddings at tp>1"),
+                       ("internvl2-26b", "frontend at tp>1"),
+                       ("musicgen-medium", "n_codebooks>1 at tp>1")):
         TM.check_supported(get_config(arch), kvq)
         with pytest.raises(NotImplementedError, match=name):
             Engine(get_config(arch).reduced(), parallel=dataclasses.replace(kvq, tp=2),
                    device="cpu")
-    # tensor parallelism is served for the dense family, int8 KV and int4
-    # weights included; at tp>1 the RG-LRU hybrid is still refused by name
-    TM.check_supported(get_config("yi-9b"), dataclasses.replace(kvq, tp=2))
-    with pytest.raises(NotImplementedError, match=r"tp>1 with rglru"):
-        TM.check_supported(get_config("recurrentgemma-9b"), dataclasses.replace(kvq, tp=2))
-    TM.check_supported(get_config("yi-9b"), kvq)
     # int8 and int4 weights are served; any other mode is named and refused
     with pytest.raises(NotImplementedError, match="weight_quant=int2"):
         Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(weight_quant="int2"),

@@ -85,9 +85,15 @@ def test_supported_at_tp1_refused_at_tp2():
     cfg = get_config(ARCH)
     for mode in ("none", "int8", "int4"):
         for kvq in (False, True):
-            TM.check_supported(cfg, ParallelConfig(weight_quant=mode, kv_quant=kvq))
-    with pytest.raises(NotImplementedError, match="moe at tp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2))
+            for tp in (1, 2, 4, 8):   # expert-parallel at tp>1 (64 experts: 8 a rank at tp 8)
+                TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode, kv_quant=kvq))
+    # refused at tp>1: a packed weight file (its layer groups), and experts
+    # that do not split (moe_plan)
+    with pytest.raises(NotImplementedError, match="wq_cache at tp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, weight_quant="int4"), wq_cache="x.npz")
+    with pytest.raises(ValueError, match="n_experts 6 not divisible by tp 4"):
+        TM.check_supported(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=6)),
+                           ParallelConfig(tp=4))
     # MoE over a sliding-window ring is served (the ring chunk writer); what
     # still stands there is the reference's refusal of the paged pool
     mixtral_like = dataclasses.replace(cfg, window=64, layer_pattern=("local_attn",))

@@ -153,9 +153,9 @@ def test_top_k40_streams_are_the_same_on_every_rank(served):
 
 
 def test_tp_refusals_name_what_is_left_for_later():
-    yi, rg = get_config("yi-9b"), get_config("recurrentgemma-9b")
+    yi, ssd = get_config("yi-9b"), get_config("mamba2-1.3b")
     for cfg, par, kw, name in (
-            (rg, ParallelConfig(tp=2), {}, r"tp>1 with rglru"),
+            (ssd, ParallelConfig(tp=2), {}, r"tp>1 with ssd"),
             (yi, ParallelConfig(tp=2, dp=2), {}, r"dp>1"),
             (yi, ParallelConfig(kv_seq_shard=True), {}, r"kv_seq_shard"),
             (yi, ParallelConfig(tp=2, weight_quant="int4"), {"wq_cache": "x.npz"},
@@ -163,7 +163,8 @@ def test_tp_refusals_name_what_is_left_for_later():
             (yi, ParallelConfig(tp=3), {}, r"tp=3")):
         with pytest.raises(NotImplementedError, match=name):
             TM.check_supported(cfg, par, **kw)
-    for arch in ("yi-9b", "qwen-72b", "gptj-parallel", "qwen2.5-14b", "qwen2.5-32b"):
+    for arch in ("yi-9b", "qwen-72b", "gptj-parallel", "qwen2.5-14b", "qwen2.5-32b",
+                 "recurrentgemma-9b", "deepseek-moe-16b", "mixtral-8x7b", "minicpm3-4b"):
         for tp in (2, 4, 8):
             TM.check_supported(get_config(arch), ParallelConfig(tp=tp, weight_quant="int4",
                                                                 kv_quant=True))

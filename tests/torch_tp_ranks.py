@@ -1,5 +1,6 @@
-"""What each tensor-parallel rank runs for tests/test_torch_tp.py and
-tests/test_torch_tp_serve.py: the port only (torch, numpy, repro_torch),
+"""What each tensor-parallel rank runs for tests/test_torch_tp.py,
+tests/test_torch_tp_serve.py and their RG-LRU, MoE and MLA counterparts
+(tests/test_torch_tp_families*.py): the port only (torch, numpy, repro_torch),
 so the spawned rank processes import no jax.  Every function here takes
 (dist, device, ...) as ``launch.mesh.spawn`` calls it and returns plain
 data (numpy arrays, dicts, the schedulers' finished requests)."""
@@ -11,6 +12,7 @@ from repro_torch.configs import ParallelConfig, SamplingConfig
 from repro_torch.core import collectives as cc
 from repro_torch.core import embedding
 from repro_torch.models import model as TM
+from repro_torch.models import moe
 from repro_torch.models.common import ShardPlan
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
@@ -61,31 +63,89 @@ def collectives(dist, s_odd=13, d=6):
     return out
 
 
+def _routes(log):
+    """MoE LOG records -> each layer call's top experts and dropped
+    (token, expert) pairs, on the host."""
+    return [(r["top_e"].cpu().numpy(), moe.dropped(r).numpy()) for r in log]
+
+
 def model_case(dist, device, case):
     """One model case: logits of a 16- and a 13-token prefill, a decode step
     after the 16, and a width-5 verify chunk after 12 admitted tokens (all
-    against positions of one 17-token reference), with the collective
-    records of the 16-token prefill and the decode step."""
+    against positions of one 17-token reference; no chunk where
+    ``case["verify"]`` is false: a recurrent model's), with the collective
+    records of the 16-token prefill and the decode step.  An MoE model's
+    forwards route as the reference routed (``case["jax_routes"]``, the
+    tokens ranked apart in ``router_ties``), and the case adds the routes
+    (``_routes``) of a cacheless prefill of ``case["long"]`` (past 256
+    tokens: drops), routed by the rank's router, and again routed as
+    ``case["long_routes"]`` say (``long_replayed``)."""
     cfg, tree, tokens = case["cfg"], case["tree"], torch.from_numpy(case["tokens"])
     eng = _engine(dist, device, cfg, tree, case["parallel"], case.get("sharded_table", False))
     b, V = tokens.shape[0], cfg.vocab_size
     out = {}
+    moe.LOG = [] if cfg.moe is not None else None
+    jax_routes = case.get("jax_routes")
+
+    def replay(cols):
+        """The reference's routes of the positions ``cols`` (its forward of
+        all the tokens) for the next forward's MoE layers."""
+        if jax_routes is not None:
+            moe.ROUTE_REPLAY = [torch.from_numpy(np.ascontiguousarray(r[:, cols]).reshape(
+                -1, r.shape[-1])) for r in jax_routes]
+
     with torch.inference_mode():
         caches = eng.init_caches(b)
+        replay(slice(0, 16))
         with cc.comm_stats() as st:
             lg = eng.forward(tokens[:, :16], caches=caches, seq_sharded=True)
         out["prefill16"], out["prefill16_records"] = _full_vocab(lg, dist, V), _records(st)
+        replay(slice(16, 17))
         with cc.comm_stats() as st:
             lg = eng.forward(tokens[:, 16:17], caches=caches, cur_pos=16)
             eng.sample(lg[:, -1])
         out["decode"], out["decode_records"] = _full_vocab(lg, dist, V), _records(st)
+        replay(slice(0, 13))
         lg = eng.forward(tokens[:, :13], caches=eng.init_caches(b), seq_sharded=True)
         out["prefill13"] = _full_vocab(lg, dist, V)
-        slots = eng.init_slot_caches(b)
-        eng.prefill_into_slots(slots, tokens[:, :12].numpy(), np.ones(b, bool), np.full(b, 12))
-        kw = eng._chunk_kw(slots, np.arange(b), np.full(b, 12), 5, None)
-        lg = eng.forward(tokens[:, 12:17], caches=slots, seq_sharded=True, **kw)
-        out["verify5"] = _full_vocab(lg, dist, V)
+        if case.get("verify", True):
+            slots = eng.init_slot_caches(b)
+            replay(slice(0, 12))
+            eng.prefill_into_slots(slots, tokens[:, :12].numpy(), np.ones(b, bool),
+                                   np.full(b, 12))
+            kw = eng._chunk_kw(slots, np.arange(b), np.full(b, 12), 5, None)
+            replay(slice(12, 17))
+            lg = eng.forward(tokens[:, 12:17], caches=slots, seq_sharded=True, **kw)
+            out["verify5"] = _full_vocab(lg, dist, V)
+        if moe.LOG is not None:
+            assert not moe.ROUTE_REPLAY
+            moe.ROUTE_REPLAY = None
+            out["router_ties"] = [m for r in moe.LOG for m in _ranked_apart(r)]
+            if "long" in case:
+                moe.LOG = []
+                eng.forward(torch.from_numpy(case["long"]), seq_sharded=True)
+                out["routes"] = _routes(moe.LOG)
+                # again, routing as the port routed at tp=1
+                moe.LOG = []
+                moe.ROUTE_REPLAY = [torch.from_numpy(r) for r in case["long_routes"]]
+                eng.forward(torch.from_numpy(case["long"]), seq_sharded=True)
+                moe.ROUTE_REPLAY = None
+                out["long_replayed"] = _routes(moe.LOG)
+                out["router_ties"] += [m for r in moe.LOG for m in _ranked_apart(r)]
+    moe.LOG = None
+    return out
+
+
+def _ranked_apart(rec):
+    """The margins of the tokens whose experts a LOG record's router ranks
+    apart from the experts it used (a replayed route): its own k-th
+    probability less that of the replayed choice it left out."""
+    probs, chosen = rec["probs"], rec["top_e"]
+    own = torch.topk(probs, chosen.shape[1]).indices
+    out = []
+    for t in torch.nonzero((own.sort(1).values != chosen.sort(1).values).any(1))[:, 0]:
+        other = [e for e in chosen[t].tolist() if e not in own[t].tolist()]
+        out.append(float(probs[t, own[t]].min() - probs[t, other].min()))
     return out
 
 
@@ -142,14 +202,14 @@ def _serve(sched, reqs):
     return {r.rid: r for r in sched.run()}
 
 
-def run_serve_cases(dist, device, cfg, tree, runs):
+def run_serve_cases(dist, device, cfg, tree, runs, max_len=64):
     """test_torch_tp_serve.py's scheduler runs on one rank group:
     ``runs`` name -> (scheduler kind, scheduler kw, engine ParallelConfig
     kw, requests, top_k)."""
     torch.set_num_threads(1)
     out = {}
     for name, (kind, sched_kw, par_kw, reqs, top_k) in runs.items():
-        eng = _engine(dist, device, cfg, tree, par_kw, max_len=64,
+        eng = _engine(dist, device, cfg, tree, par_kw, max_len=max_len,
                       sampling=SamplingConfig(top_k=top_k))
         if kind == "wave":
             sched = WaveScheduler(eng, **sched_kw)
@@ -160,4 +220,19 @@ def run_serve_cases(dist, device, cfg, tree, runs):
         done = _serve(sched, reqs)
         out[name] = ({rid: (r.output, r.finish_reason) for rid, r in done.items()},
                      dict(getattr(sched, "stats", {})))
+    return out
+
+
+def run_family_serve_cases(dist, device, archs):
+    """tests/test_torch_tp_families_serve.py's runs on one rank group:
+    ``archs`` name -> (cfg, tree, max_len, runs) as ``run_serve_cases``
+    takes them; an MoE arch's runs add each rank's routes (``_routes``)."""
+    out = {}
+    for name, (cfg, tree, max_len, runs) in archs.items():
+        moe.LOG = [] if cfg.moe is not None else None
+        for run, res in run_serve_cases(dist, device, cfg, tree, runs, max_len).items():
+            out[f"{name} {run}"] = res
+        if moe.LOG is not None:
+            out[f"{name} routes"] = _routes(moe.LOG)
+        moe.LOG = None
     return out
