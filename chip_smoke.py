@@ -125,10 +125,19 @@ Phases, each fatal on failure:
    (> 256 routed tokens: drops) and phase 6's paged chunked-spec workload;
    mixtral-8x7b int4 (4 layers; 4 of 8 experts a rank, 16 q over 4 KV
    heads) and minicpm3-4b bf16 (8 layers; 20 of 40 latent heads a rank,
-   the latent cache replicated) in one wave of 4 each.  Per request, each
+   the latent cache replicated) in one wave of 4 each; mamba2-1.3b bf16
+   (8 layers; 32 of 64 SSD heads a rank, its tied head over the
+   vocab-sharded table) in one wave of 4 of phase 5's prompts and phase
+   11's paged slot workload; musicgen-medium bf16 (12 layers; 12 of 24
+   heads, the (4, d, 1024) head shard, (b, 4) frames) in one wave of 4;
+   and at full depth internvl2-26b int4 (48 layers, 24 q over 4 KV heads,
+   its 92553-row table vocab-sharded, its lm_head's 46277-column rank
+   shard through dequant_matmul) in one wave of 4, both behind their
+   zero-feature prefixes.  Per request, each
    holds the tokens of the tp=1 phase of the same weights (qwen-72b and
    the cut-depth waves: the first four of their tp=1 wave; the two-sync
-   gptj wave: the one-shot one's too) or parts at a
+   gptj wave: the one-shot one's too; a frame's every codebook a token of
+   its own) or parts at a
    near-tie of the tp=1 model, at most half parted: a top-2 gap below
    1e-2 (not enough alone for gptj-parallel), or a witness: for
    gptj-parallel the plain versions, as its slot phases; else the tp
@@ -136,18 +145,22 @@ Phases, each fatal on failure:
    distance from its plain versions there (at least 5e-2) of tp=1's, each
    side's token within once that of the other's top.  Each phase prints its collectives (``comm``:
    one decode step at b 4 and the whole run, by tag), and a decode step
-   must all-reduce 2 x L times (L with one_shot_sync), each 64 KiB on the
-   wire for yi-9b, plus the two top-k gathers and, for qwen-72b and
-   recurrentgemma-9b, the embedding's all-reduce; every rank's launches as
+   must all-reduce 2 x L times (L with one_shot_sync; once an SSD layer),
+   each 64 KiB on the wire for yi-9b, plus the two top-k gathers and,
+   where the table is vocab-sharded (qwen-72b, recurrentgemma-9b,
+   mamba2-1.3b's tied one, internvl2-26b), the embedding's all-reduce;
+   every rank's launches as
    predicted (two top-k launches a sampling call; each MoE layer's routing
    top-k once a forward on every rank; one lru_scan a recurrent layer a
    prefill); every rank the same tokens and the same dropped assignments,
    and deepseek's wave the tp=1 wave's drops, layer call by layer call
    (its paged job too where no stream parted).  Kernel rows at the ranks'
    shapes: lru_scan at (4, 2304, 2048), decode_attention at
-   recurrentgemma's (4, 8, 1, 256) over its ring and at mixtral's (4, 16
-   over 4, 1, 128) over the wrapped 4100-entry ring, their launches
-   counted on the tp phases.  With two or
+   recurrentgemma's (4, 8, 1, 256) over its ring, at mixtral's (4, 16
+   over 4, 1, 128) over the wrapped 4100-entry ring and at internvl's (4,
+   24 over 4, 1, 128), the top-k over musicgen's (16, 1024) shard of a
+   step's frames and dequant_matmul at internvl's int4 lm_head rank shard,
+   their launches counted on the tp phases.  With two or
    more cards the yi-9b wave runs once more over NCCL, one card a rank;
    with one, a line says why it did not run.
 
@@ -186,7 +199,8 @@ Phases, each fatal on failure:
    its 4100-entry ring (the wrap asserted from its position rows), in
    bf16 K/V and over the int8 cache, once each; mamba2-1.3b bf16 (8 of
    48 layers) through the wave and the continuous and paged slot phases (the pool
-   reserves no block).  Launches as predicted (a chunk or a verify step
+   reserves no block; phase 9's tp jobs are held to its wave and paged
+   streams).  Launches as predicted (a chunk or a verify step
    into the ring attends in plain PyTorch, as the reference's jnp), peak
    memory, ms/token and the MoE drops.  Kernel rows at mixtral's shapes:
    flash_prefill at g 4 with the window, decode_attention and its int8
@@ -199,13 +213,14 @@ Phases, each fatal on failure:
    weights on the CPU behind 8 positions of seeded non-zero features: a
    prefill and 8 decode-step logits within 5e-2, and Engine.generate's
    greedy streams equal or parted where every differing codebook shows a
-   CPU top-2 gap below 1e-2.  Then full width and full depth from seed 0,
-   zero features: internvl2-26b bf16 (48 layers, its 256-position prefix)
+   CPU top-2 gap below 1e-2.  Then full width from seed 0, zero features:
+   internvl2-26b at full depth, bf16 (48 layers, its 256-position prefix)
    through phase 5's wave workload, the slot workload through the
    ContinuousScheduler (whole prompts: the frontend blocks chunks) in bf16
-   and over the int8 KV cache on the same weights, and the int4 wave;
-   musicgen-medium bf16 (48 layers, its 64-position prefix, (b, 4) frames)
-   through the wave and continuous phases.  Tokens in range, a second run
+   and over the int8 KV cache on the same weights, and the int4 wave
+   (phase 9's internvl job is held to it); musicgen-medium bf16 at 12 of 48
+   layers (its 64-position prefix, (b, 4) frames) through the wave
+   (phase 9's musicgen job is held to it) and continuous phases.  Tokens in range, a second run
    identical, launches as predicted (a multi-codebook head is dequantized
    for its einsum, no dequant_matmul launch; one top-k launch samples a
    step's b x 4 frames), peak memory and ms a frame; the bf16 continuous
@@ -249,18 +264,18 @@ the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
 12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 14 of 28,
-phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48), so that the
-whole run stays near its ~800 s aim with phases 10-13 added.  The tp
-phases of the dense family and the tp=1 phases they are held to run at
-full depth; the RG-LRU, MoE and MLA tp phases run at their tp=1 phases'
-cut depth (drawing those weights again at full depth would cost
-minutes).  The slot
+phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48, phase 12's
+musicgen-medium 12 of 48), so that the whole run stays under ~1000 s with
+phases 10-13 added.  The tp phases of the dense family and internvl2-26b,
+and the tp=1 phases they are held to, run at full depth; the RG-LRU,
+MoE, MLA, SSD and musicgen tp phases run at their tp=1 phases' cut depth
+(drawing those weights again at full depth would cost minutes).  The slot
 phases hold at most MAX_PARTED partings, and shallower
 random models part more often (the yi-9b int8-KV ones at 12 layers: 7 of
 12), so they keep their earlier depths.  qwen-72b's
 int8-KV wave stays at 80 layers: its peak memory must show that 4 x 4096
-tokens fit the card; phase 12 runs at full depth (its peak memory shows
-that internvl2-26b's 39.7 GB of bf16 weights serve on one card).
+tokens fit the card; phase 12's internvl2-26b runs at full depth (its peak
+memory shows that its 39.7 GB of bf16 weights serve on one card).
 
 Each kernel row of the last lines counts its launches on the phases of the
 arches whose shapes it was timed at (``launches_counted_on``), the tp
@@ -339,14 +354,17 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 # their full-depth peaks and ms/token are in PERF.md section 6).  The dense
 # tp phases, the tp=1 phases they are held to, qwen-72b's int8-KV wave (its
 # peak memory shows that 4 x 4096 tokens fit one card) and phase 12 run at
-# full depth; the RG-LRU, MoE and MLA tp phases at their tp=1 phases' cut
-# depth here.  deepseek-moe-16b runs 14 layers: its tp=2 paged chunked-spec
+# full depth; the RG-LRU, MoE, MLA and SSD tp phases and musicgen-medium's
+# at their tp=1 phases' cut depth here (musicgen's phase-12 checks read
+# the same at any depth; internvl2-26b's stay at 48 layers for its peak
+# memory).  deepseek-moe-16b runs 14 layers: its tp=2 paged chunked-spec
 # job parted from the tp=1 phase in 7 of 12 streams at 6 and at 28 layers
 # and in 3 at 14, every parting certified (router near-ties; PERF.md
 # section 6), against the at-most-half rule.
 EARLIER_DEPTH = {"recurrentgemma-9b": 3, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
                  "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
-                 "deepseek-moe-16b": 14, "mixtral-8x7b": 4, "mamba2-1.3b": 8}
+                 "deepseek-moe-16b": 14, "mixtral-8x7b": 4, "mamba2-1.3b": 8,
+                 "musicgen-medium": 12}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -3587,6 +3605,9 @@ def ssd_slot_phases(dev, params) -> list:
             if not np.array_equal(r.output, second[rid].output):
                 fail(f"{SSD_ARCH} {name} request {rid}: greedy tokens differ between two runs")
         tokens[name] = first
+        if name == "paged":       # phase 9's paged job is held to these
+            TP1_STREAMS[(cfg.name, "none", "paged")] = (cfg.n_layers, {rid: r.output for rid, r
+                                                                      in first.items()})
         n_tokens = sum(len(r.output) for r in first.values())
         result = {"arch": cfg.name, "scheduler": name, "kv_quant": False, "layers": cfg.n_layers,
                   "params": cfg.param_count(), "requests": SLOT_WORKLOAD["requests"],
@@ -3641,14 +3662,18 @@ def ring_ssd_phases(dev):
 
 
 def check_tp_rank_kernels(dev, flush) -> list:
-    """The kernels at a tp=2 rank's shapes of phase 9's RG-LRU and MoE
-    jobs: lru_scan over recurrentgemma-9b's (4, 2304, 2048), a rank's half
-    of the 4096 channels; decode_attention at its (4, 8, 1, 256), a rank's
-    8 q heads over the replicated KV head, over the 2048-entry ring; and at
-    mixtral-8x7b's (4, 16 over 4, 1, 128) over the wrapped 4100-entry ring.
-    Each held to its plain version as the tp=1 rows are, with its time,
-    SDPA's (none for lru_scan) and its bound; its launches are counted on
-    the tp phases only (``tp_only``), summed over the ranks."""
+    """The kernels at a tp=2 rank's shapes of phase 9's RG-LRU, MoE and
+    frontend jobs: lru_scan over recurrentgemma-9b's (4, 2304, 2048), a
+    rank's half of the 4096 channels; decode_attention at its (4, 8, 1,
+    256), a rank's 8 q heads over the replicated KV head, over the
+    2048-entry ring, at mixtral-8x7b's (4, 16 over 4, 1, 128) over the
+    wrapped 4100-entry ring and at internvl2-26b's (4, 24 over 4, 1, 128)
+    over its 448-entry cache; the top-k over musicgen-medium's (16, 1024)
+    shard of a step's frames, k 1; dequant_matmul at internvl2-26b's int4
+    lm_head rank shard (4, 6144) @ (6144, 46277).  Each held to its plain
+    version as the tp=1 rows are, with its time, SDPA's, torch.topk's or
+    torch.matmul's (none for lru_scan) and its bound; its launches are
+    counted on the tp phases only (``tp_only``), summed over the ranks."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -3724,6 +3749,39 @@ def check_tp_rank_kernels(dev, flush) -> list:
     valid = (pos >= 0) & (pos <= cur[:, None]) & (pos > cur[:, None] - RING_WINDOW)
     rows.append(decode_row(f"{RING_ARCH} tp=2 rank ring, g 4", RING_ARCH, RING_HQ // TP,
                            RING_HKV // TP, HD, RING_S, valid, "wrapped ring"))
+    # internvl2-26b: a rank's 24 q over 4 KV heads behind the prefix
+    S, lens = FRONTEND_DECODE[VLM_ARCH]
+    valid = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    rows.append(decode_row(f"{VLM_ARCH} tp=2 rank, g 6", VLM_ARCH, VLM_HQ // TP, VLM_HKV // TP,
+                           HD, S, valid, f"valid {list(lens)}"))
+    # musicgen-medium: the shard's top-k over a rank's (b x 4, 2048 / 2) frames
+    x = rnd(B * AUD_NCB, AUD_VOCAB // TP).float()
+    before = ops.LAUNCHES["topk"]
+    vals, idx = ops.topk(x, 1)
+    if ops.LAUNCHES["topk"] != before + 1:
+        fail(f"topk over a {AUD_ARCH} tp=2 rank's frames made more than one launch")
+    rv, ri = ref.topk_ref(x, 1)
+    if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+        fail(f"topk over a {AUD_ARCH} tp=2 rank's {tuple(x.shape)} frames differs from its "
+             f"plain version")
+    rows.append({
+        "name": f"topk ({AUD_ARCH} tp=2 rank frames)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk_shard.py:66", "counter": "topk",
+        "arches": [AUD_ARCH], "tp_only": True,
+        "shape": f"x ({B * AUD_NCB},{AUD_VOCAB // TP}) fp32, k=1: a rank's half of {AUD_NCB} "
+                 f"codebooks' vocab, b {B}",
+        "library": "torch.topk", "max_abs_err": 0.0, "tolerance": 0.0,
+        "ms": cold_ms(lambda: ops.topk(x, 1), flush),
+        "plain_ms": cold_ms(lambda: ref.topk_ref(x, 1), flush),
+        "library_ms": cold_ms(lambda: torch.topk(x, 1), flush),
+        **bound(4 * x.numel() + 8 * x.shape[0], x.numel(), FP32_FLOPS)})
+    # internvl2-26b int4: a rank's lm_head shard, 46277 columns (N % 16 != 0)
+    lv = -(-VLM_VOCAB // TP)
+    dq = check_dequant(dev, flush, (("internvl2-26b lm_head int4 tp=2 shard, decode", "int4", B,
+                                     VLM_D, lv, torch.float32),),
+                       f"dequant_matmul ({VLM_ARCH} int4 tp=2 rank lm_head)")
+    rows.append({**dq, "arches": [VLM_ARCH], "tp_only": True})
     return rows
 
 
@@ -4101,8 +4159,8 @@ def frontend_phases(dev):
     """internvl2-26b at full depth: phase 5's wave workload behind its
     256-position prefix in bf16, the slot workload through the continuous
     scheduler in bf16 and over the int8 KV cache on the same weights, then
-    the int4 wave; musicgen-medium at full depth: the bf16 wave and
-    continuous phases in (b, 4) frames."""
+    the int4 wave; musicgen-medium at its cut depth (EARLIER_DEPTH): the
+    bf16 wave and continuous phases in (b, 4) frames."""
     for arch in (VLM_ARCH, AUD_ARCH):
         phase, params = serve_phase(dev, arch, "none")
         yield phase
@@ -4131,6 +4189,11 @@ TP = 2
 TP1_STREAMS: dict = {}
 TP1_DROPS: dict = {}
 LAYER_TAGS = ("mixer_reduce", "ffn_reduce", "one_shot", "attn_reduce")
+# an SSD job's shards, widened to fp32, against the tp=1 model in fp32: the
+# two sum in other orders, fp32 rounding (2^15 below bf16's) carried as the
+# bf16 one is (to ~1 in logits of std ~0.9), so ~1e-4 apart; a wrong head,
+# channel or state moves them by whole units
+TP_FP32_TOL = 1e-2
 
 
 def tp_small_models():
@@ -4267,15 +4330,21 @@ def _tp_full_jobs():
     (3 layers) in one wave of 4 of phase 7's 2100-2300-token prompts,
     deepseek-moe-16b bf16 (14 layers) in one wave of 4 and the paged
     chunked-spec workload, mixtral-8x7b int4 (4 layers) and minicpm3-4b
-    bf16 (8 layers) in one wave of 4 each.  Each job's ``layers`` is its
-    depth and ``max_len`` its cache length."""
+    bf16 (8 layers) in one wave of 4 each, mamba2-1.3b bf16 (8 layers) in
+    one wave of 4 and the paged slot workload (whole prompts), and
+    musicgen-medium bf16 (12 layers, (b, 4) frames) in one wave of 4; and
+    internvl2-26b int4 at full depth (48 layers) in one wave of 4, behind
+    their zero-feature prefixes.  Each job's ``layers`` is its depth,
+    ``max_len`` its cache length and ``ref_phase`` (default the wave, or
+    the paged chunked-spec phase) the tp=1 phase it is held to."""
     from repro_torch.configs import get_config
 
     def wave_work(arch, n, lo=16, hi=128):
         rng = np.random.default_rng(0)      # serve_phase's and hybrid_phases' draws
-        vocab = get_config(arch).vocab_size
-        return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(np.int32)
-                for _ in range(n)]
+        cfg = get_config(arch)
+        frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
+        return [rng.integers(0, cfg.vocab_size, (int(rng.integers(lo, hi + 1)), *frame))
+                .astype(np.int32) for _ in range(n)]
 
     wave = dict(kind="wave", batch=SERVE_BATCH, max_new=SERVE_MAX_NEW, max_len=SERVE_MAX_LEN)
     paged = dict(name="tp2-paged-chunked-spec", kind="paged", max_len=SERVE_MAX_LEN,
@@ -4299,6 +4368,15 @@ def _tp_full_jobs():
              work=wave_work(RING_ARCH, SERVE_BATCH), **wave),
         dict(name="tp2-wave", arch=MLA_ARCH, quant="none", layers=cut(MLA_ARCH),
              work=wave_work(MLA_ARCH, SERVE_BATCH), **wave),
+        dict(name="tp2-wave", arch=SSD_ARCH, quant="none", layers=cut(SSD_ARCH),
+             work=wave_work(SSD_ARCH, SERVE_BATCH), **wave),
+        dict(paged, name="tp2-paged", arch=SSD_ARCH, quant="none", layers=cut(SSD_ARCH),
+             opts=dict(prefill_chunk=0), ref_phase="paged"),
+        dict(name="tp2-wave", arch=AUD_ARCH, quant="none", layers=cut(AUD_ARCH),
+             work=wave_work(AUD_ARCH, SERVE_BATCH),
+             **dict(wave, max_len=FRONTEND_MAX_LEN[AUD_ARCH])),
+        dict(name="tp2-wave", arch=VLM_ARCH, quant="int4", work=wave_work(VLM_ARCH, SERVE_BATCH),
+             **dict(wave, max_len=FRONTEND_MAX_LEN[VLM_ARCH])),
     ]
     for job in jobs:
         job.setdefault("layers", get_config(job["arch"]).n_layers)
@@ -4324,6 +4402,7 @@ def _tp_full_rank(dist, dev, jobs):
     from repro_torch.core import collectives as cc
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import model as M
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.scheduler import PagedContinuousScheduler, WaveScheduler
 
@@ -4363,8 +4442,8 @@ def _tp_full_rank(dist, dev, jobs):
             if p is not None:
                 with torch.inference_mode():
                     lg = eng.forward(torch.as_tensor(p[1], device=dev)[None].long(),
-                                     last_only=True)[0, -1].float()
-                    lg = cc.all_gather(lg, dist, 0)[:cfg.vocab_size]
+                                     last_only=True, features=eng.zero_features(1))[0, -1]
+                    lg = cc.all_gather(lg.float(), dist, lg.dim() - 1)[..., :cfg.vocab_size]
                 parting_logits[r.rid] = lg.cpu().numpy()
         res = {"streams": {r.rid: r.output for r in done}, "parting_logits": parting_logits,
                "routes": drops.pop("routes", None),
@@ -4372,13 +4451,25 @@ def _tp_full_rank(dist, dev, jobs):
                "comm_run": st.by_tag(), "wall_s": wall, "init_s": init_s,
                "stats": dict(getattr(sched, "stats", {})), "moe_drops": drops,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if job["kind"] == "wave" and cfg.ssm is not None:
+            # the shards widened to fp32 through the first wave's prefill
+            # (sequence-sharded), its last logits gathered over the vocab
+            with torch.inference_mode():
+                lg = M.forward(_widen(eng.params), torch.as_tensor(_first_wave(job),
+                                                                   device=dev).long(), cfg,
+                               ctx=eng.ctx, last_only=True, seq_sharded=True)[:, -1]
+                res["fp32_logits"] = cc.all_gather(lg, dist, lg.dim() - 1)[
+                    ..., :cfg.vocab_size].cpu().numpy()
+            del lg
         if job["kind"] == "wave":     # one decode step at b 4, after an 8-token prompt
+            frame = () if cfg.n_codebooks == 1 else (cfg.n_codebooks,)
             with torch.inference_mode():
                 caches = eng.init_caches(SERVE_BATCH)
-                tok = eng.prefill(torch.zeros((SERVE_BATCH, 8), dtype=torch.long, device=dev),
-                                  caches)
+                tok = eng.prefill(torch.zeros((SERVE_BATCH, 8, *frame), dtype=torch.long,
+                                              device=dev), caches,
+                                  eng.zero_features(SERVE_BATCH))
                 with cc.comm_stats() as st:
-                    eng.decode(tok, caches, 8)
+                    eng.decode(tok, caches, eng.prefix + 8)
             res["comm_per_decode_step"] = st.by_tag()
             del caches, tok
         res["job_s"] = time.monotonic() - t0
@@ -4404,10 +4495,48 @@ def _tp1_engine(job: dict, dev, cache: dict):
 
 
 def _tp1_logits(job: dict, dev, cache: dict, seq: np.ndarray) -> torch.Tensor:
-    """The logits of the tp=1 model (``_tp1_engine``) after ``seq``."""
+    """The logits of the tp=1 model (``_tp1_engine``) after ``seq`` (behind
+    the zero features' prefix of a frontend arch): (V,), or (ncb, V)."""
+    eng = _tp1_engine(job, dev, cache)
     with torch.inference_mode():
-        return _tp1_engine(job, dev, cache).forward(torch.as_tensor(seq, device=dev)[None].long(),
-                                                    last_only=True)[0, -1]
+        return eng.forward(torch.as_tensor(seq, device=dev)[None].long(), last_only=True,
+                           features=eng.zero_features(1))[0, -1]
+
+
+def _widen(tree):
+    """A parameter tree with every floating leaf fp32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widen(v) for v in tree]
+    return tree.float() if torch.is_floating_point(tree) else tree
+
+
+def _tp1_exact_logits(job: dict, dev, cache: dict, tokens: np.ndarray) -> torch.Tensor:
+    """The tp=1 model's last logits after ``tokens`` (b, s) evaluated in
+    fp32: its bf16 weights widened (kept in ``cache`` beside its engine),
+    every activation fp32 -> (b, V).  An attention-free model's forward
+    runs no kernel but the sampling top-k, so its plain versions are
+    itself: this evaluation is what measures its own rounding at its
+    depth."""
+    from repro_torch.models import model as M
+
+    eng = _tp1_engine(job, dev, cache)
+    if "fp32" not in cache:
+        cache["fp32"] = _widen(eng.params)
+    with torch.inference_mode():
+        return M.forward(cache["fp32"], torch.as_tensor(tokens, device=dev).long(), eng.cfg,
+                         last_only=True, features=eng.zero_features(len(tokens)))[:, -1]
+
+
+def _first_wave(job: dict) -> np.ndarray:
+    """A wave job's first wave of prompts, right-padded (pad id 0) as the
+    WaveScheduler pads them: (batch, longest)."""
+    wave = job["work"][:job["batch"]]
+    out = np.zeros((len(wave), max(len(p) for p in wave), *wave[0].shape[1:]), np.int32)
+    for i, p in enumerate(wave):
+        out[i, :len(p)] = p
+    return out
 
 
 def _moe_wave_witness(job: dict, dev, cache: dict, r0: dict) -> dict:
@@ -4474,7 +4603,8 @@ def tp_phases(dev, backend: str = "gloo"):
         # held to the tp=1 phase of the same seed, weights and depth (its
         # first requests where the tp phase serves fewer)
         cfg = _job_config(job)
-        key = (cfg.name, job["quant"], "wave" if job["kind"] == "wave" else "paged-chunked-spec")
+        key = (cfg.name, job["quant"], job.get("ref_phase", "wave" if job["kind"] == "wave"
+                                                else "paged-chunked-spec"))
         if key not in TP1_STREAMS or TP1_STREAMS[key][0] != cfg.n_layers:
             fail(f"{job['name']} {cfg.name}: no tp=1 phase of {cfg.n_layers} layers to hold "
                  f"it to ({key})")
@@ -4521,10 +4651,12 @@ def tp_phases(dev, backend: str = "gloo"):
         if comm is not None:
             layer = {k: v for k, v in comm.items() if k.split(" ")[0] in LAYER_TAGS}
             per = 2 if not cfg.parallel_residual or not job.get("one_shot", True) else 1
+            # an SSD layer has no FFN: its mixer's one all-reduce
+            n_ar = sum(1 if cfg.block_kind(i) == "ssd" else per for i in range(L))
             payload = 2 * SERVE_BATCH * cfg.d_model * 2      # bf16 (b, 1, d) twice on the wire
-            if (sum(v["count"] for v in layer.values()) != per * L
+            if (sum(v["count"] for v in layer.values()) != n_ar
                     or any(v["bytes"] != v["count"] * payload for v in layer.values())):
-                fail(f"{name}: a decode step's layer all-reduces {layer}, not {per} x {L} "
+                fail(f"{name}: a decode step's layer all-reduces {layer}, not {n_ar} "
                      f"of {payload} bytes")
             gathers = [k for k in comm if k.startswith(("topk_vals", "topk_idx"))]
             if len(gathers) != 2 or any(comm[k]["count"] != 1 for k in gathers):
@@ -4556,8 +4688,20 @@ def tp_phases(dev, backend: str = "gloo"):
                      f"phase's {want} with no router near-tie, or none past 256 tokens")
         elif n_moe:
             drops["as_tp1_phase"] = per_call == job["ref_drops"]
+        # random-weight SSD streams part at most requests under any other
+        # summation order (its bf16 logits lie ~0.1-1.5 from its fp32
+        # evaluation; PERF.md section 6): each parting is certified, no
+        # count is held, and the shards are held in fp32 instead
+        ssd = cfg.ssm is not None
         parted = {"tp1": _tp_parted(name, job, r0, job["ref"], dev, tp1, r0["parting_logits"],
-                                    witness)}
+                                    witness, limit=not ssd)}
+        twin = None
+        if "fp32_logits" in r0:
+            exact = _tp1_exact_logits(job, dev, tp1, _first_wave(job)).float().cpu().numpy()
+            twin = float(np.abs(r0["fp32_logits"] - exact).max())
+            if not twin <= TP_FP32_TOL:
+                fail(f"{name}: the ranks' shards widened to fp32 give logits {twin} from the "
+                     f"tp=1 model's in fp32 (limit {TP_FP32_TOL})")
         if n_moe and job["kind"] != "wave" and not parted["tp1"] and not drops["as_tp1_phase"]:
             fail(f"{name}: the streams of the tp=1 phase, but dropped assignments a layer call "
                  f"{per_call} != its {job['ref_drops']}")
@@ -4581,6 +4725,8 @@ def tp_phases(dev, backend: str = "gloo"):
             **({"moe_drops": drops} if n_moe else {}),
             "comm": {"per_decode_step": comm, "run": r0["comm_run"]},
             "stats": r0["stats"], "parted_at_near_ties": parted,
+            **({"fp32_twin_max_abs_diff": twin, "fp32_twin_tolerance": TP_FP32_TOL}
+               if twin is not None else {}),
             "first_tokens": {rid: r0["streams"][rid][:8].tolist()
                              for rid in sorted(r0["streams"])[:2]},
             "ranks_spawn_to_exit_s": spawn_s,
@@ -4594,24 +4740,31 @@ def tp_phases(dev, backend: str = "gloo"):
 
 def _parting(job: dict, rid: int, toks: np.ndarray, want: np.ndarray, prompt: np.ndarray):
     """-> None where ``toks`` is ``want``, else (t, seq): the first step at
-    which it parts, and what the model read before it: the prompt as the
-    phase ran it (a wave's right-padded) and ``want``'s tokens before t."""
+    which it parts (a frame where any codebook does), and what the model
+    read before it: the prompt as the phase ran it (a wave's right-padded)
+    and ``want``'s tokens before t."""
     if np.array_equal(toks, want):
         return None
     n = min(len(toks), len(want))
-    t = int(np.argmax(toks[:n] != want[:n])) if (toks[:n] != want[:n]).any() else n
+    diff = (toks[:n] != want[:n]).reshape(n, -1).any(axis=1)
+    t = int(np.argmax(diff)) if diff.any() else n
     if job["kind"] == "wave":
         w0 = rid - rid % job["batch"]
         plen = max(len(p) for p in job["work"][w0:w0 + job["batch"]])
-        prompt = np.concatenate([prompt, np.zeros(plen - len(prompt), np.int32)])
+        prompt = np.concatenate([prompt, np.zeros((plen - len(prompt), *prompt.shape[1:]),
+                                                  np.int32)])
     return t, np.concatenate([prompt, want[:t]])
 
 
 def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
-               tp_logits: dict | None = None, witness: dict | None = None) -> list:
+               tp_logits: dict | None = None, witness: dict | None = None,
+               limit: bool = True) -> list:
     """Per request of a tp phase (rank 0's streams): ``ref``'s tokens, or a
-    first difference at a near-tie of the tp=1 model; at most half the
-    requests parted.  A near-tie: the tp=1 top-2 logits within TIE_GAP, as
+    first difference at a near-tie of the tp=1 model; with ``limit``, at
+    most half the requests parted.  A frame parts where any codebook does,
+    and each codebook that differs there is a token of its own: every one
+    of them must be certified, and each counts as a parted stream out of
+    the requests' ncb codebook streams.  A near-tie: the tp=1 top-2 logits within TIE_GAP, as
     the dense slot phases certify one.  Else a witness, which for the
     parallel residual is the only one that counts (its one fused sum
     rounds once where the two-sync baseline rounds each partial), as in
@@ -4621,7 +4774,9 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
     ranks' own logits there are given (``tp_logits``) and the arch is not
     the parallel residual, the witness is theirs.  ``spread``, the larger
     of REF_TOL and the tp=1 port's distance from its plain versions on the
-    same input, is the port's own rounding at that depth; two computations
+    same input (for an attention-free model, which runs no kernel there,
+    from its fp32 evaluation, ``_tp1_exact_logits``), is the port's own
+    rounding at that depth; two computations
     each that far from the exact logits lie within twice it of each other.
     So the tp logits must lie within 2 x ``spread`` of the tp=1 ones (a
     wrong shard or merge moves them by whole units), and each side must
@@ -4636,15 +4791,37 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
         if p is None:
             continue
         t, seq = p
+        # a row per codebook (one for a single-codebook head); each codebook
+        # that differs at step t is a token of its own, certified alone
         logits = _tp1_logits(job, dev, cache, seq).float()
-        gap = float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
-        flip = {"rid": rid, "step": t, "top2_gap": gap}
+        V = logits.shape[-1]
+        logits = logits.reshape(-1, V)
+        ncb = logits.shape[0]
+        cbs = (np.flatnonzero((toks[t] != want[t]).reshape(-1)) if t < min(len(toks), len(want))
+               else np.arange(ncb))
+        top2 = torch.topk(logits[torch.as_tensor(cbs, device=dev)], 2).values
+        gap = float((top2[:, 0] - top2[:, 1]).max())
+        flip = {"rid": rid, "step": t, "top2_gap": gap,
+                **({"codebooks": cbs.tolist()} if ncb > 1 else {})}
+
+        def below(lg, x):
+            """How far below its top ``lg`` puts stream x's token(s) at t."""
+            at = np.asarray(x[t]).reshape(-1)
+            return max((lg[c].max() - lg[c, int(at[c])]).item() for c in cbs)
+
         if witness is not None or job["arch"] == GJ_ARCH or not gap < TIE_GAP:
             with plain_on_card():
-                plain = _tp1_logits(job, dev, cache, seq).float()
+                plain = _tp1_logits(job, dev, cache, seq).float().reshape(-1, V)
             err = (logits - plain).abs().max().item()
             flip["plain_max_abs_err"] = err
-            tp = None if tp_logits is None else torch.as_tensor(tp_logits[rid], device=dev)
+            if _job_config(job).ssm is not None:
+                # no kernel to be apart from: the port's rounding is its
+                # distance from its fp32 evaluation
+                exact = _tp1_exact_logits(job, dev, cache, seq[None])[0].float().reshape(-1, V)
+                flip["fp32_max_abs_err"] = (logits - exact).abs().max().item()
+                err = max(err, flip["fp32_max_abs_err"])
+            tp = (None if tp_logits is None
+                  else torch.as_tensor(tp_logits[rid], device=dev).reshape(-1, V))
             if tp is not None:
                 flip["tp_max_abs_diff"] = (tp - logits).abs().max().item()
             if witness is not None:
@@ -4653,16 +4830,14 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
                 # token within ``spread`` of its top; its routes apart
                 # from the ranks' are near-ties (checked by the caller)
                 spread = max(REF_TOL, err)
-                row = witness["logits"][t][rid]
-                slack = (row.max() - row[int(toks[t])]).item()
+                slack = below(witness["logits"][t][rid].reshape(-1, V), toks)
                 if not slack <= spread:
                     fail(f"{name} request {rid} parts at step {t}: the tp=1 model replaying "
                          f"the ranks' expert choices through the wave puts their token "
                          f"{slack} below its top (limit {spread})")
                 flip.update(replayed_wave_slack=slack, spread=spread)
             elif job["arch"] == GJ_ARCH or tp is None:
-                slack = [(plain.max() - plain[int(x[t])]).item() for x in (want, toks)
-                         if t < len(x)]
+                slack = [below(plain, x) for x in (want, toks) if t < len(x)]
                 if not (err <= REF_TOL and max(slack) < REF_TOL):
                     fail(f"{name} request {rid} parts at step {t}: the plain versions there "
                          f"differ from the port by {err} and put the two tokens {slack} below "
@@ -4670,17 +4845,22 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
                 flip["plain_slack"] = slack
             else:
                 spread = max(REF_TOL, err)
-                slack = [(lg.max() - lg[int(x[t])]).item() for lg, x in ((logits, toks), (tp, want))
-                         if t < len(x)]
+                slack = [below(lg, x) for lg, x in ((logits, toks), (tp, want)) if t < len(x)]
                 if not (flip["tp_max_abs_diff"] <= 2 * spread and max(slack) <= spread):
                     fail(f"{name} request {rid} parts at step {t}: the tp logits there differ "
                          f"from tp=1's by {flip['tp_max_abs_diff']} (limit {2 * spread}) and "
                          f"the two sides put each other's token {slack} below their top "
-                         f"(limit {spread}: the tp=1 port is {err} from its plain versions)")
+                         f"(limit {spread}: the tp=1 port is {err} from its plain versions or, "
+                         f"attention-free, its fp32 evaluation)")
                 flip.update(tp_slack=slack, spread=spread)
         parted.append(flip)
-    if len(parted) > len(r0["streams"]) // 2:
-        fail(f"{name}: {len(parted)} of {len(r0['streams'])} streams part")
+    # each codebook of a frame is a token of its own: a parting frame counts
+    # its differing codebooks, out of every request's ncb streams
+    ncb = _job_config(job).n_codebooks
+    n_parted = sum(len(f.get("codebooks", (0,))) for f in parted)
+    if limit and n_parted > len(r0["streams"]) * ncb // 2:
+        fail(f"{name}: {n_parted} of {len(r0['streams']) * ncb} streams part"
+             + (" (codebook streams)" if ncb > 1 else ""))
     return parted
 
 

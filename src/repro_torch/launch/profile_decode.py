@@ -15,6 +15,7 @@
     python -m repro_torch.launch.profile_decode --arch musicgen-medium --scheduler continuous
     python -m repro_torch.launch.profile_decode --tp 2       # ranks share the card over gloo
     python -m repro_torch.launch.profile_decode --arch deepseek-moe-16b --tp 2 --layers 14
+    python -m repro_torch.launch.profile_decode --arch mamba2-1.3b --tp 2 --layers 8
 
 Builds the arch at full width from random weights, prefills one wave (or,
 with ``--scheduler continuous|paged``, admits ``--batch`` prompts into the
@@ -61,8 +62,9 @@ of the steps (``comm_per_step``: count and wire bytes by tag) beside its
 kernel times.  Ranks that share a card share its time: their step times
 are no tensor-parallel speed.  ``--layers N`` cuts the arch to its first N
 layers, at full width, as chip_smoke.py's cut-depth phases run it (phase
-9's RG-LRU, MoE and MLA jobs: their ``comm`` a decode step is this
-line's ``comm_per_step`` at the same depth).
+9's RG-LRU, MoE, MLA, SSD and musicgen-medium jobs: their ``comm`` a
+decode step is this line's ``comm_per_step`` at the same depth; an SSD
+arch's ``ssd_scan_ms_per_step`` is then a rank's, over its heads).
 """
 from __future__ import annotations
 

@@ -30,8 +30,9 @@ is given, where the kernels' plain versions run.
 ``--tp N`` serves with tensor parallelism over N ranks, one process each
 (``launch/mesh.py``): every rank builds its shard of the same seeded
 model and runs the same scheduler over the same requests; rank 0 prints.
-The dense, RG-LRU, MoE and MLA families are served at --tp 2, 4 and 8;
-SSD, tied embeddings, a frontend and multi-codebook heads at --tp 1 only.
+Every config is served at --tp 2, 4 and 8: the dense, RG-LRU, MoE and MLA
+families, the SSD heads, the tied head over the vocab-sharded table, the
+modality prefix and the multi-codebook head.
 ``--dist-backend nccl`` puts one rank on each card and raises when there
 are fewer cards than ranks; ``gloo`` (the default) shares the cards, or
 runs on the CPU with ``--device cpu``, its collectives staged through host
@@ -126,8 +127,7 @@ def add_weight_quant_args(ap: argparse.ArgumentParser) -> None:
 
 def add_tp_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism over N ranks, one process each (1, 2, 4 or 8; "
-                         "the SSD, tied-embedding, frontend and codebook archs at 1)")
+                    help="tensor parallelism over N ranks, one process each (1, 2, 4 or 8)")
     ap.add_argument("--dist-backend", choices=mesh.BACKENDS, default="gloo",
                     help="--tp > 1: nccl (one card a rank) or gloo (ranks may share a card "
                          "or run on the CPU; collectives staged through host memory)")

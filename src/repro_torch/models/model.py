@@ -1,9 +1,9 @@
 """Top-level decoder: parameters, caches and forward (``repro.models.model``
 for the dense family, sequential or parallel residual, the RG-LRU hybrid,
-multi-head latent attention and the mixture-of-experts FFN (over a
-sliding-window ring too) at any supported tensor-parallel degree, and the
-Mamba-2 SSD mixer, tied embeddings, the modality-prefix frontend and
-multi-codebook heads at tp=1).
+multi-head latent attention, the mixture-of-experts FFN (over a
+sliding-window ring too), the Mamba-2 SSD mixer, tied embeddings, the
+modality-prefix frontend and multi-codebook heads, at any supported
+tensor-parallel degree).
 
 Parameters are a plain dict::
 
@@ -47,13 +47,17 @@ holds its shard (``shard_leaf``, by the leaf's layer family): the padded
 q-head layout's and the KV heads' columns of ``w_q``/``w_k``/``w_v`` and
 their biases, its heads of ``w_o``, its columns of ``w_up``/``w_gate`` and
 rows of ``w_down``, its columns of the lm_head (the vocab padded to a
-multiple of tp) and, for a table larger than
-``embedding.REPLICATE_BYTES_LIMIT``, its rows of the embed table; an MLA
+multiple of tp; a multi-codebook head's of every codebook) and, for a
+table larger than ``embedding.REPLICATE_BYTES_LIMIT`` or tied to the head,
+its rows of the embed table (the tied head is that shard, transposed); an MLA
 layer its heads' columns of ``w_uq``/``w_uk``/``w_uv``; an MoE layer its
 experts' blocks (``moe.moe_plan``: where tp > E, a slice of one expert's
 d_ff) and its columns and rows of the shared experts; an RG-LRU layer its
-channels, gate blocks and ``w_out`` rows.  Norms, smaller tables, the
-router and MLA's down-projections (the latent cache they feed is
+channels, gate blocks and ``w_out`` rows; an SSD layer its heads
+(``ssm``: ``w_z``/``w_x``/``w_dt`` columns, the per-head scalars and norm,
+``w_out`` rows, its x channels of the conv weight beside the B/C ones).
+Norms, smaller tables, the router, an SSD layer's ``w_bc``, the frontend's
+projector and MLA's down-projections (the latent cache they feed is
 replicated) are replicated.  The forward is the
 per-shard program: every rank runs it, and the collectives between them
 are the ``SyncPolicy``'s (``core/sync_policy.py``).
@@ -94,8 +98,7 @@ WQ_SITES = {"w_q": "matmul", "w_k": "matmul", "w_v": "matmul", "w_o": "einsum",
 FFN_KEYS = ("w_up", "w_gate", "w_down")
 
 
-# tensor-parallel degrees the port serves (SSD, tied embeddings, frontends
-# and multi-codebook heads at 1 only)
+# tensor-parallel degrees the port serves
 TP_DEGREES = (1, 2, 4, 8)
 
 
@@ -167,18 +170,10 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         missing.append("attn and local_attn layers together (one cache length for all)")
     if cfg.parallel_residual and "rglru" in kinds:
         missing.append("parallel_residual with rglru layers")
-    if cfg.frontend is not None and parallel.tp > 1:
-        missing.append("frontend at tp>1 (the modality prefix's sequence sharding)")
-    if cfg.n_codebooks != 1 and parallel.tp > 1:
-        missing.append("n_codebooks>1 at tp>1 (vocab-sharded multi-codebook heads)")
     if parallel.weight_quant not in ("none", *wquant.MODES):
         missing.append(f"weight_quant={parallel.weight_quant}")
     if parallel.tp not in TP_DEGREES:
         missing.append(f"tp={parallel.tp} (tensor parallelism at tp 1, 2, 4 or 8)")
-    if parallel.tp > 1 and "ssd" in kinds:
-        missing.append("tp>1 with ssd layers (head-sharded SSD)")
-    if parallel.tp > 1 and cfg.tie_embeddings:
-        missing.append("tie_embeddings at tp>1 (the vocab-sharded table as the head)")
     if parallel.tp > 1 and wq_cache is not None:
         missing.append("wq_cache at tp>1 (a packed checkpoint per rank)")
     if wq_cache is not None and (cfg.moe is not None or "ssd" in kinds or cfg.tie_embeddings):
@@ -209,7 +204,8 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
         if cfg.d_ff % tp:
             raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} not a multiple of tp {tp}")
         # the JAX plans' own refusals: experts (moe_plan), the shared
-        # experts' d_ff, the RG-LRU channels and gate blocks (_dims)
+        # experts' d_ff, the RG-LRU channels and gate blocks, the SSD heads
+        # (_dims)
         try:
             if cfg.moe is not None:
                 moe_mod.moe_plan(cfg.moe, tp)
@@ -218,6 +214,8 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
                                      f"tp {tp}")
             if "rglru" in kinds:
                 rglru._dims(cfg, tp)
+            if "ssd" in kinds:
+                ssm._dims(cfg, tp)
         except ValueError as e:
             raise ValueError(f"{cfg.name}: {e}") from None
 
@@ -399,12 +397,14 @@ class Split(NamedTuple):
     """One axis of a leaf's shard: axis ``axis`` (counted from the end) of
     the global leaf holds ``dims`` = (groups, heads a group, entries a
     head), is zero-padded to ``dims_p``, and the rank keeps [start, start +
-    size) of it."""
+    size) of it; the axis's last ``kept`` entries stand after those and
+    every rank keeps them (an SSD conv weight's B/C columns)."""
     axis: int
     dims: Tuple[int, int, int]
     dims_p: Tuple[int, int, int]
     start: int
     size: int
+    kept: int = 0
 
 
 def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int,
@@ -418,7 +418,9 @@ def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int,
     are replicated; an expert block splits on its expert axis and, where
     ffn_tp > 1, on its d_ff too (``moe.moe_plan``); the shared experts
     split as a dense FFN of ``shared_d_ff``; an RG-LRU mixer by channel,
-    gate block and ``w_out`` row (``rglru._dims``)."""
+    gate block and ``w_out`` row (``rglru._dims``); an SSD mixer by head
+    (``ssm._dims``), its conv weight the rank's x channels and the B/C
+    columns (``ssm.conv_slice``), ``w_bc`` replicated."""
     tp = plan.tp
     if tp == 1:
         return ()
@@ -432,7 +434,17 @@ def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int,
         return Split(-1, (plan.n_kv_heads, g, width), (plan.n_kv_p, plan.group_p, width),
                      rank * plan.local_q * width, plan.local_q * width)
 
-    if name.startswith("mixer."):                     # RG-LRU (SSD is tp=1 only)
+    if mixer == "ssd" and name.startswith("mixer."):
+        leaf = name[len("mixer."):]
+        d_in, nh, _ = ssm._dims(cfg, tp)
+        if leaf == "conv_w":
+            start, width, bc = ssm.conv_slice(cfg, tp, rank)
+            return (Split(-1, (d_in, 1, 1), (d_in, 1, 1), start, width, bc),)
+        per_head = {"w_z": (d_in, -1), "w_x": (d_in, -1), "norm": (d_in, -1),
+                    "w_out": (d_in, -2), "w_dt": (nh, -1), "dt_bias": (nh, -1),
+                    "A_log": (nh, -1), "D": (nh, -1)}
+        return (even(*per_head[leaf]),) if leaf in per_head else ()
+    if name.startswith("mixer."):                     # RG-LRU
         leaf = name[len("mixer."):]
         w, nb, _ = rglru._dims(cfg, tp)
         axis = {"w_gate": -1, "w_x": -1, "conv_w": -1, "Lambda": -1, "w_out": -2}
@@ -481,9 +493,14 @@ def _split(name: str, cfg: ModelConfig, plan: ShardPlan, rank: int,
 
 
 def _pad_slice(t: torch.Tensor, axis: int, dims, dims_p, start: int, size: int,
-               fill: float = 0.0) -> torch.Tensor:
+               kept: int = 0, fill: float = 0.0) -> torch.Tensor:
     """Axis ``axis`` of t viewed as ``dims``, padded with ``fill`` to
-    ``dims_p``, then [start, start + size) of it."""
+    ``dims_p``, then [start, start + size) of it, followed by the axis's
+    last ``kept`` entries."""
+    if kept:
+        n = t.shape[axis] - kept
+        return torch.cat([_pad_slice(t.narrow(axis, 0, n), axis, dims, dims_p, start, size,
+                                     fill=fill), t.narrow(axis, n, kept)], dim=axis)
     if tuple(dims) != tuple(dims_p):
         axis %= t.dim()
         lead, tail = t.shape[:axis], t.shape[axis + 1:]
@@ -526,7 +543,7 @@ def _shard_shape(name: str, shape, cfg: ModelConfig, plan: ShardPlan, rank: int,
                  family: str = "attn"):
     out = list(shape)
     for sp in _split(name, cfg, plan, rank, family):
-        out[sp.axis] = sp.size
+        out[sp.axis] = sp.size + sp.kept
     return tuple(out)
 
 
@@ -686,25 +703,38 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
     then the head's sweep reads it whole, in bf16 whatever the quantization.
     The frontend's projector is left out too: a prefill runs it, decode
     never does.  The head counts its ncb codebooks.  MoE counts every
-    expert, as the reference's decode (C = T) runs every one."""
+    expert, as the reference's decode (C = T) runs every one.
+
+    At tp > 1 ``rank_swept`` adds what one rank's shard sweeps (rank 0's:
+    its padded heads, its experts, its vocab shard of the head, or of the
+    tied table), each quantized leaf at its shard's packed size."""
     leaves = [(family, name, (len(idx), *d.shape), d.dtype)
               for family, idx in layer_families(cfg).items()
               for name, d in layer_param_defs(cfg, family).items()]
     head = "table" if cfg.tie_embeddings else "lm_head"
-    leaves += [("", "final_norm", (cfg.d_model,), torch.bfloat16),
-               ("", head, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
-    quantized = dense = ref_einsum = 0
+    leaves += [("attn", "final_norm", (cfg.d_model,), torch.bfloat16),
+               ("attn", head, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size), torch.bfloat16)]
+    quantized = dense = ref_einsum = rank_swept = 0
+    plan = ShardPlan.make(cfg, parallel.tp)
     for family, name, shape, dtype in leaves:
+        # the tied table is swept as the head: (ncb, d, V), split on V
+        local = _shard_shape("lm_head" if name == "table" else name, shape, cfg, plan, 0,
+                             family)
         if _quantizes(name, shape, parallel, family, cfg):
-            b = wquant.quant_bytes(shape, parallel.weight_quant, parallel.wq_group_size,
-                                   _k_shards(name, parallel.tp, family, cfg))
+            mode, gs = parallel.weight_quant, parallel.wq_group_size
+            b = wquant.quant_bytes(shape, mode, gs, _k_shards(name, parallel.tp, family, cfg))
             quantized += b
             site = head_site(cfg) if name == "lm_head" else wq_site(family, name)
             ref_einsum += b if site == "einsum" else 0
+            rank_swept += wquant.quant_bytes(local, mode, gs)
         else:
             dense += dtype.itemsize * math.prod(shape)
-    return {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
-            "swept": quantized + dense}
+            rank_swept += dtype.itemsize * math.prod(local)
+    out = {"quantized": quantized, "dense": dense, "quantized_ref_einsum": ref_einsum,
+           "swept": quantized + dense}
+    if parallel.tp > 1:
+        out["rank_swept"] = rank_swept
+    return out
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -727,8 +757,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     their state, ``h`` and ``conv`` (``rglru.init_rglru_state`` or
     ``ssm.init_ssd_state``).
     ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
-    default all of them); ``tp``: the ranks the RG-LRU channels of the
-    recurrent state split over (each holds w / tp).  MLA layers cache latents instead of K/V:
+    default all of them); ``tp``: the ranks the recurrent state splits over
+    (each holds the RG-LRU's w / tp channels, or the SSD's heads / tp and
+    its d_in / tp + 2N conv channels).  MLA layers cache latents instead of K/V:
     ``ckv``/``krope`` with a unit head axis and their own widths
     (``mla.cache_dims``), bf16 whatever ``kv_quant`` says, as the reference
     keeps its latent cache."""
@@ -758,7 +789,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
             caches[key] = torch.zeros(shape(hkv, hd)[:-1], dtype=torch.bfloat16, device=device)
     if n_rec:
         if "ssd" in fams:
-            caches.update(ssm.init_ssd_state(cfg, n_rec, batch, device=device))
+            caches.update(ssm.init_ssd_state(cfg, n_rec, batch, device=device, tp=tp))
         else:
             caches.update(rglru.init_rglru_state(cfg, n_rec, batch, device=device, tp=tp))
     return caches
@@ -774,10 +805,10 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     ``head_f32`` is a resident fp32 copy of a bf16 ``lm_head[0]`` (d, V),
     of the whole (ncb, d, V) head of a multi-codebook one, or of the embed
     table's transpose where the head is tied (no ``lm_head``: the table,
-    bf16 whatever the quantization, is the head); without one the head is
-    cast for this call.  Columns from ``valid`` on pad the vocab to a
-    multiple of tp and read -inf, so no top-k picks them (the JAX package
-    leaves them as drawn weights)."""
+    bf16 whatever the quantization, is the head); at tp > 1 of the rank's
+    vocab shard; without one the head is cast for this call.  Columns from
+    ``valid`` on pad the vocab to a multiple of tp and read -inf, so no
+    top-k picks them (the JAX package leaves them as drawn weights)."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"]["table"].transpose(1, 2)

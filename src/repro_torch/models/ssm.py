@@ -1,5 +1,5 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060):
-``repro.models.ssm`` at tp=1.
+``repro.models.ssm``, per shard.
 
 Prefill uses the chunked SSD form (intra-chunk quadratic term + inter-chunk
 state scan); decode (s == 1) is the O(1) recurrent update.  Recurrence per
@@ -26,9 +26,20 @@ once, its last add is fp32 here, as XLA computes it on the CPU (as in
 
 The state lives in the model's cache dict, stacked over the SSD layers:
 ``h`` (n, b, heads, P, N) fp32 and ``conv`` (n, b, W-1, d_in + 2N) bf16
-(``init_ssd_state``).  At tp=1 the conv weight is the whole leaf (the JAX
-package's ``_conv_weight_local`` at tp 1); ``model.check_supported``
-refuses SSD at tp>1.
+(``init_ssd_state``).
+
+Under tensor parallelism a rank holds heads / tp of the SSD heads, as the
+JAX package shards them: the columns of ``w_z``, ``w_x`` and ``w_dt``,
+its heads of ``dt_bias``, ``A_log``, ``D`` and ``norm``, and its rows of
+the row-parallel ``w_out``; ``w_bc`` (one B/C group) is replicated.  The
+conv weight is stored as the rank's own slice, its d_in / tp x channels
+followed by the replicated B/C columns (``conv_slice``, the JAX package's
+``_conv_weight_local``, which slices the replicated leaf at forward
+time), so the conv tail holds d_in / tp + 2N channels a rank.  The block
+is per head up to ``w_out`` (the gated norm too), so the rank's program
+is the tp=1 one at its heads, read off ``w_dt``'s columns, and ``w_out``
+returns an unreduced partial that the layer's ``mixer_reduce`` sums: one
+collective a layer.
 """
 from __future__ import annotations
 
@@ -46,11 +57,24 @@ N_GROUPS = 1  # mamba2-1.3b uses a single B/C group
 SSD_RANGE = "ssd scan"
 
 
-def _dims(cfg: ModelConfig) -> Tuple[int, int]:
-    """(d_inner, SSD heads)."""
+def _dims(cfg: ModelConfig, tp: int = 1) -> Tuple[int, int, int]:
+    """(d_inner, SSD heads, a rank's heads), raising where the heads do not
+    split over ``tp`` ranks (``repro.models.ssm._dims``)."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
-    return d_in, d_in // s.head_dim
+    n_heads = d_in // s.head_dim
+    if n_heads % tp:
+        raise ValueError(f"ssd heads {n_heads} not divisible by tp {tp}")
+    return d_in, n_heads, n_heads // tp
+
+
+def conv_slice(cfg: ModelConfig, tp: int, rank: int) -> Tuple[int, int, int]:
+    """Where a rank's conv weight comes from in the global (W, d_in + 2N)
+    leaf: (start, width) of its x channels, then the 2N B/C columns kept
+    by every rank -> (start, width, 2N)."""
+    d_in, _, _ = _dims(cfg, tp)
+    loc = d_in // tp
+    return rank * loc, loc, 2 * N_GROUPS * cfg.ssm.state_dim
 
 
 def ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -58,7 +82,7 @@ def ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
     ``repro.models.ssm.ssd_defs`` declares them ("scaled" over dim 0;
     ``dt_bias``, ``A_log`` and ``D`` fp32 zeros)."""
     s, d = cfg.ssm, cfg.d_model
-    d_in, n_heads = _dims(cfg)
+    d_in, n_heads, _ = _dims(cfg)
     gn = N_GROUPS * s.state_dim
     bf16, f32 = torch.bfloat16, torch.float32
     return {
@@ -76,14 +100,15 @@ def ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def init_ssd_state(cfg: ModelConfig, n_layers: int, batch: int, *,
-                   device) -> Dict[str, torch.Tensor]:
+                   device, tp: int = 1) -> Dict[str, torch.Tensor]:
     """Zero state of ``n_layers`` SSD layers: fp32 ``h``, bf16 ``conv``
-    (``init_ssd_state``, stacked)."""
+    (``init_ssd_state``, stacked), at a rank's heads / ``tp`` and its
+    d_in / ``tp`` + 2N conv channels."""
     s = cfg.ssm
-    d_in, n_heads = _dims(cfg)
-    conv_ch = d_in + 2 * N_GROUPS * s.state_dim
+    d_in, _, local_h = _dims(cfg, tp)
+    conv_ch = d_in // tp + 2 * N_GROUPS * s.state_dim
     return {
-        "h": torch.zeros((n_layers, batch, n_heads, s.head_dim, s.state_dim),
+        "h": torch.zeros((n_layers, batch, local_h, s.head_dim, s.state_dim),
                          dtype=torch.float32, device=device),
         "conv": torch.zeros((n_layers, batch, s.conv_width - 1, conv_ch),
                             dtype=torch.bfloat16, device=device),
@@ -131,6 +156,8 @@ def ssd_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
     """x (b, s, d) -> (out (b, s, d), new state or None).  ``state`` holds
     ``h`` (b, heads, P, N) and ``conv`` (b, W-1, d_in + 2N) to continue from
     (None: zeros; a prefill then returns no state, a decode step does).
+    ``p`` is a rank's shard: its heads are ``w_dt``'s columns, and ``out``
+    is its unreduced partial.
 
     ``length_mask`` (b, s), true at real tokens of a right-padded batch,
     zeroes dt on the pad steps, so a = exp(0) = 1 and dt x vanishes there,
@@ -139,8 +166,7 @@ def ssd_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *
     chunk must be a multiple of it, as the reference requires."""
     sc = cfg.ssm
     b, s, _ = x.shape
-    _, nh = _dims(cfg)
-    P, N = sc.head_dim, sc.state_dim
+    nh, P = p["w_dt"].shape[-1], sc.head_dim
 
     z = x @ p["w_z"]
     xr = x @ p["w_x"]
@@ -160,9 +186,8 @@ def _scan(p, conv_out, loc: int, dt_raw, cfg: ModelConfig, state, length_mask):
     """``ssd_forward``'s recurrence from the conv output (x, then B and C
     from column ``loc`` on) and the projected dt -> (y (b, s, heads, P)
     fp32 before the norm, the new state h)."""
-    b, s = dt_raw.shape[:2]
+    b, s, nh = dt_raw.shape
     sc = cfg.ssm
-    _, nh = _dims(cfg)
     P, N = sc.head_dim, sc.state_dim
     xr = conv_out[..., :loc]
     Bm, Cm = conv_out[..., loc:].chunk(2, dim=-1)

@@ -156,27 +156,27 @@ def test_unsupported_features_raise_naming_them():
     cfg = dataclasses.replace(get_config("yi-9b").reduced(), window=64, n_codebooks=2,
                               tie_embeddings=True)
     with pytest.raises(NotImplementedError,
-                       match=r"window.*n_codebooks.*tie_embeddings.*dp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2))
-    # the int8 KV cache is served; tensor parallelism is served for the
-    # dense, MoE, MLA and RG-LRU families, int8 KV and int4 weights included
+                       match=r"window.*wq_cache at tp>1.*tied embeddings.*multi-codebook.*dp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2, weight_quant="int4"), wq_cache="x")
+    # the int8 KV cache is served; tensor parallelism is served for every
+    # family (dense, MoE, MLA, RG-LRU, SSD with its tied head, the frontend
+    # and the multi-codebook head), int8 KV and int4 weights included
     kvq = ParallelConfig(kv_quant=True, weight_quant="int4")
     for arch in ("yi-9b", "deepseek-moe-16b", "mixtral-8x7b", "minicpm3-4b",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
         for tp in (1, 2, 4, 8):
             TM.check_supported(get_config(arch), dataclasses.replace(kvq, tp=tp))
-    Engine(get_config("minicpm3-4b").reduced(), parallel=dataclasses.replace(kvq, tp=2),
-           device="cpu", dist=Dist(2, 0))
-    # what the port does not serve at tp>1 yet is still named and refused:
-    # SSD, tied embeddings, the frontend and multi-codebook heads
-    for arch, name in (("mamba2-1.3b", "tp>1 with ssd layers"),
-                       ("mamba2-1.3b", "tie_embeddings at tp>1"),
-                       ("internvl2-26b", "frontend at tp>1"),
-                       ("musicgen-medium", "n_codebooks>1 at tp>1")):
-        TM.check_supported(get_config(arch), kvq)
+    for arch in ("minicpm3-4b", "mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
+        Engine(get_config(arch).reduced(), parallel=dataclasses.replace(kvq, tp=2),
+               device="cpu", dist=Dist(2, 0))
+    # what the port does not serve at tp>1 yet is still named and refused
+    for par, kw, name in ((dataclasses.replace(kvq, tp=2, dp=2), {}, "dp>1"),
+                          (dataclasses.replace(kvq, tp=2), {"wq_cache": "x"}, "wq_cache at tp>1"),
+                          (dataclasses.replace(kvq, tp=2, overlap_decode=True), {},
+                           "overlap_decode at tp>1")):
         with pytest.raises(NotImplementedError, match=name):
-            Engine(get_config(arch).reduced(), parallel=dataclasses.replace(kvq, tp=2),
-                   device="cpu")
+            Engine(get_config("mamba2-1.3b").reduced(), parallel=par, device="cpu",
+                   dist=Dist(2, 0), **kw)
     # int8 and int4 weights are served; any other mode is named and refused
     with pytest.raises(NotImplementedError, match="weight_quant=int2"):
         Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(weight_quant="int2"),

@@ -117,13 +117,12 @@ def test_check_supported_serves_tp1_and_refuses_by_name():
     for arch in ARCHS:
         cfg = get_config(arch)
         for mode in ("none", "int8", "int4"):
-            TM.check_supported(cfg, ParallelConfig(weight_quant=mode, kv_quant=True))
-        with pytest.raises(NotImplementedError, match="frontend at tp>1"):
-            TM.check_supported(cfg, ParallelConfig(tp=2))
+            for tp in (1, 2, 4, 8):     # the prefix and the codebook head at every tp
+                TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode, kv_quant=True))
         with pytest.raises(NotImplementedError, match="wq_cache with a frontend"):
             TM.check_supported(cfg, ParallelConfig(weight_quant="int4"), wq_cache="x")
-    with pytest.raises(NotImplementedError, match="n_codebooks>1 at tp>1"):
-        TM.check_supported(get_config("musicgen-medium"), ParallelConfig(tp=2))
+        with pytest.raises(NotImplementedError, match="wq_cache at tp>1"):
+            TM.check_supported(cfg, ParallelConfig(tp=2, weight_quant="int4"), wq_cache="x")
     with pytest.raises(NotImplementedError, match="wq_cache with a frontend"):
         Engine(get_config("internvl2-26b").reduced(),
                parallel=ParallelConfig(weight_quant="int4"), wq_cache="unused", device="cpu")

@@ -101,14 +101,19 @@ def test_config_and_capabilities_equal_jax():
 
 def test_served_at_tp1_chunks_and_spec_refused_or_fall_back():
     """tp=1 in bf16 (and under int8/int4, which quantize no SSD leaf, as in
-    the reference); tp>1 refused by name; an explicit chunk or spec_k
-    raises the registry's error, the config's default falls back to whole
-    prompts and plain decode; a chunk forward refuses the recurrent state."""
+    the reference), and tp 2/4/8 (head-sharded SSD, the tied head over the
+    vocab-sharded table); SSD heads that tp does not divide raise a
+    ValueError naming the arch; an explicit chunk or spec_k raises the
+    registry's error, the config's default falls back to whole prompts and
+    plain decode; a chunk forward refuses the recurrent state."""
     cfg = get_config(ARCH)
     for mode in ("none", "int8", "int4"):
         TM.check_supported(cfg, ParallelConfig(weight_quant=mode))
-    with pytest.raises(NotImplementedError, match="tp>1 with ssd layers"):
-        TM.check_supported(cfg, ParallelConfig(tp=2))
+        for tp in (2, 4, 8):
+            TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode))
+    wide = dataclasses.replace(cfg.reduced(), ssm=dataclasses.replace(cfg.ssm, head_dim=128))
+    with pytest.raises(ValueError, match=f"{wide.name}: ssd heads 4 not divisible by tp 8"):
+        TM.check_supported(wide, ParallelConfig(tp=8))
     _, _, teng = engines()
     with pytest.raises(ValueError, match="does not support chunked prefill"):
         ContinuousScheduler(teng, n_slots=2, prefill_chunk=8)

@@ -252,12 +252,13 @@ def test_plans_refuse_what_does_not_split():
                          (dataclasses.replace(rg, n_heads=6, d_model=384), 4, "n_blocks 6")):
         with pytest.raises(ValueError, match=f"{cfg.name}: .*{msg}"):
             TM.check_supported(cfg, ParallelConfig(tp=tp))
-    for arch, name in (("mamba2-1.3b", "tp>1 with ssd layers"),
-                       ("mamba2-1.3b", "tie_embeddings at tp>1"),
-                       ("internvl2-26b", "frontend at tp>1"),
-                       ("musicgen-medium", "n_codebooks>1 at tp>1")):
+    for arch in ("mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
+        for tp in (2, 4, 8):        # served at every tp since the SSD heads split
+            TM.check_supported(get_config(arch), ParallelConfig(tp=tp))
+    for par, name in ((ParallelConfig(tp=2, fault_plan="step:at=1"), "fault_plan at tp>1"),
+                      (ParallelConfig(tp=2, overload_degrade=True), "overload_degrade at tp>1")):
         with pytest.raises(NotImplementedError, match=name):
-            TM.check_supported(get_config(arch), ParallelConfig(tp=2))
+            TM.check_supported(get_config("musicgen-medium"), par)
     for par, kw, name in ((ParallelConfig(tp=2, dp=2), {}, "dp>1"),
                           (ParallelConfig(tp=2, kv_seq_shard=True), {}, "kv_seq_shard"),
                           (ParallelConfig(tp=2, overlap_decode=True), {}, "overlap_decode"),

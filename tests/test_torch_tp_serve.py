@@ -155,7 +155,9 @@ def test_top_k40_streams_are_the_same_on_every_rank(served):
 def test_tp_refusals_name_what_is_left_for_later():
     yi, ssd = get_config("yi-9b"), get_config("mamba2-1.3b")
     for cfg, par, kw, name in (
-            (ssd, ParallelConfig(tp=2), {}, r"tp>1 with ssd"),
+            (ssd, ParallelConfig(tp=2, fault_plan="step:at=1"), {}, r"fault_plan at tp>1"),
+            (ssd, ParallelConfig(tp=2, overload_degrade=True), {}, r"overload_degrade at tp>1"),
+            (ssd, ParallelConfig(tp=2, overlap_decode=True), {}, r"overlap_decode at tp>1"),
             (yi, ParallelConfig(tp=2, dp=2), {}, r"dp>1"),
             (yi, ParallelConfig(kv_seq_shard=True), {}, r"kv_seq_shard"),
             (yi, ParallelConfig(tp=2, weight_quant="int4"), {"wq_cache": "x.npz"},
@@ -164,7 +166,8 @@ def test_tp_refusals_name_what_is_left_for_later():
         with pytest.raises(NotImplementedError, match=name):
             TM.check_supported(cfg, par, **kw)
     for arch in ("yi-9b", "qwen-72b", "gptj-parallel", "qwen2.5-14b", "qwen2.5-32b",
-                 "recurrentgemma-9b", "deepseek-moe-16b", "mixtral-8x7b", "minicpm3-4b"):
+                 "recurrentgemma-9b", "deepseek-moe-16b", "mixtral-8x7b", "minicpm3-4b",
+                 "mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
         for tp in (2, 4, 8):
             TM.check_supported(get_config(arch), ParallelConfig(tp=tp, weight_quant="int4",
                                                                 kv_quant=True))

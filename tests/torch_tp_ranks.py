@@ -1,6 +1,8 @@
 """What each tensor-parallel rank runs for tests/test_torch_tp.py,
-tests/test_torch_tp_serve.py and their RG-LRU, MoE and MLA counterparts
-(tests/test_torch_tp_families*.py): the port only (torch, numpy, repro_torch),
+tests/test_torch_tp_serve.py and their counterparts for the RG-LRU, MoE and
+MLA families (tests/test_torch_tp_families*.py) and for the SSD, tied-head,
+modality-prefix and multi-codebook archs (tests/test_torch_tp_ssd_modal*.py):
+the port only (torch, numpy, repro_torch),
 so the spawned rank processes import no jax.  Every function here takes
 (dist, device, ...) as ``launch.mesh.spawn`` calls it and returns plain
 data (numpy arrays, dicts, the schedulers' finished requests)."""
@@ -236,3 +238,42 @@ def run_family_serve_cases(dist, device, archs):
             out[f"{name} routes"] = _routes(moe.LOG)
         moe.LOG = None
     return out
+
+
+def ssd_modal_case(dist, device, case):
+    """One case of tests/test_torch_tp_ssd_modal.py: the logits of a 16- and
+    a 13-token (frame) prefill behind ``case["features"]`` (a frontend
+    arch's seeded prefix, else none) and of a decode step after the 16,
+    all vocab gathered; the collective records of the 16-token prefill and
+    of the decode step with its sampling; and an SSD model's recurrent
+    state (``h``, ``conv``) after the decode step, this rank's share."""
+    cfg, tree = case["cfg"], case["tree"]
+    tokens = torch.from_numpy(case["tokens"])
+    feats = case.get("features")
+    feats = None if feats is None else torch.from_numpy(feats)
+    eng = _engine(dist, device, cfg, tree, case["parallel"], case.get("sharded_table", False))
+    b, V = tokens.shape[0], cfg.vocab_size
+    prefix = eng.prefix
+    out = {}
+    with torch.inference_mode():
+        caches = eng.init_caches(b)
+        with cc.comm_stats() as st:
+            lg = eng.forward(tokens[:, :16], caches=caches, seq_sharded=True, features=feats)
+        out["prefill16"], out["prefill16_records"] = _full_vocab(lg, dist, V), _records(st)
+        with cc.comm_stats() as st:
+            lg = eng.forward(tokens[:, 16:17], caches=caches, cur_pos=prefix + 16)
+            eng.sample(lg[:, -1])
+        out["decode"], out["decode_records"] = _full_vocab(lg, dist, V), _records(st)
+        if "h" in caches:
+            out["state"] = {k: caches[k].float().numpy() for k in ("h", "conv")}
+        lg = eng.forward(tokens[:, :13], caches=eng.init_caches(b), seq_sharded=True,
+                         features=feats)
+        out["prefill13"] = _full_vocab(lg, dist, V)
+    return out
+
+
+def run_ssd_modal_cases(dist, device, cases):
+    """Every case of one rank group (the cases whose ``tps`` hold its tp)."""
+    torch.set_num_threads(1)
+    return {name: ssd_modal_case(dist, device, case) for name, case in cases.items()
+            if dist.tp in case["tps"]}
