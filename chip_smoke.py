@@ -259,14 +259,41 @@ Phases, each fatal on failure:
    at a top-2 gap below 1e-2 (the runs admit in other batches), at most
    MAX_PARTED.
 
+14. the data axis (after phase 9; ``dp_phases``): ranks spawned over gloo
+   share the card, their collectives and KV-block transfers staged through
+   host memory (no wall is a data-parallel or disaggregated speed).  On
+   two ranks, yi-9b bf16 at 48 layers: one 16000-token prompt, greedy, 32
+   new tokens, through the WaveScheduler with ``kv_seq_shard`` (16384
+   cache entries, 8192 a rank), held to the dp=1 wave of the same prompt
+   on the slot phases' weights (every token, but a first parting at a
+   dp=1 top-2 gap below 1e-2; the sampled logits within REF_TOL up to it;
+   an all-reduce max and sum tagged ``lse_merge`` a layer and decode step;
+   one prefill and the decode steps' launches on each rank); then the slot
+   workload through the DisaggScheduler at 1p1d (2 + 2 slots, chunks of
+   64), held to phase 6's dp=1 ``paged-chunked`` phase as phase 9 holds
+   its tp jobs (partings certified, at most half), the ``migrate`` sends'
+   bytes equal to migrated_blocks x pool_block_bytes, decode-side prefix
+   hits once the shared prompt has landed, the prefill pool's ranks
+   launching no decode kernel and the decode pool's no chunk kernel, the
+   allocator's audit clean on every rank, and the pools:, migration: and
+   migration wait lines printed.  On four ranks the certification mix
+   (int8 weights and K/V) at 2p2d with 8 slots, at 24 of 48 layers
+   (``EARLIER_DEPTH``, with the dp=1 run it is held to), clean and under
+   ``migrate:handoff=1`` (one request quarantined, the survivors' streams
+   the clean run's, every rank's audit clean), held to a dp=1 unified
+   paged run on rank 0's card (partings certified on the plain versions,
+   as the int8-KV slot phases certify them).  Row 4s times the decode
+   kernel at a kv_seq_shard rank's slice.  Over NCCL where the card count
+   allows (else a line says why not).
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
 12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 14 of 28,
 phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48, phase 12's
-musicgen-medium 12 of 48), so that the whole run stays under ~1000 s with
-phases 10-13 added.  The tp phases of the dense family and internvl2-26b,
+musicgen-medium 12 of 48, phase 14's 2p2d int8 mix 24 of 48), so that
+the whole run stays under its limit with phases 10-14 added.  The tp phases of the dense family and internvl2-26b,
 and the tp=1 phases they are held to, run at full depth; the RG-LRU,
 MoE, MLA, SSD and musicgen tp phases run at their tp=1 phases' cut depth
 (drawing those weights again at full depth would cost minutes).  The slot
@@ -364,7 +391,7 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 EARLIER_DEPTH = {"recurrentgemma-9b": 3, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
                  "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
                  "deepseek-moe-16b": 14, "mixtral-8x7b": 4, "mamba2-1.3b": 8,
-                 "musicgen-medium": 12}
+                 "musicgen-medium": 12, "yi-9b 2p2d int8 mix": 24}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -603,6 +630,7 @@ def check_kernels(dev, flush) -> list:
     out.extend(check_ring_ssd_kernels(dev, flush))
     out.extend(check_frontend_kernels(dev, flush))
     out.extend(check_tp_rank_kernels(dev, flush))
+    out.extend(check_dp_rank_kernels(dev, flush))
     return out
 
 
@@ -2375,7 +2403,8 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
         return flips
 
     results, tokens = [], {}
-    for name, backend, opts in SLOT_PHASES:
+    main_path = arch == "yi-9b" and not kv_quant
+    for name, backend, opts in SLOT_PHASES + ((DISAGG_REF,) if main_path else ()):
         t_phase = time.monotonic()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
@@ -2397,9 +2426,9 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
                 fail(f"{name}: block allocator audit: {e}")
         if opts["prefill_chunk"] and not (st["chunked_admissions"] > 0
                                           and st["mixed_decode_steps"] > 0
-                                          and st["spec_steps"] > 0):
-            fail(f"{name}: no chunked admission, no decode during admission or no "
-                 f"verify step: {st}")
+                                          and (not opts.get("spec_k") or st["spec_steps"] > 0)):
+            fail(f"{name}: no chunked admission, no decode during admission or (spec "
+                 f"decode on) no verify step: {st}")
         if sorted(first) != list(range(SLOT_WORKLOAD["requests"])):
             fail(f"{name}: served requests {sorted(first)}")
         for rid, r in first.items():
@@ -2447,6 +2476,7 @@ def slot_phases(dev, arch: str = "yi-9b", tie_check: str = "gap", kv_quant: bool
             logits = forward(torch.as_tensor(seq, device=dev).long())
             return float((lambda v: v[0] - v[1])(torch.topk(logits, 2).values))
         results.extend(control_plane_phases(dev, eng, cfg, top2_gap))
+        seq_reference(dev, eng.params, cfg)
     del eng
     torch.cuda.empty_cache()
     return results
@@ -4864,6 +4894,468 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
     return parted
 
 
+
+# -- the data axis (phase 14) ----------------------------------------------------
+#
+# dp ranks, one process each, share the one card over gloo (their
+# collectives and block transfers staged through host memory): no wall
+# time here is a data-parallel or disaggregated speed (without MPS the
+# ranks time-slice the card, so the decode pool's ITL under prefill load
+# cannot show the pools' independence).
+
+DP = 2
+# kv_seq_shard: one 16000-token prompt into a 16384-entry cache, 8192
+# entries a data rank, 32 new tokens, greedy
+SEQ_JOB = dict(prompt=16000, max_len=16384, max_new=32)
+DP1_SEQ: dict = {}       # the dp=1 wave of the long prompt (slot_phases' engine)
+# the dp=1 paged phase the 1p1d disagg phase is held to: chunks of 64, no
+# spec decode (the decode pool then runs paged_decode_attention)
+DISAGG_REF = ("paged-chunked", "paged", dict(prefill_chunk=64))
+# the JAX package's certification mix: int8 weights and int8 K/V, 2p2d
+MIX_DP, MIX_SLOTS, MIX_FAULT = 4, 8, "migrate:handoff=1"
+LSE_BYTES = 2 * 1 * HQ * (HD + 1) * 4     # l and acc of one merge, twice on the wire
+
+
+def seq_prompt(vocab: int) -> np.ndarray:
+    return np.random.default_rng(SEQ_JOB["prompt"]).integers(
+        0, vocab, SEQ_JOB["prompt"]).astype(np.int32)
+
+
+def seq_wave(eng) -> dict:
+    """A greedy wave of the long prompt through the WaveScheduler on
+    ``eng`` -> its tokens, the logits each step sampled from (on the
+    host), the launches, the collectives, the wall and the peak memory."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.scheduler import WaveScheduler
+
+    sched = WaveScheduler(eng, batch_size=1)
+    sched.submit(seq_prompt(eng.cfg.vocab_size), max_new=SEQ_JOB["max_new"])
+    log = []
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with sampled_logits(log), cc.comm_stats() as st:
+        done = sched.run()
+    torch.cuda.synchronize()
+    return {"tokens": done[0].output, "logits": torch.cat(log).numpy(),
+            "launches": dict(ops.LAUNCHES), "comm": st.by_tag(),
+            "wall_s": time.monotonic() - t,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def seq_reference(dev, params, cfg) -> None:
+    """The dp=1 wave the kv_seq_shard phase is held to, on the slot
+    phases' yi-9b weights (48 layers), into DP1_SEQ."""
+    from repro_torch.configs import SamplingConfig
+    from repro_torch.runtime.engine import Engine
+
+    t0 = time.monotonic()
+    eng = Engine(cfg, sampling=SamplingConfig(top_k=1), max_len=SEQ_JOB["max_len"],
+                 params=params, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    DP1_SEQ.update(seq_wave(eng), layers=cfg.n_layers)
+    DP1_SEQ["phase_s"] = time.monotonic() - t0
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _dp_parting_logits(eng, job, streams, prompts, dev) -> dict:
+    """Where a stream parts from the dp=1 phase's (``job["ref"]``): the
+    logits after the prompt and the reference's tokens before the parting,
+    by this rank's engine (a cacheless forward, replicated math)."""
+    out = {}
+    for rid, toks in streams.items():
+        p = _parting(job, rid, toks, job["ref"][rid], prompts[rid])
+        if p is not None:
+            with torch.inference_mode():
+                out[rid] = eng.forward(torch.as_tensor(p[1], device=dev)[None].long(),
+                                       last_only=True)[0, -1].float().cpu().numpy()
+    return out
+
+
+def _disagg_run(eng, job, fault_plan: str = "") -> dict:
+    """One DisaggScheduler run of the slot workload -> its streams, stats,
+    pools, launches, collectives by tag, the allocator's audit, wall."""
+    import argparse
+
+    from repro_torch.core import collectives as cc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime import kvcache
+    from repro_torch.runtime.scheduler import DisaggScheduler
+
+    sched = DisaggScheduler(eng, n_slots=job["slots"], prefill_shards=job["prefill_shards"],
+                            prefill_chunk=job["chunk"], fault_plan=fault_plan)
+    serve.submit_workload(sched, eng.cfg, argparse.Namespace(**SLOT_WORKLOAD))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with cc.comm_stats() as st:
+        done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    try:
+        sched.alloc.audit(expect_no_migration=True)
+        audit = "ok"
+    except AssertionError as e:
+        audit = str(e)
+    return {"streams": {r.rid: r.output for r in done},
+            "reasons": {r.rid: r.finish_reason for r in done},
+            "errors": {r.rid: r.stats.get("error") for r in done if r.finish_reason == "error"},
+            "prompts": {r.rid: r.prompt for r in done},
+            "stats": {k: v for k, v in sched.stats.items() if not isinstance(v, dict)},
+            "pools": sched.request_summary()["pools"], "launches": dict(ops.LAUNCHES),
+            "comm": st.by_tag(), "audit": audit, "used": sched.alloc.total_used(),
+            "block_bytes": kvcache.pool_block_bytes(sched.caches), "wall_s": wall}
+
+
+def _dp_rank(dist, dev, jobs):
+    """One rank of the data-axis phases (``dp_phases``): per job its result
+    (see ``seq_wave`` and ``_disagg_run``), the init time and peak memory."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig, get_config
+    from repro_torch.models.common import Dist
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.kvcache import cache_bytes
+    from repro_torch.runtime.scheduler import PagedContinuousScheduler
+
+    out, params, weights = [], None, None
+    for job in jobs:
+        cfg = _dp_config(job)
+        quant = job.get("quant", {})
+        par = ParallelConfig(dp=dist.dp, kv_block_size=BLOCK, **quant,
+                             kv_seq_shard=job["kind"] == "seq")
+        key = (job["arch"], quant.get("weight_quant", "none"), cfg.n_layers)
+        params = params if key == weights else None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        eng = Engine(cfg, parallel=par, sampling=SamplingConfig(top_k=1),
+                     max_len=job["max_len"], seed=0, params=params, device=dev, dist=dist)
+        torch.cuda.synchronize()
+        params, weights = eng.params, key
+        res = {"init_s": time.monotonic() - t0, "data_rank": dist.data_rank}
+        if job["kind"] == "seq":
+            res.update(seq_wave(eng))
+            res["cache_gib"] = cache_bytes(eng.init_caches(1)) / 2**30
+        else:
+            res.update(_disagg_run(eng, job))
+            if "ref" in job and dist.data_rank == 0:
+                res["parting_logits"] = _dp_parting_logits(eng, job, res["streams"],
+                                                           res["prompts"], dev)
+            if job.get("fault"):
+                res["fault"] = _disagg_run(eng, job, job["fault"])
+            if job.get("dp1_ref") and dist.data_rank == 0:
+                # the dp=1 unified paged engine on the same weights, this
+                # rank's card: the streams the mix is held to
+                import argparse
+
+                from repro_torch.launch import serve
+                one = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK, **quant),
+                             sampling=SamplingConfig(top_k=1), max_len=job["max_len"],
+                             params=eng.params, device=dev, dist=Dist())
+                uni = PagedContinuousScheduler(one, n_slots=job["slots"],
+                                               prefill_chunk=job["chunk"])
+                serve.submit_workload(uni, cfg, argparse.Namespace(**SLOT_WORKLOAD))
+                res["dp1"] = {r.rid: r.output for r in uni.run()}
+                del one, uni
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["job_s"] = time.monotonic() - t0
+        out.append(res)
+        del eng
+    return out
+
+
+def _dp_config(job: dict):
+    """A data-axis job's config: its arch at the job's depth (default all
+    its layers)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(job["arch"])
+    return dataclasses.replace(cfg, n_layers=job.get("layers", cfg.n_layers))
+
+
+def _dp_jobs(backend: str) -> list:
+    """The data-axis phases' jobs: on DP = 2 ranks yi-9b bf16 at 48 layers
+    through the kv_seq_shard wave and disaggregated 1p1d serving of the slot
+    workload (held to the dp=1 paged-chunked phase); on MIX_DP = 4 ranks
+    the certification mix (int8 weights and K/V) at 2p2d, clean and under
+    MIX_FAULT, held to a dp=1 unified paged run on rank 0's card."""
+    from repro_torch.configs import get_config
+
+    ref = TP1_STREAMS.get(("yi-9b", "none", DISAGG_REF[0]))
+    if ref is None or ref[0] != get_config("yi-9b").n_layers:
+        fail(f"no dp=1 {DISAGG_REF[0]} phase of yi-9b at full depth to hold 1p1d to")
+    disagg = dict(kind="disagg", arch="yi-9b", max_len=SERVE_MAX_LEN, chunk=64)
+    two = [dict(name="kv-seq-shard dp=2", kind="seq", arch="yi-9b",
+                max_len=SEQ_JOB["max_len"]),
+           dict(disagg, name="disagg 1p1d", slots=SLOTS, prefill_shards=1, ref=ref[1])]
+    if backend == "nccl":
+        return [(DP, [two[1]])]
+    # at a cut depth with the dp=1 run it is held to (the run's time limit)
+    four = [dict(disagg, name="disagg 2p2d int8 mix", slots=MIX_SLOTS, prefill_shards=2,
+                 quant=dict(weight_quant="int8", kv_quant=True), fault=MIX_FAULT,
+                 dp1_ref=True, layers=phase_config("yi-9b", "2p2d int8 mix").n_layers)]
+    return [(DP, two), (MIX_DP, four)]
+
+
+def _dp_launch_roles(name: str, job: dict, ranks: list) -> None:
+    """The pools' roles in the launches: a prefill-pool rank runs the chunk
+    step's prefill kernel and never a decode kernel, a decode-pool rank the
+    reverse (a step with no row of a rank's shard launches nothing there)."""
+    for r in ranks:
+        prefill = r["data_rank"] < job["prefill_shards"]
+        la = r["launches"]
+        chunk = la["flash_prefill"] + la["paged_flash_prefill"]
+        dec = la["paged_decode_attention"] + la["paged_decode_attention_int8"]
+        if (prefill and (dec or not chunk)) or (not prefill and (chunk or not dec)):
+            fail(f"{name}: data rank {r['data_rank']} ({'prefill' if prefill else 'decode'} "
+                 f"pool) launched {la}")
+
+
+def dp_phases(dev, backend: str = "gloo"):
+    """Phase 14: the data axis on one card (see the module docstring), each
+    phase's result yielded once it is checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+
+    for dp, jobs in _dp_jobs(backend):
+        t0 = time.monotonic()
+        got = mesh.spawn(_dp_rank, 1, jobs, backend=backend, device="cuda", dp=dp)
+        spawn_s = time.monotonic() - t0
+        for j, job in enumerate(jobs):
+            cfg = _dp_config(job)
+            L = cfg.n_layers
+            ranks = [r[j] for r in got]
+            name = f"{job['name']} {cfg.name}"
+            r0 = ranks[0]
+            res = {"arch": cfg.name, "scheduler": job["name"], "layers": L,
+                   "params": cfg.param_count(), "ranks": dp, "backend": backend,
+                   "note": "ranks share one card (gloo: host-staged collectives and block "
+                           "transfers); no wall here is a data-parallel or disaggregated "
+                           "speed" if backend == "gloo" else "",
+                   "init_s": [r["init_s"] for r in ranks],
+                   "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+                   "launches": {k: sum(r["launches"][k] for r in ranks) for k in ops.KERNELS},
+                   "launches_per_rank": [r["launches"] for r in ranks],
+                   "ranks_spawn_to_exit_s": spawn_s}
+            if job["kind"] == "seq":
+                res.update(_check_seq(name, ranks, L))
+            else:
+                res.update(_check_disagg(name, job, ranks, L, dev, cfg))
+            res["phase_s"] = max(r["job_s"] for r in ranks)
+            yield res
+
+
+def _check_seq(name: str, ranks: list, L: int) -> dict:
+    """kv_seq_shard against the dp=1 wave (DP1_SEQ): every rank's stream
+    the dp=1 one's, or a first parting certified by the dp=1 top-2 gap
+    there; the logits within REF_TOL of the dp=1 ones up to the parting;
+    one lse_merge all-reduce sum and max a layer and decode step and
+    nothing else over the data axis but the stream check; the launches one
+    prefill and the decode steps, on each rank."""
+    if not DP1_SEQ or DP1_SEQ["layers"] != L:
+        fail(f"{name}: no dp=1 wave of the long prompt at {L} layers to hold it to")
+    n = SEQ_JOB["max_new"]
+    want = DP1_SEQ["tokens"]
+    expect = {k: 0 for k in ranks[0]["launches"]}
+    expect.update(flash_prefill=L, decode_attention=L * (n - 1), topk=n)
+    for r in ranks:
+        toks = r["tokens"]
+        if r["launches"] != expect:
+            fail(f"{name} data rank {r['data_rank']}: launches {r['launches']} != {expect}")
+        if not np.array_equal(toks, ranks[0]["tokens"]):
+            fail(f"{name}: data rank {r['data_rank']}'s stream differs from rank 0's")
+        merges = {k: v for k, v in r["comm"].items() if k.startswith("lse_merge")}
+        per = L * (n - 1)
+        if (merges.get("lse_merge (all_reduce)", {}).get("count") != per
+                or merges.get("lse_merge (all_reduce_max)", {}).get("count") != per
+                or merges["lse_merge (all_reduce)"]["bytes"] != per * LSE_BYTES):
+            fail(f"{name}: lse_merge records {merges}, not {per} of each ({LSE_BYTES} B a sum)")
+    toks = ranks[0]["tokens"]
+    diff = np.flatnonzero(toks != want)
+    t = int(diff[0]) if diff.size else n
+    parted = []
+    if diff.size:
+        top2 = np.sort(DP1_SEQ["logits"][t])[-2:]
+        gap = float(top2[1] - top2[0])
+        if not gap < TIE_GAP:
+            fail(f"{name}: parts from the dp=1 wave at step {t} with top-2 gap {gap}")
+        parted.append({"step": t, "top2_gap": gap})
+    err = float(np.abs(ranks[0]["logits"][:t + 1] - DP1_SEQ["logits"][:t + 1]).max())
+    if not err <= REF_TOL:
+        fail(f"{name}: logits {err} from the dp=1 wave's (limit {REF_TOL})")
+    return {"prompt": SEQ_JOB["prompt"], "max_len": SEQ_JOB["max_len"], "max_new": n,
+            "slice_per_rank": -(-SEQ_JOB["max_len"] // len(ranks)),
+            "tokens": int(len(toks)), "logits_max_abs_diff_vs_dp1": err,
+            "parted_at_near_ties": parted,
+            "lse_merges_per_decode_step": L, "comm_run": ranks[0]["comm"],
+            "wall_s": [r["wall_s"] for r in ranks],
+            "ms_per_token": 1e3 * ranks[0]["wall_s"] / n,
+            "dp1": {"wall_s": DP1_SEQ["wall_s"], "ms_per_token": 1e3 * DP1_SEQ["wall_s"] / n,
+                    "peak_mem_gib": DP1_SEQ["peak_mem_gib"], "phase_s": DP1_SEQ["phase_s"]},
+            "cache_gib_per_rank": [r["cache_gib"] for r in ranks],
+            "first_tokens": toks[:8].tolist()}
+
+
+def _check_disagg(name: str, job: dict, ranks: list, L: int, dev, cfg) -> dict:
+    """A disagg run: every rank the same streams, pools and counters; the
+    migrate sends' bytes migrated_blocks x pool_block_bytes; a prefix hit
+    skipping copies; the pools' launch roles; the audit on every rank; the
+    streams held to the dp=1 phase (partings certified as phase 9's, at
+    most half), and under MIX_FAULT one request quarantined, the
+    survivors' streams the clean run's."""
+    from repro_torch.launch import serve
+
+    r0 = ranks[0]
+    for r in ranks:
+        if {k: v.tolist() for k, v in r["streams"].items()} != \
+                {k: v.tolist() for k, v in r0["streams"].items()}:
+            fail(f"{name}: data rank {r['data_rank']}'s streams differ from rank 0's")
+        counts = lambda st: {k: v for k, v in st.items() if isinstance(v, int)}
+        if counts(r["stats"]) != counts(r0["stats"]) or r["audit"] != "ok" or r["used"]:
+            fail(f"{name}: data rank {r['data_rank']}: stats {r['stats']} (rank 0 "
+                 f"{r0['stats']}), audit {r['audit']}, {r['used']} blocks left")
+    st, pools = r0["stats"], r0["pools"]
+    if sorted(r0["streams"]) != list(range(SLOT_WORKLOAD["requests"])):
+        fail(f"{name}: served {sorted(r0['streams'])}")
+    for rid, toks in r0["streams"].items():
+        if not (len(toks) and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{name} request {rid}: tokens out of range or none: {toks}")
+    sent = sum(r["comm"].get("migrate (send)", {"bytes": 0})["bytes"] for r in ranks)
+    if not (st["migrated_blocks"] > 0 and sent == st["migrated_blocks"] * r0["block_bytes"]
+            == st["migration_bytes"]):
+        fail(f"{name}: migrate sends {sent} B != {st['migrated_blocks']} blocks x "
+             f"{r0['block_bytes']} B ({st['migration_bytes']} counted)")
+    # one decode shard (1p1d): once the shared prompt has landed there, every
+    # later request's shared blocks are referenced instead of copied
+    if not st["handoffs"] or (job["prefill_shards"] == 1 and not st["migration_skipped_blocks"]):
+        fail(f"{name}: no handoff, or at 1p1d no decode-side prefix hit: {st}")
+    _dp_launch_roles(name, job, ranks)
+    lines = serve.disagg_lines(pools)
+    for line in lines:
+        print(f"{name}:{line}", flush=True)
+    res = {"requests": len(r0["streams"]), "slots": job["slots"],
+           "prefill_shards": job["prefill_shards"], "chunk": job["chunk"],
+           "weight_quant": job.get("quant", {}).get("weight_quant", "none"),
+           "kv_quant": job.get("quant", {}).get("kv_quant", False),
+           "tokens": sum(len(t) for t in r0["streams"].values()),
+           "stats": st, "pools": pools, "report_lines": lines,
+           "block_bytes": r0["block_bytes"], "migrate_sent_bytes": sent,
+           "wall_s": [r["wall_s"] for r in ranks],
+           "comm_run": {k: v for k, v in r0["comm"].items()},
+           "first_tokens": {rid: r0["streams"][rid][:8].tolist() for rid in (0, 1)}}
+    if "ref" in job:
+        tjob = dict(job, kind="paged", arch=cfg.name, quant="none", layers=L,
+                    max_len=job["max_len"])
+        res["parted_at_near_ties"] = _tp_parted(name, tjob, r0, job["ref"], dev, {},
+                                                r0.get("parting_logits"))
+    if "dp1" in r0:
+        res["parted_from_dp1"] = _mix_parted(name, r0, dev, cfg, job)
+    if "fault" in r0:
+        f = r0["fault"]
+        bad = [rid for rid, why in f["reasons"].items() if why == "error"]
+        if not (len(bad) == 1 and f["stats"]["migration_faults"] == 1
+                and "migration" in (f["errors"][bad[0]] or "")):
+            fail(f"{name} under {MIX_FAULT}: quarantined {bad}, stats {f['stats']}")
+        for rid, toks in f["streams"].items():
+            if rid not in bad and not np.array_equal(toks, r0["streams"][rid]):
+                fail(f"{name} under {MIX_FAULT}: survivor {rid}'s stream differs from the "
+                     f"clean run's")
+        for r in ranks:
+            if r["fault"]["audit"] != "ok" or r["fault"]["used"]:
+                fail(f"{name} under {MIX_FAULT}: data rank {r['data_rank']}'s audit "
+                     f"{r['fault']['audit']}, {r['fault']['used']} blocks left")
+        res["fault"] = {"plan": MIX_FAULT, "quarantined": bad, "stats": f["stats"],
+                        "audit_every_rank": "ok", "wall_s": f["wall_s"]}
+    return res
+
+
+def _mix_parted(name: str, r0: dict, dev, cfg, job) -> list:
+    """The mix's streams against the dp=1 unified paged run on rank 0's
+    card: equal, or a first parting certified on the plain versions (int8
+    weights and K/V, as the int8-KV slot phases certify one): at most
+    MAX_PARTED.  The plain witness runs here on a dp=1 engine of the same
+    seeded weights, drawn again."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    ref, flips, eng = r0["dp1"], [], None
+    for rid, toks in r0["streams"].items():
+        want = ref[rid]
+        p = _parting(dict(kind="paged"), rid, toks, want, r0["prompts"][rid])
+        if p is None:
+            continue
+        t, seq = p
+        if eng is None:
+            eng = Engine(cfg, parallel=ParallelConfig(**job["quant"]),
+                         sampling=SamplingConfig(top_k=1), max_len=job["max_len"], seed=0,
+                         device=dev)
+        x = torch.as_tensor(seq, device=dev)[None].long()
+        with torch.inference_mode():
+            logits = M.forward(eng.params, x, cfg, last_only=True,
+                               caches=eng.init_caches(1), head_f32=eng.head_f32)[0, -1]
+            with plain_on_card():
+                plain = M.forward(eng.params, x, cfg, last_only=True,
+                                  caches=eng.init_caches(1), head_f32=eng.head_f32)[0, -1]
+        err = (logits - plain).abs().max().item()
+        slack = [(plain.max() - plain[int(s[t])]).item() for s in (want, toks) if t < len(s)]
+        if not (err <= REF_TOL and max(slack) < REF_TOL):
+            fail(f"{name} request {rid} parts from the dp=1 run at step {t}: the plain "
+                 f"versions there differ from the port by {err} and put the two tokens "
+                 f"{slack} below their top (limit {REF_TOL} each)")
+        flips.append({"rid": rid, "step": t, "plain_max_abs_err": err, "plain_slack": slack})
+    if len(flips) > MAX_PARTED:
+        fail(f"{name}: {len(flips)} of {len(ref)} streams part from the dp=1 run")
+    del eng
+    torch.cuda.empty_cache()
+    return flips
+
+
+def check_dp_rank_kernels(dev, flush) -> list:
+    """Row 4s: decode_attention_partial at a kv_seq_shard rank's shape,
+    yi-9b's (1, 32 over 4, 1, 128) over an 8192-entry slice with 8000
+    valid, held to its plain version, with SDPA's time, its bound (the
+    valid rows' bytes) and the split plan ``decode_split_plan`` chose; its
+    launches are counted on the kv_seq_shard phase only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    S, n_valid, scale = SEQ_JOB["max_len"] // DP, 8000, HD ** -0.5
+    q = torch.randn((1, HQ, 1, HD), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((1, HKV, S, HD), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    valid = torch.arange(S, device=dev) < n_valid
+    m, l, acc = ops.decode_attention_partial(q, k, v, valid, scale)
+    m2, l2, acc2 = ref.decode_attention_ref(q, k, v, valid, scale)
+    err = (acc / l[..., None] - acc2 / l2[..., None]).abs().max().item()
+    if not err <= 1e-3:
+        fail(f"decode_attention at a kv_seq_shard rank differs from its plain version by {err}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, splits = ops.decode_split_plan(1, HQ, HKV, S, sms)
+    return [{
+        "name": "decode_attention_partial (yi-9b kv_seq_shard rank slice)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:66", "counter": "decode_attention",
+        "arches": ["yi-9b"], "phase_only": ["kv-seq-shard dp=2"],
+        "shape": f"q (1,{HQ},1,{HD}) bf16, k/v (1,{HKV},{S},{HD}) ({n_valid} valid)",
+        "split_plan": {"chunk": chunk, "splits": splits, "sms": sms,
+                       "blocks": HKV * -(-(HQ // HKV) // ops.DECODE_ROWS) * splits},
+        "library": "SDPA with a bool mask",
+        "ptxas": ptxas_row("decode_attention", _dec(HD, False)),
+        "max_abs_err": err, "tolerance": 1e-3,
+        "ms": cold_ms(lambda: ops.decode_attention_partial(q, k, v, valid, scale), flush),
+        "plain_ms": cold_ms(lambda: ref.decode_attention_ref(q, k, v, valid, scale), flush),
+        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[None, None, None, :], scale=scale, enable_gqa=True), flush),
+        **bound(2 * q.numel() + 4 * HKV * n_valid * HD + valid.numel()
+                + 4 * (m.numel() + l.numel() + acc.numel()), 4 * HD * HQ * n_valid,
+                BF16_FLOPS)}]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
@@ -4938,12 +5430,27 @@ def main() -> None:
         for phase in run(dev):
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)
+    dp_runs = [dp_phases]
+    if torch.cuda.device_count() >= DP:
+        dp_runs.append(lambda d: dp_phases(d, "nccl"))
+    else:
+        print(f"dp nccl phase: not run: {torch.cuda.device_count()} card(s); NCCL puts one "
+              f"rank on each card, so dp={DP} over NCCL needs {DP} cards", flush=True)
+    t_dp = time.monotonic()
+    for run in dp_runs:
+        for phase in run(dev):
+            print(json.dumps({"serve": phase}), flush=True)
+            phases.append(phase)
+    print(f"dp phases: {time.monotonic() - t_dp:.1f}s", flush=True)
     for k in kernels:
         # a row counts the phases of the arches whose shapes it was timed at
         arches, counter, tp_only = k.pop("arches"), k.pop("counter"), k.pop("tp_only", False)
+        only = k.pop("phase_only", None)
         k["launches"] = sum(p["launches"][counter] for p in phases
-                            if p["arch"] in arches and (p.get("ranks") or not tp_only))
-        k["launches_counted_on"] = [f"{a} tp={TP}" if tp_only else a for a in arches]
+                            if p["arch"] in arches and (p.get("ranks") or not tp_only)
+                            and (only is None or p.get("scheduler") in only))
+        k["launches_counted_on"] = (only if only is not None else
+                                    [f"{a} tp={TP}" if tp_only else a for a in arches])
         if k["launches"] == 0:
             fail(f"{k['name']} was not launched on the serving paths")
         if k["name"] == "topk":

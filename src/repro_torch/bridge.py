@@ -144,7 +144,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     rank's shard of them under ``dist``."""
     check_supported(cfg, ParallelConfig(tp=dist.tp))
     device = resolve_device(device)
-    plan = ModelCtx.make(cfg, ParallelConfig(tp=dist.tp), dist).plan
+    plan = ModelCtx.make(cfg, ParallelConfig(tp=dist.tp, dp=dist.dp), dist).plan
 
     def place(name, t, family="attn"):
         return map_tensors(shard_leaf(name, t, cfg, plan, dist.rank, family),

@@ -197,11 +197,13 @@ class ParallelConfig:
     served (quantize at load: int8 per-output-column scales, int4 scales per
     ``wq_group_size`` segment of the reduction dim), and so are the paged KV
     backend of the slot engine, chunked admission, speculative decoding,
-    the int8 KV cache and tensor parallelism over ``tp`` ranks of one
-    process each (``launch/mesh.py``) with the paper's three toggles;
-    ``check_supported`` refuses data parallelism (``dp``) and the
-    sequence-sharded KV cache (``kv_seq_shard``), which come in later
-    slices."""
+    the int8 KV cache, and a world of ``dp`` x ``tp`` ranks of one
+    process each (``launch/mesh.py``): tensor parallelism with the paper's
+    three toggles inside each of ``dp`` data replicas, the batch (slots and
+    paged pools) split over the replicas, or with ``kv_seq_shard`` the
+    wave's KV cache sequence split over them and merged by log-sum-exp;
+    ``disagg_prefill_shards`` splits the data shards into the prefill and
+    decode pools of ``DisaggScheduler``."""
 
     tp: int = 1
     dp: int = 1
@@ -224,7 +226,17 @@ class ParallelConfig:
     spec_ngram: int = 3         # longest n-gram the prompt-lookup drafter matches
     # paged KV cache (PagedContinuousScheduler reads these as its defaults)
     kv_block_size: int = 16     # tokens per KV block
-    kv_pool_blocks: int = 0     # total pool blocks; 0 = n_slots * blocks/slot + 1
+    kv_pool_blocks: int = 0     # total pool blocks; 0 = n_slots * blocks/slot + one null
+                                # block per data shard
+    # disaggregated prefill/decode serving (DisaggScheduler): the first
+    # disagg_prefill_shards data shards form the prefill pool (prompts admit
+    # and stream through the chunk-only step there), the rest the decode
+    # pool; finished KV blocks migrate between the shards' block namespaces,
+    # refcounts handed off through the allocator.  0 = unset (the
+    # scheduler's prefill_shards argument must name the split; the JAX
+    # package's field and default); needs dp >= 2 and an arch whose
+    # capability record supports "disagg"
+    disagg_prefill_shards: int = 0
     # the serving control plane of the continuous schedulers (the JAX
     # package's fields, names and defaults).  overlap_decode: dispatch decode
     # block N+1 on block N's device outputs and land N's tokens one block

@@ -15,6 +15,13 @@ Differences from the JAX package:
   package's ``reduce_out`` at tp=1).
 * Under gloo a CUDA tensor is staged through host memory here, explicitly:
   copied to the host, reduced or gathered there, copied back.
+* The data axis (``Dist.dp`` replicas, ``data_*`` below) has its own
+  wrappers, recorded with axis "data": the sampled tokens all-gathered
+  (tag ``dp_tokens``), the sequence-sharded KV cache's log-sum-exp merge
+  (an all-reduce max, kind ``all_reduce_max``, which the JAX package's
+  ``pmax`` does not record, and an all-reduce sum, tag ``lse_merge``), and
+  KV blocks sent from one data rank to another (kind ``send``, recorded by
+  the sender, tag ``migrate``).
 * ``all_gather`` and ``reduce_scatter`` along the sequence take any length
   s: each rank's chunk is padded to ceil(s / tp) rows inside the
   collective and trimmed after it (``seq_chunk``), so no padding row ever
@@ -35,6 +42,7 @@ import torch.distributed as tdist
 from repro_torch.models.common import Dist
 
 AXIS = "model"     # the JAX package's name of the tensor-parallel mesh axis
+DATA_AXIS = "data"   # ... and of the data axis
 _local = threading.local()
 
 @dataclass
@@ -88,11 +96,12 @@ def comm_stats():
         _local.stats = prev
 
 
-def _record(kind: str, x: torch.Tensor, tag: str, wire_factor: float = 1.0) -> None:
+def _record(kind: str, x: torch.Tensor, tag: str, wire_factor: float = 1.0,
+            axis: str = AXIS) -> None:
     stats: Optional[CommStats] = getattr(_local, "stats", None)
     if stats is not None:
         nbytes = x.numel() * x.element_size()
-        stats.records.append(CommRecord(kind, AXIS, int(nbytes * wire_factor),
+        stats.records.append(CommRecord(kind, axis, int(nbytes * wire_factor),
                                         tuple(x.shape), tag))
 
 
@@ -173,5 +182,50 @@ def broadcast_from0(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
     buf = _staged(x, dist)
     if buf is x:
         buf = x.clone()
-    tdist.broadcast(buf, src=0, group=dist.group)
+    # src is a world rank: model rank 0 of this replica
+    tdist.broadcast(buf, src=tdist.get_global_rank(dist.group, 0), group=dist.group)
     return buf.to(x.device)
+
+
+# -- the data axis -----------------------------------------------------------
+
+
+def data_all_reduce(x: torch.Tensor, dist: Dist, op: str = "sum", tag: str = "") -> torch.Tensor:
+    """The sum (``op`` "sum", the JAX package's ``psum`` over the data axis)
+    or the max ("max", its ``pmax``) over the ``dp`` replicas; ``x`` may be
+    overwritten."""
+    if dist.dp == 1:
+        return x
+    _record("all_reduce" if op == "sum" else "all_reduce_max", x, tag,
+            wire_factor=2.0, axis=DATA_AXIS)
+    buf = _staged(x, dist)
+    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM if op == "sum" else tdist.ReduceOp.MAX,
+                     group=dist.data_group)
+    return buf.to(x.device)
+
+
+def data_all_gather(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
+    """The replicas' ``x`` (each the same shape) concatenated along dim 0 in
+    data-rank order."""
+    if dist.dp == 1:
+        return x
+    _record("all_gather", x, tag, axis=DATA_AXIS)
+    buf = _staged(x, dist)
+    out = buf.new_empty((dist.dp * buf.shape[0], *buf.shape[1:]))
+    tdist.all_gather_into_tensor(out, buf, group=dist.data_group)
+    return out.to(x.device)
+
+
+def data_send(x: torch.Tensor, dist: Dist, to: int, tag: str = "") -> None:
+    """Send ``x`` to data rank ``to`` (this model rank of that replica),
+    which takes it with ``data_recv``; recorded here, on the sender."""
+    _record("send", x, tag, axis=DATA_AXIS)
+    tdist.send(_staged(x, dist), dst=tdist.get_global_rank(dist.data_group, to))
+
+
+def data_recv(shape, dtype: torch.dtype, device, dist: Dist, frm: int) -> torch.Tensor:
+    """What data rank ``frm`` sent with ``data_send``: a tensor of that
+    ``shape`` and ``dtype``, on ``device``."""
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if dist.backend == "gloo" else device)
+    tdist.recv(buf, src=tdist.get_global_rank(dist.data_group, frm))
+    return buf.to(device)

@@ -578,8 +578,8 @@ def main(argv=None):
     if args.scheduler == "wave":
         ap.error("the frontend needs a continuous scheduler "
                  "(--scheduler continuous|paged)")
-    if args.tp != 1:
-        ap.error("the frontend serves at --tp 1 (one scheduler, one worker thread)")
+    if args.tp != 1 or args.dp != 1:
+        ap.error("the frontend serves at --tp 1 --dp 1 (one scheduler, one worker thread)")
     eng = serve_mod.build_engine(args)
     sched = serve_mod.make_scheduler(eng, args)
     service = EngineService(sched, max_pending=args.max_pending,

@@ -131,6 +131,8 @@ def main(argv=None) -> dict:
         ap.error("--max-len must hold the prefix, the prompt, 3 warm-up steps and --steps")
     if args.step != "decode" and args.scheduler == "wave":
         ap.error("--step verify|mixed runs on the slot engine (--scheduler continuous|paged)")
+    if args.dp != 1:
+        ap.error("--dp: the profile times one replica's decode step (profile at --dp 1)")
     if args.tp == 1:
         return _profile(Dist(), "cuda", cfg, args)
     from repro_torch.kernels import build

@@ -1,9 +1,10 @@
 """Serving entry point: ``python -m repro_torch.launch.serve --arch yi-9b``.
 
-Serves synthetic requests on one device through the wave scheduler or,
-with ``--scheduler continuous|paged``, through continuous batching over a
-dense or a paged KV cache, and reports per-token latency (the paper's
-section 3 metric).  The workload is the JAX serve CLI's, drawn from the
+Serves synthetic requests through the wave scheduler or, with
+``--scheduler continuous|paged``, through continuous batching over a dense
+or a paged KV cache, or with ``--scheduler disagg`` through disaggregated
+prefill and decode pools over the data axis, and reports per-token latency
+(the paper's section 3 metric).  The workload is the JAX serve CLI's, drawn from the
 same seed: ``--shared-prefix`` prepends one common system prompt (what the
 paged backend's prefix reuse serves), ``--arrival-every`` staggers arrivals
 on the virtual decode-step clock, ``--max-new-spread`` draws each budget.
@@ -30,6 +31,14 @@ is given, where the kernels' plain versions run.
 ``--tp N`` serves with tensor parallelism over N ranks, one process each
 (``launch/mesh.py``): every rank builds its shard of the same seeded
 model and runs the same scheduler over the same requests; rank 0 prints.
+``--dp M`` adds the data axis: M replicas of the tp ranks, ``--dp`` x
+``--tp`` processes in all (world rank d * tp + t is model rank t of
+replica d), each replica serving its share of the wave's rows or of the
+slots and the paged pool, the sampled tokens gathered over the data
+group after every engine call.  ``--scheduler disagg`` (``--dp`` >= 2)
+makes the first ``--prefill-shards`` replicas the prefill pool and the
+rest the decode pool, finished KV blocks migrating between them; it
+prints the pools, the migration and the migration wait.
 Every config is served at --tp 2, 4 and 8: the dense, RG-LRU, MoE and MLA
 families, the SSD heads, the tied head over the vocab-sharded table, the
 modality prefix and the multi-codebook head.
@@ -48,9 +57,10 @@ request's priority class drawn from a weighted mix), ``--slo-*``,
 ``--interactive-reserve-*`` and ``--overload-*`` (the degradation ladder of
 ``runtime/overload.py``), ``--no-spec-decode`` and ``--stats-json``, which
 writes the scheduler's summary and counters, even when the run raised.
-Overlap, fault plans and the ladder are refused at ``--tp`` > 1.  The
-parser is shared with the HTTP frontend (``launch/frontend.py``).  Not
-ported: ``--scheduler disagg``, ``--dp``, ``--prefill-shards`` and
+Overlap, fault plans and the ladder are refused at ``--tp`` > 1, and
+overlap, the ladder and a fault plan's ``delay`` clause at ``--dp`` > 1
+(each rank's scheduler would part on the wall clock).  The parser is
+shared with the HTTP frontend (``launch/frontend.py``).  Not ported:
 ``--no-flash-prefill``.
 """
 from __future__ import annotations
@@ -68,8 +78,8 @@ from repro_torch.launch import mesh
 from repro_torch.models import model as M
 from repro_torch.models.common import Dist
 from repro_torch.runtime.engine import Engine
-from repro_torch.runtime.scheduler import (ContinuousScheduler, PagedContinuousScheduler,
-                                           WaveScheduler)
+from repro_torch.runtime.scheduler import (ContinuousScheduler, DisaggScheduler,
+                                           PagedContinuousScheduler, WaveScheduler)
 
 
 def build_engine(args, dist: Dist = Dist(), device=None) -> Engine:
@@ -89,6 +99,7 @@ def engine_parallel(args) -> ParallelConfig:
     arch may fall back from."""
     return dataclasses.replace(
         parallel_config(args), kv_block_size=args.kv_block_size,
+        disagg_prefill_shards=args.prefill_shards if args.scheduler == "disagg" else 0,
         kv_pool_blocks=args.kv_pool_blocks, prefill_chunk=args.prefill_chunk,
         spec_k=0 if args.no_spec_decode else args.spec_k, spec_ngram=args.spec_ngram,
         overlap_decode=args.overlap, fault_plan=args.fault_plan,
@@ -103,12 +114,14 @@ def engine_parallel(args) -> ParallelConfig:
 
 def parallel_config(args) -> ParallelConfig:
     return ParallelConfig(weight_quant=args.weight_quant, wq_group_size=args.wq_group_size,
-                          tp=args.tp, topk_sync=not args.no_topk_sync)
+                          tp=args.tp, dp=args.dp, topk_sync=not args.no_topk_sync)
 
 
 def make_scheduler(eng: Engine, args):
     slot_kw = dict(n_slots=args.slots, block_steps=args.block_steps,
                    responsive_blocks=args.responsive_blocks)
+    if args.scheduler == "disagg":
+        return DisaggScheduler(eng, prefix_cache=not args.no_prefix_cache, **slot_kw)
     if args.scheduler == "paged":
         # block and pool sizes ride on ParallelConfig; the scheduler reads them
         return PagedContinuousScheduler(eng, prefix_cache=not args.no_prefix_cache, **slot_kw)
@@ -126,11 +139,14 @@ def add_weight_quant_args(ap: argparse.ArgumentParser) -> None:
 
 
 def add_tp_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--dp", type=int, default=1,
+                    help="the data axis: N replicas of the --tp ranks (--dp x --tp processes), "
+                         "each serving its share of the rows, slots and paged pool")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor parallelism over N ranks, one process each (1, 2, 4 or 8)")
     ap.add_argument("--dist-backend", choices=mesh.BACKENDS, default="gloo",
-                    help="--tp > 1: nccl (one card a rank) or gloo (ranks may share a card "
-                         "or run on the CPU; collectives staged through host memory)")
+                    help="--tp or --dp > 1: nccl (one card a rank) or gloo (ranks may share a "
+                         "card or run on the CPU; collectives staged through host memory)")
     ap.add_argument("--no-topk-sync", action="store_true",
                     help="gather the whole logits row before the top-k (the baseline of "
                          "paper section 2.1b)")
@@ -144,6 +160,22 @@ def weight_quant_line(cfg, args) -> str:
     tag = f"-g{args.wq_group_size}" if args.weight_quant == "int4" else ""
     return (f"weight quant {args.weight_quant}{tag}: {wb / 2**20:.1f} MiB swept/token vs "
             f"{bb / 2**20:.1f} MiB bf16 ({bb / max(wb, 1):.2f}x less)")
+
+
+def disagg_lines(p: dict) -> list:
+    """The JAX serve CLI's ``pools:``, ``migration:`` and ``migration
+    wait`` report lines of a ``request_summary()["pools"]``."""
+    lines = [f"  pools: {p['prefill_shards']} prefill + {p['decode_shards']} decode shards; "
+             f"prefill occupancy {p['prefill_occupancy']:.0%} over {p['prefill_steps']} "
+             f"chunk steps",
+             f"  migration: {p['migrated_blocks']} blocks copied "
+             f"({p['migration_bytes'] / 2**20:.1f} MiB), {p['migration_skipped_blocks']} "
+             f"skipped via decode-side prefix hits, {p['handoffs']} handoffs, "
+             f"{p['migration_deferrals']} deferrals"]
+    if "migration_wait_s" in p:
+        w = p["migration_wait_s"]
+        lines.append(f"  migration wait p50/p95 {w['p50'] * 1e3:.1f}/{w['p95'] * 1e3:.1f} ms")
+    return lines
 
 
 def parse_class_mix(spec):
@@ -202,7 +234,13 @@ def build_parser(ap: argparse.ArgumentParser = None) -> argparse.ArgumentParser:
     ap.add_argument("--list-archs", action="store_true",
                     help="print the architecture capability matrix (which serving paths "
                          "each registered arch supports, and what blocks the rest) and exit")
-    ap.add_argument("--scheduler", choices=("wave", "continuous", "paged"), default="wave")
+    ap.add_argument("--scheduler", choices=("wave", "continuous", "paged", "disagg"),
+                    default="wave")
+    ap.add_argument("--prefill-shards", type=int, default=1,
+                    help="disagg scheduler: the first N data shards form "
+                         "the prefill pool (prompts admit and chunk-prefill "
+                         "there; finished KV blocks migrate to the decode "
+                         "pool); needs dp >= 2")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4, help="wave scheduler: requests per wave")
     ap.add_argument("--slots", type=int, default=4,
@@ -339,27 +377,28 @@ def dump_stats_json(sched, path, extra=None) -> dict:
 
 
 def main(argv=None):
-    """Serve; -> the finished requests (rank 0's at --tp > 1)."""
+    """Serve; -> the finished requests (world rank 0's over more than one
+    rank)."""
     args = build_parser().parse_args(argv)
     if args.list_archs:
         print(render_text())
         return []
-    if args.tp == 1:
+    if args.tp == 1 and args.dp == 1:
         return _serve(Dist(), None, args)
     # refuse what the ranks would (overlap, faults, the ladder) before spawning
     M.check_supported(get_config(args.arch), engine_parallel(args), wq_cache=args.wq_cache)
-    mesh.check_backend(args.tp, args.dist_backend, args.device)
+    mesh.check_backend(args.dp * args.tp, args.dist_backend, args.device)
     if args.device == "cuda":
         from repro_torch.kernels import build
         build.build_all()          # once, before the ranks load the libraries
     return mesh.spawn(_serve, args.tp, args, backend=args.dist_backend,
-                      device=args.device)[0]
+                      device=args.device, dp=args.dp)[0]
 
 
 def _serve(dist: Dist, device, args):
-    """One rank's run (the only one at tp=1): rank 0 prints."""
+    """One rank's run (the only one at tp = dp = 1): world rank 0 prints."""
     eng = build_engine(args, dist, device)
-    talk = dist.rank == 0
+    talk = dist.world_rank == 0
     if args.weight_quant != "none" and talk:
         print(weight_quant_line(eng.cfg, args))
     sched = make_scheduler(eng, args)
@@ -380,8 +419,9 @@ def _report(sched, cfg, args, dt: float) -> None:
     total_tokens = sum(len(r.output) for r in done if r.output is not None)
     print(f"served {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s -> {1000 * dt / max(total_tokens, 1):.1f} ms/token "
-          f"({args.scheduler}; arch={cfg.name}, tp={args.tp}, device={args.device}"
-          + (f", {args.dist_backend}" if args.tp > 1 else "") + ")")
+          f"({args.scheduler}; arch={cfg.name}, tp={args.tp}, "
+          + (f"dp={args.dp}, " if args.dp > 1 else "") + f"device={args.device}"
+          + (f", {args.dist_backend}" if args.tp * args.dp > 1 else "") + ")")
     if args.scheduler != "wave":
         s = sched.stats
         lat = sched.request_summary()
@@ -428,12 +468,15 @@ def _report(sched, cfg, args, dt: float) -> None:
               f"ms/step)" + (f", overlapped {ov['host_overlap_s']:.3f}s, {ov['landings']} "
                              f"landings, dispatch-ahead max {ov['max_dispatch_ahead']}, eos "
                              f"rollbacks {ov['eos_rollbacks']}" if ov["enabled"] else ""))
-    if args.scheduler == "paged":
+    if args.scheduler in ("paged", "disagg"):
         s = sched.stats
         print(f"  pool {sched.n_blocks} x {sched.bs}-token blocks, high-water "
               f"{s['blocks_hwm']} blocks; prefill tokens {s['prefill_tokens']} "
               f"(+{s['prefill_tokens_saved']} reused, {s['shared_block_hits']} shared block "
               f"hits), preemptions {s['preemptions']}")
+    if args.scheduler == "disagg":
+        for line in disagg_lines(sched.request_summary()["pools"]):
+            print(line)
     for r in done[:4]:
         if r.output is not None:
             print(f"  req {r.rid}: {len(r.output)} tokens, first 8: {r.output[:8].tolist()}")

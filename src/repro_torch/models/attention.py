@@ -38,6 +38,17 @@ KV heads in every layout, and returns the unreduced row-parallel partial
 of the out-projection: the layer reduces it (``core/sync_policy.py``).
 The head counts are read from the projections' widths.
 
+With ``ParallelConfig.kv_seq_shard`` (the long-context wave path) each of
+the ``dp`` data ranks holds one slice of the wave cache's sequence:
+``cache_len_for`` divides it, a prefill writes the rank's slice of the
+prompt's K/V (every rank attends the whole prompt), a decode step writes
+its token only on the rank that owns the position, and every rank runs the
+decode kernel over its slice; the kernel's unnormalized ``(m, l, acc)``
+then merge across the ranks by log-sum-exp (``lse_merge``: an all-reduce
+max and an all-reduce sum over the data axis, tag ``lse_merge``), as the
+JAX package's ``decode_attention_shardable`` does.  Slots and chunks
+refuse it, as there.
+
 ``pos`` is shared by all layers, as every layer holds the same positions.
 What a forward does with the cache -- where it writes, which mask decode
 reads -- is worked out once per forward into a ``KVStep`` (as the RoPE
@@ -54,13 +65,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as cc
 from repro_torch.core import wquant
 from repro_torch.core.zero_copy import fused_out_projection
 from repro_torch.kernels import ops
 # the int8 cache's plain quantizer and dequantizer live beside the kernels'
 # plain versions, which use them; this module is where the model reads them
 from repro_torch.kernels.ref import dequantize_kv, paged_view, quantize_kv
-from repro_torch.models.common import apply_rope, online_softmax_step
+from repro_torch.models.common import Dist, apply_rope, online_softmax_step
 
 VERIFY_WIDTH = 8    # chunks of at most this many queries attend through flash_verify
 KV_CHUNK = 1024     # the reference's flash-style KV chunk of its jnp attention
@@ -87,7 +99,8 @@ class KVStep:
     per slot); prefill attends by view position ``q_pos`` (b, s), over the
     fresh K/V, or with ``paged_read`` over the slot's view through ``bt``,
     or with ``rows`` (b,) int32 over those slots' stripes of the slot
-    cache."""
+    cache.  ``lse`` (a sequence-sharded wave cache): decode merges its
+    partials over that rank's data axis (``lse_merge``)."""
 
     cache: Optional[Dict[str, Any]]
     decode: bool
@@ -103,6 +116,7 @@ class KVStep:
     rows: Optional[torch.Tensor] = None
     quant_dst: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     ring_kv_pos: Optional[torch.Tensor] = None
+    lse: Optional[Dist] = None
 
 
 # ---------------------------------------------------------------------------
@@ -111,13 +125,43 @@ class KVStep:
 # ---------------------------------------------------------------------------
 
 
-def cache_len_for(cfg: ModelConfig, kind: str, seq_len: int, ring_slack: int = 0) -> int:
-    """Cache length of a layer: a windowed ``local_attn`` layer keeps a ring
-    of ``window + ring_slack`` entries (at most ``seq_len``); every other
-    layer all ``seq_len``."""
+def cache_len_for(cfg: ModelConfig, kind: str, seq_len: int, ring_slack: int = 0,
+                  kv_seq_shard_dp: int = 1) -> int:
+    """Cache length of a layer (a rank's): a windowed ``local_attn`` layer
+    keeps a ring of ``window + ring_slack`` entries (at most ``seq_len``);
+    every other layer all ``seq_len``, or its ceil(seq_len /
+    ``kv_seq_shard_dp``) slice where the sequence is sharded over the data
+    axis."""
     if cfg.window and kind == "local_attn":
-        return min(seq_len, cfg.window + ring_slack)
-    return seq_len
+        eff = min(seq_len, cfg.window + ring_slack)
+    else:
+        eff = seq_len
+    if kv_seq_shard_dp > 1 and eff == seq_len:
+        eff = -(-seq_len // kv_seq_shard_dp)
+    return eff
+
+
+def lse_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, dist: Dist):
+    """Decode partials of one rank's slice of a sequence-sharded cache ->
+    the merged (l, acc) of the whole sequence on every data rank (the JAX
+    package's ``pmax`` and ``psum(..., tag="lse_merge")``): each rank's
+    partials rescaled to the global max, then summed; a rank whose slice
+    has no valid entry (m = -inf) adds nothing.  m, l (b, hq, 1), acc (b,
+    hq, 1, hd) fp32; l and acc ride in one all-reduce."""
+    m_g = cc.data_all_reduce(m.clone(), dist, "max", tag="lse_merge")
+    m_gs = torch.where(torch.isfinite(m_g), m_g, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_gs), 0.0)
+    packed = torch.cat([(l * corr)[..., None], acc * corr[..., None]], dim=-1)
+    packed = cc.data_all_reduce(packed, dist, tag="lse_merge")
+    return packed[..., 0], packed[..., 1:]
+
+
+def _normalized(m, l, acc, step: "KVStep", dtype) -> torch.Tensor:
+    """A decode kernel's partials divided out (merged over the data axis
+    first where the cache's sequence is sharded)."""
+    if step.lse is not None:
+        l, acc = lse_merge(m, l, acc, step.lse)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
 
 
 def block_size(caches: Dict[str, Any]) -> int:
@@ -301,10 +345,10 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     if step.decode:
         # the partials divided out (decode_attention_shardable, no seq sharding)
         if step.bt is not None:
-            _, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale)
+            m, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale)
         else:
-            _, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale)
-        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+            m, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale)
+        out = _normalized(m, l, acc, step, q.dtype)
     elif step.paged_read:
         out = ops.paged_flash_prefill(q, ck, cv, step.bt, step.q_pos, scale)
     elif step.rows is not None:
@@ -332,12 +376,12 @@ def _attend_int8(q, k, v, c, step: KVStep, layer: int, scale: float, window: int
     q = q.contiguous()
     if step.decode:
         if step.bt is not None:
-            _, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale,
+            m, l, acc = ops.paged_decode_attention_partial(q, ck, cv, step.bt, step.valid, scale,
                                                            k_scale=cks, v_scale=cvs)
         else:
-            _, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale,
+            m, l, acc = ops.decode_attention_partial(q, ck, cv, step.valid, scale,
                                                      k_scale=cks, v_scale=cvs)
-        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        return _normalized(m, l, acc, step, q.dtype)
     if fresh:
         return ops.flash_prefill(q, kd[0], kd[1], step.q_pos, scale, window=window)
     if step.paged_read:

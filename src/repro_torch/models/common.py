@@ -21,17 +21,28 @@ import torch.nn.functional as F
 
 @dataclass(frozen=True)
 class Dist:
-    """This rank's place in the tensor-parallel group: ``tp`` ranks, this
-    one ``rank``, the ``torch.distributed`` process group of all the ranks
-    (``launch.mesh.init_tp`` joins it; rank 0 of the group is global rank 0)
-    and its ``backend`` ("gloo" stages CUDA tensors through
-    host memory, "nccl" reduces on the cards).  tp 1 is one process with no
-    group: every collective is the identity."""
+    """This rank's place in the ``dp`` x ``tp`` world (the JAX package's
+    ``Dist``, its model and data axes): ``tp`` ranks of one data replica,
+    this one model ``rank`` among them, and ``group``, the
+    ``torch.distributed`` process group of the replica; ``dp`` replicas,
+    this one ``data_rank`` among them, and ``data_group``, the group of the
+    ranks of this model rank in every replica.  World rank
+    ``data_rank * tp + rank`` (``launch.mesh.init_tp`` joins the groups).
+    ``backend`` "gloo" stages CUDA tensors through host memory, "nccl"
+    reduces on the cards.  tp 1 (dp 1) has no model (data) group: every
+    collective over that axis is the identity."""
 
     tp: int = 1
     rank: int = 0
     group: Any = None
     backend: str = "gloo"
+    dp: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+
+    @property
+    def world_rank(self) -> int:
+        return self.data_rank * self.tp + self.rank
 
 
 def pad_to(x: int, m: int) -> int:

@@ -83,6 +83,7 @@ from repro_torch.models import multimodal, rglru, ssm
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
 from repro_torch.models.transformer import ATTN_KINDS, RECURRENT, Ghost, layers_forward
+from repro_torch.runtime import faults as _faults
 
 Params = Dict[str, Any]
 
@@ -117,6 +118,8 @@ class ModelCtx:
              dist: Dist = Dist()) -> "ModelCtx":
         if parallel.tp != dist.tp:
             raise ValueError(f"ParallelConfig.tp {parallel.tp} != the rank group's tp {dist.tp}")
+        if parallel.dp != dist.dp:
+            raise ValueError(f"ParallelConfig.dp {parallel.dp} != the world's dp {dist.dp}")
         return ModelCtx(ShardPlan.make(cfg, dist.tp), dist, parallel)
 
     def policy(self, *, seq_sharded: bool, seq_len: int) -> SyncPolicy:
@@ -182,19 +185,26 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
     if wq_cache is not None and (cfg.frontend is not None or cfg.n_codebooks != 1):
         missing.append("wq_cache with a frontend or a multi-codebook head (the packed "
                        "file's frontend leaves and codebook axis)")
-    if parallel.dp != 1:
-        missing.append("dp>1 (data parallelism, the data axis of the mesh)")
-    if parallel.kv_seq_shard:
-        missing.append("kv_seq_shard (the sequence-sharded KV cache and its LSE merge)")
-    # each tp rank runs its own scheduler in lockstep: a decision read off
-    # the wall clock (deadlines, the ITL signal, delay clauses, retry
-    # backoff) would part the ranks' schedulers
+    if parallel.dp < 1:
+        missing.append(f"dp={parallel.dp}")
+    if parallel.kv_seq_shard and (cfg.mla is not None or kinds != {"attn"}):
+        missing.append("kv_seq_shard with mla, sliding-window or recurrent layers (the "
+                       "sequence-sharded cache of full-causal GQA layers only)")
+    # every rank runs its own scheduler in lockstep: a decision read off
+    # the wall clock (deadlines, the ITL signal, delay clauses) would part
+    # the ranks' schedulers
     if parallel.tp > 1 and parallel.overlap_decode:
         missing.append("overlap_decode at tp>1 (the overlapped loop)")
     if parallel.tp > 1 and parallel.fault_plan:
         missing.append("fault_plan at tp>1 (fault injection and step retry)")
     if parallel.tp > 1 and parallel.overload_degrade:
         missing.append("overload_degrade at tp>1 (the degradation ladder)")
+    if parallel.dp > 1 and parallel.overlap_decode:
+        missing.append("overlap_decode at dp>1 (the overlapped loop)")
+    if parallel.dp > 1 and parallel.overload_degrade:
+        missing.append("overload_degrade at dp>1 (the degradation ladder)")
+    if parallel.dp > 1 and _faults.reads_wall_clock(parallel.fault_plan):
+        missing.append("a fault plan's delay clause at dp>1 (it sleeps on the wall clock)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: the PyTorch port does not serve "
                                   f"{', '.join(missing)} yet")
@@ -569,7 +579,7 @@ def init_params(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), *
     (its scales see only its own columns, or its groups only its rows)."""
     check_supported(cfg, parallel)
     device = resolve_device(device)
-    plan = ModelCtx.make(cfg, parallel, dist).plan
+    plan = ModelCtx.make(cfg, dataclasses.replace(parallel, dp=dist.dp), dist).plan
     gen = torch.Generator(device=device).manual_seed(seed)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     mode, gs = parallel.weight_quant, parallel.wq_group_size
@@ -740,7 +750,8 @@ def decode_weight_bytes(cfg: ModelConfig, parallel: ParallelConfig = ParallelCon
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 per_slot: bool = False, paged: Optional[Tuple[int, int]] = None,
                 ring_slack: int = 0, kv_quant: bool = False,
-                kv_heads: Optional[int] = None, tp: int = 1) -> Dict[str, torch.Tensor]:
+                kv_heads: Optional[int] = None, tp: int = 1,
+                kv_seq_shard_dp: int = 1) -> Dict[str, torch.Tensor]:
     """The cache of all layers; ``pos`` -1 marks an empty entry.
 
     Wave (default): ``k``/``v`` (A, batch, hkv, S, hd) for the A attention
@@ -759,7 +770,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
     ``kv_heads``: the KV heads this rank holds (``ShardPlan.local_kv``;
     default all of them); ``tp``: the ranks the recurrent state splits over
     (each holds the RG-LRU's w / tp channels, or the SSD's heads / tp and
-    its d_in / tp + 2N conv channels).  MLA layers cache latents instead of K/V:
+    its d_in / tp + 2N conv channels); ``kv_seq_shard_dp``: the data ranks
+    a wave cache's sequence splits over (``kv_seq_shard``: this rank's
+    ceil(max_len / dp) entries, ``pos`` the absolute positions they hold).
+    MLA layers cache latents instead of K/V:
     ``ckv``/``krope`` with a unit head axis and their own widths
     (``mla.cache_dims``), bf16 whatever ``kv_quant`` says, as the reference
     keeps its latent cache."""
@@ -777,7 +791,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device,
         shape = lambda h, w: (n_attn, n_blocks, h, bs, w)
         pos_shape = (batch, -(-max_len // bs) * bs)
     else:
-        S = attn.cache_len_for(cfg, "local_attn" if window else "attn", max_len, ring_slack)
+        S = attn.cache_len_for(cfg, "local_attn" if window else "attn", max_len, ring_slack,
+                               kv_seq_shard_dp)
         shape = lambda h, w: (n_attn, batch, h, S, w)
         pos_shape = (batch, S) if per_slot else (S,)
     kv_dtype = torch.int8 if kv_quant else torch.bfloat16
@@ -825,9 +840,47 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     return logits
 
 
+def _seq_shard_step(caches, b: int, s: int, positions: torch.Tensor, cur_pos, q_pos,
+                    dist: Dist) -> attn.KVStep:
+    """``_kv_step`` of a sequence-sharded wave cache (``kv_seq_shard``):
+    data rank d holds view positions [d * S, (d + 1) * S) of the sequence
+    at indices 0..S-1 (the JAX package's ``_write_prefill`` and
+    ``_write_decode`` with a ``seq_axis``).  A prefill writes the rank's
+    slice of the prompt and attends the whole prompt's fresh K/V; a decode
+    step writes its token only on the owner of its position and merges
+    the ranks' partials (``KVStep.lse``)."""
+    pos = caches["pos"]
+    S, dev = pos.shape[0], positions.device
+    lo = dist.data_rank * S
+    none = torch.zeros((0,), dtype=torch.long, device=dev)
+    if cur_pos is not None:
+        if not 0 <= cur_pos < S * dist.dp:
+            raise ValueError(f"decode position {cur_pos} outside the cache of {S} x {dist.dp}")
+        owner, idx = divmod(cur_pos, S)
+        step = attn.KVStep(caches, decode=True, lse=dist)
+        if owner == dist.data_rank:
+            pos[idx] = cur_pos
+            step.wave_pos = idx
+        else:                        # another rank writes it: no target here
+            step.targets, step.src = (none, none), none
+        step.valid = (pos >= 0) & (pos <= cur_pos)
+        return step
+    if s > S * dist.dp:
+        raise ValueError(f"seq-sharded prefill needs s <= S*shards ({s} > {S}*{dist.dp})")
+    n = max(0, min(s, lo + S) - lo)
+    pos.fill_(-1)
+    pos[:n] = positions[lo:lo + n].to(pos.dtype)
+    idx = torch.arange(n, device=dev)
+    rows = torch.arange(b, device=dev).repeat_interleave(n)
+    src = (torch.arange(b, device=dev)[:, None] * s + lo + idx[None, :]).reshape(-1)
+    return attn.KVStep(caches, decode=False, q_pos=q_pos, targets=(rows, idx.repeat(b)),
+                       src=src)
+
+
 def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
              block_tables, write_rows=None, chunk_writes=None, window: int = 0,
-             length_mask: Optional[torch.Tensor] = None) -> attn.KVStep:
+             length_mask: Optional[torch.Tensor] = None,
+             seq_shard: Optional[Dist] = None) -> attn.KVStep:
     """Where this forward writes K/V and recurrent state and what it
     attends, worked out once for all layers; writes the position rows that
     decode needs first.  ``window`` > 0: the attention layers are a
@@ -836,7 +889,10 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
     stripe as it stands before the chunk, beside the chunk's positions (-1
     where ``length_mask`` marks a pad column).  Recurrent state is carried
     through whole prompts and decode steps, over a dense or a paged cache;
-    a chunk does not carry it, as in the reference."""
+    a chunk does not carry it, as in the reference.  ``seq_shard`` (the
+    rank's Dist under ``kv_seq_shard``): the wave cache holds this data
+    rank's slice of the sequence (``_seq_shard_step``); slots and chunks
+    refuse it, as the reference does."""
     dev = positions.device
     bt = block_tables
     ring = window > 0
@@ -844,6 +900,14 @@ def _kv_step(caches, b: int, s: int, positions: torch.Tensor, *, cur_pos, slots,
     if caches is None:
         return attn.KVStep(None, decode=False, q_pos=q_pos)
     pos = caches["pos"]
+    if seq_shard is not None:
+        if cur_pos is not None and not isinstance(cur_pos, int):
+            raise ValueError("per-slot decode positions are incompatible "
+                             "with kv_seq_shard (batch=1 long-context path)")
+        if pos.dim() != 1 or positions.dim() == 2:
+            raise ValueError("chunked prefill is incompatible with "
+                             "kv_seq_shard (batch=1 long-context path)")
+        return _seq_shard_step(caches, b, s, positions, cur_pos, q_pos, seq_shard)
     if pos.dim() == 1:                                        # wave cache
         S = pos.shape[0]
         if cur_pos is not None:
@@ -994,7 +1058,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     step = _kv_step(caches, b, s, positions, cur_pos=cur_pos, slots=slots,
                     block_tables=block_tables, write_rows=write_rows,
                     chunk_writes=chunk_writes, window=attention_window(cfg),
-                    length_mask=length_mask)
+                    length_mask=length_mask,
+                    seq_shard=ctx.dist if ctx.parallel.kv_seq_shard else None)
     if caches is not None and "k_scale" in caches:    # the int8 cache's writes, once
         step.quant_dst = attn.quant_targets(b, s, dev, wave_pos=step.wave_pos,
                                             ring_idx=step.ring_idx, targets=step.targets,

@@ -9,6 +9,20 @@ ids are replicated and need no broadcast (the paper's SPMD form).  The
 forwards that the JAX engine runs sequence-sharded (prefill, admission,
 chunks, verify) run so here.
 
+Over the data axis (``dist.dp`` replicas, ``launch/mesh.py``) every rank
+runs the same scheduler in lockstep too, and a replica computes only its
+shard's rows: slots [d * B / dp, (d + 1) * B / dp) of the slot engine and
+its pool of n_blocks / dp blocks (``init_slot_caches``,
+``init_paged_caches``), a wave's rows split as evenly as they go.  Each
+slot call takes the world's B-wide host arrays, runs the rank's rows (none
+at all where its shard has no row in the step: its launches are skipped)
+and all-gathers its outputs over the data group once a call (tag
+``dp_tokens``), so every rank lands the world's tokens.  With
+``kv_seq_shard`` the data axis splits the wave cache's sequence instead:
+every replica serves the whole batch over its slice, merged by log-sum-exp
+in each attention layer (``models/attention.py``).  ``migrate_blocks``
+moves KV blocks between the data shards' pools (disaggregated serving).
+
 The decode step is the paper's experiment unit (ms/token of exactly this
 function).  The JAX package fuses n decode steps into one ``lax.scan``
 program; here the steps are a plain Python loop that keeps the sampled
@@ -29,6 +43,7 @@ launches anything: the fault boundary of ``runtime/faults.py``.
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -94,11 +109,12 @@ class Engine:
     ``wq_cache`` does.  ``parallel.kv_quant`` gives every cache this engine
     makes the int8 layout.
 
-    ``dist`` (``launch.mesh.init_tp``) makes this engine one of
-    ``parallel.tp`` ranks: ``params`` default to this rank's shard of the
-    seed's model, and given ones must be a shard (``bridge.params_from_jax``
-    with the same ``dist``).  Every rank seeds its sampling generator alike,
-    so stochastic draws agree across the ranks too."""
+    ``dist`` (``launch.mesh.init_tp``) makes this engine one rank of a
+    world of ``parallel.dp`` x ``parallel.tp``: ``params`` default to this
+    rank's shard of the seed's model (the same in every data replica), and
+    given ones must be a shard (``bridge.params_from_jax`` with the same
+    ``dist``).  Every rank seeds its sampling generator alike, so
+    stochastic draws agree across the ranks too."""
 
     def __init__(self, cfg: ModelConfig, *, parallel: ParallelConfig = ParallelConfig(),
                  sampling: SamplingConfig = SamplingConfig(), max_len: int = 128,
@@ -134,6 +150,9 @@ class Engine:
         else:
             self.head_f32 = head[0].float() if cfg.n_codebooks == 1 else head.float()
         self.prefix = cfg.frontend.prefix_len if cfg.frontend is not None else 0
+        # the data axis splits the batch (slots, pools, a wave's rows) unless
+        # it splits the wave cache's sequence
+        self.row_shard = dist.dp > 1 and not parallel.kv_seq_shard
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         # called with no arguments before every slot step (decode, mixed,
         # verify) launches anything: an exception raised here leaves the
@@ -160,7 +179,11 @@ class Engine:
                     tp=self.dist.tp)
 
     def init_caches(self, batch: int) -> Dict[str, torch.Tensor]:
-        return M.init_caches(self.cfg, batch, self.max_len, device=self.device, **self._kv_kw())
+        """A wave cache of ``batch`` rows: under ``kv_seq_shard`` this data
+        rank's slice of the sequence."""
+        dp = self.dist.dp if self.parallel.kv_seq_shard else 1
+        return M.init_caches(self.cfg, batch, self.max_len, device=self.device,
+                             kv_seq_shard_dp=dp, **self._kv_kw())
 
     def zero_features(self, b: int) -> Optional[torch.Tensor]:
         """The stub encoder's output where none is given: zeros (b, prefix,
@@ -188,19 +211,51 @@ class Engine:
         return self.sample(logits[:, -1])
 
     def check_replicated(self, done) -> None:
-        """The end of a run at tp > 1: every rank must have served the same
-        streams (one all-gathered hash of the finished requests' tokens,
-        tag ``stream_check``); raises on a mismatch."""
-        if self.dist.tp == 1:
+        """The end of a run over more than one rank: every rank of the world
+        must have served the same streams (one hash of the finished
+        requests' tokens all-gathered over the model group, then over the
+        data group, tag ``stream_check``); raises on a mismatch."""
+        if self.dist.tp == 1 and self.dist.dp == 1:
             return
         h = hashlib.sha256()
         for r in sorted(done, key=lambda r: r.rid):
             h.update(np.int64(r.rid).tobytes() + np.asarray(r.output, np.int64).tobytes())
         mine = torch.tensor([int.from_bytes(h.digest()[:8], "little", signed=True)],
                             dtype=torch.int64, device=self.device)
-        hashes = cc.all_gather(mine, self.dist, 0, tag="stream_check").tolist()
+        hashes = cc.all_gather(mine, self.dist, 0, tag="stream_check")
+        hashes = cc.data_all_gather(hashes, self.dist, tag="stream_check").tolist()
         if len(set(hashes)) != 1:
-            raise RuntimeError(f"tp ranks served different streams (hashes {hashes})")
+            raise RuntimeError(f"the ranks served different streams (hashes {hashes})")
+
+    # -- the data axis -------------------------------------------------------
+
+    def _rows(self, B: int) -> slice:
+        """This replica's slots of a B-slot engine (B a multiple of dp)."""
+        bl = B // self.dist.dp
+        return slice(self.dist.data_rank * bl, (self.dist.data_rank + 1) * bl)
+
+    def _gather_rows(self, *arrays):
+        """Each replica's host arrays (B_local, ...) -> the world's (B, ...)
+        int64, in one all-gather over the data group (tag ``dp_tokens``)."""
+        parts = [np.asarray(a).astype(np.int64).reshape(len(a), -1) for a in arrays]
+        t = torch.from_numpy(np.concatenate(parts, axis=1))
+        if self.dist.backend == "nccl":
+            t = t.to(self.device)
+        got = cc.data_all_gather(t, self.dist, tag="dp_tokens").cpu().numpy()
+        out, c = [], 0
+        for a, part in zip(arrays, parts):
+            out.append(got[:, c:c + part.shape[1]].reshape(-1, *np.shape(a)[1:]))
+            c += part.shape[1]
+        return out
+
+    def _check_slots(self, n_slots: int, n_blocks: int = 0) -> None:
+        if self.parallel.kv_seq_shard:
+            raise ValueError("slot engine is incompatible with kv_seq_shard")
+        dp = self.dist.dp
+        if n_slots % dp:
+            raise ValueError(f"n_slots {n_slots} must divide dp {dp}")
+        if n_blocks % dp:
+            raise ValueError(f"n_blocks {n_blocks} must divide dp {dp}")
 
     # -- slot engine (continuous batching) -----------------------------------
     #
@@ -219,14 +274,21 @@ class Engine:
         (default ``parallel.spec_k``; a scheduler passes its own spec_k), so
         that a verify chunk of spec_k drafts never wraps onto live window
         entries (the JAX package's ``ring_slack``)."""
+        self._check_slots(n_slots)
         slack = self.parallel.spec_k if ring_slack is None else ring_slack
-        return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             per_slot=True, ring_slack=slack, **self._kv_kw())
+        return M.init_caches(self.cfg, n_slots // self.dist.dp, self.max_len,
+                             device=self.device, per_slot=True, ring_slack=slack,
+                             **self._kv_kw())
 
     def init_paged_caches(self, n_slots: int, n_blocks: int,
                           block_size: int) -> Dict[str, torch.Tensor]:
-        return M.init_caches(self.cfg, n_slots, self.max_len, device=self.device,
-                             paged=(n_blocks, block_size), **self._kv_kw())
+        """The paged cache of ``n_slots`` slots over a pool of ``n_blocks``:
+        at dp > 1 this replica's slots and its shard's pool of n_blocks /
+        dp blocks (local block 0 its null block)."""
+        self._check_slots(n_slots, n_blocks)
+        dp = self.dist.dp
+        return M.init_caches(self.cfg, n_slots // dp, self.max_len, device=self.device,
+                             paged=(n_blocks // dp, block_size), **self._kv_kw())
 
     def _layout(self, tokens, rows: np.ndarray):
         """The ``RowLayout`` of a prefill or chunk that computes ``rows`` of
@@ -268,6 +330,16 @@ class Engine:
         prefix stands before every prompt: each slot's cache then holds
         prefix + plen positions.  Returns each admitted slot's first
         sampled token (B,), or frame (B, ncb), on the host."""
+        if self.row_shard:
+            sl = self._rows(len(admit))
+            loc = np.asarray(admit)[sl]
+            out = (self._prefill_into_slots(caches, np.asarray(tokens)[sl], loc,
+                                            np.asarray(plens)[sl]) if loc.any()
+                   else np.zeros((len(loc), *np.shape(tokens)[2:]), np.int32))
+            return self._gather_rows(out)[0].astype(np.int32)
+        return self._prefill_into_slots(caches, tokens, admit, plens)
+
+    def _prefill_into_slots(self, caches, tokens, admit, plens) -> np.ndarray:
         kvcache.reset_slots(caches, admit)
         slots = kvcache.device_ints(np.flatnonzero(np.asarray(admit)), self.device)
         tok = self._admit_rows(tokens, admit, plens, caches=caches, slots=slots)
@@ -286,6 +358,19 @@ class Engine:
         the table (the paged flash-prefill kernel); without one it attends
         its own fresh K/V (the flash-prefill kernel), as in the dense slot
         engine."""
+        if self.row_shard:
+            sl = self._rows(len(admit))
+            loc = np.asarray(admit)[sl]
+            out = (self._prefill_into_slots_paged(
+                caches, np.asarray(tokens)[sl], loc, np.asarray(plens)[sl],
+                np.asarray(starts)[sl], np.asarray(total_lens)[sl],
+                np.asarray(block_tables)[sl]) if loc.any() else np.zeros(len(loc), np.int32))
+            return self._gather_rows(out)[0].astype(np.int32)
+        return self._prefill_into_slots_paged(caches, tokens, admit, plens, starts, total_lens,
+                                              block_tables)
+
+    def _prefill_into_slots_paged(self, caches, tokens, admit, plens, starts, total_lens,
+                                  block_tables) -> np.ndarray:
         rows = np.flatnonzero(np.asarray(admit))
         start = np.asarray(starts)[rows]
         kvcache.reset_slots(caches, admit, paged=True)
@@ -359,8 +444,36 @@ class Engine:
         index, row-locally.  ``tok``, ``pos``, ``done`` and ``remaining``
         are host arrays, or the previous block's device state
         (``DecodeBlock.state``); ``eos`` and ``block_tables`` (B, nbps; the
-        cache is paged) come from the host, uploaded without waiting."""
+        cache is paged) come from the host, uploaded without waiting.
+
+        At dp > 1 the block runs this replica's rows (none where all of
+        them are frozen: a masked step leaves a frozen row as it was) and
+        lands at once: its host copy holds the world's outputs, gathered
+        over the data group, and ``state`` those as host tensors."""
         self._predispatch()
+        if self.row_shard:
+            return self._dispatch_rows(caches, tok, pos, done, remaining, eos, n, block_tables)
+        return self._dispatch_local(caches, tok, pos, done, remaining, eos, n, block_tables)
+
+    def _dispatch_rows(self, caches, tok, pos, done, remaining, eos, n, block_tables):
+        sl = self._rows(len(pos))
+        tok, pos, done, remaining, eos = (np.asarray(x)[sl]
+                                          for x in (tok, pos, done, remaining, eos))
+        if ((~done.astype(bool)) & (remaining > 0)).any():
+            bt = None if block_tables is None else np.asarray(block_tables)[sl]
+            toks, pos, done, remaining = self.land_decode(
+                self._dispatch_local(caches, tok, pos, done, remaining, eos, n, bt))
+        else:
+            toks = np.repeat(np.asarray(tok)[None], n, axis=0)
+        toks, pos, done, remaining = self._gather_rows(np.moveaxis(toks, 0, 1), pos, done,
+                                                       remaining)
+        toks = np.moveaxis(toks, 1, 0)
+        host = torch.from_numpy(np.concatenate([toks.reshape(-1), pos, done, remaining]))
+        state = [torch.from_numpy(np.ascontiguousarray(x)) for x in (toks[-1], pos, done,
+                                                                     remaining)]
+        return DecodeBlock(state[0], state[1], state[2].bool(), state[3], n, host, None)
+
+    def _dispatch_local(self, caches, tok, pos, done, remaining, eos, n, block_tables):
         if isinstance(tok, torch.Tensor):
             tok_d, pos_d, done_d, rem_d = tok, pos, done, remaining
             eos_d = self._upload(eos)
@@ -448,12 +561,39 @@ class Engine:
         offset 0) resets its slot's position row first, since the chunk
         attends the ring's pre-write entries by it.  One host copy at the
         end.  Returns host (ptok (B,), nxt (B,), pos, done, remaining) and
-        whether the decode half ran."""
+        whether the decode half ran.  At dp > 1 each replica runs its rows'
+        halves (a half with no row of its shard is skipped) and the outputs
+        are gathered; whether the decode half ran is the world's answer."""
         self._predispatch()
         admit = np.asarray(admit, bool)
+        decoded = bool(((~np.asarray(done, bool)) & (np.asarray(remaining) > 0)).any())
+        if not self.row_shard:
+            return (*self._mixed_local(caches, ctokens, admit, clens, starts, totals, tok, pos,
+                                       done, remaining, eos, block_tables), decoded)
+        sl = self._rows(len(admit))
+        loc = [np.asarray(x)[sl] for x in (ctokens, admit, clens, starts, totals, tok, pos,
+                                           done, remaining, eos)]
+        bt = None if block_tables is None else np.asarray(block_tables)[sl]
+        if loc[1].any() or ((~loc[7].astype(bool)) & (loc[8] > 0)).any():
+            out = self._mixed_local(caches, *loc, bt)
+        else:
+            out = (np.zeros(len(loc[1]), np.int32), *loc[5:9])
+        ptok, nxt, pos, done, rem = self._gather_rows(*out)
+        return (ptok.astype(np.int32), nxt.astype(np.int32), pos.astype(np.int32),
+                done.astype(bool), rem.astype(np.int32), decoded)
+
+    def _chunk_half(self, caches, ctokens, admit, clens, starts, totals,
+                    block_tables) -> torch.Tensor:
+        """The chunk half of a mixed step, or a chunk-only step: one chunk of
+        the rows in ``admit`` (none: nothing runs) -> the device tokens (B,)
+        each admitted row sampled after its last real chunk position."""
+        admit = np.asarray(admit, bool)
         rows = np.flatnonzero(admit)
-        C = np.asarray(ctokens).shape[1]
         dev = self.device
+        ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)
+        if not rows.size:
+            return ptok
+        C = np.asarray(ctokens).shape[1]
         ring = self.ring and block_tables is None
         if ring:
             kvcache.reset_slots(caches, admit & (np.asarray(starts) == 0))
@@ -465,19 +605,87 @@ class Engine:
                               seq_sharded=True, layout=self._layout(ctokens, rows),
                               **self._chunk_kw(caches, rows, np.asarray(starts)[rows], C,
                                                block_tables, clens_r))
-        ptok = torch.zeros(len(admit), dtype=torch.long, device=dev)
         ptok[kvcache.device_ints(rows, dev)] = self.sample(logits[:, -1])
         kvcache.set_slot_positions(caches, totals, admit, ring=ring)
+        return ptok
+
+    def _mixed_local(self, caches, ctokens, admit, clens, starts, totals, tok, pos, done,
+                     remaining, eos, block_tables):
+        admit = np.asarray(admit, bool)
+        ptok = self._chunk_half(caches, ctokens, admit, clens, starts, totals, block_tables)
         (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
             tok, pos, done, remaining, eos, block_tables)
-        decoded = bool(((~np.asarray(done, bool)) & (np.asarray(remaining) > 0)).any())
-        if decoded:
+        if ((~np.asarray(done, bool)) & (np.asarray(remaining) > 0)).any():
             tok_d, pos_d, done_d, rem_d = self._decode_step(
                 caches, tok_d, pos_d, done_d, rem_d, eos_d, bt,
-                write_rows=kvcache.device_ints(np.flatnonzero(~admit), dev))
+                write_rows=kvcache.device_ints(np.flatnonzero(~admit), self.device))
         out = self.land(torch.stack([ptok, tok_d, pos_d, done_d.long(), rem_d]))
         return (out[0].astype(np.int32), out[1].astype(np.int32), out[2].astype(np.int32),
-                out[3].astype(bool), out[4].astype(np.int32), decoded)
+                out[3].astype(bool), out[4].astype(np.int32))
+
+    @torch.inference_mode()
+    def chunk_slots_paged(self, caches, ctokens, admit, clens, starts, totals, *,
+                          block_tables):
+        """One chunk-only step over the paged pool (the prefill pool's step
+        of disaggregated serving, ``chunk_slots_paged`` of the JAX
+        package): ``mixed_step`` without its decode half.  The chunk writes
+        through the admitted rows' tables only.  -> host ptok (B,); at dp >
+        1 a replica with no admitted row launches nothing."""
+        self._predispatch()
+        admit = np.asarray(admit, bool)
+        if self.row_shard:
+            sl = self._rows(len(admit))
+            loc = [np.asarray(x)[sl] for x in (ctokens, admit, clens, starts, totals,
+                                               block_tables)]
+            out = (self.land(self._chunk_half(caches, *loc)) if loc[1].any()
+                   else np.zeros(len(loc[1]), np.int64))
+            return self._gather_rows(out)[0].astype(np.int32)
+        return self.land(self._chunk_half(caches, ctokens, admit, clens, starts, totals,
+                                          block_tables)).astype(np.int32)
+
+    @torch.inference_mode()
+    def migrate_blocks(self, caches, src, dst, land, totals) -> None:
+        """Copy pool blocks ``src`` -> ``dst`` (GLOBAL ids, shard *
+        blocks_per_shard + local, as the JAX package's ``make_migrate_step``
+        takes them), every pool leaf's rows (an int8 cache's scales too),
+        then land the slots flagged by ``land`` (B,): their position rows
+        read valid over [0, ``totals[b]``).  Every other row keeps its
+        bytes.  A copy within one shard is a local copy; across shards the
+        source replica sends the blocks, packed into one buffer a (source,
+        destination) pair, to the destination replica (``data_send``, tag
+        ``migrate``, this model rank's heads), every rank walking the pairs
+        in the same order."""
+        keys = [k for k in (*kvcache.POOL_KEYS, *kvcache.SCALE_KEYS) if k in caches]
+        per = caches[keys[0]].shape[1]
+        d = self.dist.data_rank
+        pairs: Dict[tuple, list] = {}
+        for a, b in zip(src, dst):
+            pairs.setdefault((int(a) // per, int(b) // per), []).append((int(a) % per,
+                                                                         int(b) % per))
+        for (ss, ds), lst in sorted(pairs.items()):
+            if d not in (ss, ds):
+                continue
+            si, di = (kvcache.device_ints([p[i] for p in lst], self.device) for i in (0, 1))
+            if ss == ds:
+                for k in keys:
+                    caches[k][:, di] = caches[k][:, si]
+            elif ss == d:
+                cc.data_send(torch.cat([caches[k][:, si].contiguous().view(torch.uint8)
+                                        .reshape(-1) for k in keys]), self.dist, ds,
+                             tag="migrate")
+            else:
+                shapes = [(caches[k].shape[0], len(lst), *caches[k].shape[2:]) for k in keys]
+                sizes = [math.prod(sh) * caches[k].element_size() for k, sh in zip(keys, shapes)]
+                got = cc.data_recv((sum(sizes),), torch.uint8, self.device, self.dist, ss)
+                for k, sh, part in zip(keys, shapes, torch.split(got, sizes)):
+                    caches[k][:, di] = part.view(caches[k].dtype).reshape(sh)
+        land = np.asarray(land, bool)
+        totals = np.asarray(totals)
+        if self.row_shard:
+            sl = self._rows(len(land))
+            land, totals = land[sl], totals[sl]
+        if land.any():
+            kvcache.set_slot_positions(caches, totals, land)
 
     @torch.inference_mode()
     def verify_slots(self, caches, vtokens, pos, done, remaining, eos, *, block_tables=None):
@@ -494,8 +702,20 @@ class Engine:
         written.  With ``block_tables`` the cache is paged (the tables of
         the active rows route both the chunk's writes and its reads).  One
         host copy at the end.  Returns host (targets (B, K+1), n_emit (B,),
-        nxt (B,), pos, done, remaining)."""
+        nxt (B,), pos, done, remaining).  At dp > 1 each replica verifies
+        its active rows and the outputs are gathered."""
         self._predispatch()
+        if self.row_shard:
+            sl = self._rows(len(pos))
+            bt = None if block_tables is None else np.asarray(block_tables)[sl]
+            out = self._verify_local(caches, *(np.asarray(x)[sl] for x in (
+                vtokens, pos, done, remaining, eos)), bt)
+            targets, n_emit, nxt, pos, done, remaining = self._gather_rows(*out)
+            return (targets.astype(np.int32), n_emit.astype(np.int32), nxt.astype(np.int32),
+                    pos.astype(np.int32), done.astype(bool), remaining.astype(np.int32))
+        return self._verify_local(caches, vtokens, pos, done, remaining, eos, block_tables)
+
+    def _verify_local(self, caches, vtokens, pos, done, remaining, eos, block_tables):
         vtokens = np.asarray(vtokens)
         pos, done = np.asarray(pos, np.int32), np.asarray(done, bool)
         remaining, eos = np.asarray(remaining, np.int32), np.asarray(eos, np.int32)
@@ -538,11 +758,29 @@ class Engine:
         """prompts (b, prompt_len[, ncb]) int -> generated tokens (b,
         max_new[, ncb]) int32.  A config with a frontend projects
         ``features`` (b, prefix, feature_dim), zeros when not given, in
-        front of the prompts: decode starts at prompt_len + prefix."""
-        b, plen = prompts.shape[:2]
+        front of the prompts: decode starts at prompt_len + prefix.  At dp >
+        1 this replica serves its share of the rows (ceil(b / dp), the last
+        replicas fewer or none) and the outputs are gathered over the data
+        group; under ``kv_seq_shard`` every replica serves all of them over
+        its slice of the cache."""
+        plen = prompts.shape[1]
         if self.prefix + plen + max_new > self.max_len:
             raise ValueError(f"prefix {self.prefix} + prompt_len {plen} + max_new {max_new} "
                              f"exceeds max_len {self.max_len}")
+        if not self.row_shard:
+            return self._generate(prompts, max_new, features)
+        b = len(prompts)
+        bl = -(-b // self.dist.dp)
+        lo, hi = min(b, self.dist.data_rank * bl), min(b, (self.dist.data_rank + 1) * bl)
+        out = np.zeros((bl, max_new, *np.shape(prompts)[2:]), np.int32)
+        if hi > lo:
+            out[:hi - lo] = self._generate(prompts[lo:hi], max_new,
+                                           None if features is None else features[lo:hi])
+        return self._gather_rows(out)[0][:b].astype(np.int32)
+
+    def _generate(self, prompts: np.ndarray, max_new: int,
+                  features: Optional[np.ndarray] = None) -> np.ndarray:
+        b, plen = prompts.shape[:2]
         caches = self.init_caches(b)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         if features is not None and self.cfg.frontend is not None:

@@ -20,8 +20,15 @@ boundaries where failures are recoverable:
 * **allocation** (``deny_alloc``) -- the paged allocator's grow path reports
   exhaustion whatever the pool holds.
 * **handoff staging** (``on_handoff``) -- the disaggregated scheduler's
-  migration enqueue; the grammar parses ``migrate`` clauses, but no port
-  scheduler stages handoffs yet, so they never fire.
+  final handoff of a prefilled request's blocks to the decode pool
+  (``DisaggScheduler._advance_handoffs``): a ``MigrationFault`` there
+  rolls the whole handoff back and quarantines the request.
+
+Every clause but ``delay`` reads only the engine-step count and the plan's
+seeded rng, so every rank of a data-parallel world, each running the same
+plan over the same schedule, fires it at the same point; ``delay`` sleeps
+on the wall clock, and ``reads_wall_clock`` names it for the refusal at
+dp > 1.
 
 Spec grammar — clauses separated by ``;``, each ``kind:key=val,key=val``::
 
@@ -121,6 +128,15 @@ _INT_KEYS = ("at", "times", "slot", "handoff", "n", "count", "plen",
              "new", "every")
 _FLOAT_KEYS = ("s", "p")
 _STR_KEYS = ("cls",)
+
+
+# the clause kinds whose firing or effect reads the wall clock
+WALL_CLOCK_KINDS = ("delay",)
+
+
+def reads_wall_clock(spec: Optional[str]) -> bool:
+    """True where the plan ``spec`` has a clause of ``WALL_CLOCK_KINDS``."""
+    return any(c.kind in WALL_CLOCK_KINDS for c in FaultPlan.parse(spec).clauses)
 
 
 class FaultPlan:

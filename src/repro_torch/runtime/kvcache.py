@@ -33,10 +33,14 @@ what ``merge_slots`` guarantees there; pool leaves need no merge at all,
 because the admission computes the admitted rows only and writes through
 their own table rows.
 
-``BlockAllocator`` is host logic, the JAX package's semantics for a single
-shard: refcounted blocks, block 0 reserved as the null block (a write sink
-that is never validly read), and hash-chained prefix keys verified against
-the stored tokens.
+``BlockAllocator`` is host logic, the JAX package's semantics: one block
+namespace per data shard (at dp > 1 each data rank holds its shard's pool
+of ``blocks_per_shard`` blocks, and a slot's table holds local ids of its
+shard's pool), refcounted blocks, local block 0 of every shard reserved as
+the null block (a write sink that is never validly read), hash-chained
+prefix keys verified against the stored tokens, and the migration pins of
+disaggregated serving.  Every method takes the shard last (default 0, the
+one shard at dp = 1).
 """
 from __future__ import annotations
 
@@ -148,8 +152,22 @@ def rewind_slots(caches: Dict[str, torch.Tensor], rows: torch.Tensor,
     pos[rows] = position_rows(totals.to(pos.dtype), pos.shape[1], ring)
 
 
+def pool_block_bytes(caches: Dict[str, torch.Tensor]) -> int:
+    """Bytes one block holds across every pool leaf (K/V or latents, an int8
+    cache's scales too), all layers and this rank's heads: the unit of the
+    migration traffic of disaggregated serving (``repro.runtime.kvcache``'s
+    ``pool_block_bytes``)."""
+    return sum(t[:, 0].numel() * t.element_size() for key, t in caches.items()
+               if key in POOL_KEYS + SCALE_KEYS)
+
+
 class BlockAllocator:
     """Hands out, refcounts and frees KV blocks; tracks reusable prefixes.
+
+    The pool's blocks split into ``n_shards`` independent namespaces of
+    ``blocks_per_shard`` (one per data shard): a slot on shard d references
+    only that shard's local blocks, and local block 0 of every shard is the
+    null block.
 
     Prefix reuse is vLLM-style hash chaining: full block ``i`` of a prompt
     is keyed by ``h_i = hash((h_{i-1}, tokens[i*bs:(i+1)*bs]))``, so a hit
@@ -157,78 +175,115 @@ class BlockAllocator:
     block's stored tokens.  Registered blocks are full and never written
     again (decode writes only a request's private tail block), so sharing
     needs no copy.  An entry lives as long as its block has a reference.
+
+    Migration pins (``begin_migration``/``end_migration``): a block queued
+    for a copy to another shard holds an extra reference until the copy
+    has run, so releasing its slot cannot hand it to a new prefill first.
     """
 
-    def __init__(self, n_blocks: int, block_size: int):
-        if n_blocks < 2:
-            raise ValueError("need >= 2 blocks (one is the null block)")
+    def __init__(self, n_blocks: int, block_size: int, n_shards: int = 1):
+        if n_blocks % n_shards:
+            raise ValueError(f"n_blocks {n_blocks} must divide shards {n_shards}")
+        per = n_blocks // n_shards
+        if per < 2:
+            raise ValueError("need >= 2 blocks per shard (one is the null block)")
         self.block_size = block_size
         self.n_blocks = n_blocks
-        self._free = deque(range(1, n_blocks))
-        self._ref: Dict[int, int] = {}
-        # chain hash -> (block id, the block's exact tokens); block -> hash
-        self._prefix: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
-        self._prefix_of: Dict[int, int] = {}
+        self.n_shards = n_shards
+        self.blocks_per_shard = per
+        self._free = [deque(range(1, per)) for _ in range(n_shards)]
+        self._ref: List[Dict[int, int]] = [{} for _ in range(n_shards)]
+        # (shard, chain hash) -> (block id, the block's exact tokens);
+        # (shard, block) -> chain hash
+        self._prefix: Dict[Tuple[int, int], Tuple[int, Tuple[int, ...]]] = {}
+        self._prefix_of: Dict[Tuple[int, int], int] = {}
+        self._migrating = 0          # source blocks pinned by queued copies
 
     # -- accounting -------------------------------------------------------
-    def free_count(self) -> int:
-        return len(self._free)
+    def free_count(self, shard: int = 0) -> int:
+        return len(self._free[shard])
 
-    def used_count(self) -> int:
-        return len(self._ref)
+    def used_count(self, shard: int = 0) -> int:
+        return len(self._ref[shard])
 
-    def refcount(self, block: int) -> int:
-        return self._ref.get(block, 0)
+    def total_used(self) -> int:
+        return sum(len(r) for r in self._ref)
 
-    def audit(self) -> None:
-        """Raise ``AssertionError`` naming the first broken invariant:
-        free and referenced blocks are exactly 1..n_blocks-1 with no
-        duplicates and the null block in neither; every refcount >= 1;
-        every prefix entry points at a live block, and the two prefix maps
-        agree."""
-        free = list(self._free)
-        fset, refd = set(free), set(self._ref)
-        assert len(free) == len(fset), "duplicate blocks on the free list"
-        assert not fset & refd, f"blocks both free and referenced: {fset & refd}"
-        assert 0 not in fset and 0 not in refd, "null block entered circulation"
-        full = set(range(1, self.n_blocks))
-        assert fset | refd == full, (f"conservation broken: leaked {full - fset - refd}, "
-                                     f"foreign {(fset | refd) - full}")
-        for b, c in self._ref.items():
-            assert c >= 1, f"block {b} refcount {c} < 1"
-        for h, (b, _) in self._prefix.items():
-            assert self._prefix_of.get(b) == h, f"prefix maps disagree for block {b}"
-            assert b in self._ref, f"prefix cache points at dead block {b}"
-        for b, h in self._prefix_of.items():
-            assert self._prefix.get(h, (None,))[0] == b, f"prefix entry of block {b} orphaned"
+    def refcount(self, block: int, shard: int = 0) -> int:
+        return self._ref[shard].get(block, 0)
+
+    def migrating_count(self) -> int:
+        return self._migrating
+
+    def audit(self, expect_no_migration: bool = False) -> None:
+        """Raise ``AssertionError`` naming the first broken invariant, shard
+        by shard: free and referenced blocks are exactly local 1..per-1
+        with no duplicates and the null block in neither; every refcount
+        >= 1; every prefix entry points at a live block, and the two prefix
+        maps agree; the migration pins never go negative and, with
+        ``expect_no_migration``, have all drained."""
+        full = set(range(1, self.blocks_per_shard))
+        for sh in range(self.n_shards):
+            free = list(self._free[sh])
+            fset, refd = set(free), set(self._ref[sh])
+            assert len(free) == len(fset), f"shard {sh}: duplicate blocks on the free list"
+            assert not fset & refd, f"shard {sh}: blocks both free and referenced: {fset & refd}"
+            assert 0 not in fset and 0 not in refd, f"shard {sh}: null block entered circulation"
+            assert fset | refd == full, (f"shard {sh}: conservation broken: leaked "
+                                         f"{full - fset - refd}, foreign {(fset | refd) - full}")
+            for b, c in self._ref[sh].items():
+                assert c >= 1, f"shard {sh}: block {b} refcount {c} < 1"
+        for (sh, h), (b, _) in self._prefix.items():
+            assert self._prefix_of.get((sh, b)) == h, \
+                f"shard {sh}: prefix maps disagree for block {b}"
+            assert b in self._ref[sh], f"shard {sh}: prefix cache points at dead block {b}"
+        for (sh, b), h in self._prefix_of.items():
+            assert self._prefix.get((sh, h), (None,))[0] == b, \
+                f"shard {sh}: prefix entry of block {b} orphaned"
+        assert self._migrating >= 0, f"migration pin counter underflow: {self._migrating}"
+        if expect_no_migration:
+            assert self._migrating == 0, f"{self._migrating} migration pins never drained"
+
+    # -- migration pins ---------------------------------------------------
+    def begin_migration(self, blocks: Sequence[int], shard: int = 0) -> None:
+        """Pin source ``blocks`` of ``shard`` until their copy has run."""
+        self.incref(blocks, shard)
+        self._migrating += len(blocks)
+
+    def end_migration(self, blocks: Sequence[int], shard: int = 0) -> None:
+        """Drop the pins of ``begin_migration`` (the copy ran, or was
+        dropped with its handoff)."""
+        self._migrating -= len(blocks)
+        self.free(blocks, shard)
 
     # -- alloc / free -----------------------------------------------------
-    def alloc(self, n: int):
-        """n fresh blocks (refcount 1), or None -- never a partial grant."""
-        if n > len(self._free):
+    def alloc(self, n: int, shard: int = 0):
+        """n fresh blocks of ``shard`` (refcount 1), or None -- never a
+        partial grant."""
+        if n > len(self._free[shard]):
             return None
-        out = [self._free.popleft() for _ in range(n)]
+        out = [self._free[shard].popleft() for _ in range(n)]
         for b in out:
-            self._ref[b] = 1
+            self._ref[shard][b] = 1
         return out
 
-    def incref(self, blocks: Sequence[int]) -> None:
+    def incref(self, blocks: Sequence[int], shard: int = 0) -> None:
         for b in blocks:
-            self._ref[b] += 1
+            self._ref[shard][b] += 1
 
-    def free(self, blocks: Sequence[int]) -> None:
+    def free(self, blocks: Sequence[int], shard: int = 0) -> None:
         """Drop one reference per block; at refcount 0 the block returns to
         the free list and its prefix entry is evicted."""
         for b in blocks:
-            c = self._ref[b] - 1
+            c = self._ref[shard][b] - 1
             if c:
-                self._ref[b] = c
+                self._ref[shard][b] = c
                 continue
-            del self._ref[b]
-            h = self._prefix_of.pop(b, None)
+            del self._ref[shard][b]
+            h = self._prefix_of.pop((shard, b), None)
             if h is not None:
-                self._prefix.pop(h, None)
-            self._free.append(b)
+                self._prefix.pop((shard, h), None)
+            self._free[shard].append(b)
 
     # -- prefix cache -----------------------------------------------------
     @staticmethod
@@ -240,22 +295,23 @@ class BlockAllocator:
             h = hash((h, blk))
             yield h, blk
 
-    def match_prefix(self, tokens) -> Tuple[List[int], int]:
-        """Longest chain of resident full blocks covering a prefix of
-        ``tokens`` -> (block ids, tokens covered).  Does not incref."""
+    def match_prefix(self, tokens, shard: int = 0) -> Tuple[List[int], int]:
+        """Longest chain of ``shard``'s resident full blocks covering a
+        prefix of ``tokens`` -> (block ids, tokens covered).  Does not
+        incref."""
         blocks: List[int] = []
         for h, blk in self._chain(tokens, self.block_size):
-            hit = self._prefix.get(h)
+            hit = self._prefix.get((shard, h))
             if hit is None or hit[1] != blk:
                 break
             blocks.append(hit[0])
         return blocks, len(blocks) * self.block_size
 
-    def register_prefix(self, tokens, blocks: Sequence[int]) -> None:
-        """Publish ``blocks`` (the prompt's full blocks) under the token
-        chain; existing entries win (they hold the same K/V)."""
+    def register_prefix(self, tokens, blocks: Sequence[int], shard: int = 0) -> None:
+        """Publish ``blocks`` (the prompt's full blocks) of ``shard`` under
+        the token chain; existing entries win (they hold the same K/V)."""
         for (h, blk), b in zip(self._chain(tokens, self.block_size), blocks):
-            if h in self._prefix:
+            if (shard, h) in self._prefix:
                 continue
-            self._prefix[h] = (b, blk)
-            self._prefix_of[b] = h
+            self._prefix[(shard, h)] = (b, blk)
+            self._prefix_of[(shard, b)] = h

@@ -1,7 +1,8 @@
 """Request scheduling over the engine (``repro.runtime.scheduler``):
-``Request``, the drain-and-restart ``WaveScheduler``, and continuous
-batching over slots with a dense (``ContinuousScheduler``) or a paged
-(``PagedContinuousScheduler``) KV cache.
+``Request``, the drain-and-restart ``WaveScheduler``, continuous batching
+over slots with a dense (``ContinuousScheduler``) or a paged
+(``PagedContinuousScheduler``) KV cache, and disaggregated prefill/decode
+pools with KV-block migration (``DisaggScheduler``).
 
 A wave takes up to ``batch_size`` queued requests, right-pads their prompts
 to the longest one, runs one prefill and decodes every row to the wave's
@@ -44,14 +45,19 @@ The serving control plane is the JAX package's too:
   suspends spec decode and tightens admission under sustained overload.
   Every lever changes which requests run and when, never their tokens.
 
-Under tensor parallelism every rank runs its own scheduler over the same
-requests; its decisions depend on the requests and the sampled tokens
-only, which are the same on every rank, so the ranks make the same engine
-calls.  A run ends by checking that every rank served the same streams
-(``Engine.check_replicated``).  Decisions read off the wall clock would
-part the ranks, so overlap, fault plans, the degradation ladder and
-deadlines are refused at tp > 1; priority classes and reserves read only
-the virtual clock and work at any tp.
+Over a world of ranks (tensor parallelism, the data axis) every rank runs
+its own scheduler over the same requests; its decisions depend on the
+requests and the sampled tokens only, which are the same on every rank
+(at dp > 1 the engine gathers each step's tokens over the data group), so
+the ranks make the same engine calls.  A run ends by checking that every
+rank served the same streams (``Engine.check_replicated``).  Decisions
+read off the wall clock would part the ranks, so overlap, the degradation
+ladder and deadlines are refused at tp > 1 and dp > 1, fault plans at tp
+> 1 and their ``delay`` clauses at dp > 1; priority classes and reserves
+read only the virtual clock and work at any tp and dp.  At dp > 1 the
+slots split evenly over the data shards, and the paged pool into one
+block namespace a shard (``_shard_of``): a slot's blocks come from its
+shard's pool.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -67,7 +73,7 @@ from repro_torch.models import model as M
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.drafter import NgramDrafter
 from repro_torch.runtime.engine import DecodeBlock, Engine
-from repro_torch.runtime.faults import FaultPlan, TransientStepError
+from repro_torch.runtime.faults import FaultPlan, MigrationFault, TransientStepError
 from repro_torch.runtime.overload import OverloadController
 
 MIN_BUCKET = 8      # smallest admission width: prompts pad to a power of two >= this
@@ -368,7 +374,8 @@ class ContinuousScheduler:
         enabled = opts.pop("enabled")
         # what this scheduler turns on is refused where the config's would be
         M.check_supported(engine.cfg, dataclasses.replace(
-            par, overlap_decode=self.overlap, fault_plan="on" if self.faults else "",
+            par, overlap_decode=self.overlap,
+            fault_plan=par.fault_plan if fault_plan is None else fault_plan,
             overload_degrade=bool(enabled)))
         if self.faults:
             engine.dispatch_hook = self._fault_dispatch
@@ -406,6 +413,9 @@ class ContinuousScheduler:
             raise ValueError("prompts must have >= 2 tokens")
         if deadline_s is not None and self.engine.dist.tp > 1:
             raise NotImplementedError("deadline_s at tp>1 (a wall-clock deadline would part "
+                                      "the ranks' schedulers)")
+        if deadline_s is not None and self.engine.dist.dp > 1:
+            raise NotImplementedError("deadline_s at dp>1 (a wall-clock deadline would part "
                                       "the ranks' schedulers)")
         rid = self._next_id
         self._next_id += 1
@@ -1298,20 +1308,31 @@ class PagedContinuousScheduler(ContinuousScheduler):
         self.has_attn = bool(kinds & {"attn", "local_attn"})
         self.bs = block_size or engine.parallel.kv_block_size
         self.view_blocks = -(-engine.max_len // self.bs)
+        # one block namespace a data shard, each with its own null block
+        self.n_shards = engine.dist.dp
+        if n_slots % self.n_shards:
+            raise ValueError(f"n_slots {n_slots} must divide data shards {self.n_shards}")
         self.n_blocks = (n_blocks or engine.parallel.kv_pool_blocks
-                         or n_slots * self.view_blocks + 1)
-        self.alloc = kvcache.BlockAllocator(self.n_blocks, self.bs)
+                         or n_slots * self.view_blocks + self.n_shards)
+        self.alloc = kvcache.BlockAllocator(self.n_blocks, self.bs, self.n_shards)
         self.prefix_cache = prefix_cache and kinds <= {"attn", "local_attn"}
         self.on_preempt = on_preempt
-        # per-slot block table; unallocated entries point at the null block
+        # per-slot block table (local ids of the slot's shard; the engine
+        # hands each replica its rows); unallocated entries point at the
+        # null block
         self.bt = np.zeros((n_slots, self.view_blocks), np.int32)
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
         self.stats.update({"prefill_tokens_saved": 0, "preemptions": 0,
                            "shared_block_hits": 0, "blocks_hwm": 0, "blocks_in_use": 0,
                            "deferred_admissions": 0, "prefix_prefill_calls": 0})
 
+    def _shard_of(self, slot: int) -> int:
+        """The data shard that holds ``slot`` (and whose pool its blocks
+        come from)."""
+        return slot // (self.B // self.n_shards)
+
     def _note_usage(self) -> None:
-        used = self.alloc.used_count()
+        used = self.alloc.total_used()
         self.stats["blocks_in_use"] = used
         self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"], used)
 
@@ -1319,8 +1340,9 @@ class PagedContinuousScheduler(ContinuousScheduler):
                arrival_step: int = 0, deadline_s: Optional[float] = None,
                priority: str = "standard") -> int:
         need = -(-(len(prompt) + max_new) // self.bs)
-        if self.has_attn and need > self.n_blocks - 1:
-            raise ValueError(f"request needs {need} blocks > pool {self.n_blocks - 1}")
+        usable = self.alloc.blocks_per_shard - 1
+        if self.has_attn and need > usable:
+            raise ValueError(f"request needs {need} blocks > per-shard pool {usable}")
         return super().submit(prompt, max_new, eos_id, arrival_step, deadline_s, priority)
 
     def _init_caches(self) -> None:
@@ -1329,7 +1351,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
     # -- block management -------------------------------------------------
     def _release_slot(self, i: int) -> None:
         if self.slot_blocks[i]:
-            self.alloc.free(self.slot_blocks[i])
+            self.alloc.free(self.slot_blocks[i], self._shard_of(i))
             self.slot_blocks[i] = []
         self.bt[i, :] = kvcache.NULL_BLOCK
         self._note_usage()
@@ -1342,10 +1364,10 @@ class PagedContinuousScheduler(ContinuousScheduler):
                 self._release_slot(i)
         super()._retire()
 
-    def _preempt_youngest(self) -> bool:
-        """Evict the lowest-class, most recently admitted running request
-        (victim key: class rank, then admission step, then rid; with one
-        class, the youngest): free its blocks and requeue it at the head
+    def _preempt_youngest(self, shard: int) -> bool:
+        """Evict the lowest-class, most recently admitted running request on
+        ``shard`` (victim key: class rank, then admission step, then rid;
+        with one class, the youngest): free its blocks and requeue it at the head
         (recomputed on readmission).  Its tokens so far are discarded and
         the emitted counter rolls back.  A slot mid-prefill is a candidate
         too; its chunk progress is dropped.  Never under an unlanded block:
@@ -1353,8 +1375,8 @@ class PagedContinuousScheduler(ContinuousScheduler):
         if self._pipeline:
             self._drain_pipeline()
         cand = [i for i, s in enumerate(self.slots)
-                if s.req is not None and ((not self.dones[i] and self.remaining[i] > 0)
-                                          or s.chunk_next is not None)]
+                if s.req is not None and self._shard_of(i) == shard
+                and ((not self.dones[i] and self.remaining[i] > 0) or s.chunk_next is not None)]
         if not cand:
             return False
         i = max(cand, key=lambda j: (PRIORITY_RANK[self.slots[j].req.priority],
@@ -1380,7 +1402,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
             return True
         if self.faults and self.faults.deny_alloc(self.step_count):
             return False
-        fresh = self.alloc.alloc(n_needed - have)
+        fresh = self.alloc.alloc(n_needed - have, self._shard_of(i))
         if fresh is None:
             return False
         self.bt[i, have:have + len(fresh)] = fresh
@@ -1414,7 +1436,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
                 self._drain_pipeline()
                 self._retire()
                 continue
-            if not self._preempt_youngest():
+            if not self._preempt_youngest(self._shard_of(i)):
                 self.stats["aborts_exhaustion"] += 1
                 self._quarantine_slot(i, "error", "paged pool exhausted with nothing to preempt")
                 i += 1
@@ -1447,24 +1469,26 @@ class PagedContinuousScheduler(ContinuousScheduler):
                 pairs.append((slot, r))
                 left -= 1
                 continue
+            shard = self._shard_of(slot)
             plen = len(r.prompt)
             shared, n_cached = [], 0
             if self.prefix_cache:
-                shared, n_cached = self.alloc.match_prefix(r.prompt)
+                shared, n_cached = self.alloc.match_prefix(r.prompt, shard)
                 while n_cached > plen - 1:   # keep >= 1 suffix token to run
                     shared = shared[:-1]
                     n_cached -= self.bs
             need = -(-plen // self.bs) - len(shared)
-            if r.priority != "interactive" and self.alloc.free_count() - need < self.reserve_blocks:
+            if (r.priority != "interactive"
+                    and self.alloc.free_count(shard) - need < self.reserve_blocks):
                 # the blocks exist but are held for interactive admissions
                 self.stats["deferred_admissions"] += 1
                 break
-            fresh = self.alloc.alloc(need)
+            fresh = self.alloc.alloc(need, shard)
             if fresh is None:
                 self.stats["deferred_admissions"] += 1
                 break
             if shared:
-                self.alloc.incref(shared)
+                self.alloc.incref(shared, shard)
                 self.stats["shared_block_hits"] += len(shared)
             blocks = shared + fresh
             self.slot_blocks[slot] = blocks
@@ -1516,7 +1540,8 @@ class PagedContinuousScheduler(ContinuousScheduler):
         if self.prefix_cache:   # publish the fresh full prompt blocks for reuse
             for slot, r in pairs:
                 self.alloc.register_prefix(r.prompt,
-                                           self.slot_blocks[slot][:len(r.prompt) // self.bs])
+                                           self.slot_blocks[slot][:len(r.prompt) // self.bs],
+                                           self._shard_of(slot))
         self._finish_admission(pairs, admit, new_tok)
 
     # -- speculative decoding and chunked admission hooks --------------------
@@ -1539,7 +1564,7 @@ class PagedContinuousScheduler(ContinuousScheduler):
             keep = -(-int(self.pos[i]) // self.bs)
             blocks = self.slot_blocks[i]
             if len(blocks) > keep:
-                self.alloc.free(blocks[keep:])
+                self.alloc.free(blocks[keep:], self._shard_of(i))
                 self.bt[i, keep:len(blocks)] = kvcache.NULL_BLOCK
                 self.slot_blocks[i] = blocks[:keep]
         self._note_usage()
@@ -1564,4 +1589,476 @@ class PagedContinuousScheduler(ContinuousScheduler):
             s = self.slots[i]
             n_full = s.chunk_next // self.bs
             if n_full:
-                self.alloc.register_prefix(s.req.prompt, self.slot_blocks[i][:n_full])
+                self.alloc.register_prefix(s.req.prompt, self.slot_blocks[i][:n_full],
+                                           self._shard_of(i))
+
+
+class DisaggScheduler(PagedContinuousScheduler):
+    """Disaggregated serving (``repro.runtime.scheduler.DisaggScheduler``):
+    the data axis splits into a prefill pool (the first ``prefill_shards``
+    data shards) and a decode pool (the rest), each shard with its own
+    block namespace in the allocator.
+
+    Prompts admit only to prefill-pool slots and stream through the
+    chunk-only step (``Engine.chunk_slots_paged``: no decode half, since
+    the decode-active slots live on other shards and step apart).  At each
+    chunk boundary the completed full blocks are queued for migration at
+    once; when the prompt completes, its tail block follows, the prefill
+    slot is released, and the request lands in a free decode-pool slot,
+    its position row rewritten by the same engine call that runs the
+    queued block copies (``Engine.migrate_blocks``: the source replica
+    sends them to the destination replica).  Refcounts hand off through
+    the allocator: sources are pinned by ``begin_migration`` until the copy
+    has run, destinations belong to the landing slot, and a decode-side
+    prefix hit on a block already migrated is referenced instead of copied
+    (``migration_skipped_blocks``).
+
+    Decode reads K/V only through block tables, so it never learns where a
+    block was filled: greedy streams equal the unified paged engine's at
+    the same chunk width.  Every rank runs this scheduler in lockstep; a
+    replica computes only its own shard's rows, so the decode pool's ranks
+    skip the chunk-only step and the prefill pool's the decode blocks.
+    The overlapped loop is refused at dp > 1, so a decode ITL sample is
+    stamped at the decode dispatch (``_last_step_t``) and ends at its
+    landing: the dispatch's own duration.  With ranks sharing one card the
+    two pools time-slice it, so no ITL measured there shows the pools'
+    independence.
+    """
+
+    def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
+                 *, prefill_shards: Optional[int] = None, **kw):
+        # the pool split rides on chunked prefill over the paged backend; an
+        # ineligible arch would silently serve unified, so the registry
+        # refuses it with its uniform error
+        engine.caps.require("disagg")
+        super().__init__(engine, n_slots, pad_id, block_steps, **kw)
+        self._stall = 0
+        self._stall_sig = None
+        if not self.chunk:
+            raise ValueError("disaggregated serving needs prefill_chunk > 0")
+        from repro_torch.launch.mesh import split_data_shards
+        pf = (prefill_shards if prefill_shards is not None
+              else engine.parallel.disagg_prefill_shards)
+        try:
+            self._pf_shards, self._dec_shards = split_data_shards(self.n_shards, pf)
+        except ValueError as e:
+            raise ValueError(
+                "disaggregated serving splits the data axis into two pools "
+                f"(got dp*pods={self.n_shards}, prefill_shards={pf}) — run "
+                "with dp >= 2 and 1 <= prefill_shards < dp*pods") from e
+        self._spss = self.B // self.n_shards
+        self._pf_slots = tuple(range(len(self._pf_shards) * self._spss))
+        # the migration pipeline:
+        #   _mig_queue  (slot, src shard, src local, dst shard, dst local)
+        #               copies waiting for the next migrate call
+        #   _mig        per-slot handoff state {dst, dst_blocks, sent, ready_t}
+        #   _handoff_ready  prefill-complete slots still queuing blocks
+        #   _landing        fully queued requests waiting for a decode slot
+        self._mig_queue: List[Tuple[int, int, int, int, int]] = []
+        self._mig: Dict[int, Dict] = {}
+        self._handoff_ready: List[int] = []
+        self._landing: List[Dict] = []
+        self._mig_wait: "deque[float]" = deque(maxlen=65536)
+        self._block_bytes: Optional[int] = None
+        self.stats.update({
+            "migrated_blocks": 0, "migration_bytes": 0, "migration_skipped_blocks": 0,
+            "migration_deferrals": 0, "migration_steps": 0, "handoffs": 0,
+            "prefill_steps": 0, "prefill_slot_busy": 0, "prefill_slot_total": 0,
+        })
+
+    # -- pool geometry ----------------------------------------------------
+    def _free_slots(self) -> List[int]:
+        return [i for i in self._pf_slots if self.slots[i].req is None]
+
+    def _prefilling(self) -> List[int]:
+        # chunk_next == plen marks a slot waiting for its handoff: no longer
+        # chunking, but it may not retire until its blocks have migrated
+        return [i for i in super()._prefilling()
+                if self.slots[i].chunk_next < len(self.slots[i].req.prompt)]
+
+    def _pick_decode_shard(self) -> int:
+        """The least loaded decode shard: most free blocks, then most free
+        slots, then the lowest id."""
+        def free_slots(sh: int) -> int:
+            lo = sh * self._spss
+            return sum(1 for j in range(lo, lo + self._spss) if self.slots[j].req is None)
+
+        return max(self._dec_shards,
+                   key=lambda sh: (self.alloc.free_count(sh), free_slots(sh), -sh))
+
+    # -- slot release (migration state rolled back) -------------------------
+    def _release_slot(self, i: int) -> None:
+        m = self._mig.pop(i, None)
+        if m is not None:
+            # drop this slot's queued copies (unpinning their sources) and
+            # return its destination blocks: a preempted request recomputes
+            # from its prompt, so a half-done handoff rolls back whole
+            keep = []
+            for e in self._mig_queue:
+                if e[0] == i:
+                    self.alloc.end_migration([e[2]], e[1])
+                else:
+                    keep.append(e)
+            self._mig_queue[:] = keep
+            if m["dst_blocks"]:
+                self.alloc.free(m["dst_blocks"], m["dst"])
+            if i in self._handoff_ready:
+                self._handoff_ready.remove(i)
+        super()._release_slot(i)
+
+    # -- the prefill pool -------------------------------------------------
+    def _chunk_step(self) -> bool:
+        """One chunk-only step over every mid-prefill slot (the prefill
+        pool's turn: ``_mixed_step`` without the decode half)."""
+        C = self.chunk
+        slots_p = self._prefilling()
+        if not slots_p:
+            return False
+        tokens = np.full((self.B, C), self.pad_id, np.int32)
+        admit = np.zeros((self.B,), bool)
+        clens = np.ones((self.B,), np.int32)
+        starts = np.zeros((self.B,), np.int32)
+        totals = np.ones((self.B,), np.int32)
+        emits = []
+        for i in slots_p:
+            s = self.slots[i]
+            off, plen = s.chunk_next, len(s.req.prompt)
+            nc = min(C, plen - off)
+            tokens[i, :nc] = s.req.prompt[off:off + nc]
+            admit[i] = True
+            clens[i], starts[i], totals[i] = nc, off, off + nc
+            if off + nc == plen:
+                emits.append(i)
+        ptok = self._landed(self.engine.chunk_slots_paged(
+            self.caches, tokens, admit, clens, starts, totals, block_tables=self.bt))
+        self._admission_mark = True       # this round carried prefill work
+        for i in slots_p:
+            self.slots[i].chunk_next += int(clens[i])
+            self.stats["prefill_tokens"] += int(clens[i])
+            self.stats["prefill_chunks"] += 1
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_steps"] += 1
+        self.stats["prefill_slot_busy"] += len(slots_p)
+        self.stats["prefill_slot_total"] += len(self._pf_slots)
+        self._post_chunks(slots_p)
+        for i in emits:
+            self._complete_prefill(i, int(ptok[i]))
+        return True
+
+    def _post_chunks(self, slots_p: List[int]) -> None:
+        super()._post_chunks(slots_p)     # the prefill shard's prefix publication
+        # eager migration: the completed full blocks start their copy at the
+        # chunk boundary that publishes them
+        for i in slots_p:
+            s = self.slots[i]
+            if s.chunk_next < len(s.req.prompt):
+                self._enqueue_migration(i)
+
+    def _complete_prefill(self, i: int, tok: int) -> None:
+        """Slot i's chunk completed its prompt: record the first token (the
+        chunk step sampled it) and stage the handoff."""
+        if not 0 <= tok < self.vocab:
+            self._quarantine_slot(i, "error", f"poisoned prefill token {tok}")
+            return
+        s = self.slots[i]
+        r = s.req
+        s.toks.append(tok)
+        if self.on_token is not None:
+            self.on_token(r.rid, tok)
+        r.stats["ttft_s"] = time.monotonic() - r.submitted_at
+        self.stats["emitted"] += 1
+        if r.max_new <= 1 or (r.eos_id is not None and tok == r.eos_id):
+            # nothing left to decode: it completes off the prefill pool (the
+            # retirement releases its blocks and any queued migration)
+            self.dones[i] = True
+            self.remaining[i] = 0
+            s.chunk_next = None
+            return
+        m = self._mig.get(i)
+        if m is None:
+            m = self._mig[i] = {"dst": self._pick_decode_shard(), "dst_blocks": [],
+                                "sent": 0, "ready_t": None}
+        m["ready_t"] = time.monotonic()
+        self._handoff_ready.append(i)
+        # chunk_next stays at plen: _retire and _prefilling leave the slot
+        # alone while its blocks stream out
+
+    # -- the migration pipeline -------------------------------------------
+    def _enqueue_migration(self, i: int, final: bool = False) -> None:
+        """Queue the copies of slot i's blocks up to its published frontier
+        (all of them, the partial tail too, when ``final``).  A decode-side
+        prefix hit references the resident block instead of copying; when
+        the destination runs dry the youngest decode-pool request is
+        preempted once, then the copy is deferred (retried every round)."""
+        s = self.slots[i]
+        prompt = s.req.prompt
+        plen = len(prompt)
+        done_toks = plen if s.chunk_next is None else min(s.chunk_next, plen)
+        target = -(-plen // self.bs) if final else done_toks // self.bs
+        if target == 0:
+            return
+        m = self._mig.get(i)
+        if m is None:
+            m = self._mig[i] = {"dst": self._pick_decode_shard(), "dst_blocks": [],
+                                "sent": 0, "ready_t": None}
+        dshard, src_shard = m["dst"], self._shard_of(i)
+        hits: List[int] = []
+        if self.prefix_cache:
+            hits, _ = self.alloc.match_prefix(prompt, dshard)
+        while m["sent"] < target:
+            j = m["sent"]
+            if j < len(hits):
+                # the chain-verified block already lives in the decode pool:
+                # hand the reference over, copy nothing
+                self.alloc.incref([hits[j]], dshard)
+                m["dst_blocks"].append(hits[j])
+                self.stats["migration_skipped_blocks"] += 1
+            else:
+                got = self.alloc.alloc(1, dshard)
+                if got is None and self._preempt_youngest(dshard):
+                    got = self.alloc.alloc(1, dshard)
+                if got is None:
+                    self.stats["migration_deferrals"] += 1
+                    return
+                src_local = self.slot_blocks[i][j]
+                self.alloc.begin_migration([src_local], src_shard)
+                self._mig_queue.append((i, src_shard, src_local, dshard, got[0]))
+                m["dst_blocks"].append(got[0])
+            m["sent"] += 1
+
+    def _advance_handoffs(self) -> None:
+        """Finish staging the prefill-complete slots: once every block (the
+        tail too) is queued or referenced, free the prefill slot (the pins
+        keep queued sources alive until their copy runs) and move the
+        request to the landing list."""
+        for i in list(self._handoff_ready):
+            s = self.slots[i]
+            try:
+                if self.faults:
+                    self.faults.on_handoff()
+                self._enqueue_migration(i, final=True)
+            except MigrationFault as e:
+                # failed mid-handoff: roll it all back (queued copies
+                # unpinned, destination blocks freed: _release_slot) and
+                # quarantine the request; nothing reached the decode pool
+                self.stats["migration_faults"] += 1
+                self._quarantine_slot(i, "error", str(e))
+                continue
+            m = self._mig[i]
+            if m["sent"] < -(-len(s.req.prompt) // self.bs):
+                continue                   # starved for destination blocks; retry
+            self._handoff_ready.remove(i)
+            m = self._mig.pop(i)
+            self._landing.append({"req": s.req, "shard": m["dst"], "blocks": m["dst_blocks"],
+                                  "toks": list(s.toks), "ready_t": m["ready_t"]})
+            self.stats["handoffs"] += 1
+            self._release_slot(i)          # _mig popped: the source blocks free
+            self.slots[i] = _Slot()
+            self.dones[i] = True
+            self.remaining[i] = 0
+
+    def _run_migrations(self) -> None:
+        """Land waiting requests into free decode slots and run every queued
+        copy in one engine call (global block ids)."""
+        if self._pipeline and (self._landing or self._mig_queue):
+            self._drain_pipeline()
+        land = np.zeros((self.B,), bool)
+        totals = np.zeros((self.B,), np.int32)
+        landed = []
+        for rec in self._landing:
+            lo = rec["shard"] * self._spss
+            slot = next((j for j in range(lo, lo + self._spss)
+                         if self.slots[j].req is None and not land[j]), None)
+            if slot is None:
+                continue                   # decode pool full; lands later
+            r = rec["req"]
+            plen = len(r.prompt)
+            land[slot] = True
+            totals[slot] = plen
+            s = _Slot(req=r, admitted_step=self.step_count)
+            s.toks = list(rec["toks"])
+            self.slots[slot] = s
+            self._forced_done[slot] = False
+            self.slot_blocks[slot] = list(rec["blocks"])
+            self.bt[slot, :] = kvcache.NULL_BLOCK
+            self.bt[slot, :len(rec["blocks"])] = rec["blocks"]
+            t = int(rec["toks"][-1])
+            self.tok[slot] = t
+            self.pos[slot] = plen
+            self.remaining[slot] = r.max_new - 1
+            self.eos[slot] = -1 if r.eos_id is None else r.eos_id
+            self.dones[slot] = r.eos_id is not None and t == r.eos_id
+            wait = time.monotonic() - rec["ready_t"]
+            r.stats["migration_wait_s"] = wait
+            self._mig_wait.append(wait)
+            if self.prefix_cache:
+                self.alloc.register_prefix(r.prompt, rec["blocks"][:plen // self.bs],
+                                           rec["shard"])
+            landed.append(rec)
+        for rec in landed:
+            self._landing.remove(rec)
+        if not self._mig_queue and not landed:
+            return
+        per = self.alloc.blocks_per_shard
+        src = [sh * per + b for _, sh, b, _, _ in self._mig_queue]
+        dst = [sh * per + b for _, _, _, sh, b in self._mig_queue]
+        self.engine.migrate_blocks(self.caches, src, dst, land, totals)
+        for _, sh, b, _, _ in self._mig_queue:
+            self.alloc.end_migration([b], sh)
+        n = len(self._mig_queue)
+        self._mig_queue.clear()
+        self.stats["migrated_blocks"] += n
+        self.stats["migration_bytes"] += n * (self._block_bytes or 0)
+        self.stats["migration_steps"] += 1
+        self._note_usage()
+
+    # -- failure isolation (migration-aware) --------------------------------
+    def _finish_landing_record(self, rec: Dict, finish_reason: str,
+                               error: Optional[str] = None) -> None:
+        """Abort a fully migrated request still waiting for a decode slot:
+        free its destination blocks and retire it.  The copy queue must be
+        empty first: a queued copy still targets these blocks."""
+        assert not self._mig_queue, "landing abort with copies in flight"
+        self._landing.remove(rec)
+        self.alloc.free(rec["blocks"], rec["shard"])
+        r = rec["req"]
+        r.output = np.asarray(rec["toks"], np.int32)
+        r.finish_reason = finish_reason
+        if error is not None:
+            r.stats["error"] = error
+        r.stats.update({"emitted": len(rec["toks"]), "finished_at": time.monotonic()})
+        self.stats["timeouts" if finish_reason == "timeout" else "quarantined"] += 1
+        self._note_usage()
+        self._finish(r)
+
+    def _abort_stuck_entity(self) -> bool:
+        """The livelock breaker's last resort: abort ONE stuck request so
+        every other stream keeps its slot: a slot wedged mid-handoff, then a
+        landed request with no decode slot (once the copy queue is empty),
+        then a mid-prefill slot."""
+        victim = False
+        if self._handoff_ready:
+            self._quarantine_slot(self._handoff_ready[0], "error",
+                                  "livelock: migration handoff stuck")
+            victim = True
+        elif self._landing and not self._mig_queue:
+            self._finish_landing_record(self._landing[0], "error",
+                                        "livelock: no decode slot ever freed for landing")
+            victim = True
+        else:
+            for i, s in enumerate(self.slots):
+                if s.req is not None and s.chunk_next is not None:
+                    self._quarantine_slot(i, "error", "livelock: prefill stuck")
+                    victim = True
+                    break
+        if victim:
+            self.stats["livelock_aborts"] += 1
+        return victim
+
+    def _expire_deadlines(self) -> None:
+        super()._expire_deadlines()
+        # landed requests waiting for a decode slot hold destination blocks:
+        # they time out too, once the copy queue is empty
+        if not self._landing or self._mig_queue:
+            return
+        now = time.monotonic()
+        for rec in [rec for rec in self._landing
+                    if rec["req"].deadline_s is not None
+                    and now - rec["req"].submitted_at >= rec["req"].deadline_s]:
+            self._finish_landing_record(rec, "timeout")
+
+    # -- the decode pool ---------------------------------------------------
+    def _run_decode(self, n: int) -> DecodeBlock:
+        # decode runs while other slots are mid-prefill: their rows carry
+        # stale positions but real tables, so a frozen row's rewrite must
+        # sink into the null block; the ITL sample starts here
+        self._last_step_t = time.monotonic()
+        active = (~self.dones) & (self.remaining > 0)
+        bt = np.where(active[:, None], self.bt, kvcache.NULL_BLOCK).astype(np.int32)
+        tok, pos, dones, remaining = self._decode_inputs()
+        return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
+                                           n=n, block_tables=bt)
+
+    def _run_verify(self, vtok):
+        self._last_step_t = time.monotonic()
+        return super()._run_verify(vtok)
+
+    # -- reporting ---------------------------------------------------------
+    def request_summary(self) -> Dict:
+        out = super().request_summary()
+        st = self.stats
+        pools: Dict = {
+            "prefill_shards": len(self._pf_shards), "decode_shards": len(self._dec_shards),
+            "prefill_steps": st["prefill_steps"], "decode_steps": st["decode_steps"],
+            "prefill_occupancy": (st["prefill_slot_busy"] / st["prefill_slot_total"]
+                                  if st["prefill_slot_total"] else 0.0),
+            "migrated_blocks": st["migrated_blocks"], "migration_bytes": st["migration_bytes"],
+            "migration_skipped_blocks": st["migration_skipped_blocks"],
+            "migration_deferrals": st["migration_deferrals"], "handoffs": st["handoffs"],
+        }
+        w = percentile_summary(self._mig_wait)
+        if w is not None:
+            pools["migration_wait_s"] = w
+        if "decode_itl_s" in out:
+            pools["decode_itl_s"] = out["decode_itl_s"]
+        out["pools"] = pools
+        return out
+
+    # -- main loop ---------------------------------------------------------
+    def _serve_round(self) -> bool:
+        """One disagg round: retire, admit into the prefill pool, one
+        chunk-only step, handoffs, the migrations and landings, then the
+        decode pool's block (or verify step); a round with prefill work
+        only advances the virtual clock by one step."""
+        if self._block_bytes is None:
+            self._block_bytes = kvcache.pool_block_bytes(self.caches)
+        self._round_prologue()
+        if self._pipeline and (self._handoff_ready or self._landing or self._mig_queue):
+            self._drain_pipeline()
+        self._retire()
+        self._admit()
+        did_prefill = bool(self._try_step(self._chunk_step))
+        self._advance_handoffs()
+        self._run_migrations()
+        n = self._block_size()
+        if n:
+            if self.spec_k and not self._spec_suspended():
+                self._drain_pipeline()
+                self._try_step(self._spec_step)
+            elif self.overlap:
+                self._try_step(lambda: self._overlap_turn(n))
+            else:
+                self._try_step(lambda: self._decode_block(n))
+        elif did_prefill:
+            # a prefill-only round: the virtual arrival clock advances, so
+            # arrivals keyed to decode steps stay admissible
+            self.step_count += 1
+        elif self._pipeline:
+            self._land_next()
+        busy = any(s.req is not None for s in self.slots)
+        if not busy and not self._landing and not self._mig_queue and not self._pipeline:
+            pending = [r.arrival_step for r in self.queue]
+            if not pending:
+                return False
+            self.step_count = max(self.step_count, min(pending))
+            return True
+        # livelock breaker: a whole round without observable progress
+        # (deferred migrations against a wedged decode pool) preempts its
+        # way out instead of spinning
+        sig = (len(self.done), self.stats["emitted"], self.stats["migrated_blocks"],
+               self.stats["handoffs"], self.stats["prefill_chunks"], self.stats["decode_steps"],
+               len(self.queue), len(self._landing))
+        if sig == self._stall_sig:
+            self._stall += 1
+            if self._stall > 4 * self.B + 16:
+                self._drain_pipeline()
+                if not any(self._preempt_youngest(sh)
+                           for sh in (*self._dec_shards, *self._pf_shards)):
+                    # nothing to preempt either: abort ONE stuck request
+                    if not self._abort_stuck_entity():
+                        raise RuntimeError("disagg scheduler stalled: no progress and "
+                                           "nothing to preempt or abort")
+                self._stall = 0
+        else:
+            self._stall, self._stall_sig = 0, sig
+        return True

@@ -332,7 +332,7 @@ def test_terminal_exhaustion_aborts_request(engines, clean):
         cls = JPagedScheduler if jax_side else PagedContinuousScheduler
         sched = audited(cls(eng, n_slots=3, block_steps=4, block_size=8, prefix_cache=False,
                             fault_plan="alloc:at=2,times=1"), jax_side)
-        sched._preempt_youngest = (lambda shard: False) if jax_side else (lambda: False)
+        sched._preempt_youngest = lambda shard: False
         return sched
     sched, port, _ = run_both(engines, make, clean=clean)
     bad = [r for r in port.values() if r.finish_reason == "error"]

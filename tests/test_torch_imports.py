@@ -12,7 +12,8 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
-ROOT_FILES = [Path(__file__).resolve().parents[1] / "chip_smoke.py"]
+ROOT_FILES = [Path(__file__).resolve().parents[1] / "chip_smoke.py",
+              Path(__file__).resolve().parent / "torch_dp_ranks.py"]
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -26,7 +27,13 @@ bad = sorted(k for k in sys.modules
 tp = {"repro_torch.core.collectives", "repro_torch.core.sync_policy", "repro_torch.launch.mesh"}
 control = {"repro_torch.runtime.faults", "repro_torch.runtime.overload",
            "repro_torch.launch.frontend"}
-print(len(names), "repro_torch.runtime.drafter" in names and tp | control <= set(names), bad)
+from repro_torch.core import collectives
+from repro_torch.launch import mesh
+from repro_torch.runtime import kvcache, scheduler
+data = all((collectives.data_all_reduce, collectives.data_all_gather, collectives.data_send,
+            mesh.split_data_shards, kvcache.pool_block_bytes, scheduler.DisaggScheduler))
+print(len(names), "repro_torch.runtime.drafter" in names and tp | control <= set(names) and data,
+      bad)
 """
 
 
@@ -36,8 +43,10 @@ def test_import_loads_no_jax_and_no_repro():
                          env=env, cwd=str(SRC.parent), timeout=120, check=True).stdout
     n, drafter, bad = out.split(" ", 2)
     # the drafter is the port's own copy of repro.runtime.drafter; the
-    # tensor-parallel modules (collectives, sync policy, mesh) and the
-    # serving control plane (faults, overload, the HTTP frontend) load too
+    # tensor-parallel modules (collectives, sync policy, mesh), the serving
+    # control plane (faults, overload, the HTTP frontend) and the data
+    # axis (its collectives, the pool split, the migration unit, the
+    # disaggregated scheduler) load too
     assert int(n) >= 20 and drafter == "True" and bad.strip() == "[]", out
 
 

@@ -156,8 +156,10 @@ def test_unsupported_features_raise_naming_them():
     cfg = dataclasses.replace(get_config("yi-9b").reduced(), window=64, n_codebooks=2,
                               tie_embeddings=True)
     with pytest.raises(NotImplementedError,
-                       match=r"window.*wq_cache at tp>1.*tied embeddings.*multi-codebook.*dp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2, weight_quant="int4"), wq_cache="x")
+                       match=r"window.*wq_cache at tp>1.*tied embeddings.*multi-codebook.*"
+                             r"overlap_decode at dp>1"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2, weight_quant="int4",
+                                               overlap_decode=True), wq_cache="x")
     # the int8 KV cache is served; tensor parallelism is served for every
     # family (dense, MoE, MLA, RG-LRU, SSD with its tied head, the frontend
     # and the multi-codebook head), int8 KV and int4 weights included
@@ -169,8 +171,11 @@ def test_unsupported_features_raise_naming_them():
     for arch in ("minicpm3-4b", "mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
         Engine(get_config(arch).reduced(), parallel=dataclasses.replace(kvq, tp=2),
                device="cpu", dist=Dist(2, 0))
-    # what the port does not serve at tp>1 yet is still named and refused
-    for par, kw, name in ((dataclasses.replace(kvq, tp=2, dp=2), {}, "dp>1"),
+    # dp>1 is served; what the port does not serve at tp>1 or dp>1 yet is
+    # still named and refused
+    TM.check_supported(get_config("mamba2-1.3b"), dataclasses.replace(kvq, tp=2, dp=2))
+    for par, kw, name in ((dataclasses.replace(kvq, tp=2, dp=2, overload_degrade=True), {},
+                           "overload_degrade at tp>1.*overload_degrade at dp>1"),
                           (dataclasses.replace(kvq, tp=2), {"wq_cache": "x"}, "wq_cache at tp>1"),
                           (dataclasses.replace(kvq, tp=2, overlap_decode=True), {},
                            "overlap_decode at tp>1")):

@@ -145,7 +145,7 @@ def test_allocator_prefix_chain_verifies_tokens_and_evicts():
 def test_allocator_audit_names_a_leak():
     a = BlockAllocator(4, 4)
     a.alloc(1)
-    a._free.popleft()                                          # lose a block
+    a._free[0].popleft()                                       # lose a block
     with pytest.raises(AssertionError, match="conservation"):
         a.audit()
 

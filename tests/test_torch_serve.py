@@ -189,23 +189,21 @@ def _options(parser):
 
 def test_parser_flags_match_the_jax_cli():
     """The port's serve flags are the JAX CLI's, less the set left for later
-    (the data axis and disaggregated serving: --dp, --prefill-shards, the
-    disagg scheduler; --no-flash-prefill) and plus the port's own --device,
-    --seed and --dist-backend; the shared flags keep the JAX defaults and
-    choices.  A later change cannot drop a flag unnoticed."""
+    (--no-flash-prefill) and plus the port's own --device, --seed and
+    --dist-backend; the shared flags keep the JAX defaults and choices
+    (the data axis's --dp, --prefill-shards and the disagg scheduler among
+    them).  A later change cannot drop a flag unnoticed."""
     from repro.launch import serve as jserve
 
     jopts, topts = _options(jserve.build_parser()), _options(serve.build_parser())
-    later = {"--prefill-shards", "--dp", "--no-flash-prefill"}
+    later = {"--no-flash-prefill"}
     own = {"--device", "--seed", "--dist-backend"}
     assert set(jopts) - later == set(topts) - own
     assert later.isdisjoint(topts)
     for flag in set(jopts) - later - {"-h", "--help"}:
         j, t = jopts[flag], topts[flag]
         assert j.default == t.default, flag
-        if flag == "--scheduler":
-            assert set(j.choices) - {"disagg"} == set(t.choices)
-        elif j.choices is not None and flag != "--arch":
+        if j.choices is not None and flag != "--arch":
             assert list(j.choices) == list(t.choices), flag
 
 

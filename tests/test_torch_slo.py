@@ -204,13 +204,13 @@ def test_preempt_victims_lowest_class_youngest_first(engines):
             return sched
         orig = sched._preempt_youngest
 
-        def spy():
+        def spy(shard):
             running = {i: (PRIORITY_RANK[s.req.priority], s.admitted_step, s.req.rid)
                        for i, s in enumerate(sched.slots)
                        if s.req is not None and ((not sched.dones[i] and sched.remaining[i] > 0)
                                                  or s.chunk_next is not None)}
             before = {i: s.req.rid if s.req else None for i, s in enumerate(sched.slots)}
-            ok = orig()
+            ok = orig(shard)
             if ok:
                 evicted = [i for i, s in enumerate(sched.slots) if before[i] is not None
                            and (s.req is None or s.req.rid != before[i])]

@@ -259,13 +259,19 @@ def test_plans_refuse_what_does_not_split():
                       (ParallelConfig(tp=2, overload_degrade=True), "overload_degrade at tp>1")):
         with pytest.raises(NotImplementedError, match=name):
             TM.check_supported(get_config("musicgen-medium"), par)
-    for par, kw, name in ((ParallelConfig(tp=2, dp=2), {}, "dp>1"),
-                          (ParallelConfig(tp=2, kv_seq_shard=True), {}, "kv_seq_shard"),
+    for par, kw, name in ((ParallelConfig(tp=2, dp=2, overlap_decode=True), {},
+                           "overlap_decode at tp>1.*overlap_decode at dp>1"),
                           (ParallelConfig(tp=2, overlap_decode=True), {}, "overlap_decode"),
                           (ParallelConfig(tp=2, weight_quant="int8"), {"wq_cache": "x.npz"},
                            "wq_cache at tp>1")):
         with pytest.raises(NotImplementedError, match=name):
             TM.check_supported(ds, par, **kw)
+    # the sequence-sharded cache serves full-causal GQA layers (MoE FFNs
+    # beside them too), not MLA's latents or a sliding-window ring
+    TM.check_supported(ds, ParallelConfig(tp=2, dp=2, kv_seq_shard=True))
+    for arch in ("minicpm3-4b", "mixtral-8x7b"):
+        with pytest.raises(NotImplementedError, match="kv_seq_shard with mla"):
+            TM.check_supported(get_config(arch), ParallelConfig(tp=2, kv_seq_shard=True))
 
 
 # -- the shards -----------------------------------------------------------------

@@ -158,8 +158,9 @@ def test_tp_refusals_name_what_is_left_for_later():
             (ssd, ParallelConfig(tp=2, fault_plan="step:at=1"), {}, r"fault_plan at tp>1"),
             (ssd, ParallelConfig(tp=2, overload_degrade=True), {}, r"overload_degrade at tp>1"),
             (ssd, ParallelConfig(tp=2, overlap_decode=True), {}, r"overlap_decode at tp>1"),
-            (yi, ParallelConfig(tp=2, dp=2), {}, r"dp>1"),
-            (yi, ParallelConfig(kv_seq_shard=True), {}, r"kv_seq_shard"),
+            (yi, ParallelConfig(tp=2, dp=2, fault_plan="delay:at=1,s=0.1"), {},
+             r"fault_plan at tp>1.*delay clause at dp>1"),
+            (ssd, ParallelConfig(tp=2, dp=2, kv_seq_shard=True), {}, r"kv_seq_shard with mla"),
             (yi, ParallelConfig(tp=2, weight_quant="int4"), {"wq_cache": "x.npz"},
              r"wq_cache at tp>1"),
             (yi, ParallelConfig(tp=3), {}, r"tp=3")):
