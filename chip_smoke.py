@@ -286,14 +286,57 @@ Phases, each fatal on failure:
    kernel at a kv_seq_shard rank's slice.  Over NCCL where the card count
    allows (else a line says why not).
 
+15. the control plane across ranks (``control_ranks_start`` before phase
+   10, its ranks running beside phases 10 and 11, and
+   ``control_ranks_phase`` after them): yi-9b bf16 at full width and 8 of
+   48 layers
+   (``EARLIER_DEPTH``) in one spawn of four gloo ranks on the card, dp 2 x
+   tp 2, world rank 0 deciding
+   what reads the wall clock and broadcasting it in a round record (tag
+   ``control``).  Phase 13's workload and plans: (a) blocking against
+   overlapped on the dense slot cache and the paged one, the same
+   streams, retire order and (rid, token) emission order; (b) the paged
+   overlapped loop under CP_FAULTS, one request quarantined with two
+   retries, the dp=1 run's quarantine, retries and preemptions, every
+   survivor the clean overlapped run's (a preemption changes who shares a
+   batch, so a survivor may part at a certified near-tie, as in phase 13);
+   (c) the dense loop with
+   CP_CLASS_MIX, the ladder, CP_BURST and deadlines (two requests whose
+   deadline passed at once, the rest one no run reaches): the dp=1 run's
+   levels after every round, transitions, sheds and timeouts, the
+   survivors the unloaded run's (certified
+   partings aside); (d) disagg 1p1d
+   (each pool a tp 2 replica, chunks of 64) plain, held to a dp=1 unified
+   paged run at the same chunk, and overlapped under the ladder with the
+   interactive block reserve and the burst: interactive never shed, only
+   batch shed, the survivors the plain run's (certified partings aside);
+   (e) the HTTP frontend on
+   rank 0 over the overlapped dense loop, ranks 1-3 following the records:
+   4 SSE clients get the dp=1 run's tokens, 6 requests against
+   max_pending 4 get a 429 with Retry-After, the drain serves the stream
+   in flight and the stop record ends all four ranks.  Every rank the
+   same streams, outcomes, order, levels and counters, and two control
+   broadcasts (a record) every round of every run; every other stream
+   held to a dp = tp = 1 run on this process's card (rank 0's), a parting
+   certified by its top-2 gap there (< 1e-2) or, as phase 9 certifies
+   one, by the replica's own logits, at most half of a run's streams
+   (but the frontend's, whose batches follow HTTP timing: CP_HELD).
+   The sync-debug check of phase 13 (``sync_checked_dispatch``) holds at
+   tp = dp = 1 and under NCCL with a card a rank; over gloo each staged
+   all-reduce copies to the host inside the dispatch, so this phase does
+   not make it.  No wall here is a speed, nor one of phases 10 and 11
+   (the ranks share the card and the host's cores with them; they time no
+   kernel).  The phase prints its seconds.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
 the yi-9b int8-KV slot phases 24 of 48, its int8-weight and int8-KV waves
 12 of 48, phase 10's minicpm3-4b 8 of 62 and deepseek-moe-16b 14 of 28,
 phase 11's mixtral-8x7b 4 of 32 and mamba2-1.3b 8 of 48, phase 12's
-musicgen-medium 12 of 48, phase 14's 2p2d int8 mix 24 of 48), so that
-the whole run stays under its limit with phases 10-14 added.  The tp phases of the dense family and internvl2-26b,
+musicgen-medium 12 of 48, phase 14's 2p2d int8 mix 24 of 48, phase 15's
+control plane 8 of 48), so that the whole run stays under its limit with
+phases 10-15 added.  The tp phases of the dense family and internvl2-26b,
 and the tp=1 phases they are held to, run at full depth; the RG-LRU,
 MoE, MLA, SSD and musicgen tp phases run at their tp=1 phases' cut depth
 (drawing those weights again at full depth would cost minutes).  The slot
@@ -315,6 +358,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -391,7 +435,7 @@ RG_SLOTS = dict(requests=8, slots=4, prompt=(1984, 2048), max_new=(64, 128), arr
 EARLIER_DEPTH = {"recurrentgemma-9b": 3, "gptj-parallel slots": 14, "yi-9b int8-KV slots": 24,
                  "yi-9b int8 wave": 12, "yi-9b int8-KV wave": 12, "minicpm3-4b": 8,
                  "deepseek-moe-16b": 14, "mixtral-8x7b": 4, "mamba2-1.3b": 8,
-                 "musicgen-medium": 12, "yi-9b 2p2d int8 mix": 24}
+                 "musicgen-medium": 12, "yi-9b 2p2d int8 mix": 24, "yi-9b control ranks": 8}
 
 
 def wave_name(weight_quant: str, kv_quant: bool) -> str:
@@ -4786,6 +4830,32 @@ def _parting(job: dict, rid: int, toks: np.ndarray, want: np.ndarray, prompt: np
     return t, np.concatenate([prompt, want[:t]])
 
 
+def _tp_witness(name: str, rid: int, t: int, err: float, tp_diff: float, slack: list) -> dict:
+    """Certify request ``rid``'s tp parting at step ``t`` by the tp ranks'
+    own logits there.  ``spread``, the larger of REF_TOL and ``err`` (the
+    tp=1 port's distance from its plain versions on the same input, or
+    an attention-free model's from its fp32 evaluation), is the port's own
+    rounding at that depth; two computations each that far from the exact
+    logits lie within twice it of each other.  So the tp logits must lie
+    within 2 x ``spread`` of the tp=1 ones (``tp_diff``: a wrong shard or
+    merge moves them by whole units), and each side must rank the other
+    side's token within ``spread`` of its top (``slack``)."""
+    spread = max(REF_TOL, err)
+    if not (tp_diff <= 2 * spread and max(slack) <= spread):
+        fail(f"{name} request {rid} parts at step {t}: the tp logits there differ from "
+             f"tp=1's by {tp_diff} (limit {2 * spread}) and the two sides put each other's "
+             f"token {slack} below their top (limit {spread}: the tp=1 port is {err} from "
+             f"its plain versions or, attention-free, its fp32 evaluation)")
+    return {"tp_max_abs_diff": tp_diff, "tp_slack": slack, "spread": spread}
+
+
+def _at_most_half(name: str, n_parted: int, n_streams: int, what: str = "streams") -> None:
+    """The parity contract's cap: at most half of a run's streams part
+    from those they are held to, each parting certified."""
+    if n_parted > n_streams // 2:
+        fail(f"{name}: {n_parted} of {n_streams} {what} part")
+
+
 def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
                tp_logits: dict | None = None, witness: dict | None = None,
                limit: bool = True) -> list:
@@ -4802,15 +4872,9 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
     the tp=1 port's logits, and both tokens -- ``ref``'s and the tp
     phase's -- within REF_TOL of the plain version's top.  Where the tp
     ranks' own logits there are given (``tp_logits``) and the arch is not
-    the parallel residual, the witness is theirs.  ``spread``, the larger
-    of REF_TOL and the tp=1 port's distance from its plain versions on the
-    same input (for an attention-free model, which runs no kernel there,
-    from its fp32 evaluation, ``_tp1_exact_logits``), is the port's own
-    rounding at that depth; two computations
-    each that far from the exact logits lie within twice it of each other.
-    So the tp logits must lie within 2 x ``spread`` of the tp=1 ones (a
-    wrong shard or merge moves them by whole units), and each side must
-    rank the other side's token within ``spread`` of its top.  An MoE
+    the parallel residual, the witness is theirs (``_tp_witness``; an
+    attention-free model, which runs no kernel there, takes its distance
+    from its fp32 evaluation, ``_tp1_exact_logits``).  An MoE
     wave's ``witness`` (``_moe_wave_witness``) takes the tp logits' place:
     the tp=1 model through the same wave, replaying the ranks' expert
     choices, must rank their token within ``spread`` of its top."""
@@ -4852,8 +4916,6 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
                 err = max(err, flip["fp32_max_abs_err"])
             tp = (None if tp_logits is None
                   else torch.as_tensor(tp_logits[rid], device=dev).reshape(-1, V))
-            if tp is not None:
-                flip["tp_max_abs_diff"] = (tp - logits).abs().max().item()
             if witness is not None:
                 # an MoE wave: the wave as the ranks ran it, their expert
                 # choices replayed (``_moe_wave_witness``), ranks their
@@ -4874,23 +4936,17 @@ def _tp_parted(name: str, job: dict, r0: dict, ref: dict, dev, cache: dict,
                          f"their top (limit {REF_TOL} each)")
                 flip["plain_slack"] = slack
             else:
-                spread = max(REF_TOL, err)
                 slack = [below(lg, x) for lg, x in ((logits, toks), (tp, want)) if t < len(x)]
-                if not (flip["tp_max_abs_diff"] <= 2 * spread and max(slack) <= spread):
-                    fail(f"{name} request {rid} parts at step {t}: the tp logits there differ "
-                         f"from tp=1's by {flip['tp_max_abs_diff']} (limit {2 * spread}) and "
-                         f"the two sides put each other's token {slack} below their top "
-                         f"(limit {spread}: the tp=1 port is {err} from its plain versions or, "
-                         f"attention-free, its fp32 evaluation)")
-                flip.update(tp_slack=slack, spread=spread)
+                flip.update(_tp_witness(name, rid, t, err, (tp - logits).abs().max().item(),
+                                        slack))
         parted.append(flip)
     # each codebook of a frame is a token of its own: a parting frame counts
     # its differing codebooks, out of every request's ncb streams
     ncb = _job_config(job).n_codebooks
     n_parted = sum(len(f.get("codebooks", (0,))) for f in parted)
-    if limit and n_parted > len(r0["streams"]) * ncb // 2:
-        fail(f"{name}: {n_parted} of {len(r0['streams']) * ncb} streams part"
-             + (" (codebook streams)" if ncb > 1 else ""))
+    if limit:
+        _at_most_half(name, n_parted, len(r0["streams"]) * ncb,
+                      "codebook streams" if ncb > 1 else "streams")
     return parted
 
 
@@ -5356,6 +5412,506 @@ def check_dp_rank_kernels(dev, flush) -> list:
                 BF16_FLOPS)}]
 
 
+# -- the control plane across ranks (phase 15) -------------------------------------
+#
+# yi-9b at full width and a cut depth (EARLIER_DEPTH "yi-9b control ranks")
+# over a dp 2 x tp 2 world of gloo ranks sharing the card: phase 13's
+# workload and plans through the whole serving control plane, world rank 0
+# deciding what reads the wall clock and broadcasting it in a round record
+# (tag ``control``).  The sync-debug check of phase 13's overlapped
+# dispatches (``sync_checked_dispatch``) holds at tp = dp = 1 and under
+# NCCL with a card a rank; over gloo every host-staged all-reduce copies
+# to the host inside the dispatch, so it is not made here.  No wall of this
+# phase is a speed: four ranks time-slice one card.
+
+CP_DP, CP_TP = 2, 2
+# what phases 10 and 11's serve lines say of their walls and TTFTs
+BESIDE_CP = ("phase 15's four ranks ran on the card beside this phase: its walls and TTFTs "
+             "are taken on a shared card and host")
+# the class-mix run's requests whose deadline has passed at their first
+# round (rank 0 retires them queued, every rank with it); the others get
+# a deadline no run reaches
+CP_LATE, CP_LATE_S, CP_FAR_S = (2, 7), 1e-6, 1e6
+# (scheduler kind, its keywords, class mix, deadlines): the runs of every
+# rank, and which of them the dp = tp = 1 reference runs too
+CP_RUNS = {
+    "dense blocking": ("dense", {}, "", False),
+    "dense overlapped": ("dense", {"overlap": True}, "", False),
+    "paged blocking": ("paged", {}, "", False),
+    "paged overlapped": ("paged", {"overlap": True}, "", False),
+    "paged faults": ("paged", {"overlap": True, "fault_plan": CP_FAULTS,
+                               "retry_backoff_s": 0.0}, "", False),
+    "dense ladder": ("dense", {"fault_plan": CP_BURST, "overload_opts": {"enabled": True}},
+                     CP_CLASS_MIX, True),
+    "disagg": ("disagg", {"prefill_chunk": 64, "prefill_shards": 1}, CP_CLASS_MIX, False),
+    "disagg ladder": ("disagg", {"prefill_chunk": 64, "prefill_shards": 1, "reserve_blocks": 1,
+                                 "fault_plan": CP_BURST, "overload_opts": {"enabled": True},
+                                 "overlap": True}, CP_CLASS_MIX, False),
+}
+CP_DP1_RUNS = {"dense blocking": None, "paged blocking": None, "paged faults": None,
+               "dense ladder": None, "paged chunked": ("paged", {"prefill_chunk": 64},
+                                                      CP_CLASS_MIX, False)}
+# what each run's streams are held to: a dp = tp = 1 run ("dp1 ...") or,
+# for the requests it served, another run of the same world (a preemption,
+# a shed or a timeout changes who shares a batch, so a survivor may part
+# at a near-tie, as in phase 13).  The frontend's batches follow HTTP
+# timing, so which near-ties flip changes from run to run (on the H100 at
+# 8 layers 3, 1 and 3 of its 4 streams, against dp=1 or the world's
+# blocking run): each of its partings is certified, but half of four does
+# not bound their count, and the frontend is held to none
+CP_HELD = {"dense blocking": "dp1 dense blocking", "paged blocking": "dp1 paged blocking",
+           "disagg": "dp1 paged chunked", "frontend": "dp1 dense blocking",
+           "paged faults": "paged overlapped", "dense ladder": "dense blocking",
+           "disagg ladder": "disagg"}
+
+
+def cp_workload(cfg, class_mix: str = "") -> list:
+    """Phase 13's workload as (prompt, max_new, arrival_step, priority): the
+    draws of ``serve.submit_workload``."""
+    import argparse
+
+    from repro_torch.launch import serve
+
+    reqs = []
+
+    class Recorder:
+        def submit(self, prompt, max_new, arrival_step=0, priority="standard"):
+            reqs.append((np.asarray(prompt, np.int32), max_new, arrival_step, priority))
+
+    serve.submit_workload(Recorder(), cfg,
+                          argparse.Namespace(**SLOT_WORKLOAD, class_mix=class_mix))
+    return reqs
+
+
+def cp_run(eng, kind: str, kw: dict, class_mix: str, deadlines: bool) -> dict:
+    """One run of phase 13's workload through ``kind``'s scheduler on
+    ``eng`` (any world) -> its streams, finish reasons, (rid, token)
+    emission trace, retire order, counters, the ladder's level after every
+    round and its transitions, the control records and rounds, the wall."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.runtime.scheduler import (ContinuousScheduler, DisaggScheduler,
+                                               PagedContinuousScheduler)
+
+    cls = {"dense": ContinuousScheduler, "paged": PagedContinuousScheduler,
+           "disagg": DisaggScheduler}[kind]
+    sched = cls(eng, n_slots=SLOTS, **({"prefill_chunk": 0} | kw))
+    events = []
+    sched.on_token = lambda rid, t: events.append((rid, int(t)))
+    for i, (p, mn, arr, prio) in enumerate(cp_workload(eng.cfg, class_mix)):
+        dl = (CP_LATE_S if i in CP_LATE else CP_FAR_S) if deadlines else None
+        sched.submit(p, mn, arrival_step=arr, priority=prio, deadline_s=dl)
+    levels = []
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with cc.comm_stats() as st:
+        while sched.serve_step():
+            levels.append(sched.overload_level())
+        done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    if kind != "dense":
+        sched.alloc.audit(expect_no_migration=True)
+    ctl = sched.overload_ctl
+    return {"streams": {r.rid: r.output for r in done},
+            "reasons": {r.rid: r.finish_reason for r in done},
+            "prompts": {r.rid: r.prompt for r in done},
+            "classes_of": {r.rid: r.priority for r in done},
+            "events": events, "order": [r.rid for r in done],
+            "stats": {k: v for k, v in sched.stats.items() if not isinstance(v, dict)},
+            "classes": sched.stats["classes"], "counters": sched.control_counters(),
+            "levels": levels, "transitions": None if ctl is None else list(ctl.transitions),
+            "control": st.by_tag().get("control (broadcast)", {"count": 0, "bytes": 0}),
+            "rounds": len(levels) + 2, "wall_s": wall,
+            "pools": sched.request_summary().get("pools")}
+
+
+def _cp_post(port, body):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    c.request("POST", "/v1/completions", json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    return r.status, dict(r.getheaders()), r.read()
+
+
+def _cp_sse(raw: bytes) -> list:
+    toks = []
+    for ev in raw.decode().split("\n\n"):
+        if ev.startswith("data: {"):
+            toks += json.loads(ev[6:])["choices"][0].get("token_ids", [])
+    return toks
+
+
+def cp_frontend(eng, dist) -> dict:
+    """(e): the HTTP frontend over the overlapped continuous scheduler.
+    World rank 0 serves on 127.0.0.1 and its client threads post: the
+    workload's first 4 prompts as concurrent SSE streams, 6 concurrent
+    requests of 32 tokens against max_pending SLOTS, and a stream in flight
+    when the drain begins; every other rank follows the round records
+    until the stop record."""
+    import asyncio
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.frontend import EngineService, HttpFrontend, follow
+    from repro_torch.runtime.scheduler import ContinuousScheduler
+
+    sched = ContinuousScheduler(eng, n_slots=SLOTS, prefill_chunk=0, overlap=True)
+    reqs = cp_workload(eng.cfg)
+    # the SSE clients' requests are the scheduler's first four, on every
+    # rank: their retired outputs by workload rid
+    rid_of = {tuple(p.tolist()): i for i, (p, *_) in enumerate(reqs[:4])}
+
+    def sse_outputs():
+        return {rid_of[tuple(r.prompt.tolist())]: r.output for r in sched.done if r.rid < 4}
+
+    if dist.world_rank != 0:
+        follow(sched)
+        return {"done": len(sched.done), "counters": sched.control_counters(),
+                "sse_outputs": sse_outputs()}
+    service = EngineService(sched, max_pending=SLOTS, idle_wait_s=0.002)
+    frontend = HttpFrontend(service, port=0)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=lambda: (asyncio.set_event_loop(loop),
+                                              loop.run_until_complete(frontend.start()),
+                                              loop.run_forever()), daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 120
+    while frontend._server is None:
+        if time.monotonic() > deadline:
+            raise RuntimeError("frontend: the server did not start")
+        time.sleep(0.01)
+    port = frontend.port
+    with ThreadPoolExecutor(6) as pool:
+        streamed = list(pool.map(lambda r: _cp_post(port, {"prompt": r[0].tolist(),
+                                                           "max_tokens": r[1], "stream": True}),
+                                 reqs[:4]))
+        overload = list(pool.map(lambda r: _cp_post(port, {"prompt": r[0].tolist(),
+                                                           "max_tokens": 32}), reqs[4:10]))
+        fut = pool.submit(_cp_post, port, {"prompt": reqs[0][0].tolist(), "max_tokens": 32,
+                                           "stream": True})
+        time.sleep(0.5)
+        asyncio.run_coroutine_threadsafe(frontend.stop(), loop).result(timeout=300)
+        drained = fut.result(timeout=300)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(timeout=60)
+    loop.close()
+    try:
+        _cp_post(port, {"prompt": [1, 2], "max_tokens": 1})
+        listening = True
+    except OSError:
+        listening = False
+    return {"done": len(sched.done), "counters": sched.control_counters(),
+            "sse_outputs": sse_outputs(),
+            "streamed": [(st, _cp_sse(raw)) for st, _, raw in streamed],
+            "overload": [(st, h.get("Retry-After"),
+                          len(json.loads(data)["choices"][0]["token_ids"]) if st == 200 else 0)
+                         for st, h, data in overload],
+            "drained": (drained[0], len(_cp_sse(drained[2]))), "listening": listening,
+            "shed_requests": sched.stats["shed_requests"]}
+
+
+def cp_parting_logits(eng, dist, streams: dict, want: dict, prompts: dict) -> dict:
+    """Where a stream parts from the dp=1 run's ``want``: this rank's
+    replica's logits (gathered over the vocab) after the prompt and
+    ``want``'s tokens before the parting, a cacheless forward; the same
+    forwards on every rank, since the streams are."""
+    from repro_torch.core import collectives as cc
+
+    out = {}
+    for rid in sorted(want):
+        a, b = np.asarray(streams[rid]), np.asarray(want[rid])
+        n = min(len(a), len(b))
+        if np.array_equal(a, b) or not (a[:n] != b[:n]).any():
+            continue
+        t = int(np.argmax(a[:n] != b[:n]))
+        seq = np.concatenate([prompts[rid], b[:t]])
+        with torch.inference_mode():
+            lg = eng.forward(torch.as_tensor(seq, device=eng.device)[None].long(),
+                             last_only=True)[0, -1]
+            lg = cc.all_gather(lg.float(), dist, lg.dim() - 1)[..., :eng.cfg.vocab_size]
+        out[rid] = lg.cpu().numpy()
+    return out
+
+
+def _cp_rank(dist, dev, layers: int, want: dict) -> dict:
+    """One rank of phase 15: every run of CP_RUNS, then the frontend; its
+    launches over all of them, the init time, the peak memory, and its
+    replica's logits where a stream parts from the dp=1 run it is held to
+    (``want``: run -> streams)."""
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine
+
+    cfg = dataclasses.replace(phase_config("yi-9b", "control ranks"), n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = Engine(cfg, parallel=ParallelConfig(tp=dist.tp, dp=dist.dp, kv_block_size=BLOCK),
+                 sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0, device=dev,
+                 dist=dist)
+    torch.cuda.synchronize()
+    out = {"world_rank": dist.world_rank, "init_s": time.monotonic() - t0, "runs": {}}
+    ops.reset_launches()
+    for name, run in CP_RUNS.items():
+        out["runs"][name] = cp_run(eng, *run)
+    t = time.monotonic()
+    out["frontend"] = cp_frontend(eng, dist)
+    out["frontend"]["wall_s"] = time.monotonic() - t
+    out["launches"] = dict(ops.LAUNCHES)
+    prompts = {i: p for i, (p, *_) in enumerate(cp_workload(cfg))}
+    streams = {k: v["streams"] for k, v in out["runs"].items()}
+    streams["frontend"] = out["frontend"]["sse_outputs"]
+    out["parting_logits"] = {}
+    for run, key in CP_HELD.items():
+        ref = want[key[4:]] if key.startswith("dp1 ") else streams[key]
+        reasons = out["runs"].get(run, {}).get("reasons", {})
+        held = {rid: ref[rid] for rid in streams[run]
+                if rid in ref and reasons.get(rid, "length") in ("stop", "length")}
+        out["parting_logits"][run] = cp_parting_logits(eng, dist, streams[run], held, prompts)
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["rank_s"] = time.monotonic() - t0
+    return out
+
+
+def control_ranks_start(dev) -> dict:
+    """Phase 15's first half: the dp = tp = 1 references on this process's
+    card (rank 0's; the engine freed after them, drawn again from its seed
+    for the checks), then the spawn of the dp 2 x tp 2 world in a thread
+    that only waits for the ranks, while this process's own CUDA work goes
+    on in the main thread (phases 10 and 11 run beside the ranks: their
+    peaks leave the ranks' 4 x ~4.3 GiB room, and they time no kernel);
+    -> the state ``control_ranks_phase`` checks."""
+    import threading
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.launch import mesh
+    from repro_torch.runtime.engine import Engine
+
+    st = {"t_phase": time.monotonic(), "cfg": phase_config("yi-9b", "control ranks")}
+    st["eng"] = Engine(st["cfg"], parallel=ParallelConfig(kv_block_size=BLOCK),
+                       sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0,
+                       device=dev)
+    st["ref"] = ref = {k: cp_run(st["eng"], *(run or CP_RUNS[k]))
+                       for k, run in CP_DP1_RUNS.items()}
+    torch.cuda.synchronize()
+    st["ref_s"] = time.monotonic() - st["t_phase"]
+    want = {k: ref[k]["streams"] for k in ("dense blocking", "paged blocking", "paged chunked")}
+    # the fault run's scheduler left its hook on the engine (a cycle): drop
+    # it, so that the engine's memory is free while phases 10 and 11 run
+    st.pop("eng").dispatch_hook = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def ranks():
+        t = time.monotonic()
+        try:
+            st["got"] = mesh.spawn(_cp_rank, CP_TP, st["cfg"].n_layers, want, backend="gloo",
+                                   device="cuda", dp=CP_DP)
+        except BaseException as e:       # reported by control_ranks_phase
+            st["error"] = e
+        st["spawn_s"] = time.monotonic() - t
+
+    st["thread"] = threading.Thread(target=ranks, daemon=True)
+    st["thread"].start()
+    return st
+
+
+def control_ranks_phase(dev, st: dict) -> dict:
+    """Phase 15's checks (see the module docstring), once the ranks started
+    by ``control_ranks_start`` have ended: every parting from the
+    reference certified by its top-2 gap there (< TIE_GAP) or the
+    replica's own logits, at most MAX_PARTED a run."""
+    from repro_torch.kernels import ops
+
+    from repro_torch.configs import ParallelConfig, SamplingConfig
+    from repro_torch.runtime.engine import Engine
+
+    t_wait = time.monotonic()
+    st["thread"].join()
+    if "error" in st:
+        fail(f"phase 15: the dp {CP_DP} x tp {CP_TP} ranks failed: {st['error']!r}")
+    t_phase, cfg, ref = st["t_phase"], st["cfg"], st["ref"]
+    wait_s = time.monotonic() - t_wait
+    # the dp=1 engine of the references again, from its seed: the witness
+    eng = Engine(cfg, parallel=ParallelConfig(kv_block_size=BLOCK),
+                 sampling=SamplingConfig(top_k=1), max_len=SERVE_MAX_LEN, seed=0, device=dev)
+    ref_s, spawn_s, got = st["ref_s"], st["spawn_s"], st["got"]
+    L = cfg.n_layers
+    name = f"control plane dp={CP_DP} x tp={CP_TP}"
+    want = {k: ref[k]["streams"] for k in ("dense blocking", "paged blocking", "paged chunked")}
+    r0 = got[0]
+    print(f"{name}: dp=1 references {ref_s:.1f}s, ranks {spawn_s:.1f}s (runs "
+          + ", ".join(f"{k} {v['wall_s']:.1f}s" for k, v in r0["runs"].items())
+          + f", frontend {r0['frontend']['wall_s']:.1f}s)", flush=True)
+
+    def logits(seq) -> torch.Tensor:
+        with torch.inference_mode():
+            return eng.forward(torch.as_tensor(seq, device=dev)[None].long(),
+                               last_only=True)[0, -1].float()
+
+    def parted(what, streams, rids, cap: bool = True) -> list:
+        """Each stream of run ``what`` (rids ``rids``) against the stream it
+        is held to (CP_HELD): equal, or a first parting certified by the
+        dp=1 top-2 gap there (< TIE_GAP), or else, as phase 9 certifies a
+        tp parting, by the replica's own logits there (``_tp_witness``);
+        with ``cap``, at most half of ``rids`` parted (``_at_most_half``)."""
+        key = CP_HELD[what]
+        held = want[key[4:]] if key.startswith("dp1 ") else runs[key]["streams"]
+        flips = []
+        for rid in rids:
+            a, b = np.asarray(streams[rid]), np.asarray(held[rid])
+            n = min(len(a), len(b))
+            if np.array_equal(a, b) or not (a[:n] != b[:n]).any():
+                continue
+            t = int(np.argmax(a[:n] != b[:n]))
+            seq = np.concatenate([r0["runs"]["dense blocking"]["prompts"][rid], b[:t]])
+            lg = logits(seq)
+            top2 = torch.topk(lg, 2).values
+            flip = {"rid": rid, "step": t, "top2_gap": float(top2[0] - top2[1])}
+            if not flip["top2_gap"] < TIE_GAP:
+                tp = r0["parting_logits"][what].get(rid)
+                if tp is None:
+                    fail(f"{name} {what}: no replica logits at request {rid}'s parting")
+                tp = torch.as_tensor(tp, device=dev)
+                with plain_on_card():
+                    plain = logits(seq)
+                slack = [(lg.max() - lg[int(a[t])]).item(), (tp.max() - tp[int(b[t])]).item()]
+                flip.update(_tp_witness(f"{name} {what}", rid, t,
+                                        (lg - plain).abs().max().item(),
+                                        (tp - lg).abs().max().item(), slack))
+            flips.append(flip)
+        if cap:
+            _at_most_half(f"{name} {what} (held to {key})", len(flips), len(rids))
+        return flips
+
+    same = lambda a, b: sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    # every rank: the same streams, outcomes, order, levels and counters
+    for run in list(CP_RUNS) + ["frontend"]:
+        for r in got[1:]:
+            x, y = (r0[run], r[run]) if run == "frontend" else (r0["runs"][run], r["runs"][run])
+            keys = ("done", "counters") if run == "frontend" else (
+                "reasons", "order", "levels", "transitions", "counters")
+            streams = "sse_outputs" if run == "frontend" else "streams"
+            if any(x[k] != y[k] for k in keys) or not same(x[streams], y[streams]):
+                fail(f"{name} {run}: world rank {r['world_rank']} parted from rank 0")
+    # a record every round of every run, on every rank: its length and its
+    # payload; the host seconds each rank spent in the exchange
+    for r in got:
+        for run, x in r["runs"].items():
+            if x["control"]["count"] != 2 * x["rounds"]:
+                fail(f"{name} {run}: world rank {r['world_rank']} made {x['control']['count']} "
+                     f"control broadcasts in {x['rounds']} rounds, not two a round")
+    runs = r0["runs"]
+    control = {run: {"rounds": x["rounds"], "broadcasts": x["control"]["count"],
+                     "bytes": x["control"]["bytes"],
+                     "seconds_per_rank": [r["runs"][run]["stats"]["control_s"] for r in got],
+                     "rank0_ms_per_round": 1e3 * x["stats"]["control_s"] / x["rounds"]}
+               for run, x in runs.items()}
+    res = {"arch": cfg.name, "scheduler": name, "layers": L, "ranks": CP_DP * CP_TP,
+           "backend": "gloo", "kv_quant": False,
+           "note": "four ranks share one card (gloo: host-staged collectives); no wall here "
+                   "is a speed",
+           "launches": {k: sum(r["launches"][k] for r in got) for k in ops.KERNELS},
+           "launches_per_rank": [r["launches"] for r in got],
+           "init_s": [r["init_s"] for r in got],
+           "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in got],
+           "rank_s": [r["rank_s"] for r in got], "dp1_reference_s": ref_s,
+           "ranks_spawn_to_exit_s": spawn_s, "waited_for_ranks_s": wait_s,
+           "control_record": control, "runs": {}}
+    # (a) the overlapped loop against the blocking one at the same world,
+    # and both against the dp=1 blocking run
+    for kind in ("dense", "paged"):
+        b, o = runs[f"{kind} blocking"], runs[f"{kind} overlapped"]
+        if not (same(b["streams"], o["streams"]) and b["events"] == o["events"]
+                and b["order"] == o["order"]):
+            fail(f"{name} {kind}: the overlapped loop's streams, emission trace or retire "
+                 f"order differ from the blocking loop's")
+        if not (o["stats"]["landings"] > 0 and o["stats"]["max_dispatch_ahead"] >= 2):
+            fail(f"{name} {kind}: the overlapped loop never ran ahead: {o['stats']}")
+        flips = parted(f"{kind} blocking", b["streams"], b["streams"])
+        res["runs"][kind] = {"wall_s": [b["wall_s"], o["wall_s"]],
+                             "host_blocked_s": [b["stats"]["host_blocked_s"],
+                                                o["stats"]["host_blocked_s"]],
+                             "host_overlap_s": o["stats"]["host_overlap_s"],
+                             "landings": o["stats"]["landings"],
+                             "max_dispatch_ahead": o["stats"]["max_dispatch_ahead"],
+                             "parted_from_dp1": flips}
+    # (b) the fault plan: dp=1's quarantine, retries and preemptions, the
+    # survivors the clean overlapped run's at this world
+    f, f1 = runs["paged faults"], ref["paged faults"]
+    bad = sorted(rid for rid, why in f["reasons"].items() if why == "error")
+    keys = ("step_faults", "step_retries", "quarantined", "preemptions")
+    counts = {k: f["stats"][k] for k in keys}
+    if not (bad == sorted(rid for rid, why in f1["reasons"].items() if why == "error")
+            and len(bad) == 1 and counts == {k: f1["stats"][k] for k in keys}
+            and counts["step_retries"] == 2 and counts["quarantined"] == 1):
+        fail(f"{name} faults: quarantined {bad}, {counts}; dp=1: {f1['reasons']}, "
+             f"{ {k: f1['stats'][k] for k in keys} }")
+    ff = parted("paged faults", f["streams"], [rid for rid in f["streams"] if rid not in bad])
+    res["runs"]["faults"] = {"plan": CP_FAULTS, "quarantined": bad, "counts": counts,
+                             "survivors_parted_from_clean": ff, "wall_s": f["wall_s"]}
+    # (c) classes, the ladder, a burst and deadlines: dp=1's levels,
+    # transitions, sheds and timeouts; the survivors the dense run's
+    c, c1 = runs["dense ladder"], ref["dense ladder"]
+    shed = sorted(rid for rid, why in c["reasons"].items() if why == "shed")
+    late = sorted(rid for rid, why in c["reasons"].items() if why == "timeout")
+    kept = [rid for rid in runs["dense blocking"]["streams"]
+            if c["reasons"][rid] in ("stop", "length")]
+    if not (c["levels"] == c1["levels"] and c["transitions"] == c1["transitions"]
+            and max(c["levels"]) >= 1 and shed and late == sorted(CP_LATE)
+            and c["reasons"] == c1["reasons"] and c["stats"]["burst_injected"] == 12
+            and all(c["classes_of"][rid] == "batch" for rid in shed)):
+        fail(f"{name} ladder: levels {c['levels']} (dp=1 {c1['levels']}), shed {shed}, "
+             f"timed out {late}, {c['stats']}")
+    kf = parted("dense ladder", c["streams"], kept)
+    res["runs"]["ladder"] = {"survivors_parted_from_unloaded": kf, "class_mix": CP_CLASS_MIX, "burst": CP_BURST, "levels": c["levels"],
+                             "transitions": c["transitions"], "shed": shed, "timed_out": late,
+                             "kept": len(kept), "wall_s": c["wall_s"]}
+    # (d) disagg 1p1d at dp 2 x tp 2: the plain run held to the dp=1
+    # unified paged one at the same chunk width; with the ladder (and the
+    # overlapped loop), interactive never shed and the survivors the plain
+    # run's
+    d, dl = runs["disagg"], runs["disagg ladder"]
+    flips = parted("disagg", d["streams"], d["streams"])
+    dshed = [rid for rid, why in dl["reasons"].items() if why == "shed"]
+    if not (dl["classes"]["interactive"]["shed"] == 0 and dshed
+            and max(dl["levels"]) >= 1 and dl["stats"]["landings"] > 0
+            and all(dl["classes_of"][rid] == "batch" for rid in dshed)):
+        fail(f"{name} disagg ladder: levels {dl['levels']}, shed {dshed}, {dl['classes']}")
+    df = parted("disagg ladder", dl["streams"],
+                [rid for rid, why in dl["reasons"].items()
+                 if why in ("stop", "length") and rid in d["streams"]])
+    res["runs"]["disagg"] = {"pools": d["pools"], "parted_from_dp1": flips,
+                             "ladder_survivors_parted_from_plain": df,
+                             "ladder_levels": dl["levels"], "ladder_shed": dshed,
+                             "wall_s": [d["wall_s"], dl["wall_s"]]}
+    # (e) the HTTP frontend: the clients' tokens the dp=1 run's, a 429, the
+    # drain served the stream in flight and ended every rank
+    fe, dense1 = r0["frontend"], ref["dense blocking"]["streams"]
+    sse = {rid: np.asarray(toks, np.int32) for rid, (st, toks) in enumerate(fe["streamed"])}
+    if any(st != 200 for st, _ in fe["streamed"]) or any(
+            len(sse[rid]) != len(dense1[rid]) or not np.array_equal(
+                sse[rid], fe["sse_outputs"][rid]) for rid in sse):
+        fail(f"{name} frontend: the SSE clients got {fe['streamed']}, the scheduler retired "
+             f"{fe['sse_outputs']}")
+    ff = parted("frontend", sse, sse, cap=False)      # see CP_HELD
+    statuses = [st for st, _, _ in fe["overload"]]
+    if not (statuses.count(429) >= 1 and fe["shed_requests"] == statuses.count(429)
+            and all(ra == "1" for st, ra, _ in fe["overload"] if st == 429)
+            and all(n == 32 for st, _, n in fe["overload"] if st == 200)
+            and fe["drained"] == (200, 32) and not fe["listening"]):
+        fail(f"{name} frontend: statuses {fe['overload']}, drained {fe['drained']}, "
+             f"listening {fe['listening']}")
+    res["runs"]["frontend"] = {"parted_from_dp1": ff, "overload_statuses": statuses,
+                               "drained_tokens": fe["drained"][1], "wall_s": fe["wall_s"],
+                               "ranks_ended": len(got)}
+    res["phase_s"] = time.monotonic() - t_phase
+    res["note"] += "; its ranks ran beside phases 10 and 11"
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
@@ -5412,11 +5968,29 @@ def main() -> None:
         phases.append(phase)
     del params
     torch.cuda.empty_cache()
+    cp, beside = None, False
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
                 lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain"),
-                lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev),
-                lambda: frontend_phases(dev)):
+                "phase 15 start", lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev),
+                "phase 15 checks", lambda: frontend_phases(dev)):
+        if run == "phase 15 start":
+            # phase 15's ranks (separate processes) run beside phases 10 and 11
+            cp = control_ranks_start(dev)
+            beside = True
+            continue
+        if run == "phase 15 checks":
+            phase = control_ranks_phase(dev, cp)
+            print(json.dumps({"serve": phase}), flush=True)
+            phases.append(phase)
+            print(f"phase 15 (control plane dp={CP_DP} x tp={CP_TP}, its ranks beside phases 10 "
+                  f"and 11): {phase['phase_s']:.1f}s from its start, "
+                  f"{phase['waited_for_ranks_s']:.1f}s of it waiting for the ranks after them",
+                  flush=True)
+            beside = False
+            continue
         for phase in run():
+            if beside:
+                phase["note"] = "; ".join(x for x in (phase.get("note"), BESIDE_CP) if x)
             print(json.dumps({"serve": phase}), flush=True)
             phases.append(phase)
     print(json.dumps({"reference": tp_reference_check(dev)}), flush=True)

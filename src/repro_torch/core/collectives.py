@@ -22,6 +22,11 @@ Differences from the JAX package:
   ``pmax`` does not record, and an all-reduce sum, tag ``lse_merge``), and
   KV blocks sent from one data rank to another (kind ``send``, recorded by
   the sender, tag ``migrate``).
+* The serving control plane's round record (``control_broadcast``): a
+  variable-length byte string that world rank 0 broadcasts to the whole
+  world over a gloo group (``Dist.control``), its length first and then
+  its bytes, each broadcast recorded with axis "world" and tag
+  ``control``.  The JAX package has one controller and no such record.
 * ``all_gather`` and ``reduce_scatter`` along the sequence take any length
   s: each rank's chunk is padded to ceil(s / tp) rows inside the
   collective and trimmed after it (``seq_chunk``), so no padding row ever
@@ -43,6 +48,7 @@ from repro_torch.models.common import Dist
 
 AXIS = "model"     # the JAX package's name of the tensor-parallel mesh axis
 DATA_AXIS = "data"   # ... and of the data axis
+WORLD_AXIS = "world"   # every rank of the dp x tp world (the round records)
 _local = threading.local()
 
 @dataclass
@@ -229,3 +235,30 @@ def data_recv(shape, dtype: torch.dtype, device, dist: Dist, frm: int) -> torch.
     buf = torch.empty(shape, dtype=dtype, device="cpu" if dist.backend == "gloo" else device)
     tdist.recv(buf, src=tdist.get_global_rank(dist.data_group, frm))
     return buf.to(device)
+
+
+# -- the control plane ---------------------------------------------------------
+
+
+def control_broadcast(payload: Optional[bytes], dist: Dist) -> bytes:
+    """World rank 0's ``payload`` on every rank of the world (the others
+    pass None): its length as one int64, then its bytes (skipped when
+    empty), both host tensors over the gloo control group, tag
+    ``control``.  The identity in a world of one rank."""
+    if dist.world == 1:
+        return payload or b""
+    group = dist.control
+    src = tdist.get_global_rank(group, 0)
+    n = torch.tensor([len(payload) if dist.world_rank == 0 else 0], dtype=torch.int64)
+    _record("broadcast", n, "control", axis=WORLD_AXIS)
+    tdist.broadcast(n, src=src, group=group)
+    size = int(n[0])
+    if size == 0:
+        return b""
+    if dist.world_rank == 0:
+        buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+    else:
+        buf = torch.empty(size, dtype=torch.uint8)
+    _record("broadcast", buf, "control", axis=WORLD_AXIS)
+    tdist.broadcast(buf, src=src, group=group)
+    return payload if dist.world_rank == 0 else buf.numpy().tobytes()

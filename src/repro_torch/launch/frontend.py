@@ -33,6 +33,18 @@ is shedding batch (level 1+), batch submissions are rejected at the door.
 **Graceful drain**: shutdown stops accepting (503), serves every admitted
 request to completion, then exits.
 
+**Over a world of ranks** (``--tp``/``--dp`` > 1, ``--scheduler disagg``
+among them) every rank builds its engine and scheduler; world rank 0 runs
+``HttpFrontend`` and ``EngineService`` as above, and every other rank
+runs ``follow``: one ``serve_step`` per round of rank 0's, each taking
+the round record that rank 0 broadcasts (``runtime/control.py``: the
+requests accepted since the last round, the deadlines that passed, the
+ladder's ITL signal, the door sheds), so that every rank serves the same
+requests in lockstep.  ``/health`` and its watchdog read rank 0.  The
+drain (SIGINT to the process group, which only rank 0 heeds) ends with a
+stop record that ends every rank, and then every rank checks that all
+served the same streams and outcomes (``Engine.check_replicated``).
+
 The API accepts token-id prompts (this repo has no tokenizer):
 
     POST /v1/completions
@@ -47,6 +59,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import signal
 import threading
 import time
 from typing import List, Optional
@@ -137,6 +150,7 @@ class EngineService:
         self._draining = False
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self.failure: Optional[BaseException] = None    # what ended the worker, if it raised
         # the stream the worker launches on: the one current here
         dev = scheduler.engine.device
         self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
@@ -154,10 +168,11 @@ class EngineService:
             if prev_fin is not None:
                 prev_fin(req)
             s = self._streams.pop(req.rid, None)
+            if s is None:
+                return      # not a client's: a fault plan's burst request
             with self._lock:
                 self._live -= 1
-            if s is not None:
-                s.finish(req)
+            s.finish(req)
 
         scheduler.on_token = on_token
         scheduler.on_finish = on_finish
@@ -179,11 +194,9 @@ class EngineService:
 
     def _count_shed(self, priority: str) -> None:
         """Shed accounting (lock held): the global counter plus the
-        per-class bucket the scheduler's ``request_summary`` reads."""
-        self.sched.stats["shed_requests"] += 1
-        buckets = self.sched.stats.setdefault("classes", {}).setdefault(
-            priority, {"served": 0, "shed": 0, "timeout": 0, "error": 0})
-        buckets["shed"] += 1
+        per-class bucket the scheduler's ``request_summary`` reads (on
+        every rank of a world, through the next round record)."""
+        self.sched.note_door_shed(priority)
 
     def try_submit(self, prompt, max_new: int, eos_id: Optional[int],
                    stream: TokenStream,
@@ -236,11 +249,19 @@ class EngineService:
 
     # -- worker side --------------------------------------------------------
     def _worker(self) -> None:
-        if self._stream is None:
-            self._serve_loop()
-            return
-        with torch.cuda.stream(self._stream):
-            self._serve_loop()
+        try:
+            if self._stream is None:
+                self._serve_loop()
+            else:
+                with torch.cuda.stream(self._stream):
+                    self._serve_loop()
+            # a world of ranks: the stop record ends the followers, then
+            # every rank checks that all served the same streams
+            self.sched.stop_followers()
+            self.sched.engine.check_replicated(self.sched.done, self.sched.control_counters())
+        except BaseException as e:
+            self.failure = e
+            raise
 
     def _serve_loop(self) -> None:
         while True:
@@ -260,6 +281,9 @@ class EngineService:
                         self._live -= 1
                     stream.fail(str(e))
                     continue
+                # in a world of ranks the request reached rank 0 only: the
+                # next round's record carries it to the other ranks
+                self.sched.announce_submit(rid)
                 self._streams[rid] = stream
             progressed = self.sched.serve_step()
             if progressed:
@@ -289,6 +313,8 @@ class EngineService:
         if self._thread is None:
             return True
         self._thread.join(timeout)
+        if self.failure is not None:
+            raise RuntimeError("the engine service's worker failed") from self.failure
         return not self._thread.is_alive()
 
 
@@ -556,8 +582,23 @@ class HttpFrontend:
 # ---------------------------------------------------------------------------
 
 
+def follow(sched) -> None:
+    """A follower rank's serving loop (world rank > 0): one round per round
+    of world rank 0's, each applying rank 0's round record, until the
+    stop record; then the check that every rank served the same streams."""
+    while not sched.control_stopped:
+        sched.serve_step()
+    sched.engine.check_replicated(sched.done, sched.control_counters())
+
+
 def main(argv=None):
+    """Serve over HTTP until SIGINT, then drain; -> the frontend, or over
+    more than one rank each rank's summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Dist
     ap = serve_mod.build_parser(argparse.ArgumentParser(
         description="OpenAI-compatible async serving frontend"))
     ap.add_argument("--host", default="127.0.0.1")
@@ -577,20 +618,49 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.scheduler == "wave":
         ap.error("the frontend needs a continuous scheduler "
-                 "(--scheduler continuous|paged)")
-    if args.tp != 1 or args.dp != 1:
-        ap.error("the frontend serves at --tp 1 --dp 1 (one scheduler, one worker thread)")
-    eng = serve_mod.build_engine(args)
+                 "(--scheduler continuous|paged|disagg)")
+    if args.tp == 1 and args.dp == 1:
+        return _serve_rank(Dist(), None, args)
+    M.check_supported(get_config(args.arch), serve_mod.engine_parallel(args),
+                      wq_cache=args.wq_cache)
+    mesh.check_backend(args.dp * args.tp, args.dist_backend, args.device)
+    if args.device == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()          # once, before the ranks load the libraries
+    # SIGINT to the process group drains rank 0, which then stops the
+    # others: this process and the followers ignore it
+    prev = signal.signal(signal.SIGINT, signal.SIG_IGN)
+    try:
+        return mesh.spawn(_serve_rank, args.tp, args, backend=args.dist_backend,
+                          device=args.device, dp=args.dp)
+    finally:
+        signal.signal(signal.SIGINT, prev)
+
+
+def _serve_rank(dist, device, args):
+    """One rank of the frontend (the only one at tp = dp = 1): world rank
+    0 serves HTTP, every other rank follows its round records."""
+    from repro_torch.launch import serve as serve_mod
+    eng = serve_mod.build_engine(args, dist, device)
     sched = serve_mod.make_scheduler(eng, args)
+    if dist.world_rank != 0:
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        follow(sched)
+        return {"world_rank": dist.world_rank, "requests": len(sched.done),
+                "counters": sched.control_counters()}
+    if dist.world > 1:
+        signal.signal(signal.SIGINT, signal.default_int_handler)
     service = EngineService(sched, max_pending=args.max_pending,
                             watchdog_s=args.watchdog_s,
                             pending_reserve=args.pending_reserve)
     frontend = HttpFrontend(service, host=args.host, port=args.port)
+    world = (f", tp={dist.tp}" + (f", dp={dist.dp}" if dist.dp > 1 else "")
+             if dist.world > 1 else "")
 
     async def amain():
         await frontend.start()
         print(f"serving {eng.cfg.name} ({args.scheduler}"
-              f"{', overlapped' if sched.overlap else ''}) on "
+              f"{', overlapped' if sched.overlap else ''}{world}) on "
               f"http://{frontend.host}:{frontend.port}/v1/completions",
               flush=True)
         await frontend.serve_forever()
@@ -603,6 +673,9 @@ def main(argv=None):
         pass
     print("draining...", flush=True)
     service.drain()
+    if dist.world > 1:
+        return {"world_rank": 0, "requests": len(sched.done),
+                "counters": sched.control_counters()}
     return frontend
 
 

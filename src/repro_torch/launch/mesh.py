@@ -6,7 +6,9 @@ Each rank is one process running the same program on its shard
 data replica ``d``.  Each replica's ``tp`` ranks form its model group (the
 tensor-parallel collectives); the ``dp`` ranks of one model index form its
 data group (the data axis: the sampled tokens gathered, the KV cache's
-log-sum-exp merge, KV-block migration).  ``init_tp`` joins the world and
+log-sum-exp merge, KV-block migration); a gloo group of the whole world
+carries the serving control plane's round records from world rank 0
+(``core/collectives.control_broadcast``).  ``init_tp`` joins the world and
 its groups through a ``file://`` store, so concurrent runs (test workers)
 never race for a port; ``spawn`` starts the ranks with the ``spawn`` start
 method and returns what each rank's function returned.
@@ -21,6 +23,7 @@ no tensor-parallel, data-parallel or disaggregated speed.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import pickle
 import tempfile
@@ -98,8 +101,15 @@ def init_tp(tp: int, rank: int, backend: str, init_file: str, device: str = "cud
         for m in range(tp):
             g = tdist.new_group(list(range(m, world, tp)))
             data_group = g if m == t else data_group
+    # the control plane's round records are host metadata: a gloo group of
+    # the whole world, made beside an NCCL world so that they never ride
+    # NCCL on a card
+    control = None
+    if world > 1:
+        control = (tdist.group.WORLD if backend == "gloo"
+                   else tdist.new_group(list(range(world)), backend="gloo"))
     return Dist(tp=tp, rank=t, group=group, backend=backend, dp=dp, data_rank=d,
-                data_group=data_group)
+                data_group=data_group, control=control)
 
 
 def _rank_main(rank: int, fn: Callable, tp: int, dp: int, backend: str, device: str,
@@ -110,6 +120,10 @@ def _rank_main(rank: int, fn: Callable, tp: int, dp: int, backend: str, device: 
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
+        # what a rank's reference cycles still hold of its groups (an engine
+        # behind a frontend's callbacks) goes before the groups do: a gloo
+        # group freed later, at interpreter exit, can abort the process
+        gc.collect()
         tdist.destroy_process_group()
 
 

@@ -57,10 +57,13 @@ request's priority class drawn from a weighted mix), ``--slo-*``,
 ``--interactive-reserve-*`` and ``--overload-*`` (the degradation ladder of
 ``runtime/overload.py``), ``--no-spec-decode`` and ``--stats-json``, which
 writes the scheduler's summary and counters, even when the run raised.
-Overlap, fault plans and the ladder are refused at ``--tp`` > 1, and
-overlap, the ladder and a fault plan's ``delay`` clause at ``--dp`` > 1
-(each rank's scheduler would part on the wall clock).  The parser is
-shared with the HTTP frontend (``launch/frontend.py``).  Not ported:
+They serve at any ``--tp`` and ``--dp``: world rank 0 reads the wall
+clock for every rank (the ladder's ITL signal, deadlines) and broadcasts
+what it read in a round record (``runtime/control.py``), a fault plan's
+``delay`` clause sleeps on rank 0 only, and the run ends by checking that
+every rank served the same streams, finish reasons and control counters.
+The parser is shared with the HTTP frontend (``launch/frontend.py``),
+which serves at any ``--tp`` and ``--dp`` too.  Not ported:
 ``--no-flash-prefill``.
 """
 from __future__ import annotations
@@ -385,7 +388,8 @@ def main(argv=None):
         return []
     if args.tp == 1 and args.dp == 1:
         return _serve(Dist(), None, args)
-    # refuse what the ranks would (overlap, faults, the ladder) before spawning
+    # refuse what the ranks would (wq_cache at tp > 1, kv_seq_shard's
+    # layers, splits) before spawning
     M.check_supported(get_config(args.arch), engine_parallel(args), wq_cache=args.wq_cache)
     mesh.check_backend(args.dp * args.tp, args.dist_backend, args.device)
     if args.device == "cuda":

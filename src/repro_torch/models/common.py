@@ -30,7 +30,10 @@ class Dist:
     ``data_rank * tp + rank`` (``launch.mesh.init_tp`` joins the groups).
     ``backend`` "gloo" stages CUDA tensors through host memory, "nccl"
     reduces on the cards.  tp 1 (dp 1) has no model (data) group: every
-    collective over that axis is the identity."""
+    collective over that axis is the identity.  ``control`` is a gloo group
+    of the whole world (None in a world of one rank), over which world rank
+    0 broadcasts the serving control plane's round records (host metadata,
+    never on a card)."""
 
     tp: int = 1
     rank: int = 0
@@ -39,10 +42,15 @@ class Dist:
     dp: int = 1
     data_rank: int = 0
     data_group: Any = None
+    control: Any = None
 
     @property
     def world_rank(self) -> int:
         return self.data_rank * self.tp + self.rank
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.tp
 
 
 def pad_to(x: int, m: int) -> int:

@@ -83,7 +83,6 @@ from repro_torch.models import multimodal, rglru, ssm
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
 from repro_torch.models.transformer import ATTN_KINDS, RECURRENT, Ghost, layers_forward
-from repro_torch.runtime import faults as _faults
 
 Params = Dict[str, Any]
 
@@ -190,21 +189,6 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
     if parallel.kv_seq_shard and (cfg.mla is not None or kinds != {"attn"}):
         missing.append("kv_seq_shard with mla, sliding-window or recurrent layers (the "
                        "sequence-sharded cache of full-causal GQA layers only)")
-    # every rank runs its own scheduler in lockstep: a decision read off
-    # the wall clock (deadlines, the ITL signal, delay clauses) would part
-    # the ranks' schedulers
-    if parallel.tp > 1 and parallel.overlap_decode:
-        missing.append("overlap_decode at tp>1 (the overlapped loop)")
-    if parallel.tp > 1 and parallel.fault_plan:
-        missing.append("fault_plan at tp>1 (fault injection and step retry)")
-    if parallel.tp > 1 and parallel.overload_degrade:
-        missing.append("overload_degrade at tp>1 (the degradation ladder)")
-    if parallel.dp > 1 and parallel.overlap_decode:
-        missing.append("overlap_decode at dp>1 (the overlapped loop)")
-    if parallel.dp > 1 and parallel.overload_degrade:
-        missing.append("overload_degrade at dp>1 (the degradation ladder)")
-    if parallel.dp > 1 and _faults.reads_wall_clock(parallel.fault_plan):
-        missing.append("a fault plan's delay clause at dp>1 (it sleeps on the wall clock)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: the PyTorch port does not serve "
                                   f"{', '.join(missing)} yet")

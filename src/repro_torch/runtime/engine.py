@@ -17,7 +17,11 @@ its pool of n_blocks / dp blocks (``init_slot_caches``,
 slot call takes the world's B-wide host arrays, runs the rank's rows (none
 at all where its shard has no row in the step: its launches are skipped)
 and all-gathers its outputs over the data group once a call (tag
-``dp_tokens``), so every rank lands the world's tokens.  With
+``dp_tokens``), so every rank lands the world's tokens; a decode block
+gathers when it lands (``land_decode``), so that the next block can be
+dispatched on the replica's own device state before it does (a replica's
+rows depend on its own rows only), and every rank lands in the same
+order, so the gathers pair up.  With
 ``kv_seq_shard`` the data axis splits the wave cache's sequence instead:
 every replica serves the whole batch over its slice, merged by log-sum-exp
 in each attention layer (``models/attention.py``).  ``migrate_blocks``
@@ -43,6 +47,7 @@ launches anything: the fault boundary of ``runtime/faults.py``.
 from __future__ import annotations
 
 import hashlib
+import json
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -210,16 +215,21 @@ class Engine:
         logits = self.forward(tok[:, None], caches=caches, cur_pos=cur_pos)
         return self.sample(logits[:, -1])
 
-    def check_replicated(self, done) -> None:
+    def check_replicated(self, done, counters: Optional[Dict] = None) -> None:
         """The end of a run over more than one rank: every rank of the world
-        must have served the same streams (one hash of the finished
-        requests' tokens all-gathered over the model group, then over the
-        data group, tag ``stream_check``); raises on a mismatch."""
+        must have served the same streams with the same outcomes (one hash
+        of the finished requests' tokens and finish reasons, and of the
+        scheduler's control ``counters``, all-gathered over the model
+        group, then over the data group, tag ``stream_check``); raises on a
+        mismatch: a rank whose control plane parted fails the run."""
         if self.dist.tp == 1 and self.dist.dp == 1:
             return
         h = hashlib.sha256()
         for r in sorted(done, key=lambda r: r.rid):
-            h.update(np.int64(r.rid).tobytes() + np.asarray(r.output, np.int64).tobytes())
+            h.update(np.int64(r.rid).tobytes() + np.asarray(r.output, np.int64).tobytes()
+                     + str(r.finish_reason).encode())
+        if counters is not None:
+            h.update(json.dumps(counters, sort_keys=True).encode())
         mine = torch.tensor([int.from_bytes(h.digest()[:8], "little", signed=True)],
                             dtype=torch.int64, device=self.device)
         hashes = cc.all_gather(mine, self.dist, 0, tag="stream_check")
@@ -435,7 +445,7 @@ class Engine:
 
     @torch.inference_mode()
     def dispatch_decode(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
-                        block_tables=None) -> DecodeBlock:
+                        block_tables=None, active=None) -> DecodeBlock:
         """Queue ``n`` masked decode steps over all slots, as a Python loop
         whose tokens and state stay on the device, and a copy of the block's
         outputs into pinned host memory behind an event; return without
@@ -446,34 +456,31 @@ class Engine:
         (``DecodeBlock.state``); ``eos`` and ``block_tables`` (B, nbps; the
         cache is paged) come from the host, uploaded without waiting.
 
-        At dp > 1 the block runs this replica's rows (none where all of
-        them are frozen: a masked step leaves a frozen row as it was) and
-        lands at once: its host copy holds the world's outputs, gathered
-        over the data group, and ``state`` those as host tensors."""
+        At dp > 1 the block runs this replica's rows: host arrays are the
+        world's (B rows), device state is the replica's own previous block.
+        ``active`` (host, B rows), where given, is a superset of the rows
+        still decoding (the scheduler's prediction); a replica none of
+        whose rows is in it launches no step (a masked step leaves a frozen
+        row as it was) and only copies its state out.  ``land_decode``
+        gathers the world's outputs."""
         self._predispatch()
         if self.row_shard:
-            return self._dispatch_rows(caches, tok, pos, done, remaining, eos, n, block_tables)
+            return self._dispatch_rows(caches, tok, pos, done, remaining, eos, n, block_tables,
+                                       active)
         return self._dispatch_local(caches, tok, pos, done, remaining, eos, n, block_tables)
 
-    def _dispatch_rows(self, caches, tok, pos, done, remaining, eos, n, block_tables):
-        sl = self._rows(len(pos))
-        tok, pos, done, remaining, eos = (np.asarray(x)[sl]
-                                          for x in (tok, pos, done, remaining, eos))
-        if ((~done.astype(bool)) & (remaining > 0)).any():
-            bt = None if block_tables is None else np.asarray(block_tables)[sl]
-            toks, pos, done, remaining = self.land_decode(
-                self._dispatch_local(caches, tok, pos, done, remaining, eos, n, bt))
-        else:
-            toks = np.repeat(np.asarray(tok)[None], n, axis=0)
-        toks, pos, done, remaining = self._gather_rows(np.moveaxis(toks, 0, 1), pos, done,
-                                                       remaining)
-        toks = np.moveaxis(toks, 1, 0)
-        host = torch.from_numpy(np.concatenate([toks.reshape(-1), pos, done, remaining]))
-        state = [torch.from_numpy(np.ascontiguousarray(x)) for x in (toks[-1], pos, done,
-                                                                     remaining)]
-        return DecodeBlock(state[0], state[1], state[2].bool(), state[3], n, host, None)
+    def _dispatch_rows(self, caches, tok, pos, done, remaining, eos, n, block_tables, active):
+        sl = self._rows(len(eos))
+        if not isinstance(tok, torch.Tensor):
+            if active is None:
+                active = (~np.asarray(done, bool)) & (np.asarray(remaining) > 0)
+            tok, pos, done, remaining = (np.asarray(x)[sl] for x in (tok, pos, done, remaining))
+        bt = None if block_tables is None else np.asarray(block_tables)[sl]
+        return self._dispatch_local(caches, tok, pos, done, remaining, np.asarray(eos)[sl], n,
+                                    bt, run=active is None or bool(np.asarray(active)[sl].any()))
 
-    def _dispatch_local(self, caches, tok, pos, done, remaining, eos, n, block_tables):
+    def _dispatch_local(self, caches, tok, pos, done, remaining, eos, n, block_tables,
+                        run: bool = True):
         if isinstance(tok, torch.Tensor):
             tok_d, pos_d, done_d, rem_d = tok, pos, done, remaining
             eos_d = self._upload(eos)
@@ -481,8 +488,8 @@ class Engine:
         else:
             (tok_d, pos_d, done_d, rem_d, eos_d), bt = self._slot_state(
                 tok, pos, done, remaining, eos, block_tables)
-        toks = []
-        for _ in range(n):
+        toks = [tok_d] * n if not run else []
+        for _ in range(n if run else 0):
             tok_d, pos_d, done_d, rem_d = self._decode_step(caches, tok_d, pos_d, done_d,
                                                             rem_d, eos_d, bt)
             toks.append(tok_d)
@@ -496,17 +503,23 @@ class Engine:
             out = host
         return DecodeBlock(tok_d, pos_d, done_d, rem_d, n, out, event)
 
-    @staticmethod
-    def land_decode(block: DecodeBlock):
+    def land_decode(self, block: DecodeBlock):
         """Wait for a dispatched block's host copy -> host (toks (n, B) or
-        frames (n, B, ncb), pos, done, remaining)."""
+        frames (n, B, ncb), pos, done, remaining); at dp > 1 the replicas'
+        rows gathered over the data group (tag ``dp_tokens``)."""
         if block.event is not None:
             block.event.synchronize()
         out = block.host.numpy()
         k = block.n * block.tok.numel()
         state = out[k:].reshape(3, -1)
-        return (out[:k].reshape(block.n, *block.tok.shape).astype(np.int32),
-                state[0].astype(np.int32), state[1].astype(bool), state[2].astype(np.int32))
+        toks = out[:k].reshape(block.n, *block.tok.shape)
+        pos, done, remaining = state
+        if self.row_shard:
+            toks, pos, done, remaining = self._gather_rows(np.moveaxis(toks, 0, 1), pos, done,
+                                                           remaining)
+            toks = np.moveaxis(toks, 1, 0)
+        return (toks.astype(np.int32), pos.astype(np.int32), done.astype(bool),
+                remaining.astype(np.int32))
 
     def decode_slots(self, caches, tok, pos, done, remaining, eos, *, n: int = 1,
                      block_tables=None):

@@ -24,11 +24,19 @@ boundaries where failures are recoverable:
   (``DisaggScheduler._advance_handoffs``): a ``MigrationFault`` there
   rolls the whole handoff back and quarantines the request.
 
-Every clause but ``delay`` reads only the engine-step count and the plan's
-seeded rng, so every rank of a data-parallel world, each running the same
-plan over the same schedule, fires it at the same point; ``delay`` sleeps
-on the wall clock, and ``reads_wall_clock`` names it for the refusal at
-dp > 1.
+Over a world of ranks (tensor parallelism, the data axis) every rank runs
+its own scheduler and its own copy of the plan over the same schedule.
+Every clause fires from the engine-step count, the handoff count and the
+plan's seeded rng only, so each fires at the same point on every rank: a
+step fault raises on every rank before any of them launches the step, so
+every rank retries (or quarantines) the same step, and no collective of
+the step is left half issued.  ``delay`` fires on every rank alike (its
+rng draw too) but sleeps on world rank 0 only (``sleeps``): the ranks
+wait for it in the next collective, as a wedged controller would hold
+them.  What no plan models is an organic exception raised on one rank
+only (an out-of-memory error, a failed kernel launch): that rank's
+scheduler parts from the others', which then wait in a collective until
+the process group's timeout; recovering from it is out of scope.
 
 Spec grammar — clauses separated by ``;``, each ``kind:key=val,key=val``::
 
@@ -130,15 +138,6 @@ _FLOAT_KEYS = ("s", "p")
 _STR_KEYS = ("cls",)
 
 
-# the clause kinds whose firing or effect reads the wall clock
-WALL_CLOCK_KINDS = ("delay",)
-
-
-def reads_wall_clock(spec: Optional[str]) -> bool:
-    """True where the plan ``spec`` has a clause of ``WALL_CLOCK_KINDS``."""
-    return any(c.kind in WALL_CLOCK_KINDS for c in FaultPlan.parse(spec).clauses)
-
-
 class FaultPlan:
     """Parsed fault schedule; one instance per scheduler (stateful: clauses
     disarm as they fire, so a plan must not be shared across runs)."""
@@ -147,6 +146,9 @@ class FaultPlan:
         self.clauses = clauses
         self._rng = random.Random(seed)
         self._handoffs = 0        # final handoff stagings observed
+        # whether a firing delay clause sleeps: on world rank 0 only (the
+        # scheduler clears it on the other ranks)
+        self.sleeps = True
 
     def __bool__(self) -> bool:
         return bool(self.clauses)
@@ -206,9 +208,10 @@ class FaultPlan:
 
     def on_dispatch(self, step: int) -> None:
         """Consulted before every engine step dispatch.  Delay clauses
-        sleep; step clauses raise :class:`TransientStepError`."""
+        sleep (where ``sleeps``); step clauses raise
+        :class:`TransientStepError`."""
         for c in self.clauses:
-            if c.kind == "delay" and step >= c.at and self._fire(c):
+            if c.kind == "delay" and step >= c.at and self._fire(c) and self.sleeps:
                 time.sleep(c.seconds)
         for c in self.clauses:
             if c.kind == "step" and step >= c.at and self._fire(c):

@@ -50,6 +50,12 @@ the lo and hi thresholds reset both streaks (hold the current level).
 Every transition is recorded and surfaced through ``summary()`` —
 wired into ``request_summary()["overload"]`` and ``GET /health``.
 
+Over a world of ranks every rank's scheduler keeps its own controller and
+feeds it the same signals: the queue depth of its own lockstep queue and
+the ITL that world rank 0 measured and broadcast in the round record
+(``runtime/control.py``), so every rank makes the same transitions at the
+same rounds.
+
 None of the levers ever touches device math or sampled tokens: admitted
 survivors' greedy streams stay bit-identical to an unloaded run.
 Degradation changes *which* requests run and *when* — never *what*.

@@ -47,17 +47,23 @@ The serving control plane is the JAX package's too:
 
 Over a world of ranks (tensor parallelism, the data axis) every rank runs
 its own scheduler over the same requests; its decisions depend on the
-requests and the sampled tokens only, which are the same on every rank
-(at dp > 1 the engine gathers each step's tokens over the data group), so
-the ranks make the same engine calls.  A run ends by checking that every
-rank served the same streams (``Engine.check_replicated``).  Decisions
-read off the wall clock would part the ranks, so overlap, the degradation
-ladder and deadlines are refused at tp > 1 and dp > 1, fault plans at tp
-> 1 and their ``delay`` clauses at dp > 1; priority classes and reserves
-read only the virtual clock and work at any tp and dp.  At dp > 1 the
-slots split evenly over the data shards, and the paged pool into one
-block namespace a shard (``_shard_of``): a slot's blocks come from its
-shard's pool.
+requests, the sampled tokens and the virtual clock, which are the same on
+every rank (at dp > 1 the engine gathers each block's tokens over the data
+group when it lands), so the ranks make the same engine calls.  What
+reads the wall clock, and what reaches one rank only, world rank 0
+decides once a round and broadcasts in a round record
+(``runtime/control.py``), which every rank applies at the head of the
+round (``_round_prologue``): the deadlines that passed, the ladder's ITL
+signal, the frontend's accepted requests and door sheds, the drain.
+Every round of a world of more than one rank makes a record; a world of
+one rank makes none.  So the
+whole control plane serves at any tp and dp: overlap, fault plans (a
+``delay`` clause sleeps on rank 0 only), deadlines, priority classes with
+the ladder and the frontend.  A run ends by checking that every rank
+served the same streams with the same outcomes and control counters
+(``Engine.check_replicated``).  At dp > 1 the slots split evenly over the
+data shards, and the paged pool into one block namespace a shard
+(``_shard_of``): a slot's blocks come from its shard's pool.
 """
 from __future__ import annotations
 
@@ -71,6 +77,7 @@ import numpy as np
 
 from repro_torch.models import model as M
 from repro_torch.runtime import kvcache
+from repro_torch.runtime.control import ControlChannel, RoundRecord
 from repro_torch.runtime.drafter import NgramDrafter
 from repro_torch.runtime.engine import DecodeBlock, Engine
 from repro_torch.runtime.faults import FaultPlan, MigrationFault, TransientStepError
@@ -252,6 +259,10 @@ class ContinuousScheduler:
     merges over the ladder's and its "enabled" key turns it on or off.
     ``on_token(rid, token)`` streams each emission, ``on_finish(request)``
     each retirement; ``serve_step`` runs one round for an external driver.
+    In a world of ranks, a request that reached world rank 0 only (the
+    frontend's) is submitted there and then ``announce_submit``-ed: the
+    next round's record submits it on every other rank; ``stop_followers``
+    ends the other ranks' loops (``control_stopped``).
     """
 
     def __init__(self, engine: Engine, n_slots: int, pad_id: int = 0, block_steps: int = 8,
@@ -379,6 +390,10 @@ class ContinuousScheduler:
             overload_degrade=bool(enabled)))
         if self.faults:
             engine.dispatch_hook = self._fault_dispatch
+            self.faults.sleeps = engine.dist.world_rank == 0
+        # the round records of a world of ranks (runtime/control.py)
+        self._control = ControlChannel(engine.dist) if engine.dist.world > 1 else None
+        self.control_stopped = False
         self.overload_ctl = None
         if enabled:
             if opts["queue_hi"] <= 0:
@@ -389,7 +404,7 @@ class ContinuousScheduler:
             self.overload_ctl = OverloadController(**opts)
         self.stats["classes"] = {c: {"served": 0, "shed": 0, "timeout": 0, "error": 0}
                                  for c in PRIORITY_CLASSES}
-        self.stats.update({"burst_injected": 0, "overload_transitions": 0,
+        self.stats.update({"burst_injected": 0, "overload_transitions": 0, "control_s": 0.0,
                            "spec_off_rounds": 0})
         # recent per-step ITL the ladder reads (wall clock: advisory beside
         # the queue depth on the virtual clock)
@@ -411,12 +426,6 @@ class ContinuousScheduler:
                 f"admissible in-flight yet — use WaveScheduler")
         if len(prompt) < 2:
             raise ValueError("prompts must have >= 2 tokens")
-        if deadline_s is not None and self.engine.dist.tp > 1:
-            raise NotImplementedError("deadline_s at tp>1 (a wall-clock deadline would part "
-                                      "the ranks' schedulers)")
-        if deadline_s is not None and self.engine.dist.dp > 1:
-            raise NotImplementedError("deadline_s at dp>1 (a wall-clock deadline would part "
-                                      "the ranks' schedulers)")
         rid = self._next_id
         self._next_id += 1
         self.queue.append(Request(rid, prompt, max_new, eos_id, arrival_step,
@@ -424,6 +433,26 @@ class ContinuousScheduler:
         if deadline_s is not None:
             self._has_deadlines = True
         return rid
+
+    def announce_submit(self, rid: int) -> None:
+        """World rank 0, after ``submit`` of a request that reached it only
+        (the frontend's): the next round's record submits it on every other
+        rank as ``rid``.  A no-op in a world of one rank."""
+        if self._control is not None and self._control.controller:
+            r = next(r for r in reversed(self.queue) if r.rid == rid)
+            self._control.announce_submit(rid, r.prompt, r.max_new, r.eos_id, r.arrival_step,
+                                          r.deadline_s, r.priority)
+
+    def note_door_shed(self, priority: str) -> None:
+        """Count a request the frontend shed at its door (it never reached
+        the scheduler): ``shed_requests`` and the class's bucket, on every
+        rank of the world through the next round's record."""
+        self.stats["shed_requests"] += 1
+        buckets = self.stats.setdefault("classes", {}).setdefault(
+            priority, {"served": 0, "shed": 0, "timeout": 0, "error": 0})
+        buckets["shed"] += 1
+        if self._control is not None and self._control.controller:
+            self._control.announce_door_shed(priority)
 
     # -- internals --------------------------------------------------------
     def _inflight_mask(self) -> Optional[np.ndarray]:
@@ -632,10 +661,12 @@ class ContinuousScheduler:
         return self._landed(out)
 
     def _run_decode(self, n: int) -> DecodeBlock:
-        """Engine dispatch of one block (the paged backend adds its tables)."""
+        """Engine dispatch of one block (the paged backend adds its tables);
+        the host's predicted-active mask (a superset of the device's) tells
+        a data replica whether its rows need the block at all."""
         tok, pos, dones, remaining = self._decode_inputs()
         return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
-                                           n=n)
+                                           n=n, active=(~self.dones) & (self.remaining > 0))
 
     def _ensure_capacity(self, n: int) -> None:
         """Pre-decode capacity hook (paged backend: block allocation)."""
@@ -886,16 +917,26 @@ class ContinuousScheduler:
             return
         raise e
 
-    def _expire_deadlines(self) -> None:
-        """Retire every request past its deadline with finish_reason
-        "timeout": queued (an empty output) or in a slot (what it emitted so
-        far).  The forced-done mask drops a slot's unlanded emissions."""
+    @staticmethod
+    def _late(r: Request, now: float) -> bool:
+        return r.deadline_s is not None and now - r.submitted_at >= r.deadline_s
+
+    def _late_rids(self, now: float) -> set:
+        """The queued and slot-resident requests past their deadline at
+        ``now`` (rank 0's clock in a world of ranks)."""
+        late = {r.rid for r in self.queue if self._late(r, now)}
+        return late | {s.req.rid for s in self.slots
+                       if s.req is not None and self._late(s.req, now)}
+
+    def _expire_deadlines(self, late: Optional[set] = None) -> None:
+        """Retire every request of ``late`` (default: those past their
+        deadline now) with finish_reason "timeout": queued (an empty
+        output) or in a slot (what it emitted so far).  The forced-done mask
+        drops a slot's unlanded emissions."""
         now = time.monotonic()
-
-        def late(r: Request) -> bool:
-            return r.deadline_s is not None and now - r.submitted_at >= r.deadline_s
-
-        for r in [r for r in self.queue if late(r)]:
+        if late is None:
+            late = self._late_rids(now)
+        for r in [r for r in self.queue if r.rid in late]:
             self.queue.remove(r)
             r.output = np.zeros((0,), np.int32)
             r.finish_reason = "timeout"
@@ -903,7 +944,7 @@ class ContinuousScheduler:
             self.stats["timeouts"] += 1
             self._finish(r)
         for i, s in enumerate(self.slots):
-            if s.req is not None and late(s.req):
+            if s.req is not None and s.req.rid in late:
                 self._quarantine_slot(i, "timeout")
 
     # -- overload (burst injection, the degradation ladder) ------------------
@@ -919,25 +960,81 @@ class ContinuousScheduler:
                             arrival_step=self.step_count, priority=cls)
                 self.stats["burst_injected"] += 1
 
-    def _overload_observe(self) -> None:
+    def _recent_itl(self) -> Optional[float]:
+        """The ladder's wall-clock signal: the recent landed per-step ITL."""
+        return float(np.mean(self._itl_recent)) if self._itl_recent else None
+
+    def _overload_observe(self, recent: Optional[float]) -> None:
         """One ladder observation a round: the arrived queue's depth (on the
-        virtual clock) and the recent landed per-step ITL (wall clock)."""
+        virtual clock) and the recent landed per-step ITL ``recent`` (wall
+        clock: rank 0's in a world of ranks)."""
         ctl = self.overload_ctl
         depth = sum(1 for r in self.queue if r.arrival_step <= self.step_count)
-        recent = float(np.mean(self._itl_recent)) if self._itl_recent else None
         before = ctl.level
         ctl.observe(depth, recent)
         if ctl.level != before:
             self.stats["overload_transitions"] += 1
 
-    def _round_prologue(self) -> None:
-        """Every round's head: bursts, deadlines, one ladder observation."""
+    def _round_record(self) -> Optional[RoundRecord]:
+        """This round's record in a world of ranks, else None: rank 0's
+        deadline and ITL readings, and what its frontend took, applied here
+        on every rank (rank 0's submissions are already queued).
+        ``control_s`` sums the host seconds spent in the exchange."""
+        ctl = self._control
+        if ctl is None:
+            return None
+        if ctl.controller:
+            late = self._late_rids(time.monotonic()) if self._has_deadlines else ()
+            itl = None if self.overload_ctl is None else self._recent_itl()
+        t = time.perf_counter()
+        rec = ctl.exchange(late, itl) if ctl.controller else ctl.exchange()
+        self.stats["control_s"] += time.perf_counter() - t
+        if ctl.controller:
+            return rec
+        for cls in rec.door_shed:
+            self.note_door_shed(cls)
+        for sub in rec.submits:
+            rid = self.submit(np.asarray(sub["prompt"], np.int32), sub["max_new"],
+                              eos_id=sub["eos_id"], arrival_step=sub["arrival_step"],
+                              deadline_s=sub["deadline_s"], priority=sub["priority"])
+            if rid != sub["rid"]:
+                raise RuntimeError(f"world rank {self.engine.dist.world_rank} took rank 0's "
+                                   f"request {sub['rid']} as {rid}")
+        return rec
+
+    def _round_prologue(self) -> bool:
+        """Every round's head: the round record (world of ranks), bursts,
+        deadlines, one ladder observation; False where the record says
+        stop (the round does not run)."""
+        rec = self._round_record()
+        if rec is not None and rec.stop:
+            self.control_stopped = True
+            return False
         if self.faults:
             self._inject_bursts()
         if self._has_deadlines:
-            self._expire_deadlines()
+            self._expire_deadlines(None if rec is None else set(rec.expired))
         if self.overload_ctl is not None:
-            self._overload_observe()
+            self._overload_observe(self._recent_itl() if rec is None else rec.itl)
+        return True
+
+    def stop_followers(self) -> None:
+        """World rank 0 after its last round: the stop record, which ends
+        every other rank's loop (a no-op in a world of one rank)."""
+        if self._control is not None and self._control.controller:
+            self._control.exchange(stop=True)
+        self.control_stopped = True
+
+    def control_counters(self) -> Dict:
+        """The control plane's counters that every rank of a world must
+        agree on (``Engine.check_replicated``)."""
+        keys = ("timeouts", "quarantined", "step_faults", "step_retries", "shed_requests",
+                "overload_transitions", "burst_injected")
+        out = {k: self.stats.get(k, 0) for k in keys}
+        out["shed"] = {c: b["shed"] for c, b in sorted(self.stats["classes"].items())}
+        if self.overload_ctl is not None:
+            out["ladder"] = list(self.overload_ctl.transitions)
+        return out
 
     def _spec_suspended(self) -> bool:
         """True while the ladder holds spec decode off (level 2+); greedy
@@ -1209,7 +1306,8 @@ class ContinuousScheduler:
         state (an admission could fill a slot; a chunk or verify step reads
         the token frontier); otherwise it dispatches the next block on the
         previous block's device outputs and then lands the older one."""
-        self._round_prologue()
+        if not self._round_prologue():
+            return False
         if self._pipeline and any(r.arrival_step <= self.step_count for r in self.queue):
             # an arrival may admit once done slots retire: land first, so
             # that admission sees the blocking loop's frontier
@@ -1260,7 +1358,7 @@ class ContinuousScheduler:
             pass
         self._drain_pipeline()
         self._retire()
-        self.engine.check_replicated(self.done)
+        self.engine.check_replicated(self.done, self.control_counters())
         return self.done
 
 
@@ -1445,7 +1543,8 @@ class PagedContinuousScheduler(ContinuousScheduler):
     def _run_decode(self, n: int) -> DecodeBlock:
         tok, pos, dones, remaining = self._decode_inputs()
         return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
-                                           n=n, block_tables=self.bt)
+                                           n=n, block_tables=self.bt,
+                                           active=(~self.dones) & (self.remaining > 0))
 
     # -- admission --------------------------------------------------------
     def _admit(self) -> int:
@@ -1618,10 +1717,12 @@ class DisaggScheduler(PagedContinuousScheduler):
     the same chunk width.  Every rank runs this scheduler in lockstep; a
     replica computes only its own shard's rows, so the decode pool's ranks
     skip the chunk-only step and the prefill pool's the decode blocks.
-    The overlapped loop is refused at dp > 1, so a decode ITL sample is
-    stamped at the decode dispatch (``_last_step_t``) and ends at its
-    landing: the dispatch's own duration.  With ranks sharing one card the
-    two pools time-slice it, so no ITL measured there shows the pools'
+    A decode ITL sample starts at the decode dispatch (``_last_step_t``)
+    and ends at its landing: in the blocking loop the dispatch's own
+    duration, in the overlapped one (dp > 1 lands each block's tokens
+    while the next block runs) the time from the newest dispatch to the
+    landing of the block before it.  With ranks sharing one card the two
+    pools time-slice it, so no ITL measured there shows the pools'
     independence.
     """
 
@@ -1955,16 +2056,21 @@ class DisaggScheduler(PagedContinuousScheduler):
             self.stats["livelock_aborts"] += 1
         return victim
 
-    def _expire_deadlines(self) -> None:
-        super()._expire_deadlines()
+    def _late_rids(self, now: float) -> set:
         # landed requests waiting for a decode slot hold destination blocks:
         # they time out too, once the copy queue is empty
+        late = super()._late_rids(now)
+        if self._landing and not self._mig_queue:
+            late |= {rec["req"].rid for rec in self._landing if self._late(rec["req"], now)}
+        return late
+
+    def _expire_deadlines(self, late: Optional[set] = None) -> None:
+        if late is None:
+            late = self._late_rids(time.monotonic())
+        super()._expire_deadlines(late)
         if not self._landing or self._mig_queue:
             return
-        now = time.monotonic()
-        for rec in [rec for rec in self._landing
-                    if rec["req"].deadline_s is not None
-                    and now - rec["req"].submitted_at >= rec["req"].deadline_s]:
+        for rec in [rec for rec in self._landing if rec["req"].rid in late]:
             self._finish_landing_record(rec, "timeout")
 
     # -- the decode pool ---------------------------------------------------
@@ -1977,7 +2083,7 @@ class DisaggScheduler(PagedContinuousScheduler):
         bt = np.where(active[:, None], self.bt, kvcache.NULL_BLOCK).astype(np.int32)
         tok, pos, dones, remaining = self._decode_inputs()
         return self.engine.dispatch_decode(self.caches, tok, pos, dones, remaining, self.eos,
-                                           n=n, block_tables=bt)
+                                           n=n, block_tables=bt, active=active)
 
     def _run_verify(self, vtok):
         self._last_step_t = time.monotonic()
@@ -2012,7 +2118,8 @@ class DisaggScheduler(PagedContinuousScheduler):
         only advances the virtual clock by one step."""
         if self._block_bytes is None:
             self._block_bytes = kvcache.pool_block_bytes(self.caches)
-        self._round_prologue()
+        if not self._round_prologue():
+            return False
         if self._pipeline and (self._handoff_ready or self._landing or self._mig_queue):
             self._drain_pipeline()
         self._retire()

@@ -18,9 +18,10 @@
   equal to the JAX engine's but at certified near-ties, and one
   ``lse_merge`` all-reduce (and one all-reduce max) per attention layer
   per decode step, of the JAX package's bytes.
-* The refusals: at dp > 1 the overlapped loop, the ladder, deadlines and a
-  fault plan's ``delay`` clause, each by name; ``kv_seq_shard`` with slots
-  or chunks, with the JAX package's messages.
+* The control plane at dp > 1 (the overlapped loop, the ladder, deadlines,
+  a fault plan's ``delay`` clause) admitted, and the refusals that stay
+  named beside it; ``kv_seq_shard`` with slots or chunks refused with the
+  JAX package's messages.
 
 Every rank case runs in one spawn of four gloo ranks on the CPU
 (tests/torch_dp_ranks.py): the dp=2 runs on model rank 0's data group
@@ -405,26 +406,34 @@ def test_kv_seq_shard_cache_len_matches_jax():
     ("fault_plan", "step:at=2;delay:at=4,s=0.01", "delay clause at dp>1"),
 ])
 def test_dp_refuses_what_reads_the_wall_clock(field, value, name):
+    """What reads the wall clock is no longer refused at dp>1: world rank 0
+    reads it for every rank (its round records; a delay clause sleeps on
+    rank 0 only).  The refusals that stay are named beside it."""
     cfg = get_config("yi-9b").reduced()
-    par = dataclasses.replace(ParallelConfig(dp=2), **{field: value})
-    with pytest.raises(NotImplementedError, match=name):
+    for dp, tp in ((2, 1), (2, 2), (4, 2)):
+        par = dataclasses.replace(ParallelConfig(dp=dp, tp=tp), **{field: value})
         TM.check_supported(cfg, par)
-    with pytest.raises(NotImplementedError, match=name):
-        Engine(cfg, parallel=par, device="cpu", dist=Dist(dp=2))
-    # a plan whose clauses read no wall clock is served at dp>1; the tp>1
-    # refusals stand
-    TM.check_supported(cfg, ParallelConfig(dp=2, fault_plan="step:at=2;migrate:handoff=1"))
-    TM.check_supported(cfg, ParallelConfig(dp=4, tp=2, kv_seq_shard=True))
-    with pytest.raises(NotImplementedError, match="fault_plan at tp>1"):
-        TM.check_supported(cfg, ParallelConfig(dp=2, tp=2, fault_plan="step:at=2"))
+    Engine(cfg, parallel=dataclasses.replace(ParallelConfig(dp=2), **{field: value}),
+           device="cpu", dist=Dist(dp=2))
+    for par, kw, stays in (
+            (ParallelConfig(dp=2, tp=2, weight_quant="int8", **{field: value}),
+             {"wq_cache": "x.npz"}, "wq_cache at tp>1"),
+            (ParallelConfig(dp=2, **{field: value}, kv_seq_shard=True), {},
+             "kv_seq_shard with mla")):
+        with pytest.raises(NotImplementedError, match=stays) as err:
+            TM.check_supported(get_config("minicpm3-4b"), par, **kw)
+        assert name not in str(err.value)
 
 
 def test_dp_refuses_deadlines_by_name():
+    """``deadline_s`` is taken at dp>1 (rank 0's clock decides, through the
+    round record); the slot split's own refusal stays."""
     eng = Engine(get_config("yi-9b").reduced(), parallel=ParallelConfig(dp=2), device="cpu",
                  dist=Dist(dp=2), sampling=SamplingConfig(top_k=1), max_len=32)
     sched = ContinuousScheduler(eng, n_slots=2)
-    with pytest.raises(NotImplementedError, match="deadline_s at dp>1"):
-        sched.submit(np.arange(4, dtype=np.int32), 4, deadline_s=1.0)
+    rid = sched.submit(np.arange(4, dtype=np.int32), 4, deadline_s=1.0)
+    assert sched.queue[-1].rid == rid and sched.queue[-1].deadline_s == 1.0
+    assert sched._has_deadlines
     with pytest.raises(ValueError, match="n_slots 3 must divide dp 2"):
         eng.init_slot_caches(3)
 

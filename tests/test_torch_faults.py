@@ -13,7 +13,7 @@ request; preempt-requeue churn conserving the pool; ``--stats-json``
 flushed when the serve loop dies.  Everywhere a fault on one request leaves
 every other stream as an uninjected run's, and the port's streams and
 fault counters equal the reference's (streams up to certified near-ties).
-Overlap, fault plans and the degradation ladder are refused at tp > 1.
+The control plane at tp > 1 is admitted here and served in test_torch_control_ranks.py.
 """
 import json
 import time
@@ -366,16 +366,22 @@ def test_preempt_requeue_cycles_conserve_pool(engines):
     assert tiny.alloc.used_count() == 0
 
 
-# -- tp > 1 refusals and the crash path -------------------------------------------
+# -- the control plane at tp > 1 and the crash path ---------------------------------
 
 @pytest.mark.parametrize("field,value,name", [("overlap_decode", True, "overlap_decode"),
                                               ("fault_plan", "step:at=1", "fault_plan"),
                                               ("overload_degrade", True, "overload_degrade")])
 def test_control_plane_refused_at_tp2(field, value, name):
+    """No longer refused: world rank 0 decides what reads the wall clock and
+    broadcasts it (tests/test_torch_control_ranks.py serves it at tp 2);
+    the packed weight file at tp>1 stays refused beside it."""
     cfg = get_config("yi-9b").reduced()
-    M.check_supported(cfg, ParallelConfig(tp=2))
-    with pytest.raises(NotImplementedError, match=f"{name} at tp>1"):
-        M.check_supported(cfg, ParallelConfig(tp=2, **{field: value}))
+    for tp in (2, 4, 8):
+        M.check_supported(cfg, ParallelConfig(tp=tp, **{field: value}))
+    with pytest.raises(NotImplementedError, match="wq_cache at tp>1") as err:
+        M.check_supported(cfg, ParallelConfig(tp=2, weight_quant="int8", **{field: value}),
+                          wq_cache="x.npz")
+    assert name not in str(err.value)
 
 
 def test_stats_json_flushes_on_fatal_fault(tmp_path):

@@ -13,7 +13,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 ROOT_FILES = [Path(__file__).resolve().parents[1] / "chip_smoke.py",
-              Path(__file__).resolve().parent / "torch_dp_ranks.py"]
+              Path(__file__).resolve().parent / "torch_dp_ranks.py",
+              Path(__file__).resolve().parent / "torch_control_ranks.py"]
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -26,7 +27,7 @@ bad = sorted(k for k in sys.modules
              or k == "repro" or k.startswith("repro."))
 tp = {"repro_torch.core.collectives", "repro_torch.core.sync_policy", "repro_torch.launch.mesh"}
 control = {"repro_torch.runtime.faults", "repro_torch.runtime.overload",
-           "repro_torch.launch.frontend"}
+           "repro_torch.launch.frontend", "repro_torch.runtime.control"}
 from repro_torch.core import collectives
 from repro_torch.launch import mesh
 from repro_torch.runtime import kvcache, scheduler
@@ -44,7 +45,8 @@ def test_import_loads_no_jax_and_no_repro():
     n, drafter, bad = out.split(" ", 2)
     # the drafter is the port's own copy of repro.runtime.drafter; the
     # tensor-parallel modules (collectives, sync policy, mesh), the serving
-    # control plane (faults, overload, the HTTP frontend) and the data
+    # control plane (faults, overload, the HTTP frontend, the round
+    # records of a world of ranks) and the data
     # axis (its collectives, the pool split, the migration unit, the
     # disaggregated scheduler) load too
     assert int(n) >= 20 and drafter == "True" and bad.strip() == "[]", out

@@ -89,9 +89,11 @@ def test_supported_at_tp1_refused_at_tp2():
     for mode in ("none", "int8", "int4"):
         for tp in (1, 2, 4, 8):       # head-sharded at tp>1 (40 heads: 5 a rank at tp 8)
             TM.check_supported(cfg, ParallelConfig(tp=tp, weight_quant=mode))
-    # what stays refused at tp>1: the overlapped loop, and windowed MLA layers
-    with pytest.raises(NotImplementedError, match="overlap_decode at tp>1"):
-        TM.check_supported(cfg, ParallelConfig(tp=2, overlap_decode=True))
+    # the overlapped loop serves at tp>1 (world rank 0's round records);
+    # what stays refused there: windowed MLA layers and kv_seq_shard
+    TM.check_supported(cfg, ParallelConfig(tp=2, overlap_decode=True))
+    with pytest.raises(NotImplementedError, match="kv_seq_shard with mla"):
+        TM.check_supported(cfg, ParallelConfig(tp=2, dp=2, kv_seq_shard=True))
     with pytest.raises(NotImplementedError, match="mla with windowed"):
         TM.check_supported(dataclasses.replace(cfg, window=64, layer_pattern=("local_attn",)),
                            ParallelConfig(tp=2))

@@ -255,13 +255,17 @@ def test_plans_refuse_what_does_not_split():
     for arch in ("mamba2-1.3b", "internvl2-26b", "musicgen-medium"):
         for tp in (2, 4, 8):        # served at every tp since the SSD heads split
             TM.check_supported(get_config(arch), ParallelConfig(tp=tp))
-    for par, name in ((ParallelConfig(tp=2, fault_plan="step:at=1"), "fault_plan at tp>1"),
-                      (ParallelConfig(tp=2, overload_degrade=True), "overload_degrade at tp>1")):
-        with pytest.raises(NotImplementedError, match=name):
-            TM.check_supported(get_config("musicgen-medium"), par)
-    for par, kw, name in ((ParallelConfig(tp=2, dp=2, overlap_decode=True), {},
-                           "overlap_decode at tp>1.*overlap_decode at dp>1"),
-                          (ParallelConfig(tp=2, overlap_decode=True), {}, "overlap_decode"),
+    # the control plane serves every family at tp>1 and dp>1; the packed
+    # weight file stays refused at tp>1
+    for par in (ParallelConfig(tp=2, fault_plan="step:at=1"),
+                ParallelConfig(tp=2, overload_degrade=True)):
+        TM.check_supported(get_config("musicgen-medium"), par)
+    for par in (ParallelConfig(tp=2, dp=2, overlap_decode=True),
+                ParallelConfig(tp=2, overlap_decode=True)):
+        TM.check_supported(ds, par)
+    for par, kw, name in ((ParallelConfig(tp=2, dp=2, overlap_decode=True,
+                                          weight_quant="int8"), {"wq_cache": "x.npz"},
+                           "wq_cache at tp>1"),
                           (ParallelConfig(tp=2, weight_quant="int8"), {"wq_cache": "x.npz"},
                            "wq_cache at tp>1")):
         with pytest.raises(NotImplementedError, match=name):

@@ -27,7 +27,7 @@ SCHEDULERS = {"wave": WaveScheduler, "continuous": ContinuousScheduler,
 def tp1(dist: Dist) -> Dist:
     """This rank's data group as a world of ``dist.dp`` ranks at tp=1."""
     return Dist(tp=1, rank=0, group=None, backend=dist.backend, dp=dist.dp,
-                data_rank=dist.data_rank, data_group=dist.data_group)
+                data_rank=dist.data_rank, data_group=dist.data_group, control=dist.data_group)
 
 
 def sub_world(dist: Dist, dp: int) -> Dist:
@@ -40,7 +40,7 @@ def sub_world(dist: Dist, dp: int) -> Dist:
         if lo <= dist.data_rank < lo + dp:
             mine = g
     return Dist(tp=1, rank=0, group=None, backend=dist.backend, dp=dp,
-                data_rank=dist.data_rank % dp, data_group=mine)
+                data_rank=dist.data_rank % dp, data_group=mine, control=mine)
 
 
 def engine(dist: Dist, device, cfg, tree, parallel_kw, max_len=64) -> Engine:
