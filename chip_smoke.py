@@ -328,6 +328,27 @@ Phases, each fatal on failure:
    (the ranks share the card and the host's cores with them; they time no
    kernel).  The phase prints its seconds.
 
+16. training (after phases 10 and 11, beside phase 15's ranks, in the
+   time they still take: ``train_phases``, ``train_ranks_phase``): (a)
+   reduced yi-9b (activation checkpointing on) and deepseek-moe-16b (off,
+   so each forward routes once), fp32 weights drawn on the CPU, TF32 off:
+   two ``make_train_step`` steps on the card against the same on the CPU,
+   the loss within 1e-4 relative and the weights within 5e-4; a token the
+   card's router ranks apart from the CPU's must be a near-tie (< 1e-3 in
+   probability), and then the card replays the CPU's routes
+   (``moe.ROUTE_REPLAY``), the line counting them; (b) yi-9b at full width
+   and 4 of 48 layers through ``launch/train.py`` (bf16, 20 steps of 8 x
+   128 tokens, lr 1e-3, ``--ckpt`` into a temporary directory): every loss
+   and grad norm finite, min(last 5 losses) below the first, no kernel
+   launched, the checkpoint restored on the card bit-equal and its weights
+   giving the next batch's loss exactly; its peak memory and ms a step
+   (taken beside phase 15's ranks); (c) reduced yi-9b in phase 15's dp 2 x
+   tp 2 world of gloo ranks, each running ``_train_rank`` after its own
+   work: AdamW and ZeRO-1, two steps, every rank's whole model within 5e-4
+   and 1e-3 of (a)'s dp = 1 CPU run, with the first step's collectives by
+   tag.  Its lines are ``{"train": ...}`` and add no launch to the
+   kernels line.
+
 Earlier slices' phases that no tp phase is held to and whose checks read
 the same at any depth run at a cut depth (``EARLIER_DEPTH``:
 recurrentgemma-9b 3 of 38 layers, the gptj-parallel slot phases 14 of 28,
@@ -5670,6 +5691,10 @@ def _cp_rank(dist, dev, layers: int, want: dict) -> dict:
         out["parting_logits"][run] = cp_parting_logits(eng, dist, streams[run], held, prompts)
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["rank_s"] = time.monotonic() - t0
+    # phase 16 (c) in the same world, after phase 15's work
+    t = time.monotonic()
+    out["train"] = _train_rank(dist, dev, (False, True))
+    out["train_s"] = time.monotonic() - t
     return out
 
 
@@ -5912,6 +5937,207 @@ def control_ranks_phase(dev, st: dict) -> dict:
     return res
 
 
+# -- phase 16: training (PR 30) ----------------------------------------------
+
+TRAIN_ARCHS = ("yi-9b", "deepseek-moe-16b")   # (a): reduced, fp32, card against the CPU
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_BATCH = dict(global_batch=4, seq_len=32)
+TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_ZERO_TOL = 1e-4, 5e-4, 1e-3
+ROUTER_TIE_TRAIN = 1e-3     # a router near-tie the card's fp32 may rank the other way
+# (b): yi-9b at full width, 4 of 48 layers, through launch/train.py; lr 1e-3
+# (the driver's default 3e-3, the reference's for its reduced widths, made
+# the loss climb from 11.6 to 12-14 at d_model 4096: PERF.md section 6)
+TRAIN_FULL_ARGV = ["--arch", "yi-9b", "--full", "--layers", "4", "--global-batch", "8",
+                   "--seq-len", "128", "--steps", "20", "--log-every", "1", "--lr", "1e-3"]
+
+
+def _train_steps(cfg, dev, par, *, zero1=False, dist=None, routes=None, steps=2):
+    """``steps`` make_train_step steps of reduced ``cfg`` on ``dev`` from the
+    seed-0 weights drawn on the CPU (fp32) -> (the whole model's tree after
+    them on the host, each step's metrics, each MoE layer call's top
+    experts and probabilities, the first step's collectives by tag).
+    ``routes``: the top experts to replay (``moe.ROUTE_REPLAY``)."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.launch.train import gather_tree
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.common import Dist
+    from repro_torch.training import data as D
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import AdamWConfig
+
+    ctx = M.ModelCtx.make(cfg, par, dist or Dist())
+    tree = {k: t.to(dev) for k, t in TL.init_tree(cfg, ctx, device="cpu",
+                                                   dtype=torch.float32).items()}
+    fn = TL.make_train_step(ctx, AdamWConfig(**TRAIN_OPT), zero1=zero1)
+    opt = TL.init_state(tree, ctx, zero1=zero1)
+    dc = D.DataConfig(**TRAIN_BATCH)
+    moe.LOG = []
+    moe.ROUTE_REPLAY = None if routes is None else [r.to(dev) for r in routes]
+    metrics, comm = [], {}
+    try:
+        for i in range(steps):
+            with cc.comm_stats() as st:
+                tree, opt, m = fn(tree, opt, TL.local_batch(D.make_batch(cfg, dc, i), ctx.dist,
+                                                            dev))
+            metrics.append({k: float(v) for k, v in m.items()})
+            comm = comm or st.by_tag()
+        log = [(r["top_e"].cpu(), r["probs"].detach().cpu()) for r in moe.LOG]
+    finally:
+        moe.LOG = moe.ROUTE_REPLAY = None
+    whole = gather_tree(tree, ctx)
+    return {k: t.detach().float().cpu() for k, t in whole.items()}, metrics, log, comm
+
+
+def _tree_err(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def train_reference_check(dev) -> list:
+    """Phase 16 (a): reduced yi-9b and deepseek-moe-16b, fp32 weights, TF32
+    off, two make_train_step steps on the card against the same on the CPU:
+    the loss within TRAIN_LOSS_TOL relative, the weights within
+    TRAIN_PARAM_TOL.  Where the card's router ranks a token apart from the
+    CPU's, that token must be a near-tie (< ROUTER_TIE_TRAIN in
+    probability), and the card runs again replaying the CPU's routes
+    (``moe.ROUTE_REPLAY``); the line counts them.  deepseek runs without
+    activation checkpointing, so each forward routes once."""
+    from repro_torch.configs import ParallelConfig, get_config
+
+    out = []
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        par = ParallelConfig(remat=cfg.moe is None)
+        cpu, cpu_m, cpu_log, _ = _train_steps(cfg, "cpu", par)
+        card, card_m, card_log, _ = _train_steps(cfg, dev, par)
+        apart = 0
+        for (te_c, p_c), (te_g, _) in zip(cpu_log, card_log):
+            diff = (te_c.sort(1).values != te_g.sort(1).values).any(1)
+            for t in torch.nonzero(diff)[:, 0]:
+                own = [e for e in te_g[t].tolist() if e not in te_c[t].tolist()]
+                other = [e for e in te_c[t].tolist() if e not in te_g[t].tolist()]
+                margin = float(p_c[t, other].min() - p_c[t, own].max())
+                if not margin < ROUTER_TIE_TRAIN:
+                    fail(f"phase 16 {arch}: the card routes token {int(t)} apart from the "
+                         f"CPU by {margin} in probability")
+                apart += 1
+        if apart:
+            card, card_m, _, _ = _train_steps(cfg, dev, par, routes=[r for r, _ in cpu_log])
+        loss_err = max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(card_m, cpu_m))
+        err = _tree_err(card, cpu)
+        row = {"phase": 16, "arch": cfg.name, "what": "train steps, card against the CPU",
+               "steps": len(card_m), "loss": [m["loss"] for m in card_m],
+               "loss_rel_err": loss_err, "param_max_abs_err": err, "remat": par.remat,
+               "router_tokens_replayed": apart}
+        if not (loss_err <= TRAIN_LOSS_TOL and err <= TRAIN_PARAM_TOL):
+            fail(f"phase 16 {arch}: card against CPU {row}")
+        out.append((row, cpu))
+    return out
+
+
+def _train_rank(dist, device, zero1_cases):
+    """Phase 16 (c), one rank of the dp x tp world: reduced yi-9b's two
+    steps from the seed-0 weights, AdamW and ZeRO-1 -> each case's whole
+    model, metrics and first-step collectives by tag."""
+    from repro_torch.configs import ParallelConfig, get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCHS[0]).reduced()
+    out = {}
+    for zero1 in zero1_cases:
+        tree, metrics, _, comm = _train_steps(cfg, device, ParallelConfig(tp=dist.tp,
+                                                                          dp=dist.dp),
+                                              zero1=zero1, dist=dist)
+        out[zero1] = {"tree": tree, "metrics": metrics, "comm": comm}
+    return out
+
+
+def train_ranks_phase(got: list, dp1: dict) -> dict:
+    """Phase 16 (c)'s checks, on what phase 15's ranks returned (``_cp_rank``
+    runs ``_train_rank`` after its own work): every rank's whole model
+    after two steps within TRAIN_PARAM_TOL (AdamW) and TRAIN_ZERO_TOL
+    (ZeRO-1) of (a)'s dp = 1 run on the CPU (the same weights and
+    batches)."""
+    row = {"phase": 16, "arch": "yi-9b-smoke", "what": f"train at dp {CP_DP} x tp {CP_TP}, "
+           "gloo ranks on the card (phase 15's world)",
+           "rank_s": max(r["train_s"] for r in got)}
+    for zero1, tol in ((False, TRAIN_PARAM_TOL), (True, TRAIN_ZERO_TOL)):
+        name = "zero1" if zero1 else "adamw"
+        errs = [_tree_err(r["train"][zero1]["tree"], dp1) for r in got]
+        row[name] = {"param_max_abs_err": max(errs), "loss": got[0]["train"][zero1]["metrics"],
+                     "comm_first_step": got[0]["train"][zero1]["comm"]}
+        if not max(errs) <= tol:
+            fail(f"phase 16 dp {CP_DP} x tp {CP_TP} {name}: {max(errs)} from dp=1")
+    return row
+
+
+def train_full_phase(dev) -> dict:
+    """Phase 16 (b): yi-9b at full width and 4 of 48 layers through
+    launch/train.py (bf16, global batch 8 x 128, 20 steps, --ckpt): every
+    loss and grad norm finite, min(last 5 losses) < the first, no kernel
+    launched (the training forward reaches none: yi-9b routes nothing), the
+    checkpoint restored on the card bit-equal, and its weights giving the
+    next batch's loss exactly; its peak memory and ms a step."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint, data
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import AdamWConfig
+
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "yi-9b-4.npz")
+        args = train.build_parser().parse_args(TRAIN_FULL_ARGV + ["--ckpt", path])
+        run = train.train(args, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        restored, step = checkpoint.restore(path, run.tree)
+    losses = [h["loss"] for h in run.history]
+    gnorms = [h["grad_norm"] for h in run.history]
+    same = all(torch.equal(restored[k], t.detach()) for k, t in run.tree.items())
+    cfg = train.config_of(args)
+    fn = TL.make_train_step(run.ctx, AdamWConfig())
+    batch = TL.local_batch(data.make_batch(cfg, data.DataConfig(args.global_batch, args.seq_len),
+                                           args.steps), run.ctx.dist, dev)
+    with torch.no_grad():
+        live, back = (float(fn.loss(t, batch)[1]) for t in (run.tree, restored))
+    step_ms = sorted(1e3 * s for s in run.step_s[1:])
+    row = {"phase": 16, "arch": cfg.name, "what": "launch/train.py at full width, "
+           f"{cfg.n_layers} layers", "steps": len(losses), "loss_first": losses[0],
+           "loss_min_last5": min(losses[-5:]), "losses": losses, "grad_norms": gnorms,
+           "kernel_launches": launches, "ckpt_step": step, "ckpt_bit_equal": same,
+           "next_loss": live, "next_loss_restored": back, "peak_mem_gib": peak,
+           "ms_per_step_median": step_ms[len(step_ms) // 2], "ms_per_step_min": step_ms[0],
+           "phase_s": time.monotonic() - t0}
+    if not all(np.isfinite(losses + gnorms)) or not min(losses[-5:]) < losses[0]:
+        fail(f"phase 16 (b): losses {losses}, grad norms {gnorms}")
+    if launches:
+        fail(f"phase 16 (b): the training path launched kernels {launches}")
+    if not (same and step == args.steps and live == back):
+        fail(f"phase 16 (b): the checkpoint did not round-trip: {row}")
+    return row
+
+
+def train_phases(dev):
+    """Phase 16's (a) and (b), run beside phase 15's ranks (after phases 10
+    and 11, while phase 15's world still serves) -> (their rows, (a)'s
+    dp = 1 CPU tree of yi-9b, which (c) is held to)."""
+    t0 = time.monotonic()
+    ref = train_reference_check(dev)
+    rows = [r for r, _ in ref] + [train_full_phase(dev)]
+    for row in rows:
+        row["note"] = BESIDE_CP
+    print(f"phase 16 (training; (a) and (b) beside phase 15's ranks): "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    return rows, ref[0][1]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
@@ -5972,11 +6198,17 @@ def main() -> None:
     for run in (lambda: slot_phases(dev), lambda: slot_phases(dev, kv_quant=True),
                 lambda: hybrid_phases(dev), lambda: slot_phases(dev, GJ_ARCH, "plain"),
                 "phase 15 start", lambda: latent_moe_phases(dev), lambda: ring_ssd_phases(dev),
-                "phase 15 checks", lambda: frontend_phases(dev)):
+                "phase 16", "phase 15 checks", lambda: frontend_phases(dev)):
         if run == "phase 15 start":
             # phase 15's ranks (separate processes) run beside phases 10 and 11
             cp = control_ranks_start(dev)
             beside = True
+            continue
+        if run == "phase 16":
+            # training's card work in the time phase 15's ranks still take
+            train_rows, train_dp1 = train_phases(dev)
+            for row in train_rows:
+                print(json.dumps({"train": row}), flush=True)
             continue
         if run == "phase 15 checks":
             phase = control_ranks_phase(dev, cp)
@@ -5987,6 +6219,7 @@ def main() -> None:
                   f"{phase['waited_for_ranks_s']:.1f}s of it waiting for the ranks after them",
                   flush=True)
             beside = False
+            print(json.dumps({"train": train_ranks_phase(cp["got"], train_dp1)}), flush=True)
             continue
         for phase in run():
             if beside:

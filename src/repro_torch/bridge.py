@@ -37,6 +37,14 @@ and returns the layout of ``repro_torch.models.model``:
 The tree's leaves may also be torch tensors, as ``training.checkpoint``
 reads a saved tree back.
 
+Training keeps the JAX package's tree itself, flat (the training tree of
+``training/checkpoint.py``): ``tree_from_jax`` takes a numpy JAX tree
+(parameters, or moments in their layout) to it, bit for bit and sharded
+to the rank's JAX per-shard layout, and ``tree_to_jax`` takes a training
+tree (parameters, AdamW's ``m``/``v``, ZeRO-1's moments) back to the
+JAX package's nesting as numpy, bf16 leaves widened to fp32 (lossless),
+so the tests compare updated parameters and moments leaf by leaf.
+
 bf16 leaves cross bit-exact: numpy holds them as 2-byte values, viewed as
 ``uint16`` and then as ``torch.bfloat16``.  A weight-quantized tree's
 projection leaves are ``repro.core.wquant.QuantWeight``s; they are read by
@@ -191,3 +199,60 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
             raise ValueError(f"frontend leaves {sorted(front)} != {sorted(defs)} by shape")
         out["frontend"] = {name: t.to(device) for name, t in front.items()}
     return out
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested JAX tree (dicts, lists and tuples) -> {"a/0/b": leaf},
+    the keys of its ``checkpoint`` flattening."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def tree_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
+                  dist: Dist = Dist()) -> Dict[str, torch.Tensor]:
+    """A numpy JAX parameter tree (tp=1) -> this rank's training tree on
+    ``device`` (the card unless ``device="cpu"`` is asked for), the same
+    bits, in the training tree's key order."""
+    from repro_torch.training import checkpoint
+
+    device = resolve_device(device)
+    flat = flatten(tree)
+    layout = checkpoint.tree_layout(cfg)
+    if set(flat) != set(layout):
+        raise ValueError(f"the tree's leaves {sorted(set(flat) ^ set(layout))} do not match "
+                         f"{cfg.name}'s")
+    plan = ModelCtx.make(cfg, ParallelConfig(tp=dist.tp, dp=dist.dp), dist).plan
+    full = {k: to_torch(flat[k]) for k in layout}
+    return {k: t.to(device) for k, t in
+            checkpoint.shard_tree(full, cfg, plan, dist.rank).items()}
+
+
+def tree_to_jax(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """A flat tree of torch tensors (a training tree, or any flat state
+    keyed so) -> the JAX package's nesting, numpy leaves (bf16 as fp32,
+    lossless); a "groups" node is a tuple, as the JAX tree holds it."""
+    out: Dict[str, Any] = {}
+    for key, t in flat.items():
+        node, parts = out, key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        t = t.detach().cpu()
+        node[parts[-1]] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return tuple(node[str(i)] for i in range(len(node)))
+        return node
+
+    return fix(out)

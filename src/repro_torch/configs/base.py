@@ -214,6 +214,7 @@ class ParallelConfig:
     id_broadcast: bool = True   # 2.1a: token ids are replicated, not embeddings
     one_shot_sync: bool = True  # 2.2: one all-reduce per parallel-residual layer
     kv_quant: bool = False
+    remat: bool = True          # activation checkpointing per layer (training)
     weight_quant: str = "none"  # none | int8 | int4
     wq_group_size: int = 128    # int4 group length along the reduction dim
     # chunked admission (the continuous schedulers' default): every prompt

@@ -27,6 +27,23 @@ Differences from the JAX package:
   world over a gloo group (``Dist.control``), its length first and then
   its bytes, each broadcast recorded with axis "world" and tag
   ``control``.  The JAX package has one controller and no such record.
+* The training forward (``SyncPolicy.train``, ``training/``) runs the
+  same collectives through ``torch.autograd.Function`` pairs
+  (``all_gather_ad``, ``reduce_scatter_ad``, ``all_reduce_ad``,
+  ``data_sum_ad``): a forward record keeps its JAX tag, the collective
+  of its backward is recorded under that tag with ``GRAD_SUFFIX``, and a
+  layer's forward run again in the backward (activation checkpointing,
+  ``recomputing``) records under the tag with ``REMAT_SUFFIX``.  The JAX
+  package records only the traced forward.  Their backward rule follows
+  from one convention: the gradient of a replicated activation is held as
+  partial sums over the model ranks (each rank's share through its own
+  columns), that of a sequence chunk exactly.  So a gather's backward
+  reduce-scatters, a reduce-scatter's gathers, a branch's or the
+  embedding's all-reduce all-reduces its gradient too, and the loss
+  statistics' sums (whose result every rank turns into the same loss)
+  pass the gradient through.  ``psum`` sums over several axes as one
+  record (the JAX package's ``psum`` over a tuple of axes), and
+  ``data_reduce_scatter`` is ZeRO-1's over the data axis.
 * ``all_gather`` and ``reduce_scatter`` along the sequence take any length
   s: each rank's chunk is padded to ceil(s / tp) rows inside the
   collective and trimmed after it (``seq_chunk``), so no padding row ever
@@ -50,6 +67,8 @@ AXIS = "model"     # the JAX package's name of the tensor-parallel mesh axis
 DATA_AXIS = "data"   # ... and of the data axis
 WORLD_AXIS = "world"   # every rank of the dp x tp world (the round records)
 _local = threading.local()
+GRAD_SUFFIX = ".grad"    # a training collective's backward record: tag + this
+REMAT_SUFFIX = ".remat"  # a forward collective run again for a checkpointed layer
 
 @dataclass
 class CommRecord:
@@ -102,13 +121,33 @@ def comm_stats():
         _local.stats = prev
 
 
+@contextlib.contextmanager
+def _recording(stats: Optional[CommStats], suffix: str = ""):
+    """Record into ``stats`` in this thread under the context, each tag
+    with ``suffix``: the backward of a CUDA graph runs in autograd's own
+    thread, which the forward's ``comm_stats`` does not reach."""
+    prev = getattr(_local, "stats", None), getattr(_local, "suffix", "")
+    _local.stats, _local.suffix = stats, suffix
+    try:
+        yield
+    finally:
+        _local.stats, _local.suffix = prev
+
+
+def recomputing():
+    """A context, made now, under which a checkpointed layer's forward runs
+    again in the backward: its collectives are recorded into the stats
+    recording now, tagged with ``REMAT_SUFFIX``."""
+    return _recording(getattr(_local, "stats", None), REMAT_SUFFIX)
+
+
 def _record(kind: str, x: torch.Tensor, tag: str, wire_factor: float = 1.0,
             axis: str = AXIS) -> None:
     stats: Optional[CommStats] = getattr(_local, "stats", None)
     if stats is not None:
         nbytes = x.numel() * x.element_size()
         stats.records.append(CommRecord(kind, axis, int(nbytes * wire_factor),
-                                        tuple(x.shape), tag))
+                                        tuple(x.shape), tag + getattr(_local, "suffix", "")))
 
 
 def seq_chunk(s: int, tp: int, rank: int) -> Tuple[int, int]:
@@ -132,6 +171,18 @@ def all_reduce(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
     _record("all_reduce", x, tag, wire_factor=2.0)
     buf = _staged(x, dist)
     tdist.all_reduce(buf, group=dist.group)
+    return buf.to(x.device)
+
+
+def all_reduce_max(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
+    """The max over the model ranks of a tensor that carries no gradient
+    (the JAX package's ``pmax``, which it does not record; recorded here
+    as kind ``all_reduce_max``)."""
+    if dist.tp == 1:
+        return x
+    _record("all_reduce_max", x, tag, wire_factor=2.0)
+    buf = _staged(x, dist).clone()
+    tdist.all_reduce(buf, op=tdist.ReduceOp.MAX, group=dist.group)
     return buf.to(x.device)
 
 
@@ -235,6 +286,121 @@ def data_recv(shape, dtype: torch.dtype, device, dist: Dist, frm: int) -> torch.
     buf = torch.empty(shape, dtype=dtype, device="cpu" if dist.backend == "gloo" else device)
     tdist.recv(buf, src=tdist.get_global_rank(dist.data_group, frm))
     return buf.to(device)
+
+
+def data_reduce_scatter(x: torch.Tensor, dist: Dist, tag: str = "") -> torch.Tensor:
+    """The sum over the ``dp`` replicas of the 1-D ``x`` (a multiple of dp
+    long), of which data rank d keeps the d-th of dp equal chunks (the JAX
+    package's tiled ``psum_scatter`` over the data axis)."""
+    if dist.dp == 1:
+        return x
+    _record("reduce_scatter", x, tag, axis=DATA_AXIS)
+    buf = _staged(x, dist)
+    out = buf.new_empty((buf.shape[0] // dist.dp,))
+    tdist.reduce_scatter_tensor(out, buf, group=dist.data_group)
+    return out.to(x.device)
+
+
+def psum(x: torch.Tensor, dist: Dist, axes: Tuple[str, ...], tag: str = "") -> torch.Tensor:
+    """The sum over the ranks of every axis in ``axes`` (``DATA_AXIS``,
+    ``AXIS``; an axis of one rank is skipped): one record, as the JAX
+    package records its ``psum`` over a tuple of axes, run as one
+    all-reduce an axis, the data axis first."""
+    axes = tuple(a for a in axes if (dist.dp if a == DATA_AXIS else dist.tp) > 1)
+    if not axes:
+        return x
+    _record("all_reduce", x, tag, wire_factor=2.0, axis="+".join(axes))
+    buf = _staged(x, dist)
+    for a in axes:
+        tdist.all_reduce(buf, group=dist.data_group if a == DATA_AXIS else dist.group)
+    return buf.to(x.device)
+
+
+# -- differentiable collectives (the training forward) -----------------------
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, dim, tag, total):
+        ctx.dist, ctx.dim, ctx.tag, ctx.stats = dist, dim, tag, getattr(_local, "stats", None)
+        return all_gather(x, dist, dim, tag=tag, total=total)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's share of the gathered tensor's gradient, summed
+        with _recording(ctx.stats):
+            g = reduce_scatter(g.contiguous().clone(), ctx.dist, ctx.dim,
+                               tag=ctx.tag + GRAD_SUFFIX)
+        return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, dim, tag):
+        ctx.dist, ctx.dim, ctx.tag, ctx.total = dist, dim, tag, x.shape[dim]
+        ctx.stats = getattr(_local, "stats", None)
+        return reduce_scatter(x.contiguous().clone(), dist, dim, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _recording(ctx.stats):
+            g = all_gather(g.contiguous(), ctx.dist, ctx.dim, tag=ctx.tag + GRAD_SUFFIX,
+                           total=ctx.total)
+        return g, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, tag, grad_sum):
+        ctx.dist, ctx.tag, ctx.grad_sum = dist, tag, grad_sum
+        ctx.stats = getattr(_local, "stats", None)
+        return all_reduce(x.contiguous().clone(), dist, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            with _recording(ctx.stats):
+                g = all_reduce(g.contiguous().clone(), ctx.dist, tag=ctx.tag + GRAD_SUFFIX)
+        return g, None, None, None
+
+
+class _DataSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, tag, scale):
+        ctx.scale = scale
+        return data_all_reduce(x.contiguous().clone(), dist, tag=tag) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None, None
+
+
+def all_gather_ad(x: torch.Tensor, dist: Dist, dim: int, tag: str = "",
+                  total: Optional[int] = None) -> torch.Tensor:
+    """``all_gather`` whose backward reduce-scatters the gradient."""
+    return x if dist.tp == 1 else _AllGather.apply(x, dist, dim, tag, total)
+
+
+def reduce_scatter_ad(x: torch.Tensor, dist: Dist, dim: int, tag: str = "") -> torch.Tensor:
+    """``reduce_scatter`` whose backward gathers the gradient."""
+    return x if dist.tp == 1 else _ReduceScatter.apply(x, dist, dim, tag)
+
+
+def all_reduce_ad(x: torch.Tensor, dist: Dist, tag: str = "", *,
+                  grad_sum: bool = True) -> torch.Tensor:
+    """``all_reduce`` (never in place) whose backward all-reduces the
+    gradient too (``grad_sum``: the result's gradient is held as partial
+    sums, a branch's output or the embedding's) or passes it through (the
+    loss statistics, whose gradient every rank holds whole)."""
+    return x if dist.tp == 1 else _AllReduce.apply(x, dist, tag, grad_sum)
+
+
+def data_sum_ad(x: torch.Tensor, dist: Dist, tag: str = "", scale: float = 1.0) -> torch.Tensor:
+    """``scale`` times the sum of ``x`` over the data replicas, the gradient
+    passed through (times ``scale``): each replica's share of a loss over
+    the global batch, whose parameter gradients ``reduce_grads`` then sums
+    over the replicas."""
+    return x * scale if dist.dp == 1 else _DataSum.apply(x, dist, tag, scale)
 
 
 # -- the control plane ---------------------------------------------------------

@@ -17,7 +17,10 @@ nothing.  Two table layouts:
 
 ``id_broadcast=False`` is the paper's baseline: rank 0's activations are
 broadcast (``embed_bcast``) after the lookup.  At tp=1 every layout is the
-plain lookup.
+plain lookup.  ``train`` (the training forward) merges a vocab-sharded
+lookup through ``collectives.all_reduce_ad``, whose backward sums the
+ranks' gradients of the activations, so each rank's rows of the table
+get every token's gradient.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def table_replicated(cfg: ModelConfig) -> bool:
 
 def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                  plan: ShardPlan = None, dist: Dist = Dist(), *,
-                 id_broadcast: bool = True) -> torch.Tensor:
+                 id_broadcast: bool = True, train: bool = False) -> torch.Tensor:
     """tokens (b, s) int, or (b, s, n_codebooks) token frames -> (b, s, d)
     activations in the table's dtype, the same on every rank.  A frame's
     rows are summed codebook by codebook in the table's dtype, in the
@@ -60,7 +63,8 @@ def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
             rows = torch.where(ok[..., None], table[cb][local.clamp(0, plan.local_vocab - 1)], 0)
         out = rows if out is None else out + rows
     if dist.tp > 1 and table.shape[1] == plan.local_vocab:
-        out = cc.all_reduce(out, dist, tag="embed_shard_merge")
+        merge = cc.all_reduce_ad if train else cc.all_reduce
+        out = merge(out, dist, tag="embed_shard_merge")
     if not id_broadcast:
         # the baseline: rank 0's activations cross the wire
         out = cc.broadcast_from0(out, dist, tag="embed_bcast")

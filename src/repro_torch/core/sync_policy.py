@@ -16,6 +16,11 @@ so each layer runs the same countable schedule:
 
 Unlike the JAX package's, the chunks take any length s (``seq_len``): the
 collectives pad and trim, and no row is dropped.
+
+``train`` (the training forward) runs the same schedule through the
+differentiable collectives (``collectives.all_gather_ad`` and its pairs):
+a gather's backward reduce-scatters, a reduce-scatter's gathers, and a
+replicated branch's all-reduce all-reduces its gradient too.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ class SyncPolicy:
     seq_sharded: bool = False     # Megatron-SP residual stream
     one_shot: bool = True         # paper section 2.2 for parallel-residual layers
     seq_len: int = 0              # the full sequence a sequence-sharded forward holds
+    train: bool = False           # differentiable collectives (the training forward)
 
     @property
     def _sp(self) -> bool:
@@ -43,7 +49,8 @@ class SyncPolicy:
     def gather_in(self, x: torch.Tensor, tag: str = "sp_gather") -> torch.Tensor:
         """Entering a branch, which needs the whole sequence."""
         if self._sp:
-            return cc.all_gather(x, self.dist, SEQ_AXIS, tag=tag, total=self.seq_len)
+            gather = cc.all_gather_ad if self.train else cc.all_gather
+            return gather(x, self.dist, SEQ_AXIS, tag=tag, total=self.seq_len)
         return x
 
     def reduce_out(self, partial: torch.Tensor, tag: str = "branch_reduce") -> torch.Tensor:
@@ -51,6 +58,10 @@ class SyncPolicy:
         rank's chunk when the residual is sequence-sharded."""
         if self.dist.tp == 1:
             return partial
+        if self.train:
+            if self._sp:
+                return cc.reduce_scatter_ad(partial, self.dist, SEQ_AXIS, tag=tag)
+            return cc.all_reduce_ad(partial, self.dist, tag=tag)
         if self._sp:
             return cc.reduce_scatter(partial, self.dist, SEQ_AXIS, tag=tag)
         return cc.all_reduce(partial, self.dist, tag=tag)
@@ -65,4 +76,5 @@ class SyncPolicy:
     def unshard_residual(self, x: torch.Tensor, tag: str = "final_gather") -> torch.Tensor:
         if not self._sp:
             return x
-        return cc.all_gather(x, self.dist, SEQ_AXIS, tag=tag, total=self.seq_len)
+        gather = cc.all_gather_ad if self.train else cc.all_gather
+        return gather(x, self.dist, SEQ_AXIS, tag=tag, total=self.seq_len)

@@ -30,15 +30,20 @@ def fused_out_projection(attn_heads: torch.Tensor, w_o) -> torch.Tensor:
     return torch.einsum("bhsd,hde->bse", attn_heads, w_o)
 
 
-def parallel_partials(attn_heads: torch.Tensor, w_o, h: torch.Tensor, w_down) -> torch.Tensor:
+def parallel_partials(attn_heads: torch.Tensor, w_o, h: torch.Tensor, w_down, *,
+                      fused: bool = True) -> torch.Tensor:
     """heads (b, hq, s, hd) x w_o (hq, hd, d) plus h (b, s, f) x w_down
     (f, d) -> (b, s, d): the attention and FFN partials of a
     parallel-residual layer, summed.  With both weights bf16 one
     fused_dual_matmul sums both products in fp32 and rounds once.  A
     quantized weight keeps the two apart, as the JAX package computes them:
     ``w_o`` dequantized at its einsum site, ``w_down`` through
-    dequant_matmul, each partial rounded to bf16 and then added."""
-    if isinstance(w_o, wquant.QuantWeight) or isinstance(w_down, wquant.QuantWeight):
+    dequant_matmul, each partial rounded to bf16 and then added.  So does
+    the training forward (``fused`` False): the reference's
+    ``attn_p + ffn_p`` of two plain products, which autograd differentiates
+    (the kernel's output carries no gradient)."""
+    if (not fused or isinstance(w_o, wquant.QuantWeight)
+            or isinstance(w_down, wquant.QuantWeight)):
         return fused_out_projection(attn_heads, w_o) + wquant.matmul(h, w_down)
     b, s, f = h.shape
     return ops.fused_dual_matmul(attn_heads, w_o, h.reshape(b * s, f), w_down).view(b, s, -1)

@@ -69,7 +69,15 @@ def reset_launches() -> None:
     LAUNCHES.update({name: 0 for name in KERNELS})
 
 
-def _device_of(*tensors: torch.Tensor) -> str:
+def _device_of(name: str, *tensors: torch.Tensor) -> str:
+    """The device every input of wrapper ``name`` lies on.  Raises where an
+    input requires grad while grad is enabled, on the CPU as on the card: a
+    kernel fills its output through a raw pointer, so that output carries no
+    ``grad_fn``, and its plain version on the CPU would hide the break.  A
+    training forward takes its own branch (``models/``), never a wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel's output "
+                           "carries none; the training forward has its own branch")
     devs = {t.device.type for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on mixed devices {sorted(devs)}")
@@ -131,7 +139,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     256."""
     b, hq, sq, hd = q.shape
     hkv, sk = _check_stripe("flash_prefill", q, k, v, q_pos, rows)
-    if _device_of(q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
+    if _device_of("flash_prefill", q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
         return ref.flash_prefill_ref(q, *_stripes(k, v, rows), q_pos, scale, window)
     _check_stripe_cuda("flash_prefill", q, k, v, q_pos, rows)
     out = torch.empty_like(q)
@@ -151,7 +159,7 @@ def flash_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     result as ``flash_prefill``."""
     b, hq, sq, hd = q.shape
     hkv, sk = _check_stripe("flash_verify", q, k, v, q_pos, rows)
-    if _device_of(q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
+    if _device_of("flash_verify", q, k, v, q_pos, *(() if rows is None else (rows,))) == "cpu":
         return ref.flash_verify_ref(q, *_stripes(k, v, rows), q_pos, scale)
     _check_stripe_cuda("flash_verify", q, k, v, q_pos, rows)
     out = torch.empty_like(q)
@@ -392,7 +400,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hq % hkv:
         raise ValueError(f"decode_attention: {hq} q heads over {hkv} kv heads")
     scales = _check_kv_scales("decode_attention", q, k, v, k_scale, v_scale)
-    if _device_of(q, k, v, valid, *(scales or ())) == "cpu":
+    if _device_of("decode_attention_partial", q, k, v, valid, *(scales or ())) == "cpu":
         if scales is not None:
             k, v = ref.dequantize_kv(k, k_scale), ref.dequantize_kv(v, v_scale)
         return ref.decode_attention_ref(q, k, v, valid, scale)
@@ -451,7 +459,8 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool
         raise ValueError(f"paged_decode_attention: q{tuple(q.shape)} valid{tuple(valid.shape)} "
                          f"for a view of {nbps * bs}")
     scales = _check_kv_scales("paged_decode_attention", q, k_pool, v_pool, k_scale, v_scale)
-    if _device_of(q, k_pool, v_pool, bt, valid, *(scales or ())) == "cpu":
+    if _device_of("paged_decode_attention_partial", q, k_pool, v_pool, bt, valid,
+                  *(scales or ())) == "cpu":
         if scales is not None:
             k_pool, v_pool = ref.dequantize_kv(k_pool, k_scale), ref.dequantize_kv(v_pool, v_scale)
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, bt, valid, scale)
@@ -481,7 +490,7 @@ def paged_flash_prefill(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     b, hq, sq, hd = q.shape
     if q_pos.shape != (b, sq):
         raise ValueError(f"paged_flash_prefill: q_pos{tuple(q_pos.shape)} for q{tuple(q.shape)}")
-    if _device_of(q, k_pool, v_pool, bt, q_pos) == "cpu":
+    if _device_of("paged_flash_prefill", q, k_pool, v_pool, bt, q_pos) == "cpu":
         return ref.paged_flash_prefill_ref(q, k_pool, v_pool, bt, q_pos, scale)
     _cache_pointers("paged_flash_prefill", q, k_pool, v_pool, None)
     _check_paged_cuda("paged_flash_prefill", q, k_pool, v_pool, bt, q_pos, torch.int32)
@@ -512,7 +521,8 @@ def kv_quant_write(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"kv_quant_write: shapes k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"caches{tuple(k_cache.shape)} scales{tuple(k_scale.shape)} "
                          f"targets{tuple(dst_row.shape)}/{tuple(dst_idx.shape)} do not agree")
-    if _device_of(k, v, k_cache, v_cache, k_scale, v_scale, dst_row, dst_idx) == "cpu":
+    if _device_of("kv_quant_write", k, v, k_cache, v_cache, k_scale, v_scale, dst_row,
+                  dst_idx) == "cpu":
         out = ref.kv_quant_write_ref(k, v, k_cache, v_cache, k_scale, v_scale, dst_row, dst_idx)
         return out if dequantized else None
     if (k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16 or k_cache.dtype != torch.int8
@@ -554,7 +564,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"lru_scan: shapes a{tuple(a.shape)} b{tuple(b.shape)} "
                          f"h0{tuple(h0.shape)} do not agree")
-    if _device_of(a, b, h0) == "cpu":
+    if _device_of("lru_scan", a, b, h0) == "cpu":
         return ref.lru_scan_ref(a, b, h0)
     if a.dtype not in _DTYPES or b.dtype != a.dtype or h0.dtype != torch.float32:
         raise ValueError(f"lru_scan: dtypes {a.dtype}/{b.dtype}/{h0.dtype} not taken")
@@ -590,7 +600,7 @@ def topk(x: torch.Tensor, k: int):
     best and the row's last block merges them."""
     if x.dim() != 2 or not 0 < k <= x.shape[1]:
         raise ValueError(f"topk: k={k} over x{tuple(x.shape)}")
-    if _device_of(x) == "cpu":
+    if _device_of("topk", x) == "cpu":
         return ref.topk_ref(x, k)
     if x.dtype not in _DTYPES:
         raise ValueError(f"topk: dtype {x.dtype} not taken")
@@ -631,7 +641,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, mod
         raise ValueError(f"dequant_matmul: {mode} x{tuple(x.shape)} takes q {want[0]} "
                          f"{want[1]} and scale {want[2]}, got q{tuple(q.shape)} {q.dtype} "
                          f"and scale{tuple(scale.shape)}")
-    if _device_of(x, q, scale) == "cpu":
+    if _device_of("dequant_matmul", x, q, scale) == "cpu":
         return ref.dequant_matmul_ref(x, q, scale, mode, group).to(out_dtype)
     if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16 or out_dtype not in _DTYPES:
         raise ValueError(f"dequant_matmul: dtypes x {x.dtype}, scale {scale.dtype}, "
@@ -672,7 +682,7 @@ def fused_dual_matmul(a: torch.Tensor, wa: torch.Tensor, b: torch.Tensor,
             or b.shape[0] != T or wb.shape != (b.shape[1], D)):
         raise ValueError(f"fused_dual_matmul: shapes a{tuple(a.shape)} wa{tuple(wa.shape)} "
                          f"b{tuple(b.shape)} wb{tuple(wb.shape)} do not agree")
-    if _device_of(a, wa, b, wb) == "cpu":
+    if _device_of("fused_dual_matmul", a, wa, b, wb) == "cpu":
         a2 = a.transpose(1, 2).reshape(T, Ka) if a.dim() == 4 else a
         return ref.fused_dual_matmul_ref(a2, wa2, b, wb)
     if a.dtype not in _DTYPES or {wa.dtype, b.dtype, wb.dtype} != {a.dtype}:

@@ -20,7 +20,7 @@ ring (chunked admission, a verify step) cannot attend the ring after its
 write, since writing position p clobbers the entry for p - S that the
 chunk's earlier queries still read: it attends the rows' pre-write ring,
 by its position stripe, beside the fresh chunk, in plain PyTorch
-(``ring_chunk_attention``, the reference's jnp ``chunked_causal_attention``),
+(``chunked_causal_attention``, the reference's jnp function of that name),
 and then scatters the chunk's real tokens to p % S.
 
 With ``ParallelConfig.kv_quant`` every layout stores K/V as int8 with a
@@ -100,7 +100,13 @@ class KVStep:
     fresh K/V, or with ``paged_read`` over the slot's view through ``bt``,
     or with ``rows`` (b,) int32 over those slots' stripes of the slot
     cache.  ``lse`` (a sequence-sharded wave cache): decode merges its
-    partials over that rank's data axis (``lse_merge``)."""
+    partials over that rank's data axis (``lse_merge``).
+
+    ``train`` (the training forward, no cache): every mixer takes its
+    plain differentiable branch (``prefill_attention``, the RG-LRU's
+    associative scan, the unfused parallel residual) and reaches no kernel
+    but ``topk`` on the detached router probabilities; each MoE layer
+    appends its load-balance loss to ``aux``."""
 
     cache: Optional[Dict[str, Any]]
     decode: bool
@@ -117,6 +123,8 @@ class KVStep:
     quant_dst: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     ring_kv_pos: Optional[torch.Tensor] = None
     lse: Optional[Dist] = None
+    train: bool = False
+    aux: Optional[list] = None
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +333,8 @@ def gqa_heads(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     v = v.view(b, s, hkv, hd).transpose(1, 2)
 
     c = step.cache
+    if step.train:
+        return prefill_attention(q, k, v, step.q_pos[0], window, scale)
     if step.ring_kv_pos is not None:
         return _attend_ring_chunk(q, k, v, c, step, layer, scale, window)
     if c is not None and "k_scale" in c:
@@ -414,30 +424,35 @@ def _attend_ring_chunk(q, k, v, c, step: KVStep, layer: int, scale: float, windo
             k, v = ops.kv_quant_write(k, v, ck, cv, cks, cvs, *step.quant_dst, dequantized=True)
         else:
             k, v = dequantize_kv(*quantize_kv(k)), dequantize_kv(*quantize_kv(v))
-        return ring_chunk_attention(q, torch.cat([k_old, k], 2), torch.cat([v_old, v], 2),
-                                    step.q_pos, step.ring_kv_pos, window, scale)
-    out = ring_chunk_attention(q, torch.cat([ck[rows], k.to(ck.dtype)], 2),
-                               torch.cat([cv[rows], v.to(cv.dtype)], 2), step.q_pos,
-                               step.ring_kv_pos, window, scale)
+        return chunked_causal_attention(q, torch.cat([k_old, k], 2),
+                                        torch.cat([v_old, v], 2), step.q_pos,
+                                        step.ring_kv_pos, window, scale)
+    out = chunked_causal_attention(q, torch.cat([ck[rows], k.to(ck.dtype)], 2),
+                                   torch.cat([cv[rows], v.to(cv.dtype)], 2), step.q_pos,
+                                   step.ring_kv_pos, window, scale)
     if write:
         write_targets(ck, k, step.targets, step.src)
         write_targets(cv, v, step.targets, step.src)
     return out
 
 
-def ring_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
-                         scale: float) -> torch.Tensor:
-    """The reference's ``chunked_causal_attention`` with per-row positions:
-    q (b, hq, sq, hd) over k, v (b, hkv, sk, hd) (GQA groups), q_pos (b, sq),
-    kv_pos (b, sk) (-1 empty); entry j is attended iff 0 <= kv_pos <= q_pos
-    and, with ``window``, kv_pos > q_pos - window.  fp32 scores of the bf16
-    operands, an online softmax over KV_CHUNK-entry chunks, the
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
+                             scale: float) -> torch.Tensor:
+    """The reference's jnp ``chunked_causal_attention``: q (b, hq, sq, hd)
+    over k, v (b, hkv, sk, hd) (GQA groups), q_pos (sq,) or (b, sq), kv_pos
+    (sk,) or (b, sk) (-1 empty); entry j is attended iff 0 <= kv_pos <=
+    q_pos and, with ``window``, kv_pos > q_pos - window.  fp32 scores of
+    the bf16 operands, an online softmax over KV_CHUNK-entry chunks, the
     probabilities rounded to v's dtype before P.V (``_grouped_attend``) ->
-    (b, hq, sq, hd) in q's dtype."""
+    (b, hq, sq, hd) in q's dtype.  Out-of-place throughout, so autograd
+    differentiates it: a chunk into a slot ring attends through it, and so
+    does the training forward (``prefill_attention``)."""
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, sq, hd).float()
+    q_pos = q_pos if q_pos.dim() == 2 else q_pos[None]
+    kv_pos = kv_pos if kv_pos.dim() == 2 else kv_pos[None]
     qp = q_pos[:, None, None, :, None]
     m = torch.full(qg.shape[:-1], float("-inf"), device=q.device)
     l = torch.zeros_like(m)
@@ -457,3 +472,53 @@ def ring_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + p.to(v.dtype).float() @ v_i.float()
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, hq, sq, hd).to(q.dtype)
+
+
+def banded_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            positions: torch.Tensor, window: int, scale: float,
+                            q_chunk: int = 1024) -> torch.Tensor:
+    """The reference's sliding-window prefill in O(S * window)
+    (``banded_causal_attention``): query chunks of ``q_chunk`` rows, each
+    attending only its band of ``window + q_chunk`` keys before it (the K/V
+    front-padded with empty positions), in one masked softmax with the
+    probabilities rounded to v's dtype before P.V.  positions (S,).  Falls
+    back to ``chunked_causal_attention`` where the chunk does not divide S."""
+    b, hq, S, hd = q.shape
+    cq = min(q_chunk, S)
+    if S % cq:
+        return chunked_causal_attention(q, k, v, positions, positions, window, scale)
+    hkv = k.shape[1]
+    band = window + cq
+    kp = torch.nn.functional.pad(k, (0, 0, band, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, band, 0))
+    pp = torch.nn.functional.pad(positions, (band, 0), value=-1)
+    outs = []
+    for i in range(S // cq):
+        start = (i + 1) * cq                              # pad + (i + 1) * cq - band
+        q_i = q[:, :, i * cq:(i + 1) * cq].reshape(b, hkv, hq // hkv, cq, hd).float()
+        k_i, v_i = kp[:, :, None, start:start + band], vp[:, :, None, start:start + band]
+        p_i, qp = pp[start:start + band][None, :], positions[i * cq:(i + 1) * cq][:, None]
+        sc = (q_i @ k_i.float().transpose(-1, -2)) * scale          # (b, hkv, g, cq, band)
+        ok = (p_i >= 0) & (p_i <= qp) & (p_i > qp - window)
+        sc = sc.masked_fill(~ok, float("-inf"))
+        mx = sc.amax(dim=-1)
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+        p = torch.exp(sc - mx[..., None])
+        o = (p.to(v.dtype).float() @ v_i.float()) / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+        outs.append(o.reshape(b, hq, cq, hd).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor, window: int, scale: float) -> torch.Tensor:
+    """The training forward's attention over its fresh K/V (the reference's
+    ``_prefill_attention`` without Pallas, as its training step runs it):
+    the banded path for a windowed layer whose sequence is at least 4
+    windows long and a multiple of min(1024, S), else the chunked flash
+    scan.  Plain PyTorch, differentiable, no kernel: a kernel's output
+    carries no gradient (``kernels/ops.py`` refuses a grad-requiring
+    input)."""
+    S = q.shape[2]
+    if window and S >= 4 * window and S % min(1024, S) == 0:
+        return banded_causal_attention(q, k, v, positions, window, scale)
+    return chunked_causal_attention(q, k, v, positions, positions, window, scale)

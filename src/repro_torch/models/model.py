@@ -82,7 +82,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import multimodal, rglru, ssm
 from repro_torch.models.common import (Dist, ShardPlan, init_leaf, resolve_device, rms_norm,
                                        rope_tables)
-from repro_torch.models.transformer import ATTN_KINDS, RECURRENT, Ghost, layers_forward
+from repro_torch.models.transformer import (ATTN_KINDS, RECURRENT, Ghost, layers_forward,
+                                            train_layers)
 
 Params = Dict[str, Any]
 
@@ -106,11 +107,13 @@ TP_DEGREES = (1, 2, 4, 8)
 class ModelCtx:
     """What the per-shard forward needs beside the config
     (``repro.models.model.ModelCtx``): the rank's place, the shard plan and
-    the layout toggles.  The default is tp=1."""
+    the layout toggles, and the config it was made for (``make``).  The
+    default is tp=1."""
 
     plan: ShardPlan
     dist: Dist = Dist()
     parallel: ParallelConfig = ParallelConfig()
+    cfg: Optional[ModelConfig] = None
 
     @staticmethod
     def make(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(),
@@ -119,7 +122,7 @@ class ModelCtx:
             raise ValueError(f"ParallelConfig.tp {parallel.tp} != the rank group's tp {dist.tp}")
         if parallel.dp != dist.dp:
             raise ValueError(f"ParallelConfig.dp {parallel.dp} != the world's dp {dist.dp}")
-        return ModelCtx(ShardPlan.make(cfg, dist.tp), dist, parallel)
+        return ModelCtx(ShardPlan.make(cfg, dist.tp), dist, parallel, cfg)
 
     def policy(self, *, seq_sharded: bool, seq_len: int) -> SyncPolicy:
         """Prefill, chunk and verify forwards run ``seq_sharded`` (the
@@ -212,6 +215,38 @@ def check_supported(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(
                 ssm._dims(cfg, tp)
         except ValueError as e:
             raise ValueError(f"{cfg.name}: {e}") from None
+
+
+def check_trainable(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> None:
+    """Raise NotImplementedError naming every feature of ``cfg`` and
+    ``parallel`` that the port does not train yet, beside
+    ``check_supported``'s refusals: at tp > 1 only the dense family
+    trains, whose heads and vocab split over tp without padding (a padded
+    head or vocab column would be trained); weight and KV quantization,
+    ``kv_seq_shard`` and, at tp > 1, the embedding-broadcast baseline are
+    serving layouts."""
+    check_supported(cfg, parallel)
+    missing = []
+    kinds = set(cfg.layer_pattern)
+    if parallel.weight_quant != "none" or parallel.kv_quant or parallel.kv_seq_shard:
+        missing.append("weight_quant, kv_quant or kv_seq_shard (serving layouts)")
+    if parallel.tp > 1:
+        for what, on in (("rglru layers", "rglru" in kinds), ("moe layers", cfg.moe is not None),
+                         ("mla layers", cfg.mla is not None), ("ssd layers", "ssd" in kinds),
+                         ("tied embeddings", cfg.tie_embeddings),
+                         ("a frontend", cfg.frontend is not None),
+                         ("a multi-codebook head", cfg.n_codebooks != 1)):
+            if on:
+                missing.append(f"{what} at tp>1")
+        plan = ShardPlan.make(cfg, parallel.tp)
+        if plan.n_heads_p != plan.n_heads or plan.vocab_p != cfg.vocab_size:
+            missing.append(f"tp={parallel.tp} over {cfg.n_heads} heads and a vocab of "
+                           f"{cfg.vocab_size} (padded heads or vocab columns)")
+        if not parallel.id_broadcast:
+            missing.append("id_broadcast=False at tp>1")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: the PyTorch port does not train "
+                                  f"{', '.join(missing)} yet")
 
 
 def attention_window(cfg: ModelConfig) -> int:
@@ -822,6 +857,49 @@ def lm_head(params: Params, x: torch.Tensor, head_f32: Optional[torch.Tensor] = 
     if valid is not None and valid < logits.shape[-1]:
         logits[..., valid:] = float("-inf")
     return logits
+
+
+def lm_head_local(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The head of the training loss (the reference's ``lm_head_local``):
+    x (b, c, d) -> this rank's fp32 logits (b, c, local_vocab), or (b, c,
+    ncb, local_vocab), differentiable, with no column set to -inf (training
+    at tp > 1 pads no vocab column, ``check_trainable``)."""
+    return lm_head(params, x)
+
+
+def train_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: Optional[ModelCtx] = None, *,
+                  features: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (the reference's ``forward(..., seq_sharded=True,
+    skip_head=True)`` with no cache): tokens (b, s), or (b, s, ncb) frames,
+    and a frontend's ``features`` -> (the final-norm hidden states (b,
+    prefix + s, d), the summed load-balance loss of the MoE layers, fp32).
+
+    Every layer takes its plain differentiable branch (``KVStep.train``):
+    the chunked or banded attention scan, the RG-LRU's associative scan, the
+    unfused parallel residual, the MoE gates gathered from the router's
+    probabilities (whose detached copy the ``topk`` kernel ranks: the one
+    kernel on the path); ``ctx.parallel.remat`` checkpoints each layer.  At
+    tp > 1 the residual stream is sequence-sharded and every collective is
+    differentiable (``SyncPolicy.train``, the embedding's merge)."""
+    b, dev = tokens.shape[0], tokens.device
+    ctx = ctx or ModelCtx.make(cfg)
+    x = embed_lookup(params["embed"], tokens, plan=ctx.plan, dist=ctx.dist,
+                     id_broadcast=ctx.parallel.id_broadcast, train=True)
+    if cfg.frontend is not None and features is not None:
+        prefix = multimodal.project_features(params["frontend"], features, cfg)
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    policy = dataclasses.replace(ctx.policy(seq_sharded=True, seq_len=s), train=True)
+    positions = torch.arange(s, device=dev)
+    step = attn.KVStep(None, decode=False, q_pos=positions.to(torch.int32).expand(b, s),
+                       train=True)
+    rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+    x, aux = train_layers(params["layers"], policy.shard_residual(x), cfg,
+                          rope=rope_tables(positions, rope_dim, cfg.rope_theta), step=step,
+                          policy=policy, remat=ctx.parallel.remat)
+    x = policy.unshard_residual(x)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), aux
 
 
 def _seq_shard_step(caches, b: int, s: int, positions: torch.Tensor, cur_pos, q_pos,

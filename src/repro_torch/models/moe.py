@@ -21,7 +21,12 @@ in the reference: no all-to-all.
 * ``route`` ranks the experts through ``ops.topk`` (the kernel on the card,
   which puts the lower index first among equal values as ``lax.top_k``
   does; its plain version on the CPU), never ``torch.topk``, whose order
-  among ties is unspecified.  One launch per MoE layer and forward.
+  among ties is unspecified.  One launch per MoE layer and forward.  The
+  kernel ranks the detached probabilities; where they require grad (the
+  training forward) the gates are gathered from the probabilities, so
+  they carry the router's gradient, and ``route(aux=True)`` adds the
+  Switch/GShard load-balance loss E * sum_e f_e * P_e (``moe_forward``
+  appends it to its ``aux`` list).
 * The expert blocks ``(E, d, f)`` / ``(E, f, d)`` run as batched matmuls on
   ``wquant.to_dense`` weights (an int8/int4 block is dequantized each
   forward, as the reference serves this einsum site).
@@ -126,24 +131,39 @@ def capacity(m: MoEConfig, tokens: int) -> int:
     return max(4, int(math.ceil(tokens * m.top_k / m.n_experts * m.capacity_factor)))
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
+def route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig, *, aux: bool = False):
     """x (T, d) -> (top experts (T, k) int64, gates (T, k) fp32, the fp32
-    probabilities (T, E)): fp32 logits, softmax, top-k, renormalised."""
+    probabilities (T, E)): fp32 logits, softmax, top-k, renormalised; with
+    ``aux`` a fourth, the load-balance loss (``load_balance_aux``)."""
     probs = torch.softmax(x.float() @ router_w, dim=-1)
-    top_p, top_e = ops.topk(probs, m.top_k)
+    top_p, top_e = ops.topk(probs.detach(), m.top_k)
     if ROUTE_REPLAY is not None:
         top_e = ROUTE_REPLAY.pop(0).to(device=probs.device, dtype=top_e.dtype)
+    if ROUTE_REPLAY is not None or probs.requires_grad:
         top_p = probs.gather(1, top_e.long())
     gates = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
-    return top_e.long(), gates, probs
+    out = top_e.long(), gates, probs
+    return (*out, load_balance_aux(probs, out[0], m)) if aux else out
+
+
+def load_balance_aux(probs: torch.Tensor, top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
+    """The reference's Switch/GShard load-balance loss of one routing:
+    E * sum_e f_e * P_e, f_e the share of the k T assignments that chose
+    expert e (each counting 1 / k), P_e the mean probability of e; fp32.
+    Only the probabilities carry a gradient."""
+    f = torch.zeros_like(probs).scatter_add_(
+        1, top_e, torch.full(top_e.shape, 1.0 / m.top_k, device=probs.device)).mean(dim=0)
+    return m.n_experts * (f * probs.mean(dim=0)).sum()
 
 
 def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
-                rank: int = 0) -> torch.Tensor:
+                rank: int = 0, aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """x (b, s, d), the whole token set -> the FFN output (b, s, d) of an
     MoE layer: routed experts plus the shared ones.  At ``tp`` > 1 this
     rank's unreduced partial: its experts' (``local_experts``) share of
-    the routed output and its shard of the shared experts'."""
+    the routed output and its shard of the shared experts'.  ``aux`` (the
+    training forward): a list the layer's load-balance loss is appended
+    to."""
     m = cfg.moe
     b, s, d = x.shape
     T, k = b * s, m.top_k
@@ -151,7 +171,10 @@ def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, tp: int = 
     C = capacity(m, T)
     e_lo, E = local_experts(m, tp, rank)
     with torch.profiler.record_function(DISPATCH_RANGE):
-        top_e, gates, probs = route(p["router"], xf, m)
+        routed = route(p["router"], xf, m, aux=aux is not None)
+        top_e, gates, probs = routed[:3]
+        if aux is not None:
+            aux.append(routed[3])
         xe, order, keep, slot = _dispatch(top_e, xf, m, C, e_lo, E)
     if LOG is not None:
         LOG.append({"T": T, "C": C, "k": k, "keep": keep, "order": order, "top_e": top_e,

@@ -30,6 +30,9 @@ def project_features(params: Dict[str, torch.Tensor], features: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """(b, prefix_len, feature_dim) features -> (b, prefix_len, d_model)
     bf16: RMSNorm of the features cast to bf16, tanh GELU of ``@ w1``, then
-    ``@ w2``."""
+    ``@ w2``.  The normed features stay bf16 whatever the projector's dtype,
+    and meet fp32 weights (a training run's fp32 tree) promoted, as jnp
+    promotes them."""
     h = rms_norm(features.to(torch.bfloat16), params["norm"], cfg.rms_eps)
-    return gelu_tanh(h @ params["w1"]) @ params["w2"]
+    w1 = params["w1"]
+    return gelu_tanh(h.to(torch.promote_types(h.dtype, w1.dtype)) @ w1) @ params["w2"]

@@ -12,7 +12,9 @@ blocks:
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 Prefill runs the recurrence through the ``lru_scan`` kernel; decode (s == 1)
-is the O(1) step in plain PyTorch.  The dtypes follow the JAX package step
+is the O(1) step in plain PyTorch.  The training forward (``train``) runs
+it as an associative scan in PyTorch ops (``associative_scan``, the
+reference's jnp branch), which autograd differentiates.  The dtypes follow the JAX package step
 by step: the branches and the conv in bf16, the gates and the recurrence in
 fp32, ``y = (h * gate.float()).to(x.dtype)``; where the JAX package
 widens a bf16 result to fp32 at once (the conv into the recurrence, the
@@ -117,15 +119,32 @@ def _block_diag(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return out.reshape(u.shape)
 
 
+def associative_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + bx_t along dim 1 from h_{-1} = 0, as a
+    log-depth scan of the combine (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)
+    (the reference's ``jax.lax.associative_scan``, in Hillis-Steele order:
+    the same products, summed in another order).  Out of place, so autograd
+    differentiates it."""
+    s, d = a.shape[1], 1
+    while d < s:
+        a_prev = torch.nn.functional.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+        b_prev = torch.nn.functional.pad(bx[:, :-d], (0, 0, d, 0))
+        a, bx = a * a_prev, a * b_prev + bx
+        d *= 2
+    return bx
+
+
 def rglru_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
                   state: Optional[Dict[str, torch.Tensor]] = None,
-                  length_mask: Optional[torch.Tensor] = None):
+                  length_mask: Optional[torch.Tensor] = None, train: bool = False):
     """x (b, s, d) -> (out (b, s, d), new state or None).  ``state`` holds
     ``h`` (b, w) and ``conv`` (b, W-1, w) to continue from (None: zeros, and
     no state is returned).  ``length_mask`` (b, s), true at real tokens of a
     right-padded batch, makes the pad steps identities (a = 1, input term 0)
     and ends each row's conv tail at its true length, so the carried state
-    equals that of an unpadded prefill."""
+    equals that of an unpadded prefill.  ``train``: the training forward's
+    branch (no state), the scan in PyTorch ops (``associative_scan``)
+    rather than the ``lru_scan`` kernel, whose output has no gradient."""
     c = cfg.rglru.c_constant
     gate = gelu_tanh(x @ p["w_gate"], f32_out=True)   # read in fp32 only
     u = x @ p["w_x"]
@@ -146,7 +165,11 @@ def rglru_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
     h0 = state["h"] if state is not None else torch.zeros(
         (x.shape[0], u.shape[-1]), dtype=torch.float32, device=x.device)
-    if x.shape[1] == 1:
+    if train:
+        if state is not None:
+            raise ValueError("the training forward carries no recurrent state")
+        hs, new_state = associative_scan(a, bx), None
+    elif x.shape[1] == 1:
         h = a[:, 0] * h0 + bx[:, 0]
         hs, new_state = h[:, None], {"h": h, "conv": new_tail}
     else:

@@ -25,16 +25,26 @@ package's tags (``transformer.py:220-247`` there): ``pre_mixer`` and
 reduction of a parallel-residual layer's summed partials (``attn_reduce``
 and ``ffn_reduce`` without ``one_shot_sync``).  At tp=1 each is the
 identity.
+
+``train_layers`` is the training forward's loop (a ``KVStep`` with
+``train``): each layer its plain differentiable branch, optionally under
+activation checkpointing (``ParallelConfig.remat``, the reference's
+``jax.checkpoint`` per layer group), and the MoE layers' load-balance
+losses summed.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import wquant
+from repro_torch.core import collectives as cc
 from repro_torch.core.sync_policy import SyncPolicy
 from repro_torch.core.zero_copy import fused_out_projection, parallel_partials
 from repro_torch.models import attention as attn
@@ -65,18 +75,23 @@ def _mixer_forward(p, xa, cfg: ModelConfig, kind: str, index: int, *, rope,
     if kind in ATTN_KINDS:
         return attn.gqa_forward(p, xa, cfg, rope=rope, step=step, layer=index,
                                 window=cfg.window if kind == "local_attn" else 0)
+    if kind in RECURRENT and step.train:
+        kw = {"train": True} if kind == "rglru" else {}
+        return RECURRENT[kind](p["mixer"], xa, cfg, **kw)[0]
     if kind in RECURRENT:
         return recurrent_layer(RECURRENT[kind], p["mixer"], xa, cfg, cache=step.cache,
                                index=index, rows=step.state_rows, length_mask=length_mask)
     raise ValueError(kind)
 
 
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig, policy: SyncPolicy) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, policy: SyncPolicy,
+         aux: Optional[list] = None) -> torch.Tensor:
     """The FFN branch's partial: dense, or an MoE layer's experts (this
-    rank's, routing every token of ``x``)."""
+    rank's, routing every token of ``x``; ``aux`` collects its
+    load-balance loss)."""
     if "router" not in p:
         return mlp_forward(p, x, cfg)
-    return moe.moe_forward(p, x, cfg, policy.dist.tp, policy.dist.rank)
+    return moe.moe_forward(p, x, cfg, policy.dist.tp, policy.dist.rank, aux=aux)
 
 
 def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
@@ -102,7 +117,8 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                                window=cfg.window if kind == "local_attn" else 0)
         h = mlp_hidden(p, xa, cfg)
         if policy.one_shot:
-            return x + policy.reduce_out(parallel_partials(heads, p["w_o"], h, p["w_down"]),
+            return x + policy.reduce_out(parallel_partials(heads, p["w_o"], h, p["w_down"],
+                                                           fused=not step.train),
                                          tag="one_shot")
         # the two-sync baseline the paper improves on
         return (x + policy.reduce_out(fused_out_projection(heads, p["w_o"]), tag="attn_reduce")
@@ -112,7 +128,7 @@ def sublayer_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     if kind == "ssd":
         return x
     xf = policy.gather_in(rms_norm(x, p["norm2"], cfg.rms_eps), tag="pre_ffn")
-    return x + policy.reduce_out(_ffn(p, xf, cfg, policy), tag="ffn_reduce")
+    return x + policy.reduce_out(_ffn(p, xf, cfg, policy, step.aux), tag="ffn_reduce")
 
 
 def _ghost_sublayer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, index: int, *, rope,
@@ -158,3 +174,39 @@ def layers_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
         x = sublayer_forward(p, x, cfg, kind, seen[family], **kw)
         seen[family] += 1
     return x
+
+
+def _train_layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *, rope,
+                 step: attn.KVStep, policy: SyncPolicy):
+    """One layer of the training forward -> (x', its load-balance loss: 0
+    but for an MoE layer)."""
+    terms: list = []
+    x = sublayer_forward(p, x, cfg, kind, rope=rope, step=dataclasses.replace(step, aux=terms),
+                         policy=policy)
+    return x, sum(terms) if terms else torch.zeros((), device=x.device)
+
+
+def _remat_context():
+    """The forward run of a checkpointed layer as itself; its run again in
+    the backward records its collectives as such (``cc.recomputing``)."""
+    return contextlib.nullcontext(), cc.recomputing()
+
+
+def train_layers(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor, cfg: ModelConfig, *,
+                 rope, step: attn.KVStep, policy: SyncPolicy,
+                 remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward's layers (``step.train``, no cache) -> (x, the
+    summed load-balance loss, fp32).  ``remat``: each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
+    in the backward, as the reference checkpoints each layer group."""
+    aux = torch.zeros((), device=x.device)
+    for i, p in enumerate(layers):
+        kind = cfg.block_kind(i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _train_layer, p, x, cfg, kind, rope=rope, step=step, policy=policy,
+                use_reentrant=False, context_fn=_remat_context)
+        else:
+            x, a = _train_layer(p, x, cfg, kind, rope=rope, step=step, policy=policy)
+        aux = aux + a
+    return x, aux

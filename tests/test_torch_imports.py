@@ -14,7 +14,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 ROOT_FILES = [Path(__file__).resolve().parents[1] / "chip_smoke.py",
               Path(__file__).resolve().parent / "torch_dp_ranks.py",
-              Path(__file__).resolve().parent / "torch_control_ranks.py"]
+              Path(__file__).resolve().parent / "torch_control_ranks.py",
+              Path(__file__).resolve().parent / "torch_train_ranks.py"]
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -33,8 +34,10 @@ from repro_torch.launch import mesh
 from repro_torch.runtime import kvcache, scheduler
 data = all((collectives.data_all_reduce, collectives.data_all_gather, collectives.data_send,
             mesh.split_data_shards, kvcache.pool_block_bytes, scheduler.DisaggScheduler))
-print(len(names), "repro_torch.runtime.drafter" in names and tp | control <= set(names) and data,
-      bad)
+train = {"repro_torch.training." + m for m in ("data", "optimizer", "loss", "train_loop",
+                                               "zero", "checkpoint")} | {"repro_torch.launch.train"}
+print(len(names), "repro_torch.runtime.drafter" in names and tp | control | train <= set(names)
+      and data, bad)
 """
 
 
@@ -48,7 +51,8 @@ def test_import_loads_no_jax_and_no_repro():
     # control plane (faults, overload, the HTTP frontend, the round
     # records of a world of ranks) and the data
     # axis (its collectives, the pool split, the migration unit, the
-    # disaggregated scheduler) load too
+    # disaggregated scheduler) and the training path (its data, optimizer,
+    # loss, step, ZeRO-1, checkpoints and driver) load too
     assert int(n) >= 20 and drafter == "True" and bad.strip() == "[]", out
 
 
